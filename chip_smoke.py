@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
+CUDA card and builds the port's kernels itself (``nvcc``, one process per
+source, all at once).  Phases, each of which fails the run on a miss:
+
+1. card line: ``nvidia-smi`` name and power limit, torch/CUDA versions,
+   kernel build time;
+2. every kernel against its plain PyTorch version on the card at the
+   serving path's shapes (bf16 and f32), ints exact and floats within the
+   stated tolerances, with CUDA-event timings of the kernel, the plain
+   version and one library call, and each kernel's bound;
+3. the slice at full width: qwen2.5-3b (36 layers, bf16, 3 components,
+   kernels on, cond_batch) through ``CascadeServingEngine`` — 8 requests
+   at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0), with every
+   kernel's launch counter read around each run;
+4. route parity: full width at 4 layers in f32, kernel route vs plain
+   route, identical token and exit streams;
+5. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+   line.
+
+Every line of standard output but the ``nvidia-smi`` line is one JSON
+object.  Without a CUDA device, or outside a checkout, it exits non-zero
+and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+DEV = "cuda"
+
+# H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor-core rate,
+# f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# where each TPU kernel's pallas_call sits in the reference package
+REPLACES = {
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:42",
+    "exit_update": "src/repro/kernels/exit_update.py:206",
+    "decode_attention": "src/repro/kernels/decode_attention.py:120",
+    "flash_attention": "src/repro/kernels/flash_attention.py:102",
+}
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+           for name in REPLACES}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
+    """Device time of one call of ``fn``: the median over ``iters``
+    back-to-back calls of the CUDA-event interval around each, after
+    warm-up.  A spin kernel queued first keeps the device busy while the
+    host enqueues every call, so the intervals measure the device's work
+    and not the host's launch overhead (which the serving run reports as
+    its own, end to end)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    torch.cuda._sleep(100_000_000)     # ~50 ms of spinning at ~2 GHz
+    events[0].record()
+    for i in range(iters):
+        fn()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b)
+                             for a, b in zip(events, events[1:]))
+
+
+def bound_ms(bytes_moved: float, flops: float, dtype: str):
+    """Least time for the work: max(bytes / HBM rate, flops / peak)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max().item())
+
+
+def check_close(name, got, want, atol, rtol):
+    import torch
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+        fail(f"{name}: kernel and plain version differ by "
+             f"{max_err(got, want):.3e} (atol {atol}, rtol {rtol})")
+
+
+def check_equal(name, got, want):
+    import torch
+    if not torch.equal(got.cpu(), want.cpu()):
+        fail(f"{name}: kernel and plain version disagree on integers")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# tolerances: f32 paths differ only in summation order and rsqrt/exp
+# rounding (~1e-6 relative); bf16 outputs round to 8 mantissa bits, so one
+# bf16 ulp (2**-8 relative) can flip between two f32 results that agree
+TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 1e-2)}
+
+
+def phase_rmsnorm(dev, gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    cases = []
+    for R in (4 * 256, 4):
+        for dt in (torch.bfloat16, torch.float32):
+            for wdt in (torch.float32, dt):
+                x = torch.randn(R, 2048, generator=gen, device=dev).to(dt)
+                w = (1 + 0.1 * torch.randn(2048, generator=gen, device=dev)
+                     ).to(wdt)
+                got = rmsnorm(x, w, 1e-5)
+                want = ref.ref_rmsnorm(x, w, 1e-5)
+                torch.cuda.synchronize()
+                name = str(dt).split(".")[-1]
+                check_close(f"rmsnorm {R}x2048 {name} w={wdt}", got, want,
+                            *TOL[name])
+                if wdt != torch.float32:
+                    continue
+                nbytes = 2 * x.numel() * x.element_size() + \
+                    w.numel() * w.element_size()
+                b, by = bound_ms(nbytes, 4 * x.numel(), name)
+                cases.append({
+                    "shape": [R, 2048], "dtype": name,
+                    "max_abs_err": max_err(got, want),
+                    "ms": time_ms(lambda: rmsnorm(x, w, 1e-5)),
+                    "plain_ms": time_ms(lambda: ref.ref_rmsnorm(x, w, 1e-5)),
+                    "library_ms": time_ms(lambda: F.rms_norm(
+                        x, (2048,), w.to(x.dtype), 1e-5)),
+                    "bound_ms": b, "bound_by": by})
+    return cases
+
+
+def phase_flash(dev, gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, H, KV, hd = 4, 16, 2, 128
+    cases = []
+    for S in (128, 256):
+        for window in (0, 64):
+            for dt in (torch.bfloat16, torch.float32):
+                q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dt)
+                k = torch.randn(B, KV, S, hd, generator=gen,
+                                device=dev).to(dt)
+                v = torch.randn(B, KV, S, hd, generator=gen,
+                                device=dev).to(dt)
+                got = flash_attention(q, k, v, causal=True, window=window)
+                want = ref.ref_flash_attention(q, k, v, causal=True,
+                                               window=window)
+                torch.cuda.synchronize()
+                name = str(dt).split(".")[-1]
+                check_close(f"flash S={S} window={window} {name}", got, want,
+                            *TOL[name])
+                pos = torch.arange(S, device=dev)
+                vis = pos[None, :] <= pos[:, None]
+                if window:
+                    vis &= pos[None, :] > pos[:, None] - window
+                pairs = B * H * int(vis.sum().item())
+                nbytes = (2 * q.numel() + k.numel() + v.numel()) * \
+                    q.element_size()
+                b, by = bound_ms(nbytes, 4 * hd * pairs, name)
+                lib = None
+                if window == 0:
+                    lib = time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True))
+                cases.append({
+                    "shape": [B, H, KV, S, hd], "window": window,
+                    "dtype": name, "max_abs_err": max_err(got, want),
+                    "ms": time_ms(lambda: flash_attention(
+                        q, k, v, causal=True, window=window)),
+                    "plain_ms": time_ms(lambda: ref.ref_flash_attention(
+                        q, k, v, causal=True, window=window)),
+                    "library_ms": lib, "bound_ms": b, "bound_by": by})
+    # unaligned views take the kernel's element-wise tile loads
+    q, k, v = (torch.randn(B, 128, n, hd + 1, generator=gen,
+                           device=dev).bfloat16()[..., 1:].transpose(1, 2)
+               for n in (H, KV, KV))
+    check_close("flash unaligned q/k/v", flash_attention(q, k, v),
+                ref.ref_flash_attention(q, k, v), *TOL["bfloat16"])
+    return cases
+
+
+def phase_decode(dev, gen):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    B, H, KV, hd, W = 4, 16, 2, 128, 512
+    cases = []
+    # ring state after t positions: slot s holds the newest position ≡ s
+    for t, window, live_l, per_slot in ((700, 0, [1, 1, 1, 1], False),
+                                        (700, 64, [1, 0, 1, 0], False),
+                                        (300, 0, [0, 1, 1, 1], True)):
+        s = np.arange(W)
+        ring = np.where(s <= t, t - ((t - s) % W), -1).astype(np.int32)
+        kpos = torch.as_tensor(ring, device=dev)
+        if per_slot:   # (B, W) rows, each slot's own ring
+            kpos = torch.stack([kpos - 2 * b if b else kpos
+                                for b in range(B)]).clamp(min=-1)
+        live = torch.as_tensor(live_l, dtype=torch.bool, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
+            kc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(dt)
+            vc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(dt)
+            got = decode_attention(q, kc, vc, t, kpos, live, window=window)
+            want = ref.ref_decode_attention(q, kc, vc, t, kpos,
+                                            window=window, live=live)
+            torch.cuda.synchronize()
+            name = str(dt).split(".")[-1]
+            check_close(f"decode t={t} window={window} {name}", got, want,
+                        *TOL[name])
+            if not torch.equal(got[~live].float().abs().sum().cpu(),
+                               torch.zeros(())):
+                fail("decode: dead slots' rows are not zero")
+            kp = kpos if kpos.dim() == 2 else kpos[None].expand(B, W)
+            vis = (kp >= 0) & (kp <= t)
+            if window:
+                vis &= kp > t - window
+            n_vis = int(vis[live].sum().item())
+            esz = q.element_size()
+            nbytes = (2 * n_vis * KV * hd + 2 * q.numel()) * esz + \
+                kpos.numel() * 4
+            b, by = bound_ms(nbytes, 4 * (H // KV) * hd * KV * n_vis, name)
+            mask = vis[:, None, None, :]
+            qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+            cases.append({
+                "shape": [B, H, KV, W, hd], "t": t, "window": window,
+                "live": live_l, "kpos": "per-slot" if per_slot else "lane",
+                "dtype": name, "max_abs_err": max_err(got, want),
+                "ms": time_ms(lambda: decode_attention(
+                    q, kc, vc, t, kpos, live, window=window)),
+                "plain_ms": time_ms(lambda: ref.ref_decode_attention(
+                    q, kc, vc, t, kpos, window=window, live=live)),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+                "bound_ms": b, "bound_by": by})
+    # caches that are views one element off 16-byte alignment take the
+    # kernel's element-wise tile loads instead of its 16-byte ones
+    q = torch.randn(B, H, hd, generator=gen, device=dev).bfloat16()
+    kc, vc = (torch.randn(B, W, KV, hd + 1, generator=gen,
+                          device=dev).bfloat16()[..., 1:] for _ in range(2))
+    kpos = torch.arange(W, device=dev, dtype=torch.int32)
+    check_close("decode unaligned caches",
+                decode_attention(q, kc, vc, W - 1, kpos),
+                ref.ref_decode_attention(q, kc, vc, W - 1, kpos),
+                *TOL["bfloat16"])
+    return cases
+
+
+def phase_exit_update(dev, gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.exit_update import exit_update
+    B, V, n_m = 4, 151936, 3
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(B, V, generator=gen, device=dev)
+        x[1, 77] += 20.0                  # a confident row (delta ~ 1)
+        x[2, 5] = x[2, 100000] = x[2].max() + 15.0   # a tie across tiles
+        x = x.to(dt)
+        i32 = dict(dtype=torch.int32, device=dev)
+        carry = (torch.tensor([False, False, True, False], device=dev),
+                 torch.tensor([7, 7, 7, 7], **i32),
+                 torch.tensor([0, 0, 0, 0], **i32),
+                 torch.tensor([0.1, 0.2, 0.3, 0.4], device=dev),
+                 torch.tensor([0, 1, 2, 3], **i32),
+                 torch.tensor([0.5, 0.5, 0.5, 0.5], device=dev),
+                 torch.tensor([True, True, False, True], device=dev))
+        name = str(dt).split(".")[-1]
+        errs = []
+        for m in (0, n_m - 1):
+            for pk in (0, 2):
+                for decay in (0.0, 0.8):
+                    for bins in (0, 32):
+                        kw = dict(threshold=0.3, m=m, n_components=n_m,
+                                  patience_k=pk, ema_decay=decay,
+                                  tel_bins=bins)
+                        got = exit_update(x, *carry, **kw)
+                        want = ref.ref_exit_update(x, *carry, **kw)
+                        torch.cuda.synchronize()
+                        tag = f"exit_update {name} {kw}"
+                        for idx in (0, 1, 2, 4) + ((6,) if bins else ()):
+                            check_equal(tag, got[idx], want[idx])
+                        for idx in (3, 5):
+                            check_close(tag, got[idx], want[idx], 0.0, 1e-5)
+                            errs.append(max_err(got[idx], want[idx]))
+        if int(exit_update(x, *carry, threshold=0.0, m=0,
+                           n_components=n_m)[1][2]) != 7:
+            fail("exit_update: answered rows must keep their prediction")
+        kw = dict(threshold=0.3, m=0, n_components=n_m)
+        got = exit_update(x, torch.zeros_like(carry[0]), *carry[1:], **kw)
+        if int(got[1][2]) != 5:
+            fail(f"exit_update: tie across tiles must pick index 5, got "
+                 f"{int(got[1][2])}")
+        nbytes = x.numel() * x.element_size() + B * 4 * 13
+        b, by = bound_ms(nbytes, 4 * x.numel(), name)
+        cases.append({
+            "shape": [B, V], "dtype": name, "max_abs_err": max(errs),
+            "ms": time_ms(lambda: exit_update(x, *carry, **kw)),
+            "plain_ms": time_ms(lambda: ref.ref_exit_update(x, *carry, **kw)),
+            "library_ms": time_ms(
+                lambda: torch.softmax(x.float(), -1).max(-1)),
+            "bound_ms": b, "bound_by": by})
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the serving path
+# ---------------------------------------------------------------------------
+
+def make_requests(n: int, lens, vocab: int, max_new: int, seed: int):
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+        0, vocab, size=lens[i % len(lens)]).astype(np.int32),
+        max_new_tokens=max_new) for i in range(n)]
+
+
+def serve(cfg, model, params, reqs, **engine_kw):
+    """One engine run; returns (finished, stats, seconds, launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serving.engine import CascadeServingEngine
+    engine = CascadeServingEngine(cfg, model, params, device=DEV,
+                                  **engine_kw)
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    finished = engine.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    return finished, engine.stats(), seconds, launches
+
+
+def phase_full_width():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch")
+    model = build_model(base, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    n_params = sum(x.numel() for x in nn.tree_leaves(params))
+    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+    runs = {}
+    for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
+        cfg = base.with_cascade(thresholds=ths)
+        fin, st, secs, launches = serve(cfg, model, params, reqs,
+                                        lane_batch=4, n_lanes=2,
+                                        cache_len=512)
+        if sorted(fin) != list(range(8)):
+            fail(f"full width {ths}: finished {sorted(fin)}")
+        for rid, r in fin.items():
+            if len(r["tokens"]) != 16:
+                fail(f"full width {ths}: request {rid} got "
+                     f"{len(r['tokens'])} tokens")
+        depths = {d for r in fin.values() for d in r["exit_depths"]}
+        want_depth = 2 if ths[0] > 0 else 0
+        if depths != {want_depth}:
+            fail(f"full width {ths}: exit depths {sorted(depths)}, expected "
+                 f"all {want_depth}")
+        if ths[0] == 0 and st["segments_run"][1:] != [0, 0]:
+            fail(f"full width {ths}: segments 1-2 ran "
+                 f"{st['segments_run']} at threshold 0")
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            fail(f"full width {ths}: kernels never launched: {missing}")
+        n_tok = sum(len(r["tokens"]) for r in fin.values())
+        rec = {"phase": "full_width", "config": "qwen2.5-3b",
+               "n_layers": base.n_layers, "dtype": base.dtype,
+               "params": n_params, "thresholds": list(ths),
+               "requests": len(fin), "tokens": n_tok,
+               "seconds": secs, "tokens_per_s": n_tok / secs,
+               "decode_us_per_token": st["wallclock_us_per_token"],
+               "prefill_seconds": st["prefill_seconds"],
+               "prefills": st["prefills"],
+               "first_dispatch_seconds": st["compile_seconds"],
+               "host_syncs_per_token": st["host_syncs_per_token"],
+               "segments_run": st["segments_run"],
+               "exit_histogram": st["exit_histogram"],
+               "analytic_speedup": st["analytic_speedup"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": launches,
+               "provenance": st["provenance"]}
+        emit(rec)
+        runs[ths] = rec
+    del params
+    torch.cuda.empty_cache()
+    return runs[(0.9, 0.9, 0.0)]["launches"]
+
+
+def phase_route_parity():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(
+        n_layers=4, dtype="float32").with_cascade(exit_mode="cond_batch")
+    model = build_model(base, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(1))
+    reqs = make_requests(8, (128, 256), base.vocab_size, 8, seed=1)
+    for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
+        streams = {}
+        for use_kernels in (True, False):
+            cfg = base.replace(use_kernels=use_kernels).with_cascade(
+                thresholds=ths)
+            fin, st, _, launches = serve(cfg, build_model(cfg, device=DEV),
+                                         params, reqs, lane_batch=4,
+                                         n_lanes=2, cache_len=512)
+            streams[use_kernels] = {rid: (r["tokens"], r["exit_depths"])
+                                    for rid, r in fin.items()}
+            if use_kernels and min(launches.values()) == 0:
+                fail(f"route parity {ths}: a kernel never launched "
+                     f"{launches}")
+        if streams[True] != streams[False]:
+            bad = [rid for rid in streams[True]
+                   if streams[True][rid] != streams[False].get(rid)]
+            fail(f"route parity {ths}: kernel and plain routes differ on "
+                 f"requests {bad}")
+        emit({"phase": "route_parity", "n_layers": 4, "dtype": "float32",
+              "thresholds": list(ths), "requests": len(streams[True]),
+              "identical": True})
+    del params
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run from the root of a checkout (src/repro_torch "
+              "not found)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import build
+    from repro_torch.utils import resolve_device
+
+    dev = resolve_device(DEV)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build_times = build.build_all(verbose=True)
+    emit({"phase": "card", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0],
+          "build_seconds": time.perf_counter() - t0,
+          "build_seconds_per_kernel": build_times})
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    checks = {"rmsnorm": phase_rmsnorm(dev, gen),
+              "flash_attention": phase_flash(dev, gen),
+              "decode_attention": phase_decode(dev, gen),
+              "exit_update": phase_exit_update(dev, gen)}
+    for name, cases in checks.items():
+        emit({"phase": "kernel_check", "kernel": name, "cases": cases})
+
+    launches = phase_full_width()
+    phase_route_parity()
+
+    # the headline case of each kernel: the serving path's bf16 shape
+    headline = {
+        "rmsnorm": lambda c: c["shape"] == [4, 2048],
+        "flash_attention": lambda c: c["shape"][3] == 256 and not c["window"],
+        "decode_attention": lambda c: c["live"] == [1, 1, 1, 1],
+        "exit_update": lambda c: True,
+    }
+    rows = []
+    for name, cases in checks.items():
+        c = next(c for c in cases
+                 if c["dtype"] == "bfloat16" and headline[name](c))
+        rows.append({"name": name, "route": "cuda",
+                     "source": SOURCES[name], "replaces": REPLACES[name],
+                     "launches": launches[name],
+                     "max_abs_err": max(x["max_abs_err"] for x in cases),
+                     "ms": c["ms"], "plain_ms": c["plain_ms"],
+                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                     "library_ms": c["library_ms"],
+                     "headline_case": {k: c[k] for k in c
+                                       if k not in ("ms", "plain_ms",
+                                                    "bound_ms", "bound_by",
+                                                    "library_ms")}})
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's serving path, on one GPU.
+
+Serves qwen2.5-3b at full width (36 layers, bf16, 3 components, kernels
+on, cond_batch) through ``CascadeServingEngine`` with the settings of
+``chip_smoke.py`` (lane_batch 4, 2 lanes, cache_len 512, 8 requests of
+128/256 prompt tokens, 16 new tokens each), once to warm up and once under
+``torch.profiler``.  Prints JSON lines: the card, the profiled run's wall
+time, the device kernel time summed over the run and its share of the
+wall time (the device's busy share; the rest is the host), and the kernels
+ranked by device time.
+
+Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
+[--thresholds 0.9,0.9,0.0]``.  Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _device_time_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--thresholds", default="0.9,0.9,0.0")
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_serving: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import CascadeServingEngine, Request
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    ths = tuple(float(x) for x in args.thresholds.split(","))
+    cfg = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=ths)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(128, 256)[i % 2])
+               .astype(np.int32) for i in range(8)]
+
+    def serve():
+        eng = CascadeServingEngine(cfg, model, params, lane_batch=4,
+                                   n_lanes=2, cache_len=512)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=16))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(max_ticks=10_000)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, eng.stats()
+
+    serve()                                   # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, st = serve()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type)]
+    dev_us = sum(_device_time_us(e) for e in events)
+    ranked = sorted(events, key=_device_time_us, reverse=True)
+    print(json.dumps({"card": smi, "thresholds": list(ths),
+                      "wall_s": wall, "device_kernel_s": dev_us / 1e6,
+                      "device_busy_share": dev_us / 1e6 / wall,
+                      "decode_us_per_token": st["wallclock_us_per_token"],
+                      "prefill_seconds": st["prefill_seconds"],
+                      "host_syncs_per_token": st["host_syncs_per_token"],
+                      "segments_run": st["segments_run"]}), flush=True)
+    print(json.dumps({"top_kernels": [
+        {"name": e.key[:90], "calls": e.count,
+         "device_ms": _device_time_us(e) / 1e3}
+        for e in ranked[:args.top]]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

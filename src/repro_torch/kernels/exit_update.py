@@ -1,0 +1,96 @@
+"""Fused exit-update kernel and its plain version.
+
+Replaces the TPU kernel ``_exit_update_kernel`` / ``exit_update`` of the
+JAX package's ``kernels/exit_update.py`` (its ``pallas_call`` at line 206):
+softmax-max confidence + threshold gate + patience rewrite + first-open-gate
+carry merge (+ optional EMA fold and telemetry code) in one pass over the
+(B, V) exit logits, the softmax never materialised.
+
+Route: CUDA C++ (``csrc/exit_update.cu``), not Triton.  The argmax has to
+return the first index of the row maximum exactly as the reference does;
+in CUDA the (max, sum-exp, first-index) merge is written out, so the tie
+rule is explicit rather than a property of a library reduction.  It also
+keeps the port on one build route, and a ctypes launch is cheaper on the
+host than a Triton launch on this per-token, per-component path.
+
+Bound on the H100: bytes (one read of the logits); the grid is one block
+per row — at decode batch 4 that is 4 of the 132 SMs (see the source).
+The threshold is a runtime argument: pushing a new one never rebuilds.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import ref_exit_update
+
+_SIG = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int] + [ctypes.c_void_p] * 14
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def exit_update(logits, answered, pred, exit_idx, conf, streak, ema, active,
+                *, threshold: float, m: int, n_components: int,
+                patience_k: int = 0, ema_decay: float = 0.0,
+                tel_bins: int = 0):
+    """One fused component step of the exit-decision scan.
+
+    logits (B, V); answered/active (B,) bool; pred/exit_idx/streak (B,)
+    int32; conf/ema (B,) f32.  Returns (answered', pred', exit', conf',
+    streak', ema') — bool, int32, int32, f32, int32, f32 — plus the (B,)
+    int32 telemetry code ``raw_pred * tel_bins + conf_bin`` when
+    ``tel_bins > 0``.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    # the gate compares at the confidence's precision: δ̂ rounds to f32
+    kw = dict(threshold=float(np.float32(threshold)), m=int(m),
+              n_components=int(n_components), patience_k=int(patience_k),
+              ema_decay=float(ema_decay), tel_bins=int(tel_bins))
+    if logits.device.type == "cpu":
+        return ref_exit_update(logits, answered, pred, exit_idx, conf, streak,
+                               ema, active, **kw)
+    carries = (answered, pred, exit_idx, conf, streak, ema, active)
+    build.require_cuda("exit_update", logits, *carries)
+    if logits.dim() != 2 or logits.stride(1) != 1:
+        raise ValueError("exit_update: logits must be (B, V) with a "
+                         f"contiguous last dim, got {tuple(logits.shape)}")
+    B, V = logits.shape
+    if any(c.shape != (B,) for c in carries):
+        raise ValueError("exit_update: every carry must be (B,)")
+    i32, f32 = torch.int32, torch.float32
+    ans_in = answered.to(torch.bool).contiguous()
+    act_in = active.to(torch.bool).contiguous()
+    pred_in, exit_in, streak_in = (t.to(i32).contiguous()
+                                   for t in (pred, exit_idx, streak))
+    conf_in, ema_in = (t.to(f32).contiguous() for t in (conf, ema))
+    dev = logits.device
+    outs = [torch.empty(B, dtype=torch.bool, device=dev),
+            torch.empty(B, dtype=i32, device=dev),
+            torch.empty(B, dtype=i32, device=dev),
+            torch.empty(B, dtype=f32, device=dev),
+            torch.empty(B, dtype=i32, device=dev),
+            torch.empty(B, dtype=f32, device=dev)]
+    if kw["tel_bins"]:
+        outs.append(torch.empty(B, dtype=i32, device=dev))
+    tcode = outs[6] if kw["tel_bins"] else None
+    p = build.ptr
+    fn = build.function("exit_update", "exit_update_launch", _SIG)
+    build.check(fn(
+        p(logits), logits.stride(0), B, V, build.dtype_code(logits),
+        p(ans_in), p(pred_in), p(exit_in), p(conf_in), p(streak_in),
+        p(ema_in), p(act_in), *(p(o) for o in outs[:6]), p(tcode),
+        kw["threshold"], kw["m"], kw["n_components"], kw["patience_k"],
+        kw["ema_decay"], 1.0 - kw["ema_decay"], kw["tel_bins"],
+        build.stream_of(logits)), "exit_update")
+    exit_update.launches += 1
+    return tuple(outs)
+
+
+exit_update.launches = 0
+
+
+def reset_launches() -> None:
+    exit_update.launches = 0

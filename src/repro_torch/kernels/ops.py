@@ -1,0 +1,49 @@
+"""Public wrappers adapting the model's layouts to the kernels.
+
+The counterparts of the JAX package's ``kernels/ops.py`` adapters
+(``rmsnorm_fused``, ``flash_attention_bshd``, ``decode_attention_cache``,
+``exit_update_fused``).  Each kernel takes its tile sizes as constants in
+its own module; there is no tile registry yet.  The kernels read the
+model's (B, S, H, hd) and (B, W, KV, hd) layouts through strides, so these
+adapters only reshape and take views — no transposed copies.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.exit_update import exit_update
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+
+def rmsnorm_fused(x, w, eps: float = 1e-5):
+    shape = x.shape
+    return rmsnorm(x.reshape(-1, shape[-1]), w, eps=eps).reshape(shape)
+
+
+def flash_attention_bshd(q, k, v, *, causal=True, window=0):
+    """Model layout (B, S, H, hd) + (B, S, KV, hd) -> (B, S, H, hd)."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+def decode_attention_cache(q, k_cache, v_cache, t, kpos, *, window=0,
+                           live=None):
+    """Model layout: q (B, 1, H, hd); caches (B, W, KV, hd).  ``live`` is
+    the per-slot exit mask ((B,) bool, None = all live): dead slots do no
+    work and get zero rows."""
+    B, _, H, hd = q.shape
+    out = decode_attention(q[:, 0], k_cache, v_cache, t, kpos, live,
+                           window=window)
+    return out.reshape(B, 1, H, hd)
+
+
+def exit_update_fused(logits, answered, pred, exit_idx, conf, streak, ema,
+                      active, *, threshold, m, n_components, patience_k=0,
+                      ema_decay=0.0, tel_bins=0):
+    """One fused component step of the exit-decision scan (see
+    :mod:`repro_torch.kernels.exit_update`)."""
+    return exit_update(logits, answered, pred, exit_idx, conf, streak, ema,
+                       active, threshold=threshold, m=m,
+                       n_components=n_components, patience_k=patience_k,
+                       ema_decay=ema_decay, tel_bins=tel_bins)

@@ -1,0 +1,114 @@
+"""Plain PyTorch versions of the hand-written kernels (the correctness
+contracts).
+
+Each ``ref_*`` is the mathematically plain implementation of what one
+kernel computes, mirroring the JAX package's ``kernels/ref.py`` oracles.
+A kernel wrapper takes its plain version for CPU tensors only; on the card
+``chip_smoke.py`` holds every kernel against it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG = -1e30
+
+
+def ref_confidence(logits: torch.Tensor):
+    """Fused softmax-confidence oracle.  logits: (B, V) ->
+    (argmax (B,) int32, delta (B,) f32) per Defs. 3.2-3.3.  ``argmax``
+    returns the first index of the maximum."""
+    x = logits.float()
+    idx = torch.argmax(x, dim=-1).to(torch.int32)
+    m = torch.amax(x, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(x - m[..., None]), dim=-1))
+    return idx, torch.exp(m - lse)
+
+
+def ref_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    """x: (R, d); w: (d,).  Scale by w in f32, then cast."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * w.float()).to(x.dtype)
+
+
+def ref_flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q: (B, H, S, hd); k, v: (B, KV, S, hd).  GQA by head grouping."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    qpk = H // KV
+    qh = q.reshape(B, KV, qpk, S, hd).float()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qh, k.float()) / math.sqrt(hd)
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    return o.reshape(B, H, S, hd).to(q.dtype)
+
+
+def ref_decode_attention(q, k_cache, v_cache, t, kpos, window: int = 0,
+                         live=None):
+    """q: (B, H, hd); caches: (B, W, KV, hd); t scalar; kpos (W,) or
+    per-slot (B, W); live (B,) bool or None.  Dead slots' output rows are
+    exact zeros; live rows are the plain ring-masked single-query
+    attention."""
+    B, H, hd = q.shape
+    KV = k_cache.shape[2]
+    qpk = H // KV
+    qh = q.reshape(B, KV, qpk, hd).float()
+    s = torch.einsum("bkgh,bwkh->bkgw", qh, k_cache.float()) / math.sqrt(hd)
+    kp = kpos if kpos.dim() == 2 else kpos[None]
+    m = (kp >= 0) & (kp <= t)
+    if window:
+        m = m & (kp > t - window)
+    s = torch.where(m[:, None, None, :], s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bwkh->bkgh", p, v_cache.float()).reshape(B, H, hd)
+    if live is not None:
+        o = torch.where(live.bool()[:, None, None], o, torch.zeros_like(o))
+    return o.to(q.dtype)
+
+
+def ref_exit_update(logits, answered, pred, exit_idx, conf, streak, ema,
+                    active, *, threshold, m, n_components, patience_k=0,
+                    ema_decay=0.0, tel_bins=0):
+    """Fused exit-update oracle: one component step of the decision scan
+    (:meth:`repro_torch.core.policy.ExitDecider.scan_component` semantics)
+    plus the optional DecodeState confidence-EMA fold.  ``tel_bins > 0``
+    appends the packed telemetry code of the raw prediction/confidence."""
+    idx, delta = ref_confidence(logits)
+    last = m >= n_components - 1
+    # final component: gate open BEFORE the patience rewrite (dense order)
+    if last:
+        gate = torch.ones_like(delta, dtype=torch.bool)
+    else:
+        gate = delta >= threshold
+    streak_n = streak.to(torch.int32)
+    if patience_k > 0:
+        streak_n = torch.where(gate, streak_n + 1, torch.zeros_like(streak_n))
+        gate = streak_n >= patience_k
+        if last:
+            gate = torch.ones_like(gate)
+    answered = answered.bool()
+    fresh = gate & ~answered
+    conf_n = torch.where(fresh, delta, conf.float())
+    ema_n = ema.float()
+    if ema_decay > 0.0:
+        ema_n = torch.where(active.bool(),
+                            ema_decay * ema_n + (1.0 - ema_decay) * conf_n,
+                            ema_n)
+    outs = (answered | gate,
+            torch.where(fresh, idx, pred.to(torch.int32)),
+            torch.where(fresh, torch.full_like(idx, m),
+                        exit_idx.to(torch.int32)),
+            conf_n, streak_n, ema_n)
+    if tel_bins:
+        from repro_torch.autotune.telemetry import pack_rider
+        outs += (pack_rider(idx, delta, tel_bins),)
+    return outs

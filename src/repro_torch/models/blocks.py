@@ -1,0 +1,169 @@
+"""Block kinds of the cascade backbone — the dense kind for now.
+
+A block kind provides, as in the JAX package's ``models/blocks.py``:
+  init(gen, cfg)                      -> params (one layer)
+  apply(cfg, params, h, ctx, cache)   -> (h, cache, aux)
+  init_cache(cfg, batch, W, dtype, device) -> per-layer cache dict
+  backfill(cfg, params, h, ctx, cache)-> cache   (cascade state backfill:
+        write this layer's KV from the early-exit hidden state WITHOUT
+        computing the layer's output.)
+
+``ctx`` carries what is invariant across the layers of a step:
+  mode: "full" | "decode"
+  positions: (S,) absolute positions of the current tokens (full mode)
+  write_slots: (W,) token index landing in each ring slot, -1 = none (full)
+  t: int current decode position; slot: int ring slot t % W (decode)
+  kpos: (W,) absolute position of each KV slot (-1 empty), committed
+  kpos_t: kpos with the current slot set to t (decode; what attention sees)
+  live: (B,) bool per-slot exit mask, or None (decode)
+
+Caches are written IN PLACE: where the reference returns updated arrays
+(and donates the old buffers to the jitted step), the port writes the
+ring slots of the very tensors it was given and returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.models.layers import (apply_rope, attend_decode, attn_init,
+                                       mlp_apply, mlp_init, norm_apply,
+                                       pick_attend, qkv_project)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDef:
+    init: Callable
+    apply: Callable
+    init_cache: Callable
+    backfill: Callable
+
+
+# ---------------------------------------------------------------------------
+# attention cache helpers (ring buffer)
+# ---------------------------------------------------------------------------
+
+def attn_cache_init(cfg, batch, W, dtype, device):
+    hd = cfg.resolved_head_dim
+    shape = (batch, W, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_full(cache, k, v, gather_idx):
+    """Fill ring slots from a full-sequence prefill.  gather_idx: (W,) —
+    for each cache slot, the token index that lands in it (-1 = slot stays
+    empty).  A gather per slot, written in place."""
+    if cache is None:
+        return None
+    valid = gather_idx >= 0
+    idx = gather_idx.clamp(min=0).long()
+    sel = valid[None, :, None, None]
+    for name, x in (("k", k), ("v", v)):
+        c = cache[name]
+        c.copy_(torch.where(sel, x[:, idx].to(c.dtype), c))
+    return cache
+
+
+def _write_decode(cache, k, v, slot: int):
+    """Write one decode token's k/v ((B, 1, KV, hd)) at ring slot ``slot``,
+    in place (the reference's dynamic_update_slice on a donated buffer)."""
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    return cache
+
+
+def _self_attention(cfg, params, h, ctx, cache):
+    """Self-attention sublayer for full and decode modes."""
+    x = norm_apply(params["norm"], cfg, h)
+    if ctx["mode"] == "full":
+        q, k, v = qkv_project(params, cfg, x, rope_positions=ctx["positions"])
+        S = x.shape[1]
+        if cfg.use_kernels and S % 128 == 0 and q.shape[-1] % 8 == 0:
+            from repro_torch.kernels.ops import flash_attention_bshd
+            out = flash_attention_bshd(q, k, v, causal=True,
+                                       window=cfg.attn_window)
+        else:
+            attend = pick_attend(cfg, S, S, differentiable=cache is None)
+            out = attend(q, k, v, ctx["positions"], ctx["positions"],
+                         window=cfg.attn_window, causal=True)
+        new_cache = (None if cache is None
+                     else _write_full(cache, k, v, ctx["write_slots"]))
+    else:
+        t = ctx["t"]
+        pos = torch.full((1, 1), t, dtype=torch.int32, device=x.device)
+        q, k, v = qkv_project(params, cfg, x, rope_positions=pos)
+        new_cache = _write_decode(cache, k, v, ctx["slot"])
+        # the ring position of this step is visible to its own query
+        kpos = ctx["kpos_t"]
+        if cfg.use_kernels and q.shape[-1] % 8 == 0:
+            from repro_torch.kernels.ops import decode_attention_cache
+            # dead slots (ctx["live"] False) do no attention work and get
+            # zero rows; live rows are unaffected (attention is
+            # batch-separable)
+            out = decode_attention_cache(q, new_cache["k"], new_cache["v"],
+                                         t, kpos, window=cfg.attn_window,
+                                         live=ctx.get("live"))
+        else:
+            out = attend_decode(q, new_cache["k"], new_cache["v"], t, kpos,
+                                window=cfg.attn_window)
+    B, S = x.shape[0], x.shape[1]
+    out = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    return out, new_cache
+
+
+def _attn_backfill(cfg, params, h, ctx, cache):
+    """KV backfill: project k/v from the exit hidden state, write, skip
+    attention.  (No q/k/v bias here, exactly as the reference.)"""
+    if cache is None:
+        return None
+    x = norm_apply(params["norm"], cfg, h)
+    hd = cfg.resolved_head_dim
+    B, S = x.shape[0], x.shape[1]
+    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+    if ctx["mode"] == "decode":
+        pos = torch.full((1, 1), ctx["t"], dtype=torch.int32,
+                         device=x.device)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        return _write_decode(cache, k, v, ctx["slot"])
+    k = apply_rope(k, ctx["positions"], cfg.rope_theta)
+    return _write_full(cache, k, v, ctx["write_slots"])
+
+
+# ---------------------------------------------------------------------------
+# dense block
+# ---------------------------------------------------------------------------
+
+def dense_init_block(gen, cfg):
+    return {"attn": attn_init(gen, cfg), "mlp": mlp_init(gen, cfg)}
+
+
+def dense_apply(cfg, params, h, ctx, cache):
+    a, new_cache = _self_attention(cfg, params["attn"], h, ctx, cache)
+    h = h + a
+    m = mlp_apply(params["mlp"], cfg,
+                  norm_apply(params["mlp"]["norm"], cfg, h))
+    return h + m, new_cache, 0.0
+
+
+def dense_backfill(cfg, params, h, ctx, cache):
+    return _attn_backfill(cfg, params["attn"], h, ctx, cache)
+
+
+BLOCKS: Dict[str, BlockDef] = {
+    "dense": BlockDef(dense_init_block, dense_apply, attn_cache_init,
+                      dense_backfill),
+}
+
+
+def layer_kinds(cfg) -> list[str]:
+    """The per-layer kind sequence of an architecture."""
+    if cfg.family == "dense":
+        return ["dense"] * cfg.n_layers
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet: the moe, hybrid, ssm, "
+        f"audio and vlm families come in later slices of the port")
+

@@ -1,0 +1,249 @@
+"""Core transformer layers: norms, RoPE, GQA/SWA attention (full / chunked /
+decode), and MLPs — the counterpart of the JAX package's
+``models/layers.py`` for the dense family.
+
+All attention paths take a ``kpos`` vector giving the *absolute position*
+of each key slot (-1 ⇒ empty slot), which uniformly encodes causal,
+sliding-window and ring-buffer masking: key j is visible to the query at
+position t iff ``0 <= kpos[j] <= t`` and ``kpos[j] > t - window`` (when
+window > 0).
+"""
+from __future__ import annotations
+
+import math
+from functools import partial
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import nn
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, weight, eps: float = 1e-5):
+    """The non-kernel norm: casts to x's dtype BEFORE multiplying by the
+    weight (the kernel multiplies in f32 first — the two round differently
+    below f32, and each route mirrors its own reference)."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def norm_init(gen, cfg, dim=None):
+    d = dim or cfg.d_model
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            "layernorm comes with the families that use it (a later slice "
+            "of the port)")
+    return {"w": nn.ones_init(gen, (d,))}
+
+
+def norm_apply(params, cfg, x):
+    if "b" in params:
+        raise NotImplementedError(
+            "layernorm comes with the families that use it (a later slice "
+            "of the port)")
+    if cfg.use_kernels:
+        from repro_torch.kernels.ops import rmsnorm_fused
+        return rmsnorm_fused(x, params["w"], eps=cfg.norm_eps)
+    return rmsnorm(x, params["w"].to(x.dtype), cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    if theta <= 0:
+        return x
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    angles = positions[..., None].float() * freqs             # (..., S, hd/2)
+    angles = angles[..., None, :]                             # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention parameters
+# ---------------------------------------------------------------------------
+
+def attn_init(gen, cfg, d_model: int | None = None):
+    d = d_model or cfg.d_model
+    hd = cfg.resolved_head_dim
+    p = {
+        "wq": nn.dense_init(gen, (d, cfg.n_heads * hd)),
+        "wk": nn.dense_init(gen, (d, cfg.n_kv_heads * hd)),
+        "wv": nn.dense_init(gen, (d, cfg.n_kv_heads * hd)),
+        "wo": nn.dense_init(gen, (cfg.n_heads * hd, d)),
+        "norm": norm_init(gen, cfg, d),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = nn.zeros_init(gen, (cfg.n_heads * hd,))
+        p["bk"] = nn.zeros_init(gen, (cfg.n_kv_heads * hd,))
+        p["bv"] = nn.zeros_init(gen, (cfg.n_kv_heads * hd,))
+    return p
+
+
+def qkv_project(params, cfg, x, *, rope_positions=None):
+    """Project x -> (q, k, v) with head reshape and optional RoPE."""
+    hd = cfg.resolved_head_dim
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    B, S = x.shape[0], x.shape[1]
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if rope_positions is not None:
+        q = apply_rope(q, rope_positions, cfg.rope_theta)
+        k = apply_rope(k, rope_positions, cfg.rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Attention cores
+# ---------------------------------------------------------------------------
+
+def _atleast_2d(x):
+    return x if x.dim() >= 2 else x[None]
+
+
+def _mask(qpos, kpos, window, causal):
+    qp = _atleast_2d(qpos)[..., :, None]                 # (B?, Sq, 1)
+    kp = _atleast_2d(kpos)[..., None, :]                 # (B?, 1, Sk)
+    m = kp >= 0
+    if causal:
+        m = m & (kp <= qp)
+    if window:
+        m = m & (kp > qp - window)
+    return m
+
+
+def attend_full(q, k, v, qpos, kpos, window: int = 0, causal: bool = True):
+    """Plain softmax attention.  q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd).
+    Scores in f32 (the inputs upcast exactly), probabilities cast to v's
+    dtype for the weighted sum, as the reference does."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qh = q.reshape(B, Sq, KV, H // KV, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qh.float(), k.float())
+    scores = scores / math.sqrt(hd)
+    mask = _mask(qpos, kpos, window, causal)             # (B?, Sq, Sk)
+    mask = mask.expand((B,) + mask.shape[-2:])[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def attend_chunked(q, k, v, qpos, kpos, window: int = 0, causal: bool = True,
+                   chunk: int = 1024):
+    """Online-softmax attention over KV chunks (memory O(S·chunk))."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    kpos = _atleast_2d(kpos)
+    if Sk % chunk != 0:
+        pad = chunk - Sk % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos, (0, pad), value=-1)
+        Sk += pad
+    qpk = H // KV
+    qh = q.reshape(B, Sq, KV, qpk, hd).float()
+    kpos = kpos.expand(B, Sk)
+    acc = torch.zeros((B, Sq, KV, qpk, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, Sq, KV, qpk), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Sq, KV, qpk), dtype=torch.float32, device=q.device)
+    for c0 in range(0, Sk, chunk):
+        kj, vj = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        s = torch.einsum("bqkgh,bskh->bqkgs", qh, kj.float()) / math.sqrt(hd)
+        msk = _mask(qpos, kpos[:, c0:c0 + chunk], window, causal)
+        s = torch.where(msk[:, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgs,bskh->bqkgh", p.to(vj.dtype), vj).float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attend_decode(q, k_cache, v_cache, t, kpos, window: int = 0):
+    """Single-token attention.  q: (B,1,H,hd); caches: (B,W,KV,hd);
+    t: the current absolute position (int); kpos: (W,) or (B,W)."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    k_cache = k_cache.to(q.dtype)
+    v_cache = v_cache.to(q.dtype)
+    qh = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qh.float(),
+                     k_cache.float()) / math.sqrt(hd)
+    kp = _atleast_2d(kpos)
+    m = (kp >= 0) & (kp <= t)
+    if window:
+        m = m & (kp > t - window)
+    m = m.expand(B, k_cache.shape[1])
+    s = torch.where(m[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, hd)
+
+
+def pick_attend(cfg, Sq, Sk, differentiable: bool = False):
+    """Choose the attention path by sequence size.  Long sequences take
+    the KV-chunked online softmax; the reference's query-and-key chunked
+    variant with causal chunk skipping (for Sq, Sk >= 4096) is not ported
+    yet and those sizes take the KV-chunked path, which computes the same
+    function."""
+    del Sq, differentiable
+    if Sk >= 2048:
+        return partial(attend_chunked, chunk=cfg.attn_kchunk)
+    return attend_full
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg, d_ff: int | None = None, d_model: int | None = None):
+    d = d_model or cfg.d_model
+    ff = d_ff or cfg.d_ff
+    p = {"w_up": nn.dense_init(gen, (d, ff)),
+         "w_down": nn.dense_init(gen, (ff, d)),
+         "norm": norm_init(gen, cfg, d)}
+    if cfg.act == "swiglu":
+        p["w_gate"] = nn.dense_init(gen, (d, ff))
+    return p
+
+
+def mlp_apply(params, cfg, x):
+    up = x @ params["w_up"].to(x.dtype)
+    if "w_gate" in params:
+        gate = x @ params["w_gate"].to(x.dtype)
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
+    return h @ params["w_down"].to(x.dtype)

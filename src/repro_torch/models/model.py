@@ -1,0 +1,284 @@
+"""CascadeModel — the early-exit model, dense family.
+
+The counterpart of the JAX package's ``models/model.py``.  The backbone is
+the per-layer kind sequence from ``blocks.layer_kinds(cfg)``, split into
+``n_components`` segments at the cascade exit boundaries.  Within a
+segment, consecutive layers of one kind form a *stage* whose parameters
+(and caches) are stacked on a leading layer axis, as in the reference; a
+Python loop over the layers takes the place of ``lax.scan``.
+
+Exit heads branch after every segment but the last (``norm →
+[enhancement MLP] → unembed``, the unembedding shared with the final head
+by default); the final head is the standard norm + unembedding.
+
+Public entry points:
+  init(generator)                                -> params
+  init_cache(batch, cache_len, dtype)            -> cache
+  prefill(params, tokens, cache)                 -> (exit_logits_last, cache)
+  decode_step(params, token, t, cache)           -> (exit_logits, cache)
+and the segment primitives the staged executor (``core/exec.py``) runs:
+``begin_decode`` / ``run_segment`` / ``backfill_segment`` / ``exit_logits``
+/ ``commit_decode``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import nn
+from repro_torch.models.blocks import BLOCKS, layer_kinds
+from repro_torch.models.layers import norm_apply, norm_init
+from repro_torch.utils import dtype_of, resolve_device
+
+
+def _runs(kinds: List[str]) -> List[Tuple[str, int]]:
+    runs = []
+    for k in kinds:
+        if runs and runs[-1][0] == k:
+            runs[-1][1] += 1
+        else:
+            runs.append([k, 1])
+    return [(k, n) for k, n in runs]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: only the dense family "
+            f"is; the others come in later slices of the port")
+    if cfg.rope_theta <= 0 or cfg.tie_embeddings:
+        raise NotImplementedError(
+            "learned absolute positions and tied embeddings come with the "
+            "families that use them (a later slice of the port)")
+
+
+class CascadeModel:
+    def __init__(self, cfg: ModelConfig, device=None):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        kinds = layer_kinds(cfg)
+        self.segment_runs: List[List[Tuple[str, int]]] = [
+            _runs(kinds[start:end]) for start, end in cfg.segments]
+        self.n_exits = cfg.cascade.n_components
+        self.param_dtype = dtype_of(cfg.dtype)
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+    def init(self, generator) -> Dict[str, Any]:
+        """Random parameters drawn from ``generator`` (a torch.Generator on
+        this model's device, or an int seed for one)."""
+        cfg = self.cfg
+        dt = self.param_dtype
+        gen = generator
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=self.device).manual_seed(int(gen))
+        if gen.device.type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{self.device}")
+        cast = (lambda x: x.to(dt) if x.is_floating_point() else x)
+        p: Dict[str, Any] = {}
+        p["embed"] = nn.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
+        segs = []
+        for runs in self.segment_runs:
+            stages = []
+            for kind, n in runs:
+                block = BLOCKS[kind]
+                stages.append(nn.stack_init(
+                    lambda g, _b=block: nn.tree_map(cast, _b.init(g, cfg)),
+                    gen, n))
+            segs.append(stages)
+        p["segments"] = segs
+        exits = []
+        for _ in range(self.n_exits - 1):
+            e: Dict[str, Any] = {"norm": norm_init(gen, cfg)}
+            if cfg.cascade.enhance_dim:
+                e["enh_w1"] = nn.dense_init(
+                    gen, (cfg.d_model, cfg.cascade.enhance_dim), dt)
+                e["enh_w2"] = nn.zeros_init(
+                    gen, (cfg.cascade.enhance_dim, cfg.d_model), dt)
+            if not cfg.cascade.share_unembed:
+                e["head"] = nn.dense_init(
+                    gen, (cfg.d_model, cfg.vocab_size), dt)
+            exits.append(e)
+        p["exits"] = exits
+        p["final_norm"] = norm_init(gen, cfg)
+        p["lm_head"] = nn.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
+        return p
+
+    # ------------------------------------------------------------------
+    # stages
+    # ------------------------------------------------------------------
+    def _run_stage(self, kind, stacked, h, ctx, stacked_cache):
+        block = BLOCKS[kind]
+        n = next(nn.tree_leaves(stacked)).shape[0]
+        for i in range(n):
+            ca = (None if stacked_cache is None
+                  else nn.tree_index(stacked_cache, i))
+            h, _, _ = block.apply(self.cfg, nn.tree_index(stacked, i), h,
+                                  ctx, ca)
+        return h, stacked_cache
+
+    def run_segment(self, si, params, h, ctx, seg_cache):
+        """Compute segment ``si``: (h', seg_cache written in place, aux)."""
+        for pi, (kind, _) in enumerate(self.segment_runs[si]):
+            cache_i = seg_cache[pi] if seg_cache is not None else None
+            h, _ = self._run_stage(kind, params["segments"][si][pi], h, ctx,
+                                   cache_i)
+        return h, seg_cache, 0.0
+
+    def backfill_segment(self, si, params, h, ctx, seg_cache):
+        """Write segment ``si``'s caches from the exit hidden state without
+        computing the segment (the skip path's cache-coherence write)."""
+        for pi, (kind, _) in enumerate(self.segment_runs[si]):
+            block = BLOCKS[kind]
+            stacked = params["segments"][si][pi]
+            n = next(nn.tree_leaves(stacked)).shape[0]
+            for i in range(n):
+                block.backfill(self.cfg, nn.tree_index(stacked, i), h, ctx,
+                               nn.tree_index(seg_cache[pi], i))
+        return seg_cache
+
+    # ------------------------------------------------------------------
+    # heads
+    # ------------------------------------------------------------------
+    def _unembed(self, params):
+        return params["lm_head"]
+
+    def exit_logits(self, params, m: int, h):
+        """Exit head m (m < n_exits-1: intermediate; else final)."""
+        cfg = self.cfg
+        if m >= self.n_exits - 1:
+            x = norm_apply(params["final_norm"], cfg, h)
+            return x @ self._unembed(params).to(x.dtype)
+        e = params["exits"][m]
+        x = norm_apply(e["norm"], cfg, h)
+        if "enh_w1" in e:
+            x = x + F.gelu(x @ e["enh_w1"].to(x.dtype), approximate="tanh") \
+                @ e["enh_w2"].to(x.dtype)
+        head = e["head"] if "head" in e else self._unembed(params)
+        return x @ head.to(x.dtype)
+
+    def exit_head_params(self, params, m: int):
+        """``(norm_w, head)`` when exit head ``m`` fits the fused exit-head
+        shape (rmsnorm + one unembed matmul), else None."""
+        if m >= self.n_exits - 1:
+            norm = params["final_norm"]
+            if "b" in norm:
+                return None
+            return norm["w"], self._unembed(params)
+        e = params["exits"][m]
+        if "b" in e["norm"] or "enh_w1" in e:
+            return None
+        head = e["head"] if "head" in e else self._unembed(params)
+        return e["norm"]["w"], head
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens.long()]
+
+    # ------------------------------------------------------------------
+    # caches
+    # ------------------------------------------------------------------
+    def cache_capacity(self, cache_len: int) -> int:
+        w = self.cfg.attn_window
+        return min(w, cache_len) if w else cache_len
+
+    def init_cache(self, batch: int, cache_len: int, dtype=None):
+        cfg = self.cfg
+        dtype = dtype or self.param_dtype
+        W = self.cache_capacity(cache_len)
+        segs = []
+        for runs in self.segment_runs:
+            stages = []
+            for kind, n in runs:
+                one = BLOCKS[kind].init_cache(cfg, batch, W, dtype,
+                                              self.device)
+                stages.append({k: v[None].repeat((n,) + (1,) * v.dim())
+                               for k, v in one.items()})
+            segs.append(stages)
+        return {"kpos": torch.full((W,), -1, dtype=torch.int32,
+                                   device=self.device),
+                "segments": segs}
+
+    # ------------------------------------------------------------------
+    # prefill
+    # ------------------------------------------------------------------
+    def prefill(self, params, tokens, cache):
+        """Full-sequence forward writing the KV caches (in place).
+
+        tokens (B, S) int.  Returns ([exit logits at last position (B,V)]
+        * n_exits, cache with its kpos ring for the S prompt positions).
+        """
+        B, S = tokens.shape
+        W = cache["kpos"].shape[-1]
+        positions = torch.arange(S, dtype=torch.int32, device=self.device)
+        # per-slot gather index == the absolute position held by the slot
+        write_slots = torch.as_tensor(_prefill_kpos(S, W), device=self.device)
+        h = self._embed(params, tokens)
+        ctx = {"mode": "full", "positions": positions,
+               "write_slots": write_slots, "kpos": cache["kpos"]}
+        logits = []
+        for si in range(self.n_exits):
+            h, _, _ = self.run_segment(si, params, h, ctx,
+                                       cache["segments"][si])
+            logits.append(self.exit_logits(params, si, h[:, -1:, :])[:, 0, :])
+        return logits, {"kpos": write_slots.clone(),
+                        "segments": cache["segments"]}
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def begin_decode(self, params, token, t: int, cache):
+        """Embed one decode token and build the step context.
+
+        token: (B,1) int; t: the position (int).  Returns (h, ctx) for the
+        segment primitives.  ``ctx["kpos_t"]`` — the committed ring with
+        this step's slot set to t, which every layer's attention reads — is
+        built once here instead of once per layer.
+        """
+        W = cache["kpos"].shape[-1]
+        slot = int(t) % W
+        kpos_t = cache["kpos"].clone()
+        kpos_t[..., slot] = int(t)
+        h = self._embed(params, token)
+        ctx = {"mode": "decode", "t": int(t), "slot": slot,
+               "kpos": cache["kpos"], "kpos_t": kpos_t}
+        return h, ctx
+
+    def commit_decode(self, cache, new_segs, t: int):
+        """Finish a decode step: record position t in the kpos ring."""
+        W = cache["kpos"].shape[-1]
+        kpos = cache["kpos"].clone()
+        kpos[..., int(t) % W] = int(t)
+        return {"kpos": kpos, "segments": new_segs}
+
+    def decode_step(self, params, token, t: int, cache):
+        """One DENSE decode step: every segment computes, every exit's
+        logits are returned (list of (B,V)).  The reference path the
+        consistency tests pin; the staged decode lives in
+        :class:`repro_torch.core.exec.StagedExecutor`."""
+        h, ctx = self.begin_decode(params, token, t, cache)
+        logits = []
+        for si in range(self.n_exits):
+            h, _, _ = self.run_segment(si, params, h, ctx,
+                                       cache["segments"][si])
+            logits.append(self.exit_logits(params, si, h)[:, 0, :])
+        return logits, self.commit_decode(cache, cache["segments"], t)
+
+
+def _prefill_kpos(S: int, W: int) -> np.ndarray:
+    s = np.arange(W)
+    if S >= W:
+        kpos = S - 1 - ((S - 1 - s) % W)
+    else:
+        kpos = np.where(s < S, s, -1)
+    return kpos.astype(np.int32)
+
+
+def build_model(cfg: ModelConfig, device=None) -> CascadeModel:
+    return CascadeModel(cfg, device=device)

@@ -1,0 +1,78 @@
+"""Parameter-initialization helpers over explicit ``torch.Generator``s.
+
+The same distributions as the JAX package's ``models/nn.py``; the numbers
+differ (a torch generator is not a JAX key), so tests that compare the two
+packages bridge one set of weights instead of drawing twice.  Values are
+drawn in float32 on the generator's device, then cast.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+
+def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
+               scale: float | None = None):
+    """He/Lecun style fan-in init: N(0, sqrt(scale / fan_in)).  ``scale``
+    defaults to 1.0 (lecun) for transformer weights."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = math.sqrt((scale if scale is not None else 1.0) / max(1, fan_in))
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x * std).to(dtype)
+
+
+def zeros_init(gen: torch.Generator, shape, dtype=torch.float32):
+    return torch.zeros(tuple(shape), dtype=dtype, device=gen.device)
+
+
+def ones_init(gen: torch.Generator, shape, dtype=torch.float32):
+    return torch.ones(tuple(shape), dtype=dtype, device=gen.device)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x * 0.02).to(dtype)
+
+
+def stack_init(init_fn: Callable, gen: torch.Generator, n: int):
+    """Initialize ``n`` identical blocks and stack each leaf on axis 0."""
+    return tree_stack([init_fn(gen) for _ in range(n)])
+
+
+def tree_stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def tree_index(tree, i: int):
+    """Layer ``i`` of a stacked parameter or cache tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def tree_leaves(tree):
+    """Every tensor leaf of nested dicts/lists, in order (None skipped)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def tree_map(fn, tree):
+    """``fn`` over every tensor leaf of nested dicts/lists (None kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)

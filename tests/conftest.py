@@ -30,3 +30,9 @@ except ImportError:
     sys.modules["hypothesis"] = _hypothesis_stub
     sys.modules["hypothesis.strategies"] = _hypothesis_stub
     _hypothesis_stub.strategies = _hypothesis_stub
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skipped "
+        "without one")

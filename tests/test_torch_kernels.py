@@ -1,0 +1,275 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+The same numpy inputs (``np.random.default_rng``) go through the reference
+wrapper in ``repro.kernels.ops`` (the Pallas kernels in interpret mode, as
+``tests/test_kernels.py`` runs them on the CPU) and through the port's
+``repro_torch.kernels.ops`` on CPU tensors (each kernel's plain version).
+
+Tolerances, all f32: 1e-5 absolute and relative for normalised
+activations, attention outputs and confidences (the two sides sum in other
+orders; the error is a few f32 ulps); integers (argmax, exit index, streak,
+telemetry code, answered) exactly.  On a CUDA card the ``cuda``-marked
+test runs every kernel against its plain version at the serving shapes.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.kernels import ops as jops
+from repro.models import layers as jlayers
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers
+
+ATOL = RTOL = 1e-5
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(7, 256), (2, 3, 256), (1, 2048)])
+def test_rmsnorm_fused_matches_reference(shape):
+    rng = _rng(1)
+    x = rng.standard_normal(shape).astype(np.float32) * 3
+    w = (1 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    want = jops.rmsnorm_fused(jnp.asarray(x), jnp.asarray(w), eps=1e-5)
+    got = ops.rmsnorm_fused(torch.from_numpy(x), torch.from_numpy(w),
+                            eps=1e-5)
+    assert got.shape == shape and got.dtype == torch.float32
+    _close(got, want)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_norm_apply_both_routes_match_reference(use_kernels):
+    rng = _rng(2)
+    x = rng.standard_normal((2, 5, 256)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+    jcfg = jax_reduced(jax_get_config("qwen2.5-3b")).replace(
+        use_kernels=use_kernels)
+    cfg = reduced(get_config("qwen2.5-3b")).replace(use_kernels=use_kernels)
+    want = jlayers.norm_apply({"w": jnp.asarray(w)}, jcfg, jnp.asarray(x))
+    got = layers.norm_apply({"w": torch.from_numpy(w)}, cfg,
+                            torch.from_numpy(x))
+    _close(got, want)
+
+
+def test_norm_routes_round_differently_in_bf16():
+    """The kernel route scales by w in f32 before its one cast; the plain
+    route casts first — the port keeps both, each as its reference does."""
+    rng = _rng(3)
+    x = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    w = torch.from_numpy((1 + 0.3 * rng.standard_normal(256))
+                         .astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    kernel = ops.rmsnorm_fused(xb, w)
+    plain = layers.rmsnorm(xb, w.to(torch.bfloat16))
+    want_k = jops.rmsnorm_fused(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w))
+    want_p = jlayers.rmsnorm(jnp.asarray(x, jnp.bfloat16),
+                             jnp.asarray(w, jnp.bfloat16))
+    assert not torch.equal(kernel, plain)
+    np.testing.assert_array_equal(kernel.float().numpy(),
+                                  np.asarray(want_k, np.float32))
+    _close(plain.float(), np.asarray(want_p, np.float32), atol=1e-2,
+           rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# exit_update
+# ---------------------------------------------------------------------------
+
+V_ODD = 5000          # not a multiple of 128; 3 reference vocab tiles
+
+
+def _exit_inputs(seed=4, B=5, V=V_ODD):
+    rng = _rng(seed)
+    x = rng.standard_normal((B, V)).astype(np.float32)
+    x[1, 77] += 12.0                              # confident (δ ~ 1)
+    x[2, 10] = x[2, 4500] = x[2].max() + 9.0      # tie across vocab tiles
+    x[3, 4999] += 7.5                             # max in the ragged tile
+    carry = (np.array([False, False, False, True, False]),
+             np.array([7, 7, 7, 7, 7], np.int32),
+             np.array([0, 0, 0, 1, 0], np.int32),
+             np.array([0.1, 0.2, 0.3, 0.4, 0.5], np.float32),
+             np.array([0, 1, 2, 3, 1], np.int32),
+             np.array([0.5, 0.25, 0.5, 0.5, 0.75], np.float32),
+             np.array([True, True, False, True, True]))
+    return x, carry
+
+
+@pytest.mark.parametrize("m", [0, 2])
+@pytest.mark.parametrize("patience_k", [0, 2])
+@pytest.mark.parametrize("ema_decay", [0.0, 0.8])
+@pytest.mark.parametrize("tel_bins", [0, 32])
+def test_exit_update_fused_matches_reference(m, patience_k, ema_decay,
+                                             tel_bins):
+    x, carry = _exit_inputs()
+    kw = dict(threshold=0.4, m=m, n_components=3, patience_k=patience_k,
+              ema_decay=ema_decay, tel_bins=tel_bins)
+    # the gate must not sit on a rounding edge: every δ is 1e-3 away
+    _, delta = ref.ref_confidence(torch.from_numpy(x))
+    assert float((delta - 0.4).abs().min()) > 1e-3
+    want = jops.exit_update_fused(jnp.asarray(x),
+                                  *(jnp.asarray(c) for c in carry), **kw)
+    got = ops.exit_update_fused(torch.from_numpy(x),
+                                *(torch.from_numpy(c) for c in carry), **kw)
+    assert len(got) == len(want) == (7 if tel_bins else 6)
+    names = ("answered", "pred", "exit", "conf", "streak", "ema", "tcode")
+    for name, g, w in zip(names, got, want):
+        if name in ("conf", "ema"):
+            assert g.dtype == torch.float32, name
+            _close(g, w)
+        else:
+            assert g.dtype == (torch.bool if name == "answered"
+                               else torch.int32), name
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=name)
+    # the tie across tiles resolves to the first index
+    if m == 0 and not patience_k:
+        assert int(got[1][2]) == 10
+
+
+def test_exit_update_threshold_is_runtime_data():
+    """One kernel serves every threshold: the gate moves with the argument
+    (the reference folds a float threshold statically; here it is always a
+    runtime argument)."""
+    x, carry = _exit_inputs()
+    t = torch.from_numpy(x)
+    c = [torch.from_numpy(a) for a in carry]
+    opened = [ops.exit_update_fused(t, *c, threshold=th, m=0,
+                                    n_components=3)[0].tolist()
+              for th in (0.0, 0.4, 1.1)]
+    assert opened[0] == [True] * 5
+    assert opened[2] == [False, False, False, True, False]
+    assert opened[1] != opened[0] and opened[1] != opened[2]
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,window,live,per_slot", [
+    (40, 0, [1, 1, 1], False),          # partly filled ring
+    (150, 0, [1, 0, 1], False),         # ring wrap (t >= W), a dead slot
+    (150, 24, [0, 1, 1], False),        # sliding window over the wrap
+    (90, 16, [1, 1, 0], True),          # per-slot (B, W) position rings
+    (20, 0, None, False),               # live=None: every slot live
+])
+def test_decode_attention_cache_matches_reference(t, window, live,
+                                                  per_slot):
+    rng = _rng(5)
+    B, H, KV, hd, W = 3, 4, 2, 32, 64
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    kc = rng.standard_normal((B, W, KV, hd)).astype(np.float32)
+    vc = rng.standard_normal((B, W, KV, hd)).astype(np.float32)
+    s = np.arange(W)
+    ring = np.where(s <= t, t - ((t - s) % W), -1).astype(np.int32)
+    kpos = (np.stack([np.maximum(ring - 3 * b, -1) for b in range(B)])
+            .astype(np.int32) if per_slot else ring)
+    lv = None if live is None else np.array(live, bool)
+    want = jops.decode_attention_cache(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), t,
+        jnp.asarray(kpos), window=window,
+        live=None if lv is None else jnp.asarray(lv))
+    got = ops.decode_attention_cache(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc), t,
+        torch.from_numpy(kpos), window=window,
+        live=None if lv is None else torch.from_numpy(lv))
+    assert got.shape == (B, 1, H, hd)
+    _close(got, want)
+    if lv is not None:
+        assert not got[~torch.from_numpy(lv)].any()
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_attention_bshd_matches_reference(S, window):
+    rng = _rng(6)
+    B, H, KV, hd = 2, 4, 2, 64
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    want = jops.flash_attention_bshd(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=True,
+                                     window=window)
+    got = ops.flash_attention_bshd(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=True,
+                                   window=window)
+    assert got.shape == (B, S, H, hd)
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# on the card: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.utils import resolve_device
+    return resolve_device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
+    """bf16 outputs may differ by one bf16 ulp (2**-8 relative) where two
+    f32 results straddle a rounding edge; f32 by summation order."""
+    from repro_torch.kernels import (decode_attention, exit_update,
+                                     flash_attention, rmsnorm)
+    atol, rtol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (2e-5, 1e-4)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    x, w = rand(1024, 2048), torch.ones(2048, device=cuda_device)
+    torch.testing.assert_close(rmsnorm.rmsnorm(x, w),
+                               ref.ref_rmsnorm(x, w), atol=atol, rtol=rtol)
+    q, k, v = rand(4, 16, 256, 128), rand(4, 2, 256, 128), \
+        rand(4, 2, 256, 128)
+    for window in (0, 64):
+        torch.testing.assert_close(
+            flash_attention.flash_attention(q, k, v, window=window),
+            ref.ref_flash_attention(q, k, v, window=window),
+            atol=atol, rtol=rtol)
+    qd, kc, vc = rand(4, 16, 128), rand(4, 512, 2, 128), rand(4, 512, 2, 128)
+    kpos = torch.arange(512, device=cuda_device, dtype=torch.int32) + 188
+    live = torch.tensor([True, False, True, True], device=cuda_device)
+    torch.testing.assert_close(
+        decode_attention.decode_attention(qd, kc, vc, 700, kpos, live),
+        ref.ref_decode_attention(qd, kc, vc, 700, kpos, live=live),
+        atol=atol, rtol=rtol)
+    logits = rand(4, 151936)
+    carry = (torch.zeros(4, dtype=torch.bool, device=cuda_device),
+             torch.zeros(4, dtype=torch.int32, device=cuda_device),
+             torch.zeros(4, dtype=torch.int32, device=cuda_device),
+             torch.zeros(4, device=cuda_device),
+             torch.zeros(4, dtype=torch.int32, device=cuda_device),
+             torch.zeros(4, device=cuda_device),
+             torch.ones(4, dtype=torch.bool, device=cuda_device))
+    kw = dict(threshold=0.5, m=0, n_components=3, ema_decay=0.8)
+    got = exit_update.exit_update(logits, *carry, **kw)
+    want = ref.ref_exit_update(logits, *carry, **kw)
+    for i in (0, 1, 2, 4):
+        assert torch.equal(got[i], want[i])
+    for i in (3, 5):
+        torch.testing.assert_close(got[i], want[i], atol=0, rtol=1e-5)

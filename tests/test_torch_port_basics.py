@@ -1,0 +1,234 @@
+"""The PyTorch port (``repro_torch``): configs, weight bridge, package
+isolation and the no-hidden-fallback rule, against the JAX package."""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.models.model import build_model as jax_build_model
+from repro_torch import bridge
+from repro_torch.configs import get_config, list_configs, reduced
+from repro_torch.kernels import (decode_attention, exit_update,
+                                 flash_attention, rmsnorm)
+from repro_torch.models.model import build_model
+from repro_torch.serving.engine import CascadeServingEngine
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _small(mod):
+    return mod[1](mod[0]("qwen2.5-3b"), n_layers=3).with_cascade(
+        n_components=3, exit_boundaries=(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("overrides", [{}, {"n_layers": 3},
+                                       {"dtype": "bfloat16"}])
+def test_reduced_config_equals_reference_field_by_field(overrides):
+    ours = reduced(get_config("qwen2.5-3b"), **overrides)
+    ref = jax_reduced(jax_get_config("qwen2.5-3b"), **overrides)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.segments == ref.segments
+
+
+def test_full_config_and_registry():
+    ours = get_config("qwen2.5-3b")
+    assert dataclasses.asdict(ours) == dataclasses.asdict(
+        jax_get_config("qwen2.5-3b"))
+    assert ours.segments == ((0, 12), (12, 24), (24, 36))
+    assert list_configs() == ["qwen2.5-3b"]
+    with pytest.raises(KeyError):
+        get_config("mixtral-8x7b")
+
+
+# ---------------------------------------------------------------------------
+# weight bridge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bridge_round_trip_bit_exact(dtype):
+    jcfg = _small((jax_get_config, jax_reduced)).replace(dtype=dtype)
+    params = jax_build_model(jcfg).init(jax.random.PRNGKey(3))
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    cfg = _small((get_config, reduced)).replace(dtype=dtype)
+    tp = bridge.params_from_jax(np_params, cfg, device="cpu")
+    assert tp["embed"].dtype == getattr(torch, dtype)
+    assert tp["final_norm"]["w"].dtype == torch.float32   # kept as is
+    back = bridge.params_to_numpy(tp)
+    flat_a, tree_a = jax.tree_util.tree_flatten(np_params)
+    flat_b, tree_b = jax.tree_util.tree_flatten(back)
+    assert tree_a == tree_b
+    for a, b in zip(flat_a, flat_b):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+def test_bridge_tree_matches_port_init():
+    cfg = _small((get_config, reduced))
+    jparams = jax_build_model(_small((jax_get_config, jax_reduced))).init(
+        jax.random.PRNGKey(0))
+    tp = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                                cfg, device="cpu")
+    own = build_model(cfg, device="cpu").init(0)
+    shapes = jax.tree_util.tree_map(lambda x: (tuple(x.shape), x.dtype), tp)
+    assert shapes == jax.tree_util.tree_map(
+        lambda x: (tuple(x.shape), x.dtype), own)
+
+
+def test_bridge_rejects_other_trees():
+    cfg = _small((get_config, reduced))
+    with pytest.raises(ValueError):
+        bridge.params_from_jax({"embed": np.zeros((3, 3))}, cfg, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# isolation: the port imports neither jax nor the reference package
+# ---------------------------------------------------------------------------
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(SRC).with_suffix("").parts)
+        .replace(".__init__", "")
+        for p in (SRC / "repro_torch").rglob("*.py"))
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_reference():
+    mods = _port_modules()
+    assert "repro_torch.serving.engine" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_source_scan_finds_no_jax_or_reference_import():
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax\b|import\s+jaxlib|"
+                     r"from\s+jaxlib\b|import\s+repro(\.|\s|$)|"
+                     r"from\s+repro(\.|\s))", re.M)
+    hits = []
+    files = list((SRC / "repro_torch").rglob("*.py"))
+    files.append(SRC.parent / "chip_smoke.py")
+    for path in files:
+        for m in pat.finditer(path.read_text()):
+            hits.append(f"{path}: {m.group(0).strip()}")
+    assert len(files) > 20
+    assert not hits, hits
+
+
+# ---------------------------------------------------------------------------
+# no hidden fallback: without a card nothing quietly runs on the CPU, and a
+# non-CPU tensor never takes a kernel's plain version
+# ---------------------------------------------------------------------------
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    _no_cuda(monkeypatch)
+    cfg = _small((get_config, reduced))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CascadeServingEngine(cfg, model, params, lane_batch=2, n_lanes=1,
+                             cache_len=32)
+    eng = CascadeServingEngine(cfg, model, params, lane_batch=2, n_lanes=1,
+                               cache_len=32, device="cpu")
+    assert eng.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bridge.params_from_jax({}, cfg)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("kernel", ["rmsnorm", "exit_update",
+                                    "decode_attention", "flash_attention"])
+def test_wrappers_raise_on_non_cpu_tensors(kernel):
+    """A tensor on any device but the CPU must reach the kernel (which
+    needs CUDA) and raise — never the plain version."""
+    before = {"rmsnorm": rmsnorm.rmsnorm.launches}
+    with pytest.raises(ValueError, match="CUDA"):
+        if kernel == "rmsnorm":
+            rmsnorm.rmsnorm(_meta(4, 64), _meta(64))
+        elif kernel == "exit_update":
+            b = _meta(4, dtype=torch.bool)
+            i = _meta(4, dtype=torch.int32)
+            f = _meta(4)
+            exit_update.exit_update(_meta(4, 100), b, i, i, f, i, f, b,
+                                    threshold=0.5, m=0, n_components=2)
+        elif kernel == "decode_attention":
+            decode_attention.decode_attention(
+                _meta(2, 4, 64), _meta(2, 16, 1, 64), _meta(2, 16, 1, 64), 3,
+                _meta(16, dtype=torch.int32))
+        else:
+            flash_attention.flash_attention(
+                _meta(1, 4, 64, 64), _meta(1, 1, 64, 64), _meta(1, 1, 64, 64))
+    assert rmsnorm.rmsnorm.launches == before["rmsnorm"]
+
+
+def test_plain_version_taken_for_cpu_tensors_only(monkeypatch):
+    """The CPU route is decided by the tensor's device alone: with the
+    device check forced to see a non-CPU device, a CPU tensor raises."""
+    calls = []
+    monkeypatch.setattr(rmsnorm, "ref_rmsnorm",
+                        lambda *a: calls.append(1) or a[0])
+    x, w = torch.ones(2, 8), torch.ones(8)
+    rmsnorm.rmsnorm(x, w)
+    assert calls == [1]
+
+    class _Dev:
+        type = "cuda"
+
+    class _T:
+        device = _Dev()
+
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm.rmsnorm(_T(), w)
+    assert calls == [1]
+
+
+def test_unported_configurations_are_refused():
+    cfg = _small((get_config, reduced))
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    kw = dict(lane_batch=2, n_lanes=1, cache_len=32, device="cpu")
+    for bad, what in (
+            (dict(runtime="device"), "device"),
+            (dict(mesh=object()), "mesh"),
+            (dict(autotune=True), "autotune")):
+        with pytest.raises(NotImplementedError, match=what):
+            CascadeServingEngine(cfg, model, params, **{**kw, **bad})
+    for cfg_bad in (cfg.with_cascade(n_cohorts=2),
+                    cfg.with_paged_cache(layout="paged"),
+                    cfg.with_kernel_tune(megakernel=True),
+                    cfg.with_autotune(enabled=True),
+                    cfg.with_cascade(confidence="entropy")):
+        with pytest.raises(NotImplementedError):
+            CascadeServingEngine(cfg_bad, model, params, **kw)
+    with pytest.raises(NotImplementedError):
+        build_model(cfg.replace(family="moe"), device="cpu")
