@@ -11,14 +11,26 @@ source, all at once).  Phases, each of which fails the run on a miss:
    serving path's shapes (bf16 and f32), ints exact and floats within the
    stated tolerances, with CUDA-event timings of the kernel, the plain
    version and one library call, and each kernel's bound;
-3. the slice at full width: qwen2.5-3b (36 layers, bf16, 3 components,
-   kernels on, cond_batch) through ``CascadeServingEngine`` — 8 requests
-   at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0), with every
-   kernel's launch counter read around each run;
-4. route parity: full width at 4 layers in f32, kernel route vs plain
-   route, identical token and exit streams;
-5. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+3. slice 1 at full width: qwen2.5-3b (36 layers, bf16, 3 components,
+   kernels on, cond_batch, one cohort) through ``CascadeServingEngine`` —
+   8 requests at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0);
+4. slice 2 at full width: the same model with 2 cohorts in the major
+   layout and the exit-head megakernel and cohort scatter on, at (0, 0, 0),
+   (0.9, 0.9, 0.0) and a component-0 threshold at the median of the
+   (0, 0, 0) run's confidences (cohorts disagree: the mixed dispatch
+   branch runs), megakernel on and off in turns (on, off, off, on);
+5. Algorithm 1 (``cascade_infer_sequential``) on the full-width model's
+   exit logits for 4 prompts of 128 tokens, confidence kernel vs plain
+   measure;
+6. route parity at 4 layers in f32: kernel route vs plain route,
+   megakernel on vs off, 1 vs 2 cohorts, major vs copy layout, and select
+   mode with the cohort scatter vs cond_batch — identical token and exit
+   streams;
+7. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
    line.
+
+Every path is driven with the launch counters set to 0 just before it and
+read just after, and fails unless exactly its expected kernels launched.
 
 Every line of standard output but the ``nvidia-smi`` line is one JSON
 object.  Without a CUDA device, or outside a checkout, it exits non-zero
@@ -41,12 +53,21 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
+# the serving shapes of qwen2.5-3b: model width, vocabulary, and one deep
+# segment's cache leaf (layers, lane batch, cache_len, KV heads, head dim)
+D_MODEL = 2048
+VOCAB = 151936
+SEG_CACHE = (12, 4, 512, 2, 128)
+
 # where each TPU kernel's pallas_call sits in the reference package
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:42",
     "exit_update": "src/repro/kernels/exit_update.py:206",
     "decode_attention": "src/repro/kernels/decode_attention.py:120",
     "flash_attention": "src/repro/kernels/flash_attention.py:102",
+    "confidence": "src/repro/kernels/confidence.py:72",
+    "megakernel": "src/repro/kernels/megakernel.py:231",
+    "cohort_scatter": "src/repro/kernels/cohort_cache.py:53",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
@@ -126,27 +147,28 @@ def phase_rmsnorm(dev, gen):
     for R in (4 * 256, 4):
         for dt in (torch.bfloat16, torch.float32):
             for wdt in (torch.float32, dt):
-                x = torch.randn(R, 2048, generator=gen, device=dev).to(dt)
-                w = (1 + 0.1 * torch.randn(2048, generator=gen, device=dev)
-                     ).to(wdt)
+                x = torch.randn(R, D_MODEL, generator=gen,
+                                device=dev).to(dt)
+                w = (1 + 0.1 * torch.randn(D_MODEL, generator=gen,
+                                           device=dev)).to(wdt)
                 got = rmsnorm(x, w, 1e-5)
                 want = ref.ref_rmsnorm(x, w, 1e-5)
                 torch.cuda.synchronize()
                 name = str(dt).split(".")[-1]
-                check_close(f"rmsnorm {R}x2048 {name} w={wdt}", got, want,
-                            *TOL[name])
+                check_close(f"rmsnorm {R}x{D_MODEL} {name} w={wdt}", got,
+                            want, *TOL[name])
                 if wdt != torch.float32:
                     continue
                 nbytes = 2 * x.numel() * x.element_size() + \
                     w.numel() * w.element_size()
                 b, by = bound_ms(nbytes, 4 * x.numel(), name)
                 cases.append({
-                    "shape": [R, 2048], "dtype": name,
+                    "shape": [R, D_MODEL], "dtype": name,
                     "max_abs_err": max_err(got, want),
                     "ms": time_ms(lambda: rmsnorm(x, w, 1e-5)),
                     "plain_ms": time_ms(lambda: ref.ref_rmsnorm(x, w, 1e-5)),
                     "library_ms": time_ms(lambda: F.rms_norm(
-                        x, (2048,), w.to(x.dtype), 1e-5)),
+                        x, (D_MODEL,), w.to(x.dtype), 1e-5)),
                     "bound_ms": b, "bound_by": by})
     return cases
 
@@ -274,12 +296,12 @@ def phase_exit_update(dev, gen):
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.exit_update import exit_update
-    B, V, n_m = 4, 151936, 3
+    B, V, n_m = 4, VOCAB, 3
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         x = torch.randn(B, V, generator=gen, device=dev)
         x[1, 77] += 20.0                  # a confident row (delta ~ 1)
-        x[2, 5] = x[2, 100000] = x[2].max() + 15.0   # a tie across tiles
+        x[2, 5] = x[2, V - 100] = x[2].max() + 15.0   # a tie across tiles
         x = x.to(dt)
         i32 = dict(dtype=torch.int32, device=dev)
         carry = (torch.tensor([False, False, True, False], device=dev),
@@ -327,8 +349,205 @@ def phase_exit_update(dev, gen):
     return cases
 
 
+def _carries(B, n_m, dev):
+    import torch
+    i32 = dict(dtype=torch.int32, device=dev)
+    ar = torch.arange(B, device=dev)
+    return (ar % 3 == 2, torch.full((B,), 7, **i32), ar.to(torch.int32) % n_m,
+            0.1 + 0.1 * ar.float(), ar.to(torch.int32) % 4,
+            torch.full((B,), 0.5, device=dev), ar % 4 != 2)
+
+
+def phase_confidence(dev, gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.confidence import confidence
+    B, V = 4, VOCAB
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(B, V, generator=gen, device=dev)
+        x[1, 77] += 20.0                              # a confident row
+        x[2, 5] = x[2, V - 100] = x[2].max() + 15.0   # a tie across tiles
+        x = x.to(dt)
+        got = confidence(x)
+        want = ref.ref_confidence(x)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[-1]
+        check_equal(f"confidence {name} argmax", got[0], want[0])
+        check_close(f"confidence {name} delta", got[1], want[1], 0.0, 1e-5)
+        if int(got[0][2]) != 5:
+            fail(f"confidence: tie across tiles must pick index 5, got "
+                 f"{int(got[0][2])}")
+        b, by = bound_ms(x.numel() * x.element_size() + B * 8,
+                         4 * x.numel(), name)
+        cases.append({
+            "shape": [B, V], "dtype": name,
+            "max_abs_err": max_err(got[1], want[1]),
+            "ms": time_ms(lambda: confidence(x)),
+            "plain_ms": time_ms(lambda: ref.ref_confidence(x)),
+            "library_ms": time_ms(
+                lambda: torch.softmax(x.float(), -1).max(-1)),
+            "bound_ms": b, "bound_by": by})
+    return cases
+
+
+# the megakernel's logits sum d products in another order than cuBLAS:
+# f32 agrees to ~1e-6 relative; bf16 logits are rounded to bf16 on both
+# sides, so a logit can land one bf16 ulp apart and the confidence moves
+# by up to ~1 %.  The argmax may then flip only on a row whose plain top
+# two logits lie within the tie window (2 bf16 ulps; 1e-4 relative in
+# f32): such rows are exempt from the prediction check and reported.
+MEGA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TIE_WINDOW = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+
+
+def phase_megakernel(dev, gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.exit_update import exit_update
+    from repro_torch.kernels.megakernel import exit_head_update
+    d, V, n_m = D_MODEL, VOCAB, 3
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        head = (0.02 * torch.randn(d, V, generator=gen, device=dev)).to(dt)
+        for B in (4, 8):
+            h = torch.randn(B, d, generator=gen, device=dev).to(dt)
+            hc = head.clone()
+            # row 1 is confident: column 77 points along its normalised row
+            hc[:, 77] = (ref.ref_rmsnorm(h[1:2], w)[0].float() * 0.05).to(dt)
+            carry = _carries(B, n_m, dev)
+            live = torch.arange(B, device=dev) % 4 != 2
+            lg = (ref.ref_rmsnorm(h, w) @ hc).float()
+            top2 = torch.topk(lg, 2, dim=-1).values
+            ties = (top2[:, 0] - top2[:, 1]) <= TIE_WINDOW[name] * \
+                top2[:, 0].abs()
+            errs = []
+            for m, pk, decay in ((0, 0, 0.0), (1, 2, 0.0), (2, 0, 0.8)):
+                kw = dict(threshold=0.5, m=m, n_components=n_m,
+                          patience_k=pk, ema_decay=decay, live=live)
+                got = exit_head_update(h, w, hc, *carry, **kw)
+                want = ref.ref_exit_head_update(h, w, hc, *carry, **kw)
+                torch.cuda.synchronize()
+                tag = f"megakernel B={B} {name} m={m} k={pk} d={decay}"
+                for idx in (0, 2, 4):
+                    check_equal(tag, got[idx], want[idx])
+                check_equal(tag + " pred", got[1][~ties], want[1][~ties])
+                for idx in (3, 5):
+                    check_close(tag, got[idx], want[idx], 0.0,
+                                MEGA_TOL[name])
+                    errs.append(max_err(got[idx], want[idx]))
+                for o, c in zip(got, carry):       # dead rows pass through
+                    check_equal(tag + " dead rows", o[~live],
+                                c[~live].to(o.dtype))
+            if int(got[1][1]) != 77:
+                fail(f"megakernel: confident row must answer 77, got "
+                     f"{int(got[1][1])}")
+            dead = exit_head_update(h, w, hc, *carry, threshold=0.0, m=0,
+                                    n_components=n_m,
+                                    live=torch.zeros_like(live))
+            for o, c in zip(dead, carry):
+                check_equal(f"megakernel B={B} {name} all dead", o,
+                            c.to(o.dtype))
+            kw = dict(threshold=0.5, m=0, n_components=n_m, live=live)
+            es = h.element_size()
+            nbytes = hc.numel() * es + h.numel() * es + d * 4 + B * 4 * 14
+            b, by = bound_ms(nbytes, 2 * B * d * V, name)
+
+            def library():
+                x = F.rms_norm(h, (d,), w.to(dt), 1e-5)
+                return exit_update(x @ hc, *carry, threshold=0.5, m=0,
+                                   n_components=n_m)
+
+            cases.append({
+                "shape": [B, d, V], "dtype": name, "live": live.tolist(),
+                "tie_rows": int(ties.sum()),
+                "max_abs_err": max(errs),
+                "ms": time_ms(lambda: exit_head_update(h, w, hc, *carry,
+                                                       **kw)),
+                "plain_ms": time_ms(lambda: ref.ref_exit_head_update(
+                    h, w, hc, *carry, **kw)),
+                "library_ms": time_ms(library),
+                "cublas_only_ms": time_ms(
+                    lambda: F.rms_norm(h, (d,), w.to(dt), 1e-5) @ hc),
+                "bound_ms": b, "bound_by": by})
+            del hc
+        del head
+    # a vocab that is not a multiple of 8 columns takes the kernel's
+    # element-wise head loads instead of its 16-byte ones
+    h = torch.randn(4, d, generator=gen, device=dev).bfloat16()
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    head = (0.02 * torch.randn(d, V, generator=gen, device=dev)).bfloat16()
+    hu = head[:, :V - 3]
+    carry = _carries(4, n_m, dev)
+    kw = dict(threshold=0.5, m=n_m - 1, n_components=n_m)
+    got = exit_head_update(h, w, hu, *carry, **kw)
+    want = ref.ref_exit_head_update(h, w, hu, *carry, **kw)
+    lg = (ref.ref_rmsnorm(h, w) @ hu).float()
+    top2 = torch.topk(lg, 2, dim=-1).values
+    ties = (top2[:, 0] - top2[:, 1]) <= TIE_WINDOW["bfloat16"] * \
+        top2[:, 0].abs()
+    for idx in (0, 2, 4):
+        check_equal("megakernel unaligned vocab", got[idx], want[idx])
+    check_equal("megakernel unaligned vocab pred", got[1][~ties],
+                want[1][~ties])
+    check_close("megakernel unaligned vocab", got[3], want[3], 0.0,
+                MEGA_TOL["bfloat16"])
+    del head, hu
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_cohort_scatter(dev, gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cohort_cache import cohort_scatter_tree
+    shape, C, c = SEG_CACHE, 2, 1
+    Bc = shape[1] // C
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        dst = [torch.randn(shape, generator=gen, device=dev).to(dt)
+               for _ in range(2)]
+        src = [torch.randn((shape[0], Bc) + shape[2:], generator=gen,
+                           device=dev).to(dt) for _ in range(2)]
+        want = [x.clone() for x in dst]
+        for wd, sd in zip(want, src):
+            ref.ref_cohort_scatter(wd, sd, c, C)
+        cohort_scatter_tree(dst, src, c, C)
+        torch.cuda.synchronize()
+        for a, b in zip(dst, want):
+            check_equal(f"cohort_scatter {name}", a, b)
+
+        def copy_loop():
+            for wd, sd in zip(want, src):
+                wd[:, c * Bc:(c + 1) * Bc].copy_(sd)
+
+        nbytes = 2 * sum(x.numel() * x.element_size() for x in src)
+        b, by = bound_ms(nbytes, 0, name)
+        cases.append({
+            "shape": list(shape), "leaves": 2, "cohort": [c, C],
+            "dtype": name, "max_abs_err": max(max_err(a, b)
+                                              for a, b in zip(dst, want)),
+            "ms": time_ms(lambda: cohort_scatter_tree(dst, src, c, C)),
+            "plain_ms": time_ms(lambda: [ref.ref_cohort_scatter(wd, sd, c, C)
+                                         for wd, sd in zip(want, src)]),
+            "library_ms": time_ms(copy_loop),
+            "bound_ms": b, "bound_by": by})
+    # odd-sized bool leaves take the byte-wise copy
+    dst = torch.rand((3, 4, 5), generator=gen, device=dev) > 0.5
+    src = torch.rand((3, 2, 5), generator=gen, device=dev) > 0.5
+    want = dst.clone()
+    want[:, 0:2] = src
+    cohort_scatter_tree([dst], [src], 0, 2)
+    check_equal("cohort_scatter bool leaf", dst, want)
+    return cases
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the serving path
+# phases 3 to 6: the serving path
 # ---------------------------------------------------------------------------
 
 def make_requests(n: int, lens, vocab: int, max_new: int, seed: int):
@@ -338,6 +557,17 @@ def make_requests(n: int, lens, vocab: int, max_new: int, seed: int):
     return [Request(rid=i, prompt=rng.integers(
         0, vocab, size=lens[i % len(lens)]).astype(np.int32),
         max_new_tokens=max_new) for i in range(n)]
+
+
+SLICE1 = {"rmsnorm", "exit_update", "decode_attention", "flash_attention"}
+
+
+def check_launched(tag, launches, expected):
+    """Exactly the ``expected`` kernels launched in this path's run."""
+    ran = {k for k, n in launches.items() if n}
+    if ran != set(expected):
+        fail(f"{tag}: launched {sorted(ran)}, expected {sorted(expected)} "
+             f"({launches})")
 
 
 def serve(cfg, model, params, reqs, **engine_kw):
@@ -391,9 +621,7 @@ def phase_full_width():
         if ths[0] == 0 and st["segments_run"][1:] != [0, 0]:
             fail(f"full width {ths}: segments 1-2 ran "
                  f"{st['segments_run']} at threshold 0")
-        missing = [k for k, n in launches.items() if n == 0]
-        if missing:
-            fail(f"full width {ths}: kernels never launched: {missing}")
+        check_launched(f"full width {ths}", launches, SLICE1)
         n_tok = sum(len(r["tokens"]) for r in fin.values())
         rec = {"phase": "full_width", "config": "qwen2.5-3b",
                "n_layers": base.n_layers, "dtype": base.dtype,
@@ -418,6 +646,159 @@ def phase_full_width():
     return runs[(0.9, 0.9, 0.0)]["launches"]
 
 
+def _streams(fin):
+    return {rid: (r["tokens"], r["exit_depths"]) for rid, r in fin.items()}
+
+
+def median_threshold(fin):
+    """Midpoint of the two decode confidences that straddle the median of
+    a run where every token answers at component 0: a component-0
+    threshold at which cohorts disagree."""
+    import numpy as np
+    c = np.sort([x for r in fin.values() for x in r["confs"][1:]])
+    return float((c[len(c) // 2 - 1] + c[len(c) // 2]) / 2)
+
+
+def phase_full_width_cohorts():
+    """Slice 2's path: 2 cohorts, major layout, megakernel + cohort
+    scatter, cond_batch, at three threshold vectors; megakernel on and off
+    in turns (on, off, off, on) for the end-to-end comparison.  Returns
+    (launches of the mixed run, model, params, records)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", n_cohorts=2, cohort_layout="major")
+    model = build_model(base, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+    kw = dict(lane_batch=4, n_lanes=2, cache_len=512)
+    records, mixed_launches, calib = [], None, None
+    for vi in range(3):
+        # the third vector's component-0 threshold: the median of the
+        # (0, 0, 0) run's confidences (all answered at component 0)
+        ths = ((0.0, 0.0, 0.0), (0.9, 0.9, 0.0), (calib, 0.9, 0.0))[vi]
+        runs = {True: [], False: []}
+        for mk in (True, False, False, True):
+            cfg = base.with_cascade(thresholds=ths).with_kernel_tune(
+                megakernel=mk, cohort_scatter=mk)
+            fin, st, secs, launches = serve(cfg, model, params, reqs, **kw)
+            tag = f"cohorts {ths} megakernel={mk}"
+            if sorted(fin) != list(range(8)) or any(
+                    len(r["tokens"]) != 16 for r in fin.values()):
+                fail(f"{tag}: not every request got its 16 tokens")
+            check_launched(tag, launches,
+                           SLICE1 | ({"megakernel"} if mk else set()))
+            if mk and launches["exit_update"] != 3 * st["prefills"]:
+                fail(f"{tag}: exit_update launched {launches['exit_update']}"
+                     f" times for {st['prefills']} prefills: a decode exit "
+                     f"head left the megakernel")
+            depths = {d for r in fin.values() for d in r["exit_depths"][1:]}
+            disp = st["cohort_dispatch"]
+            if vi == 0 and (depths != {0} or st["segments_run"][1:] != [0, 0]
+                            or disp["mixed"] or disp["all_run"]):
+                fail(f"{tag}: expected every cohort to skip: {depths} "
+                     f"{st['segments_run']} {disp}")
+            if vi == 1 and (depths != {2} or disp["mixed"]
+                            or disp["all_skip"]):
+                fail(f"{tag}: expected full depth: {depths} {disp}")
+            if vi == 2 and mk and (not {0, 2} <= depths
+                                   or disp["mixed"] == 0):
+                fail(f"{tag}: expected cohorts to disagree: {depths} {disp}")
+            runs[mk].append({
+                "us_per_token": st["wallclock_us_per_token"],
+                "tokens_per_s": sum(len(r["tokens"]) for r in fin.values())
+                / secs,
+                "host_syncs_per_token": st["host_syncs_per_token"],
+                "seconds": secs, "prefill_seconds": st["prefill_seconds"],
+                "segments_run": st["segments_run"],
+                "exit_histogram": st["exit_histogram"],
+                "cohort_dispatch": disp, "launches": launches,
+                "streams": _streams(fin)})
+            if vi == 0 and calib is None:
+                calib = median_threshold(fin)
+            if vi == 2 and mk:
+                mixed_launches = launches
+        on, off = runs[True], runs[False]
+        rec = {"phase": "full_width_cohorts", "config": "qwen2.5-3b",
+               "n_layers": base.n_layers, "dtype": base.dtype,
+               "n_cohorts": 2, "cohort_layout": "major",
+               "exit_mode": "cond_batch", "thresholds": list(ths),
+               "order": "on, off, off, on",
+               "megakernel_on": [{k: v for k, v in r.items()
+                                  if k != "streams"} for r in on],
+               "megakernel_off": [{k: v for k, v in r.items()
+                                   if k != "streams"} for r in off],
+               "streams_on_equal_off": on[0]["streams"] == off[0]["streams"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        records.append(rec)
+        emit(rec)
+    return mixed_launches, model, params, records
+
+
+def phase_algorithm1(model, params):
+    """Algorithm 1 on the full-width model: component m runs segment m on
+    the prompt's hidden state and returns the exit logits at the last
+    position.  The confidence kernel (use_kernels) against the plain
+    measure on the same logits."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.cascade import cascade_infer_sequential
+    from repro_torch.core.policy import ExitDecider
+    S = 128
+    x = torch.as_tensor(np.random.default_rng(2).integers(
+        0, model.cfg.vocab_size, (4, S)), device=DEV)
+    ctx = {"mode": "full",
+           "positions": torch.arange(S, dtype=torch.int32, device=DEV)}
+    logits = []
+
+    def component(m):
+        def fn(tokens, h):
+            if len(logits) <= m:     # the model runs once per component
+                if h is None:
+                    h = model._embed(params, tokens)
+                h, _, _ = model.run_segment(m, params, h, ctx, None)
+                logits.append((model.exit_logits(params, m, h[:, -1:, :])
+                               [:, 0, :], h))
+            return logits[m]
+        return fn
+
+    fns = [component(m) for m in range(model.n_exits)]
+    # the model's own kernels run here, outside the counted runs below
+    h = None
+    for fn in fns:
+        _, h = fn(x, h)
+    out = []
+    for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
+        res = {}
+        for use_kernels in (False, True):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            pred, conf = cascade_infer_sequential(
+                fns, ths, x, ExitDecider("softmax_max",
+                                         use_kernels=use_kernels))
+            torch.cuda.synchronize()
+            res[use_kernels] = (pred, conf, kernels.launch_counts())
+        launches = res[True][2]
+        check_launched(f"algorithm 1 {ths}", launches, {"confidence"})
+        if launches["confidence"] != model.n_exits:
+            fail(f"algorithm 1 {ths}: {launches['confidence']} confidence "
+                 f"launches, expected {model.n_exits}")
+        check_launched(f"algorithm 1 {ths} plain", res[False][2], set())
+        check_equal(f"algorithm 1 {ths} predictions", res[True][0],
+                    res[False][0])
+        check_close(f"algorithm 1 {ths} confidences", res[True][1],
+                    res[False][1], 0.0, 1e-5)
+        out.append({"thresholds": list(ths),
+                    "predictions": res[True][0].tolist(),
+                    "max_abs_err": max_err(res[True][1], res[False][1]),
+                    "launches": launches})
+    emit({"phase": "algorithm1", "config": "qwen2.5-3b", "prompts": [4, S],
+          "runs": out})
+    return out[0]["launches"]
+
+
 def phase_route_parity():
     import torch
     from repro_torch.configs import get_config
@@ -427,19 +808,21 @@ def phase_route_parity():
     model = build_model(base, device=DEV)
     params = model.init(torch.Generator(device=DEV).manual_seed(1))
     reqs = make_requests(8, (128, 256), base.vocab_size, 8, seed=1)
+    kw = dict(lane_batch=4, n_lanes=2, cache_len=512)
+
+    def run(cfg):
+        fin, st, _, launches = serve(cfg, build_model(cfg, device=DEV),
+                                     params, reqs, **kw)
+        return _streams(fin), st, launches
+
     for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
         streams = {}
         for use_kernels in (True, False):
             cfg = base.replace(use_kernels=use_kernels).with_cascade(
                 thresholds=ths)
-            fin, st, _, launches = serve(cfg, build_model(cfg, device=DEV),
-                                         params, reqs, lane_batch=4,
-                                         n_lanes=2, cache_len=512)
-            streams[use_kernels] = {rid: (r["tokens"], r["exit_depths"])
-                                    for rid, r in fin.items()}
-            if use_kernels and min(launches.values()) == 0:
-                fail(f"route parity {ths}: a kernel never launched "
-                     f"{launches}")
+            streams[use_kernels], _, launches = run(cfg)
+            check_launched(f"route parity {ths} kernels={use_kernels}",
+                           launches, SLICE1 if use_kernels else set())
         if streams[True] != streams[False]:
             bad = [rid for rid in streams[True]
                    if streams[True][rid] != streams[False].get(rid)]
@@ -448,8 +831,53 @@ def phase_route_parity():
         emit({"phase": "route_parity", "n_layers": 4, "dtype": "float32",
               "thresholds": list(ths), "requests": len(streams[True]),
               "identical": True})
+
+    # slice 2: cohorts, megakernel, layouts, select + cohort scatter
+    on = base.replace(use_kernels=True).with_cascade(
+        n_cohorts=2, cohort_layout="major").with_kernel_tune(
+        megakernel=True, cohort_scatter=True)
+    zero = on.with_cascade(thresholds=(0.0, 0.0, 0.0))
+    calib = serve(zero, build_model(zero, device=DEV), params, reqs,
+                  **kw)[0]
+    th = median_threshold(calib)
+    scatter_launches = None
+    for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0), (th, 0.9, 0.0)):
+        ref_cfg = on.with_cascade(thresholds=ths)
+        want, st, launches = run(ref_cfg)
+        check_launched(f"cohort parity {ths}", launches,
+                       SLICE1 | {"megakernel"})
+        variants = {
+            "megakernel_off": ref_cfg.with_kernel_tune(
+                megakernel=False, cohort_scatter=False),
+            "one_cohort": ref_cfg.with_cascade(n_cohorts=1),
+            "copy_layout": ref_cfg.with_cascade(cohort_layout="copy"),
+            "select_scatter": ref_cfg.with_cascade(exit_mode="select"),
+        }
+        rec = {"phase": "route_parity_cohorts", "n_layers": 4,
+               "dtype": "float32", "thresholds": list(ths),
+               "dispatch": st["cohort_dispatch"], "identical": {}}
+        for name, cfg in variants.items():
+            got, vst, vl = run(cfg)
+            expect = SLICE1 | ({"megakernel"} if cfg.kernel_tune.megakernel
+                               else set())
+            if name == "select_scatter":
+                expect = expect | {"cohort_scatter"}
+                if vst["cohort_dispatch"]["mixed"] == 0:
+                    fail(f"cohort parity {ths}: select mode never took the "
+                         f"mixed (per-cohort) path")
+                scatter_launches = vl
+            check_launched(f"cohort parity {ths} {name}", vl, expect)
+            if got != want:
+                bad = [rid for rid in want if got.get(rid) != want[rid]]
+                fail(f"cohort parity {ths}: {name} differs on requests {bad}")
+            rec["identical"][name] = True
+        if ths[0] == th and st["cohort_dispatch"]["mixed"] == 0:
+            fail(f"cohort parity {ths}: cond_batch never took the mixed "
+                 f"branch")
+        emit(rec)
     del params
     torch.cuda.empty_cache()
+    return scatter_launches
 
 
 def main() -> int:
@@ -485,27 +913,51 @@ def main() -> int:
     checks = {"rmsnorm": phase_rmsnorm(dev, gen),
               "flash_attention": phase_flash(dev, gen),
               "decode_attention": phase_decode(dev, gen),
-              "exit_update": phase_exit_update(dev, gen)}
+              "exit_update": phase_exit_update(dev, gen),
+              "confidence": phase_confidence(dev, gen),
+              "megakernel": phase_megakernel(dev, gen),
+              "cohort_scatter": phase_cohort_scatter(dev, gen)}
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
 
-    launches = phase_full_width()
-    phase_route_parity()
+    # each kernel's launches come from the path that runs it: slice 1's
+    # one-cohort run, slice 2's cohort run at the mixed threshold vector,
+    # Algorithm 1, and the select-mode cohort run of the parity phase
+    slice1 = phase_full_width()
+    cohorts, model, params, _ = phase_full_width_cohorts()
+    algorithm1 = phase_algorithm1(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    select = phase_route_parity()
+    paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
+             "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
+             "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
+                                  slice1),
+             "flash_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
+                                 slice1),
+             "megakernel": ("slice 2 full width, mixed thresholds", cohorts),
+             "confidence": ("algorithm 1, full width", algorithm1),
+             "cohort_scatter": ("route parity, select mode, 2 cohorts",
+                                select)}
 
     # the headline case of each kernel: the serving path's bf16 shape
     headline = {
-        "rmsnorm": lambda c: c["shape"] == [4, 2048],
+        "rmsnorm": lambda c: c["shape"] == [4, D_MODEL],
         "flash_attention": lambda c: c["shape"][3] == 256 and not c["window"],
         "decode_attention": lambda c: c["live"] == [1, 1, 1, 1],
         "exit_update": lambda c: True,
+        "confidence": lambda c: True,
+        "megakernel": lambda c: c["shape"][0] == 4,
+        "cohort_scatter": lambda c: True,
     }
     rows = []
     for name, cases in checks.items():
         c = next(c for c in cases
                  if c["dtype"] == "bfloat16" and headline[name](c))
+        path, launches = paths[name]
         rows.append({"name": name, "route": "cuda",
                      "source": SOURCES[name], "replaces": REPLACES[name],
-                     "launches": launches[name],
+                     "launches": launches[name], "path": path,
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

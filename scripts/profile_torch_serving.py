@@ -11,7 +11,10 @@ wall time (the device's busy share; the rest is the host), and the kernels
 ranked by device time.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
-[--thresholds 0.9,0.9,0.0]``.  Needs one CUDA card.
+[--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel]``.
+``--n-cohorts 2`` serves with cohort-split skipping in the ``major``
+layout; ``--megakernel`` turns on the exit-head megakernel and the cohort
+scatter.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--thresholds", default="0.9,0.9,0.0")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--n-cohorts", type=int, default=1)
+    ap.add_argument("--megakernel", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -54,7 +59,9 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     ths = tuple(float(x) for x in args.thresholds.split(","))
     cfg = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
-        exit_mode="cond_batch", thresholds=ths)
+        exit_mode="cond_batch", thresholds=ths, n_cohorts=args.n_cohorts,
+        cohort_layout="major").with_kernel_tune(
+        megakernel=args.megakernel, cohort_scatter=args.megakernel)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)
@@ -82,6 +89,9 @@ def main() -> int:
     dev_us = sum(_device_time_us(e) for e in events)
     ranked = sorted(events, key=_device_time_us, reverse=True)
     print(json.dumps({"card": smi, "thresholds": list(ths),
+                      "n_cohorts": args.n_cohorts,
+                      "megakernel": args.megakernel,
+                      "cohort_dispatch": st["cohort_dispatch"],
                       "wall_s": wall, "device_kernel_s": dev_us / 1e6,
                       "device_busy_share": dev_us / 1e6 / wall,
                       "decode_us_per_token": st["wallclock_us_per_token"],

@@ -1,13 +1,15 @@
 """Exit-policy layer: confidence measures and exit policies behind
 registries, plus the single exit-decision engine (:class:`ExitDecider`).
 
-The counterpart of the JAX package's ``core/policy.py`` for what the dense
-serving path needs: the ``softmax_max`` measure (Def. 3.3) and
-``patience@k`` over it, the ``threshold`` policy (Algorithm 1), and the
-decider's component scan.  Config strings (``cascade.confidence`` /
-``cascade.policy``) resolve through the registries exactly as there.  The
-entropy and margin measures, the budget policy and the calibrators come in
-a later slice of the port.
+The counterpart of the JAX package's ``core/policy.py`` for what the
+serving path and Algorithm 1 need: the ``softmax_max`` measure (Def. 3.3)
+and ``patience@k`` over it, the ``threshold`` policy (Algorithm 1), the
+decider's component scan (from logits, or from the hidden state through
+the exit-head megakernel), its cohort slicing, and the
+precomputed-confidence exit selection of the evaluation harness.  Config
+strings (``cascade.confidence`` / ``cascade.policy``) resolve through the
+registries exactly as there.  The entropy and margin measures, the budget
+policy and the calibrators come in a later slice of the port.
 """
 from __future__ import annotations
 
@@ -86,6 +88,12 @@ class ConfidenceMeasure:
     def __call__(self, logits: torch.Tensor):
         raise NotImplementedError
 
+    def fused_kernel(self, logits: torch.Tensor):
+        """The fused-kernel path for 2-D (B, V) logits, or None (no
+        kernel).  Consulted only when the caller opted in
+        (``use_kernels``); it computes what ``__call__`` does."""
+        return None
+
     def init_state(self, n_exits: int, batch: int, device=None):
         return None
 
@@ -101,6 +109,12 @@ class SoftmaxMaxMeasure(ConfidenceMeasure):
 
     def __call__(self, logits):
         return softmax_outputs(logits)
+
+    def fused_kernel(self, logits):
+        if logits.dim() != 2:
+            return None
+        from repro_torch.kernels.ops import softmax_confidence_fused
+        return softmax_confidence_fused(logits)
 
 
 @register_measure("patience")
@@ -123,6 +137,9 @@ class PatienceMeasure(ConfidenceMeasure):
     def __call__(self, logits):
         return self.base(logits)
 
+    def fused_kernel(self, logits):
+        return self.base.fused_kernel(logits)
+
     def init_state(self, n_exits: int, batch: int, device=None):
         return torch.zeros((n_exits, batch), dtype=torch.int32,
                            device=device)
@@ -144,6 +161,11 @@ class ExitPolicy:
         del explicit
         return thresholds
 
+    def gates(self, confs: torch.Tensor, thresholds) -> torch.Tensor:
+        """Per-component confidences (n_m, ...) -> exit gates (n_m, ...),
+        the last row all open."""
+        raise NotImplementedError
+
     def component_gate(self, conf: torch.Tensor, thresholds, m: int,
                        n_components: int) -> torch.Tensor:
         raise NotImplementedError(
@@ -159,6 +181,17 @@ class ThresholdPolicy(ExitPolicy):
 
     def __init__(self, arg: str = ""):
         del arg
+
+    def gates(self, confs, thresholds):
+        ths = torch.as_tensor(thresholds, dtype=confs.dtype,
+                              device=confs.device)
+        if ths.shape[0] != confs.shape[0]:
+            raise ValueError(
+                f"{ths.shape[0]} thresholds for {confs.shape[0]} cascade "
+                f"components")
+        open_ = confs >= ths.reshape((-1,) + (1,) * (confs.dim() - 1))
+        open_[-1] = True
+        return open_
 
     def component_gate(self, conf, thresholds, m, n_components):
         if m >= n_components - 1:
@@ -182,6 +215,12 @@ class ExitDecision:
 
 def _where(cond, a, b):
     return None if a is None else torch.where(cond, a, b)
+
+
+def _first_open_gate(gates: torch.Tensor) -> torch.Tensor:
+    """THE exit-selection scan on stacked gates (n_m, ...) whose last row
+    is all open: the index of the first open gate per sample."""
+    return torch.argmax(gates.to(torch.int8), dim=0).to(torch.int32)
 
 
 class ExitDecider:
@@ -261,9 +300,12 @@ class ExitDecider:
 
     # -- logits path ------------------------------------------------------
     def measure_one(self, logits: torch.Tensor):
-        """(prediction, confidence) of ONE component.  (The reference's
-        fused confidence kernel is not ported yet; the plain measure
-        computes the same function.)"""
+        """(prediction, confidence) of ONE component: the measure's fused
+        kernel when ``use_kernels`` and it has one, else the measure."""
+        if self.use_kernels:
+            pair = self.measure.fused_kernel(logits)
+            if pair is not None:
+                return pair
         return self.measure(logits)
 
     # -- the component scan ----------------------------------------------
@@ -354,8 +396,40 @@ class ExitDecider:
                                         batch_uniform=batch_uniform)
             return self.fold_ema(carry, ema_decay) if ema_decay else carry
         from repro_torch.kernels.ops import exit_update_fused
-        B = logits.shape[0]
-        dev = logits.device
+        carry, srow, ema, act = self._fused_carry_in(
+            m, n_components, logits.shape[0], logits.device, carry, state)
+        outs = exit_update_fused(
+            logits, carry["answered"], carry["pred"], carry["exit"],
+            carry["conf"], srow, ema, act, **self._fused_kw(
+                m, n_components, thresholds, carry, ema_decay))
+        return self._fused_carry_out(m, carry, outs)
+
+    def scan_hidden(self, m: int, n_components: int, h: torch.Tensor,
+                    norm_w: torch.Tensor, head: torch.Tensor, thresholds,
+                    carry=None, state=None, ema_decay: float = 0.0,
+                    live=None, eps: float = 1e-5):
+        """:meth:`scan_logits` from the segment's HIDDEN state ``h`` (B, d):
+        the exit-head megakernel route (rmsnorm + head product + streaming
+        confidence + exit-update merge; the (B, V) logits never stored).
+        ``norm_w`` / ``head`` come from
+        :meth:`~repro_torch.models.model.CascadeModel.exit_head_params`.
+        ``live`` is the per-slot exit mask: dead rows pass every carry
+        through unchanged.  Requires :attr:`fused_scan`."""
+        if not self.fused_scan:
+            raise ValueError("scan_hidden requires a fused-scan decider "
+                             "(use exit_logits + scan_logits instead)")
+        from repro_torch.kernels.ops import exit_head_fused
+        carry, srow, ema, act = self._fused_carry_in(
+            m, n_components, h.shape[0], h.device, carry, state)
+        outs = exit_head_fused(
+            h, norm_w, head, carry["answered"], carry["pred"], carry["exit"],
+            carry["conf"], srow, ema, act, live=live, eps=eps,
+            **self._fused_kw(m, n_components, thresholds, carry, ema_decay))
+        return self._fused_carry_out(m, carry, outs)
+
+    def _fused_carry_in(self, m, n_components, B, dev, carry, state):
+        """The fused kernels' view of the scan carry: (carry, streak row m,
+        EMA rider, active rider), zeros / ones where the carry has none."""
         if carry is None:
             carry = self._init_carry(
                 m, n_components, torch.zeros(B, dtype=torch.int32, device=dev),
@@ -363,24 +437,52 @@ class ExitDecider:
         streak = carry["streak"]
         srow = (streak[m] if streak is not None
                 else torch.zeros(B, dtype=torch.int32, device=dev))
-        has_ema = carry.get("ema") is not None
-        ema = (carry["ema"] if has_ema
+        ema = (carry["ema"] if carry.get("ema") is not None
                else torch.zeros(B, dtype=torch.float32, device=dev))
         act = (carry["act"] if carry.get("act") is not None
                else torch.ones(B, dtype=torch.bool, device=dev))
-        ans, pred, exi, conf, srow_n, ema_n = exit_update_fused(
-            logits, carry["answered"], carry["pred"], carry["exit"],
-            carry["conf"], srow, ema, act,
-            threshold=float(thresholds[m]), m=m, n_components=n_components,
-            patience_k=(self.measure.patience_k if self.measure.stateful
-                        else 0),
-            ema_decay=(float(ema_decay) if has_ema else 0.0))
+        return carry, srow, ema, act
+
+    def _fused_kw(self, m, n_components, thresholds, carry, ema_decay):
+        return dict(threshold=float(thresholds[m]), m=m,
+                    n_components=n_components,
+                    patience_k=(self.measure.patience_k
+                                if self.measure.stateful else 0),
+                    ema_decay=(float(ema_decay)
+                               if carry.get("ema") is not None else 0.0))
+
+    @staticmethod
+    def _fused_carry_out(m, carry, outs):
+        ans, pred, exi, conf, srow_n, ema_n = outs[:6]
+        streak = carry["streak"]
         if streak is not None:
             streak = streak.clone()
             streak[m] = srow_n
         return {"answered": ans, "pred": pred, "exit": exi, "conf": conf,
-                "streak": streak, "ema": ema_n if has_ema else None,
+                "streak": streak,
+                "ema": ema_n if carry.get("ema") is not None else None,
                 "act": carry.get("act")}
+
+    # carry keys laid out (n_components, batch): slice/concat axis 1
+    _COMPONENT_MAJOR_KEYS = frozenset(("streak",))
+
+    def slice_carry(self, carry, lo: int, hi: int):
+        """Batch-slice a decision-scan carry (cohort-split execution):
+        per-sample leaves are batch-leading; the stateful-measure
+        ``streak`` is (n_exits, batch) and slices axis 1.  Views, no
+        copies."""
+        return {k: (v if v is None
+                    else (v[:, lo:hi] if k in self._COMPONENT_MAJOR_KEYS
+                          else v[lo:hi]))
+                for k, v in carry.items()}
+
+    def concat_carry(self, parts):
+        """Inverse of :meth:`slice_carry`: rejoin per-cohort carries."""
+        return {k: (None if parts[0][k] is None
+                    else torch.cat([p[k] for p in parts],
+                                   dim=1 if k in self._COMPONENT_MAJOR_KEYS
+                                   else 0))
+                for k in parts[0]}
 
     def should_skip(self, carry, active=None) -> torch.Tensor:
         """0-dim bool: every live sample has already exited — the staged
@@ -425,3 +527,21 @@ class ExitDecider:
         return self.decide_with_carry(logits_list, thresholds, state=state,
                                       batch_uniform=batch_uniform,
                                       active=active)[0]
+
+    # -- precomputed-confidence path (evaluation sweep) ------------------
+    def exit_indices(self, confidences, thresholds=None) -> np.ndarray:
+        """Exit component per sample from precomputed confidences (n_m, N).
+        The comparison is in float32, the precision the reference's
+        ``jnp.asarray`` gives them.  Stateful measures (patience) depend on
+        decode order and have no precomputed-confidence equivalent."""
+        if self.measure.stateful:
+            raise NotImplementedError(
+                f"measure {self.measure.name!r} is stateful; exit_indices "
+                "cannot reproduce its decode-time gating — drive decide() "
+                "instead")
+        confs = torch.as_tensor(np.stack([np.asarray(c, np.float32)
+                                          for c in confidences]))
+        ths = self.policy.resolve_thresholds(
+            self.thresholds if thresholds is None else tuple(thresholds),
+            explicit=thresholds is not None)
+        return _first_open_gate(self.policy.gates(confs, ths)).numpy()

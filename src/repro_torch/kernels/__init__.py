@@ -2,20 +2,27 @@
 launch counters."""
 from __future__ import annotations
 
-from repro_torch.kernels import (decode_attention, exit_update,
-                                 flash_attention, rmsnorm)
+from repro_torch.kernels import (cohort_cache, confidence, decode_attention,
+                                 exit_update, flash_attention, megakernel,
+                                 rmsnorm)
 
-_MODULES = {"rmsnorm": rmsnorm, "exit_update": exit_update,
-            "decode_attention": decode_attention,
-            "flash_attention": flash_attention}
+# kernel name -> (module, its wrapper), in the order of the csrc sources
+_KERNELS = {
+    "rmsnorm": (rmsnorm, rmsnorm.rmsnorm),
+    "exit_update": (exit_update, exit_update.exit_update),
+    "decode_attention": (decode_attention, decode_attention.decode_attention),
+    "flash_attention": (flash_attention, flash_attention.flash_attention),
+    "confidence": (confidence, confidence.confidence),
+    "megakernel": (megakernel, megakernel.exit_head_update),
+    "cohort_scatter": (cohort_cache, cohort_cache.cohort_scatter_tree),
+}
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {name: getattr(mod, name).launches
-            for name, mod in _MODULES.items()}
+    return {name: fn.launches for name, (_, fn) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
+    for mod, _ in _KERNELS.values():
         mod.reset_launches()

@@ -9,6 +9,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <initializer_list>
@@ -50,6 +51,27 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Sum v over a block of kThreads threads: a warp shuffle tree, then warp 0
+// over the warps' sums.  Every thread gets the total.  `part` is
+// kThreads / 32 floats of shared memory, free for reuse on return.  Every
+// thread of the block must call it.
+template <int kThreads>
+__device__ __forceinline__ float block_sum(float v, float* part) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float s = lane < kThreads / 32 ? part[lane] : 0.f;
+    s = warp_sum(s);
+    if (lane == 0) part[0] = s;
+  }
+  __syncthreads();
+  const float total = part[0];
+  __syncthreads();
+  return total;
 }
 
 // Whether rows of element type T at `p` with the given element strides can
@@ -98,6 +120,167 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int pitch,
   for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
     const int r = idx / cols, c = idx % cols;
     dst[r * pitch + c] = r < valid_rows ? to_f32(src[r * stride + c]) : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Streaming softmax-max reduction: a running (max m, sum l of exp(x - m),
+// first index a of the max) triple.  Ties go to the lower index, so merging
+// triples is order-free for the argmax; the sum's rounding follows the
+// fixed merge order each kernel documents.
+// ---------------------------------------------------------------------------
+
+// push value x at index j (visited in ascending j): strict > keeps the
+// earlier index of an equal later value
+__device__ __forceinline__ void triple_push(float& m, float& l, int& a,
+                                            float x, int j) {
+  if (x > m) {
+    l = l * expf(m - x) + 1.f;
+    m = x;
+    a = j;
+  } else {
+    l += expf(x - m);
+  }
+}
+
+// fold (m2, l2, a2) into (m, l, a): max, rescaled sum, first index of max
+__device__ __forceinline__ void triple_combine(float& m, float& l, int& a,
+                                               float m2, float l2, int a2) {
+  const float M = fmaxf(m, m2);
+  l = l * expf(m - M) + l2 * expf(m2 - M);
+  if (m2 > m || (m2 == m && a2 < a)) a = a2;
+  m = M;
+}
+
+// Reduce the triples of a warp (shuffle tree); every lane ends with the
+// warp's triple.
+__device__ __forceinline__ void warp_reduce_triple(float& m, float& l,
+                                                   int& a) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
+    const int a2 = __shfl_xor_sync(0xffffffffu, a, o);
+    triple_combine(m, l, a, m2, l2, a2);
+  }
+}
+
+// Reduce every thread's triple of a block of kThreads threads: a warp
+// shuffle tree, then thread 0 folds the warps in order.  The result is
+// valid in thread 0 only.  Every thread of the block must call it.
+template <int kThreads>
+__device__ __forceinline__ void block_reduce_triple(float& m, float& l,
+                                                    int& a) {
+  __shared__ float sm_m[kThreads / 32];
+  __shared__ float sm_l[kThreads / 32];
+  __shared__ int sm_a[kThreads / 32];
+  warp_reduce_triple(m, l, a);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    sm_m[warp] = m;
+    sm_l[warp] = l;
+    sm_a[warp] = a;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < kThreads / 32; ++w)
+      triple_combine(m, l, a, sm_m[w], sm_l[w], sm_a[w]);
+}
+
+// The combine step of a vocab split: merge one row's n per-tile partial
+// triples (pm/pl/pa, tile t at index t) into thread 0's (m, l, a).  Thread
+// i merges tiles i, i + kThreads, ... in ascending order, then the block
+// tree above: a fixed order, so a run repeats its bits.
+template <int kThreads>
+__device__ __forceinline__ void merge_partials(const float* __restrict__ pm,
+                                               const float* __restrict__ pl,
+                                               const int* __restrict__ pa,
+                                               int n, float& m, float& l,
+                                               int& a) {
+  m = NEG_BIG;
+  l = 0.f;
+  a = INT_MAX;
+  for (int t = threadIdx.x; t < n; t += kThreads)
+    triple_combine(m, l, a, pm[t], pl[t], pa[t]);
+  block_reduce_triple<kThreads>(m, l, a);
+}
+
+// ---------------------------------------------------------------------------
+// The exit-update carry merge: one component step of the decision scan for
+// row b, given its confidence and prediction.  Shared by the fused
+// exit-update kernel and the exit-head megakernel.  Semantics (pinned by
+// the JAX package's kernels/exit_update.py and kernels/megakernel.py):
+//  * the final component's gate is open BEFORE the patience rewrite;
+//  * patience: streak' = gate ? streak + 1 : 0, gate = streak' >= k;
+//  * merge: fresh = gate & !answered picks pred / exit / conf;
+//  * EMA: ema' = d * ema + (1 - d) * conf' on active rows (no FMA, so the
+//    fold rounds like the plain version);
+//  * telemetry: pred * bins + clip(int(conf * bins), 0, bins - 1);
+//  * a dead row (live false) passes every carry through unchanged and gets
+//    telemetry code 0 (the megakernel's contract).
+// ---------------------------------------------------------------------------
+struct ExitCarry {
+  const uint8_t* ans_in;
+  const int* pred_in;
+  const int* exit_in;
+  const float* conf_in;
+  const int* streak_in;
+  const float* ema_in;
+  const uint8_t* act_in;
+  uint8_t* ans_out;
+  int* pred_out;
+  int* exit_out;
+  float* conf_out;
+  int* streak_out;
+  float* ema_out;
+  int* tcode_out;  // nullptr unless tel_bins > 0
+  float threshold;
+  int m_idx;
+  int n_components;
+  int patience_k;
+  float ema_decay;
+  float ema_keep;  // 1 - ema_decay, computed on the host as the plain
+                   // version computes it
+  int tel_bins;
+};
+
+__device__ __forceinline__ void exit_carry_merge(const ExitCarry& c, int b,
+                                                 float conf, int pred,
+                                                 bool live) {
+  if (!live) {
+    c.ans_out[b] = c.ans_in[b];
+    c.pred_out[b] = c.pred_in[b];
+    c.exit_out[b] = c.exit_in[b];
+    c.conf_out[b] = c.conf_in[b];
+    c.streak_out[b] = c.streak_in[b];
+    c.ema_out[b] = c.ema_in[b];
+    if (c.tel_bins > 0) c.tcode_out[b] = 0;
+    return;
+  }
+  const bool last = c.m_idx >= c.n_components - 1;
+  bool gate = last ? true : (conf >= c.threshold);
+  int srow = c.streak_in[b];
+  if (c.patience_k > 0) {
+    srow = gate ? srow + 1 : 0;
+    gate = srow >= c.patience_k;
+    if (last) gate = true;
+  }
+  c.streak_out[b] = srow;
+  const bool answered = c.ans_in[b] != 0;
+  const bool fresh = gate && !answered;
+  c.ans_out[b] = (answered || gate) ? 1 : 0;
+  c.pred_out[b] = fresh ? pred : c.pred_in[b];
+  c.exit_out[b] = fresh ? c.m_idx : c.exit_in[b];
+  const float cf = fresh ? conf : c.conf_in[b];
+  c.conf_out[b] = cf;
+  float e = c.ema_in[b];
+  if (c.ema_decay > 0.f && c.act_in[b] != 0)
+    e = __fadd_rn(__fmul_rn(c.ema_decay, e), __fmul_rn(c.ema_keep, cf));
+  c.ema_out[b] = e;
+  if (c.tel_bins > 0) {
+    int bin = (int)__fmul_rn(conf, (float)c.tel_bins);
+    bin = bin < 0 ? 0 : (bin > c.tel_bins - 1 ? c.tel_bins - 1 : bin);
+    c.tcode_out[b] = pred * c.tel_bins + bin;
   }
 }
 

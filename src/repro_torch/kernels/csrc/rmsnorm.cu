@@ -32,17 +32,7 @@ __global__ void __launch_bounds__(kThreads)
     const float v = to_f32(xr[i]);
     ss += v * v;
   }
-  ss = warp_sum(ss);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float v = lane < kThreads / 32 ? partial[lane] : 0.f;
-    v = warp_sum(v);
-    if (lane == 0) partial[0] = v;
-  }
-  __syncthreads();
-  const float r = rsqrtf(partial[0] / (float)d + eps);
+  const float r = rsqrtf(block_sum<kThreads>(ss, partial) / (float)d + eps);
   for (int i = threadIdx.x; i < d; i += kThreads)
     orow[i] = from_f32<T>((to_f32(xr[i]) * r) * to_f32(w[i]));
 }

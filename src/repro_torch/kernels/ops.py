@@ -1,18 +1,30 @@
 """Public wrappers adapting the model's layouts to the kernels.
 
 The counterparts of the JAX package's ``kernels/ops.py`` adapters
-(``rmsnorm_fused``, ``flash_attention_bshd``, ``decode_attention_cache``,
-``exit_update_fused``).  Each kernel takes its tile sizes as constants in
+(``softmax_confidence_fused``, ``rmsnorm_fused``, ``flash_attention_bshd``,
+``decode_attention_cache``, ``exit_update_fused``, ``exit_head_fused``,
+``cohort_scatter_tree``).  Each kernel takes its tile sizes as constants in
 its own module; there is no tile registry yet.  The kernels read the
 model's (B, S, H, hd) and (B, W, KV, hd) layouts through strides, so these
 adapters only reshape and take views — no transposed copies.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.cohort_cache import (  # noqa: F401 (re-export)
+    cohort_scatter, cohort_scatter_tree)
+from repro_torch.kernels.confidence import confidence
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.exit_update import exit_update
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.megakernel import exit_head_update
 from repro_torch.kernels.rmsnorm import rmsnorm
+
+
+def softmax_confidence_fused(logits):
+    """(..., V) -> (argmax, δ) — Defs 3.2/3.3 via the fused kernel."""
+    shape = logits.shape[:-1]
+    idx, conf = confidence(logits.reshape(-1, logits.shape[-1]))
+    return idx.reshape(shape), conf.reshape(shape)
 
 
 def rmsnorm_fused(x, w, eps: float = 1e-5):
@@ -47,3 +59,18 @@ def exit_update_fused(logits, answered, pred, exit_idx, conf, streak, ema,
                        active, threshold=threshold, m=m,
                        n_components=n_components, patience_k=patience_k,
                        ema_decay=ema_decay, tel_bins=tel_bins)
+
+
+def exit_head_fused(h, norm_w, head, answered, pred, exit_idx, conf, streak,
+                    ema, active, *, threshold, m, n_components, patience_k=0,
+                    ema_decay=0.0, tel_bins=0, live=None, eps=1e-5):
+    """Per-segment exit-head megakernel (see
+    :mod:`repro_torch.kernels.megakernel`): rmsnorm + the head product +
+    the softmax confidence + the exit-update merge, the (B, V) logits never
+    stored.  ``live`` is the per-slot exit mask: dead rows pass every carry
+    through unchanged."""
+    return exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf,
+                            streak, ema, active, threshold=threshold, m=m,
+                            n_components=n_components, patience_k=patience_k,
+                            ema_decay=ema_decay, tel_bins=tel_bins, live=live,
+                            eps=eps)

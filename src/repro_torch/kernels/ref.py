@@ -112,3 +112,39 @@ def ref_exit_update(logits, answered, pred, exit_idx, conf, streak, ema,
         from repro_torch.autotune.telemetry import pack_rider
         outs += (pack_rider(idx, delta, tel_bins),)
     return outs
+
+
+def ref_exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf,
+                         streak, ema, active, *, threshold, m, n_components,
+                         patience_k=0, ema_decay=0.0, tel_bins=0, eps=1e-5,
+                         live=None):
+    """Fused exit-head megakernel oracle: the kernel-route rmsnorm (scale
+    by w in f32, one cast) -> the head product in the model dtype ->
+    :func:`ref_exit_update`, with dead (``live`` False) rows passing every
+    carry through unchanged and getting telemetry code 0 (the megakernel's
+    contract — a retired slot's outputs are never read)."""
+    x = ref_rmsnorm(h, norm_w, eps)
+    logits = (x @ head.to(x.dtype)).float()
+    outs = ref_exit_update(logits, answered, pred, exit_idx, conf, streak,
+                           ema, active, threshold=threshold, m=m,
+                           n_components=n_components, patience_k=patience_k,
+                           ema_decay=ema_decay, tel_bins=tel_bins)
+    if live is None:
+        return outs
+    lv = live.bool()
+    carry_in = (answered.bool(), pred.to(torch.int32),
+                exit_idx.to(torch.int32), conf.float(),
+                streak.to(torch.int32), ema.float())
+    kept = tuple(torch.where(lv, o, i) for o, i in zip(outs, carry_in))
+    if tel_bins:
+        kept += (torch.where(lv, outs[6], torch.zeros_like(outs[6])),)
+    return kept
+
+
+def ref_cohort_scatter(dst, src, c: int, C: int):
+    """Cohort scatter oracle, in place: ``dst[:, c*Bc:(c+1)*Bc] = src``
+    with ``Bc = B // C`` (dst (L, B, ...), src (L, Bc, ...)).  Returns
+    dst."""
+    Bc = dst.shape[1] // C
+    dst[:, c * Bc:(c + 1) * Bc] = src
+    return dst

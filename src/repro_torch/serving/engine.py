@@ -1,19 +1,24 @@
 """Cascade-aware serving engine: prefill + decode with confidence-thresholded
-early exit (Algorithm 1 applied per generated token), KV backfill, and
-depth-compacted lane batching — the dense layout on the host runtime.
+early exit (Algorithm 1 applied per generated token), KV backfill,
+depth-compacted lane batching and cohort-split segment skipping — the dense
+layout on the host runtime.
 
 The counterpart of the JAX package's ``serving/engine.py``.  Each lane
 carries one :class:`~repro_torch.core.exec.DecodeState` through the
 :class:`~repro_torch.core.exec.StagedExecutor`; under ``cascade.exit_mode
-== "cond_batch"`` exited segments skip their compute.  The engine reports
-the paper's analytic MAC speedup (§6.2), the measured decode wall-clock
-per token, the executed skip rate next to the scheduling opportunity, the
-host syncs per token, and which kernels ran (:meth:`stats`).
+== "cond_batch"`` exited segments skip their compute, per cohort with
+``cascade.n_cohorts > 1`` (the depth compactor places similar-depth
+requests in the same cohort).  With ``kernel_tune.megakernel`` every decode
+exit head runs the fused exit-head megakernel.  The engine reports the
+paper's analytic MAC speedup (§6.2), the measured decode wall-clock per
+token, the executed skip rate next to the scheduling opportunity, the host
+syncs per token, the cohort dispatch branches taken, and which kernels ran
+(:meth:`stats`).
 
 One decode step per lane per tick, synced to the host every tick
-(``runtime="host"``).  The device runtime, paged layout, cohorts,
-autotune, escalation, fleet and observability hooks come in later slices
-of the port and are refused here.
+(``runtime="host"``).  The device runtime, paged layout, autotune,
+escalation, fleet and observability hooks come in later slices of the port
+and are refused here.
 """
 from __future__ import annotations
 
@@ -139,6 +144,7 @@ class CascadeServingEngine:
         self._skip_opportunity_total = 0
         self._admit_waits: List[int] = []
         self._host_syncs = 0
+        self._dispatch = dict.fromkeys(self.executor.dispatch, 0)
 
     # -- public API -----------------------------------------------------
     def submit(self, req: Request):
@@ -271,6 +277,7 @@ class CascadeServingEngine:
             active=torch.as_tensor(live, device=self.device))
         run_before = state.segments_run.copy()
         syncs_before = self.executor.host_syncs
+        dispatch_before = dict(self.executor.dispatch)
         t0 = time.perf_counter()
         d, cache, state = self.executor.decode_step(
             self.params, token, lane["cache"], state)
@@ -285,6 +292,8 @@ class CascadeServingEngine:
             self._decode_tokens += n_live
             # the result fetch + the executor's skip-predicate reads
             self._host_syncs += 1 + self.executor.host_syncs - syncs_before
+            for k, n in self.executor.dispatch.items():
+                self._dispatch[k] += n - dispatch_before[k]
         else:
             self._compile_seconds += dt
             self._decode_warm = True
@@ -371,6 +380,10 @@ class CascadeServingEngine:
             "host_syncs_per_token": (syncs / tokens) if tokens else None,
             "runtime": self.runtime,
             "n_cohorts": self.cohorts,
+            "cohort_layout": self.cfg.cascade.cohort_layout,
+            # deep-segment dispatch branches of cohort-split steps (major
+            # layout: all cohorts skip / mixed / all run)
+            "cohort_dispatch": dict(self._dispatch),
             "use_kernels": self.cfg.use_kernels,
             "lane_batch": self.lane_batch,
             "cache_layout": "dense",

@@ -273,3 +273,30 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
         assert torch.equal(got[i], want[i])
     for i in (3, 5):
         torch.testing.assert_close(got[i], want[i], atol=0, rtol=1e-5)
+    from repro_torch.kernels import cohort_cache, confidence, megakernel
+    idx, conf = confidence.confidence(logits)
+    want_i, want_c = ref.ref_confidence(logits)
+    assert torch.equal(idx, want_i)
+    torch.testing.assert_close(conf, want_c, atol=0, rtol=1e-5)
+    # the megakernel at the full head width, at the last component (every
+    # live row answers); a confident row, a dead row
+    h, w = rand(4, 2048), torch.ones(2048, device=cuda_device)
+    head = rand(2048, 151936) * 0.02
+    head[:, 77] = ref.ref_rmsnorm(h[1:2], w)[0] * 0.05
+    live = torch.tensor([True, True, False, True], device=cuda_device)
+    kw.update(live=live, m=2)
+    got = megakernel.exit_head_update(h, w, head, *carry, **kw)
+    want = ref.ref_exit_head_update(h, w, head, *carry, **kw)
+    assert int(got[1][1]) == int(want[1][1]) == 77
+    for i in (0, 2, 4):
+        assert torch.equal(got[i], want[i])
+    torch.testing.assert_close(got[3], want[3], atol=0,
+                               rtol=2e-2 if dtype == torch.bfloat16
+                               else 1e-4)
+    dst = [rand(12, 4, 512, 2, 128), rand(12, 4, 512, 2, 128)]
+    src = [rand(12, 2, 512, 2, 128), rand(12, 2, 512, 2, 128)]
+    want = [d.clone() for d in dst]
+    for wd, sd in zip(want, src):
+        wd[:, 2:4] = sd
+    cohort_cache.cohort_scatter_tree(dst, src, 1, 2)
+    assert all(torch.equal(a, b) for a, b in zip(dst, want))

@@ -17,8 +17,9 @@ from repro.configs import reduced as jax_reduced
 from repro.models.model import build_model as jax_build_model
 from repro_torch import bridge
 from repro_torch.configs import get_config, list_configs, reduced
-from repro_torch.kernels import (decode_attention, exit_update,
-                                 flash_attention, rmsnorm)
+from repro_torch.kernels import (cohort_cache, confidence, decode_attention,
+                                 exit_update, flash_attention, megakernel,
+                                 rmsnorm)
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import CascadeServingEngine
 
@@ -106,7 +107,9 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_no_jax_and_no_reference():
     mods = _port_modules()
-    assert "repro_torch.serving.engine" in mods
+    assert {"repro_torch.serving.engine", "repro_torch.core.cascade",
+            "repro_torch.kernels.megakernel", "repro_torch.kernels.confidence",
+            "repro_torch.kernels.cohort_cache"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -167,28 +170,42 @@ def _meta(*shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("kernel", ["rmsnorm", "exit_update",
-                                    "decode_attention", "flash_attention"])
+                                    "decode_attention", "flash_attention",
+                                    "confidence", "megakernel",
+                                    "cohort_scatter"])
 def test_wrappers_raise_on_non_cpu_tensors(kernel):
     """A tensor on any device but the CPU must reach the kernel (which
     needs CUDA) and raise — never the plain version."""
     before = {"rmsnorm": rmsnorm.rmsnorm.launches}
+    b = _meta(4, dtype=torch.bool)
+    i = _meta(4, dtype=torch.int32)
+    f = _meta(4)
     with pytest.raises(ValueError, match="CUDA"):
         if kernel == "rmsnorm":
             rmsnorm.rmsnorm(_meta(4, 64), _meta(64))
         elif kernel == "exit_update":
-            b = _meta(4, dtype=torch.bool)
-            i = _meta(4, dtype=torch.int32)
-            f = _meta(4)
             exit_update.exit_update(_meta(4, 100), b, i, i, f, i, f, b,
                                     threshold=0.5, m=0, n_components=2)
         elif kernel == "decode_attention":
             decode_attention.decode_attention(
                 _meta(2, 4, 64), _meta(2, 16, 1, 64), _meta(2, 16, 1, 64), 3,
                 _meta(16, dtype=torch.int32))
-        else:
+        elif kernel == "flash_attention":
             flash_attention.flash_attention(
                 _meta(1, 4, 64, 64), _meta(1, 1, 64, 64), _meta(1, 1, 64, 64))
+        elif kernel == "confidence":
+            confidence.confidence(_meta(4, 100))
+        elif kernel == "megakernel":
+            megakernel.exit_head_update(
+                _meta(4, 64), _meta(64), _meta(64, 100), b, i, i, f, i, f, b,
+                threshold=0.5, m=0, n_components=2, live=b)
+        else:
+            cohort_cache.cohort_scatter_tree(
+                [_meta(2, 4, 8)], [_meta(2, 2, 8)], 1, 2)
     assert rmsnorm.rmsnorm.launches == before["rmsnorm"]
+    assert confidence.confidence.launches == 0
+    assert megakernel.exit_head_update.launches == 0
+    assert cohort_cache.cohort_scatter_tree.launches == 0
 
 
 def test_plain_version_taken_for_cpu_tensors_only(monkeypatch):
@@ -212,6 +229,58 @@ def test_plain_version_taken_for_cpu_tensors_only(monkeypatch):
     assert calls == [1]
 
 
+@pytest.mark.parametrize("kernel", ["confidence", "megakernel",
+                                    "cohort_scatter"])
+def test_new_wrappers_take_plain_version_for_cpu_tensors_only(
+        monkeypatch, kernel):
+    """The same rule for the slice-2 wrappers: the plain version serves a
+    CPU tensor, and a tensor that reports a CUDA device goes to the
+    kernel's device check (the first step of a launch), never to the plain
+    version."""
+    from repro_torch.kernels import build
+    calls, reached = [], []
+
+    class _Reached(Exception):
+        pass
+
+    def device_check(what, *tensors):
+        reached.append(what)
+        raise _Reached
+
+    class _Dev:
+        type = "cuda"
+
+    class _T:
+        device = _Dev()
+
+    c = [torch.zeros(2)] * 7
+    if kernel == "confidence":
+        monkeypatch.setattr(confidence, "ref_confidence",
+                            lambda x: calls.append(1) or (x, x))
+        confidence.confidence(torch.ones(2, 8))
+        fake = lambda: confidence.confidence(_T())  # noqa: E731
+    elif kernel == "megakernel":
+        monkeypatch.setattr(megakernel, "ref_exit_head_update",
+                            lambda *a, **k: calls.append(1))
+        megakernel.exit_head_update(torch.ones(2, 8), torch.ones(8),
+                                    torch.ones(8, 16), *c, threshold=0.5,
+                                    m=0, n_components=2)
+        fake = lambda: megakernel.exit_head_update(  # noqa: E731
+            _T(), _T(), _T(), *c, threshold=0.5, m=0, n_components=2)
+    else:
+        monkeypatch.setattr(cohort_cache, "ref_cohort_scatter",
+                            lambda *a: calls.append(1))
+        cohort_cache.cohort_scatter_tree([torch.ones(2, 2, 2)],
+                                         [torch.ones(2, 1, 2)], 0, 2)
+        fake = lambda: cohort_cache.cohort_scatter_tree(  # noqa: E731
+            [_T()], [_T()], 0, 2)
+    assert calls == [1] and reached == []
+    monkeypatch.setattr(build, "require_cuda", device_check)
+    with pytest.raises(_Reached):
+        fake()
+    assert calls == [1] and len(reached) == 1
+
+
 def test_unported_configurations_are_refused():
     cfg = _small((get_config, reduced))
     model = build_model(cfg, device="cpu")
@@ -223,9 +292,8 @@ def test_unported_configurations_are_refused():
             (dict(autotune=True), "autotune")):
         with pytest.raises(NotImplementedError, match=what):
             CascadeServingEngine(cfg, model, params, **{**kw, **bad})
-    for cfg_bad in (cfg.with_cascade(n_cohorts=2),
-                    cfg.with_paged_cache(layout="paged"),
-                    cfg.with_kernel_tune(megakernel=True),
+    for cfg_bad in (cfg.with_paged_cache(layout="paged"),
+                    cfg.with_kernel_tune(enabled=True),
                     cfg.with_autotune(enabled=True),
                     cfg.with_cascade(confidence="entropy")):
         with pytest.raises(NotImplementedError):
