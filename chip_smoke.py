@@ -22,11 +22,19 @@ source, all at once).  Phases, each of which fails the run on a miss:
 5. Algorithm 1 (``cascade_infer_sequential``) on the full-width model's
    exit logits for 4 prompts of 128 tokens, confidence kernel vs plain
    measure;
-6. route parity at 4 layers in f32: kernel route vs plain route,
-   megakernel on vs off, 1 vs 2 cohorts, major vs copy layout, and select
-   mode with the cohort scatter vs cond_batch — identical token and exit
-   streams;
-7. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+6. slice 3 at full width: the paged KV layout (2 cohorts, major,
+   cond_batch, block size 16) — the 8 requests at (0.9, 0.9, 0.0) and
+   (0, 0, 0), paged and dense in turns with identical streams, then an
+   equal-memory burst of 24 requests (paged: 8 slots per lane in the
+   4-slot dense block count, with continuous single-slot admission and
+   skip-aware reclamation; dense: 4 slots);
+7. route parity at 4 layers in f32: kernel route vs plain route,
+   megakernel on vs off, 1 vs 2 cohorts, major vs copy layout, select mode
+   with the cohort scatter vs cond_batch, each on the dense and the paged
+   layout — identical token and exit streams;
+8. the serve CLI (``python -m repro_torch.launch.serve ... --cache-layout
+   paged``) in a subprocess, which must exit 0;
+9. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
    line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -58,6 +66,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 D_MODEL = 2048
 VOCAB = 151936
 SEG_CACHE = (12, 4, 512, 2, 128)
+# the paged layout's shared store at full width (the auto-sized pool:
+# 2 lanes x 4 slots x 3 components x 32 ring blocks + the trash block) and
+# one lane's block table (4 slots x 32 ring blocks of 16 positions)
+PAGED_STORE = (769, 16, 2, 128)
+PAGED_TABLE = (4, 32)
 
 # where each TPU kernel's pallas_call sits in the reference package
 REPLACES = {
@@ -68,6 +81,7 @@ REPLACES = {
     "confidence": "src/repro/kernels/confidence.py:72",
     "megakernel": "src/repro/kernels/megakernel.py:231",
     "cohort_scatter": "src/repro/kernels/cohort_cache.py:53",
+    "paged_gather": "src/repro/kernels/paged_gather.py:61",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
@@ -546,6 +560,54 @@ def phase_cohort_scatter(dev, gen):
     return cases
 
 
+def phase_paged_gather(dev, gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_gather import paged_gather, paged_gather_kv
+    NB = PAGED_STORE[0]
+    B, nblk = PAGED_TABLE
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        # a layer slice of stacked (2, NB, ...) stores, as the model hands
+        # it over
+        ks = torch.randn((2,) + PAGED_STORE, generator=gen, device=dev).to(dt)
+        vs = torch.randn((2,) + PAGED_STORE, generator=gen, device=dev).to(dt)
+        k, v = ks[1], vs[1]
+        table = torch.randint(1, NB, PAGED_TABLE, generator=gen, device=dev,
+                              dtype=torch.int32)
+        table[1, 20:] = 0                      # uncovered ring ranges: trash
+        table[3] = 0                           # a dead slot: all trash
+        table[2, :4] = table[0, 7]             # duplicate ids
+        got = paged_gather_kv(k, v, table)
+        want = (ref.ref_paged_gather(k, table), ref.ref_paged_gather(v, table))
+        one = paged_gather(v, table)
+        torch.cuda.synchronize()
+        for g, w in zip(got + (one,), want + (want[1],)):
+            check_equal(f"paged_gather {name}", g, w)
+
+        def library():
+            return tuple(torch.index_select(x, 0, table.flatten()).view(
+                (B, nblk * x.shape[1]) + x.shape[2:]) for x in (k, v))
+
+        lib = library()
+        check_equal(f"paged_gather {name} library", lib[0], want[0])
+        nbytes = 2 * 2 * want[0].numel() * want[0].element_size() + \
+            table.numel() * 4
+        b, by = bound_ms(nbytes, 0, name)
+        cases.append({
+            "shape": [list(PAGED_STORE), list(PAGED_TABLE)], "stores": 2,
+            "dtype": name, "max_abs_err": max(max_err(g, w)
+                                              for g, w in zip(got, want)),
+            "ms": time_ms(lambda: paged_gather_kv(k, v, table)),
+            "plain_ms": time_ms(lambda: (ref.ref_paged_gather(k, table),
+                                         ref.ref_paged_gather(v, table))),
+            "library_ms": time_ms(library),
+            "bound_ms": b, "bound_by": by})
+        del ks, vs
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phases 3 to 6: the serving path
 # ---------------------------------------------------------------------------
@@ -736,6 +798,126 @@ def phase_full_width_cohorts():
     return mixed_launches, model, params, records
 
 
+def paged_config(base, **paged):
+    return base.with_paged_cache(layout="paged", block_size=16, **paged)
+
+
+def phase_full_width_paged(params):
+    """Slice 3's path at full width: the JAX serving bench's paged
+    configuration (2 cohorts, major, cond_batch, block size 16, lane batch
+    4, 2 lanes, cache_len 512) with kernels on.
+
+    (a) at capacity: the 8 requests of phase 3 at (0.9, 0.9, 0.0) and
+    (0, 0, 0), paged and dense in turns (paged, dense, dense, paged);
+    identical token and exit streams.  (b) an equal-memory burst: a paged
+    engine with 8 slots per lane and its pool capped at the 4-slot dense
+    count beside a dense engine with 4; 24 requests of 128/256 prompt
+    tokens and 8/16 new tokens at (0, 0, 0).  Returns the launches of the
+    paged run at (0.9, 0.9, 0.0)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", n_cohorts=2, cohort_layout="major")
+    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+    kw = dict(lane_batch=4, n_lanes=2, cache_len=512)
+    headline = None
+    for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
+        runs = {True: [], False: []}
+        streams = {}
+        for paged in (True, False, False, True):
+            cfg = base.with_cascade(thresholds=ths)
+            if paged:
+                cfg = paged_config(cfg)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fin, st, secs, launches = serve(
+                cfg, build_model(cfg, device=DEV), params, reqs, **kw)
+            tag = f"paged at capacity {ths} paged={paged}"
+            if sorted(fin) != list(range(8)) or any(
+                    len(r["tokens"]) != 16 for r in fin.values()):
+                fail(f"{tag}: not every request got its 16 tokens")
+            check_launched(tag, launches,
+                           SLICE1 | ({"paged_gather"} if paged else set()))
+            if paged and launches["paged_gather"] != \
+                    launches["decode_attention"]:
+                fail(f"{tag}: {launches['paged_gather']} gathers for "
+                     f"{launches['decode_attention']} decode attentions "
+                     f"(one k/v pair launch per decode layer that computes)")
+            if paged and (st["memory"]["blocks_used"] != 0
+                          or st["slot_prefills"] != 0):
+                fail(f"{tag}: {st['memory']['blocks_used']} blocks left, "
+                     f"{st['slot_prefills']} slot prefills at capacity")
+            streams.setdefault(paged, _streams(fin))
+            if _streams(fin) != streams[paged]:
+                fail(f"{tag}: a repeated run changed the streams")
+            runs[paged].append({
+                "us_per_token": st["wallclock_us_per_token"],
+                "tokens_per_s": sum(len(r["tokens"]) for r in fin.values())
+                / secs,
+                "seconds": secs, "prefill_seconds": st["prefill_seconds"],
+                "host_syncs_per_token": st["host_syncs_per_token"],
+                "segments_run": st["segments_run"],
+                "cohort_dispatch": st["cohort_dispatch"],
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "memory": st["memory"], "launches": launches})
+            if paged and ths[0] > 0 and headline is None:
+                headline = launches
+        if streams[True] != streams[False]:
+            bad = [rid for rid in streams[True]
+                   if streams[True][rid] != streams[False].get(rid)]
+            fail(f"paged at capacity {ths}: paged and dense streams differ "
+                 f"on requests {bad}")
+        emit({"phase": "full_width_paged", "config": "qwen2.5-3b",
+              "n_layers": base.n_layers, "dtype": base.dtype,
+              "n_cohorts": 2, "cohort_layout": "major",
+              "exit_mode": "cond_batch", "block_size": 16,
+              "thresholds": list(ths), "order": "paged, dense, dense, paged",
+              "streams_paged_equal_dense": True,
+              "paged": runs[True], "dense": runs[False]})
+
+    # (b) the equal-memory admission burst
+    ths = (0.0, 0.0, 0.0)
+    dense_cfg = base.with_cascade(thresholds=ths)
+    nb = 2 * 4 * 3 * (512 // 16) + 1          # the 4-slot dense count
+    burst = make_requests(24, (128, 256), base.vocab_size, 16, seed=3)
+    for i, r in enumerate(burst):
+        r.max_new_tokens = (8, 16)[(i // 2) % 2]
+    out = {}
+    for paged in (True, False):
+        cfg = paged_config(dense_cfg, num_blocks=nb) if paged else dense_cfg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fin, st, secs, launches = serve(
+            cfg, build_model(cfg, device=DEV), params, burst,
+            lane_batch=8 if paged else 4, n_lanes=2, cache_len=512)
+        tag = f"paged burst paged={paged}"
+        if sorted(fin) != list(range(24)) or any(
+                len(fin[r.rid]["tokens"]) != r.max_new_tokens for r in burst):
+            fail(f"{tag}: not every request finished with its budget")
+        mem = st["memory"]
+        if paged and (st["slot_prefills"] < 1 or mem["blocks_used"] != 0
+                      or mem["peak_blocks_used"] > nb - 1
+                      or mem["reclaimed_by_exit"] <= 0):
+            fail(f"{tag}: slot prefills {st['slot_prefills']}, memory {mem}")
+        check_launched(tag, launches,
+                       SLICE1 | ({"paged_gather"} if paged else set()))
+        out[paged] = {
+            "lane_batch": st["lane_batch"], "seconds": secs,
+            "us_per_token": st["wallclock_us_per_token"],
+            "admission_wait_mean": st["admission_wait_mean"],
+            "admission_wait_ticks": st["admission_wait_ticks"],
+            "prefills": st["prefills"], "slot_prefills": st["slot_prefills"],
+            "prefill_seconds": st["prefill_seconds"],
+            "peak_cache_bytes": mem["peak_cache_bytes"], "memory": mem,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches}
+    emit({"phase": "full_width_paged_burst", "config": "qwen2.5-3b",
+          "thresholds": list(ths), "requests": len(burst),
+          "num_blocks": nb, "paged": out[True], "dense": out[False]})
+    return headline
+
+
 def phase_algorithm1(model, params):
     """Algorithm 1 on the full-width model: component m runs segment m on
     the prompt's hidden state and returns the exit logits at the last
@@ -817,20 +999,27 @@ def phase_route_parity():
 
     for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
         streams = {}
+        # kernel and plain routes, dense and paged (slice 3), one cohort
         for use_kernels in (True, False):
-            cfg = base.replace(use_kernels=use_kernels).with_cascade(
-                thresholds=ths)
-            streams[use_kernels], _, launches = run(cfg)
-            check_launched(f"route parity {ths} kernels={use_kernels}",
-                           launches, SLICE1 if use_kernels else set())
-        if streams[True] != streams[False]:
-            bad = [rid for rid in streams[True]
-                   if streams[True][rid] != streams[False].get(rid)]
-            fail(f"route parity {ths}: kernel and plain routes differ on "
-                 f"requests {bad}")
+            for paged in (False, True):
+                cfg = base.replace(use_kernels=use_kernels).with_cascade(
+                    thresholds=ths)
+                if paged:
+                    cfg = paged_config(cfg)
+                streams[use_kernels, paged], _, launches = run(cfg)
+                expect = (SLICE1 | ({"paged_gather"} if paged else set())
+                          if use_kernels else set())
+                check_launched(f"route parity {ths} kernels={use_kernels} "
+                               f"paged={paged}", launches, expect)
+        want = streams[True, False]
+        for key, got in streams.items():
+            if got != want:
+                bad = [rid for rid in want if got.get(rid) != want[rid]]
+                fail(f"route parity {ths}: kernels={key[0]} paged={key[1]} "
+                     f"differs from the dense kernel route on {bad}")
         emit({"phase": "route_parity", "n_layers": 4, "dtype": "float32",
-              "thresholds": list(ths), "requests": len(streams[True]),
-              "identical": True})
+              "thresholds": list(ths), "requests": len(want),
+              "identical": True, "paged_identical": True})
 
     # slice 2: cohorts, megakernel, layouts, select + cohort scatter
     on = base.replace(use_kernels=True).with_cascade(
@@ -853,6 +1042,11 @@ def phase_route_parity():
             "copy_layout": ref_cfg.with_cascade(cohort_layout="copy"),
             "select_scatter": ref_cfg.with_cascade(exit_mode="select"),
         }
+        # slice 3: each variant again on the paged layout, and the paged
+        # reference configuration itself
+        variants.update({f"paged_{name}": paged_config(cfg)
+                         for name, cfg in variants.items()})
+        variants["paged"] = paged_config(ref_cfg)
         rec = {"phase": "route_parity_cohorts", "n_layers": 4,
                "dtype": "float32", "thresholds": list(ths),
                "dispatch": st["cohort_dispatch"], "identical": {}}
@@ -860,7 +1054,14 @@ def phase_route_parity():
             got, vst, vl = run(cfg)
             expect = SLICE1 | ({"megakernel"} if cfg.kernel_tune.megakernel
                                else set())
-            if name == "select_scatter":
+            if name.startswith("paged"):
+                # a paged store has no cohort rows: no cohort scatter
+                expect = expect | {"paged_gather"}
+                if name == "paged_select_scatter" and \
+                        vst["cohort_dispatch"]["mixed"] == 0:
+                    fail(f"cohort parity {ths}: paged select mode never "
+                         f"took the mixed (per-cohort) path")
+            elif name == "select_scatter":
                 expect = expect | {"cohort_scatter"}
                 if vst["cohort_dispatch"]["mixed"] == 0:
                     fail(f"cohort parity {ths}: select mode never took the "
@@ -878,6 +1079,28 @@ def phase_route_parity():
     del params
     torch.cuda.empty_cache()
     return scatter_launches
+
+
+def phase_cli():
+    """The port's serve CLI on the paged layout, as a user starts it: one
+    subprocess on the card, which must exit 0."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen2.5-3b", "--smoke", "--cache-layout", "paged", "--cohorts",
+           "2", "--exit-mode", "cond_batch"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"serve CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    pool = [ln for ln in proc.stderr.splitlines() if "paged pool" in ln]
+    emit({"phase": "cli", "command": " ".join(cmd[1:]), "rc": 0,
+          "seconds": time.perf_counter() - t0,
+          "pool_line": pool[-1] if pool else None})
 
 
 def main() -> int:
@@ -916,19 +1139,23 @@ def main() -> int:
               "exit_update": phase_exit_update(dev, gen),
               "confidence": phase_confidence(dev, gen),
               "megakernel": phase_megakernel(dev, gen),
-              "cohort_scatter": phase_cohort_scatter(dev, gen)}
+              "cohort_scatter": phase_cohort_scatter(dev, gen),
+              "paged_gather": phase_paged_gather(dev, gen)}
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
 
     # each kernel's launches come from the path that runs it: slice 1's
     # one-cohort run, slice 2's cohort run at the mixed threshold vector,
-    # Algorithm 1, and the select-mode cohort run of the parity phase
+    # Algorithm 1, slice 3's paged run at capacity, and the select-mode
+    # cohort run of the parity phase
     slice1 = phase_full_width()
     cohorts, model, params, _ = phase_full_width_cohorts()
     algorithm1 = phase_algorithm1(model, params)
+    paged = phase_full_width_paged(params)
     del model, params
     torch.cuda.empty_cache()
     select = phase_route_parity()
+    phase_cli()
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -938,7 +1165,9 @@ def main() -> int:
              "megakernel": ("slice 2 full width, mixed thresholds", cohorts),
              "confidence": ("algorithm 1, full width", algorithm1),
              "cohort_scatter": ("route parity, select mode, 2 cohorts",
-                                select)}
+                                select),
+             "paged_gather": ("slice 3 full width paged at capacity, "
+                              "(0.9, 0.9, 0.0)", paged)}
 
     # the headline case of each kernel: the serving path's bf16 shape
     headline = {
@@ -949,6 +1178,7 @@ def main() -> int:
         "confidence": lambda c: True,
         "megakernel": lambda c: c["shape"][0] == 4,
         "cohort_scatter": lambda c: True,
+        "paged_gather": lambda c: True,
     }
     rows = []
     for name, cases in checks.items():

@@ -11,10 +11,12 @@ wall time (the device's busy share; the rest is the host), and the kernels
 ranked by device time.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
-[--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel]``.
+[--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel] [--paged]``.
 ``--n-cohorts 2`` serves with cohort-split skipping in the ``major``
 layout; ``--megakernel`` turns on the exit-head megakernel and the cohort
-scatter.  Needs one CUDA card.
+scatter; ``--paged`` serves from the paged KV layout (block size 16) and
+adds the paged gather's share of the device time to the first line.
+Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--n-cohorts", type=int, default=1)
     ap.add_argument("--megakernel", action="store_true")
+    ap.add_argument("--paged", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -62,6 +65,8 @@ def main() -> int:
         exit_mode="cond_batch", thresholds=ths, n_cohorts=args.n_cohorts,
         cohort_layout="major").with_kernel_tune(
         megakernel=args.megakernel, cohort_scatter=args.megakernel)
+    if args.paged:
+        cfg = cfg.with_paged_cache(layout="paged", block_size=16)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)
@@ -88,12 +93,21 @@ def main() -> int:
               and "CUDA" in str(e.device_type)]
     dev_us = sum(_device_time_us(e) for e in events)
     ranked = sorted(events, key=_device_time_us, reverse=True)
+    gather_us = sum(_device_time_us(e) for e in events
+                    if "paged_gather" in e.key)
     print(json.dumps({"card": smi, "thresholds": list(ths),
                       "n_cohorts": args.n_cohorts,
                       "megakernel": args.megakernel,
+                      "paged": args.paged,
                       "cohort_dispatch": st["cohort_dispatch"],
                       "wall_s": wall, "device_kernel_s": dev_us / 1e6,
                       "device_busy_share": dev_us / 1e6 / wall,
+                      "paged_gather_device_s": gather_us / 1e6,
+                      "paged_gather_share_of_device": (
+                          gather_us / dev_us if dev_us else None),
+                      "paged_gather_calls": sum(
+                          e.count for e in events
+                          if "paged_gather" in e.key),
                       "decode_us_per_token": st["wallclock_us_per_token"],
                       "prefill_seconds": st["prefill_seconds"],
                       "host_syncs_per_token": st["host_syncs_per_token"],

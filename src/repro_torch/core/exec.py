@@ -1,9 +1,9 @@
 """Staged cascade execution: the :class:`DecodeState` carry and the
 segment-skipping executor that makes early exit mean early *termination*.
 
-The counterpart of the JAX package's ``core/exec.py`` on the dense cache
-layout.  :class:`StagedExecutor` runs the cascade one segment at a time,
-feeding each segment's exit to the shared
+The counterpart of the JAX package's ``core/exec.py``, on the dense and
+the paged cache layouts.  :class:`StagedExecutor` runs the cascade one
+segment at a time, feeding each segment's exit to the shared
 :class:`~repro_torch.core.policy.ExitDecider` scan: the fused exit-update
 kernel when ``cfg.use_kernels``, and the exit-head megakernel (the (B, V)
 logits never stored) with ``cfg.kernel_tune.megakernel`` as well.
@@ -33,6 +33,11 @@ re-join (a concat, or the cohort-scatter kernel) has no counterpart under
 ``cond_batch``.  Only ``select`` mode computes a cohort's rows out of place
 (the skip-masked selection); they land through per-leaf copies, or through
 one cohort-scatter launch per cohort with ``kernel_tune.cohort_scatter``.
+
+Under the paged layout (``DecodeState.block_tables`` set) the stores are
+shared by every slot and have no batch axis: each cohort steps over the
+whole store through its own table rows, and ``select`` mode lands its
+selection by copies (the cohort scatter has no rows to write).
 
 The per-slot ``DecodeState.active`` mask also rides in the decode context
 (``ctx["live"]``), where the decode-attention kernel skips dead slots and
@@ -76,6 +81,9 @@ class DecodeState:
     segments_run  (n_components,) int32 numpy — how many decode steps
                                actually computed each segment (host-side:
                                the branch that ran is known on the host).
+    block_tables  (n_components, B, W/block_size) int32 paged-cache block
+                               tables (``cache_layout="paged"``), or None
+                               (dense slab).
     """
 
     t: int
@@ -83,13 +91,15 @@ class DecodeState:
     policy: Optional[torch.Tensor]
     ema_conf: torch.Tensor
     segments_run: np.ndarray
+    block_tables: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "DecodeState":
         return dataclasses.replace(self, **kw)
 
 
 def init_decode_state(decider: ExitDecider, batch: int, n_components: int,
-                      t: int = 0, active=None, device=None) -> DecodeState:
+                      t: int = 0, active=None, device=None,
+                      block_tables=None) -> DecodeState:
     """Fresh decode carry for a lane of ``batch`` sequences."""
     active = (torch.ones(batch, dtype=torch.bool, device=device)
               if active is None
@@ -98,17 +108,21 @@ def init_decode_state(decider: ExitDecider, batch: int, n_components: int,
         t=int(t), active=active,
         policy=decider.measure.init_state(n_components, batch, device),
         ema_conf=torch.zeros(batch, dtype=torch.float32, device=device),
-        segments_run=np.zeros(n_components, np.int32))
+        segments_run=np.zeros(n_components, np.int32),
+        block_tables=block_tables)
 
 
 def _slice_ctx(ctx, lo: int, hi: int):
     """Batch-slice a decode context: the per-slot exit mask ``live`` (B,),
-    ``cross`` (B, T, d) and per-slot kpos rings (B, W) carry a batch dim;
-    everything else (the lane-wide kpos ring, scalars) passes through."""
+    ``cross`` (B, T, d), the paged layout's block tables (K, B, nblk) and
+    per-slot kpos rings (B, W) carry a batch dim; everything else (the
+    lane-wide kpos ring, scalars) passes through."""
     out = dict(ctx)
     for key in ("live", "cross"):
         if ctx.get(key) is not None:
             out[key] = ctx[key][lo:hi]
+    if ctx.get("block_tables") is not None:
+        out["block_tables"] = ctx["block_tables"][:, lo:hi]
     for key in ("kpos", "kpos_t"):
         if ctx.get(key) is not None and ctx[key].dim() == 2:
             out[key] = ctx[key][lo:hi]
@@ -124,9 +138,6 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(
             "the autotune telemetry rider and live thresholds come with the "
             "autotune slice of the port")
-    if cfg.paged_cache.layout != "dense":
-        raise NotImplementedError(
-            "the paged KV layout comes in a later slice of the port")
 
 
 class StagedExecutor:
@@ -153,9 +164,12 @@ class StagedExecutor:
         self.dispatch = {"all_skip": 0, "mixed": 0, "all_run": 0}
 
     # ------------------------------------------------------------------
-    def init_state(self, batch: int, t: int = 0, active=None) -> DecodeState:
+    def init_state(self, batch: int, t: int = 0, active=None,
+                   block_tables=None) -> DecodeState:
+        """Fresh carry; ``block_tables`` (paged layout) ride it as data."""
         return init_decode_state(self.decider, batch, self.n_components, t=t,
-                                 active=active, device=self.model.device)
+                                 active=active, device=self.model.device,
+                                 block_tables=block_tables)
 
     def _carry_forward(self, state: DecodeState,
                        decision: ExitDecision) -> DecodeState:
@@ -174,7 +188,8 @@ class StagedExecutor:
         past the prompt."""
         if state is None:
             state = self.init_state(tokens.shape[0])
-        logits, cache = self.model.prefill(params, tokens, cache)
+        logits, cache = self.model.prefill(params, tokens, cache,
+                                           block_tables=state.block_tables)
         decision, _ = self.decider.decide_with_carry(
             logits, state=state.policy, active=state.active)
         state = self._carry_forward(state, decision).replace(
@@ -245,7 +260,10 @@ class StagedExecutor:
             return h, sc, 1
         # select: both paths compute and the predicate selects.  Caches are
         # written in place, so the skip path writes into a snapshot of the
-        # segment's caches and the selected rows land back in place.
+        # segment's caches and the selected rows land back in place.  Under
+        # the paged layout the snapshot is the engine-wide store: correct
+        # (other slots' blocks are equal in both copies), but one full-store
+        # copy per cell.
         pred = self.decider.should_skip(sc, active)
         snap = nn.tree_map(torch.clone, seg_cache)
         h_full, nc, sc_full = run(h, seg_cache, sc)
@@ -294,6 +312,10 @@ class StagedExecutor:
         C = effective_cohorts(self.cfg.cascade.n_cohorts, token.shape[0])
         h, ctx = model.begin_decode(params, token, t, cache)
         ctx["live"] = state.active
+        # paged layout: the block tables ride the carry; the model hands
+        # each segment its own rows
+        if state.block_tables is not None:
+            ctx["block_tables"] = state.block_tables
         segs = cache["segments"]
         h, _, _ = model.run_segment(0, params, h, ctx, segs[0])
         sc = self._scan_exit(0, params, h, ths, state=state.policy,
@@ -316,9 +338,14 @@ class StagedExecutor:
             segments_run=state.segments_run + np.asarray(ran, np.int32))
         return decision, cache, state
 
-    def _cohort_views(self, seg, lo, hi):
+    @staticmethod
+    def _cohort_views(seg, lo, hi, ctx):
         """Cohort [lo, hi) of a segment's caches: views of the slab, so
-        every in-place write lands in the slab."""
+        every in-place write lands in the slab.  A paged store has no
+        batch axis: every cohort gets the whole shared store and addresses
+        it through its own table rows (sliced in its context)."""
+        if ctx.get("block_tables") is not None:
+            return seg
         return nn.tree_map(lambda x: x[:, lo:hi], seg)
 
     def _cohorts_copy(self, params, ths, h, ctx, segs, sc, active, C):
@@ -337,7 +364,7 @@ class StagedExecutor:
             for c, (lo, hi) in enumerate(spans):
                 h_c, sc_parts[c], r = self._segment_step(
                     si, _slice_ctx(ctx, lo, hi), params, ths, h[lo:hi],
-                    self._cohort_views(segs[si], lo, hi), sc_parts[c],
+                    self._cohort_views(segs[si], lo, hi, ctx), sc_parts[c],
                     active[lo:hi], skip=preds[c])
                 h_parts.append(h_c)
                 r_si += r
@@ -388,12 +415,15 @@ class StagedExecutor:
                 for c, (lo, hi) in enumerate(spans):
                     # under cond_batch the cohort's rows are written in
                     # place through the views: no re-join, no scatter
+                    # (a paged store has no cohort rows to scatter: the
+                    # selection lands through copies of the whole store)
                     land = None
-                    if self.mode == "select" and self.use_cohort_scatter:
+                    if (self.mode == "select" and self.use_cohort_scatter
+                            and ctx.get("block_tables") is None):
                         land = functools.partial(self._scatter, seg, c, C)
                     h_parts[c], sc_parts[c], r = self._segment_step(
                         si, ctx_parts[c], params, ths, h_parts[c],
-                        self._cohort_views(seg, lo, hi), sc_parts[c],
+                        self._cohort_views(seg, lo, hi, ctx), sc_parts[c],
                         act_parts[c], skip=preds[c], land=land)
                     r_si += r
                 ran.append(r_si)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import (cohort_cache, confidence, decode_attention,
                                  exit_update, flash_attention, megakernel,
-                                 rmsnorm)
+                                 paged_gather, rmsnorm)
 
 # kernel name -> (module, its wrapper), in the order of the csrc sources
 _KERNELS = {
@@ -15,6 +15,7 @@ _KERNELS = {
     "confidence": (confidence, confidence.confidence),
     "megakernel": (megakernel, megakernel.exit_head_update),
     "cohort_scatter": (cohort_cache, cohort_cache.cohort_scatter_tree),
+    "paged_gather": (paged_gather, paged_gather.paged_gather),
 }
 
 

@@ -3,10 +3,12 @@
 The counterparts of the JAX package's ``kernels/ops.py`` adapters
 (``softmax_confidence_fused``, ``rmsnorm_fused``, ``flash_attention_bshd``,
 ``decode_attention_cache``, ``exit_update_fused``, ``exit_head_fused``,
-``cohort_scatter_tree``).  Each kernel takes its tile sizes as constants in
-its own module; there is no tile registry yet.  The kernels read the
-model's (B, S, H, hd) and (B, W, KV, hd) layouts through strides, so these
-adapters only reshape and take views — no transposed copies.
+``cohort_scatter_tree``, ``paged_gather``; ``paged_gather_kv`` gathers a
+layer's k and v stores in one launch).  Each kernel takes its tile sizes
+as constants in its own module; there is no tile registry yet.  The
+kernels read the model's (B, S, H, hd) and (B, W, KV, hd) layouts through
+strides, so these adapters only reshape and take views — no transposed
+copies.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.exit_update import exit_update
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.megakernel import exit_head_update
+from repro_torch.kernels.paged_gather import (  # noqa: F401 (re-export)
+    paged_gather, paged_gather_kv)
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 

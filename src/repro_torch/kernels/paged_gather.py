@@ -1,0 +1,96 @@
+"""Paged gather kernel and its plain version.
+
+Replaces the TPU kernel ``_gather_kernel`` / ``paged_gather`` of the JAX
+package's ``kernels/paged_gather.py`` (its ``pallas_call`` at line 61):
+a paged store ``(num_blocks, bs, kv, hd)`` gathered through a block table
+``(B, nblk)`` int32 into the slot-logical ring view ``(B, nblk * bs, kv,
+hd)``, bit for bit (a copy; block 0, the trash block, is copied like any
+other).  The dense decode attention then runs over that view unchanged,
+which keeps paged streams identical to dense ones.
+
+Route: CUDA C++ (``csrc/paged_gather.cu``), ctypes-bound.  The serving
+path gathers a layer's k and v stores in ONE launch
+(:func:`paged_gather_kv`) where the TPU code makes two ``pallas_call`` s.
+The store's block stride is passed to the kernel, so a layer slice of a
+stacked store is read without a copy.  Bound on the H100: bytes (each
+gathered block read once, written once); at the serving shape the launch
+itself dominates.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import ref_paged_gather
+
+_SIG = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+
+
+def _gather(stores, table):
+    """Launch the kernel over 1 or 2 stores of one shape and dtype."""
+    build.require_cuda("paged_gather", table, *stores)
+    s0 = stores[0]
+    if s0.dim() != 4 or table.dim() != 2:
+        raise ValueError(f"paged_gather: store (NB, bs, kv, hd) and table "
+                         f"(B, nblk), got {tuple(s0.shape)} and "
+                         f"{tuple(table.shape)}")
+    NB, bs, kv, hd = s0.shape
+    for s in stores:
+        if s.shape != s0.shape or s.dtype != s0.dtype:
+            raise ValueError("paged_gather: the stores must share shape and "
+                             "dtype")
+        if s.stride()[1:] != (kv * hd, hd, 1):
+            raise ValueError("paged_gather: each block of a store must be "
+                             "contiguous (dims 1-3)")
+    if table.dtype != torch.int32:
+        raise TypeError(f"paged_gather: table must be int32, got "
+                        f"{table.dtype}")
+    B, nblk = table.shape
+    es = s0.element_size()
+    outs = [torch.empty((B, nblk * bs, kv, hd), dtype=s0.dtype,
+                        device=s0.device) for _ in stores]
+    if not outs[0].numel():
+        return outs
+    two = len(stores) == 2
+    fn = build.function("paged_gather", "paged_gather_launch", _SIG)
+    p = build.ptr
+    build.check(fn(
+        len(stores), p(stores[0]), p(stores[1] if two else None),
+        stores[0].stride(0) * es, stores[1].stride(0) * es if two else 0,
+        p(outs[0]), p(outs[1] if two else None), p(table),
+        table.stride(0), table.stride(1), B, nblk, bs * kv * hd * es,
+        build.stream_of(s0)), "paged_gather")
+    paged_gather.launches += 1
+    return outs
+
+
+def paged_gather(store: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """store (NB, bs, kv, hd) gathered through table (B, nblk) int32 ->
+    (B, nblk * bs, kv, hd).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if store.device.type == "cpu":
+        return ref_paged_gather(store, table)
+    return _gather([store], table)[0]
+
+
+def paged_gather_kv(k_store: torch.Tensor, v_store: torch.Tensor,
+                    table: torch.Tensor):
+    """A layer's k and v stores gathered through one table, in one
+    launch: returns (k_view, v_view), each (B, nblk * bs, kv, hd)."""
+    if k_store.device.type == "cpu":
+        return (ref_paged_gather(k_store, table),
+                ref_paged_gather(v_store, table))
+    k, v = _gather([k_store, v_store], table)
+    return k, v
+
+
+paged_gather.launches = 0
+
+
+def reset_launches() -> None:
+    paged_gather.launches = 0

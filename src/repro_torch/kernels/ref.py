@@ -148,3 +148,11 @@ def ref_cohort_scatter(dst, src, c: int, C: int):
     Bc = dst.shape[1] // C
     dst[:, c * Bc:(c + 1) * Bc] = src
     return dst
+
+
+def ref_paged_gather(store, table):
+    """Paged gather oracle: store (NB, bs, kv, hd) gathered through table
+    (B, nblk) -> the slot-logical ring view (B, nblk * bs, kv, hd)."""
+    B, nblk = table.shape
+    return store[table.long()].reshape((B, nblk * store.shape[1])
+                                       + store.shape[2:])

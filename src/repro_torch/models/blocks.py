@@ -16,6 +16,8 @@ A block kind provides, as in the JAX package's ``models/blocks.py``:
   kpos: (W,) absolute position of each KV slot (-1 empty), committed
   kpos_t: kpos with the current slot set to t (decode; what attention sees)
   live: (B,) bool per-slot exit mask, or None (decode)
+  block_table: (B, nblk) int32 block-table rows of this segment (paged
+      layout only; kpos is then the per-slot (B, W) ring)
 
 Caches are written IN PLACE: where the reference returns updated arrays
 (and donates the old buffers to the jitted step), the port writes the
@@ -75,6 +77,65 @@ def _write_decode(cache, k, v, slot: int):
     return cache
 
 
+# ---------------------------------------------------------------------------
+# paged-layout variants (cache_layout="paged"): the per-layer cache leaf is a
+# SHARED block store (num_blocks, block_size, kv, hd) addressed through the
+# slot's block-table row ``table`` (B, nblk) — ring position p lives at
+# (table[b, p // bs], p % bs).  Dead and uncovered rows point at the trash
+# block 0: duplicate scatters there land in no fixed order, but the
+# per-slot kpos ring masks those positions out of every read (masking, not
+# zeroing, is the coherence mechanism).
+# ---------------------------------------------------------------------------
+
+def _write_decode_paged(cache, k, v, slot: int, table):
+    """One decode token through the block table, in place.  slot = t % W;
+    k/v (B, 1, kv, hd)."""
+    bs = cache["k"].shape[1]
+    phys = table[:, slot // bs].long()               # (B,) physical blocks
+    off = slot % bs
+    cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
+    return cache
+
+
+def _write_full_paged(cache, k, v, gather_idx, table):
+    """Prefill fill through the block table: gather the current logical
+    ring view, apply the same valid-masked merge as :func:`_write_full`,
+    scatter whole table rows back in place."""
+    if cache is None:
+        return None
+    B, nblk = table.shape
+    idx_t = table.long()
+    valid = gather_idx >= 0
+    idx = gather_idx.clamp(min=0).long()
+    sel = valid[None, :, None, None]
+    for name, x in (("k", k), ("v", v)):
+        store = cache[name]
+        bs = store.shape[1]
+        cur = store[idx_t].reshape((B, nblk * bs) + store.shape[2:])
+        new = torch.where(sel, x[:, idx].to(store.dtype), cur)
+        store[idx_t] = new.reshape((B, nblk, bs) + store.shape[2:])
+    return cache
+
+
+def _paged_kv_view(cfg, cache, table):
+    """The slot-logical (B, W, kv, hd) ring views of a layer's paged k and
+    v stores — the gather that makes the downstream attention identical to
+    the dense layout's, and therefore bit-identical (re-tiling attention to
+    block granularity would change its accumulation order).  The kernel
+    route gathers k and v in one launch."""
+    if cfg.use_kernels:
+        from repro_torch.kernels.ops import paged_gather_kv
+        return paged_gather_kv(cache["k"], cache["v"], table)
+    B, nblk = table.shape
+    idx = table.long()
+
+    def view(store):
+        return store[idx].reshape((B, nblk * store.shape[1]) + store.shape[2:])
+
+    return view(cache["k"]), view(cache["v"])
+
+
 def _self_attention(cfg, params, h, ctx, cache):
     """Self-attention sublayer for full and decode modes."""
     x = norm_apply(params["norm"], cfg, h)
@@ -89,25 +150,38 @@ def _self_attention(cfg, params, h, ctx, cache):
             attend = pick_attend(cfg, S, S, differentiable=cache is None)
             out = attend(q, k, v, ctx["positions"], ctx["positions"],
                          window=cfg.attn_window, causal=True)
-        new_cache = (None if cache is None
-                     else _write_full(cache, k, v, ctx["write_slots"]))
+        table = ctx.get("block_table")
+        if cache is None:
+            new_cache = None
+        elif table is not None:
+            new_cache = _write_full_paged(cache, k, v, ctx["write_slots"],
+                                          table)
+        else:
+            new_cache = _write_full(cache, k, v, ctx["write_slots"])
     else:
         t = ctx["t"]
         pos = torch.full((1, 1), t, dtype=torch.int32, device=x.device)
         q, k, v = qkv_project(params, cfg, x, rope_positions=pos)
-        new_cache = _write_decode(cache, k, v, ctx["slot"])
+        table = ctx.get("block_table")
+        if table is not None:
+            new_cache = _write_decode_paged(cache, k, v, ctx["slot"], table)
+            kv_k, kv_v = _paged_kv_view(cfg, new_cache, table)
+        else:
+            new_cache = _write_decode(cache, k, v, ctx["slot"])
+            kv_k, kv_v = new_cache["k"], new_cache["v"]
         # the ring position of this step is visible to its own query
+        # (dense: the lane-wide (W,) ring; paged: per-slot (B, W) rows)
         kpos = ctx["kpos_t"]
         if cfg.use_kernels and q.shape[-1] % 8 == 0:
             from repro_torch.kernels.ops import decode_attention_cache
             # dead slots (ctx["live"] False) do no attention work and get
             # zero rows; live rows are unaffected (attention is
             # batch-separable)
-            out = decode_attention_cache(q, new_cache["k"], new_cache["v"],
-                                         t, kpos, window=cfg.attn_window,
+            out = decode_attention_cache(q, kv_k, kv_v, t, kpos,
+                                         window=cfg.attn_window,
                                          live=ctx.get("live"))
         else:
-            out = attend_decode(q, new_cache["k"], new_cache["v"], t, kpos,
+            out = attend_decode(q, kv_k, kv_v, t, kpos,
                                 window=cfg.attn_window)
     B, S = x.shape[0], x.shape[1]
     out = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
@@ -124,12 +198,17 @@ def _attn_backfill(cfg, params, h, ctx, cache):
     B, S = x.shape[0], x.shape[1]
     k = (x @ params["wk"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
     v = (x @ params["wv"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+    table = ctx.get("block_table")
     if ctx["mode"] == "decode":
         pos = torch.full((1, 1), ctx["t"], dtype=torch.int32,
                          device=x.device)
         k = apply_rope(k, pos, cfg.rope_theta)
+        if table is not None:
+            return _write_decode_paged(cache, k, v, ctx["slot"], table)
         return _write_decode(cache, k, v, ctx["slot"])
     k = apply_rope(k, ctx["positions"], cfg.rope_theta)
+    if table is not None:
+        return _write_full_paged(cache, k, v, ctx["write_slots"], table)
     return _write_full(cache, k, v, ctx["write_slots"])
 
 

@@ -14,7 +14,8 @@ by default); the final head is the standard norm + unembedding.
 Public entry points:
   init(generator)                                -> params
   init_cache(batch, cache_len, dtype)            -> cache
-  prefill(params, tokens, cache)                 -> (exit_logits_last, cache)
+  prefill(params, tokens, cache[, block_tables]) -> (exit_logits_last, cache)
+  prefill_into(params, tokens, cache, ...)       -> exit_logits_last (paged)
   decode_step(params, token, t, cache)           -> (exit_logits, cache)
 and the segment primitives the staged executor (``core/exec.py``) runs:
 ``begin_decode`` / ``run_segment`` / ``backfill_segment`` / ``exit_logits``
@@ -124,8 +125,18 @@ class CascadeModel:
                                   ctx, ca)
         return h, stacked_cache
 
+    @staticmethod
+    def _segment_ctx(si, ctx):
+        """Paged layout: segment ``si`` addresses the shared stores
+        through its OWN table rows (B, nblk) — exit depth m frees the rows
+        of components m+1.. while shallower components keep theirs."""
+        if ctx.get("block_tables") is not None:
+            return {**ctx, "block_table": ctx["block_tables"][si]}
+        return ctx
+
     def run_segment(self, si, params, h, ctx, seg_cache):
         """Compute segment ``si``: (h', seg_cache written in place, aux)."""
+        ctx = self._segment_ctx(si, ctx)
         for pi, (kind, _) in enumerate(self.segment_runs[si]):
             cache_i = seg_cache[pi] if seg_cache is not None else None
             h, _ = self._run_stage(kind, params["segments"][si][pi], h, ctx,
@@ -135,6 +146,7 @@ class CascadeModel:
     def backfill_segment(self, si, params, h, ctx, seg_cache):
         """Write segment ``si``'s caches from the exit hidden state without
         computing the segment (the skip path's cache-coherence write)."""
+        ctx = self._segment_ctx(si, ctx)
         for pi, (kind, _) in enumerate(self.segment_runs[si]):
             block = BLOCKS[kind]
             stacked = params["segments"][si][pi]
@@ -188,31 +200,38 @@ class CascadeModel:
         w = self.cfg.attn_window
         return min(w, cache_len) if w else cache_len
 
-    def init_cache(self, batch: int, cache_len: int, dtype=None):
+    def init_cache(self, batch: int, cache_len: int, dtype=None,
+                   device=None):
+        """Zeroed dense caches on ``device`` (the model's by default;
+        ``"meta"`` gives the shapes without allocating)."""
         cfg = self.cfg
         dtype = dtype or self.param_dtype
+        device = device or self.device
         W = self.cache_capacity(cache_len)
         segs = []
         for runs in self.segment_runs:
             stages = []
             for kind, n in runs:
-                one = BLOCKS[kind].init_cache(cfg, batch, W, dtype,
-                                              self.device)
+                one = BLOCKS[kind].init_cache(cfg, batch, W, dtype, device)
                 stages.append({k: v[None].repeat((n,) + (1,) * v.dim())
                                for k, v in one.items()})
             segs.append(stages)
         return {"kpos": torch.full((W,), -1, dtype=torch.int32,
-                                   device=self.device),
+                                   device=device),
                 "segments": segs}
 
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------
-    def prefill(self, params, tokens, cache):
+    def prefill(self, params, tokens, cache, block_tables=None):
         """Full-sequence forward writing the KV caches (in place).
 
         tokens (B, S) int.  Returns ([exit logits at last position (B,V)]
         * n_exits, cache with its kpos ring for the S prompt positions).
+        ``block_tables`` ((n_components, B, nblk) int32) switches the cache
+        writes to the paged layout; the returned ``kpos`` is then the
+        per-slot (B, W) ring (a copy per slot, which continuous admission
+        rewrites one row at a time) instead of the lane-wide (W,).
         """
         B, S = tokens.shape
         W = cache["kpos"].shape[-1]
@@ -222,13 +241,41 @@ class CascadeModel:
         h = self._embed(params, tokens)
         ctx = {"mode": "full", "positions": positions,
                "write_slots": write_slots, "kpos": cache["kpos"]}
+        if block_tables is not None:
+            ctx["block_tables"] = block_tables
         logits = []
         for si in range(self.n_exits):
             h, _, _ = self.run_segment(si, params, h, ctx,
                                        cache["segments"][si])
             logits.append(self.exit_logits(params, si, h[:, -1:, :])[:, 0, :])
-        return logits, {"kpos": write_slots.clone(),
-                        "segments": cache["segments"]}
+        kpos = (write_slots[None].repeat(B, 1) if cache["kpos"].dim() == 2
+                else write_slots.clone())
+        return logits, {"kpos": kpos, "segments": cache["segments"]}
+
+    def prefill_into(self, params, tokens, cache, positions, write_slots,
+                     block_tables):
+        """Single-request prefill at OFFSET positions into an occupied
+        paged lane (continuous admission).
+
+        tokens: (1, S); ``positions`` (S,) the absolute positions the lane
+        cursor will have covered when the slot starts decoding;
+        ``write_slots`` (W,) the token index each ring slot keeps (-1 =
+        unwritten), computed by the engine; ``block_tables``
+        (n_components, 1, nblk) the admitted slot's table rows.  Writes go
+        in place through the slot's own blocks only, so the rest of the
+        lane's cache is untouched.  Returns [exit logits at the last
+        position (1, V)] * n_exits.
+        """
+        h = self._embed(params, tokens)
+        ctx = {"mode": "full", "positions": positions,
+               "write_slots": write_slots, "kpos": None,
+               "block_tables": block_tables}
+        logits = []
+        for si in range(self.n_exits):
+            h, _, _ = self.run_segment(si, params, h, ctx,
+                                       cache["segments"][si])
+            logits.append(self.exit_logits(params, si, h[:, -1:, :])[:, 0, :])
+        return logits
 
     # ------------------------------------------------------------------
     # decode

@@ -15,10 +15,17 @@ token, the executed skip rate next to the scheduling opportunity, the host
 syncs per token, the cohort dispatch branches taken, and which kernels ran
 (:meth:`stats`).
 
+Two cache layouts (``cfg.paged_cache.layout``): ``"dense"`` keeps one
+worst-case slab per lane; ``"paged"`` serves every lane from one shared
+block pool (:mod:`repro_torch.serving.paged`), claims blocks at admission
+for exactly the positions a request will span, admits into a freed slot
+of a LIVE lane without re-prefilling its siblings (continuous single-slot
+admission), and returns a finished slot's blocks at the next host sync —
+those of components deeper than its exit depth as ``reclaimed_by_exit``.
+
 One decode step per lane per tick, synced to the host every tick
-(``runtime="host"``).  The device runtime, paged layout, autotune,
-escalation, fleet and observability hooks come in later slices of the port
-and are refused here.
+(``runtime="host"``).  The device runtime, autotune, escalation, fleet and
+observability hooks come in later slices of the port and are refused here.
 """
 from __future__ import annotations
 
@@ -33,10 +40,13 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.exec import StagedExecutor, effective_cohorts
+from repro_torch.core.exec import (CONF_EMA_DECAY, StagedExecutor,
+                                   effective_cohorts)
 from repro_torch.core.macs import segment_macs_per_token
+from repro_torch.models import nn
 from repro_torch.models.model import CascadeModel
 from repro_torch.serving.batching import DepthCompactor, cohort_capacity
+from repro_torch.serving.paged import PagedCascadeCache
 from repro_torch.utils import resolve_device
 
 
@@ -109,17 +119,37 @@ class CascadeServingEngine:
         self.executor = StagedExecutor(model, cfg)
         self.decider = self.executor.decider
         self.mac_prefix = segment_macs_per_token(cfg, cache_len)
+        # paged KV layout: shared block stores + per-slot block tables
+        self.paged = cfg.paged_cache.layout == "paged"
+        self.pcache = (PagedCascadeCache(model, cfg, lane_batch, n_lanes,
+                                         cache_len)
+                       if self.paged else None)
+        # dense-equivalent cache footprint (the stats() memory comparison,
+        # in both layouts)
+        tmpl = model.init_cache(lane_batch, cache_len, device="meta")
+        self._dense_cache_bytes = n_lanes * sum(
+            x.numel() * x.element_size()
+            for x in nn.tree_leaves(tmpl["segments"]))
         self.lanes = []
-        for _ in range(n_lanes):
-            self.lanes.append({
+        for i in range(n_lanes):
+            lane = {
                 "slots": [_Slot() for _ in range(lane_batch)],
-                "state": self.executor.init_state(lane_batch),
-                "cache": model.init_cache(lane_batch, cache_len),
-            })
+                "state": self.executor.init_state(
+                    lane_batch, block_tables=(self.pcache.device_tables(i)
+                                              if self.paged else None)),
+            }
+            if self.paged:
+                lane["kpos"] = self.pcache.fresh_kpos()
+            else:
+                lane["cache"] = model.init_cache(lane_batch, cache_len)
+            self.lanes.append(lane)
         self.queue: List[Request] = []
         self.finished: Dict[int, dict] = {}
+        # admission-latency accounting (ticks between submit and admit) and
+        # lanes whose block tables changed since their state last synced
         self._tick = 0
         self._submit_tick: Dict[int, int] = {}
+        self._tables_stale: set = set()
         # the first decode dispatch also pays one-time set-up (kernel
         # build/load, library handles): it is reported as compile_seconds
         # and never counted in the decode window
@@ -138,6 +168,7 @@ class CascadeServingEngine:
         self._decode_tokens = 0
         self._prefill_seconds = 0.0
         self._prefills = 0
+        self._slot_prefills = 0
         self._segments_run = np.zeros(self.cfg.cascade.n_components, np.int64)
         self._decode_steps = 0
         self._skip_opportunities = 0
@@ -145,6 +176,34 @@ class CascadeServingEngine:
         self._admit_waits: List[int] = []
         self._host_syncs = 0
         self._dispatch = dict.fromkeys(self.executor.dispatch, 0)
+        # the pool's peak occupancy and lifetime reclaim counters survive
+        # (high-water capacity); only its per-chunk reclaim window clears
+        if self.paged:
+            self.pcache.pool.reset_window()
+
+    # -- cache layout plumbing -------------------------------------------
+    def _lane_cache(self, lane):
+        """The cache a dispatch consumes: the lane's private slab (dense)
+        or its kpos ring over the shared block stores (paged)."""
+        if self.paged:
+            return self.pcache.lane_cache(lane["kpos"])
+        return lane["cache"]
+
+    def _take_cache(self, lane, cache):
+        """Keep a dispatch's cache: the stores are written in place, so a
+        paged lane keeps only its kpos ring."""
+        if self.paged:
+            lane["kpos"] = cache["kpos"]
+        else:
+            lane["cache"] = cache
+
+    def _sync_tables(self, lane, lane_id: int):
+        """Push rebuilt block tables into the lane's DecodeState after
+        release/alloc changed its rows."""
+        if self.paged and lane_id in self._tables_stale:
+            lane["state"] = lane["state"].replace(
+                block_tables=self.pcache.device_tables(lane_id))
+            self._tables_stale.discard(lane_id)
 
     # -- public API -----------------------------------------------------
     def submit(self, req: Request):
@@ -155,7 +214,21 @@ class CascadeServingEngine:
         hint = (req.extra or {}).get("predicted_depth")
         return self.compactor.predict_depth(hint)
 
+    def _record_admit(self, req: Request):
+        sub = self._submit_tick.pop(req.rid, self._tick)
+        self._admit_waits.append(self._tick - sub)
+
+    @staticmethod
+    def _claim(slot: _Slot, req: Request):
+        slot.request = req
+        slot.generated = []
+        slot.exit_depths = []
+        slot.confs = []
+        slot.done = False
+
     def _admit(self):
+        if self.paged:
+            return self._admit_paged()
         while self.queue:
             free = [i for i, lane in enumerate(self.lanes)
                     if any(s.done for s in lane["slots"])]
@@ -168,23 +241,202 @@ class CascadeServingEngine:
             free_slots = [i for i, s in enumerate(lane["slots"]) if s.done]
             slot_idx = self.compactor.pick_slot(
                 depth, free_slots, self.lane_batch, self.cohorts)
-            slot = lane["slots"][slot_idx]
-            slot.request = req
-            slot.generated = []
-            slot.exit_depths = []
-            slot.confs = []
-            slot.done = False
+            self._claim(lane["slots"][slot_idx], req)
             # the cache is shared per lane: admission re-prefills the lane
             lane["dirty"] = True
-            sub = self._submit_tick.pop(req.rid, self._tick)
-            self._admit_waits.append(self._tick - sub)
+            self._record_admit(req)
 
-    def _finish_if_done(self, s: _Slot, pos: int, lane_id: int):
+    # -- paged admission --------------------------------------------------
+    def _free_per_cohort(self, lane) -> List[int]:
+        per = self.lane_batch // self.cohorts
+        return [sum(1 for i in range(c * per, (c + 1) * per)
+                    if lane["slots"][i].done)
+                for c in range(self.cohorts)]
+
+    @staticmethod
+    def _pad_prompt(n: int) -> int:
+        """Continuous-admission prompts pad to a power of two (>= 2), as
+        the reference pads them (its B = 1 prefill compiles per shape)."""
+        return max(2, 1 << max(0, int(n - 1).bit_length()))
+
+    def _continuous_feasible(self, lane_id: int, req: Request) -> bool:
+        """Can ``req`` join this LIVE lane now?  Needs a free slot, enough
+        decoded history for the padded prompt's offset positions
+        (P_pad <= t), and pool coverage for exactly the positions the
+        slot will span, beside the blocks that lanes waiting for their
+        re-prefill have been promised.  Host state only: no device
+        sync."""
+        lane = self.lanes[lane_id]
+        if not any(s.done for s in lane["slots"]):
+            return False
+        t0 = lane["state"].t
+        P_pad = self._pad_prompt(len(req.prompt))
+        if P_pad > t0:
+            return False
+        need = self.pcache.blocks_needed(t0 - P_pad,
+                                         t0 + req.max_new_tokens)
+        return self.pcache.can_admit(need + self._promised_blocks())
+
+    def _lane_plan(self, lane_id: int, req: Optional[Request] = None) -> int:
+        """Blocks the lane's whole-lane re-prefill claims: every live slot
+        (and ``req``) covered from 0 to the common context length plus
+        its remaining budget."""
+        ctxs = [(len(s.request.prompt) + len(s.generated),
+                 max(1, s.request.max_new_tokens - len(s.generated)))
+                for s in self.lanes[lane_id]["slots"] if not s.done]
+        if req is not None:
+            ctxs.append((len(req.prompt), req.max_new_tokens))
+        if not ctxs:
+            return 0
+        S = max(2, max(c for c, _ in ctxs))
+        return sum(self.pcache.blocks_needed(0, S + rem) for _, rem in ctxs)
+
+    def _lane_held(self, lane_id: int) -> int:
+        return sum(self.pcache.slot_blocks(lane_id, i)
+                   for i in range(self.lane_batch))
+
+    def _promised_blocks(self, but: Optional[int] = None) -> int:
+        """Blocks that dirty lanes (other than ``but``) will claim beyond
+        what they hold when their re-prefill runs.  The reference checks
+        each lane's plan against the free list alone, so two lanes planned
+        in one tick (or a continuous admission after a plan) can promise
+        the same blocks and fail the later prefill's allocation; the port
+        books the promise."""
+        return sum(max(0, self._lane_plan(i) - self._lane_held(i))
+                   for i, ln in enumerate(self.lanes)
+                   if ln.get("dirty") and i != but)
+
+    def _lane_plan_fits(self, lane_id: int, req: Request) -> bool:
+        """Whole-lane path feasibility: would the lane's re-prefill plan
+        (every live slot + ``req``, padded to the common context length)
+        fit the pool once the lane's current reservations are released?"""
+        have = (self.pcache.pool.free_blocks + self._lane_held(lane_id)
+                - self._promised_blocks(but=lane_id))
+        return self._lane_plan(lane_id, req) <= have
+
+    def _admit_paged(self):
+        """Admission under the paged layout: a request needs a free slot
+        AND block coverage for the positions it will span.  A live lane
+        takes it by continuous single-slot admission (siblings untouched);
+        an empty or dirty lane by the whole-lane re-prefill, checked
+        against the pool.  FIFO with head-of-queue blocking: pool
+        exhaustion backpressures admission and never corrupts a resident
+        slot, because ``alloc_slot`` is all-or-nothing."""
+        while self.queue:
+            req = self.queue[0]
+            if not self.pcache.fits_ever(
+                    0, max(2, len(req.prompt)) + req.max_new_tokens):
+                raise ValueError(
+                    f"request rid={req.rid} can never fit: prompt + "
+                    f"max_new_tokens spans more blocks than the pool owns; "
+                    f"raise paged_cache.num_blocks or shrink the request")
+            depth = self._predict_depth(req)
+            whole = [i for i, ln in enumerate(self.lanes)
+                     if (ln.get("dirty") or all(s.done for s in ln["slots"]))
+                     and any(s.done for s in ln["slots"])]
+            live = [i for i, ln in enumerate(self.lanes)
+                    if i not in whole and any(s.done for s in ln["slots"])]
+            cands = [i for i in live if self._continuous_feasible(i, req)]
+            if cands:
+                lane_id = self.compactor.assign(depth, cands)
+                self.queue.pop(0)
+                self._admit_continuous(lane_id, req, depth)
+                continue
+            cands = [i for i in whole if self._lane_plan_fits(i, req)]
+            if not cands:
+                break
+            lane_id = self.compactor.assign(depth, cands)
+            lane = self.lanes[lane_id]
+            free_slots = [i for i, s in enumerate(lane["slots"]) if s.done]
+            slot_idx = self.compactor.pick_slot(
+                depth, free_slots, self.lane_batch, self.cohorts,
+                free_per_cohort=self._free_per_cohort(lane))
+            self._claim(lane["slots"][slot_idx], req)
+            lane["dirty"] = True
+            self.queue.pop(0)
+            self._record_admit(req)
+
+    def _admit_continuous(self, lane_id: int, req: Request, depth: float):
+        """Prefill ``req`` into a single freed slot of a live lane.
+
+        The prompt left-pads to ``P_pad`` and runs a B = 1 full-mode
+        forward at absolute positions ``[t - P_pad, t)``, writing only
+        through the slot's freshly allocated blocks; its kpos row masks
+        everything it did not write.  The admitted stream's history starts
+        at an offset, so its tokens are its own (the sanctioned divergence
+        from the dense layout, which re-prefills the whole lane); sibling
+        streams are untouched."""
+        lane = self.lanes[lane_id]
+        state = lane["state"]
+        t0 = state.t
+        P = len(req.prompt)
+        P_pad = self._pad_prompt(P)
+        free_slots = [i for i, s in enumerate(lane["slots"]) if s.done]
+        slot_idx = self.compactor.pick_slot(
+            depth, free_slots, self.lane_batch, self.cohorts,
+            free_per_cohort=self._free_per_cohort(lane))
+        self._record_admit(req)
+        ok = self.pcache.alloc_slot(lane_id, slot_idx, t0 - P_pad,
+                                    t0 + req.max_new_tokens)
+        assert ok, "continuous admission raced the feasibility check"
+        start = t0 - P_pad
+        toks = np.zeros((1, P_pad), np.int32)
+        toks[0, P_pad - P:] = req.prompt
+        W = self.pcache.W
+        # ring slot -> (kept token index, kept absolute position): newest
+        # position wins on ring wrap, everything unwritten stays masked
+        write_slots = np.full((W,), -1, np.int32)
+        krow = np.full((W,), -1, np.int32)
+        for p in range(max(start, t0 - W), t0):
+            write_slots[p % W] = p - start
+            krow[p % W] = p
+        dev = self.device
+        tables = self.pcache.device_tables(lane_id)[:, slot_idx:slot_idx + 1]
+        t_pre = time.perf_counter()
+        logits = self.model.prefill_into(
+            self.params, torch.as_tensor(toks, device=dev),
+            self.pcache.lane_cache(None),
+            torch.as_tensor(start + np.arange(P_pad, dtype=np.int32),
+                            device=dev),
+            torch.as_tensor(write_slots, device=dev), tables)
+        d, _ = self.decider.decide_with_carry(
+            logits, state=self.decider.measure.init_state(
+                self.cfg.cascade.n_components, 1, dev),
+            active=torch.ones(1, dtype=torch.bool, device=dev))
+        tok = int(d.prediction[0])         # syncs the device
+        exit_idx = int(d.exit_index[0])
+        conf = float(d.confidence[0])
+        self._prefill_seconds += time.perf_counter() - t_pre
+        self._slot_prefills += 1
+        # merge the B = 1 prefill decision into the lane's carried state:
+        # it seeds the stateful-measure streak as a whole-lane prefill does
+        policy = state.policy
+        if policy is not None and d.state is not None:
+            policy = policy.clone()
+            policy[..., slot_idx] = d.state[..., 0]
+        ema = state.ema_conf.clone()
+        ema[slot_idx] = (1.0 - CONF_EMA_DECAY) * conf
+        lane["kpos"][slot_idx] = torch.as_tensor(krow, device=dev)
+        s = lane["slots"][slot_idx]
+        self._claim(s, req)
+        lane["state"] = state.replace(
+            active=torch.as_tensor(self._live_mask(lane), device=dev),
+            policy=policy, ema_conf=ema,
+            block_tables=self.pcache.device_tables(lane_id))
+        self._tables_stale.discard(lane_id)
+        self.compactor.observe_prefill_exit(float(exit_idx))
+        s.generated.append(tok)
+        s.exit_depths.append(exit_idx)
+        s.confs.append(conf)
+        self._finish_if_done(s, t0, lane_id, slot_idx)
+
+    def _finish_if_done(self, s: _Slot, pos: int, lane_id: int,
+                        slot_idx: int):
         if (len(s.generated) >= s.request.max_new_tokens
                 or pos >= self.cache_len - 1):
-            self._retire(s, lane_id)
+            self._retire(s, lane_id, slot_idx)
 
-    def _retire(self, s: _Slot, lane_id: int):
+    def _retire(self, s: _Slot, lane_id: int, slot_idx: int):
         s.done = True
         self.finished[s.request.rid] = {
             "tokens": list(s.generated),
@@ -194,6 +446,13 @@ class CascadeServingEngine:
             "escalated": False,
         }
         self.compactor.observe_retire(lane_id)
+        if self.paged:
+            # skip-aware reclamation at the first host sync after the slot
+            # finished: components the cascade never answered from come
+            # back as reclaimed_by_exit, the rest at retire
+            md = max(s.exit_depths) if s.exit_depths else None
+            self.pcache.release_slot(lane_id, slot_idx, max_exit_depth=md)
+            self._tables_stale.add(lane_id)
 
     def _live_mask(self, lane) -> np.ndarray:
         return np.array([not s.done for s in lane["slots"]])
@@ -212,9 +471,28 @@ class CascadeServingEngine:
         toks = np.zeros((self.lane_batch, S), np.int32)
         for i, p in enumerate(prompts):
             toks[i, -len(p):] = p          # left-pad
-        cache_in = self.model.init_cache(self.lane_batch, self.cache_len)
-        state = self.executor.init_state(self.lane_batch,
-                                         active=self._live_mask(lane))
+        if self.paged:
+            # the re-prefill restarts every resident at the common length:
+            # release ALL the lane's reservations, then claim coverage for
+            # each live slot's full span at the new one (_lane_plan_fits
+            # guaranteed that it fits)
+            for i in range(self.lane_batch):
+                self.pcache.release_slot(lane_id, i)
+            for i, s in enumerate(slots):
+                if s.done:
+                    continue
+                rem = max(1, s.request.max_new_tokens - len(s.generated))
+                ok = self.pcache.alloc_slot(lane_id, i, 0, S + rem)
+                assert ok, "lane prefill outgrew its admission plan"
+            lane["kpos"] = self.pcache.fresh_kpos()
+            cache_in = self.pcache.lane_cache(lane["kpos"])
+            self._tables_stale.discard(lane_id)
+        else:
+            cache_in = self.model.init_cache(self.lane_batch, self.cache_len)
+        state = self.executor.init_state(
+            self.lane_batch, active=self._live_mask(lane),
+            block_tables=(self.pcache.device_tables(lane_id)
+                          if self.paged else None))
         t_pre = time.perf_counter()
         d, cache, state = self.executor.prefill(
             self.params, torch.as_tensor(toks, device=self.device), cache_in,
@@ -224,7 +502,7 @@ class CascadeServingEngine:
         conf = d.confidence.cpu().numpy()
         self._prefill_seconds += time.perf_counter() - t_pre
         self._prefills += 1
-        lane["cache"] = cache
+        self._take_cache(lane, cache)
         lane["state"] = state
         for i, s in enumerate(slots):
             if s.done:
@@ -235,7 +513,8 @@ class CascadeServingEngine:
             s.generated.append(int(tok[i]))
             s.exit_depths.append(int(exit_idx[i]))
             s.confs.append(float(conf[i]))
-            self._finish_if_done(s, S, lane_id)
+            self._finish_if_done(s, S, lane_id, i)
+        self._sync_tables(lane, lane_id)
         lane["dirty"] = False
 
     def step(self):
@@ -278,9 +557,11 @@ class CascadeServingEngine:
         run_before = state.segments_run.copy()
         syncs_before = self.executor.host_syncs
         dispatch_before = dict(self.executor.dispatch)
+        if self.paged:
+            self.pcache.pool.begin_chunk()
         t0 = time.perf_counter()
         d, cache, state = self.executor.decode_step(
-            self.params, token, lane["cache"], state)
+            self.params, token, self._lane_cache(lane), state)
         tok = d.prediction.cpu().numpy()   # syncs the device
         exit_idx = d.exit_index.cpu().numpy()
         conf = d.confidence.cpu().numpy()
@@ -297,7 +578,7 @@ class CascadeServingEngine:
         else:
             self._compile_seconds += dt
             self._decode_warm = True
-        lane["cache"] = cache
+        self._take_cache(lane, cache)
         lane["state"] = state
         depths = exit_idx[live]
         ran = state.segments_run - run_before
@@ -311,7 +592,10 @@ class CascadeServingEngine:
             s.generated.append(int(tok[i]))
             s.exit_depths.append(int(exit_idx[i]))
             s.confs.append(float(conf[i]))
-            self._finish_if_done(s, state.t, lane_id)
+            self._finish_if_done(s, state.t, lane_id, i)
+        self._sync_tables(lane, lane_id)
+        if self.paged:
+            self.pcache.pool.end_chunk()
 
     def run(self, max_ticks: int = 1000):
         for _ in range(max_ticks):
@@ -371,6 +655,9 @@ class CascadeServingEngine:
             "compile_seconds": self._compile_seconds,
             "prefill_seconds": self._prefill_seconds,
             "prefills": self._prefills,
+            # continuous single-slot admissions (paged layout), each a B = 1
+            # prefill into a live lane; their time is in prefill_seconds
+            "slot_prefills": self._slot_prefills,
             "decode_seconds": self._decode_seconds,
             "decode_tokens": tokens,
             # decode-window device -> host syncs: one result fetch per
@@ -386,8 +673,27 @@ class CascadeServingEngine:
             "cohort_dispatch": dict(self._dispatch),
             "use_kernels": self.cfg.use_kernels,
             "lane_batch": self.lane_batch,
-            "cache_layout": "dense",
+            "cache_layout": "paged" if self.paged else "dense",
+            # ticks a request waited between submit and admission
             "admission_wait_ticks": list(self._admit_waits),
+            "admission_wait_mean": (float(np.mean(self._admit_waits))
+                                    if self._admit_waits else None),
+            # block-pool occupancy (paged) vs the always-resident slab
+            # footprint (dense), under the same keys
+            "memory": (self.pcache.stats() if self.paged else {
+                "cache_layout": "dense",
+                "num_blocks": None,
+                "block_size": None,
+                "block_bytes": None,
+                "blocks_free": None,
+                "blocks_used": None,
+                "peak_blocks_used": None,
+                "reclaimed_by_exit": 0,
+                "reclaimed_at_retire": 0,
+                "blocks_reclaimed_per_chunk": [],
+                "peak_cache_bytes": self._dense_cache_bytes,
+                "dense_slab_bytes": self._dense_cache_bytes,
+            }),
             "lane_conf_ema": [
                 float(lane["state"].ema_conf.float().mean().item())
                 for lane in self.lanes],

@@ -300,3 +300,15 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
         wd[:, 2:4] = sd
     cohort_cache.cohort_scatter_tree(dst, src, 1, 2)
     assert all(torch.equal(a, b) for a, b in zip(dst, want))
+    # the paged gather of a layer slice of a stacked store, k and v in one
+    # launch; trash and duplicate ids in the table
+    ks, vs = rand(3, 769, 16, 2, 128), rand(3, 769, 16, 2, 128)
+    table = torch.randint(1, 769, (4, 32), generator=g, device=cuda_device,
+                          dtype=torch.int32)
+    table[1] = 0
+    table[2, 5:9] = table[0, 5]
+    gk, gv = ops.paged_gather_kv(ks[1], vs[1], table)
+    assert torch.equal(gk, ref.ref_paged_gather(ks[1], table))
+    assert torch.equal(gv, ref.ref_paged_gather(vs[1], table))
+    assert torch.equal(ops.paged_gather(ks[2], table),
+                       ref.ref_paged_gather(ks[2], table))

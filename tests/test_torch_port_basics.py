@@ -292,11 +292,13 @@ def test_unported_configurations_are_refused():
             (dict(autotune=True), "autotune")):
         with pytest.raises(NotImplementedError, match=what):
             CascadeServingEngine(cfg, model, params, **{**kw, **bad})
-    for cfg_bad in (cfg.with_paged_cache(layout="paged"),
-                    cfg.with_kernel_tune(enabled=True),
+    for cfg_bad in (cfg.with_kernel_tune(enabled=True),
                     cfg.with_autotune(enabled=True),
                     cfg.with_cascade(confidence="entropy")):
         with pytest.raises(NotImplementedError):
             CascadeServingEngine(cfg_bad, model, params, **kw)
     with pytest.raises(NotImplementedError):
         build_model(cfg.replace(family="moe"), device="cpu")
+    # the paged KV layout is ported (slice 3): it constructs
+    paged = cfg.with_paged_cache(layout="paged", block_size=8)
+    assert CascadeServingEngine(paged, model, params, **kw).paged
