@@ -10,7 +10,13 @@ source, all at once).  Phases, each of which fails the run on a miss:
 2. every kernel against its plain PyTorch version on the card at the
    serving path's shapes (bf16 and f32), ints exact and floats within the
    stated tolerances, with CUDA-event timings of the kernel, the plain
-   version and one library call, and each kernel's bound;
+   version and one library call, and each kernel's bound; flash
+   attention's two routes (wgmma for causal bf16 / fp16 at hd = 128 over
+   views TMA can address, CUDA cores for f32 and unaligned views) each
+   checked to be taken;
+   decode attention's split-KV at its edges (a short last chunk, chunks
+   with no visible key, a slot that sees no key, every slot dead), its
+   bits repeated from run to run;
 3. slice 1 at full width: qwen2.5-3b (36 layers, bf16, 3 components,
    kernels on, cond_batch, one cohort) through ``CascadeServingEngine`` —
    8 requests at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0);
@@ -38,7 +44,9 @@ source, all at once).  Phases, each of which fails the run on a miss:
    line.
 
 Every path is driven with the launch counters set to 0 just before it and
-read just after, and fails unless exactly its expected kernels launched.
+read just after, and fails unless exactly its expected kernels launched;
+every prefill of a bf16 model must take flash attention's wgmma route, of
+an f32 one its CUDA-core route.
 
 Every line of standard output but the ``nvidia-smi`` line is one JSON
 object.  Without a CUDA device, or outside a checkout, it exits non-zero
@@ -150,6 +158,8 @@ def check_equal(name, got, want):
 # rounding (~1e-6 relative); bf16 outputs round to 8 mantissa bits, so one
 # bf16 ulp (2**-8 relative) can flip between two f32 results that agree
 TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 1e-2)}
+# fp16 keeps 3 more mantissa bits than bf16: the bf16 bound covers it
+TOL["float16"] = TOL["bfloat16"]
 
 
 def phase_rmsnorm(dev, gen):
@@ -187,28 +197,51 @@ def phase_rmsnorm(dev, gen):
     return cases
 
 
+def flash_route_of(fn):
+    """Run ``fn`` (one flash launch) and return (its result, the route it
+    took)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    before = dict(flash_attention.launches_by_route)
+    out = fn()
+    taken = [r for r, n in flash_attention.launches_by_route.items()
+             if n != before[r]]
+    if len(taken) != 1:
+        fail(f"flash: one launch moved the route counters {taken}")
+    return out, taken[0]
+
+
 def phase_flash(dev, gen):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     B, H, KV, hd = 4, 16, 2, 128
+    # bf16 / fp16 views TMA can address take the wgmma route, f32 and
+    # unaligned views the CUDA-core one
+    want_route = {"bfloat16": "wgmma", "float16": "wgmma",
+                  "float32": "cuda_core"}
     cases = []
     for S in (128, 256):
         for window in (0, 64):
-            for dt in (torch.bfloat16, torch.float32):
+            for dt in (torch.bfloat16, torch.float32, torch.float16):
+                name = str(dt).split(".")[-1]
                 q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dt)
                 k = torch.randn(B, KV, S, hd, generator=gen,
                                 device=dev).to(dt)
                 v = torch.randn(B, KV, S, hd, generator=gen,
                                 device=dev).to(dt)
-                got = flash_attention(q, k, v, causal=True, window=window)
+                got, route = flash_route_of(lambda: flash_attention(
+                    q, k, v, causal=True, window=window))
                 want = ref.ref_flash_attention(q, k, v, causal=True,
                                                window=window)
                 torch.cuda.synchronize()
-                name = str(dt).split(".")[-1]
                 check_close(f"flash S={S} window={window} {name}", got, want,
                             *TOL[name])
+                if route != want_route[name]:
+                    fail(f"flash S={S} window={window} {name}: took the "
+                         f"{route} route, expected {want_route[name]}")
+                if dt == torch.float16:     # checked, not timed
+                    continue
                 pos = torch.arange(S, device=dev)
                 vis = pos[None, :] <= pos[:, None]
                 if window:
@@ -223,39 +256,60 @@ def phase_flash(dev, gen):
                         q, k, v, is_causal=True, enable_gqa=True))
                 cases.append({
                     "shape": [B, H, KV, S, hd], "window": window,
-                    "dtype": name, "max_abs_err": max_err(got, want),
+                    "dtype": name, "route": route,
+                    "max_abs_err": max_err(got, want),
                     "ms": time_ms(lambda: flash_attention(
                         q, k, v, causal=True, window=window)),
                     "plain_ms": time_ms(lambda: ref.ref_flash_attention(
                         q, k, v, causal=True, window=window)),
                     "library_ms": lib, "bound_ms": b, "bound_by": by})
-    # unaligned views take the kernel's element-wise tile loads
+    # unaligned views (one element off 16 bytes) take the CUDA-core route
+    # and its element-wise tile loads
     q, k, v = (torch.randn(B, 128, n, hd + 1, generator=gen,
                            device=dev).bfloat16()[..., 1:].transpose(1, 2)
                for n in (H, KV, KV))
-    check_close("flash unaligned q/k/v", flash_attention(q, k, v),
+    got, route = flash_route_of(lambda: flash_attention(q, k, v))
+    check_close("flash unaligned q/k/v", got,
                 ref.ref_flash_attention(q, k, v), *TOL["bfloat16"])
+    if route != "cuda_core":
+        fail(f"flash unaligned q/k/v: took the {route} route")
     return cases
 
 
-def phase_decode(dev, gen):
+def decode_ring(t, W):
+    """The dense ring's kpos after position t: slot s holds the newest
+    position congruent to s mod W, -1 while empty."""
     import numpy as np
+    s = np.arange(W)
+    return np.where(s <= t, t - ((t - s) % W), -1).astype(np.int32)
+
+
+def phase_decode(dev, gen):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
-    B, H, KV, hd, W = 4, 16, 2, 128, 512
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      split_plan)
+    B, H, KV, hd = 4, 16, 2, 128
     cases = []
-    # ring state after t positions: slot s holds the newest position ≡ s
-    for t, window, live_l, per_slot in ((700, 0, [1, 1, 1, 1], False),
-                                        (700, 64, [1, 0, 1, 0], False),
-                                        (300, 0, [0, 1, 1, 1], True)):
-        s = np.arange(W)
-        ring = np.where(s <= t, t - ((t - s) % W), -1).astype(np.int32)
-        kpos = torch.as_tensor(ring, device=dev)
-        if per_slot:   # (B, W) rows, each slot's own ring
+    # (t, W, window, live, kpos form): the serving shape all live; a
+    # window over the wrap with dead slots; per-slot rings; W = 500 (the
+    # last 32-key chunk holds 20 keys); a partly filled ring (t = 100:
+    # 12 of 16 chunks hold no visible key) with one live slot whose ring is
+    # empty (no visible key at all); every slot dead
+    for t, W, window, live_l, form in (
+            (700, 512, 0, [1, 1, 1, 1], "lane"),
+            (700, 512, 64, [1, 0, 1, 0], "lane"),
+            (300, 512, 0, [0, 1, 1, 1], "per-slot"),
+            (700, 500, 0, [1, 1, 1, 1], "lane"),
+            (100, 512, 0, [1, 1, 1, 1], "per-slot, slot 3 empty"),
+            (700, 512, 0, [0, 0, 0, 0], "lane")):
+        kpos = torch.as_tensor(decode_ring(t, W), device=dev)
+        if form != "lane":   # (B, W) rows, each slot's own ring
             kpos = torch.stack([kpos - 2 * b if b else kpos
                                 for b in range(B)]).clamp(min=-1)
+            if "empty" in form:
+                kpos[3] = -1
         live = torch.as_tensor(live_l, dtype=torch.bool, device=dev)
         for dt in (torch.bfloat16, torch.float32):
             q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
@@ -266,11 +320,14 @@ def phase_decode(dev, gen):
                                             window=window, live=live)
             torch.cuda.synchronize()
             name = str(dt).split(".")[-1]
-            check_close(f"decode t={t} window={window} {name}", got, want,
-                        *TOL[name])
+            check_close(f"decode t={t} W={W} window={window} {form} "
+                        f"live={live_l} {name}", got, want, *TOL[name])
             if not torch.equal(got[~live].float().abs().sum().cpu(),
                                torch.zeros(())):
                 fail("decode: dead slots' rows are not zero")
+            again = decode_attention(q, kc, vc, t, kpos, live, window=window)
+            if not torch.equal(got, again):
+                fail(f"decode t={t} W={W} {name}: two runs differ")
             kp = kpos if kpos.dim() == 2 else kpos[None].expand(B, W)
             vis = (kp >= 0) & (kp <= t)
             if window:
@@ -284,8 +341,9 @@ def phase_decode(dev, gen):
             qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
             cases.append({
                 "shape": [B, H, KV, W, hd], "t": t, "window": window,
-                "live": live_l, "kpos": "per-slot" if per_slot else "lane",
-                "dtype": name, "max_abs_err": max_err(got, want),
+                "live": live_l, "kpos": form, "dtype": name,
+                "split": list(split_plan(W)),
+                "max_abs_err": max_err(got, want),
                 "ms": time_ms(lambda: decode_attention(
                     q, kc, vc, t, kpos, live, window=window)),
                 "plain_ms": time_ms(lambda: ref.ref_decode_attention(
@@ -294,7 +352,8 @@ def phase_decode(dev, gen):
                     qs, ks, vs, attn_mask=mask, enable_gqa=True)),
                 "bound_ms": b, "bound_by": by})
     # caches that are views one element off 16-byte alignment take the
-    # kernel's element-wise tile loads instead of its 16-byte ones
+    # kernel's element-wise tile loads instead of its 16-byte cp.async
+    W = 512
     q = torch.randn(B, H, hd, generator=gen, device=dev).bfloat16()
     kc, vc = (torch.randn(B, W, KV, hd + 1, generator=gen,
                           device=dev).bfloat16()[..., 1:] for _ in range(2))
@@ -648,7 +707,17 @@ def serve(cfg, model, params, reqs, **engine_kw):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    return finished, engine.stats(), seconds, launches
+    stats = engine.stats()
+    # every prefill of a bf16 / fp16 model takes flash's wgmma route, of
+    # an f32 one its CUDA-core route
+    from repro_torch.kernels.flash_attention import flash_attention
+    routes = dict(flash_attention.launches_by_route)
+    want = "cuda_core" if cfg.dtype == "float32" else "wgmma"
+    if routes[want] != launches["flash_attention"]:
+        fail(f"{cfg.name} {cfg.dtype}: flash routes {routes}, expected all "
+             f"{launches['flash_attention']} launches on {want}")
+    stats["flash_routes"] = routes
+    return finished, stats, seconds, launches
 
 
 def phase_full_width():
@@ -699,26 +768,39 @@ def phase_full_width():
                "exit_histogram": st["exit_histogram"],
                "analytic_speedup": st["analytic_speedup"],
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "launches": launches,
+               "launches": launches, "flash_routes": st["flash_routes"],
                "provenance": st["provenance"]}
         emit(rec)
         runs[ths] = rec
     del params
     torch.cuda.empty_cache()
-    return runs[(0.9, 0.9, 0.0)]["launches"]
+    return runs[(0.9, 0.9, 0.0)]["launches"], \
+        runs[(0.9, 0.9, 0.0)]["flash_routes"]
 
 
 def _streams(fin):
     return {rid: (r["tokens"], r["exit_depths"]) for rid, r in fin.items()}
 
 
-def median_threshold(fin):
-    """Midpoint of the two decode confidences that straddle the median of
-    a run where every token answers at component 0: a component-0
-    threshold at which cohorts disagree."""
+def mixed_threshold(fin, run, tag):
+    """A component-0 threshold at which the cohorts disagree, so that the
+    mixed dispatch branch runs: the midpoint of two neighbouring decode
+    confidences of ``fin`` (a run where every token answers at component
+    0), at the median first and then at other quantiles, until
+    ``run(threshold)`` — a serving run at (threshold, 0.9, 0.0) that
+    returns its ``cohort_dispatch`` counts — took the mixed branch.  Which
+    slots' confidences clear a threshold decides whether both slots of a
+    cohort exit together, so no single quantile reaches the branch for
+    every set of weights and kernel numerics.  Returns (threshold,
+    quantile)."""
     import numpy as np
     c = np.sort([x for r in fin.values() for x in r["confs"][1:]])
-    return float((c[len(c) // 2 - 1] + c[len(c) // 2]) / 2)
+    for q in (0.5, 0.25, 0.75, 0.375, 0.625, 0.125, 0.875):
+        i = min(max(int(q * len(c)), 1), len(c) - 1)
+        th = float((c[i - 1] + c[i]) / 2)
+        if run(th)["mixed"]:
+            return th, q
+    fail(f"{tag}: no component-0 threshold made the cohorts disagree")
 
 
 def phase_full_width_cohorts():
@@ -735,10 +817,18 @@ def phase_full_width_cohorts():
     params = model.init(torch.Generator(device=DEV).manual_seed(0))
     reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
     kw = dict(lane_batch=4, n_lanes=2, cache_len=512)
-    records, mixed_launches, calib = [], None, None
+    records, mixed_launches, fin0, calib, quantile = [], None, None, None, None
     for vi in range(3):
-        # the third vector's component-0 threshold: the median of the
-        # (0, 0, 0) run's confidences (all answered at component 0)
+        # the third vector's component-0 threshold: from the (0, 0, 0)
+        # run's confidences (all answered at component 0), one at which
+        # the cohorts disagree
+        if vi == 2:
+            calib, quantile = mixed_threshold(
+                fin0, lambda th: serve(
+                    base.with_cascade(thresholds=(th, 0.9, 0.0))
+                    .with_kernel_tune(megakernel=True, cohort_scatter=True),
+                    model, params, reqs, **kw)[1]["cohort_dispatch"],
+                "full width cohorts")
         ths = ((0.0, 0.0, 0.0), (0.9, 0.9, 0.0), (calib, 0.9, 0.0))[vi]
         runs = {True: [], False: []}
         for mk in (True, False, False, True):
@@ -777,8 +867,8 @@ def phase_full_width_cohorts():
                 "exit_histogram": st["exit_histogram"],
                 "cohort_dispatch": disp, "launches": launches,
                 "streams": _streams(fin)})
-            if vi == 0 and calib is None:
-                calib = median_threshold(fin)
+            if vi == 0 and mk and fin0 is None:
+                fin0 = fin
             if vi == 2 and mk:
                 mixed_launches = launches
         on, off = runs[True], runs[False]
@@ -792,6 +882,7 @@ def phase_full_width_cohorts():
                "megakernel_off": [{k: v for k, v in r.items()
                                    if k != "streams"} for r in off],
                "streams_on_equal_off": on[0]["streams"] == off[0]["streams"],
+               "threshold_quantile": quantile if vi == 2 else None,
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
         records.append(rec)
         emit(rec)
@@ -1028,7 +1119,10 @@ def phase_route_parity():
     zero = on.with_cascade(thresholds=(0.0, 0.0, 0.0))
     calib = serve(zero, build_model(zero, device=DEV), params, reqs,
                   **kw)[0]
-    th = median_threshold(calib)
+    th, quantile = mixed_threshold(
+        calib, lambda th: run(on.with_cascade(
+            thresholds=(th, 0.9, 0.0)))[1]["cohort_dispatch"],
+        "cohort parity")
     scatter_launches = None
     for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0), (th, 0.9, 0.0)):
         ref_cfg = on.with_cascade(thresholds=ths)
@@ -1049,6 +1143,7 @@ def phase_route_parity():
         variants["paged"] = paged_config(ref_cfg)
         rec = {"phase": "route_parity_cohorts", "n_layers": 4,
                "dtype": "float32", "thresholds": list(ths),
+               "threshold_quantile": quantile if ths[0] == th else None,
                "dispatch": st["cohort_dispatch"], "identical": {}}
         for name, cfg in variants.items():
             got, vst, vl = run(cfg)
@@ -1148,7 +1243,7 @@ def main() -> int:
     # one-cohort run, slice 2's cohort run at the mixed threshold vector,
     # Algorithm 1, slice 3's paged run at capacity, and the select-mode
     # cohort run of the parity phase
-    slice1 = phase_full_width()
+    slice1, slice1_routes = phase_full_width()
     cohorts, model, params, _ = phase_full_width_cohorts()
     algorithm1 = phase_algorithm1(model, params)
     paged = phase_full_width_paged(params)
@@ -1180,6 +1275,8 @@ def main() -> int:
         "cohort_scatter": lambda c: True,
         "paged_gather": lambda c: True,
     }
+    # flash_attention's launches on the path, by route
+    extra = {"flash_attention": {"routes": slice1_routes}}
     rows = []
     for name, cases in checks.items():
         c = next(c for c in cases
@@ -1192,6 +1289,7 @@ def main() -> int:
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"],
+                     **extra.get(name, {}),
                      "headline_case": {k: c[k] for k in c
                                        if k not in ("ms", "plain_ms",
                                                     "bound_ms", "bound_by",

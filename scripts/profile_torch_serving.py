@@ -7,15 +7,17 @@ on, cond_batch) through ``CascadeServingEngine`` with the settings of
 128/256 prompt tokens, 16 new tokens each), once to warm up and once under
 ``torch.profiler``.  Prints JSON lines: the card, the profiled run's wall
 time, the device kernel time summed over the run and its share of the
-wall time (the device's busy share; the rest is the host), and the kernels
+wall time (the device's busy share; the rest is the host), each of the
+port's attention kernels (``decode_attention``'s split and combine,
+``flash_attention``'s wgmma and CUDA-core routes) and the paged gather with
+its device time, calls and share of the device time, and the kernels
 ranked by device time.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
 [--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel] [--paged]``.
 ``--n-cohorts 2`` serves with cohort-split skipping in the ``major``
 layout; ``--megakernel`` turns on the exit-head megakernel and the cohort
-scatter; ``--paged`` serves from the paged KV layout (block size 16) and
-adds the paged gather's share of the device time to the first line.
+scatter; ``--paged`` serves from the paged KV layout (block size 16).
 Needs one CUDA card.
 """
 from __future__ import annotations
@@ -93,8 +95,16 @@ def main() -> int:
               and "CUDA" in str(e.device_type)]
     dev_us = sum(_device_time_us(e) for e in events)
     ranked = sorted(events, key=_device_time_us, reverse=True)
-    gather_us = sum(_device_time_us(e) for e in events
-                    if "paged_gather" in e.key)
+    families = {}
+    for e in events:
+        if any(f in e.key for f in ("attention", "paged_gather")):
+            rec = families.setdefault(e.key[:90], {"calls": 0,
+                                                   "device_s": 0.0})
+            rec["calls"] += e.count
+            rec["device_s"] += _device_time_us(e) / 1e6
+    for rec in families.values():
+        rec["share_of_device"] = rec["device_s"] / (dev_us / 1e6) \
+            if dev_us else None
     print(json.dumps({"card": smi, "thresholds": list(ths),
                       "n_cohorts": args.n_cohorts,
                       "megakernel": args.megakernel,
@@ -102,16 +112,11 @@ def main() -> int:
                       "cohort_dispatch": st["cohort_dispatch"],
                       "wall_s": wall, "device_kernel_s": dev_us / 1e6,
                       "device_busy_share": dev_us / 1e6 / wall,
-                      "paged_gather_device_s": gather_us / 1e6,
-                      "paged_gather_share_of_device": (
-                          gather_us / dev_us if dev_us else None),
-                      "paged_gather_calls": sum(
-                          e.count for e in events
-                          if "paged_gather" in e.key),
                       "decode_us_per_token": st["wallclock_us_per_token"],
                       "prefill_seconds": st["prefill_seconds"],
                       "host_syncs_per_token": st["host_syncs_per_token"],
                       "segments_run": st["segments_run"]}), flush=True)
+    print(json.dumps({"kernels_of_the_port": families}), flush=True)
     print(json.dumps({"top_kernels": [
         {"name": e.key[:90], "calls": e.count,
          "device_ms": _device_time_us(e) / 1e3}

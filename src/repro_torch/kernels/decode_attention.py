@@ -7,11 +7,15 @@ by each cache slot's absolute position (``kpos``, -1 = empty) against the
 current position ``t`` and the sliding window; slots whose ``live`` flag
 is off do no work and get zero rows.
 
-Route: CUDA C++ (``csrc/decode_attention.cu``), ctypes-bound.  The cache is
-read in the model's (B, W, KV, hd) layout through strides, so no transposed
-copy is made.  Bound on the H100: bytes (one read of every live slot's K
-and V rows); see the source's header for the design and what it leaves
-for later.
+Route: CUDA C++ (``csrc/decode_attention.cu``), ctypes-bound: split-KV
+(flash-decoding).  Each chunk of :func:`split_plan`'s keys of one (slot,
+KV head) is scored in its own block, which writes an f32 partial (m, l,
+acc) to a scratch allocated here; a second launch merges a row's partials
+in a fixed split order, so a run repeats its bits.  One call counts one
+in ``decode_attention.launches``.  The cache is read in the model's (B, W,
+KV, hd) layout through strides, so no transposed copy is made.  Bound on
+the H100: bytes (one read of every live slot's K and V rows); see the
+source's header for the design.
 """
 from __future__ import annotations
 
@@ -23,10 +27,23 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_decode_attention
 
-_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+TILE = 32         # the kernel's key tile
+MAX_SPLITS = 16  # partials per row at most
+
+_SIG = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 11
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p])
+
+
+def split_plan(W: int):
+    """(chunk, n_split) for a cache of W slots: the smallest multiple of
+    the 32-key tile that splits W into at most 16 chunks.  A function of W
+    alone, so dense and paged calls (same W) split alike.  W = 512 gives
+    16 chunks of 32 keys: 128 blocks at the serving path's B = 4, KV = 2
+    on the H100's 132 SMs."""
+    chunk = TILE * max(1, -(-W // (TILE * MAX_SPLITS)))
+    return chunk, -(-W // chunk)
 
 
 def decode_attention(q, k_cache, v_cache, t: int, kpos, live=None, *,
@@ -65,11 +82,18 @@ def decode_attention(q, k_cache, v_cache, t: int, kpos, live=None, *,
                          f"got {tuple(kpos.shape)}")
     live = None if live is None else live.to(torch.bool).contiguous()
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    chunk, n_split = split_plan(W)
+    # one f32 scratch: acc (B, H, n_split, hd), then (m, l) (B, H,
+    # n_split, 2); acc first keeps both 16-byte aligned
+    rows = B * H * n_split
+    scratch = torch.empty(rows * (hd + 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc, part_ml = scratch[:rows * hd], scratch[rows * hd:]
     fn = build.function("decode_attention", "decode_attention_launch", _SIG)
     p = build.ptr
     build.check(fn(
-        p(q), p(k_cache), p(v_cache), p(kpos), p(live), p(out),
-        B, W, KV, qpk, hd,
+        p(q), p(k_cache), p(v_cache), p(kpos), p(live), p(out), p(part_ml),
+        p(part_acc), B, W, KV, qpk, hd, chunk,
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),

@@ -75,6 +75,54 @@ def ref_decode_attention(q, k_cache, v_cache, t, kpos, window: int = 0,
     return o.to(q.dtype)
 
 
+def ref_decode_attention_split(q, k_cache, v_cache, t, kpos, live=None, *,
+                               window: int = 0, chunk: int = 32):
+    """Plain emulation of the split-KV decode kernel's arithmetic (tests
+    only): per chunk of ``chunk`` keys the partial (m, l, acc) of an f32
+    softmax, a chunk with no visible key of its slot skipped as the empty
+    partial (-1e30, 0, 0), then the partials merged in ascending chunk
+    order: M = max m, L = sum l * exp(m - M), acc = sum acc * exp(m - M),
+    out = acc / max(L, 1e-30).  A live row with no visible key gets the
+    plain softmax's uniform weights (the mean of V over W); dead rows are
+    exact zeros.  Same arguments as :func:`ref_decode_attention`."""
+    B, H, hd = q.shape
+    W, KV = k_cache.shape[1], k_cache.shape[2]
+    qh = q.reshape(B, KV, H // KV, hd).float()
+    kp = (kpos if kpos.dim() == 2 else kpos[None]).expand(B, W)
+    vis = (kp >= 0) & (kp <= t)
+    if window:
+        vis = vis & (kp > t - window)
+    scale = 1.0 / math.sqrt(hd)
+    parts = []
+    for w0 in range(0, W, chunk):
+        sl = slice(w0, min(W, w0 + chunk))
+        vm = vis[:, sl][:, None, None, :]
+        s = torch.einsum("bkgh,bwkh->bkgw", qh, k_cache[:, sl].float())
+        s = torch.where(vm, s * scale, torch.full_like(s, NEG))
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        acc = torch.einsum("bkgw,bwkh->bkgh", p, v_cache[:, sl].float())
+        empty = ~vm.any(-1)
+        parts.append((torch.where(empty, torch.full_like(m, NEG), m),
+                      torch.where(empty, torch.zeros_like(m), p.sum(-1)),
+                      torch.where(empty[..., None], torch.zeros_like(acc),
+                                  acc)))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(M)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        f = torch.exp(m - M)
+        L = L + l * f
+        acc = acc + a * f[..., None]
+    o = acc / torch.clamp(L, min=1e-30)[..., None]
+    none = ~vis.any(-1)[:, None, None, None]
+    mean = v_cache.float().mean(1)[:, :, None, :]
+    o = torch.where(none, mean.expand_as(o), o).reshape(B, H, hd)
+    if live is not None:
+        o = torch.where(live.bool()[:, None, None], o, torch.zeros_like(o))
+    return o.to(q.dtype)
+
+
 def ref_exit_update(logits, answered, pred, exit_idx, conf, streak, ema,
                     active, *, threshold, m, n_components, patience_k=0,
                     ema_decay=0.0, tel_bins=0):

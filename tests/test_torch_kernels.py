@@ -244,20 +244,57 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     x, w = rand(1024, 2048), torch.ones(2048, device=cuda_device)
     torch.testing.assert_close(rmsnorm.rmsnorm(x, w),
                                ref.ref_rmsnorm(x, w), atol=atol, rtol=rtol)
+    # flash: bf16 takes the wgmma route, f32 the CUDA-core one, and so do
+    # bf16 views one element off 16-byte alignment
+    fa = flash_attention.flash_attention
+    flash_attention.reset_launches()
     q, k, v = rand(4, 16, 256, 128), rand(4, 2, 256, 128), \
         rand(4, 2, 256, 128)
     for window in (0, 64):
         torch.testing.assert_close(
-            flash_attention.flash_attention(q, k, v, window=window),
+            fa(q, k, v, window=window),
             ref.ref_flash_attention(q, k, v, window=window),
             atol=atol, rtol=rtol)
-    qd, kc, vc = rand(4, 16, 128), rand(4, 512, 2, 128), rand(4, 512, 2, 128)
-    kpos = torch.arange(512, device=cuda_device, dtype=torch.int32) + 188
-    live = torch.tensor([True, False, True, True], device=cuda_device)
+    route = "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+    assert fa.launches_by_route[route] == fa.launches == 2
+    q, k, v = (rand(4, 128, n, 129)[..., 1:].transpose(1, 2)
+               for n in (16, 2, 2))
+    torch.testing.assert_close(fa(q, k, v), ref.ref_flash_attention(q, k, v),
+                               atol=atol, rtol=rtol)
+    assert fa.launches_by_route["cuda_core"] == (1 if route == "wgmma"
+                                                 else 3)
+    # non-causal attention and hd = 64 take the CUDA-core route in any type
+    q, k, v = rand(4, 16, 128, 128), rand(4, 2, 128, 128), \
+        rand(4, 2, 128, 128)
     torch.testing.assert_close(
-        decode_attention.decode_attention(qd, kc, vc, 700, kpos, live),
-        ref.ref_decode_attention(qd, kc, vc, 700, kpos, live=live),
-        atol=atol, rtol=rtol)
+        fa(q, k, v, causal=False),
+        ref.ref_flash_attention(q, k, v, causal=False), atol=atol, rtol=rtol)
+    q, k, v = rand(4, 16, 128, 64), rand(4, 2, 128, 64), rand(4, 2, 128, 64)
+    torch.testing.assert_close(fa(q, k, v), ref.ref_flash_attention(q, k, v),
+                               atol=atol, rtol=rtol)
+    assert fa.launches_by_route["cuda_core"] == (3 if route == "wgmma"
+                                                 else 5)
+    # decode (split-KV): the serving shape with a dead slot; W = 500 (a
+    # short last chunk); a partly filled ring (empty chunks) with a slot
+    # that sees no key; every slot dead.  A run repeats its bits.
+    da = decode_attention.decode_attention
+    for W, t, live_l, empty_slot in ((512, 700, [1, 0, 1, 1], False),
+                                     (500, 700, [1, 1, 1, 1], False),
+                                     (512, 100, [1, 1, 1, 1], True),
+                                     (512, 700, [0, 0, 0, 0], False)):
+        qd, kc, vc = rand(4, 16, 128), rand(4, W, 2, 128), rand(4, W, 2, 128)
+        kpos = torch.arange(W, device=cuda_device, dtype=torch.int32)
+        kpos = torch.where(kpos <= t, t - (t - kpos) % W, -1).int()
+        if empty_slot:
+            kpos = kpos.repeat(4, 1)
+            kpos[3] = -1
+        live = torch.tensor(live_l, dtype=torch.bool, device=cuda_device)
+        got = da(qd, kc, vc, t, kpos, live)
+        torch.testing.assert_close(
+            got, ref.ref_decode_attention(qd, kc, vc, t, kpos, live=live),
+            atol=atol, rtol=rtol)
+        assert not got[~live].any()
+        assert torch.equal(got, da(qd, kc, vc, t, kpos, live))
     logits = rand(4, 151936)
     carry = (torch.zeros(4, dtype=torch.bool, device=cuda_device),
              torch.zeros(4, dtype=torch.int32, device=cuda_device),
