@@ -10,13 +10,18 @@ source, all at once).  Phases, each of which fails the run on a miss:
 2. every kernel against its plain PyTorch version on the card at the
    serving path's shapes (bf16 and f32), ints exact and floats within the
    stated tolerances, with CUDA-event timings of the kernel, the plain
-   version and one library call, and each kernel's bound; flash
-   attention's two routes (wgmma for causal bf16 / fp16 at hd = 128 over
-   views TMA can address, CUDA cores for f32 and unaligned views) each
-   checked to be taken;
+   version and one library call, and each kernel's bound; the routes of
+   the kernels that have two, each checked to be taken: flash attention
+   (wgmma for causal bf16 / fp16 at hd = 128 over views TMA can address,
+   CUDA cores for f32 and unaligned views), the exit-head megakernel (tc
+   at B = 1, 2, 4, 8, 16 in bf16 and for a vocab 8 columns short of a
+   whole tile, after a one-hot layout diagnostic; CUDA cores for f32 and
+   a vocab not a multiple of 8), rmsnorm (warp at the model width in bf16
+   and f32, block for a width that is not a whole number of 16-byte
+   chunks and for 32 chunks a lane);
    decode attention's split-KV at its edges (a short last chunk, chunks
    with no visible key, a slot that sees no key, every slot dead), its
-   bits repeated from run to run;
+   bits repeated from run to run, and so the megakernel's;
 3. slice 1 at full width: qwen2.5-3b (36 layers, bf16, 3 components,
    kernels on, cond_batch, one cohort) through ``CascadeServingEngine`` —
    8 requests at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0);
@@ -45,8 +50,9 @@ source, all at once).  Phases, each of which fails the run on a miss:
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after, and fails unless exactly its expected kernels launched;
-every prefill of a bf16 model must take flash attention's wgmma route, of
-an f32 one its CUDA-core route.
+every prefill of a bf16 model must take flash attention's wgmma route and
+every exit head the megakernel's tc route, of an f32 one their CUDA-core
+routes, and every norm rmsnorm's warp route.
 
 Every line of standard output but the ``nvidia-smi`` line is one JSON
 object.  Without a CUDA device, or outside a checkout, it exits non-zero
@@ -162,52 +168,60 @@ TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 1e-2)}
 TOL["float16"] = TOL["bfloat16"]
 
 
+def route_of(fn, counted):
+    """Run ``fn`` (one launch of the wrapper ``counted``) and return (its
+    result, the route it took)."""
+    before = dict(counted.launches_by_route)
+    out = fn()
+    taken = [r for r, n in counted.launches_by_route.items()
+             if n != before[r]]
+    if len(taken) != 1:
+        fail(f"{counted.__name__}: one launch moved the route counters "
+             f"{taken}")
+    return out, taken[0]
+
+
 def phase_rmsnorm(dev, gen):
+    """Both routes: the model width in bf16 and f32 (the warp route, timed
+    at the serving path's decode and prefill rows), a width that is not a
+    whole number of 16-byte chunks and an f32 row of 32 chunks a lane (the
+    block route)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import rmsnorm
     cases = []
-    for R in (4 * 256, 4):
-        for dt in (torch.bfloat16, torch.float32):
-            for wdt in (torch.float32, dt):
-                x = torch.randn(R, D_MODEL, generator=gen,
-                                device=dev).to(dt)
-                w = (1 + 0.1 * torch.randn(D_MODEL, generator=gen,
-                                           device=dev)).to(wdt)
-                got = rmsnorm(x, w, 1e-5)
-                want = ref.ref_rmsnorm(x, w, 1e-5)
-                torch.cuda.synchronize()
-                name = str(dt).split(".")[-1]
-                check_close(f"rmsnorm {R}x{D_MODEL} {name} w={wdt}", got,
-                            want, *TOL[name])
-                if wdt != torch.float32:
-                    continue
-                nbytes = 2 * x.numel() * x.element_size() + \
-                    w.numel() * w.element_size()
-                b, by = bound_ms(nbytes, 4 * x.numel(), name)
-                cases.append({
-                    "shape": [R, D_MODEL], "dtype": name,
-                    "max_abs_err": max_err(got, want),
-                    "ms": time_ms(lambda: rmsnorm(x, w, 1e-5)),
-                    "plain_ms": time_ms(lambda: ref.ref_rmsnorm(x, w, 1e-5)),
-                    "library_ms": time_ms(lambda: F.rms_norm(
-                        x, (D_MODEL,), w.to(x.dtype), 1e-5)),
-                    "bound_ms": b, "bound_by": by})
+    shapes = [(R, D_MODEL, dt, "warp") for R in (4 * 256, 4)
+              for dt in (torch.bfloat16, torch.float32)]
+    shapes += [(4, D_MODEL + 4, torch.bfloat16, "block"),
+               (4 * 256, 2 * D_MODEL, torch.float32, "block")]
+    for R, d, dt, want_route in shapes:
+        for wdt in (torch.float32, dt):
+            x = torch.randn(R, d, generator=gen, device=dev).to(dt)
+            w = (1 + 0.1 * torch.randn(d, generator=gen,
+                                       device=dev)).to(wdt)
+            got, route = route_of(lambda: rmsnorm(x, w, 1e-5), rmsnorm)
+            want = ref.ref_rmsnorm(x, w, 1e-5)
+            torch.cuda.synchronize()
+            name = str(dt).split(".")[-1]
+            tag = f"rmsnorm {R}x{d} {name} w={wdt}"
+            check_close(tag, got, want, *TOL[name])
+            if route != want_route:
+                fail(f"{tag}: took the {route} route, expected {want_route}")
+            if wdt != torch.float32:
+                continue
+            nbytes = 2 * x.numel() * x.element_size() + \
+                w.numel() * w.element_size()
+            b, by = bound_ms(nbytes, 4 * x.numel(), name)
+            cases.append({
+                "shape": [R, d], "dtype": name, "route": route,
+                "max_abs_err": max_err(got, want),
+                "ms": time_ms(lambda: rmsnorm(x, w, 1e-5)),
+                "plain_ms": time_ms(lambda: ref.ref_rmsnorm(x, w, 1e-5)),
+                "library_ms": time_ms(lambda: F.rms_norm(
+                    x, (d,), w.to(x.dtype), 1e-5)),
+                "bound_ms": b, "bound_by": by})
     return cases
-
-
-def flash_route_of(fn):
-    """Run ``fn`` (one flash launch) and return (its result, the route it
-    took)."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    before = dict(flash_attention.launches_by_route)
-    out = fn()
-    taken = [r for r, n in flash_attention.launches_by_route.items()
-             if n != before[r]]
-    if len(taken) != 1:
-        fail(f"flash: one launch moved the route counters {taken}")
-    return out, taken[0]
 
 
 def phase_flash(dev, gen):
@@ -230,8 +244,8 @@ def phase_flash(dev, gen):
                                 device=dev).to(dt)
                 v = torch.randn(B, KV, S, hd, generator=gen,
                                 device=dev).to(dt)
-                got, route = flash_route_of(lambda: flash_attention(
-                    q, k, v, causal=True, window=window))
+                got, route = route_of(lambda: flash_attention(
+                    q, k, v, causal=True, window=window), flash_attention)
                 want = ref.ref_flash_attention(q, k, v, causal=True,
                                                window=window)
                 torch.cuda.synchronize()
@@ -268,7 +282,8 @@ def phase_flash(dev, gen):
     q, k, v = (torch.randn(B, 128, n, hd + 1, generator=gen,
                            device=dev).bfloat16()[..., 1:].transpose(1, 2)
                for n in (H, KV, KV))
-    got, route = flash_route_of(lambda: flash_attention(q, k, v))
+    got, route = route_of(lambda: flash_attention(q, k, v),
+                          flash_attention)
     check_close("flash unaligned q/k/v", got,
                 ref.ref_flash_attention(q, k, v), *TOL["bfloat16"])
     if route != "cuda_core":
@@ -474,50 +489,114 @@ MEGA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TIE_WINDOW = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 
 
+def _mega_ties(h, w, head, name):
+    """Rows whose plain top two logits lie within the tie window."""
+    import torch
+    from repro_torch.kernels import ref
+    lg = (ref.ref_rmsnorm(h, w) @ head).float()
+    top2 = torch.topk(lg, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) <= TIE_WINDOW[name] * top2[:, 0].abs()
+
+
+def _mega_check(tag, got, want, carry, live, ties, name):
+    """Ints exact (the prediction except on tie rows), conf and EMA within
+    MEGA_TOL, dead rows passed through; returns the largest float error."""
+    for idx in (0, 2, 4):
+        check_equal(tag, got[idx], want[idx])
+    check_equal(tag + " pred", got[1][~ties], want[1][~ties])
+    for idx in (3, 5):
+        check_close(tag, got[idx], want[idx], 0.0, MEGA_TOL[name])
+    if live is not None:
+        for o, c in zip(got, carry):
+            check_equal(tag + " dead rows", o[~live], c[~live].to(o.dtype))
+    return max(max_err(got[3], want[3]), max_err(got[5], want[5]))
+
+
+def megakernel_layout_diagnostic(dev):
+    """The tc route's operand layouts, first: row b of h is one-hot at
+    head row k_b (spread over k16 steps, swizzle phases and stages), the
+    head is zero but for a 1 at (k_b, c_b) (spread over tiles, CTAs and
+    accumulator rows), so row b's only non-zero logit sits at c_b; a
+    misread descriptor, swizzle or transpose bit answers another column.
+    N = 8 and N = 16 (B = 8 and 16)."""
+    import torch
+    from repro_torch.kernels.megakernel import exit_head_update, route
+    d, V, n_m = D_MODEL, VOCAB, 3
+    head = torch.zeros(d, V, dtype=torch.bfloat16, device=dev)
+    w = torch.ones(d, device=dev)
+    for B in (8, 16):
+        ks = [(37 * b + 5) % d for b in range(B)]
+        cs = [(9533 * b + 77) % V for b in range(B)]
+        h = torch.zeros(B, d, dtype=torch.bfloat16, device=dev)
+        for b in range(B):
+            h[b, ks[b]] = 1.0
+            head[ks[b], cs[b]] = 1.0
+        if route(h, head, w) != "tc":
+            fail(f"megakernel diagnostic B={B}: not on the tc route")
+        carry = list(_carries(B, n_m, dev))
+        carry[0] = torch.zeros_like(carry[0])       # none answered yet
+        got = exit_head_update(h, w, head, *carry, threshold=0.5,
+                               m=n_m - 1, n_components=n_m)
+        torch.cuda.synchronize()
+        pred = got[1].tolist()
+        if pred != cs:
+            bad = [(b, cs[b], pred[b]) for b in range(B) if pred[b] != cs[b]]
+            fail(f"megakernel diagnostic B={B}: (row, want, got) {bad}")
+        for b in range(B):
+            head[ks[b], cs[b]] = 0.0
+    del head
+    torch.cuda.empty_cache()
+
+
 def phase_megakernel(dev, gen):
+    """bf16 at B = 1, 2, 4, 8, 16 on the tc route, f32 at B = 4, 8 on the
+    CUDA-core one, a vocab not a multiple of 64 (tc) and one not a
+    multiple of 8 (CUDA cores); live patterns with a dead row, every row
+    dead, and two calls on one input bit for bit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.exit_update import exit_update
     from repro_torch.kernels.megakernel import exit_head_update
+    megakernel_layout_diagnostic(dev)
     d, V, n_m = D_MODEL, VOCAB, 3
     cases = []
-    for dt in (torch.bfloat16, torch.float32):
+    for dt, batches, want_route in ((torch.bfloat16, (1, 2, 4, 8, 16), "tc"),
+                                    (torch.float32, (4, 8), "cuda_core")):
         name = str(dt).split(".")[-1]
         w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
         head = (0.02 * torch.randn(d, V, generator=gen, device=dev)).to(dt)
-        for B in (4, 8):
+        for B in batches:
             h = torch.randn(B, d, generator=gen, device=dev).to(dt)
             hc = head.clone()
             # row 1 is confident: column 77 points along its normalised row
-            hc[:, 77] = (ref.ref_rmsnorm(h[1:2], w)[0].float() * 0.05).to(dt)
+            r1 = 1 if B > 1 else 0
+            hc[:, 77] = (ref.ref_rmsnorm(h[r1:r1 + 1], w)[0].float()
+                         * 0.05).to(dt)
             carry = _carries(B, n_m, dev)
             live = torch.arange(B, device=dev) % 4 != 2
-            lg = (ref.ref_rmsnorm(h, w) @ hc).float()
-            top2 = torch.topk(lg, 2, dim=-1).values
-            ties = (top2[:, 0] - top2[:, 1]) <= TIE_WINDOW[name] * \
-                top2[:, 0].abs()
+            ties = _mega_ties(h, w, hc, name)
             errs = []
             for m, pk, decay in ((0, 0, 0.0), (1, 2, 0.0), (2, 0, 0.8)):
                 kw = dict(threshold=0.5, m=m, n_components=n_m,
                           patience_k=pk, ema_decay=decay, live=live)
-                got = exit_head_update(h, w, hc, *carry, **kw)
+                got, route = route_of(lambda: exit_head_update(
+                    h, w, hc, *carry, **kw), exit_head_update)
                 want = ref.ref_exit_head_update(h, w, hc, *carry, **kw)
                 torch.cuda.synchronize()
                 tag = f"megakernel B={B} {name} m={m} k={pk} d={decay}"
-                for idx in (0, 2, 4):
-                    check_equal(tag, got[idx], want[idx])
-                check_equal(tag + " pred", got[1][~ties], want[1][~ties])
-                for idx in (3, 5):
-                    check_close(tag, got[idx], want[idx], 0.0,
-                                MEGA_TOL[name])
-                    errs.append(max_err(got[idx], want[idx]))
-                for o, c in zip(got, carry):       # dead rows pass through
-                    check_equal(tag + " dead rows", o[~live],
-                                c[~live].to(o.dtype))
-            if int(got[1][1]) != 77:
-                fail(f"megakernel: confident row must answer 77, got "
-                     f"{int(got[1][1])}")
+                if route != want_route:
+                    fail(f"{tag}: took the {route} route, expected "
+                         f"{want_route}")
+                errs.append(_mega_check(tag, got, want, carry, live, ties,
+                                        name))
+            if int(got[1][r1]) != 77:
+                fail(f"megakernel B={B} {name}: confident row must answer "
+                     f"77, got {int(got[1][r1])}")
+            again = exit_head_update(h, w, hc, *carry, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"megakernel B={B} {name}: two calls on one input "
+                     f"differ")
             dead = exit_head_update(h, w, hc, *carry, threshold=0.0, m=0,
                                     n_components=n_m,
                                     live=torch.zeros_like(live))
@@ -535,8 +614,8 @@ def phase_megakernel(dev, gen):
                                    n_components=n_m)
 
             cases.append({
-                "shape": [B, d, V], "dtype": name, "live": live.tolist(),
-                "tie_rows": int(ties.sum()),
+                "shape": [B, d, V], "dtype": name, "route": route,
+                "live": live.tolist(), "tie_rows": int(ties.sum()),
                 "max_abs_err": max(errs),
                 "ms": time_ms(lambda: exit_head_update(h, w, hc, *carry,
                                                        **kw)),
@@ -548,26 +627,25 @@ def phase_megakernel(dev, gen):
                 "bound_ms": b, "bound_by": by})
             del hc
         del head
-    # a vocab that is not a multiple of 8 columns takes the kernel's
-    # element-wise head loads instead of its 16-byte ones
+    # a vocab 8 columns short of a whole tile (the last tile's TMA box
+    # reads past V) stays on the tc route; one not a multiple of 8 columns
+    # takes the CUDA-core route and its element-wise head loads
     h = torch.randn(4, d, generator=gen, device=dev).bfloat16()
     w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
     head = (0.02 * torch.randn(d, V, generator=gen, device=dev)).bfloat16()
-    hu = head[:, :V - 3]
     carry = _carries(4, n_m, dev)
     kw = dict(threshold=0.5, m=n_m - 1, n_components=n_m)
-    got = exit_head_update(h, w, hu, *carry, **kw)
-    want = ref.ref_exit_head_update(h, w, hu, *carry, **kw)
-    lg = (ref.ref_rmsnorm(h, w) @ hu).float()
-    top2 = torch.topk(lg, 2, dim=-1).values
-    ties = (top2[:, 0] - top2[:, 1]) <= TIE_WINDOW["bfloat16"] * \
-        top2[:, 0].abs()
-    for idx in (0, 2, 4):
-        check_equal("megakernel unaligned vocab", got[idx], want[idx])
-    check_equal("megakernel unaligned vocab pred", got[1][~ties],
-                want[1][~ties])
-    check_close("megakernel unaligned vocab", got[3], want[3], 0.0,
-                MEGA_TOL["bfloat16"])
+    for cut, want_route in ((8, "tc"), (3, "cuda_core")):
+        hu = head[:, :V - cut]
+        got, route = route_of(lambda: exit_head_update(h, w, hu, *carry,
+                                                       **kw),
+                              exit_head_update)
+        want = ref.ref_exit_head_update(h, w, hu, *carry, **kw)
+        tag = f"megakernel vocab {V - cut}"
+        if route != want_route:
+            fail(f"{tag}: took the {route} route, expected {want_route}")
+        _mega_check(tag, got, want, carry, None,
+                    _mega_ties(h, w, hu, "bfloat16"), "bfloat16")
     del head, hu
     torch.cuda.empty_cache()
     return cases
@@ -708,15 +786,24 @@ def serve(cfg, model, params, reqs, **engine_kw):
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
     stats = engine.stats()
-    # every prefill of a bf16 / fp16 model takes flash's wgmma route, of
-    # an f32 one its CUDA-core route
+    # every prefill of a bf16 / fp16 model takes flash's wgmma route and
+    # every exit head the megakernel's tc route, of an f32 one their
+    # CUDA-core routes; every norm of the model's width takes rmsnorm's
+    # warp route
     from repro_torch.kernels.flash_attention import flash_attention
-    routes = dict(flash_attention.launches_by_route)
-    want = "cuda_core" if cfg.dtype == "float32" else "wgmma"
-    if routes[want] != launches["flash_attention"]:
-        fail(f"{cfg.name} {cfg.dtype}: flash routes {routes}, expected all "
-             f"{launches['flash_attention']} launches on {want}")
-    stats["flash_routes"] = routes
+    from repro_torch.kernels.megakernel import exit_head_update
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    f32 = cfg.dtype == "float32"
+    for name, fn, want in (
+            ("flash_attention", flash_attention,
+             "cuda_core" if f32 else "wgmma"),
+            ("megakernel", exit_head_update, "cuda_core" if f32 else "tc"),
+            ("rmsnorm", rmsnorm, "warp")):
+        routes = dict(fn.launches_by_route)
+        if routes[want] != launches[name]:
+            fail(f"{cfg.name} {cfg.dtype}: {name} routes {routes}, expected "
+                 f"all {launches[name]} launches on {want}")
+        stats[f"{name}_routes"] = routes
     return finished, stats, seconds, launches
 
 
@@ -768,14 +855,17 @@ def phase_full_width():
                "exit_histogram": st["exit_histogram"],
                "analytic_speedup": st["analytic_speedup"],
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "launches": launches, "flash_routes": st["flash_routes"],
+               "launches": launches,
+               "flash_routes": st["flash_attention_routes"],
+               "rmsnorm_routes": st["rmsnorm_routes"],
                "provenance": st["provenance"]}
         emit(rec)
         runs[ths] = rec
     del params
     torch.cuda.empty_cache()
-    return runs[(0.9, 0.9, 0.0)]["launches"], \
-        runs[(0.9, 0.9, 0.0)]["flash_routes"]
+    run = runs[(0.9, 0.9, 0.0)]
+    return run["launches"], {"flash_attention": run["flash_routes"],
+                             "rmsnorm": run["rmsnorm_routes"]}
 
 
 def _streams(fin):
@@ -818,6 +908,7 @@ def phase_full_width_cohorts():
     reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
     kw = dict(lane_batch=4, n_lanes=2, cache_len=512)
     records, mixed_launches, fin0, calib, quantile = [], None, None, None, None
+    mixed_routes = None
     for vi in range(3):
         # the third vector's component-0 threshold: from the (0, 0, 0)
         # run's confidences (all answered at component 0), one at which
@@ -866,11 +957,13 @@ def phase_full_width_cohorts():
                 "segments_run": st["segments_run"],
                 "exit_histogram": st["exit_histogram"],
                 "cohort_dispatch": disp, "launches": launches,
+                "megakernel_routes": st["megakernel_routes"],
                 "streams": _streams(fin)})
             if vi == 0 and mk and fin0 is None:
                 fin0 = fin
             if vi == 2 and mk:
                 mixed_launches = launches
+                mixed_routes = st["megakernel_routes"]
         on, off = runs[True], runs[False]
         rec = {"phase": "full_width_cohorts", "config": "qwen2.5-3b",
                "n_layers": base.n_layers, "dtype": base.dtype,
@@ -886,7 +979,7 @@ def phase_full_width_cohorts():
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
         records.append(rec)
         emit(rec)
-    return mixed_launches, model, params, records
+    return (mixed_launches, mixed_routes), model, params, records
 
 
 def paged_config(base, **paged):
@@ -1244,7 +1337,7 @@ def main() -> int:
     # Algorithm 1, slice 3's paged run at capacity, and the select-mode
     # cohort run of the parity phase
     slice1, slice1_routes = phase_full_width()
-    cohorts, model, params, _ = phase_full_width_cohorts()
+    (cohorts, cohort_routes), model, params, _ = phase_full_width_cohorts()
     algorithm1 = phase_algorithm1(model, params)
     paged = phase_full_width_paged(params)
     del model, params
@@ -1266,17 +1359,20 @@ def main() -> int:
 
     # the headline case of each kernel: the serving path's bf16 shape
     headline = {
-        "rmsnorm": lambda c: c["shape"] == [4, D_MODEL],
+        "rmsnorm": lambda c: c["shape"] == [4, D_MODEL]
+        and c["route"] == "warp",
         "flash_attention": lambda c: c["shape"][3] == 256 and not c["window"],
         "decode_attention": lambda c: c["live"] == [1, 1, 1, 1],
         "exit_update": lambda c: True,
         "confidence": lambda c: True,
-        "megakernel": lambda c: c["shape"][0] == 4,
+        "megakernel": lambda c: c["shape"][0] == 4 and c["route"] == "tc",
         "cohort_scatter": lambda c: True,
         "paged_gather": lambda c: True,
     }
-    # flash_attention's launches on the path, by route
-    extra = {"flash_attention": {"routes": slice1_routes}}
+    # the launches on the path by route, for the kernels that have two
+    extra = {"flash_attention": {"routes": slice1_routes["flash_attention"]},
+             "rmsnorm": {"routes": slice1_routes["rmsnorm"]},
+             "megakernel": {"routes": cohort_routes}}
     rows = []
     for name, cases in checks.items():
         c = next(c for c in cases

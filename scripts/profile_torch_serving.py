@@ -7,11 +7,13 @@ on, cond_batch) through ``CascadeServingEngine`` with the settings of
 128/256 prompt tokens, 16 new tokens each), once to warm up and once under
 ``torch.profiler``.  Prints JSON lines: the card, the profiled run's wall
 time, the device kernel time summed over the run and its share of the
-wall time (the device's busy share; the rest is the host), each of the
-port's attention kernels (``decode_attention``'s split and combine,
-``flash_attention``'s wgmma and CUDA-core routes) and the paged gather with
-its device time, calls and share of the device time, and the kernels
-ranked by device time.
+wall time (the device's busy share; the rest is the host), each device
+kernel of the port's attention (``decode_attention``'s split and combine,
+``flash_attention``'s wgmma and CUDA-core routes), exit-head megakernel
+(``head_tc_kernel``, ``head_partial_kernel``, ``head_combine_kernel``),
+``rmsnorm`` (warp and block routes) and paged gather with its device time,
+calls and share of the device time, the megakernel's and rmsnorm's totals
+over their device kernels, and the kernels ranked by device time.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
 [--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel] [--paged]``.
@@ -95,14 +97,24 @@ def main() -> int:
               and "CUDA" in str(e.device_type)]
     dev_us = sum(_device_time_us(e) for e in events)
     ranked = sorted(events, key=_device_time_us, reverse=True)
+    # each device kernel of the port (its launches and time), and the two
+    # kernels with two routes summed over their device kernels
     families = {}
+    totals = {"megakernel": {"calls": 0, "device_s": 0.0},
+              "rmsnorm": {"calls": 0, "device_s": 0.0}}
     for e in events:
-        if any(f in e.key for f in ("attention", "paged_gather")):
+        if any(f in e.key for f in ("attention", "paged_gather", "head_",
+                                    "rmsnorm")):
             rec = families.setdefault(e.key[:90], {"calls": 0,
                                                    "device_s": 0.0})
             rec["calls"] += e.count
             rec["device_s"] += _device_time_us(e) / 1e6
-    for rec in families.values():
+            group = ("megakernel" if "head_" in e.key
+                     else "rmsnorm" if "rmsnorm" in e.key else None)
+            if group:
+                totals[group]["calls"] += e.count
+                totals[group]["device_s"] += _device_time_us(e) / 1e6
+    for rec in (*families.values(), *totals.values()):
         rec["share_of_device"] = rec["device_s"] / (dev_us / 1e6) \
             if dev_us else None
     print(json.dumps({"card": smi, "thresholds": list(ths),
@@ -116,7 +128,8 @@ def main() -> int:
                       "prefill_seconds": st["prefill_seconds"],
                       "host_syncs_per_token": st["host_syncs_per_token"],
                       "segments_run": st["segments_run"]}), flush=True)
-    print(json.dumps({"kernels_of_the_port": families}), flush=True)
+    print(json.dumps({"kernels_of_the_port": families,
+                      "by_kernel": totals}), flush=True)
     print(json.dumps({"top_kernels": [
         {"name": e.key[:90], "calls": e.count,
          "device_ms": _device_time_us(e) / 1e3}

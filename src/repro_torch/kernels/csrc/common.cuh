@@ -74,6 +74,85 @@ __device__ __forceinline__ float block_sum(float v, float* part) {
   return total;
 }
 
+// ---------------------------------------------------------------------------
+// The row norm of one warp: the arithmetic shared by rmsnorm.cu's "warp"
+// route and the megakernel's prologues, so both normalise a row bit for
+// bit alike.  The row's d elements are read once, 16 bytes a lane a load,
+// into registers: lane l holds the 16-byte chunks c = l + 32 j, j < NV
+// (zeros past the row's end; warp_row_load).  Each lane sums its
+// elements' squares in load order (fmaf), a xor-shuffle tree adds the
+// lanes, and rs = rsqrt(sum / d + eps) (warp_row_rs, in every lane); chunk
+// j's element i becomes T((x_i * rs) * w_i), the product taken in f32 as
+// the reference's operand order pins it (warp_row_scale, with chunk j's
+// weights from load_weights, which a caller may issue early).  The row
+// needs d % (16 / sizeof(T)) == 0 and a 16-byte aligned base.
+// ---------------------------------------------------------------------------
+template <typename T, int NV>
+__device__ __forceinline__ void warp_row_load(const T* __restrict__ x, int d,
+                                              uint4 (&v)[NV]) {
+  const int lane = threadIdx.x % 32, nc = d / (16 / (int)sizeof(T));
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < nc ? __ldg(xv + c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ float warp_row_rs(const uint4 (&v)[NV], int d,
+                                             float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const T* e = reinterpret_cast<const T*>(&v[j]);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const float f = to_f32(e[i]);
+      ss = fmaf(f, f, ss);
+    }
+  }
+  return rsqrtf(warp_sum(ss) / (float)d + eps);
+}
+
+// the N weights of chunk c as f32 (16-byte loads where they fill one)
+template <typename TW, int N>
+__device__ __forceinline__ void load_weights(const TW* __restrict__ w, int c,
+                                             float (&f)[N]) {
+  constexpr int kBytes = N * (int)sizeof(TW);
+  if constexpr (kBytes % 16 == 0) {
+    constexpr int kPer = 16 / sizeof(TW);
+    const uint4* wv = reinterpret_cast<const uint4*>(w + (long long)c * N);
+#pragma unroll
+    for (int q = 0; q < kBytes / 16; ++q) {
+      const uint4 raw = __ldg(wv + q);
+      const TW* e = reinterpret_cast<const TW*>(&raw);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) f[q * kPer + i] = to_f32(e[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = to_f32(w[(long long)c * N + i]);
+  }
+}
+
+// chunk v of a row, normalised and scaled by its weights wf: 16 bytes of
+// T((x_i * rs) * w_i)
+template <typename T>
+__device__ __forceinline__ uint4 warp_row_scale(const uint4& v, float rs,
+                                                const float (&wf)[16 /
+                                                                  sizeof(T)]) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* e = reinterpret_cast<const T*>(&v);
+  uint4 out;
+  T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i)
+    o[i] = from_f32<T>((to_f32(e[i]) * rs) * wf[i]);
+  return out;
+}
+
 // Whether rows of element type T at `p` with the given element strides can
 // be read 16 bytes at a time (aligned base, strides and row length).
 template <typename T>

@@ -131,6 +131,16 @@ def ref_exit_update(logits, answered, pred, exit_idx, conf, streak, ema,
     plus the optional DecodeState confidence-EMA fold.  ``tel_bins > 0``
     appends the packed telemetry code of the raw prediction/confidence."""
     idx, delta = ref_confidence(logits)
+    return _carry_merge(idx, delta, answered, pred, exit_idx, conf, streak,
+                        ema, active, threshold=threshold, m=m,
+                        n_components=n_components, patience_k=patience_k,
+                        ema_decay=ema_decay, tel_bins=tel_bins)
+
+
+def _carry_merge(idx, delta, answered, pred, exit_idx, conf, streak, ema,
+                 active, *, threshold, m, n_components, patience_k=0,
+                 ema_decay=0.0, tel_bins=0):
+    """The exit-update step given each row's prediction and confidence."""
     last = m >= n_components - 1
     # final component: gate open BEFORE the patience rewrite (dense order)
     if last:
@@ -162,21 +172,11 @@ def ref_exit_update(logits, answered, pred, exit_idx, conf, streak, ema,
     return outs
 
 
-def ref_exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf,
-                         streak, ema, active, *, threshold, m, n_components,
-                         patience_k=0, ema_decay=0.0, tel_bins=0, eps=1e-5,
-                         live=None):
-    """Fused exit-head megakernel oracle: the kernel-route rmsnorm (scale
-    by w in f32, one cast) -> the head product in the model dtype ->
-    :func:`ref_exit_update`, with dead (``live`` False) rows passing every
-    carry through unchanged and getting telemetry code 0 (the megakernel's
-    contract — a retired slot's outputs are never read)."""
-    x = ref_rmsnorm(h, norm_w, eps)
-    logits = (x @ head.to(x.dtype)).float()
-    outs = ref_exit_update(logits, answered, pred, exit_idx, conf, streak,
-                           ema, active, threshold=threshold, m=m,
-                           n_components=n_components, patience_k=patience_k,
-                           ema_decay=ema_decay, tel_bins=tel_bins)
+def _pass_dead(outs, live, answered, pred, exit_idx, conf, streak, ema,
+               tel_bins):
+    """Dead (``live`` False) rows keep every carry and get telemetry code 0
+    (the megakernel's contract — a retired slot's outputs are never
+    read)."""
     if live is None:
         return outs
     lv = live.bool()
@@ -187,6 +187,109 @@ def ref_exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf,
     if tel_bins:
         kept += (torch.where(lv, outs[6], torch.zeros_like(outs[6])),)
     return kept
+
+
+def ref_exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf,
+                         streak, ema, active, *, threshold, m, n_components,
+                         patience_k=0, ema_decay=0.0, tel_bins=0, eps=1e-5,
+                         live=None):
+    """Fused exit-head megakernel oracle: the kernel-route rmsnorm (scale
+    by w in f32, one cast) -> the head product in the model dtype ->
+    :func:`ref_exit_update`, with dead (``live`` False) rows passing every
+    carry through unchanged and getting telemetry code 0."""
+    x = ref_rmsnorm(h, norm_w, eps)
+    logits = (x @ head.to(x.dtype)).float()
+    outs = ref_exit_update(logits, answered, pred, exit_idx, conf, streak,
+                           ema, active, threshold=threshold, m=m,
+                           n_components=n_components, patience_k=patience_k,
+                           ema_decay=ema_decay, tel_bins=tel_bins)
+    return _pass_dead(outs, live, answered, pred, exit_idx, conf, streak,
+                      ema, tel_bins)
+
+
+# ---------------------------------------------------------------------------
+# emulators of the redesigned kernels' arithmetic (tests only)
+# ---------------------------------------------------------------------------
+
+def ref_rmsnorm_warp(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    """Plain emulation of the warp-per-row norm (``csrc/common.cuh``
+    warp_row_load / warp_row_rs / warp_row_scale; rmsnorm's ``warp`` route
+    and the megakernel's prologues): lane l holds the 16-byte chunks c = l + 32 j
+    of the row, sums its elements' squares in load order in f32 (each step
+    one fused multiply-add, emulated in f64 and rounded), the lanes meet in
+    a xor tree (offsets 16, 8, 4, 2, 1), rs = 1 / sqrt(sum / d + eps) in
+    f32; then ``(x * rs) * w`` in f32 and one cast.  x: (R, d) with d a
+    whole number of 16-byte chunks."""
+    R, d = x.shape
+    kvec = 16 // x.element_size()
+    n_c = d // kvec
+    nv = -(-n_c // 32)
+    x32 = x.float()
+    # (R, 32 lanes, nv chunks, kvec) in each lane's load order, zero-padded
+    padded = torch.zeros((R, nv * 32 * kvec), dtype=torch.float32)
+    padded[:, :d] = x32
+    lanes = padded.reshape(R, nv, 32, kvec).permute(0, 2, 1, 3) \
+        .reshape(R, 32, nv * kvec).double()
+    ss = torch.zeros((R, 32), dtype=torch.float32)
+    for i in range(nv * kvec):
+        v = lanes[:, :, i]
+        ss = (ss.double() + v * v).float()
+    for o in (16, 8, 4, 2, 1):
+        ss = ss + ss[:, torch.arange(32) ^ o]
+    mean = ss[:, :1] / torch.tensor(float(d), dtype=torch.float32)
+    rs = 1.0 / torch.sqrt((mean + torch.tensor(eps, dtype=torch.float32))
+                          .double())
+    return ((x32 * rs.float()) * w.float()).to(x.dtype)
+
+
+def ref_exit_head_update_tc(h, norm_w, head, answered, pred, exit_idx, conf,
+                            streak, ema, active, *, threshold, m,
+                            n_components, n_ctas, patience_k=0,
+                            ema_decay=0.0, tel_bins=0, eps=1e-5, live=None):
+    """Plain emulation of the megakernel's ``tc`` route (tests only): xn
+    from :func:`ref_rmsnorm_warp`, rounded to the model dtype; each logit
+    the f32 sum of the k16 steps' partial products (each step's 16
+    products summed exactly, then rounded to f32 and added in k order);
+    each logit rounded to the model dtype; per CTA the vocab range of
+    ``megakernel.plan(V, n_ctas)`` folded into one (max, Σexp,
+    first-argmax) partial; the partials merged in CTA order; then the
+    exit-update step with dead rows passing their carries through."""
+    from repro_torch.kernels.megakernel import plan
+    xn = ref_rmsnorm_warp(h, norm_w, eps)
+    B, d = xn.shape
+    V = head.shape[1]
+    x64, w64 = xn.double(), head.double()
+    logits = torch.zeros((B, V), dtype=torch.float32)
+    for k0 in range(0, d, 16):
+        step = x64[:, k0:k0 + 16] @ w64[k0:k0 + 16]
+        logits = logits + step.float()
+    if h.dtype != torch.float32:
+        logits = logits.to(h.dtype).float()
+    ms, ls, as_ = [], [], []
+    for c0, c1 in plan(V, n_ctas):
+        if c0 == c1:
+            ms.append(torch.full((B,), NEG))
+            ls.append(torch.zeros(B))
+            as_.append(torch.full((B,), 2 ** 31 - 1, dtype=torch.int64))
+            continue
+        part = logits[:, c0:c1]
+        mx = part.amax(-1)
+        ms.append(mx)
+        ls.append(torch.exp(part - mx[:, None]).sum(-1))
+        as_.append(c0 + torch.argmax(part, -1))
+    M = torch.stack(ms).amax(0)
+    L = torch.zeros(B)
+    idx = torch.full((B,), 2 ** 31 - 1, dtype=torch.int64)
+    for mc, lc, ac in zip(ms, ls, as_):
+        L = L + lc * torch.exp(mc - M)
+        idx = torch.where((mc == M) & (ac < idx), ac, idx)
+    outs = _carry_merge(idx.to(torch.int32), 1.0 / L, answered, pred,
+                        exit_idx, conf, streak, ema, active,
+                        threshold=threshold, m=m, n_components=n_components,
+                        patience_k=patience_k, ema_decay=ema_decay,
+                        tel_bins=tel_bins)
+    return _pass_dead(outs, live, answered, pred, exit_idx, conf, streak,
+                      ema, tel_bins)
 
 
 def ref_cohort_scatter(dst, src, c: int, C: int):

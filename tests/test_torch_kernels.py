@@ -241,9 +241,17 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     def rand(*shape):
         return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
 
-    x, w = rand(1024, 2048), torch.ones(2048, device=cuda_device)
-    torch.testing.assert_close(rmsnorm.rmsnorm(x, w),
-                               ref.ref_rmsnorm(x, w), atol=atol, rtol=rtol)
+    # rmsnorm: the model width takes the warp route in either dtype; a
+    # width that is not a whole number of 16-byte chunks, and 32 chunks a
+    # lane in f32, the block route
+    rn = rmsnorm.rmsnorm
+    rmsnorm.reset_launches()
+    for R, d in ((1024, 2048), (4, 2048), (4, 2052), (4, 4096)):
+        x, w = rand(R, d), 1 + 0.1 * rand(d).float()
+        torch.testing.assert_close(rn(x, w), ref.ref_rmsnorm(x, w),
+                                   atol=atol, rtol=rtol)
+    block = 1 if dtype == torch.bfloat16 else 2
+    assert rn.launches_by_route == {"warp": 4 - block, "block": block}
     # flash: bf16 takes the wgmma route, f32 the CUDA-core one, and so do
     # bf16 views one element off 16-byte alignment
     fa = flash_attention.flash_attention
@@ -316,20 +324,65 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     assert torch.equal(idx, want_i)
     torch.testing.assert_close(conf, want_c, atol=0, rtol=1e-5)
     # the megakernel at the full head width, at the last component (every
-    # live row answers); a confident row, a dead row
-    h, w = rand(4, 2048), torch.ones(2048, device=cuda_device)
+    # live row answers); a confident row, a dead row.  bf16 takes the tc
+    # route at B = 1 .. 16, f32 the CUDA-core one; two calls repeat their
+    # bits; every row dead passes every carry through
+    mk = megakernel.exit_head_update
+    megakernel.reset_launches()
+    w = 1 + 0.1 * rand(2048).float()
     head = rand(2048, 151936) * 0.02
-    head[:, 77] = ref.ref_rmsnorm(h[1:2], w)[0] * 0.05
-    live = torch.tensor([True, True, False, True], device=cuda_device)
-    kw.update(live=live, m=2)
-    got = megakernel.exit_head_update(h, w, head, *carry, **kw)
-    want = ref.ref_exit_head_update(h, w, head, *carry, **kw)
-    assert int(got[1][1]) == int(want[1][1]) == 77
+    batches = (1, 2, 4, 8, 16) if dtype == torch.bfloat16 else (4,)
+    for B in batches:
+        h = rand(B, 2048)
+        hc = head.clone()
+        hc[:, 77] = ref.ref_rmsnorm(h[-1:], w)[0] * 0.05
+        cb = tuple(c[:1].expand(B).contiguous() for c in carry)
+        live = torch.arange(B, device=cuda_device) % 4 != 2
+        kw.update(live=live, m=2)
+        got = mk(h, w, hc, *cb, **kw)
+        want = ref.ref_exit_head_update(h, w, hc, *cb, **kw)
+        assert int(got[1][-1]) == int(want[1][-1]) == 77
+        for i in (0, 2, 4):
+            assert torch.equal(got[i], want[i])
+        torch.testing.assert_close(got[3], want[3], atol=0,
+                                   rtol=2e-2 if dtype == torch.bfloat16
+                                   else 1e-4)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got, mk(h, w, hc, *cb, **kw)))
+        dead = mk(h, w, hc, *cb, **dict(kw, live=torch.zeros_like(live)))
+        assert all(torch.equal(o, c.to(o.dtype)) for o, c in zip(dead, cb))
+        del hc
+    route = "tc" if dtype == torch.bfloat16 else "cuda_core"
+    assert mk.launches_by_route[route] == mk.launches == 3 * len(batches)
+    # a vocab not a multiple of 8 columns takes the CUDA-core route
+    h = rand(4, 2048)
+    hu = head[:, :151933]
+    kw.update(live=None)
+    got = mk(h, w, hu, *carry, **kw)
+    want = ref.ref_exit_head_update(h, w, hu, *carry, **kw)
     for i in (0, 2, 4):
         assert torch.equal(got[i], want[i])
-    torch.testing.assert_close(got[3], want[3], atol=0,
-                               rtol=2e-2 if dtype == torch.bfloat16
-                               else 1e-4)
+    assert mk.launches_by_route["cuda_core"] == (1 if route == "tc" else 4)
+    del head, hu
+    # tc off the serving shapes: fp16, and a width that is not a multiple
+    # of the 64-row stage (the last stage's box reads past d)
+    for dt, B, d, V in ((torch.float16, 4, 2048, 20000),
+                        (torch.bfloat16, 3, 1000, 1000)):
+        if dtype != torch.bfloat16:
+            break
+        h = torch.randn(B, d, generator=g, device=cuda_device).to(dt)
+        wd = 1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)
+        hd = (0.02 * torch.randn(d, V, generator=g,
+                                 device=cuda_device)).to(dt)
+        hd[:, 77] = (ref.ref_rmsnorm(h[-1:], wd)[0].float() * 0.05).to(dt)
+        cb = tuple(c[:1].expand(B).contiguous() for c in carry)
+        assert megakernel.route(h, hd, wd) == "tc"
+        got = mk(h, wd, hd, *cb, **kw)
+        want = ref.ref_exit_head_update(h, wd, hd, *cb, **kw)
+        assert int(got[1][-1]) == int(want[1][-1]) == 77
+        for i in (0, 2, 4):
+            assert torch.equal(got[i], want[i])
+        torch.testing.assert_close(got[3], want[3], atol=0, rtol=2e-2)
     dst = [rand(12, 4, 512, 2, 128), rand(12, 4, 512, 2, 128)]
     src = [rand(12, 2, 512, 2, 128), rand(12, 2, 512, 2, 128)]
     want = [d.clone() for d in dst]
