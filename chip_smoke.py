@@ -21,7 +21,12 @@ source, all at once).  Phases, each of which fails the run on a miss:
    chunks and for 32 chunks a lane);
    decode attention's split-KV at its edges (a short last chunk, chunks
    with no visible key, a slot that sees no key, every slot dead), its
-   bits repeated from run to run, and so the megakernel's;
+   bits repeated from run to run, and so the megakernel's; decode
+   attention's paged route (a layer slice of a stacked store read through
+   a block table with trash, duplicate and all-trash rows) bit for bit
+   against the dense route over ``paged_gather_kv``'s views; exit_update's
+   vocab split at B = 1, 4, 8, 16 with ties across and straddling CTA
+   tiles, its two launch forms bit for bit alike and both timed;
 3. slice 1 at full width: qwen2.5-3b (36 layers, bf16, 3 components,
    kernels on, cond_batch, one cohort) through ``CascadeServingEngine`` —
    8 requests at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0);
@@ -38,8 +43,11 @@ source, all at once).  Phases, each of which fails the run on a miss:
    (0, 0, 0), paged and dense in turns with identical streams, then an
    equal-memory burst of 24 requests (paged: 8 slots per lane in the
    4-slot dense block count, with continuous single-slot admission and
-   skip-aware reclamation; dense: 4 slots);
-7. route parity at 4 layers in f32: kernel route vs plain route,
+   skip-aware reclamation; dense: 4 slots); every paged decode attention
+   takes the paged route, so no paged_gather launches;
+7. route parity at 4 layers in f32: kernel route vs plain route (dense,
+   paged at block size 16, and paged at block size 64, which the paged
+   decode route does not take: there paged_gather gathers the views),
    megakernel on vs off, 1 vs 2 cohorts, major vs copy layout, select mode
    with the cohort scatter vs cond_batch, each on the dense and the paged
    layout — identical token and exit streams;
@@ -52,7 +60,8 @@ Every path is driven with the launch counters set to 0 just before it and
 read just after, and fails unless exactly its expected kernels launched;
 every prefill of a bf16 model must take flash attention's wgmma route and
 every exit head the megakernel's tc route, of an f32 one their CUDA-core
-routes, and every norm rmsnorm's warp route.
+routes, every norm rmsnorm's warp route, and every decode attention the
+paged route on paged stores of block size 16, else the dense one.
 
 Every line of standard output but the ``nvidia-smi`` line is one JSON
 object.  Without a CUDA device, or outside a checkout, it exits non-zero
@@ -85,6 +94,11 @@ SEG_CACHE = (12, 4, 512, 2, 128)
 # one lane's block table (4 slots x 32 ring blocks of 16 positions)
 PAGED_STORE = (769, 16, 2, 128)
 PAGED_TABLE = (4, 32)
+# the route-parity run's paged store at block size 64, where paged_gather
+# serves decode (2 lanes x 4 slots x 3 components x 8 ring blocks + the
+# trash block), and one lane's block table (4 slots x 8 ring blocks)
+GATHER_STORE = (193, 64, 2, 128)
+GATHER_TABLE = (4, 8)
 
 # where each TPU kernel's pallas_call sits in the reference package
 REPLACES = {
@@ -330,7 +344,10 @@ def phase_decode(dev, gen):
             q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
             kc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(dt)
             vc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(dt)
-            got = decode_attention(q, kc, vc, t, kpos, live, window=window)
+            got, route = route_of(lambda: decode_attention(
+                q, kc, vc, t, kpos, live, window=window), decode_attention)
+            if route != "dense":
+                fail(f"decode t={t} W={W}: took the {route} route")
             want = ref.ref_decode_attention(q, kc, vc, t, kpos,
                                             window=window, live=live)
             torch.cuda.synchronize()
@@ -356,7 +373,7 @@ def phase_decode(dev, gen):
             qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
             cases.append({
                 "shape": [B, H, KV, W, hd], "t": t, "window": window,
-                "live": live_l, "kpos": form, "dtype": name,
+                "live": live_l, "kpos": form, "dtype": name, "route": route,
                 "split": list(split_plan(W)),
                 "max_abs_err": max_err(got, want),
                 "ms": time_ms(lambda: decode_attention(
@@ -377,63 +394,178 @@ def phase_decode(dev, gen):
                 decode_attention(q, kc, vc, W - 1, kpos),
                 ref.ref_decode_attention(q, kc, vc, W - 1, kpos),
                 *TOL["bfloat16"])
+    return cases + decode_paged_cases(dev, gen)
+
+
+def decode_paged_cases(dev, gen):
+    """The paged route: a layer slice of stacked (2, NB, 16, KV, hd) stores
+    read through a (4, 32) block table with trash-block ranges, duplicate
+    ids and an all-trash row, against the dense route over
+    ``paged_gather_kv``'s views — bit for bit — at t >= W and t < W, with
+    a window and a dead slot, and with a live slot whose ring is empty (no
+    visible key: the mean of V over all W rows, trash included).  Times
+    the paged route, the dense route alone and the gather + dense pair it
+    replaces."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      split_plan)
+    from repro_torch.kernels.paged_gather import paged_gather_kv
+    NB, bs, KV, hd = PAGED_STORE
+    B, nblk = PAGED_TABLE
+    H, W = 16, nblk * bs
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        ks = torch.randn((2,) + PAGED_STORE, generator=gen, device=dev).to(dt)
+        vs = torch.randn((2,) + PAGED_STORE, generator=gen, device=dev).to(dt)
+        k, v = ks[1], vs[1]
+        table = torch.randint(1, NB, PAGED_TABLE, generator=gen, device=dev,
+                              dtype=torch.int32)
+        table[1, 20:] = 0                  # uncovered ring ranges: trash
+        table[3] = 0                       # an all-trash row
+        table[2, :4] = table[0, 7]         # duplicate ids
+        kv_views = paged_gather_kv(k, v, table)
+        for t, window, live_l, empty in ((700, 0, [1, 1, 1, 1], False),
+                                         (300, 0, [1, 1, 1, 1], False),
+                                         (700, 64, [1, 1, 1, 0], False),
+                                         (100, 0, [1, 1, 1, 1], True)):
+            kpos = torch.as_tensor(decode_ring(t, W), device=dev)
+            kpos = torch.stack([kpos - 2 * b for b in range(B)]).clamp(min=-1)
+            if empty:
+                kpos[3] = -1
+            live = torch.as_tensor(live_l, dtype=torch.bool, device=dev)
+            q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
+            got, route = route_of(lambda: decode_attention(
+                q, k, v, t, kpos, live, window=window, table=table),
+                decode_attention)
+            dense = decode_attention(q, *kv_views, t, kpos, live,
+                                     window=window)
+            want = ref.ref_decode_attention(q, *kv_views, t, kpos,
+                                            window=window, live=live)
+            torch.cuda.synchronize()
+            tag = (f"decode paged t={t} window={window} live={live_l} "
+                   f"empty={empty} {name}")
+            if route != "paged":
+                fail(f"{tag}: took the {route} route")
+            if not torch.equal(got, dense):
+                fail(f"{tag}: the paged route differs from the dense route "
+                     f"over the gathered views by {max_err(got, dense):.3e}")
+            check_close(tag, got, want, *TOL[name])
+            again = decode_attention(q, k, v, t, kpos, live, window=window,
+                                     table=table)
+            if not torch.equal(got, again):
+                fail(f"{tag}: two runs differ")
+            if t != 700 or window or empty:
+                continue
+            vis = (kpos >= 0) & (kpos <= t)
+            n_vis = int(vis[live].sum().item())
+            esz = q.element_size()
+            nbytes = (2 * n_vis * KV * hd + 2 * q.numel()) * esz + \
+                kpos.numel() * 4 + table.numel() * 4
+            b, by = bound_ms(nbytes, 4 * (H // KV) * hd * KV * n_vis, name)
+            qs = q[:, :, None]
+            kt, vt = (x.transpose(1, 2) for x in kv_views)
+            cases.append({
+                "shape": [B, H, KV, W, hd], "t": t, "window": window,
+                "live": live_l, "kpos": "per-slot", "dtype": name,
+                "route": route, "store": list(PAGED_STORE),
+                "table": list(PAGED_TABLE), "split": list(split_plan(W)),
+                "max_abs_err": max_err(got, want),
+                "ms": time_ms(lambda: decode_attention(
+                    q, k, v, t, kpos, live, table=table)),
+                "dense_ms": time_ms(lambda: decode_attention(
+                    q, *kv_views, t, kpos, live)),
+                "gather_and_dense_ms": time_ms(lambda: decode_attention(
+                    q, *paged_gather_kv(k, v, table), t, kpos, live)),
+                "plain_ms": time_ms(lambda: ref.ref_decode_attention(
+                    q, ref.ref_paged_gather(k, table),
+                    ref.ref_paged_gather(v, table), t, kpos, live=live)),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, kt, vt, attn_mask=vis[:, None, None, :],
+                    enable_gqa=True)),
+                "bound_ms": b, "bound_by": by})
+        del ks, vs, kv_views
     return cases
 
 
+def _exit_logits(B, V, dt, dev, gen):
+    """(B, V) logits with rows by role (b % 4): noise; a confident row
+    (column 77); a tie across CTA tiles (columns 5 and V - 100); a tie
+    straddling the first tile boundary (columns 4095 and 4096)."""
+    import torch
+    x = torch.randn(B, V, generator=gen, device=dev)
+    for b in range(B):
+        role = b % 4
+        if role == 1:
+            x[b, 77] += 20.0
+        elif role == 2:
+            x[b, 5] = x[b, V - 100] = x[b].max() + 15.0
+        elif role == 3:
+            x[b, 4095] = x[b, 4096] = x[b].max() + 15.0
+    return x.to(dt)
+
+
 def phase_exit_update(dev, gen):
+    """The vocab split over the SMs at B = 1, 4, 8, 16 in bf16 and f32:
+    ints equal the plain version's (every carry case at B = 4: m, patience,
+    EMA, telemetry), confidences within 1e-5 relative; ties across and
+    straddling CTA tiles resolve to the first index; two calls give the
+    same bits.  Times the kernel, the plain version and the library
+    call."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.exit_update import exit_update
-    B, V, n_m = 4, VOCAB, 3
+    V, n_m = VOCAB, 3
     cases = []
     for dt in (torch.bfloat16, torch.float32):
-        x = torch.randn(B, V, generator=gen, device=dev)
-        x[1, 77] += 20.0                  # a confident row (delta ~ 1)
-        x[2, 5] = x[2, V - 100] = x[2].max() + 15.0   # a tie across tiles
-        x = x.to(dt)
-        i32 = dict(dtype=torch.int32, device=dev)
-        carry = (torch.tensor([False, False, True, False], device=dev),
-                 torch.tensor([7, 7, 7, 7], **i32),
-                 torch.tensor([0, 0, 0, 0], **i32),
-                 torch.tensor([0.1, 0.2, 0.3, 0.4], device=dev),
-                 torch.tensor([0, 1, 2, 3], **i32),
-                 torch.tensor([0.5, 0.5, 0.5, 0.5], device=dev),
-                 torch.tensor([True, True, False, True], device=dev))
         name = str(dt).split(".")[-1]
-        errs = []
-        for m in (0, n_m - 1):
-            for pk in (0, 2):
-                for decay in (0.0, 0.8):
-                    for bins in (0, 32):
-                        kw = dict(threshold=0.3, m=m, n_components=n_m,
-                                  patience_k=pk, ema_decay=decay,
-                                  tel_bins=bins)
-                        got = exit_update(x, *carry, **kw)
-                        want = ref.ref_exit_update(x, *carry, **kw)
-                        torch.cuda.synchronize()
-                        tag = f"exit_update {name} {kw}"
-                        for idx in (0, 1, 2, 4) + ((6,) if bins else ()):
-                            check_equal(tag, got[idx], want[idx])
-                        for idx in (3, 5):
-                            check_close(tag, got[idx], want[idx], 0.0, 1e-5)
-                            errs.append(max_err(got[idx], want[idx]))
-        if int(exit_update(x, *carry, threshold=0.0, m=0,
-                           n_components=n_m)[1][2]) != 7:
-            fail("exit_update: answered rows must keep their prediction")
-        kw = dict(threshold=0.3, m=0, n_components=n_m)
-        got = exit_update(x, torch.zeros_like(carry[0]), *carry[1:], **kw)
-        if int(got[1][2]) != 5:
-            fail(f"exit_update: tie across tiles must pick index 5, got "
-                 f"{int(got[1][2])}")
-        nbytes = x.numel() * x.element_size() + B * 4 * 13
-        b, by = bound_ms(nbytes, 4 * x.numel(), name)
-        cases.append({
-            "shape": [B, V], "dtype": name, "max_abs_err": max(errs),
-            "ms": time_ms(lambda: exit_update(x, *carry, **kw)),
-            "plain_ms": time_ms(lambda: ref.ref_exit_update(x, *carry, **kw)),
-            "library_ms": time_ms(
-                lambda: torch.softmax(x.float(), -1).max(-1)),
-            "bound_ms": b, "bound_by": by})
+        for B in (4, 1, 8, 16):
+            x = _exit_logits(B, V, dt, dev, gen)
+            carry = _carries(B, n_m, dev)
+            errs = []
+            sweep = [dict(m=m, patience_k=pk, ema_decay=decay, tel_bins=bins)
+                     for m in (0, n_m - 1) for pk in (0, 2)
+                     for decay in (0.0, 0.8) for bins in (0, 32)]
+            if B != 4:
+                sweep = sweep[-1:] + sweep[5:6]
+            for case in sweep:
+                kw = dict(threshold=0.3, n_components=n_m, **case)
+                got = exit_update(x, *carry, **kw)
+                want = ref.ref_exit_update(x, *carry, **kw)
+                torch.cuda.synchronize()
+                tag = f"exit_update B={B} {name} {kw}"
+                for idx in (0, 1, 2, 4) + ((6,) if kw["tel_bins"] else ()):
+                    check_equal(tag, got[idx], want[idx])
+                for idx in (3, 5):
+                    check_close(tag, got[idx], want[idx], 0.0, 1e-5)
+                    errs.append(max_err(got[idx], want[idx]))
+                again = exit_update(x, *carry, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{tag}: a second call gave other bits")
+            # nothing answered yet: every row's prediction is its argmax
+            kw = dict(threshold=0.3, m=0, n_components=n_m)
+            fresh = exit_update(x, torch.zeros_like(carry[0]), *carry[1:],
+                                **kw)
+            pred = fresh[1].tolist()
+            for b, want_idx in ((2, 5), (3, 4095)):
+                if b < B and pred[b] != want_idx:
+                    fail(f"exit_update B={B} {name}: a tie must pick index "
+                         f"{want_idx}, got {pred[b]}")
+            if B == 4 and int(exit_update(x, *carry, threshold=0.0, m=0,
+                                          n_components=n_m)[1][2]) != 7:
+                fail("exit_update: answered rows must keep their prediction")
+            nbytes = x.numel() * x.element_size() + B * 4 * 13
+            b, by = bound_ms(nbytes, 4 * x.numel(), name)
+            cases.append({
+                "shape": [B, V], "dtype": name, "max_abs_err": max(errs),
+                "ms": time_ms(lambda: exit_update(x, *carry, **kw)),
+                "plain_ms": time_ms(lambda: ref.ref_exit_update(x, *carry,
+                                                                **kw)),
+                "library_ms": time_ms(
+                    lambda: torch.softmax(x.float(), -1).max(-1)),
+                "bound_ms": b, "bound_by": by})
     return cases
 
 
@@ -698,24 +830,30 @@ def phase_cohort_scatter(dev, gen):
 
 
 def phase_paged_gather(dev, gen):
+    """The gather, exact, at the serving store (bf16, f32; block size 16)
+    and at the route-parity run's f32 store of block size 64, the one
+    serving path that launches it (the paged decode route reads block
+    size 16 through the table)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_gather import paged_gather, paged_gather_kv
-    NB = PAGED_STORE[0]
-    B, nblk = PAGED_TABLE
     cases = []
-    for dt in (torch.bfloat16, torch.float32):
+    for store, tshape, dt in ((PAGED_STORE, PAGED_TABLE, torch.bfloat16),
+                              (PAGED_STORE, PAGED_TABLE, torch.float32),
+                              (GATHER_STORE, GATHER_TABLE, torch.float32)):
         name = str(dt).split(".")[-1]
+        NB = store[0]
+        B, nblk = tshape
         # a layer slice of stacked (2, NB, ...) stores, as the model hands
         # it over
-        ks = torch.randn((2,) + PAGED_STORE, generator=gen, device=dev).to(dt)
-        vs = torch.randn((2,) + PAGED_STORE, generator=gen, device=dev).to(dt)
+        ks = torch.randn((2,) + store, generator=gen, device=dev).to(dt)
+        vs = torch.randn((2,) + store, generator=gen, device=dev).to(dt)
         k, v = ks[1], vs[1]
-        table = torch.randint(1, NB, PAGED_TABLE, generator=gen, device=dev,
+        table = torch.randint(1, NB, tshape, generator=gen, device=dev,
                               dtype=torch.int32)
-        table[1, 20:] = 0                      # uncovered ring ranges: trash
+        table[1, 5 * nblk // 8:] = 0           # uncovered ring ranges: trash
         table[3] = 0                           # a dead slot: all trash
-        table[2, :4] = table[0, 7]             # duplicate ids
+        table[2, :nblk // 8] = table[0, nblk // 4]   # duplicate ids
         got = paged_gather_kv(k, v, table)
         want = (ref.ref_paged_gather(k, table), ref.ref_paged_gather(v, table))
         one = paged_gather(v, table)
@@ -733,7 +871,7 @@ def phase_paged_gather(dev, gen):
             table.numel() * 4
         b, by = bound_ms(nbytes, 0, name)
         cases.append({
-            "shape": [list(PAGED_STORE), list(PAGED_TABLE)], "stores": 2,
+            "shape": [list(store), list(tshape)], "stores": 2,
             "dtype": name, "max_abs_err": max(max_err(g, w)
                                               for g, w in zip(got, want)),
             "ms": time_ms(lambda: paged_gather_kv(k, v, table)),
@@ -789,16 +927,23 @@ def serve(cfg, model, params, reqs, **engine_kw):
     # every prefill of a bf16 / fp16 model takes flash's wgmma route and
     # every exit head the megakernel's tc route, of an f32 one their
     # CUDA-core routes; every norm of the model's width takes rmsnorm's
-    # warp route
+    # warp route; every decode attention over paged stores whose block
+    # size divides the 32-key tile takes the paged route (no gather), any
+    # other the dense one
+    from repro_torch.kernels.decode_attention import TILE, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch.kernels.rmsnorm import rmsnorm
     f32 = cfg.dtype == "float32"
+    paged = (cfg.paged_cache.layout == "paged"
+             and TILE % cfg.paged_cache.block_size == 0)
     for name, fn, want in (
             ("flash_attention", flash_attention,
              "cuda_core" if f32 else "wgmma"),
             ("megakernel", exit_head_update, "cuda_core" if f32 else "tc"),
-            ("rmsnorm", rmsnorm, "warp")):
+            ("rmsnorm", rmsnorm, "warp"),
+            ("decode_attention", decode_attention,
+             "paged" if paged else "dense")):
         routes = dict(fn.launches_by_route)
         if routes[want] != launches[name]:
             fail(f"{cfg.name} {cfg.dtype}: {name} routes {routes}, expected "
@@ -858,6 +1003,7 @@ def phase_full_width():
                "launches": launches,
                "flash_routes": st["flash_attention_routes"],
                "rmsnorm_routes": st["rmsnorm_routes"],
+               "decode_routes": st["decode_attention_routes"],
                "provenance": st["provenance"]}
         emit(rec)
         runs[ths] = rec
@@ -865,7 +1011,8 @@ def phase_full_width():
     torch.cuda.empty_cache()
     run = runs[(0.9, 0.9, 0.0)]
     return run["launches"], {"flash_attention": run["flash_routes"],
-                             "rmsnorm": run["rmsnorm_routes"]}
+                             "rmsnorm": run["rmsnorm_routes"],
+                             "decode_attention": run["decode_routes"]}
 
 
 def _streams(fin):
@@ -983,7 +1130,8 @@ def phase_full_width_cohorts():
 
 
 def paged_config(base, **paged):
-    return base.with_paged_cache(layout="paged", block_size=16, **paged)
+    return base.with_paged_cache(**{"layout": "paged", "block_size": 16,
+                                    **paged})
 
 
 def phase_full_width_paged(params):
@@ -996,8 +1144,10 @@ def phase_full_width_paged(params):
     identical token and exit streams.  (b) an equal-memory burst: a paged
     engine with 8 slots per lane and its pool capped at the 4-slot dense
     count beside a dense engine with 4; 24 requests of 128/256 prompt
-    tokens and 8/16 new tokens at (0, 0, 0).  Returns the launches of the
-    paged run at (0.9, 0.9, 0.0)."""
+    tokens and 8/16 new tokens at (0, 0, 0).  Every paged decode attention
+    reads the stores through the block table (route ``paged``): no
+    ``paged_gather`` launch.  Returns the decode routes of the paged run at
+    (0.9, 0.9, 0.0)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -1021,13 +1171,8 @@ def phase_full_width_paged(params):
             if sorted(fin) != list(range(8)) or any(
                     len(r["tokens"]) != 16 for r in fin.values()):
                 fail(f"{tag}: not every request got its 16 tokens")
-            check_launched(tag, launches,
-                           SLICE1 | ({"paged_gather"} if paged else set()))
-            if paged and launches["paged_gather"] != \
-                    launches["decode_attention"]:
-                fail(f"{tag}: {launches['paged_gather']} gathers for "
-                     f"{launches['decode_attention']} decode attentions "
-                     f"(one k/v pair launch per decode layer that computes)")
+            # serve() has checked that every decode took the paged route
+            check_launched(tag, launches, SLICE1)
             if paged and (st["memory"]["blocks_used"] != 0
                           or st["slot_prefills"] != 0):
                 fail(f"{tag}: {st['memory']['blocks_used']} blocks left, "
@@ -1044,9 +1189,10 @@ def phase_full_width_paged(params):
                 "segments_run": st["segments_run"],
                 "cohort_dispatch": st["cohort_dispatch"],
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                "memory": st["memory"], "launches": launches})
+                "memory": st["memory"], "launches": launches,
+                "decode_routes": st["decode_attention_routes"]})
             if paged and ths[0] > 0 and headline is None:
-                headline = launches
+                headline = st["decode_attention_routes"]
         if streams[True] != streams[False]:
             bad = [rid for rid in streams[True]
                    if streams[True][rid] != streams[False].get(rid)]
@@ -1084,8 +1230,7 @@ def phase_full_width_paged(params):
                       or mem["peak_blocks_used"] > nb - 1
                       or mem["reclaimed_by_exit"] <= 0):
             fail(f"{tag}: slot prefills {st['slot_prefills']}, memory {mem}")
-        check_launched(tag, launches,
-                       SLICE1 | ({"paged_gather"} if paged else set()))
+        check_launched(tag, launches, SLICE1)
         out[paged] = {
             "lane_batch": st["lane_batch"], "seconds": secs,
             "us_per_token": st["wallclock_us_per_token"],
@@ -1095,7 +1240,8 @@ def phase_full_width_paged(params):
             "prefill_seconds": st["prefill_seconds"],
             "peak_cache_bytes": mem["peak_cache_bytes"], "memory": mem,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "launches": launches}
+            "launches": launches,
+            "decode_routes": st["decode_attention_routes"]}
     emit({"phase": "full_width_paged_burst", "config": "qwen2.5-3b",
           "thresholds": list(ths), "requests": len(burst),
           "num_blocks": nb, "paged": out[True], "dense": out[False]})
@@ -1181,21 +1327,34 @@ def phase_route_parity():
                                      params, reqs, **kw)
         return _streams(fin), st, launches
 
+    gather_launches = None
     for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
         streams = {}
-        # kernel and plain routes, dense and paged (slice 3), one cohort
+        # kernel and plain routes, dense and paged (slice 3), one cohort;
+        # paged at block size 16 (decode reads through the table) and 64
+        # (too large for the paged route: the gather + the dense route)
         for use_kernels in (True, False):
-            for paged in (False, True):
+            for paged in (0, 16, 64):
                 cfg = base.replace(use_kernels=use_kernels).with_cascade(
                     thresholds=ths)
                 if paged:
-                    cfg = paged_config(cfg)
+                    cfg = paged_config(cfg, block_size=paged)
                 streams[use_kernels, paged], _, launches = run(cfg)
-                expect = (SLICE1 | ({"paged_gather"} if paged else set())
+                expect = (SLICE1 | ({"paged_gather"} if paged == 64
+                                    else set())
                           if use_kernels else set())
                 check_launched(f"route parity {ths} kernels={use_kernels} "
                                f"paged={paged}", launches, expect)
-        want = streams[True, False]
+                if use_kernels and paged == 64:
+                    if launches["paged_gather"] != \
+                            launches["decode_attention"]:
+                        fail(f"route parity {ths} block size 64: "
+                             f"{launches['paged_gather']} gathers for "
+                             f"{launches['decode_attention']} decode "
+                             f"attentions")
+                    if ths[0] > 0:
+                        gather_launches = launches
+        want = streams[True, 0]
         for key, got in streams.items():
             if got != want:
                 bad = [rid for rid in want if got.get(rid) != want[rid]]
@@ -1244,7 +1403,6 @@ def phase_route_parity():
                                else set())
             if name.startswith("paged"):
                 # a paged store has no cohort rows: no cohort scatter
-                expect = expect | {"paged_gather"}
                 if name == "paged_select_scatter" and \
                         vst["cohort_dispatch"]["mixed"] == 0:
                     fail(f"cohort parity {ths}: paged select mode never "
@@ -1266,7 +1424,7 @@ def phase_route_parity():
         emit(rec)
     del params
     torch.cuda.empty_cache()
-    return scatter_launches
+    return scatter_launches, gather_launches
 
 
 def phase_cli():
@@ -1339,10 +1497,10 @@ def main() -> int:
     slice1, slice1_routes = phase_full_width()
     (cohorts, cohort_routes), model, params, _ = phase_full_width_cohorts()
     algorithm1 = phase_algorithm1(model, params)
-    paged = phase_full_width_paged(params)
+    paged_routes = phase_full_width_paged(params)
     del model, params
     torch.cuda.empty_cache()
-    select = phase_route_parity()
+    select, gathers = phase_route_parity()
     phase_cli()
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
@@ -1354,29 +1512,44 @@ def main() -> int:
              "confidence": ("algorithm 1, full width", algorithm1),
              "cohort_scatter": ("route parity, select mode, 2 cohorts",
                                 select),
-             "paged_gather": ("slice 3 full width paged at capacity, "
-                              "(0.9, 0.9, 0.0)", paged)}
+             "paged_gather": ("route parity, paged at block size 64 (the "
+                              "paged decode route takes 16), 4 layers f32, "
+                              "(0.9, 0.9, 0.0)", gathers)}
 
-    # the headline case of each kernel: the serving path's bf16 shape
+    # the headline case of each kernel: the serving path's bf16 shape;
+    # paged_gather's is the f32 block-64 store its launches come from
     headline = {
         "rmsnorm": lambda c: c["shape"] == [4, D_MODEL]
         and c["route"] == "warp",
         "flash_attention": lambda c: c["shape"][3] == 256 and not c["window"],
-        "decode_attention": lambda c: c["live"] == [1, 1, 1, 1],
-        "exit_update": lambda c: True,
+        "decode_attention": lambda c: c["live"] == [1, 1, 1, 1]
+        and c["route"] == "dense",
+        "exit_update": lambda c: c["shape"][0] == 4,
         "confidence": lambda c: True,
         "megakernel": lambda c: c["shape"][0] == 4 and c["route"] == "tc",
         "cohort_scatter": lambda c: True,
-        "paged_gather": lambda c: True,
+        "paged_gather": lambda c: c["shape"] == [list(GATHER_STORE),
+                                                 list(GATHER_TABLE)],
     }
     # the launches on the path by route, for the kernels that have two
+    paged_case = next(c for c in checks["decode_attention"]
+                      if c["dtype"] == "bfloat16" and c["route"] == "paged")
     extra = {"flash_attention": {"routes": slice1_routes["flash_attention"]},
              "rmsnorm": {"routes": slice1_routes["rmsnorm"]},
-             "megakernel": {"routes": cohort_routes}}
+             "megakernel": {"routes": cohort_routes},
+             # decode's dense route on slice 1's path, its paged route on
+             # slice 3's (paged at capacity, (0.9, 0.9, 0.0))
+             "decode_attention": {
+                 "routes": {
+                     "dense": slice1_routes["decode_attention"]["dense"],
+                     "paged": paged_routes["paged"]},
+                 "paged_route": {k: paged_case[k] for k in (
+                     "ms", "dense_ms", "gather_and_dense_ms", "plain_ms",
+                     "library_ms", "bound_ms", "bound_by", "max_abs_err")}}}
     rows = []
     for name, cases in checks.items():
-        c = next(c for c in cases
-                 if c["dtype"] == "bfloat16" and headline[name](c))
+        c = next(c for c in cases if headline[name](c) and (
+            c["dtype"] == "bfloat16" or name == "paged_gather"))
         path, launches = paths[name]
         rows.append({"name": name, "route": "cuda",
                      "source": SOURCES[name], "replaces": REPLACES[name],

@@ -11,16 +11,20 @@ wall time (the device's busy share; the rest is the host), each device
 kernel of the port's attention (``decode_attention``'s split and combine,
 ``flash_attention``'s wgmma and CUDA-core routes), exit-head megakernel
 (``head_tc_kernel``, ``head_partial_kernel``, ``head_combine_kernel``),
-``rmsnorm`` (warp and block routes) and paged gather with its device time,
-calls and share of the device time, the megakernel's and rmsnorm's totals
-over their device kernels, and the kernels ranked by device time.
+``rmsnorm`` (warp and block routes), ``exit_update`` and paged gather with
+its device time, calls and share of the device time, the totals of the
+megakernel, rmsnorm, exit_update and decode attention over their device
+kernels, the wrappers' launch counts in the profiled run (and the routes
+of the kernels that count them), and the kernels ranked by device time.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
-[--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel] [--paged]``.
-``--n-cohorts 2`` serves with cohort-split skipping in the ``major``
-layout; ``--megakernel`` turns on the exit-head megakernel and the cohort
-scatter; ``--paged`` serves from the paged KV layout (block size 16).
-Needs one CUDA card.
+[--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel] [--paged]
+[--root DIR]``.  ``--n-cohorts 2`` serves with cohort-split skipping in
+the ``major`` layout; ``--megakernel`` turns on the exit-head megakernel
+and the cohort scatter; ``--paged`` serves from the paged KV layout (block
+size 16); ``--root`` profiles the port of another checkout (e.g. the
+parent unpacked by ``git archive``), so two versions are profiled by one
+script in turns.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -48,15 +52,17 @@ def main() -> int:
     ap.add_argument("--n-cohorts", type=int, default=1)
     ap.add_argument("--megakernel", action="store_true")
     ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--root", default=str(ROOT))
     args = ap.parse_args()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.root).resolve() / "src"))
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import CascadeServingEngine, Request
@@ -89,9 +95,14 @@ def main() -> int:
         return time.perf_counter() - t0, eng.stats()
 
     serve()                                   # warm-up
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, st = serve()
+    launches = kernels.launch_counts()
+    routes = {name: dict(fn.launches_by_route)
+              for name, (_, fn) in kernels._KERNELS.items()
+              if hasattr(fn, "launches_by_route")}
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
               and "CUDA" in str(e.device_type)]
@@ -100,24 +111,26 @@ def main() -> int:
     # each device kernel of the port (its launches and time), and the two
     # kernels with two routes summed over their device kernels
     families = {}
-    totals = {"megakernel": {"calls": 0, "device_s": 0.0},
-              "rmsnorm": {"calls": 0, "device_s": 0.0}}
+    groups = {"megakernel": "head_", "rmsnorm": "rmsnorm",
+              "exit_update": "exit_update", "decode_attention":
+              "decode_attention", "paged_gather": "paged_gather"}
+    totals = {g: {"calls": 0, "device_s": 0.0} for g in groups}
     for e in events:
         if any(f in e.key for f in ("attention", "paged_gather", "head_",
-                                    "rmsnorm")):
+                                    "rmsnorm", "exit_update")):
             rec = families.setdefault(e.key[:90], {"calls": 0,
                                                    "device_s": 0.0})
             rec["calls"] += e.count
             rec["device_s"] += _device_time_us(e) / 1e6
-            group = ("megakernel" if "head_" in e.key
-                     else "rmsnorm" if "rmsnorm" in e.key else None)
+            group = next((g for g, f in groups.items() if f in e.key), None)
             if group:
                 totals[group]["calls"] += e.count
                 totals[group]["device_s"] += _device_time_us(e) / 1e6
     for rec in (*families.values(), *totals.values()):
         rec["share_of_device"] = rec["device_s"] / (dev_us / 1e6) \
             if dev_us else None
-    print(json.dumps({"card": smi, "thresholds": list(ths),
+    print(json.dumps({"card": smi, "root": str(Path(args.root).resolve()),
+                      "thresholds": list(ths),
                       "n_cohorts": args.n_cohorts,
                       "megakernel": args.megakernel,
                       "paged": args.paged,
@@ -129,7 +142,8 @@ def main() -> int:
                       "host_syncs_per_token": st["host_syncs_per_token"],
                       "segments_run": st["segments_run"]}), flush=True)
     print(json.dumps({"kernels_of_the_port": families,
-                      "by_kernel": totals}), flush=True)
+                      "by_kernel": totals, "launches": launches,
+                      "routes": routes}), flush=True)
     print(json.dumps({"top_kernels": [
         {"name": e.key[:90], "calls": e.count,
          "device_ms": _device_time_us(e) / 1e3}

@@ -45,6 +45,22 @@
 // (16 splits: 128 blocks for the serving path's B = 4, KV = 2 on 132
 // SMs), growing in 32-key steps beyond so that a row has at most 16
 // partials.
+//
+// Route "paged": the caches are a layer's paged stores (NB, bs, KV, hd)
+// (possibly a layer slice of a stacked store: the block stride is a
+// parameter) and a (B, nblk) int32 block table, W = nblk * bs; row w of
+// slot b is store[table[b, w / bs], w % bs].  This replaces the gather of
+// the slot-logical views (paged_gather.cu: 4.19 MB written and read again
+// per decode layer at the serving shape, and a launch) with an indirection
+// in the tile loads.  A block first loads its chunk's block ids (one
+// __ldg per block of bs keys, issued before the kpos read, so that the two
+// loads are in flight together) into shared memory; the tile loads then
+// address each row through them.  bs must be a power of two dividing the
+// 32-key tile (so dividing every chunk): then the split, the tiles, their
+// order and the merge are those of the dense route over the gathered view,
+// and the two give the same bits — also for a live row that sees no key
+// (the combine's mean of V over all W rows, read through the table) and
+// for trash block 0 and duplicate ids, read as stored.
 #include "common.cuh"
 
 namespace {
@@ -71,25 +87,41 @@ __device__ __forceinline__ bool visible(int p, int t, int window) {
   return p >= 0 && p <= t && (window == 0 || p > t - window);
 }
 
-// Rows [0, valid) of one key tile (row r at src + r * stride, hd
-// contiguous elements) into shared memory with row pitch `pitch`: 16-byte
-// cp.async with `vec`, else plain element loads.
+// Where row w (hd contiguous elements) of one (slot, KV head)'s keys or
+// values lies.  Dense (blk == 0): base + w * sw.  Paged: base is the
+// store at the KV head's offset, row w at base + ids[(w - w0) >> shift] *
+// blk + ((w - w0) & (bs - 1)) * sw, with ids the block ids of the chunk
+// that starts at w0 (a multiple of bs) and bs = 1 << shift.
+template <typename T>
+struct Rows {
+  const T* base;
+  long long sw, blk;
+  const int* ids;
+  int shift, w0;
+  __device__ __forceinline__ const T* row(int w) const {
+    if (blk == 0) return base + w * sw;
+    const int r = w - w0;
+    return base + ids[r >> shift] * blk + (r & ((1 << shift) - 1)) * sw;
+  }
+};
+
+// Rows [w, w + valid) of one key tile into shared memory with row pitch
+// `pitch`: 16-byte cp.async with `vec`, else plain element loads.
 template <typename T>
 __device__ __forceinline__ void load_tile(T* dst, int pitch,
-                                          const T* __restrict__ src,
-                                          long long stride, int valid, int hd,
-                                          bool vec) {
+                                          const Rows<T>& src, int w,
+                                          int valid, int hd, bool vec) {
   if (vec) {
     constexpr int kVec = 16 / sizeof(T);
     const int nv = hd / kVec;
     for (int idx = threadIdx.x; idx < valid * nv; idx += blockDim.x) {
       const int r = idx / nv, c = (idx % nv) * kVec;
-      cp_async16(dst + r * pitch + c, src + r * stride + c);
+      cp_async16(dst + r * pitch + c, src.row(w + r) + c);
     }
   } else {
     for (int idx = threadIdx.x; idx < valid * hd; idx += blockDim.x) {
       const int r = idx / hd, c = idx % hd;
-      dst[r * pitch + c] = src[r * stride + c];
+      dst[r * pitch + c] = src.row(w + r)[c];
     }
   }
 }
@@ -114,12 +146,24 @@ __device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
 }
 
 // A live row with no visible key: the plain softmax's uniform weights,
-// the mean of V over all W slots (v_d at output dim d of the KV head).
+// the mean of V over all W slots in slot order (v_d at output dim d of the
+// KV head; paged: slot b's table row `tab`, blocks of 1 << shift rows).
 template <typename T>
 __device__ __forceinline__ float mean_dim(const T* v_d, long long v_sw,
-                                          int W) {
+                                          long long v_blk,
+                                          const int* __restrict__ tab,
+                                          int shift, int W) {
+  // two loops, not a branch in one: a branch per row keeps the compiler
+  // from batching the rows' loads (4.4x slower on the H100, PERF.md)
   float sum = 0.f;
-  for (int w = 0; w < W; ++w) sum += to_f32(v_d[w * v_sw]);
+  if (v_blk == 0) {
+    for (int w = 0; w < W; ++w) sum += to_f32(v_d[w * v_sw]);
+  } else {
+#pragma unroll 8
+    for (int w = 0; w < W; ++w)
+      sum += to_f32(v_d[__ldg(tab + (w >> shift)) * v_blk +
+                        (w & ((1 << shift) - 1)) * v_sw]);
+  }
   return sum / (float)W;
 }
 
@@ -127,11 +171,12 @@ template <typename T, int ND>  // ND = hd / 32 output dims per lane
 __global__ void decode_attention_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ kpos, const uint8_t* __restrict__ live,
-    float* __restrict__ part_ml, float* __restrict__ part_acc, int W,
-    int chunk, int qpk, long long q_sb, long long q_sh, long long k_sb,
-    long long k_sw, long long k_sh, long long v_sb, long long v_sw,
-    long long v_sh, long long kpos_sb, int t, int window, float scale,
-    bool vec) {
+    const int* __restrict__ table, float* __restrict__ part_ml,
+    float* __restrict__ part_acc, int W, int chunk, int qpk, long long q_sb,
+    long long q_sh, long long k_sb, long long k_sw, long long k_sh,
+    long long v_sb, long long v_sw, long long v_sh, long long kpos_sb,
+    long long tab_sb, long long k_blk, long long v_blk, int shift, int t,
+    int window, float scale, bool vec) {
   constexpr int HD = 32 * ND;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int KP = HD + kVec;  // K row pitch: 16 bytes of padding
@@ -144,14 +189,22 @@ __global__ void decode_attention_split_kernel(
 
   const int w0 = split * chunk;
   const int w_end = min(W, w0 + chunk);
+  // paged: the chunk's block ids, after the tiles in shared memory
+  int* ids = reinterpret_cast<int*>(
+      smem + sizeof(float) * qpk * HD + sizeof(T) * 2 * kTile * (KP + HD));
+  if (table != nullptr) {
+    const int* trow = table + b * tab_sb + (w0 >> shift);
+    for (int i = threadIdx.x; i < (w_end - w0) >> shift; i += blockDim.x)
+      ids[i] = __ldg(trow + i);
+  }
   const int* kp = kpos + b * kpos_sb;
   int any = 0;
   for (int w = w0 + threadIdx.x; w < w_end; w += blockDim.x)
     any |= visible(kp[w], t, window);
-  any = __syncthreads_or(any);
+  any = __syncthreads_or(any);  // also publishes ids
 
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
+  const Rows<T> kr{k + b * k_sb + kvh * k_sh, k_sw, k_blk, ids, shift, w0};
+  const Rows<T> vr{v + b * v_sb + kvh * v_sh, v_sw, v_blk, ids, shift, w0};
   float m_run = NEG_BIG, l_run = 0.f;
   float acc[ND];
 #pragma unroll
@@ -164,10 +217,8 @@ __global__ void decode_attention_split_kernel(
     T* v_s = k_s + 2 * kTile * KP;                    // 2 x kTile x HD
 
     const int n_tiles = (w_end - w0 + kTile - 1) / kTile;
-    load_tile(k_s, KP, kb + w0 * k_sw, k_sw, min(kTile, w_end - w0), HD,
-              vec);
-    load_tile(v_s, HD, vb + w0 * v_sw, v_sw, min(kTile, w_end - w0), HD,
-              vec);
+    load_tile(k_s, KP, kr, w0, min(kTile, w_end - w0), HD, vec);
+    load_tile(v_s, HD, vr, w0, min(kTile, w_end - w0), HD, vec);
     cp_async_commit();
     for (int idx = threadIdx.x; idx < qpk * HD; idx += blockDim.x)
       q_s[idx] = to_f32(
@@ -180,10 +231,8 @@ __global__ void decode_attention_split_kernel(
       if (it + 1 < n_tiles) {  // prefetch the next tile into the other buffer
         const int nb = base + kTile, nvalid = min(kTile, w_end - nb);
         const int o = (it + 1) & 1;
-        load_tile(k_s + o * kTile * KP, KP, kb + nb * k_sw, k_sw, nvalid, HD,
-                  vec);
-        load_tile(v_s + o * kTile * HD, HD, vb + nb * v_sw, v_sw, nvalid, HD,
-                  vec);
+        load_tile(k_s + o * kTile * KP, KP, kr, nb, nvalid, HD, vec);
+        load_tile(v_s + o * kTile * HD, HD, vr, nb, nvalid, HD, vec);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -249,8 +298,9 @@ template <typename T>
 __global__ void decode_attention_combine_kernel(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
     const T* __restrict__ v, const uint8_t* __restrict__ live,
-    T* __restrict__ out, int W, int n_split, int qpk, long long v_sb,
-    long long v_sw, long long v_sh, long long o_sb, long long o_sh) {
+    const int* __restrict__ table, T* __restrict__ out, int W, int n_split,
+    int qpk, long long v_sb, long long v_sw, long long v_sh, long long v_blk,
+    long long tab_sb, int shift, long long o_sb, long long o_sh) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int H = gridDim.x, hd = blockDim.x;
   T* orow = out + b * o_sb + h * o_sh;
@@ -265,8 +315,8 @@ __global__ void decode_attention_combine_kernel(
 #pragma unroll 8
   for (int s = 0; s < n_split; ++s) M = fmaxf(M, __ldcg(ml + 2 * s));
   if (M == NEG_BIG) {
-    orow[d] = from_f32<T>(
-        mean_dim(v + b * v_sb + (h / qpk) * v_sh + d, v_sw, W));
+    orow[d] = from_f32<T>(mean_dim(v + b * v_sb + (h / qpk) * v_sh + d, v_sw,
+                                   v_blk, table + b * tab_sb, shift, W));
     return;
   }
   float L = 0.f, a = 0.f;
@@ -280,13 +330,14 @@ __global__ void decode_attention_combine_kernel(
 }
 
 struct Args {
-  const void *q, *k, *v, *kpos, *live;
+  const void *q, *k, *v, *kpos, *live, *table;
   void* out;
   float *pml, *pacc;
-  int B, W, KV, qpk, hd, chunk, t, window;
+  int B, W, KV, qpk, hd, chunk, t, window, shift;
   float scale;
   long long st[9];  // q (b, h), k (b, w, h), v (b, w, h), kpos slot
   long long os[2];  // out (b, h)
+  long long pg[3];  // paged: table row, k and v block strides (else 0)
 };
 
 template <typename T, int ND>
@@ -299,9 +350,9 @@ cudaError_t launch_split(const Args& a, const dim3& grid, size_t smem,
   const long long* st = a.st;
   kern<<<grid, 32 * a.qpk, smem, s>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.kpos,
-      (const uint8_t*)a.live, a.pml, a.pacc, a.W, a.chunk, a.qpk, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], a.t, a.window,
-      a.scale, vec);
+      (const uint8_t*)a.live, (const int*)a.table, a.pml, a.pacc, a.W,
+      a.chunk, a.qpk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], a.pg[0], a.pg[1], a.pg[2], a.shift, a.t, a.window, a.scale, vec);
   return cudaGetLastError();
 }
 
@@ -311,9 +362,11 @@ int launch(const Args& a, cudaStream_t s) {
   const dim3 grid(n_split, a.KV, a.B);
   const size_t smem =
       sizeof(float) * (size_t)a.qpk * a.hd +
-      sizeof(T) * 2 * (size_t)kTile * (2 * a.hd + 16 / sizeof(T));
-  const bool vec = vec16_ok<T>(a.k, a.hd, {a.st[2], a.st[3], a.st[4]}) &&
-                   vec16_ok<T>(a.v, a.hd, {a.st[5], a.st[6], a.st[7]});
+      sizeof(T) * 2 * (size_t)kTile * (2 * a.hd + 16 / sizeof(T)) +
+      (a.table != nullptr ? sizeof(int) * (size_t)(a.chunk >> a.shift) : 0);
+  const bool vec =
+      vec16_ok<T>(a.k, a.hd, {a.st[2], a.st[3], a.st[4], a.pg[1]}) &&
+      vec16_ok<T>(a.v, a.hd, {a.st[5], a.st[6], a.st[7], a.pg[2]});
   cudaError_t err = cudaErrorInvalidValue;
   switch (a.hd / 32) {
 #define SPLIT_CASE(ND)                                  \
@@ -332,8 +385,9 @@ int launch(const Args& a, cudaStream_t s) {
   }
   if (err != cudaSuccess) return (int)err;
   decode_attention_combine_kernel<T><<<dim3(a.KV * a.qpk, a.B), a.hd, 0, s>>>(
-      a.pml, a.pacc, (const T*)a.v, (const uint8_t*)a.live, (T*)a.out, a.W,
-      n_split, a.qpk, a.st[5], a.st[6], a.st[7], a.os[0], a.os[1]);
+      a.pml, a.pacc, (const T*)a.v, (const uint8_t*)a.live,
+      (const int*)a.table, (T*)a.out, a.W, n_split, a.qpk, a.st[5], a.st[6],
+      a.st[7], a.pg[2], a.pg[0], a.shift, a.os[0], a.os[1]);
   return (int)cudaGetLastError();
 }
 
@@ -342,22 +396,37 @@ int launch(const Args& a, cudaStream_t s) {
 // Two launches on `stream`: the split kernel writes (m, l) pairs to
 // part_ml (B, H, n_split, 2) and acc to part_acc (B, H, n_split, hd), f32
 // scratch of the caller's; the combine kernel merges them into out.
+// Dense route: table == nullptr, k / v (B, W, KV, hd) views.  Paged route:
+// table (B, W / bs) int32 with row stride tab_sb, k / v stores of blocks
+// of bs rows, k_blk / v_blk elements apart (k_sb = v_sb = 0); bs a power
+// of two dividing 32.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kpos,
-    const void* live, void* out, void* part_ml, void* part_acc, int B,
-    int W, int KV, int qpk, int hd, int chunk,
+    const void* live, const void* table, void* out, void* part_ml,
+    void* part_acc, int B, int W, int KV, int qpk, int hd, int chunk, int bs,
     long long q_sb, long long q_sh, long long k_sb, long long k_sw,
     long long k_sh, long long v_sb, long long v_sw, long long v_sh,
-    long long o_sb, long long o_sh, long long kpos_sb, int t, int window,
-    float scale, int dtype, void* stream) {
+    long long o_sb, long long o_sh, long long kpos_sb, long long tab_sb,
+    long long k_blk, long long v_blk, int t, int window, float scale,
+    int dtype, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (W <= 0 || hd % 32 != 0 || hd > 256 || qpk < 1 || qpk > 32 ||
       chunk <= 0 || chunk % kTile != 0)
     return (int)cudaErrorInvalidValue;
-  const Args a{q,  k,   v,  kpos, live, out, (float*)part_ml,
-               (float*)part_acc, B, W, KV, qpk, hd, chunk, t, window, scale,
+  int shift = 0;
+  if (table != nullptr) {
+    while ((1 << shift) < bs) ++shift;
+    if (bs < 1 || (1 << shift) != bs || kTile % bs != 0 || W % bs != 0 ||
+        k_sb != 0 || v_sb != 0 || k_blk <= 0 || v_blk <= 0)
+      return (int)cudaErrorInvalidValue;
+  }
+  const Args a{q,  k,   v,  kpos, live, table, out, (float*)part_ml,
+               (float*)part_acc, B, W, KV, qpk, hd, chunk, t, window, shift,
+               scale,
                {q_sb, q_sh, k_sb, k_sw, k_sh, v_sb, v_sw, v_sh, kpos_sb},
-               {o_sb, o_sh}};
+               {o_sb, o_sh},
+               {table != nullptr ? tab_sb : 0, table != nullptr ? k_blk : 0,
+                table != nullptr ? v_blk : 0}};
   DISPATCH_DTYPE(dtype, T, { return launch<T>(a, (cudaStream_t)stream); });
   return (int)cudaErrorInvalidValue;
 }

@@ -12,10 +12,22 @@ Route: CUDA C++ (``csrc/decode_attention.cu``), ctypes-bound: split-KV
 KV head) is scored in its own block, which writes an f32 partial (m, l,
 acc) to a scratch allocated here; a second launch merges a row's partials
 in a fixed split order, so a run repeats its bits.  One call counts one
-in ``decode_attention.launches``.  The cache is read in the model's (B, W,
-KV, hd) layout through strides, so no transposed copy is made.  Bound on
-the H100: bytes (one read of every live slot's K and V rows); see the
-source's header for the design.
+in ``decode_attention.launches``.  Bound on the H100: bytes (one read of
+every live slot's K and V rows); see the source's header for the design.
+
+Two device routes, picked by :func:`route` before the launch from the
+block table and the stores' shape and alignment (never on a failure);
+``decode_attention.launches_by_route`` counts each:
+
+- ``"dense"`` — caches in the model's (B, W, KV, hd) layout, read through
+  their strides (no transposed copy);
+- ``"paged"`` — a layer's paged stores (NB, bs, KV, hd) read through a
+  (B, nblk) block table, W = nblk * bs, when bs is a power of two dividing
+  the 32-key tile and the stores' blocks are 16-byte addressable: the
+  same split, tiles and merge as the dense route over the gathered view
+  (``paged_gather``), so the same bits, without the gather.  A paged
+  caller whose stores the route does not take gathers first
+  (``ops.decode_attention_cache``).
 """
 from __future__ import annotations
 
@@ -25,13 +37,15 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ref_decode_attention
+from repro_torch.kernels.ref import (ref_decode_attention,
+                                    ref_paged_gather)
 
 TILE = 32         # the kernel's key tile
 MAX_SPLITS = 16  # partials per row at most
+ROUTES = ("dense", "paged")
 
-_SIG = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-        + [ctypes.c_longlong] * 11
+_SIG = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [ctypes.c_longlong] * 14
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p])
 
@@ -46,24 +60,70 @@ def split_plan(W: int):
     return chunk, -(-W // chunk)
 
 
+def _blocks_addressable(store: torch.Tensor) -> bool:
+    """Every row of every block starts on 16 bytes and the head dim is
+    whole 16-byte chunks (the last dim is contiguous)."""
+    esz = store.element_size()
+    return (store.data_ptr() % 16 == 0 and store.stride(-1) == 1
+            and (store.shape[-1] * esz) % 16 == 0
+            and all((st * esz) % 16 == 0 for st in store.stride()[:-1]))
+
+
+def route(k_cache, v_cache, table=None) -> str:
+    """The device route attention over these caches takes: ``"paged"``
+    for paged stores (NB, bs, KV, hd) read through ``table`` when bs is a
+    power of two dividing the 32-key tile and both stores' blocks are
+    16-byte addressable; ``"dense"`` for (B, W, KV, hd) caches, and for
+    any other paged stores once their views are gathered."""
+    if table is not None and TILE % k_cache.shape[1] == 0 and all(
+            _blocks_addressable(x) for x in (k_cache, v_cache)):
+        return "paged"
+    return "dense"
+
+
 def decode_attention(q, k_cache, v_cache, t: int, kpos, live=None, *,
-                     window: int = 0):
+                     window: int = 0, table=None):
     """q: (B, H, hd) (any strides, last dim contiguous); caches (B, W, KV,
-    hd); ``t`` the current absolute position (int); kpos (W,) or per-slot
-    (B, W) int32; live (B,) bool or None (all live) -> (B, H, hd) in q's
-    dtype, dead slots' rows zero.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    hd), or with ``table`` ((B, nblk) int32) a layer's paged stores (NB,
+    bs, KV, hd) and W = nblk * bs; ``t`` the current absolute position
+    (int); kpos (W,) or per-slot (B, W) int32; live (B,) bool or None (all
+    live) -> (B, H, hd) in q's dtype, dead slots' rows zero.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel on
+    :func:`route`'s route (paged stores the paged route does not take
+    raise: gather them first)."""
     t = int(t)
     if q.device.type == "cpu":
+        if table is not None:
+            k_cache = ref_paged_gather(k_cache, table)
+            v_cache = ref_paged_gather(v_cache, table)
         return ref_decode_attention(q, k_cache, v_cache, t, kpos,
                                     window=window, live=live)
-    tensors = [q, k_cache, v_cache, kpos] + ([live] if live is not None
-                                             else [])
+    tensors = [q, k_cache, v_cache, kpos] + [
+        x for x in (live, table) if x is not None]
     build.require_cuda("decode_attention", *tensors)
     B, H, hd = q.shape
-    _, W, KV, _ = k_cache.shape
-    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
-            or k_cache.shape[3] != hd or H % KV):
+    r = route(k_cache, v_cache, table)
+    paged = r == "paged"
+    if table is not None:
+        if not paged:
+            raise ValueError(
+                f"decode_attention: the paged route takes blocks of a power "
+                f"of two dividing {TILE} rows, 16-byte addressable; got "
+                f"stores {tuple(k_cache.shape)} with strides "
+                f"{k_cache.stride()} (gather them with paged_gather_kv for "
+                f"the dense route)")
+        if table.dim() != 2 or table.shape[0] != B:
+            raise ValueError(f"decode_attention: table must be (B, nblk), "
+                             f"got {tuple(table.shape)}")
+        if table.dtype != torch.int32:
+            raise TypeError(f"decode_attention: table must be int32, got "
+                            f"{table.dtype}")
+        table = table.contiguous()
+        W, KV = table.shape[1] * k_cache.shape[1], k_cache.shape[2]
+    else:
+        W, KV = k_cache.shape[1], k_cache.shape[2]
+    if (k_cache.shape != v_cache.shape or k_cache.shape[3] != hd or H % KV
+            or (not paged and k_cache.shape[0] != B)):
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not "
                          f"fit caches {tuple(k_cache.shape)}")
     if not (q.dtype == k_cache.dtype == v_cache.dtype):
@@ -89,23 +149,32 @@ def decode_attention(q, k_cache, v_cache, t: int, kpos, live=None, *,
     scratch = torch.empty(rows * (hd + 2), dtype=torch.float32,
                           device=q.device)
     part_acc, part_ml = scratch[:rows * hd], scratch[rows * hd:]
+    # dense: (b, w, h) strides; paged: no slot stride, rows (w % bs, h)
+    # within a block, the block stride apart
+    ks, vs = k_cache.stride(), v_cache.stride()
     fn = build.function("decode_attention", "decode_attention_launch", _SIG)
     p = build.ptr
     build.check(fn(
-        p(q), p(k_cache), p(v_cache), p(kpos), p(live), p(out), p(part_ml),
-        p(part_acc), B, W, KV, qpk, hd, chunk,
+        p(q), p(k_cache), p(v_cache), p(kpos), p(live), p(table), p(out),
+        p(part_ml), p(part_acc), B, W, KV, qpk, hd, chunk,
+        k_cache.shape[1] if paged else 0,
         q.stride(0), q.stride(1),
-        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        0 if paged else ks[0], ks[1], ks[2],
+        0 if paged else vs[0], vs[1], vs[2],
         out.stride(0), out.stride(1), W if kpos.dim() == 2 else 0,
+        table.stride(0) if paged else 0, ks[0] if paged else 0,
+        vs[0] if paged else 0,
         t, int(window), 1.0 / math.sqrt(hd), build.dtype_code(q),
         build.stream_of(q)), "decode_attention")
     decode_attention.launches += 1
+    decode_attention.launches_by_route[r] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def reset_launches() -> None:
     decode_attention.launches = 0
+    decode_attention.launches_by_route.update(dict.fromkeys(ROUTES, 0))

@@ -13,9 +13,13 @@ rule is explicit rather than a property of a library reduction.  It also
 keeps the port on one build route, and a ctypes launch is cheaper on the
 host than a Triton launch on this per-token, per-component path.
 
-Bound on the H100: bytes (one read of the logits); the grid is one block
-per row — at decode batch 4 that is 4 of the 132 SMs (see the source).
-The threshold is a runtime argument: pushing a new one never rebuilds.
+Bound on the H100: bytes (one read of the logits).  The vocab is split
+over the SMs: a grid of (V / 4096 tiles, B) CTAs, 16-byte loads, one
+(max, Σexp, first-argmax) partial per CTA; the last CTA of each row merges
+the row's partials in tile order and applies the carry merge, all in ONE
+launch (a per-row ticket, put back to 0 by that CTA, in a per-device
+buffer this module keeps).  See the source's header for the design.  The
+threshold is a runtime argument: pushing a new one never rebuilds.
 """
 from __future__ import annotations
 
@@ -27,8 +31,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_exit_update
 
+TILE = 4096  # vocab columns per CTA: kTile in csrc/exit_update.cu
+
 _SIG = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int] + [ctypes.c_void_p] * 14
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_void_p] * 14
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -76,10 +83,12 @@ def exit_update(logits, answered, pred, exit_idx, conf, streak, ema, active,
     if kw["tel_bins"]:
         outs.append(torch.empty(B, dtype=i32, device=dev))
     tcode = outs[6] if kw["tel_bins"] else None
+    workspace = torch.empty((3, B, -(-V // TILE)), dtype=f32, device=dev)
     p = build.ptr
     fn = build.function("exit_update", "exit_update_launch", _SIG)
     build.check(fn(
         p(logits), logits.stride(0), B, V, build.dtype_code(logits),
+        p(workspace), p(_tickets(dev, B)),
         p(ans_in), p(pred_in), p(exit_in), p(conf_in), p(streak_in),
         p(ema_in), p(act_in), *(p(o) for o in outs[:6]), p(tcode),
         kw["threshold"], kw["m"], kw["n_components"], kw["patience_k"],
@@ -90,6 +99,19 @@ def exit_update(logits, answered, pred, exit_idx, conf, streak, ema, active,
 
 
 exit_update.launches = 0
+
+# device -> int32 tickets, one per row, zeroed once: each call's last CTA
+# of a row puts the row's ticket back to 0 (so calls sharing the buffer
+# must be ordered on one stream, as the port's are)
+_TICKETS = {}
+
+
+def _tickets(dev, B: int) -> torch.Tensor:
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < B:
+        t = _TICKETS[dev] = torch.zeros(max(B, 64), dtype=torch.int32,
+                                        device=dev)
+    return t
 
 
 def reset_launches() -> None:

@@ -4,7 +4,8 @@ The counterparts of the JAX package's ``kernels/ops.py`` adapters
 (``softmax_confidence_fused``, ``rmsnorm_fused``, ``flash_attention_bshd``,
 ``decode_attention_cache``, ``exit_update_fused``, ``exit_head_fused``,
 ``cohort_scatter_tree``, ``paged_gather``; ``paged_gather_kv`` gathers a
-layer's k and v stores in one launch).  Each kernel takes its tile sizes
+layer's k and v stores in one launch, for paged stores decode attention's
+``paged`` route does not take).  Each kernel takes its tile sizes
 as constants in its own module; there is no tile registry yet.  The
 kernels read the model's (B, S, H, hd) and (B, W, KV, hd) layouts through
 strides, so these adapters only reshape and take views — no transposed
@@ -15,7 +16,8 @@ from __future__ import annotations
 from repro_torch.kernels.cohort_cache import (  # noqa: F401 (re-export)
     cohort_scatter, cohort_scatter_tree)
 from repro_torch.kernels.confidence import confidence
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (
+    decode_attention, route as decode_attention_route)
 from repro_torch.kernels.exit_update import exit_update
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.megakernel import exit_head_update
@@ -44,13 +46,21 @@ def flash_attention_bshd(q, k, v, *, causal=True, window=0):
 
 
 def decode_attention_cache(q, k_cache, v_cache, t, kpos, *, window=0,
-                           live=None):
-    """Model layout: q (B, 1, H, hd); caches (B, W, KV, hd).  ``live`` is
-    the per-slot exit mask ((B,) bool, None = all live): dead slots do no
-    work and get zero rows."""
+                           live=None, table=None):
+    """Model layout: q (B, 1, H, hd); caches (B, W, KV, hd), or a layer's
+    paged stores (NB, bs, KV, hd) with their block table ``table`` (B,
+    nblk).  ``live`` is the per-slot exit mask ((B,) bool, None = all
+    live): dead slots do no work and get zero rows.  Paged stores take
+    decode attention's ``paged`` route where :func:`route
+    <repro_torch.kernels.decode_attention.route>` allows it, else their
+    gathered views take the dense route."""
     B, _, H, hd = q.shape
+    if table is not None and \
+            decode_attention_route(k_cache, v_cache, table) != "paged":
+        k_cache, v_cache = paged_gather_kv(k_cache, v_cache, table)
+        table = None
     out = decode_attention(q[:, 0], k_cache, v_cache, t, kpos, live,
-                           window=window)
+                           window=window, table=table)
     return out.reshape(B, 1, H, hd)
 
 

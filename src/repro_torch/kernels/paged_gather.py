@@ -6,11 +6,14 @@ a paged store ``(num_blocks, bs, kv, hd)`` gathered through a block table
 ``(B, nblk)`` int32 into the slot-logical ring view ``(B, nblk * bs, kv,
 hd)``, bit for bit (a copy; block 0, the trash block, is copied like any
 other).  The dense decode attention then runs over that view unchanged,
-which keeps paged streams identical to dense ones.
+which keeps paged streams identical to dense ones.  Serving stores need
+no view: decode attention's ``paged`` route reads them through the table
+(``decode_attention.route``); the gather serves the block sizes that
+route does not take.
 
-Route: CUDA C++ (``csrc/paged_gather.cu``), ctypes-bound.  The serving
-path gathers a layer's k and v stores in ONE launch
-(:func:`paged_gather_kv`) where the TPU code makes two ``pallas_call`` s.
+Route: CUDA C++ (``csrc/paged_gather.cu``), ctypes-bound.  A paged decode
+gathers a layer's k and v stores in ONE launch (:func:`paged_gather_kv`)
+where the TPU code makes two ``pallas_call`` s.
 The store's block stride is passed to the kernel, so a layer slice of a
 stacked store is read without a copy.  Bound on the H100: bytes (each
 gathered block read once, written once); at the serving shape the launch

@@ -75,8 +75,21 @@ def ref_decode_attention(q, k_cache, v_cache, t, kpos, window: int = 0,
     return o.to(q.dtype)
 
 
+def _rows(cache, table, w0: int, w1: int):
+    """Rows [w0, w1) of every slot's keys or values: (B, w1 - w0, KV, hd).
+    Dense: the slice of the (B, W, KV, hd) cache.  Paged (``table`` (B,
+    nblk)): row w of slot b read from the store (NB, bs, KV, hd) at
+    (table[b, w // bs], w % bs), as the kernel's paged tile loads address
+    it."""
+    if table is None:
+        return cache[:, w0:w1]
+    w = torch.arange(w0, w1)
+    bs = cache.shape[1]
+    return cache[table[:, w // bs].long(), w % bs]
+
+
 def ref_decode_attention_split(q, k_cache, v_cache, t, kpos, live=None, *,
-                               window: int = 0, chunk: int = 32):
+                               window: int = 0, chunk: int = 32, table=None):
     """Plain emulation of the split-KV decode kernel's arithmetic (tests
     only): per chunk of ``chunk`` keys the partial (m, l, acc) of an f32
     softmax, a chunk with no visible key of its slot skipped as the empty
@@ -84,9 +97,13 @@ def ref_decode_attention_split(q, k_cache, v_cache, t, kpos, live=None, *,
     order: M = max m, L = sum l * exp(m - M), acc = sum acc * exp(m - M),
     out = acc / max(L, 1e-30).  A live row with no visible key gets the
     plain softmax's uniform weights (the mean of V over W); dead rows are
-    exact zeros.  Same arguments as :func:`ref_decode_attention`."""
+    exact zeros.  Same arguments as :func:`ref_decode_attention`; with
+    ``table`` ((B, nblk) int32) the caches are a layer's paged stores (NB,
+    bs, KV, hd), W = nblk * bs, and every row is read through the table
+    (the kernel's ``paged`` route)."""
     B, H, hd = q.shape
-    W, KV = k_cache.shape[1], k_cache.shape[2]
+    KV = k_cache.shape[2]
+    W = k_cache.shape[1] * (table.shape[1] if table is not None else 1)
     qh = q.reshape(B, KV, H // KV, hd).float()
     kp = (kpos if kpos.dim() == 2 else kpos[None]).expand(B, W)
     vis = (kp >= 0) & (kp <= t)
@@ -97,11 +114,13 @@ def ref_decode_attention_split(q, k_cache, v_cache, t, kpos, live=None, *,
     for w0 in range(0, W, chunk):
         sl = slice(w0, min(W, w0 + chunk))
         vm = vis[:, sl][:, None, None, :]
-        s = torch.einsum("bkgh,bwkh->bkgw", qh, k_cache[:, sl].float())
+        s = torch.einsum("bkgh,bwkh->bkgw", qh,
+                         _rows(k_cache, table, sl.start, sl.stop).float())
         s = torch.where(vm, s * scale, torch.full_like(s, NEG))
         m = s.amax(-1)
         p = torch.exp(s - m[..., None])
-        acc = torch.einsum("bkgw,bwkh->bkgh", p, v_cache[:, sl].float())
+        acc = torch.einsum("bkgw,bwkh->bkgh", p,
+                           _rows(v_cache, table, sl.start, sl.stop).float())
         empty = ~vm.any(-1)
         parts.append((torch.where(empty, torch.full_like(m, NEG), m),
                       torch.where(empty, torch.zeros_like(m), p.sum(-1)),
@@ -116,7 +135,7 @@ def ref_decode_attention_split(q, k_cache, v_cache, t, kpos, live=None, *,
         acc = acc + a * f[..., None]
     o = acc / torch.clamp(L, min=1e-30)[..., None]
     none = ~vis.any(-1)[:, None, None, None]
-    mean = v_cache.float().mean(1)[:, :, None, :]
+    mean = _rows(v_cache, table, 0, W).float().mean(1)[:, :, None, :]
     o = torch.where(none, mean.expand_as(o), o).reshape(B, H, hd)
     if live is not None:
         o = torch.where(live.bool()[:, None, None], o, torch.zeros_like(o))
@@ -265,8 +284,24 @@ def ref_exit_head_update_tc(h, norm_w, head, answered, pred, exit_idx, conf,
         logits = logits + step.float()
     if h.dtype != torch.float32:
         logits = logits.to(h.dtype).float()
+    idx, delta = _split_confidence(logits, plan(V, n_ctas))
+    outs = _carry_merge(idx, delta, answered, pred, exit_idx, conf, streak,
+                        ema, active, threshold=threshold, m=m,
+                        n_components=n_components, patience_k=patience_k,
+                        ema_decay=ema_decay, tel_bins=tel_bins)
+    return _pass_dead(outs, live, answered, pred, exit_idx, conf, streak,
+                      ema, tel_bins)
+
+
+def _split_confidence(logits, ranges):
+    """The confidence of a vocab split over CTAs: per column range [c0, c1)
+    of ``ranges`` one (max, Σexp, first-argmax) partial of the f32 logits
+    (an empty range gives the empty partial), then the partials merged in
+    range order — M = max m, L = Σ l·exp(m − M), the first index among
+    the partials at M.  Returns (argmax (B,) int32, δ = 1 / L (B,) f32)."""
+    B = logits.shape[0]
     ms, ls, as_ = [], [], []
-    for c0, c1 in plan(V, n_ctas):
+    for c0, c1 in ranges:
         if c0 == c1:
             ms.append(torch.full((B,), NEG))
             ls.append(torch.zeros(B))
@@ -283,13 +318,26 @@ def ref_exit_head_update_tc(h, norm_w, head, answered, pred, exit_idx, conf,
     for mc, lc, ac in zip(ms, ls, as_):
         L = L + lc * torch.exp(mc - M)
         idx = torch.where((mc == M) & (ac < idx), ac, idx)
-    outs = _carry_merge(idx.to(torch.int32), 1.0 / L, answered, pred,
-                        exit_idx, conf, streak, ema, active,
-                        threshold=threshold, m=m, n_components=n_components,
-                        patience_k=patience_k, ema_decay=ema_decay,
-                        tel_bins=tel_bins)
-    return _pass_dead(outs, live, answered, pred, exit_idx, conf, streak,
-                      ema, tel_bins)
+    return idx.to(torch.int32), 1.0 / L
+
+
+def ref_exit_update_split(logits, answered, pred, exit_idx, conf, streak,
+                          ema, active, *, threshold, m, n_components,
+                          patience_k=0, ema_decay=0.0, tel_bins=0,
+                          tile: int = 4096):
+    """Plain emulation of the split exit-update kernel (tests only): the
+    f32 logits of each row cut into ``tile``-column tiles (the last one
+    partial), one (max, Σexp, first-argmax) partial per tile, the partials
+    merged in ascending tile order (:func:`_split_confidence`), then the
+    exit-update step of :func:`ref_exit_update`.  Same arguments and
+    results as :func:`ref_exit_update`."""
+    V = logits.shape[1]
+    idx, delta = _split_confidence(
+        logits.float(), [(j, min(V, j + tile)) for j in range(0, V, tile)])
+    return _carry_merge(idx, delta, answered, pred, exit_idx, conf, streak,
+                        ema, active, threshold=threshold, m=m,
+                        n_components=n_components, patience_k=patience_k,
+                        ema_decay=ema_decay, tel_bins=tel_bins)
 
 
 def ref_cohort_scatter(dst, src, c: int, C: int):

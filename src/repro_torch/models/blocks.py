@@ -118,15 +118,14 @@ def _write_full_paged(cache, k, v, gather_idx, table):
     return cache
 
 
-def _paged_kv_view(cfg, cache, table):
+def _paged_kv_view(cache, table):
     """The slot-logical (B, W, kv, hd) ring views of a layer's paged k and
-    v stores — the gather that makes the downstream attention identical to
-    the dense layout's, and therefore bit-identical (re-tiling attention to
-    block granularity would change its accumulation order).  The kernel
-    route gathers k and v in one launch."""
-    if cfg.use_kernels:
-        from repro_torch.kernels.ops import paged_gather_kv
-        return paged_gather_kv(cache["k"], cache["v"], table)
+    v stores — the gather that makes the downstream plain attention
+    identical to the dense layout's, and therefore bit-identical
+    (re-tiling attention to block granularity would change its
+    accumulation order).  The kernel route needs no view: decode
+    attention's ``paged`` route reads the rows through the table in the
+    dense route's tile order (``kernels/decode_attention.py``)."""
     B, nblk = table.shape
     idx = table.long()
 
@@ -165,10 +164,8 @@ def _self_attention(cfg, params, h, ctx, cache):
         table = ctx.get("block_table")
         if table is not None:
             new_cache = _write_decode_paged(cache, k, v, ctx["slot"], table)
-            kv_k, kv_v = _paged_kv_view(cfg, new_cache, table)
         else:
             new_cache = _write_decode(cache, k, v, ctx["slot"])
-            kv_k, kv_v = new_cache["k"], new_cache["v"]
         # the ring position of this step is visible to its own query
         # (dense: the lane-wide (W,) ring; paged: per-slot (B, W) rows)
         kpos = ctx["kpos_t"]
@@ -176,11 +173,14 @@ def _self_attention(cfg, params, h, ctx, cache):
             from repro_torch.kernels.ops import decode_attention_cache
             # dead slots (ctx["live"] False) do no attention work and get
             # zero rows; live rows are unaffected (attention is
-            # batch-separable)
-            out = decode_attention_cache(q, kv_k, kv_v, t, kpos,
-                                         window=cfg.attn_window,
-                                         live=ctx.get("live"))
+            # batch-separable).  Paged stores are read through the table.
+            out = decode_attention_cache(q, new_cache["k"], new_cache["v"],
+                                         t, kpos, window=cfg.attn_window,
+                                         live=ctx.get("live"), table=table)
         else:
+            kv_k, kv_v = (_paged_kv_view(new_cache, table)
+                          if table is not None
+                          else (new_cache["k"], new_cache["v"]))
             out = attend_decode(q, kv_k, kv_v, t, kpos,
                                 window=cfg.attn_window)
     B, S = x.shape[0], x.shape[1]

@@ -31,6 +31,18 @@ from repro_torch.kernels import decode_attention as dattn
 from repro_torch.kernels import flash_attention as fattn
 from repro_torch.kernels import ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in parallel workers
+    on a few cores, where these small ops gain nothing from more threads
+    and would slow the other workers' timed tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16_TOL = (2e-2, 1e-2)   # chip_smoke.TOL["bfloat16"]
 
 

@@ -16,6 +16,7 @@ so no exit decision sits on a rounding edge — asserted first.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
@@ -28,6 +29,18 @@ from repro_torch.core import policy
 from repro_torch.kernels.ref import ref_confidence
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import CascadeServingEngine, Request
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in parallel workers
+    on a few cores, where these small ops gain nothing from more threads
+    and would slow the other workers' timed tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CONF_TOL = 1e-5
 MARGIN = 1e-3

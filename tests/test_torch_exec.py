@@ -25,6 +25,18 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.exec import StagedExecutor
 from repro_torch.models.model import build_model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in parallel workers
+    on a few cores, where these small ops gain nothing from more threads
+    and would slow the other workers' timed tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CONF_TOL = 1e-5
 
 

@@ -24,6 +24,18 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in parallel workers
+    on a few cores, where these small ops gain nothing from more threads
+    and would slow the other workers' timed tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = RTOL = 1e-5
 
 
@@ -318,6 +330,21 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
         assert torch.equal(got[i], want[i])
     for i in (3, 5):
         torch.testing.assert_close(got[i], want[i], atol=0, rtol=1e-5)
+    # exit_update's vocab split at B = 1 and 16, a tie straddling the first
+    # CTA tile boundary (the first index wins), a second call's bits alike
+    for B in (1, 16):
+        lg = rand(B, 151936)
+        lg[-1, 4095] = lg[-1, 4096] = lg[-1].max() + 15.0
+        cb = tuple(c[:1].expand(B).contiguous() for c in carry)
+        kw_last = dict(kw, m=2)
+        got = exit_update.exit_update(lg, *cb, **kw_last)
+        want = ref.ref_exit_update(lg, *cb, **kw_last)
+        assert int(got[1][-1]) == 4095
+        for i in (0, 1, 2, 4):
+            assert torch.equal(got[i], want[i])
+        torch.testing.assert_close(got[3], want[3], atol=0, rtol=1e-5)
+        again = exit_update.exit_update(lg, *cb, **kw_last)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
     from repro_torch.kernels import cohort_cache, confidence, megakernel
     idx, conf = confidence.confidence(logits)
     want_i, want_c = ref.ref_confidence(logits)
@@ -402,3 +429,13 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     assert torch.equal(gv, ref.ref_paged_gather(vs[1], table))
     assert torch.equal(ops.paged_gather(ks[2], table),
                        ref.ref_paged_gather(ks[2], table))
+    # decode attention's paged route reads the same stores through the
+    # table: bit for bit the dense route over the gathered views
+    assert decode_attention.route(ks[1], vs[1], table) == "paged"
+    qd = rand(4, 16, 128)
+    kpos = torch.arange(512, device=cuda_device, dtype=torch.int32)
+    kpos = torch.where(kpos <= 700, 700 - (700 - kpos) % 512, -1).int()
+    decode_attention.reset_launches()
+    got = da(qd, ks[1], vs[1], 700, kpos, table=table)
+    assert torch.equal(got, da(qd, gk, gv, 700, kpos))
+    assert da.launches_by_route == {"dense": 1, "paged": 1}

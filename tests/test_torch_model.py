@@ -21,6 +21,18 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, reduced
 from repro_torch.models.model import build_model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in parallel workers
+    on a few cores, where these small ops gain nothing from more threads
+    and would slow the other workers' timed tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOGIT_TOL = 1e-4
 
 

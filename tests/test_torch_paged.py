@@ -26,11 +26,24 @@ from repro.serving.paged import BlockPool as JaxBlockPool
 from repro.serving.paged import PagedCascadeCache as JaxPagedCache
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_gather as pg
 from repro_torch.kernels.ref import ref_paged_gather
 from repro_torch.models import blocks
 from repro_torch.models.model import build_model
 from repro_torch.serving.paged import TRASH_BLOCK, BlockPool, PagedCascadeCache
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in parallel workers
+    on a few cores, where these small ops gain nothing from more threads
+    and would slow the other workers' timed tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 LOGIT_TOL = 1e-5
 
@@ -247,9 +260,12 @@ def test_paged_kv_view_matches_reference(use_kernels):
     want = jax_blocks._paged_kv_view(
         jcfg, {"k": jnp.asarray(k0), "v": jnp.asarray(v0)},
         jnp.asarray(TABLE))
-    got = blocks._paged_kv_view(
-        cfg, {"k": torch.from_numpy(k0), "v": torch.from_numpy(v0)},
-        torch.from_numpy(TABLE))
+    cache = {"k": torch.from_numpy(k0), "v": torch.from_numpy(v0)}
+    # the kernel route gathers only stores decode attention's paged route
+    # does not take, k and v in one launch
+    got = (ops.paged_gather_kv(cache["k"], cache["v"], torch.from_numpy(TABLE))
+           if use_kernels else
+           blocks._paged_kv_view(cache, torch.from_numpy(TABLE)))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_np(g), np.asarray(w))
 

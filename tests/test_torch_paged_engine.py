@@ -13,6 +13,7 @@ rounding edge.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
@@ -24,6 +25,18 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch import serve
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import CascadeServingEngine, Request
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in parallel workers
+    on a few cores, where these small ops gain nothing from more threads
+    and would slow the other workers' timed tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 MEMORY_KEYS = ("num_blocks", "block_size", "block_bytes", "blocks_free",
                "blocks_used", "peak_blocks_used", "reclaimed_by_exit",

@@ -23,6 +23,18 @@ from repro_torch.kernels import (cohort_cache, confidence, decode_attention,
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import CascadeServingEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in parallel workers
+    on a few cores, where these small ops gain nothing from more threads
+    and would slow the other workers' timed tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
