@@ -26,7 +26,11 @@ source, all at once).  Phases, each of which fails the run on a miss:
    a block table with trash, duplicate and all-trash rows) bit for bit
    against the dense route over ``paged_gather_kv``'s views; exit_update's
    vocab split at B = 1, 4, 8, 16 with ties across and straddling CTA
-   tiles, its two launch forms bit for bit alike and both timed;
+   tiles; the confidence kernel's cluster split at B = 1 .. 64 in bf16,
+   in f32 and fp16, and at (70000, 10) f32, at every cluster size, with
+   ties across and straddling the CTA ranges, its C++ plan against the
+   Python mirror, one device launch a call (``torch.profiler``) and a
+   CUDA graph's replays bit for bit like the eager call;
 3. slice 1 at full width: qwen2.5-3b (36 layers, bf16, 3 components,
    kernels on, cond_batch, one cohort) through ``CascadeServingEngine`` —
    8 requests at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0);
@@ -37,7 +41,8 @@ source, all at once).  Phases, each of which fails the run on a miss:
    branch runs), megakernel on and off in turns (on, off, off, on);
 5. Algorithm 1 (``cascade_infer_sequential``) on the full-width model's
    exit logits for 4 prompts of 128 tokens, confidence kernel vs plain
-   measure;
+   measure, with each call's wall time and its 3 confidence
+   computations' device time;
 6. slice 3 at full width: the paged KV layout (2 cohorts, major,
    cond_batch, block size 16) — the 8 requests at (0.9, 0.9, 0.0) and
    (0, 0, 0), paged and dense in turns with identical streams, then an
@@ -79,10 +84,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 
-# H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor-core rate,
-# f32 rate outside the tensor cores
+# H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 and fp16
+# tensor-core rate, f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 # the serving shapes of qwen2.5-3b: model width, vocabulary, and one deep
 # segment's cache leaf (layers, lane batch, cache_len, KV heads, head dim)
@@ -578,37 +583,142 @@ def _carries(B, n_m, dev):
             torch.full((B,), 0.5, device=dev), ar % 4 != 2)
 
 
+# the confidence kernel's shapes: Algorithm 1's (4, V) at B = 1 .. 64 in
+# bf16, (4, V) in f32 and fp16, and (70000, 10) f32 (the paper's 10-class
+# heads over more rows than grid.y's 65535, which the two-launch form could
+# not launch)
+CONF_SHAPES = [(4, VOCAB, "bfloat16"), (1, VOCAB, "bfloat16"),
+               (8, VOCAB, "bfloat16"), (16, VOCAB, "bfloat16"),
+               (64, VOCAB, "bfloat16"), (4, VOCAB, "float32"),
+               (4, VOCAB, "float16"), (70000, 10, "float32")]
+
+
+def _conf_logits(B, V, dt, dev, gen):
+    """(B, V) logits with rows by role (b % 4): noise; a tie straddling
+    the end of CTA 0's column range (the row's last two columns when one
+    CTA holds the row); a tie across the first and last ranges (columns 1
+    and V - 1); a confident row (column V // 3)."""
+    import torch
+    from repro_torch.kernels.confidence import plan, ranges
+    x = torch.randn(B, V, generator=gen, device=dev)
+    top = x.amax(-1, keepdim=True) + 15.0
+    e = ranges(V, plan(V))[0][1]
+    straddle = [e - 1, e] if e < V else [V - 2, V - 1]
+    x[1::4, straddle] = top[1::4].expand(-1, 2)
+    x[2::4, [1, V - 1]] = top[2::4].expand(-1, 2)
+    x[3::4, V // 3] += 20.0
+    return x.to(dt), straddle[0]
+
+
+def _device_kernels(fn):
+    """The device kernels one call of ``fn`` launches, by torch.profiler:
+    [(name, count)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and e.count > 0 and "Activity Buffer" not in e.key]
+
+
 def phase_confidence(dev, gen):
+    """The cluster split at every shape of ``CONF_SHAPES``: argmax equal to
+    the plain version's (ties straddling and across CTA ranges resolve to
+    the first index), δ within 1e-5 relative (0 absolute); the same at
+    every forced cluster size C in {1, 2, 4, 8, 16}; two calls give the
+    same bits.  At the headline shape (4, 151936) bf16: the C++ plan and
+    ranges equal the Python mirror's, one call is one device launch (by
+    torch.profiler), and a CUDA graph that captured the call replays it on
+    3 new inputs with the eager call's bits.  Times the kernel, the plain
+    version and the library call at every shape, and each cluster size at
+    the headline shape."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.confidence import confidence
-    B, V = 4, VOCAB
+    from repro_torch.kernels import confidence as conf_mod
+    from repro_torch.kernels.confidence import confidence, launch
+    # the plan of the C++ side against the Python mirror
+    for V in sorted({V for _, V, _ in CONF_SHAPES} | {1, 100, 1025, 8193,
+                                                      32000, 151933}):
+        n, rs = conf_mod.device_plan(V)
+        if n != conf_mod.plan(V):
+            fail(f"confidence: the C++ plan gives C = {n} at V = {V}, the "
+                 f"Python mirror {conf_mod.plan(V)}")
+        for C in (1, 2, 4, 8, 16):
+            if conf_mod.device_plan(V, C)[1] != conf_mod.ranges(V, C):
+                fail(f"confidence: C++ and Python ranges differ at V = {V}, "
+                     f"C = {C}")
     cases = []
-    for dt in (torch.bfloat16, torch.float32):
-        x = torch.randn(B, V, generator=gen, device=dev)
-        x[1, 77] += 20.0                              # a confident row
-        x[2, 5] = x[2, V - 100] = x[2].max() + 15.0   # a tie across tiles
-        x = x.to(dt)
-        got = confidence(x)
+    for B, V, name in CONF_SHAPES:
+        dt = getattr(torch, name)
+        x, first_straddle = _conf_logits(B, V, dt, dev, gen)
+        tag = f"confidence ({B}, {V}) {name}"
         want = ref.ref_confidence(x)
-        torch.cuda.synchronize()
-        name = str(dt).split(".")[-1]
-        check_equal(f"confidence {name} argmax", got[0], want[0])
-        check_close(f"confidence {name} delta", got[1], want[1], 0.0, 1e-5)
-        if int(got[0][2]) != 5:
-            fail(f"confidence: tie across tiles must pick index 5, got "
-                 f"{int(got[0][2])}")
-        b, by = bound_ms(x.numel() * x.element_size() + B * 8,
-                         4 * x.numel(), name)
-        cases.append({
-            "shape": [B, V], "dtype": name,
-            "max_abs_err": max_err(got[1], want[1]),
-            "ms": time_ms(lambda: confidence(x)),
-            "plain_ms": time_ms(lambda: ref.ref_confidence(x)),
-            "library_ms": time_ms(
-                lambda: torch.softmax(x.float(), -1).max(-1)),
-            "bound_ms": b, "bound_by": by})
+        errs = []
+        for C in (1, 2, 4, 8, 16, 0):
+            got = launch(x, C) if C else confidence(x)
+            torch.cuda.synchronize()
+            check_equal(f"{tag} C={C or 'plan'} argmax", got[0], want[0])
+            check_close(f"{tag} C={C or 'plan'} delta", got[1], want[1],
+                        0.0, 1e-5)
+            errs.append(max_err(got[1], want[1]))
+        again = confidence(x)
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
+            fail(f"{tag}: a second call gave other bits")
+        idx = got[0].tolist()
+        for b, col in ((1, first_straddle), (2, 1)):
+            if b < B and idx[b] != col:
+                fail(f"{tag}: a tie must pick index {col}, got {idx[b]}")
+        b_, by = bound_ms(x.numel() * x.element_size() + B * 8,
+                          4 * x.numel(), name)
+        case = {"shape": [B, V], "dtype": name, "cluster": conf_mod.plan(V),
+                "max_abs_err": max(errs),
+                "ms": time_ms(lambda: confidence(x)),
+                "plain_ms": time_ms(lambda: ref.ref_confidence(x)),
+                "library_ms": time_ms(
+                    lambda: torch.softmax(x.float(), -1).max(-1)),
+                "bound_ms": b_, "bound_by": by}
+        if (B, V, name) == CONF_SHAPES[0]:
+            case["cluster_ms"] = {C: time_ms(lambda: launch(x, C))
+                                  for C in (1, 2, 4, 8, 16)}
+            kern = _device_kernels(lambda: confidence(x))
+            if len(kern) != 1 or kern[0][1] != 1 \
+                    or "conf_cluster_kernel" not in kern[0][0]:
+                fail(f"{tag}: one call must be one device launch of "
+                     f"conf_cluster_kernel, the profiler saw {kern}")
+            case["device_kernels"] = kern
+            case["graph_replays"] = _confidence_graph(x, gen)
+        cases.append(case)
     return cases
+
+
+def _confidence_graph(x, gen):
+    """Capture ``confidence`` on a static input in a CUDA graph, replay it
+    on 3 new inputs copied into that input, and hold each replay's outputs
+    to the eager call's bits.  Returns the replays checked."""
+    import torch
+    from repro_torch.kernels.confidence import confidence
+    static = x.clone()
+    confidence(static)                # first use outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = confidence(static)
+    for k in range(3):
+        new = _conf_logits(x.shape[0], x.shape[1], x.dtype, x.device,
+                           gen)[0]
+        static.copy_(new)
+        g.replay()
+        eager = confidence(new)
+        torch.cuda.synchronize()
+        if not (torch.equal(out[0], eager[0])
+                and torch.equal(out[1], eager[1])):
+            fail(f"confidence: graph replay {k} differs from the eager "
+                 "call's bits")
+    return 3
 
 
 # the megakernel's logits sum d products in another order than cuBLAS:
@@ -1305,10 +1415,55 @@ def phase_algorithm1(model, params):
         out.append({"thresholds": list(ths),
                     "predictions": res[True][0].tolist(),
                     "max_abs_err": max_err(res[True][1], res[False][1]),
-                    "launches": launches})
+                    "launches": launches,
+                    **_algorithm1_times(fns, ths, x)})
     emit({"phase": "algorithm1", "config": "qwen2.5-3b", "prompts": [4, S],
           "runs": out})
     return out[0]["launches"]
+
+
+def _algorithm1_times(fns, ths, x):
+    """One ``cascade_infer_sequential`` call with the confidence kernel,
+    then one with the plain measure (the components' logits already
+    computed): each call's wall time (host clock, synchronised), and, in a
+    second call behind a spin kernel that keeps the device busy while the
+    host enqueues, the CUDA-event device time of its 3 confidence
+    computations (the decider's ``measure_one``: the kernel's launch, or
+    the plain measure's ops)."""
+    import torch
+    from repro_torch.core.cascade import cascade_infer_sequential
+    from repro_torch.core.policy import ExitDecider
+    out = {}
+    for use_kernels, key in ((True, "kernel"), (False, "plain")):
+        decider = ExitDecider("softmax_max", use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cascade_infer_sequential(fns, ths, x, decider)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = []
+        measure_one = decider.measure_one
+
+        def timed(logits):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = measure_one(logits)
+            b.record()
+            spans.append((a, b))
+            return res
+
+        decider.measure_one = timed
+        torch.cuda._sleep(100_000_000)
+        cascade_infer_sequential(fns, ths, x, decider)
+        torch.cuda.synchronize()
+        if len(spans) != len(fns):
+            fail(f"algorithm 1 {ths} {key}: {len(spans)} confidence "
+                 f"computations timed, expected {len(fns)}")
+        each = [a.elapsed_time(b) for a, b in spans]
+        out[key] = {"wall_s": wall, "confidence_device_ms": sum(each),
+                    "confidence_device_ms_each": each}
+    return out
 
 
 def phase_route_parity():

@@ -9,22 +9,61 @@ the batch-uniform decision) takes when ``use_kernels`` is set.
 
 Route: CUDA C++ (``csrc/confidence.cu``), ctypes-bound, one build route
 with the other kernels.  Bound on the H100: bytes (one read of the
-logits).  The vocab is split across blocks (4096 columns each) and a
-second launch merges each row's partials — the same partial and combine
-device code as the exit-head megakernel (``csrc/common.cuh``).
+logits).  One launch: each row is a thread-block cluster of ``plan(V)``
+CTAs, CTA r reducing column range ``ranges(V, C)[r]`` to a (max, Σexp,
+first-argmax) partial and storing it into rank 0's shared memory
+(distributed shared memory); after one cluster barrier rank 0 merges the C
+partials in a fixed order — no scratch, no state kept between calls (a
+captured CUDA graph replays it), any B.  Rows of at most ``GROUP_COLS``
+columns take a group of lanes each.  :func:`plan` and :func:`ranges`
+mirror the C++ ``confidence_plan`` / ``confidence_range``, for the CPU
+emulator ``ref.ref_confidence_cluster``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_confidence
 
+UNIT = 8            # columns: the split's unit (16 bytes of bf16)
+CTA_COLS = 8192     # C doubles while a CTA would hold more columns
+MAX_CLUSTER = 16
+GROUP_COLS = 1024   # rows this short take a group of lanes each (C = 1)
+
 _SIG = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p]
+
+
+def plan(V: int) -> int:
+    """The cluster size C (CTAs per row) for rows of V columns: 1 up to
+    ``GROUP_COLS`` columns, else doubled while a CTA would hold more than
+    ``CTA_COLS`` columns, at most ``MAX_CLUSTER``."""
+    if V <= GROUP_COLS:
+        return 1
+    C = 1
+    while C < MAX_CLUSTER and V > C * CTA_COLS:
+        C *= 2
+    return C
+
+
+def ranges(V: int, C: int) -> List[Tuple[int, int]]:
+    """CTA r's column range [start, stop) of a row of V columns cut over C
+    CTAs, in rank order: contiguous, in ``UNIT``-column units (16-byte
+    aligned), the first ``units % C`` ranges one unit longer, ranges past
+    the last unit empty."""
+    units = -(-V // UNIT)
+    per, rem = divmod(units, C)
+    out = []
+    for r in range(C):
+        u0 = r * per + min(r, rem)
+        u1 = u0 + per + (1 if r < rem else 0)
+        out.append((min(u0 * UNIT, V), min(u1 * UNIT, V)))
+    return out
 
 
 def confidence(logits: torch.Tensor):
@@ -32,24 +71,47 @@ def confidence(logits: torch.Tensor):
     the plain version; CUDA tensors launch the kernel."""
     if logits.device.type == "cpu":
         return ref_confidence(logits)
+    return launch(logits)
+
+
+def launch(logits: torch.Tensor, cluster: int = 0):
+    """One launch of the kernel on a CUDA tensor; ``cluster`` 0 takes
+    :func:`plan`'s C, 1, 2, 4, 8 or 16 forces it (to time or check each
+    cluster size)."""
     build.require_cuda("confidence", logits)
     if logits.dim() != 2 or logits.stride(1) != 1:
         raise ValueError("confidence: logits must be (B, V) with a "
                          f"contiguous last dim, got {tuple(logits.shape)}")
     B, V = logits.shape
+    if V == 0:
+        raise ValueError("confidence: rows of 0 columns have no maximum")
     dev = logits.device
-    tiles = build.function("confidence", "confidence_tiles",
-                           [ctypes.c_int])(V)
-    workspace = torch.empty((3, B, tiles), dtype=torch.float32, device=dev)
     idx = torch.empty(B, dtype=torch.int32, device=dev)
     conf = torch.empty(B, dtype=torch.float32, device=dev)
     fn = build.function("confidence", "confidence_launch", _SIG)
     p = build.ptr
     build.check(fn(p(logits), logits.stride(0), B, V,
-                   build.dtype_code(logits), p(workspace), p(idx), p(conf),
+                   build.dtype_code(logits), cluster, p(idx), p(conf),
                    build.stream_of(logits)), "confidence")
     confidence.launches += 1
     return idx, conf
+
+
+def device_plan(V: int, C: int = 0):
+    """The C++ plan for rows of V columns, from the built library: its
+    cluster size and, for C (0: that size), every CTA's column range — to
+    pin :func:`plan` and :func:`ranges` on the card."""
+    n = build.function("confidence", "confidence_plan", [ctypes.c_int])(V)
+    ip = ctypes.POINTER(ctypes.c_int)
+    cut = build.function("confidence", "confidence_range",
+                         [ctypes.c_int] * 3 + [ip, ip])
+    out = []
+    for r in range(C or n):
+        c0, c1 = ctypes.c_int(), ctypes.c_int()
+        build.check(cut(V, C or n, r, ctypes.byref(c0), ctypes.byref(c1)),
+                    "confidence_range")
+        out.append((c0.value, c1.value))
+    return n, out
 
 
 confidence.launches = 0

@@ -321,6 +321,17 @@ def _split_confidence(logits, ranges):
     return idx.to(torch.int32), 1.0 / L
 
 
+def ref_confidence_cluster(logits, C: int):
+    """Plain emulation of the confidence kernel's cluster split (tests
+    only): each row's f32 logits cut into the C column ranges of
+    ``confidence.ranges(V, C)`` (one per CTA of the row's cluster), one
+    (max, Σexp, first-argmax) partial per range, the partials merged in
+    rank order (:func:`_split_confidence`).  Returns (argmax (B,) int32,
+    δ (B,) f32), as :func:`ref_confidence`."""
+    from repro_torch.kernels.confidence import ranges
+    return _split_confidence(logits.float(), ranges(logits.shape[1], C))
+
+
 def ref_exit_update_split(logits, answered, pred, exit_idx, conf, streak,
                           ema, active, *, threshold, m, n_components,
                           patience_k=0, ema_decay=0.0, tel_bins=0,

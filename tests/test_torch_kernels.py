@@ -241,6 +241,57 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+def test_confidence_plan_and_launches_on_card(cuda_device):
+    """The C++ plan and ranges equal the Python mirror's, and one call is
+    one device launch (torch.profiler), of the cluster kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import confidence
+    for V in (1, 10, 100, 1024, 1025, 8193, 32000, 151933, 151936):
+        n, _ = confidence.device_plan(V)
+        assert n == confidence.plan(V), V
+        for C in (1, 2, 4, 8, 16):
+            assert confidence.device_plan(V, C)[1] == confidence.ranges(V, C)
+    x = torch.randn(4, 151936, device=cuda_device).to(torch.bfloat16)
+    confidence.confidence(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        confidence.confidence(x)
+        torch.cuda.synchronize()
+    kern = [(e.key, e.count) for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and e.count > 0 and "Activity Buffer" not in e.key]
+    assert len(kern) == 1 and kern[0][1] == 1, kern
+    assert "conf_cluster_kernel" in kern[0][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 151936), (70000, 10)])
+def test_confidence_replays_in_a_cuda_graph(cuda_device, shape):
+    """The kernel keeps nothing between calls: captured in a CUDA graph,
+    it replays on 3 new inputs copied into the captured buffer with the
+    eager call's bits."""
+    from repro_torch.kernels import confidence
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    static = torch.randn(shape, generator=g, device=cuda_device) \
+        .to(torch.bfloat16)
+    confidence.confidence(static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = confidence.confidence(static)
+    for _ in range(3):
+        new = torch.randn(shape, generator=g, device=cuda_device) \
+            .to(torch.bfloat16)
+        static.copy_(new)
+        graph.replay()
+        eager = confidence.confidence(new)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0])
+        assert torch.equal(out[1], eager[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     """bf16 outputs may differ by one bf16 ulp (2**-8 relative) where two
@@ -350,6 +401,27 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     want_i, want_c = ref.ref_confidence(logits)
     assert torch.equal(idx, want_i)
     torch.testing.assert_close(conf, want_c, atol=0, rtol=1e-5)
+    # confidence's cluster split: at every shape, every cluster size, ties
+    # straddling CTA 0's range end and across the first and last ranges
+    # take the first index; more rows than grid.y's 65535; same bits twice
+    for B, V in ((1, 151936), (4, 151936), (8, 151936), (16, 151936),
+                 (64, 151936), (4, 151933), (70000, 10)):
+        lg = torch.randn(B, V, generator=g, device=cuda_device)
+        e = confidence.ranges(V, confidence.plan(V))[0][1]
+        straddle = [e - 1, e] if e < V else [V - 2, V - 1]
+        top = lg.amax(-1, keepdim=True) + 15.0
+        lg[1::4, straddle] = top[1::4].expand(-1, 2)
+        lg[2::4, [1, V - 1]] = top[2::4].expand(-1, 2)
+        lg = lg.to(dtype)
+        want_i, want_c = ref.ref_confidence(lg)
+        assert want_i[1::4].eq(straddle[0]).all()
+        assert want_i[2::4].eq(1).all()
+        for C in (1, 2, 4, 8, 16, 0):
+            idx, conf = confidence.launch(lg, C)
+            assert torch.equal(idx, want_i), (B, V, C)
+            torch.testing.assert_close(conf, want_c, atol=0, rtol=1e-5)
+        again = confidence.confidence(lg)      # the plan's C, as C = 0
+        assert torch.equal(again[0], idx) and torch.equal(again[1], conf)
     # the megakernel at the full head width, at the last component (every
     # live row answers); a confident row, a dead row.  bf16 takes the tc
     # route at B = 1 .. 16, f32 the CUDA-core one; two calls repeat their
