@@ -27,10 +27,11 @@ source, all at once).  Phases, each of which fails the run on a miss:
    against the dense route over ``paged_gather_kv``'s views; exit_update's
    vocab split at B = 1, 4, 8, 16 with ties across and straddling CTA
    tiles; the confidence kernel's cluster split at B = 1 .. 64 in bf16,
-   in f32 and fp16, and at (70000, 10) f32, at every cluster size, with
-   ties across and straddling the CTA ranges, its C++ plan against the
-   Python mirror, one device launch a call (``torch.profiler``) and a
-   CUDA graph's replays bit for bit like the eager call;
+   in f32 and fp16, at (70000, 10) f32 and at vocabularies that make the
+   plan pick each cluster size, with ties across and straddling the CTA
+   ranges, its C++ column ranges against the Python mirror, one device
+   launch a call (``torch.profiler``) and a CUDA graph's replays bit for
+   bit like the eager call;
 3. slice 1 at full width: qwen2.5-3b (36 layers, bf16, 3 components,
    kernels on, cond_batch, one cohort) through ``CascadeServingEngine`` —
    8 requests at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0);
@@ -586,11 +587,16 @@ def _carries(B, n_m, dev):
 # the confidence kernel's shapes: Algorithm 1's (4, V) at B = 1 .. 64 in
 # bf16, (4, V) in f32 and fp16, and (70000, 10) f32 (the paper's 10-class
 # heads over more rows than grid.y's 65535, which the two-launch form could
-# not launch)
+# not launch); then rows whose V makes the plan pick each cluster size
+# (1000: a lane group a row; 8000: C = 1; 16000, 32000, 64000: C = 2, 4,
+# 8) and a V that is not a whole number of 16-byte chunks (scalar loads)
 CONF_SHAPES = [(4, VOCAB, "bfloat16"), (1, VOCAB, "bfloat16"),
                (8, VOCAB, "bfloat16"), (16, VOCAB, "bfloat16"),
                (64, VOCAB, "bfloat16"), (4, VOCAB, "float32"),
-               (4, VOCAB, "float16"), (70000, 10, "float32")]
+               (4, VOCAB, "float16"), (70000, 10, "float32"),
+               (4, 1000, "bfloat16"), (4, 8000, "bfloat16"),
+               (4, 16000, "bfloat16"), (4, 32000, "bfloat16"),
+               (4, 64000, "bfloat16"), (4, VOCAB - 3, "bfloat16")]
 
 
 def _conf_logits(B, V, dt, dev, gen):
@@ -625,45 +631,37 @@ def _device_kernels(fn):
 
 
 def phase_confidence(dev, gen):
-    """The cluster split at every shape of ``CONF_SHAPES``: argmax equal to
-    the plain version's (ties straddling and across CTA ranges resolve to
-    the first index), δ within 1e-5 relative (0 absolute); the same at
-    every forced cluster size C in {1, 2, 4, 8, 16}; two calls give the
-    same bits.  At the headline shape (4, 151936) bf16: the C++ plan and
-    ranges equal the Python mirror's, one call is one device launch (by
+    """The cluster split at every shape of ``CONF_SHAPES``, through the
+    wrapper a caller uses (so at the plan's cluster size, and every size
+    in {1, 2, 4, 8, 16} across the shapes): argmax equal to the plain
+    version's (ties straddling and across CTA ranges resolve to the first
+    index), δ within 1e-5 relative (0 absolute); two calls give the same
+    bits.  The kernel's column ranges equal the Python mirror's.  At the
+    headline shape (4, 151936) bf16: one call is one device launch (by
     torch.profiler), and a CUDA graph that captured the call replays it on
     3 new inputs with the eager call's bits.  Times the kernel, the plain
-    version and the library call at every shape, and each cluster size at
-    the headline shape."""
+    version and the library call at every shape."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import confidence as conf_mod
-    from repro_torch.kernels.confidence import confidence, launch
-    # the plan of the C++ side against the Python mirror
+    from repro_torch.kernels.confidence import confidence, plan
+    if {plan(V) for _, V, _ in CONF_SHAPES} != {1, 2, 4, 8, 16}:
+        fail("confidence: the shapes no longer drive every cluster size")
+    # the kernel's cut of a row against the Python mirror's
     for V in sorted({V for _, V, _ in CONF_SHAPES} | {1, 100, 1025, 8193,
-                                                      32000, 151933}):
-        n, rs = conf_mod.device_plan(V)
-        if n != conf_mod.plan(V):
-            fail(f"confidence: the C++ plan gives C = {n} at V = {V}, the "
-                 f"Python mirror {conf_mod.plan(V)}")
-        for C in (1, 2, 4, 8, 16):
-            if conf_mod.device_plan(V, C)[1] != conf_mod.ranges(V, C):
-                fail(f"confidence: C++ and Python ranges differ at V = {V}, "
-                     f"C = {C}")
+                                                      65536}):
+        if conf_mod.device_ranges(V, plan(V)) != conf_mod.ranges(V, plan(V)):
+            fail(f"confidence: C++ and Python ranges differ at V = {V}")
     cases = []
     for B, V, name in CONF_SHAPES:
         dt = getattr(torch, name)
         x, first_straddle = _conf_logits(B, V, dt, dev, gen)
         tag = f"confidence ({B}, {V}) {name}"
         want = ref.ref_confidence(x)
-        errs = []
-        for C in (1, 2, 4, 8, 16, 0):
-            got = launch(x, C) if C else confidence(x)
-            torch.cuda.synchronize()
-            check_equal(f"{tag} C={C or 'plan'} argmax", got[0], want[0])
-            check_close(f"{tag} C={C or 'plan'} delta", got[1], want[1],
-                        0.0, 1e-5)
-            errs.append(max_err(got[1], want[1]))
+        got = confidence(x)
+        torch.cuda.synchronize()
+        check_equal(f"{tag} argmax", got[0], want[0])
+        check_close(f"{tag} delta", got[1], want[1], 0.0, 1e-5)
         again = confidence(x)
         if not (torch.equal(got[0], again[0])
                 and torch.equal(got[1], again[1])):
@@ -674,16 +672,14 @@ def phase_confidence(dev, gen):
                 fail(f"{tag}: a tie must pick index {col}, got {idx[b]}")
         b_, by = bound_ms(x.numel() * x.element_size() + B * 8,
                           4 * x.numel(), name)
-        case = {"shape": [B, V], "dtype": name, "cluster": conf_mod.plan(V),
-                "max_abs_err": max(errs),
+        case = {"shape": [B, V], "dtype": name, "cluster": plan(V),
+                "max_abs_err": max_err(got[1], want[1]),
                 "ms": time_ms(lambda: confidence(x)),
                 "plain_ms": time_ms(lambda: ref.ref_confidence(x)),
                 "library_ms": time_ms(
                     lambda: torch.softmax(x.float(), -1).max(-1)),
                 "bound_ms": b_, "bound_by": by}
         if (B, V, name) == CONF_SHAPES[0]:
-            case["cluster_ms"] = {C: time_ms(lambda: launch(x, C))
-                                  for C in (1, 2, 4, 8, 16)}
             kern = _device_kernels(lambda: confidence(x))
             if len(kern) != 1 or kern[0][1] != 1 \
                     or "conf_cluster_kernel" not in kern[0][0]:

@@ -3,17 +3,13 @@
 phase-2 checks, from any checkout of the repository.
 
 ``python3 scripts/time_torch_kernels.py [--root DIR] [--phases
-rmsnorm,megakernel] [--confidence-shapes]`` builds the kernels of the
-checkout at ``DIR`` (this one by default) into its own ``build/`` and runs
-that checkout's ``chip_smoke.phase_<name>`` for each phase: every kernel
-against its plain version, then CUDA-event times of the kernel, the plain
-version and the library call.  ``--confidence-shapes`` also times that
-checkout's ``confidence`` wrapper at the shapes of ``CONF_SHAPES`` below
-(whatever shapes its own phase covers), against its plain version, with
-the library call and the bound; a shape the kernel cannot launch is
-recorded with its error.  Prints the card line, then one JSON line per
-phase.  Run it on two checkouts in turns (parent, change, change, parent)
-to compare two versions of a kernel on one card.  Needs one CUDA card.
+rmsnorm,megakernel]`` builds the kernels of the checkout at ``DIR`` (this
+one by default) into its own ``build/`` and runs that checkout's
+``chip_smoke.phase_<name>`` for each phase: every kernel against its plain
+version, then CUDA-event times of the kernel, the plain version and the
+library call.  Prints the card line, then one JSON line per phase.  Run it
+on two checkouts in turns (parent, change, change, parent) to compare two
+versions of a kernel on one card.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -23,53 +19,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-# (B, V, dtype): Algorithm 1's logits at B = 1 .. 64, f32, and the paper's
-# 10-class heads over more rows than a grid's y dimension holds
-CONF_SHAPES = [(4, 151936, "bfloat16"), (1, 151936, "bfloat16"),
-               (8, 151936, "bfloat16"), (16, 151936, "bfloat16"),
-               (64, 151936, "bfloat16"), (4, 151936, "float32"),
-               (70000, 10, "float32")]
-
-
-def time_confidence(chip_smoke, gen):
-    """The checkout's ``confidence`` at every shape of ``CONF_SHAPES``:
-    argmax equal to its plain version's, δ within 1e-5 relative, and the
-    times of the kernel, the plain version and the library call."""
-    import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.confidence import confidence
-    out = []
-    for B, V, name in CONF_SHAPES:
-        x = torch.randn(B, V, generator=gen, device="cuda").to(
-            getattr(torch, name))
-        bound, by = chip_smoke.bound_ms(x.numel() * x.element_size() + B * 8,
-                                        4 * x.numel(), name)
-        case = {"shape": [B, V], "dtype": name, "bound_ms": bound,
-                "bound_by": by}
-        try:
-            got = confidence(x)
-            torch.cuda.synchronize()
-        except RuntimeError as err:
-            out.append({**case, "error": str(err)})
-            continue
-        want = ref.ref_confidence(x)
-        chip_smoke.check_equal(f"confidence {case}", got[0], want[0])
-        chip_smoke.check_close(f"confidence {case}", got[1], want[1], 0.0,
-                               1e-5)
-        out.append({**case, "max_abs_err": chip_smoke.max_err(got[1], want[1]),
-                    "ms": chip_smoke.time_ms(lambda: confidence(x)),
-                    "plain_ms": chip_smoke.time_ms(
-                        lambda: ref.ref_confidence(x)),
-                    "library_ms": chip_smoke.time_ms(
-                        lambda: torch.softmax(x.float(), -1).max(-1))})
-    return out
-
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", default="rmsnorm,megakernel")
-    ap.add_argument("--confidence-shapes", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -85,16 +39,11 @@ def main() -> int:
     print(smi, flush=True)
     build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name in filter(None, args.phases.split(",")):
+    for name in args.phases.split(","):
         cases = getattr(chip_smoke, f"phase_{name}")(torch.device("cuda"),
                                                     gen)
         print(json.dumps({"root": str(root), "card": smi, "kernel": name,
                           "cases": cases}), flush=True)
-    if args.confidence_shapes:
-        print(json.dumps({"root": str(root), "card": smi,
-                          "kernel": "confidence", "shapes": True,
-                          "cases": time_confidence(chip_smoke, gen)}),
-              flush=True)
     return 0
 
 

@@ -15,9 +15,10 @@ first-argmax) partial and storing it into rank 0's shared memory
 (distributed shared memory); after one cluster barrier rank 0 merges the C
 partials in a fixed order — no scratch, no state kept between calls (a
 captured CUDA graph replays it), any B.  Rows of at most ``GROUP_COLS``
-columns take a group of lanes each.  :func:`plan` and :func:`ranges`
-mirror the C++ ``confidence_plan`` / ``confidence_range``, for the CPU
-emulator ``ref.ref_confidence_cluster``.
+columns take a group of lanes each.  :func:`plan` alone picks C and
+passes it to the kernel; :func:`ranges` mirrors the kernel's own cut
+(C++ ``confidence_range``, read back by :func:`device_ranges`), for the
+CPU emulator ``ref.ref_confidence_cluster``.
 """
 from __future__ import annotations
 
@@ -40,11 +41,10 @@ _SIG = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
 
 
 def plan(V: int) -> int:
-    """The cluster size C (CTAs per row) for rows of V columns: 1 up to
-    ``GROUP_COLS`` columns, else doubled while a CTA would hold more than
-    ``CTA_COLS`` columns, at most ``MAX_CLUSTER``."""
-    if V <= GROUP_COLS:
-        return 1
+    """The cluster size C (CTAs per row) the kernel is launched with for
+    rows of V columns: doubled from 1 while a CTA would hold more than
+    ``CTA_COLS`` columns, at most ``MAX_CLUSTER``.  (C = 1 at V at most
+    ``GROUP_COLS`` is the kernel's lane-group route.)"""
     C = 1
     while C < MAX_CLUSTER and V > C * CTA_COLS:
         C *= 2
@@ -68,16 +68,10 @@ def ranges(V: int, C: int) -> List[Tuple[int, int]]:
 
 def confidence(logits: torch.Tensor):
     """logits (B, V) -> (argmax (B,) int32, δ (B,) f32).  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors launch the kernel, one launch of
+    :func:`plan`'s cluster size."""
     if logits.device.type == "cpu":
         return ref_confidence(logits)
-    return launch(logits)
-
-
-def launch(logits: torch.Tensor, cluster: int = 0):
-    """One launch of the kernel on a CUDA tensor; ``cluster`` 0 takes
-    :func:`plan`'s C, 1, 2, 4, 8 or 16 forces it (to time or check each
-    cluster size)."""
     build.require_cuda("confidence", logits)
     if logits.dim() != 2 or logits.stride(1) != 1:
         raise ValueError("confidence: logits must be (B, V) with a "
@@ -91,27 +85,26 @@ def launch(logits: torch.Tensor, cluster: int = 0):
     fn = build.function("confidence", "confidence_launch", _SIG)
     p = build.ptr
     build.check(fn(p(logits), logits.stride(0), B, V,
-                   build.dtype_code(logits), cluster, p(idx), p(conf),
+                   build.dtype_code(logits), plan(V), p(idx), p(conf),
                    build.stream_of(logits)), "confidence")
     confidence.launches += 1
     return idx, conf
 
 
-def device_plan(V: int, C: int = 0):
-    """The C++ plan for rows of V columns, from the built library: its
-    cluster size and, for C (0: that size), every CTA's column range — to
-    pin :func:`plan` and :func:`ranges` on the card."""
-    n = build.function("confidence", "confidence_plan", [ctypes.c_int])(V)
+def device_ranges(V: int, C: int) -> List[Tuple[int, int]]:
+    """Every CTA's column range as the built kernel cuts a row of V columns
+    over C CTAs (C++ ``confidence_range``) — to pin :func:`ranges` on the
+    card."""
     ip = ctypes.POINTER(ctypes.c_int)
     cut = build.function("confidence", "confidence_range",
                          [ctypes.c_int] * 3 + [ip, ip])
     out = []
-    for r in range(C or n):
+    for r in range(C):
         c0, c1 = ctypes.c_int(), ctypes.c_int()
-        build.check(cut(V, C or n, r, ctypes.byref(c0), ctypes.byref(c1)),
+        build.check(cut(V, C, r, ctypes.byref(c0), ctypes.byref(c1)),
                     "confidence_range")
         out.append((c0.value, c1.value))
-    return n, out
+    return out
 
 
 confidence.launches = 0

@@ -16,12 +16,12 @@
 // never leaves the chip, and few instructions an element:
 //  * one thread-block cluster of C CTAs per row, along grid.x (grid B * C,
 //    so any B: grid.y's 65535 limit no longer applies).  C in {1, 2, 4, 8,
-//    16} comes from V alone (confidence_plan: C doubles while a CTA would
-//    hold more than kCtaCols columns; C = 16 is a non-portable cluster
-//    size, allowed per kernel on first use).  CTA r reduces the r-th of C
-//    contiguous column ranges cut in 8-column units (confidence_range:
-//    16-byte aligned, the first units % C ranges one unit longer, ranges
-//    past the last unit empty);
+//    16} is the caller's, from V alone (the wrapper's plan(): C doubles
+//    while a CTA would hold more than 8192 columns; C = 16 is a
+//    non-portable cluster size, allowed on the kernel once a device).
+//    CTA r reduces the r-th of C contiguous column ranges cut in 8-column
+//    units (confidence_range: 16-byte aligned, the first units % C ranges
+//    one unit longer, ranges past the last unit empty);
 //  * 16-byte loads when the row base, its stride and V allow (vec16_ok),
 //    scalar loads otherwise; a thread issues kBatch loads before it uses
 //    the first.  A batch's maximum comes from packed max instructions on
@@ -59,6 +59,8 @@
 // registers; the cluster sizes the plan does not pick at (4, 151936).
 #include <cooperative_groups.h>
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -69,7 +71,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 8;         // loads a thread keeps in flight
 constexpr int kUnit = 8;          // columns: the split's unit (16 bytes bf16)
-constexpr int kCtaCols = 8192;    // C doubles while a CTA would hold more
 constexpr int kMaxCluster = 16;
 constexpr int kGroupCols = 1024;  // rows this short take a lane group each
 constexpr int kLaneCols = 32;     // a lane group's lanes: V / kLaneCols
@@ -316,11 +317,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Allow C = 16 on the current device (a function attribute is set per
+// device): once a device, remembered only when it succeeded.
 template <typename T>
 cudaError_t allow_cluster_16() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      conf_cluster_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-      1);
+  static std::atomic<unsigned long long> allowed{0};  // bit d: device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (allowed.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(conf_cluster_kernel<T>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (err == cudaSuccess) allowed.fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
 
@@ -333,15 +343,6 @@ int group_lanes(int V) {
 
 }  // namespace
 
-// The cluster size C the kernel takes for rows of V columns (1 for rows of
-// at most kGroupCols columns: a lane group a row).
-extern "C" int confidence_plan(int V) {
-  if (V <= kGroupCols) return 1;
-  int C = 1;
-  while (C < kMaxCluster && V > C * kCtaCols) C *= 2;
-  return C;
-}
-
 // CTA r's column range [*c0, *c1) of a row of V columns cut over C CTAs.
 extern "C" int confidence_range(int V, int C, int r, int* c0, int* c1) {
   if (V <= 0 || C <= 0 || r < 0 || r >= C) return (int)cudaErrorInvalidValue;
@@ -349,16 +350,15 @@ extern "C" int confidence_range(int V, int C, int r, int* c0, int* c1) {
   return (int)cudaSuccess;
 }
 
-// `cluster` 0 takes confidence_plan(V); 1, 2, 4, 8 or 16 forces C.
+// C CTAs a row (1, 2, 4, 8 or 16); C = 1 with V <= kGroupCols takes a lane
+// group a row.
 extern "C" int confidence_launch(const void* logits, long long row_stride,
-                                 int B, int V, int dtype, int cluster,
+                                 int B, int V, int dtype, int C,
                                  void* idx_out, void* conf_out,
                                  void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (V <= 0 || cluster < 0 || cluster > kMaxCluster ||
-      (cluster & (cluster - 1)) != 0)
+  if (V <= 0 || C <= 0 || C > kMaxCluster || (C & (C - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  const int C = cluster ? cluster : confidence_plan(V);
   const int lanes = C == 1 && V <= kGroupCols ? group_lanes(V) : 0;
   const long long rows_per_cta = lanes ? kThreads / lanes : 0;
   const long long blocks = lanes ? ((long long)B + rows_per_cta - 1) /

@@ -241,17 +241,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_confidence_plan_and_launches_on_card(cuda_device):
-    """The C++ plan and ranges equal the Python mirror's, and one call is
-    one device launch (torch.profiler), of the cluster kernel."""
+def test_confidence_ranges_and_launches_on_card(cuda_device):
+    """The kernel's column ranges at the plan's cluster size equal the
+    Python mirror's, and one call is one device launch (torch.profiler),
+    of the cluster kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import confidence
-    for V in (1, 10, 100, 1024, 1025, 8193, 32000, 151933, 151936):
-        n, _ = confidence.device_plan(V)
-        assert n == confidence.plan(V), V
-        for C in (1, 2, 4, 8, 16):
-            assert confidence.device_plan(V, C)[1] == confidence.ranges(V, C)
+    for V in (1, 10, 100, 1024, 1025, 8193, 16000, 32000, 64000, 151933,
+              151936):
+        C = confidence.plan(V)
+        assert confidence.device_ranges(V, C) == confidence.ranges(V, C), V
     x = torch.randn(4, 151936, device=cuda_device).to(torch.bfloat16)
     confidence.confidence(x)
     torch.cuda.synchronize()
@@ -401,11 +401,16 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     want_i, want_c = ref.ref_confidence(logits)
     assert torch.equal(idx, want_i)
     torch.testing.assert_close(conf, want_c, atol=0, rtol=1e-5)
-    # confidence's cluster split: at every shape, every cluster size, ties
+    # confidence's cluster split through the caller's entry: at every
+    # shape, with V making the plan pick each cluster size (1000 and 10: a
+    # lane group a row; 8000: C = 1; 16000 .. 151936: C = 2 .. 16), ties
     # straddling CTA 0's range end and across the first and last ranges
     # take the first index; more rows than grid.y's 65535; same bits twice
-    for B, V in ((1, 151936), (4, 151936), (8, 151936), (16, 151936),
-                 (64, 151936), (4, 151933), (70000, 10)):
+    shapes = ((1, 151936), (4, 151936), (8, 151936), (16, 151936),
+              (64, 151936), (4, 151933), (70000, 10), (4, 1000), (4, 8000),
+              (4, 16000), (4, 32000), (4, 64000))
+    assert {confidence.plan(V) for _, V in shapes} == {1, 2, 4, 8, 16}
+    for B, V in shapes:
         lg = torch.randn(B, V, generator=g, device=cuda_device)
         e = confidence.ranges(V, confidence.plan(V))[0][1]
         straddle = [e - 1, e] if e < V else [V - 2, V - 1]
@@ -416,11 +421,10 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
         want_i, want_c = ref.ref_confidence(lg)
         assert want_i[1::4].eq(straddle[0]).all()
         assert want_i[2::4].eq(1).all()
-        for C in (1, 2, 4, 8, 16, 0):
-            idx, conf = confidence.launch(lg, C)
-            assert torch.equal(idx, want_i), (B, V, C)
-            torch.testing.assert_close(conf, want_c, atol=0, rtol=1e-5)
-        again = confidence.confidence(lg)      # the plan's C, as C = 0
+        idx, conf = confidence.confidence(lg)
+        assert torch.equal(idx, want_i), (B, V)
+        torch.testing.assert_close(conf, want_c, atol=0, rtol=1e-5)
+        again = confidence.confidence(lg)
         assert torch.equal(again[0], idx) and torch.equal(again[1], conf)
     # the megakernel at the full head width, at the last component (every
     # live row answers); a confident row, a dead row.  bf16 takes the tc
