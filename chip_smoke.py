@@ -31,7 +31,10 @@ source, all at once).  Phases, each of which fails the run on a miss:
    plan pick each cluster size, with ties across and straddling the CTA
    ranges, its C++ column ranges against the Python mirror, one device
    launch a call (``torch.profiler``) and a CUDA graph's replays bit for
-   bit like the eager call;
+   bit like the eager call; decode attention reading its position from
+   device memory, both routes replayed in a CUDA graph at positions the
+   capture never saw; the cohort scatter at the ring-slot rows select
+   mode lands and at a whole segment slab;
 3. slice 1 at full width: qwen2.5-3b (36 layers, bf16, 3 components,
    kernels on, cond_batch, one cohort) through ``CascadeServingEngine`` —
    8 requests at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0);
@@ -51,16 +54,26 @@ source, all at once).  Phases, each of which fails the run on a miss:
    4-slot dense block count, with continuous single-slot admission and
    skip-aware reclamation; dense: 4 slots); every paged decode attention
    takes the paged route, so no paged_gather launches;
-7. route parity at 4 layers in f32: kernel route vs plain route (dense,
+7. slice 8 at full width: the device runtime (chunk 8: a captured CUDA
+   graph replayed 8 times a lane a dispatch, the cond_batch skips as
+   conditional nodes, one host sync a chunk) against the host runtime in
+   turns (host, device, device, host) — dense with one cohort and paged
+   (block size 16, 2 cohorts) at (0.9, 0.9, 0.0) and (0, 0, 0), dense
+   with 2 cohorts and the megakernel at those and at phase 4's mixed
+   vector; identical streams, carried segments_run, launches and routes,
+   one host sync per lane chunk, one capture per lane, no sync during a
+   replay (sync debug mode "error");
+8. route parity at 4 layers in f32: kernel route vs plain route (dense,
    paged at block size 16, and paged at block size 64, which the paged
    decode route does not take: there paged_gather gathers the views),
    megakernel on vs off, 1 vs 2 cohorts, major vs copy layout, select mode
    with the cohort scatter vs cond_batch, each on the dense and the paged
-   layout — identical token and exit streams;
-8. the serve CLI (``python -m repro_torch.launch.serve ... --cache-layout
+   layout — identical token and exit streams; and the device runtime
+   against the host runtime in select and cond_batch, dense and paged;
+9. the serve CLI (``python -m repro_torch.launch.serve ... --cache-layout
    paged``) in a subprocess, which must exit 0;
-9. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
-   line.
+10. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+    line.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after, and fails unless exactly its expected kernels launched;
@@ -95,6 +108,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 D_MODEL = 2048
 VOCAB = 151936
 SEG_CACHE = (12, 4, 512, 2, 128)
+# what select mode's cohort scatter lands on the serving path: one deep
+# segment's ring-slot rows of the lane batch (a decode step writes one slot)
+SCATTER_ROWS = (12, 4, 1, 2, 128)
 # the paged layout's shared store at full width (the auto-sized pool:
 # 2 lanes x 4 slots x 3 components x 32 ring blocks + the trash block) and
 # one lane's block table (4 slots x 32 ring blocks of 16 positions)
@@ -340,6 +356,9 @@ def phase_decode(dev, gen):
             (100, 512, 0, [1, 1, 1, 1], "per-slot, slot 3 empty"),
             (700, 512, 0, [0, 0, 0, 0], "lane")):
         kpos = torch.as_tensor(decode_ring(t, W), device=dev)
+        # the position as the serving path hands it over: one int32 in
+        # device memory
+        t_dev = torch.full((), t, dtype=torch.int32, device=dev)
         if form != "lane":   # (B, W) rows, each slot's own ring
             kpos = torch.stack([kpos - 2 * b if b else kpos
                                 for b in range(B)]).clamp(min=-1)
@@ -351,7 +370,7 @@ def phase_decode(dev, gen):
             kc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(dt)
             vc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(dt)
             got, route = route_of(lambda: decode_attention(
-                q, kc, vc, t, kpos, live, window=window), decode_attention)
+                q, kc, vc, t_dev, kpos, live, window=window), decode_attention)
             if route != "dense":
                 fail(f"decode t={t} W={W}: took the {route} route")
             want = ref.ref_decode_attention(q, kc, vc, t, kpos,
@@ -363,7 +382,8 @@ def phase_decode(dev, gen):
             if not torch.equal(got[~live].float().abs().sum().cpu(),
                                torch.zeros(())):
                 fail("decode: dead slots' rows are not zero")
-            again = decode_attention(q, kc, vc, t, kpos, live, window=window)
+            again = decode_attention(q, kc, vc, t_dev, kpos, live,
+                                     window=window)
             if not torch.equal(got, again):
                 fail(f"decode t={t} W={W} {name}: two runs differ")
             kp = kpos if kpos.dim() == 2 else kpos[None].expand(B, W)
@@ -383,7 +403,7 @@ def phase_decode(dev, gen):
                 "split": list(split_plan(W)),
                 "max_abs_err": max_err(got, want),
                 "ms": time_ms(lambda: decode_attention(
-                    q, kc, vc, t, kpos, live, window=window)),
+                    q, kc, vc, t_dev, kpos, live, window=window)),
                 "plain_ms": time_ms(lambda: ref.ref_decode_attention(
                     q, kc, vc, t, kpos, window=window, live=live)),
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -400,7 +420,54 @@ def phase_decode(dev, gen):
                 decode_attention(q, kc, vc, W - 1, kpos),
                 ref.ref_decode_attention(q, kc, vc, W - 1, kpos),
                 *TOL["bfloat16"])
+    decode_position_replays(dev, gen)
     return cases + decode_paged_cases(dev, gen)
+
+
+def decode_position_replays(dev, gen):
+    """The kernel reads t from device memory, in both routes: one call of
+    each route captured in a CUDA graph, then replayed at positions the
+    capture never saw (the device scalar rewritten between replays), each
+    replay bit for bit like the eager call at that position."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_gather import paged_gather_kv
+    B, H, KV, hd, W = 4, 16, 2, 128, 512
+    NB, bs = PAGED_STORE[0], PAGED_STORE[1]
+    q = torch.randn(B, H, hd, generator=gen, device=dev).bfloat16()
+    kc, vc = (torch.randn(B, W, KV, hd, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    ks, vs = (torch.randn(PAGED_STORE, generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+    table = torch.randint(1, NB, PAGED_TABLE, generator=gen, device=dev,
+                          dtype=torch.int32)
+    kpos = torch.as_tensor(decode_ring(W + 100, W), device=dev)
+    t_dev = torch.full((), 300, dtype=torch.int32, device=dev)
+    calls = {"dense": lambda: decode_attention(q, kc, vc, t_dev, kpos),
+             "paged": lambda: decode_attention(q, ks, vs, t_dev,
+                                               kpos[None].expand(B, W),
+                                               table=table)}
+    for route, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = call()
+        for t in (300, 450, W + 7, W + 100):
+            t_dev.fill_(t)
+            g.replay()
+            want = call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                fail(f"decode {route}: a replay at t={t} differs from the "
+                     f"eager call by {max_err(out, want):.3e}")
+        del g
+    kv = paged_gather_kv(ks, vs, table)
+    t_dev.fill_(450)
+    if not torch.equal(calls["paged"](), decode_attention(
+            q, *kv, t_dev, kpos[None].expand(B, W))):
+        fail("decode: paged route at a device t differs from the dense "
+             "route over the gathered views")
 
 
 def decode_paged_cases(dev, gen):
@@ -443,10 +510,11 @@ def decode_paged_cases(dev, gen):
                 kpos[3] = -1
             live = torch.as_tensor(live_l, dtype=torch.bool, device=dev)
             q = torch.randn(B, H, hd, generator=gen, device=dev).to(dt)
+            t_dev = torch.full((), t, dtype=torch.int32, device=dev)
             got, route = route_of(lambda: decode_attention(
-                q, k, v, t, kpos, live, window=window, table=table),
+                q, k, v, t_dev, kpos, live, window=window, table=table),
                 decode_attention)
-            dense = decode_attention(q, *kv_views, t, kpos, live,
+            dense = decode_attention(q, *kv_views, t_dev, kpos, live,
                                      window=window)
             want = ref.ref_decode_attention(q, *kv_views, t, kpos,
                                             window=window, live=live)
@@ -459,8 +527,8 @@ def decode_paged_cases(dev, gen):
                 fail(f"{tag}: the paged route differs from the dense route "
                      f"over the gathered views by {max_err(got, dense):.3e}")
             check_close(tag, got, want, *TOL[name])
-            again = decode_attention(q, k, v, t, kpos, live, window=window,
-                                     table=table)
+            again = decode_attention(q, k, v, t_dev, kpos, live,
+                                     window=window, table=table)
             if not torch.equal(got, again):
                 fail(f"{tag}: two runs differ")
             if t != 700 or window or empty:
@@ -480,11 +548,11 @@ def decode_paged_cases(dev, gen):
                 "table": list(PAGED_TABLE), "split": list(split_plan(W)),
                 "max_abs_err": max_err(got, want),
                 "ms": time_ms(lambda: decode_attention(
-                    q, k, v, t, kpos, live, table=table)),
+                    q, k, v, t_dev, kpos, live, table=table)),
                 "dense_ms": time_ms(lambda: decode_attention(
-                    q, *kv_views, t, kpos, live)),
+                    q, *kv_views, t_dev, kpos, live)),
                 "gather_and_dense_ms": time_ms(lambda: decode_attention(
-                    q, *paged_gather_kv(k, v, table), t, kpos, live)),
+                    q, *paged_gather_kv(k, v, table), t_dev, kpos, live)),
                 "plain_ms": time_ms(lambda: ref.ref_decode_attention(
                     q, ref.ref_paged_gather(k, table),
                     ref.ref_paged_gather(v, table), t, kpos, live=live)),
@@ -893,10 +961,13 @@ def phase_cohort_scatter(dev, gen):
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.cohort_cache import cohort_scatter_tree
-    shape, C, c = SEG_CACHE, 2, 1
-    Bc = shape[1] // C
+    C, c = 2, 1
     cases = []
-    for dt in (torch.bfloat16, torch.float32):
+    for shape, dt in ((SCATTER_ROWS, torch.bfloat16),
+                      (SCATTER_ROWS, torch.float32),
+                      (SEG_CACHE, torch.bfloat16),
+                      (SEG_CACHE, torch.float32)):
+        Bc = shape[1] // C
         name = str(dt).split(".")[-1]
         dst = [torch.randn(shape, generator=gen, device=dev).to(dt)
                for _ in range(2)]
@@ -1030,6 +1101,9 @@ def serve(cfg, model, params, reqs, **engine_kw):
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
     stats = engine.stats()
+    # the lanes' carried segments_run: every decode step, warm-up included
+    stats["carried_segments_run"] = [
+        int(x) for x in sum(ln["state"].segments_run for ln in engine.lanes)]
     # every prefill of a bf16 / fp16 model takes flash's wgmma route and
     # every exit head the megakernel's tc route, of an f32 one their
     # CUDA-core routes; every norm of the model's width takes rmsnorm's
@@ -1354,6 +1428,102 @@ def phase_full_width_paged(params):
     return headline
 
 
+def phase_device_runtime(params, mixed):
+    """Slice 8's path at full width: the device runtime (K = 8 tokens a
+    lane a dispatch from a captured CUDA graph, cond_batch skips as IF
+    nodes, one host sync a chunk) against the host runtime, in turns
+    (host, device, device, host), on the 8 requests of phase 3: dense with
+    one cohort and paged (block size 16, 2 cohorts) at (0.9, 0.9, 0.0) and
+    (0, 0, 0); dense with 2 cohorts and the megakernel at those and at
+    phase 4's mixed vector ``(mixed, 0.9, 0.0)``.  Fails unless, in each,
+    tokens, exits and the carried segments_run are equal, every launch
+    count and route agrees, the device runtime synced once per lane chunk
+    and captured one graph per lane (every replay already ran under
+    ``torch.cuda.set_sync_debug_mode("error")``).  Returns the launches of
+    the device runtime's dense one-cohort run at (0.9, 0.9, 0.0)."""
+    import statistics as stats_mod
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch")
+    two = base.with_cascade(n_cohorts=2, cohort_layout="major")
+    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+    kw = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+    corners = [(0.9, 0.9, 0.0), (0.0, 0.0, 0.0)]
+    configs = [
+        ("dense, 1 cohort", base, corners),
+        ("dense, 2 cohorts, megakernel",
+         two.with_kernel_tune(megakernel=True, cohort_scatter=True),
+         corners + [(mixed, 0.9, 0.0)]),
+        ("paged, 2 cohorts", paged_config(two), corners)]
+    headline = None
+    for name, cfg0, vectors in configs:
+        model = build_model(cfg0, device=DEV)
+        for ths in vectors:
+            cfg = cfg0.with_cascade(thresholds=ths)
+            runs = {"host": [], "device": []}
+            ref = None
+            for runtime in ("host", "device", "device", "host"):
+                fin, st, secs, launches = serve(cfg, model, params, reqs,
+                                                runtime=runtime, **kw)
+                tag = f"device runtime {name} {ths} {runtime}"
+                if sorted(fin) != list(range(8)) or any(
+                        len(r["tokens"]) != 16 for r in fin.values()):
+                    fail(f"{tag}: not every request got its 16 tokens")
+                got = {"streams": _streams(fin),
+                       "segments": st["carried_segments_run"],
+                       "launches": launches,
+                       "routes": {k: st[k] for k in st
+                                  if k.endswith("_routes")}}
+                if ref is None:
+                    ref = got
+                for key, what in got.items():
+                    if what != ref[key]:
+                        fail(f"{tag}: {key} differ from the host runtime's: "
+                             f"{what} against {ref[key]}")
+                if runtime == "device":
+                    if st["host_syncs"] != st["decode_dispatches"]:
+                        fail(f"{tag}: {st['host_syncs']} host syncs for "
+                             f"{st['decode_dispatches']} lane chunks")
+                    if st["captures"] != kw["n_lanes"]:
+                        fail(f"{tag}: {st['captures']} captures for "
+                             f"{kw['n_lanes']} lanes x 1 threshold vector")
+                    if headline is None:
+                        headline = launches
+                n_tok = sum(len(r["tokens"]) for r in fin.values())
+                runs[runtime].append({
+                    "decode_us_per_token": st["wallclock_us_per_token"],
+                    "tokens_per_s": n_tok / secs, "seconds": secs,
+                    "host_syncs_per_token": st["host_syncs_per_token"],
+                    "host_syncs": st["host_syncs"],
+                    "decode_dispatches": st["decode_dispatches"],
+                    "decode_tokens": st["decode_tokens"],
+                    "compile_seconds": st["compile_seconds"],
+                    "captures": st["captures"],
+                    "prefill_seconds": st["prefill_seconds"],
+                    "segments_run": st["segments_run"],
+                    "carried_segments_run": st["carried_segments_run"],
+                    "cohort_dispatch": st["cohort_dispatch"],
+                    # a capture's private pool must not outlive its engine
+                    "memory_reserved": torch.cuda.memory_reserved()})
+            med = {rt: stats_mod.median(r["decode_us_per_token"]
+                                        for r in rr)
+                   for rt, rr in runs.items()}
+            emit({"phase": "device_runtime", "config": "qwen2.5-3b",
+                  "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+                  "variant": name, "thresholds": list(ths), "chunk": 8,
+                  "order": "host, device, device, host",
+                  "identical": True, "host": runs["host"],
+                  "device": runs["device"],
+                  "decode_us_per_token_median": med,
+                  "host_over_device": med["host"] / med["device"],
+                  "launches": ref["launches"]})
+        del model
+        torch.cuda.empty_cache()
+    return headline
+
+
 def phase_algorithm1(model, params):
     """Algorithm 1 on the full-width model: component m runs segment m on
     the prompt's hidden state and returns the exit logits at the last
@@ -1573,6 +1743,36 @@ def phase_route_parity():
             fail(f"cohort parity {ths}: cond_batch never took the mixed "
                  f"branch")
         emit(rec)
+
+    # slice 8: the device runtime against the host runtime, select and
+    # cond_batch, dense and paged, at the mixed vector
+    mixed_cfg = on.with_cascade(thresholds=(th, 0.9, 0.0))
+    rec = {"phase": "route_parity_device_runtime", "n_layers": 4,
+           "dtype": "float32", "thresholds": [th, 0.9, 0.0], "chunk": 8,
+           "identical": {}}
+    for mode in ("select", "cond_batch"):
+        for paged in (False, True):
+            cfg = mixed_cfg.with_cascade(exit_mode=mode)
+            if paged:
+                cfg = paged_config(cfg)
+            got = {}
+            for runtime in ("host", "device"):
+                fin, st, _, launches = serve(cfg, build_model(cfg, device=DEV),
+                                             params, reqs, runtime=runtime,
+                                             chunk=8, **kw)
+                got[runtime] = (_streams(fin), st["carried_segments_run"],
+                                launches)
+            tag = f"device runtime parity {mode} paged={paged}"
+            for i, what in enumerate(("streams", "segments_run",
+                                      "launches")):
+                if got["host"][i] != got["device"][i]:
+                    fail(f"{tag}: {what} differ between the runtimes")
+            if mode == "select" and not paged and \
+                    not got["device"][2]["cohort_scatter"]:
+                fail(f"{tag}: the cohort scatter never launched")
+            rec["identical"][f"{mode}, {'paged' if paged else 'dense'}"] = \
+                True
+    emit(rec)
     del params
     torch.cuda.empty_cache()
     return scatter_launches, gather_launches
@@ -1646,9 +1846,11 @@ def main() -> int:
     # Algorithm 1, slice 3's paged run at capacity, and the select-mode
     # cohort run of the parity phase
     slice1, slice1_routes = phase_full_width()
-    (cohorts, cohort_routes), model, params, _ = phase_full_width_cohorts()
+    (cohorts, cohort_routes), model, params, records = \
+        phase_full_width_cohorts()
     algorithm1 = phase_algorithm1(model, params)
     paged_routes = phase_full_width_paged(params)
+    device_runtime = phase_device_runtime(params, records[2]["thresholds"][0])
     del model, params
     torch.cuda.empty_cache()
     select, gathers = phase_route_parity()
@@ -1705,6 +1907,10 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": SOURCES[name], "replaces": REPLACES[name],
                      "launches": launches[name], "path": path,
+                     # the same path's launches under the device runtime
+                     # (replays: each IF body's captured launches times
+                     # its executions)
+                     "launches_device_runtime": device_runtime[name],
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

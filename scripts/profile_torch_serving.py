@@ -17,14 +17,25 @@ megakernel, rmsnorm, exit_update and decode attention over their device
 kernels, the wrappers' launch counts in the profiled run (and the routes
 of the kernels that count them), and the kernels ranked by device time.
 
+The decode window: every decode dispatch (a host tick, or a device-runtime
+chunk) runs inside a ``record_function`` range; ``decode_busy_share`` is
+the device kernel time that starts inside those ranges over their summed
+wall time (prefills excluded), beside the whole run's
+``device_busy_share``.
+
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
 [--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel] [--paged]
-[--root DIR]``.  ``--n-cohorts 2`` serves with cohort-split skipping in
-the ``major`` layout; ``--megakernel`` turns on the exit-head megakernel
-and the cohort scatter; ``--paged`` serves from the paged KV layout (block
-size 16); ``--root`` profiles the port of another checkout (e.g. the
-parent unpacked by ``git archive``), so two versions are profiled by one
-script in turns.  Needs one CUDA card.
+[--runtime device --chunk 8] [--root DIR]``.  ``--n-cohorts 2`` serves
+with cohort-split skipping in the ``major`` layout; ``--megakernel`` turns
+on the exit-head megakernel and the cohort scatter; ``--paged`` serves
+from the paged KV layout (block size 16); ``--runtime device`` decodes
+``--chunk`` tokens per lane per dispatch by replaying a captured CUDA
+graph.  The warm-up serves the requests once and the profiled run serves
+them again on the same engine, its lanes re-prefilled (under the device
+runtime into the captured buffers: it profiles replayed chunks);
+``--root`` profiles the port of another checkout (e.g. the parent
+unpacked by ``git archive``), so two versions are profiled by one script
+in turns.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -36,6 +47,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# the record_function range around every decode dispatch
+WINDOW = "decode_dispatch"
 
 
 def _device_time_us(evt) -> float:
@@ -52,6 +65,8 @@ def main() -> int:
     ap.add_argument("--n-cohorts", type=int, default=1)
     ap.add_argument("--megakernel", action="store_true")
     ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--runtime", default="host", choices=["host", "device"])
+    ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--root", default=str(ROOT))
     args = ap.parse_args()
     import numpy as np
@@ -60,7 +75,7 @@ def main() -> int:
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -83,30 +98,62 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab_size, size=(128, 256)[i % 2])
                .astype(np.int32) for i in range(8)]
 
-    def serve():
+    def engine():
         eng = CascadeServingEngine(cfg, model, params, lane_batch=4,
-                                   n_lanes=2, cache_len=512)
+                                   n_lanes=2, cache_len=512,
+                                   runtime=args.runtime, chunk=args.chunk)
+        tick = eng._device_tick if args.runtime == "device" \
+            else eng._host_tick
+
+        def timed_tick(*a):
+            with record_function(WINDOW):
+                return tick(*a)
+
+        if args.runtime == "device":
+            eng._device_tick = timed_tick
+        else:
+            eng._host_tick = timed_tick
+        return eng
+
+    def serve(eng, rid0):
         for i, p in enumerate(prompts):
-            eng.submit(Request(rid=i, prompt=p, max_new_tokens=16))
+            eng.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=16))
         torch.cuda.synchronize()
+        eng.reset_metrics()
         t0 = time.perf_counter()
         eng.run(max_ticks=10_000)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, eng.stats()
 
-    serve()                                   # warm-up
+    eng = engine()
+    serve(eng, 0)                             # warm-up (device: captures)
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, st = serve()
+        wall, st = serve(eng, len(prompts))
     launches = kernels.launch_counts()
     routes = {name: dict(fn.launches_by_route)
               for name, (_, fn) in kernels._KERNELS.items()
               if hasattr(fn, "launches_by_route")}
+    # device events, the decode_dispatch ranges' own device-side copies
+    # (a user annotation spanning the range's kernels) left out
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
-              and "CUDA" in str(e.device_type)]
+              and "CUDA" in str(e.device_type) and e.key != WINDOW]
     dev_us = sum(_device_time_us(e) for e in events)
+    # the decode window: device kernels starting inside decode dispatches
+    fevents = prof.events()
+
+    def on_device(e):
+        return "CUDA" in str(getattr(e, "device_type", ""))
+
+    windows = sorted((e.time_range.start, e.time_range.end)
+                     for e in fevents
+                     if e.name == WINDOW and not on_device(e))
+    kern = [e for e in fevents if on_device(e) and e.name != WINDOW]
+    window_us = sum(b - a for a, b in windows)
+    busy_us = sum(e.time_range.end - e.time_range.start for e in kern
+                  if any(a <= e.time_range.start < b for a, b in windows))
     ranked = sorted(events, key=_device_time_us, reverse=True)
     # each device kernel of the port (its launches and time), and the two
     # kernels with two routes summed over their device kernels
@@ -133,10 +180,16 @@ def main() -> int:
                       "thresholds": list(ths),
                       "n_cohorts": args.n_cohorts,
                       "megakernel": args.megakernel,
-                      "paged": args.paged,
+                      "paged": args.paged, "runtime": args.runtime,
+                      "chunk": st["chunk"], "captures": st["captures"],
                       "cohort_dispatch": st["cohort_dispatch"],
                       "wall_s": wall, "device_kernel_s": dev_us / 1e6,
                       "device_busy_share": dev_us / 1e6 / wall,
+                      "decode_dispatches": len(windows),
+                      "decode_window_s": window_us / 1e6,
+                      "decode_device_s": busy_us / 1e6,
+                      "decode_busy_share": (busy_us / window_us
+                                            if window_us else None),
                       "decode_us_per_token": st["wallclock_us_per_token"],
                       "prefill_seconds": st["prefill_seconds"],
                       "host_syncs_per_token": st["host_syncs_per_token"],

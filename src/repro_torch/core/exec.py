@@ -10,13 +10,21 @@ logits never stored) with ``cfg.kernel_tune.megakernel`` as well.
 
 * ``exit_mode == "cond_batch"`` — once every live sequence has exited,
   deeper segments take only the cheap ``backfill`` path (cache coherence
-  writes) and skip their matmuls.  The reference's ``lax.cond`` becomes a
-  Python branch on the device predicate: one host sync per deep segment
-  per step, counted in :attr:`StagedExecutor.host_syncs` (the
-  device-resident form comes with the device runtime).
+  writes) and skip their matmuls.  The reference's ``lax.cond`` takes one
+  of two forms, picked by :attr:`StagedExecutor.branches`: on the host
+  runtime (``None``) a Python branch on the predicate read to the host,
+  one host sync per deep segment per step, counted in
+  :attr:`StagedExecutor.host_syncs`; inside the device runtime's captured
+  CUDA graph an IF node per branch, the predicate read on the device
+  (:mod:`repro_torch.kernels.cond_node`).
 * ``exit_mode == "select"`` — every segment computes and the skip predicate
   selects the results, with no host sync; the two modes produce identical
   tokens, exit indices and carried state.
+
+Both branches of a cell write their results in place — h and the
+decision-scan carry into the tensors the step reads after the branch, the
+caches into their slabs — so that what follows a branch reads the same
+addresses whichever side ran (what a captured graph needs).
 
 Cohort-split execution (``cascade.n_cohorts > 1``) gives each of C
 contiguous, equal-size cohorts its own skip predicate, in one of two
@@ -25,19 +33,26 @@ layouts (identical outputs; see :meth:`StagedExecutor.decode_step`):
 cohorts skip / mixed / all run), ``"copy"`` always slices and re-joins per
 cohort.  The host runtime reads the C stacked skip predicates once per
 deep segment (:attr:`StagedExecutor.host_syncs`) and counts the dispatch
-branch it took (:attr:`StagedExecutor.dispatch`).
+branch it took (:attr:`StagedExecutor.dispatch`); under a capture the
+three branches are IF nodes, the mixed one holding each cohort's, and the
+branch counts and ``segments_run`` are device counters of the runner.
 
 Caches are written in place, so a cohort's segment step over a view of the
 cache slab leaves its rows in the slab: the reference's per-cohort cache
 re-join (a concat, or the cohort-scatter kernel) has no counterpart under
 ``cond_batch``.  Only ``select`` mode computes a cohort's rows out of place
-(the skip-masked selection); they land through per-leaf copies, or through
-one cohort-scatter launch per cohort with ``kernel_tune.cohort_scatter``.
+(the skip-masked selection).  A decode step writes only ring slot ``t %
+W`` of each layer, so ``select`` snapshots just that slot's rows, not the
+segment's caches: the run's rows and the skip path's rows are read after
+each, and the selection lands back at the slot — through per-leaf index
+copies, or with ``kernel_tune.cohort_scatter`` through one cohort-scatter
+launch per cohort into the segment's slot rows.
 
 Under the paged layout (``DecodeState.block_tables`` set) the stores are
 shared by every slot and have no batch axis: each cohort steps over the
-whole store through its own table rows, and ``select`` mode lands its
-selection by copies (the cohort scatter has no rows to write).
+whole store through its own table rows, and ``select`` mode's slot rows
+are the (block, offset) rows its table points at (the cohort scatter has
+no cohort rows to write there).
 
 The per-slot ``DecodeState.active`` mask also rides in the decode context
 (``ctx["live"]``), where the decode-attention kernel skips dead slots and
@@ -54,10 +69,13 @@ import torch
 
 from repro_torch.core.policy import ExitDecider, ExitDecision
 from repro_torch.models import nn
+from repro_torch.models.blocks import slot_rows
 
 # EMA decay for the per-slot answering-confidence telemetry carried in
 # DecodeState (same decay as DepthCompactor's host-side depth prior).
 CONF_EMA_DECAY = 0.8
+# the major layout's deep-segment dispatch branches, in counter order
+DISPATCH = ("all_skip", "mixed", "all_run")
 
 
 def effective_cohorts(n_cohorts: int, batch: int) -> int:
@@ -72,21 +90,25 @@ def effective_cohorts(n_cohorts: int, batch: int) -> int:
 class DecodeState:
     """Per-lane decode carry.
 
-    t             int        — decode position == cache-write cursor
-                               (host-side: the host runtime knows it).
+    t             () int32   — decode position == cache-write cursor, a
+                               0-d tensor on the lane's device (a captured
+                               step reads it from device memory; the
+                               engine keeps a host mirror).
     active        (B,) bool  — sequences still generating.
     policy        stateful-measure carry ((n_components, B) int32 patience
                                streaks) or None.
     ema_conf      (B,) f32   — EMA of the answering confidence per slot.
     segments_run  (n_components,) int32 numpy — how many decode steps
                                actually computed each segment (host-side:
-                               the branch that ran is known on the host).
+                               the host runtime knows the branch that ran;
+                               the device runtime counts on the device and
+                               adds its counts at the chunk's sync).
     block_tables  (n_components, B, W/block_size) int32 paged-cache block
                                tables (``cache_layout="paged"``), or None
                                (dense slab).
     """
 
-    t: int
+    t: torch.Tensor
     active: torch.Tensor
     policy: Optional[torch.Tensor]
     ema_conf: torch.Tensor
@@ -105,7 +127,8 @@ def init_decode_state(decider: ExitDecider, batch: int, n_components: int,
               if active is None
               else torch.as_tensor(active, dtype=torch.bool, device=device))
     return DecodeState(
-        t=int(t), active=active,
+        t=torch.full((), int(t), dtype=torch.int32, device=active.device),
+        active=active,
         policy=decider.measure.init_state(n_components, batch, device),
         ema_conf=torch.zeros(batch, dtype=torch.float32, device=device),
         segments_run=np.zeros(n_components, np.int32),
@@ -161,7 +184,10 @@ class StagedExecutor:
         # which branch each deep segment of a cohort-split step took: under
         # cond_batch in the major layout the one the exit state picked;
         # select mode always runs the per-cohort ("mixed") path
-        self.dispatch = {"all_skip": 0, "mixed": 0, "all_run": 0}
+        self.dispatch = dict.fromkeys(DISPATCH, 0)
+        # the branch runner (repro_torch.kernels.cond_node): None reads each
+        # predicate to the host; a capture makes each branch an IF node
+        self.branches = None
 
     # ------------------------------------------------------------------
     def init_state(self, batch: int, t: int = 0, active=None,
@@ -193,7 +219,7 @@ class StagedExecutor:
         decision, _ = self.decider.decide_with_carry(
             logits, state=state.policy, active=state.active)
         state = self._carry_forward(state, decision).replace(
-            t=int(tokens.shape[1]))
+            t=self.model.position(tokens.shape[1]))
         return decision, cache, state
 
     # ------------------------------------------------------------------
@@ -215,76 +241,107 @@ class StagedExecutor:
         return self.decider.scan_logits(si, self.n_components, lg, ths, sc,
                                         state=state)
 
-    def _segment_paths(self, si, ctx, params, ths):
-        """(run, skip) closures for one deeper segment over one cohort's
-        (h, seg_cache, carry): ``run`` computes the segment and folds its
-        exit into the scan; ``skip`` only backfills the segment's caches
-        from the exit hidden state.  The confidence EMA folds once at the
-        step boundary (:meth:`_carry_forward`), never inside these
-        branches."""
-        model = self.model
+    # -- branches ----------------------------------------------------------
+    def _if(self, pred, fn, negate: bool = False) -> None:
+        """``fn()`` when ``pred`` (negated with ``negate``) holds: a Python
+        branch on a host bool, or through the branch runner — an IF node
+        on a 0-d device bool under a capture."""
+        if self.branches is None or isinstance(pred, bool):
+            if bool(pred) != negate:
+                fn()
+        else:
+            self.branches.run_if(pred, fn, negate=negate)
 
-        def run(h, seg_cache, sc):
-            h2, nc2, _ = model.run_segment(si, params, h, ctx, seg_cache)
-            return h2, nc2, self._scan_exit(si, params, h2, ths, sc,
-                                            live=ctx.get("live"))
+    def _read_skip(self, sc, active):
+        """A cell's skip predicate: read to the host (one sync) on the host
+        runtime, left on the device under a branch runner."""
+        pred = self.decider.should_skip(sc, active)
+        if self.branches is not None:
+            return pred
+        self.host_syncs += 1
+        return bool(pred)
 
-        def skip(h, seg_cache, sc):
-            if self.cfg.cascade.state_backfill:
-                seg_cache = model.backfill_segment(si, params, h, ctx,
-                                                   seg_cache)
-            return h, seg_cache, sc
+    def _read_skips(self, sc_parts, act_parts):
+        """The C cohorts' skip predicates: stacked and read to the host in
+        one sync on the host runtime, device bools under a branch
+        runner."""
+        preds = [self.decider.should_skip(s, a) for s, a in
+                 zip(sc_parts, act_parts)]
+        if self.branches is not None:
+            return preds
+        self.host_syncs += 1
+        return torch.stack(preds).tolist()
 
-        return run, skip
+    @staticmethod
+    def _land(h, sc, h_new, sc_new) -> None:
+        """Write a branch's results into the step's h and carry tensors."""
+        h.copy_(h_new)
+        for k, v in sc_new.items():
+            if v is not None and v is not sc[k]:
+                sc[k].copy_(v)
+
+    # -- one (segment, cohort) cell ----------------------------------------
+    def _run_cell(self, si, ctx, params, ths, h, seg_cache, sc):
+        """Compute segment ``si`` (caches written in place) and fold its
+        exit into the scan: returns the new (h, carry)."""
+        h2, _, _ = self.model.run_segment(si, params, h, ctx, seg_cache)
+        return h2, self._scan_exit(si, params, h2, ths, sc,
+                                   live=ctx.get("live"))
+
+    def _skip_cell(self, si, ctx, params, h, seg_cache) -> None:
+        """The skip path: only backfill the segment's caches from the exit
+        hidden state.  h and the carry pass through.  The confidence EMA
+        folds once at the step boundary (:meth:`_carry_forward`), never
+        inside a branch."""
+        if self.cfg.cascade.state_backfill:
+            self.model.backfill_segment(si, params, h, ctx, seg_cache)
 
     def _segment_step(self, si, ctx, params, ths, h, seg_cache, sc, active,
                       skip=None, land=None):
         """One (segment, cohort) cell: branch-skip in ``cond_batch`` mode,
-        compute-and-select in ``select`` mode.  Returns (h, carry, ran) with
-        ``ran`` 0/1 for ``segments_run``.
+        compute-and-select in ``select`` mode.  ``h`` and the carry ``sc``
+        (views of the step's tensors for a cohort) are updated in place.
+        Returns ``ran`` for ``segments_run``: 0/1 on the host, a 0-d int
+        device tensor under a branch runner.
 
         ``skip`` is the cell's skip predicate when the caller already read
-        it to the host (cohort-split steps read all C at once); otherwise
-        ``cond_batch`` reads it here, one host sync.  ``land(selected)``
-        writes ``select`` mode's selected cache leaves into the slab (the
-        cohort scatter); without it each leaf lands by ``copy_``."""
-        run, skip_fn = self._segment_paths(si, ctx, params, ths)
+        it (cohort-split steps read all C at once); otherwise ``cond_batch``
+        reads it here.  ``land(selected)`` writes ``select`` mode's
+        selected slot rows into the slab (the cohort scatter); without it
+        they land by index copies."""
         if self.mode == "cond_batch":
             if skip is None:
-                self.host_syncs += 1
-                skip = bool(self.decider.should_skip(sc, active))
-            if skip:
-                h, _, sc = skip_fn(h, seg_cache, sc)
-                return h, sc, 0
-            h, _, sc = run(h, seg_cache, sc)
-            return h, sc, 1
+                skip = self._read_skip(sc, active)
+            self._if(skip, lambda: self._skip_cell(si, ctx, params, h,
+                                                   seg_cache))
+            self._if(skip, lambda: self._land(h, sc, *self._run_cell(
+                si, ctx, params, ths, h, seg_cache, sc)), negate=True)
+            if self.branches is None:
+                return 0 if skip else 1
+            return (~skip).to(torch.int32)
         # select: both paths compute and the predicate selects.  Caches are
-        # written in place, so the skip path writes into a snapshot of the
-        # segment's caches and the selected rows land back in place.  Under
-        # the paged layout the snapshot is the engine-wide store: correct
-        # (other slots' blocks are equal in both copies), but one full-store
-        # copy per cell.
+        # written in place and a decode step writes only ring slot t % W:
+        # snapshot the slot's rows, run, read the run's rows, put the
+        # snapshot back, take the skip path, read its rows, land the
+        # selection.
         pred = self.decider.should_skip(sc, active)
-        snap = nn.tree_map(torch.clone, seg_cache)
-        h_full, nc, sc_full = run(h, seg_cache, sc)
-        h_lite, lite, sc_lite = skip_fn(h, snap, sc)
-        sel = [torch.where(pred, lite_t, full_t) for full_t, lite_t in
-               zip(nn.tree_leaves(nc), nn.tree_leaves(lite))]
+        rows = _SlotRows(seg_cache, ctx, si)
+        before = rows.read()
+        h_full, sc_full = self._run_cell(si, ctx, params, ths, h, seg_cache,
+                                         sc)
+        full = rows.read()
+        rows.write(before)
+        self._skip_cell(si, ctx, params, h, seg_cache)
+        sel = [torch.where(pred, lite, f) for f, lite in
+               zip(full, rows.read())]
         if land is None:
-            for full_t, sel_t in zip(nn.tree_leaves(nc), sel):
-                full_t.copy_(sel_t)
+            rows.write(sel)
         else:
-            land(sel)
-        sc = {k: (None if v is None else torch.where(pred, sc_lite[k], v))
-              for k, v in sc_full.items()}
-        return torch.where(pred, h_lite, h_full), sc, 1
-
-    def _read_skips(self, sc_parts, act_parts):
-        """The C cohorts' skip predicates, stacked and read to the host in
-        one sync."""
-        self.host_syncs += 1
-        return torch.stack([self.decider.should_skip(s, a) for s, a in
-                            zip(sc_parts, act_parts)]).tolist()
+            land(rows, sel)
+        self._land(h, sc, torch.where(pred, h, h_full),
+                   {k: (None if v is None else torch.where(pred, sc[k], v))
+                    for k, v in sc_full.items()})
+        return 1
 
     # ------------------------------------------------------------------
     def decode_step(self, params, token, cache, state: DecodeState):
@@ -294,7 +351,9 @@ class StagedExecutor:
         deeper segment runs only while some live sequence (of the cohort,
         with ``n_cohorts > 1``) has not exited (cond_batch), or
         computes-but-masks (select).  ``segments_run`` counts in cohort
-        units: C per segment per step when nothing skips.
+        units: C per segment per step when nothing skips.  Under a branch
+        runner (:attr:`branches`) the counts go to its device counters and
+        ``state.segments_run`` is returned as it came.
 
         ``cascade.cohort_layout`` (outputs identical):
 
@@ -304,7 +363,7 @@ class StagedExecutor:
           backfill; none skip -> one whole-batch segment; mixed -> the
           per-cohort steps over cohort views of the cache slab.
         * ``"copy"`` — every deep segment steps each cohort on its slice
-          and re-joins h and the carry, whatever the exit state.
+          of h and the carry, whatever the exit state.
         """
         model, decider, n_m = self.model, self.decider, self.n_components
         ths = decider.resolved_thresholds(n_m)
@@ -321,21 +380,23 @@ class StagedExecutor:
         sc = self._scan_exit(0, params, h, ths, state=state.policy,
                              live=state.active)
         if C == 1:
-            ran = [1]
-            for si in range(1, n_m):
-                h, sc, r = self._segment_step(si, ctx, params, ths, h,
-                                              segs[si], sc, state.active)
-                ran.append(r)
+            ran = [1] + [self._segment_step(si, ctx, params, ths, h, segs[si],
+                                            sc, state.active)
+                         for si in range(1, n_m)]
         else:
             step = self._cohorts_copy if self.layout == "copy" \
                 else self._cohorts_major
-            sc, ran = step(params, ths, h, ctx, segs, sc, state.active, C)
-            ran = [C] + ran
+            ran = [C] + step(params, ths, h, ctx, segs, sc, state.active, C)
         decision = decider.finish_scan(sc)
         cache = model.commit_decode(cache, segs, t)
+        segments_run = state.segments_run
+        if self.branches is None:
+            segments_run = segments_run + np.asarray(ran, np.int32)
+        else:
+            for si, r in enumerate(ran):
+                self.branches.segments[si:si + 1].add_(r)
         state = self._carry_forward(state, decision).replace(
-            t=t + 1,
-            segments_run=state.segments_run + np.asarray(ran, np.int32))
+            t=t + 1, segments_run=segments_run)
         return decision, cache, state
 
     @staticmethod
@@ -349,8 +410,8 @@ class StagedExecutor:
         return nn.tree_map(lambda x: x[:, lo:hi], seg)
 
     def _cohorts_copy(self, params, ths, h, ctx, segs, sc, active, C):
-        """The copy layout: slice every deep segment per cohort, step each
-        cohort, re-join h and the carry.  Returns (carry, ran[1:])."""
+        """The copy layout: step every deep segment per cohort, on views of
+        h and the carry.  Returns ran[1:]."""
         decider = self.decider
         Bc = h.shape[0] // C
         spans = [(c * Bc, (c + 1) * Bc) for c in range(C)]
@@ -360,22 +421,42 @@ class StagedExecutor:
             preds = (self._read_skips(sc_parts, [active[lo:hi]
                                                  for lo, hi in spans])
                      if self.mode == "cond_batch" else [None] * C)
-            h_parts, r_si = [], 0
-            for c, (lo, hi) in enumerate(spans):
-                h_c, sc_parts[c], r = self._segment_step(
+            ran.append(sum(
+                self._segment_step(
                     si, _slice_ctx(ctx, lo, hi), params, ths, h[lo:hi],
                     self._cohort_views(segs[si], lo, hi, ctx), sc_parts[c],
                     active[lo:hi], skip=preds[c])
-                h_parts.append(h_c)
-                r_si += r
-            h = torch.cat(h_parts, dim=0)
-            sc = decider.concat_carry(sc_parts)
-            ran.append(r_si)
-        return sc, ran
+                for c, (lo, hi) in enumerate(spans)))
+        return ran
+
+    def _dispatch(self, preds, C):
+        """The major layout's branch predicates {all_skip, mixed, all_run}
+        from the C cohort skip predicates, counted; and the segment's
+        ``ran`` (cohorts that compute)."""
+        if self.mode == "select":
+            # select: the fixed-graph per-cohort path every step
+            cases = {"all_skip": False, "mixed": True, "all_run": False}
+            n_skip = 0
+        elif self.branches is None:
+            n_skip = sum(preds)
+            cases = {"all_skip": n_skip == C, "all_run": n_skip == 0}
+            cases["mixed"] = not (cases["all_skip"] or cases["all_run"])
+        else:
+            n_skip = torch.stack(preds).sum(dtype=torch.int32)
+            cases = {"all_skip": n_skip == C, "all_run": n_skip == 0}
+            cases["mixed"] = ~(cases["all_skip"] | cases["all_run"])
+        if self.branches is None:
+            self.dispatch[next(k for k in DISPATCH if cases[k])] += 1
+        elif self.mode == "select":
+            self.branches.dispatch[1:2].add_(1)
+        else:
+            self.branches.dispatch.add_(torch.stack(
+                [cases[k] for k in DISPATCH]).to(torch.int32))
+        return cases, C - n_skip
 
     def _cohorts_major(self, params, ths, h, ctx, segs, sc, active, C):
-        """The major layout's three-way dispatch per deep segment.  Returns
-        (carry, ran[1:])."""
+        """The major layout's three-way dispatch per deep segment, on views
+        of h and the carry.  Returns ran[1:]."""
         model, decider = self.model, self.decider
         Bc = h.shape[0] // C
         spans = [(c * Bc, (c + 1) * Bc) for c in range(C)]
@@ -386,52 +467,74 @@ class StagedExecutor:
         ran = []
         for si in range(1, self.n_components):
             seg = segs[si]
-            if self.mode == "cond_batch":
-                preds = self._read_skips(sc_parts, act_parts)
-                n_skip = sum(preds)
-                branch = ("all_skip" if n_skip == C else
-                          "all_run" if n_skip == 0 else "mixed")
-            else:
-                # select: the fixed-graph per-cohort path every step
-                preds, branch = [None] * C, "mixed"
-            self.dispatch[branch] += 1
-            if branch == "all_skip":
-                if self.cfg.cascade.state_backfill:
-                    model.backfill_segment(si, params, torch.cat(h_parts),
-                                           ctx, seg)
-                ran.append(0)
-            elif branch == "all_run":
-                h2, _, _ = model.run_segment(si, params, torch.cat(h_parts),
-                                             ctx, seg)
-                sc2 = self._scan_exit(si, params, h2, ths,
-                                      decider.concat_carry(sc_parts),
-                                      live=ctx["live"])
-                h_parts = [h2[lo:hi] for lo, hi in spans]
-                sc_parts = [decider.slice_carry(sc2, lo, hi)
-                            for lo, hi in spans]
-                ran.append(C)
-            else:
-                r_si = 0
+            preds = (self._read_skips(sc_parts, act_parts)
+                     if self.mode == "cond_batch" else [None] * C)
+            cases, r_si = self._dispatch(preds, C)
+
+            def all_skip(si=si, seg=seg):
+                self._skip_cell(si, ctx, params, h, seg)
+
+            def all_run(si=si, seg=seg):
+                self._land(h, sc, *self._run_cell(si, ctx, params, ths, h,
+                                                  seg, sc))
+
+            def mixed(si=si, seg=seg):
                 for c, (lo, hi) in enumerate(spans):
                     # under cond_batch the cohort's rows are written in
                     # place through the views: no re-join, no scatter
                     # (a paged store has no cohort rows to scatter: the
-                    # selection lands through copies of the whole store)
+                    # selection lands through index copies)
                     land = None
                     if (self.mode == "select" and self.use_cohort_scatter
                             and ctx.get("block_tables") is None):
                         land = functools.partial(self._scatter, seg, c, C)
-                    h_parts[c], sc_parts[c], r = self._segment_step(
+                    self._segment_step(
                         si, ctx_parts[c], params, ths, h_parts[c],
                         self._cohort_views(seg, lo, hi, ctx), sc_parts[c],
                         act_parts[c], skip=preds[c], land=land)
-                    r_si += r
-                ran.append(r_si)
-        return decider.concat_carry(sc_parts), ran
+
+            self._if(cases["all_skip"], all_skip)
+            self._if(cases["all_run"], all_run)
+            self._if(cases["mixed"], mixed)
+            ran.append(r_si)
+        return ran
 
     @staticmethod
-    def _scatter(seg, c, C, selected):
-        """Land cohort c's selected cache leaves in the slab: one
-        cohort-scatter launch for the whole segment tree."""
+    def _scatter(seg, c, C, rows, selected):
+        """Land cohort c's selected slot rows in the slab: the segment's
+        slot rows of the whole batch are read, one cohort-scatter launch
+        writes cohort c's part of them (every leaf at once), and they go
+        back to the slot."""
         from repro_torch.kernels.ops import cohort_scatter_tree
-        cohort_scatter_tree(list(nn.tree_leaves(seg)), selected, c, C)
+        whole = _SlotRows(seg, {"slot": rows.slot}, None)
+        staged = whole.read()
+        cohort_scatter_tree(staged, selected, c, C)
+        whole.write(staged)
+
+
+class _SlotRows:
+    """The rows a decode step writes in segment ``si``'s caches: ring slot
+    ``ctx["slot"]`` of every layer — (L, B, 1, kv, hd) of each dense leaf
+    (L, B, W, kv, hd), or each table row's (block, offset) of a paged
+    store (L, NB, bs, kv, hd), (L, B, kv, hd).  Read and written by index
+    ops on the device slot (no host read)."""
+
+    def __init__(self, seg_cache, ctx, si):
+        self.leaves = list(nn.tree_leaves(seg_cache))
+        self.slot = ctx["slot"]
+        self.index = None
+        if ctx.get("block_tables") is not None:
+            self.index = slot_rows(ctx["block_tables"][si], self.slot,
+                                   self.leaves[0].shape[2])
+
+    def read(self):
+        if self.index is None:
+            return [x.index_select(2, self.slot.view(1)) for x in self.leaves]
+        return [x[(slice(None),) + self.index] for x in self.leaves]
+
+    def write(self, rows) -> None:
+        for x, r in zip(self.leaves, rows):
+            if self.index is None:
+                x.index_copy_(2, self.slot.view(1), r)
+            else:
+                x[(slice(None),) + self.index] = r

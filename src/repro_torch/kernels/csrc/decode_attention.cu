@@ -175,8 +175,8 @@ __global__ void decode_attention_split_kernel(
     float* __restrict__ part_acc, int W, int chunk, int qpk, long long q_sb,
     long long q_sh, long long k_sb, long long k_sw, long long k_sh,
     long long v_sb, long long v_sw, long long v_sh, long long kpos_sb,
-    long long tab_sb, long long k_blk, long long v_blk, int shift, int t,
-    int window, float scale, bool vec) {
+    long long tab_sb, long long k_blk, long long v_blk, int shift,
+    const int* __restrict__ t_ptr, int window, float scale, bool vec) {
   constexpr int HD = 32 * ND;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int KP = HD + kVec;  // K row pitch: 16 bytes of padding
@@ -186,6 +186,7 @@ __global__ void decode_attention_split_kernel(
   const int r = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h = kvh * qpk + r;
   if (live != nullptr && live[b] == 0) return;  // the combine writes zeros
+  const int t = __ldg(t_ptr);  // the position, read at every launch
 
   const int w0 = split * chunk;
   const int w_end = min(W, w0 + chunk);
@@ -330,10 +331,10 @@ __global__ void decode_attention_combine_kernel(
 }
 
 struct Args {
-  const void *q, *k, *v, *kpos, *live, *table;
+  const void *q, *k, *v, *kpos, *live, *table, *t;
   void* out;
   float *pml, *pacc;
-  int B, W, KV, qpk, hd, chunk, t, window, shift;
+  int B, W, KV, qpk, hd, chunk, window, shift;
   float scale;
   long long st[9];  // q (b, h), k (b, w, h), v (b, w, h), kpos slot
   long long os[2];  // out (b, h)
@@ -352,7 +353,8 @@ cudaError_t launch_split(const Args& a, const dim3& grid, size_t smem,
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.kpos,
       (const uint8_t*)a.live, (const int*)a.table, a.pml, a.pacc, a.W,
       a.chunk, a.qpk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], a.pg[0], a.pg[1], a.pg[2], a.shift, a.t, a.window, a.scale, vec);
+      st[8], a.pg[0], a.pg[1], a.pg[2], a.shift, (const int*)a.t, a.window,
+      a.scale, vec);
   return cudaGetLastError();
 }
 
@@ -393,7 +395,10 @@ int launch(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// Two launches on `stream`: the split kernel writes (m, l) pairs to
+// Two launches on `stream`: the split kernel reads the position from `t`
+// (one int32 in device memory, so that a captured launch reads the
+// position of each replay; the combine does not need it) and writes (m, l)
+// pairs to
 // part_ml (B, H, n_split, 2) and acc to part_acc (B, H, n_split, hd), f32
 // scratch of the caller's; the combine kernel merges them into out.
 // Dense route: table == nullptr, k / v (B, W, KV, hd) views.  Paged route:
@@ -407,11 +412,11 @@ extern "C" int decode_attention_launch(
     long long q_sb, long long q_sh, long long k_sb, long long k_sw,
     long long k_sh, long long v_sb, long long v_sw, long long v_sh,
     long long o_sb, long long o_sh, long long kpos_sb, long long tab_sb,
-    long long k_blk, long long v_blk, int t, int window, float scale,
+    long long k_blk, long long v_blk, const void* t, int window, float scale,
     int dtype, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (W <= 0 || hd % 32 != 0 || hd > 256 || qpk < 1 || qpk > 32 ||
-      chunk <= 0 || chunk % kTile != 0)
+      chunk <= 0 || chunk % kTile != 0 || t == nullptr)
     return (int)cudaErrorInvalidValue;
   int shift = 0;
   if (table != nullptr) {
@@ -420,8 +425,8 @@ extern "C" int decode_attention_launch(
         k_sb != 0 || v_sb != 0 || k_blk <= 0 || v_blk <= 0)
       return (int)cudaErrorInvalidValue;
   }
-  const Args a{q,  k,   v,  kpos, live, table, out, (float*)part_ml,
-               (float*)part_acc, B, W, KV, qpk, hd, chunk, t, window, shift,
+  const Args a{q,  k,   v,  kpos, live, table, t, out, (float*)part_ml,
+               (float*)part_acc, B, W, KV, qpk, hd, chunk, window, shift,
                scale,
                {q_sb, q_sh, k_sb, k_sw, k_sh, v_sb, v_sw, v_sh, kpos_sb},
                {o_sb, o_sh},

@@ -46,7 +46,7 @@ ROUTES = ("dense", "paged")
 
 _SIG = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 14
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p])
 
 
@@ -81,24 +81,30 @@ def route(k_cache, v_cache, table=None) -> str:
     return "dense"
 
 
-def decode_attention(q, k_cache, v_cache, t: int, kpos, live=None, *,
+def decode_attention(q, k_cache, v_cache, t, kpos, live=None, *,
                      window: int = 0, table=None):
     """q: (B, H, hd) (any strides, last dim contiguous); caches (B, W, KV,
     hd), or with ``table`` ((B, nblk) int32) a layer's paged stores (NB,
-    bs, KV, hd) and W = nblk * bs; ``t`` the current absolute position
-    (int); kpos (W,) or per-slot (B, W) int32; live (B,) bool or None (all
-    live) -> (B, H, hd) in q's dtype, dead slots' rows zero.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel on
-    :func:`route`'s route (paged stores the paged route does not take
-    raise: gather them first)."""
-    t = int(t)
+    bs, KV, hd) and W = nblk * bs; ``t`` the current absolute position: a
+    0-d int32 tensor on q's device, which the kernel reads from device
+    memory (so a launch captured in a CUDA graph reads each replay's
+    position), or an int; kpos (W,) or per-slot (B, W) int32; live (B,)
+    bool or None (all live) -> (B, H, hd) in q's dtype, dead slots' rows
+    zero.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel on :func:`route`'s route (paged stores the paged route does not
+    take raise: gather them first)."""
     if q.device.type == "cpu":
         if table is not None:
             k_cache = ref_paged_gather(k_cache, table)
             v_cache = ref_paged_gather(v_cache, table)
         return ref_decode_attention(q, k_cache, v_cache, t, kpos,
                                     window=window, live=live)
-    tensors = [q, k_cache, v_cache, kpos] + [
+    if not isinstance(t, torch.Tensor):
+        t = torch.full((), int(t), dtype=torch.int32, device=q.device)
+    if t.numel() != 1 or t.dtype != torch.int32:
+        raise ValueError(f"decode_attention: t must be one int32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    tensors = [q, k_cache, v_cache, kpos, t] + [
         x for x in (live, table) if x is not None]
     build.require_cuda("decode_attention", *tensors)
     B, H, hd = q.shape
@@ -164,7 +170,7 @@ def decode_attention(q, k_cache, v_cache, t: int, kpos, live=None, *,
         out.stride(0), out.stride(1), W if kpos.dim() == 2 else 0,
         table.stride(0) if paged else 0, ks[0] if paged else 0,
         vs[0] if paged else 0,
-        t, int(window), 1.0 / math.sqrt(hd), build.dtype_code(q),
+        p(t), int(window), 1.0 / math.sqrt(hd), build.dtype_code(q),
         build.stream_of(q)), "decode_attention")
     decode_attention.launches += 1
     decode_attention.launches_by_route[r] += 1

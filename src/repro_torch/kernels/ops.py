@@ -49,7 +49,8 @@ def decode_attention_cache(q, k_cache, v_cache, t, kpos, *, window=0,
                            live=None, table=None):
     """Model layout: q (B, 1, H, hd); caches (B, W, KV, hd), or a layer's
     paged stores (NB, bs, KV, hd) with their block table ``table`` (B,
-    nblk).  ``live`` is the per-slot exit mask ((B,) bool, None = all
+    nblk); ``t`` the position as the carried 0-d int32 device tensor,
+    handed to the kernel as it is.  ``live`` is the per-slot exit mask ((B,) bool, None = all
     live): dead slots do no work and get zero rows.  Paged stores take
     decode attention's ``paged`` route where :func:`route
     <repro_torch.kernels.decode_attention.route>` allows it, else their

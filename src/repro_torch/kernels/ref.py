@@ -54,10 +54,10 @@ def ref_flash_attention(q, k, v, causal: bool = True, window: int = 0):
 
 def ref_decode_attention(q, k_cache, v_cache, t, kpos, window: int = 0,
                          live=None):
-    """q: (B, H, hd); caches: (B, W, KV, hd); t scalar; kpos (W,) or
-    per-slot (B, W); live (B,) bool or None.  Dead slots' output rows are
-    exact zeros; live rows are the plain ring-masked single-query
-    attention."""
+    """q: (B, H, hd); caches: (B, W, KV, hd); t the position (an int or
+    a 0-d int32 tensor); kpos (W,) or per-slot (B, W); live (B,) bool or
+    None.  Dead slots' output rows are exact zeros; live rows are the
+    plain ring-masked single-query attention."""
     B, H, hd = q.shape
     KV = k_cache.shape[2]
     qpk = H // KV

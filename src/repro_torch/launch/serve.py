@@ -8,9 +8,10 @@ engine.
 The single-engine path of the JAX package's ``launch/serve.py``, with its
 flags.  Runs on CUDA unless ``--device cpu``.  The hot ops always take the
 port's hand-written kernels (``cfg.use_kernels``; on the CPU their wrappers
-take the plain versions).  Weights are random, drawn from
-``torch.Generator(...).manual_seed(0)``.  The flags of later slices (the
-device runtime, autotune, escalation tiers, fleets, observability) are
+take the plain versions).  ``--runtime device --chunk K`` decodes K tokens
+per lane per dispatch (on CUDA from a captured CUDA graph).  Weights are
+random, drawn from ``torch.Generator(...).manual_seed(0)``.  The flags of
+later slices (autotune, escalation tiers, fleets, observability) are
 accepted and refused with an error naming the slice.
 """
 from __future__ import annotations
@@ -50,8 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--exit-mode", default="select",
                     choices=["select", "cond_batch"])
     ap.add_argument("--runtime", default="host", choices=["host", "device"],
-                    help="host: one dispatch per token (device: a later "
-                         "slice of the port)")
+                    help="host: one dispatch per token; device: up to "
+                         "--chunk tokens per lane per dispatch, one host "
+                         "sync a chunk")
     ap.add_argument("--chunk", type=int, default=8,
                     help="device-runtime tokens per dispatch")
     ap.add_argument("--cohorts", type=int, default=1,
@@ -91,8 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_later_slices(args) -> None:
     later = []
-    if args.runtime != "host":
-        later.append("--runtime device (the device decode loop)")
     if args.autotune or args.budget_macs or args.artifacts:
         later.append("--autotune/--budget-macs/--artifacts (the autotune "
                      "slice)")
@@ -132,7 +132,8 @@ def main(argv=None) -> dict:
                                   lane_batch=args.lane_batch,
                                   n_lanes=args.lanes,
                                   cache_len=args.cache_len,
-                                  runtime=args.runtime, device=device)
+                                  runtime=args.runtime, chunk=args.chunk,
+                                  device=device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         engine.submit(Request(

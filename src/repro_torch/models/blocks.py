@@ -12,7 +12,9 @@ A block kind provides, as in the JAX package's ``models/blocks.py``:
   mode: "full" | "decode"
   positions: (S,) absolute positions of the current tokens (full mode)
   write_slots: (W,) token index landing in each ring slot, -1 = none (full)
-  t: int current decode position; slot: int ring slot t % W (decode)
+  t: 0-d int32 tensor, the current decode position; slot: 0-d int64
+      tensor, its ring slot t % W (decode; both on the device, never read
+      to the host, so a captured step reads them at every replay)
   kpos: (W,) absolute position of each KV slot (-1 empty), committed
   kpos_t: kpos with the current slot set to t (decode; what attention sees)
   live: (B,) bool per-slot exit mask, or None (decode)
@@ -69,11 +71,21 @@ def _write_full(cache, k, v, gather_idx):
     return cache
 
 
-def _write_decode(cache, k, v, slot: int):
-    """Write one decode token's k/v ((B, 1, KV, hd)) at ring slot ``slot``,
-    in place (the reference's dynamic_update_slice on a donated buffer)."""
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+def _slot_index(slot, device) -> torch.Tensor:
+    """A ring slot as a 0-d int64 tensor on ``device`` (the carried device
+    slot as it is; an int made into one)."""
+    if isinstance(slot, torch.Tensor):
+        return slot
+    return torch.full((), int(slot), dtype=torch.int64, device=device)
+
+
+def _write_decode(cache, k, v, slot):
+    """Write one decode token's k/v ((B, 1, KV, hd)) at ring slot ``slot``
+    (a 0-d int64 device tensor, or an int), in place (the reference's
+    dynamic_update_slice on a donated buffer)."""
+    idx = _slot_index(slot, k.device).view(1)
+    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
     return cache
 
 
@@ -87,14 +99,21 @@ def _write_decode(cache, k, v, slot: int):
 # zeroing, is the coherence mechanism).
 # ---------------------------------------------------------------------------
 
-def _write_decode_paged(cache, k, v, slot: int, table):
-    """One decode token through the block table, in place.  slot = t % W;
-    k/v (B, 1, kv, hd)."""
-    bs = cache["k"].shape[1]
-    phys = table[:, slot // bs].long()               # (B,) physical blocks
-    off = slot % bs
-    cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
+def slot_rows(table, slot, bs: int):
+    """The (block, offset) row of ring slot ``slot`` (0-d int64 device
+    tensor, or an int) for every table row: two (B,) int64 index
+    tensors."""
+    slot = _slot_index(slot, table.device)
+    phys = table.index_select(1, (slot // bs).view(1))[:, 0].long()
+    return phys, (slot % bs).expand(phys.shape)
+
+
+def _write_decode_paged(cache, k, v, slot, table):
+    """One decode token through the block table, in place.  slot = t % W
+    (a 0-d int64 device tensor, or an int); k/v (B, 1, kv, hd)."""
+    rows = slot_rows(table, slot, cache["k"].shape[1])
+    cache["k"].index_put_(rows, k[:, 0].to(cache["k"].dtype))
+    cache["v"].index_put_(rows, v[:, 0].to(cache["v"].dtype))
     return cache
 
 
@@ -159,8 +178,7 @@ def _self_attention(cfg, params, h, ctx, cache):
             new_cache = _write_full(cache, k, v, ctx["write_slots"])
     else:
         t = ctx["t"]
-        pos = torch.full((1, 1), t, dtype=torch.int32, device=x.device)
-        q, k, v = qkv_project(params, cfg, x, rope_positions=pos)
+        q, k, v = qkv_project(params, cfg, x, rope_positions=t.view(1, 1))
         table = ctx.get("block_table")
         if table is not None:
             new_cache = _write_decode_paged(cache, k, v, ctx["slot"], table)
@@ -200,9 +218,7 @@ def _attn_backfill(cfg, params, h, ctx, cache):
     v = (x @ params["wv"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
     table = ctx.get("block_table")
     if ctx["mode"] == "decode":
-        pos = torch.full((1, 1), ctx["t"], dtype=torch.int32,
-                         device=x.device)
-        k = apply_rope(k, pos, cfg.rope_theta)
+        k = apply_rope(k, ctx["t"].view(1, 1), cfg.rope_theta)
         if table is not None:
             return _write_decode_paged(cache, k, v, ctx["slot"], table)
         return _write_decode(cache, k, v, ctx["slot"])

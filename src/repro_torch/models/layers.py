@@ -193,7 +193,8 @@ def attend_chunked(q, k, v, qpos, kpos, window: int = 0, causal: bool = True,
 
 def attend_decode(q, k_cache, v_cache, t, kpos, window: int = 0):
     """Single-token attention.  q: (B,1,H,hd); caches: (B,W,KV,hd);
-    t: the current absolute position (int); kpos: (W,) or (B,W)."""
+    t: the current absolute position (a 0-d int32 tensor, or an int);
+    kpos: (W,) or (B,W)."""
     B, _, H, hd = q.shape
     KV = k_cache.shape[2]
     k_cache = k_cache.to(q.dtype)

@@ -17,6 +17,8 @@ Public entry points:
   prefill(params, tokens, cache[, block_tables]) -> (exit_logits_last, cache)
   prefill_into(params, tokens, cache, ...)       -> exit_logits_last (paged)
   decode_step(params, token, t, cache)           -> (exit_logits, cache)
+(``t`` a 0-d int32 device tensor or an int; caches and the kpos ring are
+written in place)
 and the segment primitives the staged executor (``core/exec.py``) runs:
 ``begin_decode`` / ``run_segment`` / ``backfill_segment`` / ``exit_logits``
 / ``commit_decode``.
@@ -227,13 +229,13 @@ class CascadeModel:
         """Full-sequence forward writing the KV caches (in place).
 
         tokens (B, S) int.  Returns ([exit logits at last position (B,V)]
-        * n_exits, cache with its kpos ring for the S prompt positions).
-        ``block_tables`` ((n_components, B, nblk) int32) switches the cache
-        writes to the paged layout; the returned ``kpos`` is then the
-        per-slot (B, W) ring (a copy per slot, which continuous admission
-        rewrites one row at a time) instead of the lane-wide (W,).
+        * n_exits, cache with its kpos ring for the S prompt positions,
+        written in place).  ``block_tables`` ((n_components, B, nblk)
+        int32) switches the cache writes to the paged layout; the ring is
+        then the per-slot (B, W) one (continuous admission rewrites one
+        row at a time) instead of the lane-wide (W,).
         """
-        B, S = tokens.shape
+        S = tokens.shape[1]
         W = cache["kpos"].shape[-1]
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
         # per-slot gather index == the absolute position held by the slot
@@ -248,8 +250,8 @@ class CascadeModel:
             h, _, _ = self.run_segment(si, params, h, ctx,
                                        cache["segments"][si])
             logits.append(self.exit_logits(params, si, h[:, -1:, :])[:, 0, :])
-        kpos = (write_slots[None].repeat(B, 1) if cache["kpos"].dim() == 2
-                else write_slots.clone())
+        kpos = cache["kpos"]
+        kpos.copy_(write_slots.expand_as(kpos))
         return logits, {"kpos": kpos, "segments": cache["segments"]}
 
     def prefill_into(self, params, tokens, cache, positions, write_slots,
@@ -280,31 +282,50 @@ class CascadeModel:
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def begin_decode(self, params, token, t: int, cache):
+    def position(self, t) -> torch.Tensor:
+        """The decode position as a 0-d int32 tensor on this model's
+        device: a tensor is taken as it is (the carried
+        ``DecodeState.t``), an int is made into one."""
+        if isinstance(t, torch.Tensor):
+            return t
+        return torch.full((), int(t), dtype=torch.int32, device=self.device)
+
+    @staticmethod
+    def _record(kpos, t):
+        """``kpos`` with ring slot ``t % W`` set to t, in place, computed on
+        the device from the 0-d tensor t (no host read)."""
+        slot = (t % kpos.shape[-1]).long().view(1)
+        return kpos.index_copy_(
+            -1, slot, t.view(1).expand(kpos.shape[:-1] + (1,)))
+
+    def begin_decode(self, params, token, t, cache):
         """Embed one decode token and build the step context.
 
-        token: (B,1) int; t: the position (int).  Returns (h, ctx) for the
-        segment primitives.  ``ctx["kpos_t"]`` — the committed ring with
-        this step's slot set to t, which every layer's attention reads — is
-        built once here instead of once per layer.
+        token: (B,1) int; t: the position, a 0-d int32 tensor on the
+        device (an int is accepted and made into one).  Returns (h, ctx)
+        for the segment primitives.  ``ctx["slot"]`` is the ring slot
+        ``t % W`` as a 0-d int64 tensor; ``ctx["kpos_t"]`` — the committed
+        ring with this step's slot set to t, which every layer's attention
+        reads — is built once here instead of once per layer.  Nothing
+        here reads t to the host, so a captured step reads it from device
+        memory at every replay.
         """
+        t = self.position(t)
         W = cache["kpos"].shape[-1]
-        slot = int(t) % W
-        kpos_t = cache["kpos"].clone()
-        kpos_t[..., slot] = int(t)
+        slot = (t % W).long()
+        kpos_t = self._record(cache["kpos"].clone(), t)
         h = self._embed(params, token)
-        ctx = {"mode": "decode", "t": int(t), "slot": slot,
+        ctx = {"mode": "decode", "t": t, "slot": slot,
                "kpos": cache["kpos"], "kpos_t": kpos_t}
         return h, ctx
 
-    def commit_decode(self, cache, new_segs, t: int):
-        """Finish a decode step: record position t in the kpos ring."""
-        W = cache["kpos"].shape[-1]
-        kpos = cache["kpos"].clone()
-        kpos[..., int(t) % W] = int(t)
+    def commit_decode(self, cache, new_segs, t):
+        """Finish a decode step: record position t in the kpos ring, in
+        place (the ring keeps its address from step to step)."""
+        kpos = self._record(cache["kpos"], self.position(t))
         return {"kpos": kpos, "segments": new_segs}
 
-    def decode_step(self, params, token, t: int, cache):
+    def decode_step(self, params, token, t, cache):
         """One DENSE decode step: every segment computes, every exit's
         logits are returned (list of (B,V)).  The reference path the
         consistency tests pin; the staged decode lives in

@@ -23,9 +23,28 @@ of a LIVE lane without re-prefilling its siblings (continuous single-slot
 admission), and returns a finished slot's blocks at the next host sync —
 those of components deeper than its exit depth as ``reclaimed_by_exit``.
 
-One decode step per lane per tick, synced to the host every tick
-(``runtime="host"``).  The device runtime, autotune, escalation, fleet and
-observability hooks come in later slices of the port and are refused here.
+Two execution runtimes (``runtime=`` at construction):
+
+* ``"host"`` — one decode step per lane per tick, its result read back
+  every tick (plus one read per cond_batch skip predicate);
+* ``"device"`` — a :class:`repro_torch.serving.runtime.DeviceDecodeLoop`
+  decodes up to ``chunk`` tokens per lane per dispatch, on CUDA by
+  replaying a captured CUDA graph whose skips are conditional nodes, and
+  syncs to the host once a chunk.  Token and exit streams equal the host
+  runtime's for requests admitted at the same points; queued requests
+  admit at chunk boundaries (up to ``chunk`` tokens later than on the host
+  runtime), the one sanctioned divergence.  The graph reads fixed
+  addresses, so a lane's cache, kpos ring and DecodeState tensors keep
+  theirs for the engine's life: both runtimes write them in place, and a
+  re-prefill refills them.
+
+Each lane keeps a host mirror of its position (``DecodeState.t`` is a
+device scalar): a prefill sets it, a host tick adds 1, a chunk adds its
+steps, and the finish rule and the paged admission read it, so the host
+runtime adds no sync for it.  Both runtimes time their first dispatch (a
+device-runtime capture) as ``compile_seconds``, outside every window
+metric.  Autotune, escalation, fleet and observability hooks come in later
+slices of the port and are refused here.
 """
 from __future__ import annotations
 
@@ -47,6 +66,7 @@ from repro_torch.models import nn
 from repro_torch.models.model import CascadeModel
 from repro_torch.serving.batching import DepthCompactor, cohort_capacity
 from repro_torch.serving.paged import PagedCascadeCache
+from repro_torch.serving.runtime import DeviceDecodeLoop, kernel_provenance
 from repro_torch.utils import resolve_device
 
 
@@ -67,10 +87,8 @@ class _Slot:
     done: bool = True
 
 
-def _refuse_unported(cfg: ModelConfig, runtime, mesh, autotune) -> None:
+def _refuse_unported(cfg: ModelConfig, mesh, autotune) -> None:
     later = []
-    if runtime != "host":
-        later.append(f"runtime={runtime!r} (the device decode loop)")
     if mesh is not None:
         later.append("mesh sharding")
     if autotune is not None and autotune is not False:
@@ -96,12 +114,12 @@ class CascadeServingEngine:
 
     def __init__(self, cfg: ModelConfig, model: CascadeModel, params,
                  lane_batch: int = 4, n_lanes: int = 2,
-                 cache_len: int = 256, runtime: str = "host", mesh=None,
-                 autotune=None, device=None):
+                 cache_len: int = 256, runtime: str = "host",
+                 chunk: int = 8, mesh=None, autotune=None, device=None):
         if runtime not in ("host", "device"):
             raise ValueError(
                 f"runtime must be 'host' or 'device', got {runtime!r}")
-        _refuse_unported(cfg, runtime, mesh, autotune)
+        _refuse_unported(cfg, mesh, autotune)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "
@@ -114,6 +132,7 @@ class CascadeServingEngine:
         self.n_lanes = n_lanes
         self.cache_len = cache_len
         self.runtime = runtime
+        self.chunk = chunk
         self.cohorts = effective_cohorts(cfg.cascade.n_cohorts, lane_batch)
         self.compactor = DepthCompactor(n_lanes, cfg.cascade.n_components)
         self.executor = StagedExecutor(model, cfg)
@@ -135,8 +154,11 @@ class CascadeServingEngine:
             lane = {
                 "slots": [_Slot() for _ in range(lane_batch)],
                 "state": self.executor.init_state(
-                    lane_batch, block_tables=(self.pcache.device_tables(i)
-                                              if self.paged else None)),
+                    lane_batch, block_tables=(
+                        self.pcache.device_tables(i).clone() if self.paged
+                        else None)),
+                # host mirror of the lane's position (state.t)
+                "t": 0,
             }
             if self.paged:
                 lane["kpos"] = self.pcache.fresh_kpos()
@@ -155,6 +177,9 @@ class CascadeServingEngine:
         # and never counted in the decode window
         self._compile_seconds = 0.0
         self._decode_warm = False
+        self.loop = (DeviceDecodeLoop(model, cfg, chunk=chunk,
+                                      cache_len=cache_len)
+                     if runtime == "device" else None)
         self.reset_metrics()
 
     def reset_metrics(self):
@@ -175,6 +200,7 @@ class CascadeServingEngine:
         self._skip_opportunity_total = 0
         self._admit_waits: List[int] = []
         self._host_syncs = 0
+        self._decode_dispatches = 0
         self._dispatch = dict.fromkeys(self.executor.dispatch, 0)
         # the pool's peak occupancy and lifetime reclaim counters survive
         # (high-water capacity); only its per-chunk reclaim window clears
@@ -189,20 +215,23 @@ class CascadeServingEngine:
             return self.pcache.lane_cache(lane["kpos"])
         return lane["cache"]
 
-    def _take_cache(self, lane, cache):
-        """Keep a dispatch's cache: the stores are written in place, so a
-        paged lane keeps only its kpos ring."""
-        if self.paged:
-            lane["kpos"] = cache["kpos"]
-        else:
-            lane["cache"] = cache
+    def _set_state(self, lane, state):
+        """Adopt ``state`` as the lane's DecodeState by writing its tensors
+        into the lane's own, in place: they keep their addresses for the
+        engine's life (what a captured graph reads)."""
+        own = lane["state"]
+        for f in ("t", "active", "policy", "ema_conf", "block_tables"):
+            new = getattr(state, f)
+            if new is not None and new is not getattr(own, f):
+                getattr(own, f).copy_(new)
+        own.segments_run = state.segments_run
 
     def _sync_tables(self, lane, lane_id: int):
         """Push rebuilt block tables into the lane's DecodeState after
         release/alloc changed its rows."""
         if self.paged and lane_id in self._tables_stale:
-            lane["state"] = lane["state"].replace(
-                block_tables=self.pcache.device_tables(lane_id))
+            lane["state"].block_tables.copy_(
+                self.pcache.device_tables(lane_id))
             self._tables_stale.discard(lane_id)
 
     # -- public API -----------------------------------------------------
@@ -269,7 +298,7 @@ class CascadeServingEngine:
         lane = self.lanes[lane_id]
         if not any(s.done for s in lane["slots"]):
             return False
-        t0 = lane["state"].t
+        t0 = lane["t"]
         P_pad = self._pad_prompt(len(req.prompt))
         if P_pad > t0:
             return False
@@ -368,7 +397,7 @@ class CascadeServingEngine:
         streams are untouched."""
         lane = self.lanes[lane_id]
         state = lane["state"]
-        t0 = state.t
+        t0 = lane["t"]
         P = len(req.prompt)
         P_pad = self._pad_prompt(P)
         free_slots = [i for i, s in enumerate(lane["slots"]) if s.done]
@@ -410,19 +439,14 @@ class CascadeServingEngine:
         self._slot_prefills += 1
         # merge the B = 1 prefill decision into the lane's carried state:
         # it seeds the stateful-measure streak as a whole-lane prefill does
-        policy = state.policy
-        if policy is not None and d.state is not None:
-            policy = policy.clone()
-            policy[..., slot_idx] = d.state[..., 0]
-        ema = state.ema_conf.clone()
-        ema[slot_idx] = (1.0 - CONF_EMA_DECAY) * conf
+        if state.policy is not None and d.state is not None:
+            state.policy[..., slot_idx] = d.state[..., 0]
+        state.ema_conf[slot_idx] = (1.0 - CONF_EMA_DECAY) * conf
         lane["kpos"][slot_idx] = torch.as_tensor(krow, device=dev)
         s = lane["slots"][slot_idx]
         self._claim(s, req)
-        lane["state"] = state.replace(
-            active=torch.as_tensor(self._live_mask(lane), device=dev),
-            policy=policy, ema_conf=ema,
-            block_tables=self.pcache.device_tables(lane_id))
+        state.active.copy_(torch.as_tensor(self._live_mask(lane)))
+        state.block_tables.copy_(self.pcache.device_tables(lane_id))
         self._tables_stale.discard(lane_id)
         self.compactor.observe_prefill_exit(float(exit_idx))
         s.generated.append(tok)
@@ -484,11 +508,14 @@ class CascadeServingEngine:
                 rem = max(1, s.request.max_new_tokens - len(s.generated))
                 ok = self.pcache.alloc_slot(lane_id, i, 0, S + rem)
                 assert ok, "lane prefill outgrew its admission plan"
-            lane["kpos"] = self.pcache.fresh_kpos()
-            cache_in = self.pcache.lane_cache(lane["kpos"])
+            lane["kpos"].fill_(-1)
             self._tables_stale.discard(lane_id)
         else:
-            cache_in = self.model.init_cache(self.lane_batch, self.cache_len)
+            # the lane's slab, refilled in place (it keeps its address)
+            for x in nn.tree_leaves(lane["cache"]["segments"]):
+                x.zero_()
+            lane["cache"]["kpos"].fill_(-1)
+        cache_in = self._lane_cache(lane)
         state = self.executor.init_state(
             self.lane_batch, active=self._live_mask(lane),
             block_tables=(self.pcache.device_tables(lane_id)
@@ -502,8 +529,8 @@ class CascadeServingEngine:
         conf = d.confidence.cpu().numpy()
         self._prefill_seconds += time.perf_counter() - t_pre
         self._prefills += 1
-        self._take_cache(lane, cache)
-        lane["state"] = state
+        self._set_state(lane, state)
+        lane["t"] = S
         for i, s in enumerate(slots):
             if s.done:
                 continue
@@ -519,7 +546,8 @@ class CascadeServingEngine:
 
     def step(self):
         """One engine tick: admit, prefill dirty lanes, then decode one
-        token per live lane."""
+        token per live lane (``runtime="host"``) or up to ``chunk`` tokens
+        per lane in one dispatch (``runtime="device"``)."""
         self._tick += 1
         self._admit()
         for lane_id, lane in enumerate(self.lanes):
@@ -528,7 +556,10 @@ class CascadeServingEngine:
             if lane.get("dirty"):
                 self._lane_prefill(lane, lane_id)
                 continue
-            self._host_tick(lane, lane_id)
+            if self.runtime == "device":
+                self._device_tick(lane, lane_id)
+            else:
+                self._host_tick(lane, lane_id)
 
     def _account(self, lane_id: int, depths: np.ndarray, n_tokens: int,
                  ran: np.ndarray, steps: int, max_depths):
@@ -571,6 +602,7 @@ class CascadeServingEngine:
         if warm:
             self._decode_seconds += dt
             self._decode_tokens += n_live
+            self._decode_dispatches += 1
             # the result fetch + the executor's skip-predicate reads
             self._host_syncs += 1 + self.executor.host_syncs - syncs_before
             for k, n in self.executor.dispatch.items():
@@ -578,8 +610,8 @@ class CascadeServingEngine:
         else:
             self._compile_seconds += dt
             self._decode_warm = True
-        self._take_cache(lane, cache)
         lane["state"] = state
+        lane["t"] += 1
         depths = exit_idx[live]
         ran = state.segments_run - run_before
         if warm:
@@ -592,7 +624,70 @@ class CascadeServingEngine:
             s.generated.append(int(tok[i]))
             s.exit_depths.append(int(exit_idx[i]))
             s.confs.append(float(conf[i]))
-            self._finish_if_done(s, state.t, lane_id, i)
+            self._finish_if_done(s, lane["t"], lane_id, i)
+        self._sync_tables(lane, lane_id)
+        if self.paged:
+            self.pcache.pool.end_chunk()
+
+    def _device_tick(self, lane, lane_id: int):
+        """Decode up to ``chunk`` tokens for a lane in ONE dispatch of the
+        device loop, synced to the host once; finished slots drain from
+        the returned buffers."""
+        slots = lane["slots"]
+        last = [s.generated[-1] if not s.done else 0 for s in slots]
+        live = self._live_mask(lane)
+        remaining = np.array(
+            [s.request.max_new_tokens - len(s.generated) if not s.done else 0
+             for s in slots], np.int32)
+        state = lane["state"]
+        run_before = state.segments_run.copy()
+        syncs_before = self.loop.host_syncs
+        dispatch_before = dict(self.loop.executor.dispatch)
+        if self.paged:
+            self.pcache.pool.begin_chunk()
+        chunk, _, state = self.loop.run_chunk(
+            self.params, np.array(last, np.int32)[:, None],
+            self._lane_cache(lane), state, remaining, active=live)
+        n = chunk.n_steps
+        lane["t"] += n
+        if n and chunk.t != lane["t"]:
+            raise RuntimeError(f"lane {lane_id}: the device position "
+                               f"{chunk.t} left its host mirror {lane['t']}")
+        n_tok = int(chunk.live.sum())
+        if chunk.compiled:                 # the capture chunk
+            self._compile_seconds += chunk.seconds
+        else:
+            self._decode_seconds += chunk.seconds
+            self._decode_tokens += n_tok
+            self._decode_dispatches += 1
+            # one result fetch per chunk on CUDA; none on a CPU lane,
+            # where the loop's reads cost no sync
+            self._host_syncs += self.loop.host_syncs - syncs_before
+            for k, c in self.loop.executor.dispatch.items():
+                self._dispatch[k] += c - dispatch_before[k]
+        if not n:
+            if self.paged:
+                self.pcache.pool.end_chunk()
+            return
+        if not chunk.compiled:
+            # like the host tick: the capture chunk is excluded from every
+            # window metric so that all stats() rates cover the same steps
+            max_depths = []
+            for step in range(n):
+                d = chunk.exits[step][chunk.live[step]]
+                max_depths.append(int(d.max()) if d.size else 0)
+            self._account(lane_id, chunk.exits[chunk.live], n_tok,
+                          state.segments_run - run_before, steps=n,
+                          max_depths=max_depths)
+        for i, s in enumerate(slots):
+            if s.done:
+                continue
+            for step in range(n):
+                if chunk.live[step, i]:
+                    s.generated.append(int(chunk.tokens[step, i]))
+                    s.exit_depths.append(int(chunk.exits[step, i]))
+                    s.confs.append(float(chunk.confs[step, i]))
+            self._finish_if_done(s, lane["t"], lane_id, i)
         self._sync_tables(lane, lane_id)
         if self.paged:
             self.pcache.pool.end_chunk()
@@ -620,17 +715,15 @@ class CascadeServingEngine:
         return 1e6 * self._decode_seconds / self._decode_tokens
 
     def kernel_provenance(self) -> dict:
-        """Which route each kernel takes on this engine's device, and its
-        launches since the counters were last reset (process-wide)."""
-        on_gpu = self.device.type == "cuda"
-        backend = ("cuda" if on_gpu else "torch-cpu") if self.cfg.use_kernels \
-            else "off"
-        counts = kernels.launch_counts()
+        """Which backend each kernel takes on this engine's device, and its
+        launches since the counters were last reset (process-wide; under
+        the device runtime those its graph replays ran)."""
+        prov = kernel_provenance(self.cfg, self.device)
         return {
-            "device": (torch.cuda.get_device_name(self.device) if on_gpu
-                       else "cpu"),
-            "kernels": {name: {"backend": backend, "launches": n}
-                        for name, n in counts.items()},
+            "device": prov["kernel_platform"],
+            "kernels": {name: {"backend": prov["kernel_backend"],
+                               "launches": n}
+                        for name, n in kernels.launch_counts().items()},
         }
 
     def stats(self) -> dict:
@@ -660,12 +753,20 @@ class CascadeServingEngine:
             "slot_prefills": self._slot_prefills,
             "decode_seconds": self._decode_seconds,
             "decode_tokens": tokens,
-            # decode-window device -> host syncs: one result fetch per
-            # dispatch plus one skip-predicate read per deep segment per
-            # cond_batch step
+            # decode-window device -> host syncs: host runtime, one result
+            # fetch per dispatch plus one skip-predicate read per deep
+            # segment per cond_batch step; device runtime on CUDA, one per
+            # lane chunk
             "host_syncs": syncs,
             "host_syncs_per_token": (syncs / tokens) if tokens else None,
+            # decode dispatches in the window: host ticks, or lane chunks
+            "decode_dispatches": self._decode_dispatches,
             "runtime": self.runtime,
+            # tokens per lane per dispatch
+            "chunk": self.chunk if self.runtime == "device" else 1,
+            # CUDA graphs the device runtime captured (lanes x threshold
+            # vectors), cumulative
+            "captures": self.loop.captures if self.loop is not None else 0,
             "n_cohorts": self.cohorts,
             "cohort_layout": self.cfg.cascade.cohort_layout,
             # deep-segment dispatch branches of cohort-split steps (major

@@ -265,7 +265,15 @@ def test_serve_cli_paged_on_cpu():
     assert dense["cache_layout"] == "dense"
 
 
-@pytest.mark.parametrize("flags", [["--runtime", "device"], ["--autotune"],
+def test_serve_cli_device_runtime_on_cpu():
+    stats = serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+                        "--runtime", "device", "--chunk", "4",
+                        "--requests", "4", "--max-new", "6"])
+    assert stats["requests_finished"] == 4
+    assert stats["runtime"] == "device" and stats["chunk"] == 4
+
+
+@pytest.mark.parametrize("flags", [["--autotune"],
                                    ["--escalate-layers", "1"],
                                    ["--fleet", "2"], ["--obs"],
                                    ["--trace-out", "x.json"]])

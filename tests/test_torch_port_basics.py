@@ -299,8 +299,8 @@ def test_unported_configurations_are_refused():
     params = model.init(0)
     kw = dict(lane_batch=2, n_lanes=1, cache_len=32, device="cpu")
     for bad, what in (
-            (dict(runtime="device"), "device"),
             (dict(mesh=object()), "mesh"),
+            (dict(runtime="device", mesh=object()), "mesh"),
             (dict(autotune=True), "autotune")):
         with pytest.raises(NotImplementedError, match=what):
             CascadeServingEngine(cfg, model, params, **{**kw, **bad})
