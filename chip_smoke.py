@@ -108,9 +108,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 D_MODEL = 2048
 VOCAB = 151936
 SEG_CACHE = (12, 4, 512, 2, 128)
-# what select mode's cohort scatter lands on the serving path: one deep
-# segment's ring-slot rows of the lane batch (a decode step writes one slot)
-SCATTER_ROWS = (12, 4, 1, 2, 128)
+# the ring slot of phase 2's slot-route cohort scatter (select mode lands
+# a cohort's rows of the one slot a decode step writes)
+SCATTER_SLOT = 137
 # the paged layout's shared store at full width (the auto-sized pool:
 # 2 lanes x 4 slots x 3 components x 32 ring blocks + the trash block) and
 # one lane's block table (4 slots x 32 ring blocks of 16 positions)
@@ -958,43 +958,91 @@ def phase_megakernel(dev, gen):
 
 
 def phase_cohort_scatter(dev, gen):
+    """The scatter, exact: its slot route (what select mode lands on the
+    serving path: cohort c's rows of one ring slot of a deep segment's
+    cache, the slot read from device memory) at the serving cache, also
+    under graph replays that move the slot; and the whole-cohort form (the
+    TPU kernel's contract) at the same cache."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.cohort_cache import cohort_scatter_tree
     C, c = 2, 1
+    L, B = SEG_CACHE[:2]
+    Bc = B // C
     cases = []
-    for shape, dt in ((SCATTER_ROWS, torch.bfloat16),
-                      (SCATTER_ROWS, torch.float32),
-                      (SEG_CACHE, torch.bfloat16),
-                      (SEG_CACHE, torch.float32)):
-        Bc = shape[1] // C
+    for slot_route, dt in ((True, torch.bfloat16), (True, torch.float32),
+                           (False, torch.bfloat16), (False, torch.float32)):
         name = str(dt).split(".")[-1]
-        dst = [torch.randn(shape, generator=gen, device=dev).to(dt)
+        dst = [torch.randn(SEG_CACHE, generator=gen, device=dev).to(dt)
                for _ in range(2)]
-        src = [torch.randn((shape[0], Bc) + shape[2:], generator=gen,
-                           device=dev).to(dt) for _ in range(2)]
+        rows = (L, Bc, 1) + SEG_CACHE[3:] if slot_route \
+            else (L, Bc) + SEG_CACHE[2:]
+        src = [torch.randn(rows, generator=gen, device=dev).to(dt)
+               for _ in range(2)]
+        slot = torch.tensor(SCATTER_SLOT, device=dev) if slot_route \
+            else None
         want = [x.clone() for x in dst]
-        for wd, sd in zip(want, src):
-            ref.ref_cohort_scatter(wd, sd, c, C)
-        cohort_scatter_tree(dst, src, c, C)
-        torch.cuda.synchronize()
-        for a, b in zip(dst, want):
-            check_equal(f"cohort_scatter {name}", a, b)
 
-        def copy_loop():
+        def plain(want=want, src=src, slot=slot):
             for wd, sd in zip(want, src):
-                wd[:, c * Bc:(c + 1) * Bc].copy_(sd)
+                if slot is None:
+                    ref.ref_cohort_scatter(wd, sd, c, C)
+                else:
+                    ref.ref_cohort_scatter_slot(wd, sd, c, C, slot)
+
+        def library(want=want, src=src, slot=slot):
+            for wd, sd in zip(want, src):
+                view = wd[:, c * Bc:(c + 1) * Bc]
+                if slot is None:
+                    view.copy_(sd)
+                else:
+                    view.index_copy_(2, slot.view(1), sd)
+
+        def kernel(dst=dst, src=src, slot=slot):
+            cohort_scatter_tree(dst, src, c, C, slot=slot)
+
+        def staged(dst=dst, src=src, slot=slot):
+            # the land before the slot route, timed for the record: gather
+            # the batch's slot rows, scatter the cohort's into them, write
+            # them back
+            rows = [x.index_select(2, slot.view(1)) for x in dst]
+            cohort_scatter_tree(rows, src, c, C)
+            for x, r in zip(dst, rows):
+                x.index_copy_(2, slot.view(1), r)
+
+        plain()
+        kernel()
+        torch.cuda.synchronize()
+        tag = f"cohort_scatter {'slot' if slot_route else 'whole'} {name}"
+        for a, b in zip(dst, want):
+            check_equal(tag, a, b)
+        if slot_route:
+            # a captured land follows the slot in device memory
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                kernel()
+            for s in (0, 300, SEG_CACHE[2] - 1):
+                slot.fill_(s)
+                for x in src:
+                    x.normal_(generator=gen)
+                graph.replay()
+                plain()
+                torch.cuda.synchronize()
+                for a, b in zip(dst, want):
+                    check_equal(f"{tag} replay at slot {s}", a, b)
+            slot.fill_(SCATTER_SLOT)
+            del graph
 
         nbytes = 2 * sum(x.numel() * x.element_size() for x in src)
         b, by = bound_ms(nbytes, 0, name)
         cases.append({
-            "shape": list(shape), "leaves": 2, "cohort": [c, C],
-            "dtype": name, "max_abs_err": max(max_err(a, b)
-                                              for a, b in zip(dst, want)),
-            "ms": time_ms(lambda: cohort_scatter_tree(dst, src, c, C)),
-            "plain_ms": time_ms(lambda: [ref.ref_cohort_scatter(wd, sd, c, C)
-                                         for wd, sd in zip(want, src)]),
-            "library_ms": time_ms(copy_loop),
+            "route": "slot" if slot_route else "whole",
+            "shape": list(SEG_CACHE), "rows": list(rows), "leaves": 2,
+            "cohort": [c, C], "dtype": name,
+            "max_abs_err": max(max_err(a, b) for a, b in zip(dst, want)),
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library),
+            "staged_land_ms": time_ms(staged) if slot_route else None,
             "bound_ms": b, "bound_by": by})
     # odd-sized bool leaves take the byte-wise copy
     dst = torch.rand((3, 4, 5), generator=gen, device=dev) > 0.5
@@ -1091,6 +1139,9 @@ def serve(cfg, model, params, reqs, **engine_kw):
     from repro_torch.serving.engine import CascadeServingEngine
     engine = CascadeServingEngine(cfg, model, params, device=DEV,
                                   **engine_kw)
+    if engine.loop is not None:
+        # the device runtime's replays: any device sync there raises
+        engine.loop.sync_check = True
     for r in reqs:
         engine.submit(r)
     torch.cuda.synchronize()
@@ -1432,15 +1483,20 @@ def phase_device_runtime(params, mixed):
     """Slice 8's path at full width: the device runtime (K = 8 tokens a
     lane a dispatch from a captured CUDA graph, cond_batch skips as IF
     nodes, one host sync a chunk) against the host runtime, in turns
-    (host, device, device, host), on the 8 requests of phase 3: dense with
-    one cohort and paged (block size 16, 2 cohorts) at (0.9, 0.9, 0.0) and
-    (0, 0, 0); dense with 2 cohorts and the megakernel at those and at
-    phase 4's mixed vector ``(mixed, 0.9, 0.0)``.  Fails unless, in each,
-    tokens, exits and the carried segments_run are equal, every launch
-    count and route agrees, the device runtime synced once per lane chunk
-    and captured one graph per lane (every replay already ran under
-    ``torch.cuda.set_sync_debug_mode("error")``).  Returns the launches of
-    the device runtime's dense one-cohort run at (0.9, 0.9, 0.0)."""
+    (host, device, device, host), on the 8 prompts of phase 3 with 32
+    tokens each (so that every device window holds three replayed chunks
+    a lane after the capture chunk): dense with one cohort and paged
+    (block size 16, 2 cohorts) at (0.9, 0.9, 0.0) and (0, 0, 0); dense
+    with 2 cohorts and the megakernel at those and at phase 4's mixed
+    vector ``(mixed, 0.9, 0.0)``; and dense with one cohort at (0.9, 0.9,
+    0.0) on 16 requests of 16 tokens, whose second wave is admitted at a
+    chunk boundary and re-prefilled into the captured buffers.  Fails
+    unless, in each, tokens, exits and the carried segments_run are equal,
+    every launch count and route agrees, the device runtime synced once
+    per lane chunk, captured one graph per lane and no replay synced (they
+    run under ``torch.cuda.set_sync_debug_mode("error")``, see
+    :func:`serve`).  Returns the launches of the device runtime's dense
+    one-cohort run at (0.9, 0.9, 0.0)."""
     import statistics as stats_mod
     import torch
     from repro_torch.configs import get_config
@@ -1448,18 +1504,21 @@ def phase_device_runtime(params, mixed):
     base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
         exit_mode="cond_batch")
     two = base.with_cascade(n_cohorts=2, cohort_layout="major")
-    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+    reqs = make_requests(8, (128, 256), base.vocab_size, 32, seed=0)
+    waves = make_requests(16, (128, 256), base.vocab_size, 16, seed=0)
     kw = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
     corners = [(0.9, 0.9, 0.0), (0.0, 0.0, 0.0)]
     configs = [
-        ("dense, 1 cohort", base, corners),
+        ("dense, 1 cohort", base, corners, reqs),
+        ("dense, 1 cohort, two waves", base, corners[:1], waves),
         ("dense, 2 cohorts, megakernel",
          two.with_kernel_tune(megakernel=True, cohort_scatter=True),
-         corners + [(mixed, 0.9, 0.0)]),
-        ("paged, 2 cohorts", paged_config(two), corners)]
+         corners + [(mixed, 0.9, 0.0)], reqs),
+        ("paged, 2 cohorts", paged_config(two), corners, reqs)]
     headline = None
-    for name, cfg0, vectors in configs:
+    for name, cfg0, vectors, reqs in configs:
         model = build_model(cfg0, device=DEV)
+        n_req, n_new = len(reqs), reqs[0].max_new_tokens
         for ths in vectors:
             cfg = cfg0.with_cascade(thresholds=ths)
             runs = {"host": [], "device": []}
@@ -1468,9 +1527,9 @@ def phase_device_runtime(params, mixed):
                 fin, st, secs, launches = serve(cfg, model, params, reqs,
                                                 runtime=runtime, **kw)
                 tag = f"device runtime {name} {ths} {runtime}"
-                if sorted(fin) != list(range(8)) or any(
-                        len(r["tokens"]) != 16 for r in fin.values()):
-                    fail(f"{tag}: not every request got its 16 tokens")
+                if sorted(fin) != list(range(n_req)) or any(
+                        len(r["tokens"]) != n_new for r in fin.values()):
+                    fail(f"{tag}: not every request got its {n_new} tokens")
                 got = {"streams": _streams(fin),
                        "segments": st["carried_segments_run"],
                        "launches": launches,
@@ -1498,6 +1557,7 @@ def phase_device_runtime(params, mixed):
                     "host_syncs_per_token": st["host_syncs_per_token"],
                     "host_syncs": st["host_syncs"],
                     "decode_dispatches": st["decode_dispatches"],
+                    "dispatch_spread": st["dispatch_spread"],
                     "decode_tokens": st["decode_tokens"],
                     "compile_seconds": st["compile_seconds"],
                     "captures": st["captures"],
@@ -1513,6 +1573,7 @@ def phase_device_runtime(params, mixed):
             emit({"phase": "device_runtime", "config": "qwen2.5-3b",
                   "n_layers": cfg.n_layers, "dtype": cfg.dtype,
                   "variant": name, "thresholds": list(ths), "chunk": 8,
+                  "requests": n_req, "max_new_tokens": n_new,
                   "order": "host, device, device, host",
                   "identical": True, "host": runs["host"],
                   "device": runs["device"],
@@ -1880,7 +1941,7 @@ def main() -> int:
         "exit_update": lambda c: c["shape"][0] == 4,
         "confidence": lambda c: True,
         "megakernel": lambda c: c["shape"][0] == 4 and c["route"] == "tc",
-        "cohort_scatter": lambda c: True,
+        "cohort_scatter": lambda c: c["route"] == "slot",
         "paged_gather": lambda c: c["shape"] == [list(GATHER_STORE),
                                                  list(GATHER_TABLE)],
     }
@@ -1907,10 +1968,13 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": SOURCES[name], "replaces": REPLACES[name],
                      "launches": launches[name], "path": path,
-                     # the same path's launches under the device runtime
-                     # (replays: each IF body's captured launches times
-                     # its executions)
+                     # launches under the device runtime (replays: each IF
+                     # body's captured launches times its executions), in
+                     # the device-runtime phase's run named here, equal to
+                     # the host runtime's on the same requests
                      "launches_device_runtime": device_runtime[name],
+                     "path_device_runtime": "device runtime, dense 1 "
+                     "cohort, (0.9, 0.9, 0.0), 8 requests x 32 tokens",
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -17,11 +17,12 @@ megakernel, rmsnorm, exit_update and decode attention over their device
 kernels, the wrappers' launch counts in the profiled run (and the routes
 of the kernels that count them), and the kernels ranked by device time.
 
-The decode window: every decode dispatch (a host tick, or a device-runtime
-chunk) runs inside a ``record_function`` range; ``decode_busy_share`` is
-the device kernel time that starts inside those ranges over their summed
-wall time (prefills excluded), beside the whole run's
-``device_busy_share``.
+The decode window: the profiled run drives the engine one public
+``step()`` at a time, each inside a ``record_function`` range; the steps
+that ran no prefill (``stats()["prefills"]`` and ``["slot_prefills"]``
+unchanged) are the decode window, and ``decode_busy_share`` is the device
+kernel time that starts inside their ranges over their summed wall time,
+beside the whole run's ``device_busy_share``.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
 [--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel] [--paged]
@@ -47,8 +48,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# the record_function range around every decode dispatch
-WINDOW = "decode_dispatch"
+# the record_function range around every engine step
+WINDOW = "engine_step"
 
 
 def _device_time_us(evt) -> float:
@@ -99,43 +100,44 @@ def main() -> int:
                .astype(np.int32) for i in range(8)]
 
     def engine():
-        eng = CascadeServingEngine(cfg, model, params, lane_batch=4,
-                                   n_lanes=2, cache_len=512,
-                                   runtime=args.runtime, chunk=args.chunk)
-        tick = eng._device_tick if args.runtime == "device" \
-            else eng._host_tick
+        return CascadeServingEngine(cfg, model, params, lane_batch=4,
+                                    n_lanes=2, cache_len=512,
+                                    runtime=args.runtime, chunk=args.chunk)
 
-        def timed_tick(*a):
-            with record_function(WINDOW):
-                return tick(*a)
-
-        if args.runtime == "device":
-            eng._device_tick = timed_tick
-        else:
-            eng._host_tick = timed_tick
-        return eng
+    def prefills(eng):
+        st = eng.stats()
+        return st["prefills"] + st["slot_prefills"]
 
     def serve(eng, rid0):
+        """Serve the prompts one step at a time; returns (wall seconds,
+        stats, per step whether it ran no prefill)."""
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=16))
         torch.cuda.synchronize()
         eng.reset_metrics()
+        decode_only = []
         t0 = time.perf_counter()
-        eng.run(max_ticks=10_000)
+        for _ in range(10_000):
+            if len(eng.finished) == rid0 + len(prompts):
+                break
+            before = prefills(eng)
+            with record_function(WINDOW):
+                eng.step()
+            decode_only.append(prefills(eng) == before)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, eng.stats()
+        return time.perf_counter() - t0, eng.stats(), decode_only
 
     eng = engine()
     serve(eng, 0)                             # warm-up (device: captures)
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, st = serve(eng, len(prompts))
+        wall, st, decode_only = serve(eng, len(prompts))
     launches = kernels.launch_counts()
     routes = {name: dict(fn.launches_by_route)
               for name, (_, fn) in kernels._KERNELS.items()
               if hasattr(fn, "launches_by_route")}
-    # device events, the decode_dispatch ranges' own device-side copies
+    # device events, the step ranges' own device-side copies
     # (a user annotation spanning the range's kernels) left out
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
@@ -147,9 +149,13 @@ def main() -> int:
     def on_device(e):
         return "CUDA" in str(getattr(e, "device_type", ""))
 
-    windows = sorted((e.time_range.start, e.time_range.end)
-                     for e in fevents
-                     if e.name == WINDOW and not on_device(e))
+    steps = sorted((e.time_range.start, e.time_range.end)
+                   for e in fevents if e.name == WINDOW and not on_device(e))
+    if len(steps) != len(decode_only):
+        print(f"profile_torch_serving: {len(steps)} step ranges for "
+              f"{len(decode_only)} steps", file=sys.stderr)
+        return 1
+    windows = [w for w, pure in zip(steps, decode_only) if pure]
     kern = [e for e in fevents if on_device(e) and e.name != WINDOW]
     window_us = sum(b - a for a, b in windows)
     busy_us = sum(e.time_range.end - e.time_range.start for e in kern
@@ -185,7 +191,8 @@ def main() -> int:
                       "cohort_dispatch": st["cohort_dispatch"],
                       "wall_s": wall, "device_kernel_s": dev_us / 1e6,
                       "device_busy_share": dev_us / 1e6 / wall,
-                      "decode_dispatches": len(windows),
+                      "decode_steps": len(windows),
+                      "decode_dispatches": st["decode_dispatches"],
                       "decode_window_s": window_us / 1e6,
                       "decode_device_s": busy_us / 1e6,
                       "decode_busy_share": (busy_us / window_us

@@ -46,7 +46,8 @@ W`` of each layer, so ``select`` snapshots just that slot's rows, not the
 segment's caches: the run's rows and the skip path's rows are read after
 each, and the selection lands back at the slot — through per-leaf index
 copies, or with ``kernel_tune.cohort_scatter`` through one cohort-scatter
-launch per cohort into the segment's slot rows.
+launch per cohort that writes the cohort's slot rows straight into the
+segment's slab.
 
 Under the paged layout (``DecodeState.block_tables`` set) the stores are
 shared by every slot and have no batch axis: each cohort steps over the
@@ -501,15 +502,12 @@ class StagedExecutor:
 
     @staticmethod
     def _scatter(seg, c, C, rows, selected):
-        """Land cohort c's selected slot rows in the slab: the segment's
-        slot rows of the whole batch are read, one cohort-scatter launch
-        writes cohort c's part of them (every leaf at once), and they go
-        back to the slot."""
+        """Land cohort c's selected slot rows in the slab: one
+        cohort-scatter launch writes them (every leaf at once) at the ring
+        slot, which the kernel reads from device memory."""
         from repro_torch.kernels.ops import cohort_scatter_tree
-        whole = _SlotRows(seg, {"slot": rows.slot}, None)
-        staged = whole.read()
-        cohort_scatter_tree(staged, selected, c, C)
-        whole.write(staged)
+        cohort_scatter_tree(list(nn.tree_leaves(seg)), selected, c, C,
+                            slot=rows.slot)
 
 
 class _SlotRows:

@@ -360,6 +360,15 @@ def ref_cohort_scatter(dst, src, c: int, C: int):
     return dst
 
 
+def ref_cohort_scatter_slot(dst, src, c: int, C: int, slot):
+    """Slot-route cohort scatter oracle, in place: ``dst[:, c*Bc:(c+1)*Bc,
+    slot] = src[:, :, 0]`` (dst (L, B, W, ...), src (L, Bc, 1, ...), slot a
+    0-d int64 tensor).  Returns dst."""
+    Bc = dst.shape[1] // C
+    dst[:, c * Bc:(c + 1) * Bc].index_copy_(2, slot.view(1), src)
+    return dst
+
+
 def ref_paged_gather(store, table):
     """Paged gather oracle: store (NB, bs, kv, hd) gathered through table
     (B, nblk) -> the slot-logical ring view (B, nblk * bs, kv, hd)."""

@@ -102,6 +102,18 @@ def _refuse_unported(cfg: ModelConfig, mesh, autotune) -> None:
             "not ported yet (later slices of the port): " + ", ".join(later))
 
 
+def _spread(log) -> Optional[dict]:
+    """(min, median, max) of the dispatches' ms and µs per token."""
+    if not log:
+        return None
+    ms = [1e3 * sec for sec, _ in log]
+    per = [1e6 * sec / n for sec, n in log if n]
+
+    def mmm(x):
+        return [min(x), float(np.median(x)), max(x)] if x else None
+    return {"n": len(log), "ms": mmm(ms), "us_per_token": mmm(per)}
+
+
 class CascadeServingEngine:
     """Multi-lane batched decode with cascade early exit.
 
@@ -201,6 +213,8 @@ class CascadeServingEngine:
         self._admit_waits: List[int] = []
         self._host_syncs = 0
         self._decode_dispatches = 0
+        # (seconds, tokens) of each decode dispatch in the window
+        self._dispatch_log: List[tuple] = []
         self._dispatch = dict.fromkeys(self.executor.dispatch, 0)
         # the pool's peak occupancy and lifetime reclaim counters survive
         # (high-water capacity); only its per-chunk reclaim window clears
@@ -603,6 +617,7 @@ class CascadeServingEngine:
             self._decode_seconds += dt
             self._decode_tokens += n_live
             self._decode_dispatches += 1
+            self._dispatch_log.append((dt, n_live))
             # the result fetch + the executor's skip-predicate reads
             self._host_syncs += 1 + self.executor.host_syncs - syncs_before
             for k, n in self.executor.dispatch.items():
@@ -660,6 +675,7 @@ class CascadeServingEngine:
             self._decode_seconds += chunk.seconds
             self._decode_tokens += n_tok
             self._decode_dispatches += 1
+            self._dispatch_log.append((chunk.seconds, n_tok))
             # one result fetch per chunk on CUDA; none on a CPU lane,
             # where the loop's reads cost no sync
             self._host_syncs += self.loop.host_syncs - syncs_before
@@ -761,6 +777,9 @@ class CascadeServingEngine:
             "host_syncs_per_token": (syncs / tokens) if tokens else None,
             # decode dispatches in the window: host ticks, or lane chunks
             "decode_dispatches": self._decode_dispatches,
+            # their spread: (min, median, max) of each dispatch's
+            # wall-clock ms and of its µs per token
+            "dispatch_spread": _spread(self._dispatch_log),
             "runtime": self.runtime,
             # tokens per lane per dispatch
             "chunk": self.chunk if self.runtime == "device" else 1,

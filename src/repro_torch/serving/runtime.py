@@ -41,6 +41,7 @@ dispatches): the one sanctioned divergence from the host runtime.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, Optional
@@ -103,6 +104,21 @@ def _key_of(*tensors) -> tuple:
                  for x in tensors)
 
 
+@contextlib.contextmanager
+def _syncs_raise(on: bool):
+    """With ``on``, make any device sync inside the block raise; the
+    caller's sync debug mode comes back after it."""
+    if not on:
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
 class _Capture:
     """One captured guarded iteration and the buffers it reads."""
 
@@ -142,6 +158,10 @@ class DeviceDecodeLoop:
         # device -> host syncs (one per CUDA chunk)
         self.captures = 0
         self.host_syncs = 0
+        # a check for tests and the card smoke: run each chunk's replays
+        # and result copy under sync debug mode "error", so that a sync
+        # there raises
+        self.sync_check = False
         self._graphs: Dict[tuple, _Capture] = {}
         self._pinned: Dict[tuple, torch.Tensor] = {}
         self._warm = False
@@ -252,13 +272,10 @@ class DeviceDecodeLoop:
             state.active.copy_(cap.staging[2 * B:].bool())
         out.t.copy_(state.t.view(1))
         host = self._host_buffer(("out", out.flat.numel()), out.flat.numel())
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with _syncs_raise(self.sync_check):
             for _ in range(self.chunk):
                 cap.branches.graph.replay()
             host.copy_(out.flat, non_blocking=True)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         # the ONE device -> host sync of the chunk
         torch.cuda.current_stream(dev).synchronize()
         self.host_syncs += 1

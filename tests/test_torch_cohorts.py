@@ -298,9 +298,13 @@ def test_select_cohort_scatter_lands_rows_like_copy(weights, mixed_threshold,
     from repro_torch.kernels import ops
     scatter = ops.cohort_scatter_tree
 
-    def spy(dst, src, c, C):
+    def spy(dst, src, c, C, slot=None):
+        # select mode lands each cohort's ring-slot rows in the slab
+        assert slot is not None and slot.dim() == 0
+        assert all(d.shape[2] > 1 and s.shape[2] == 1
+                   for d, s in zip(dst, src))
         calls.append((c, C, len(src)))
-        return scatter(dst, src, c, C)
+        return scatter(dst, src, c, C, slot=slot)
 
     monkeypatch.setattr(ops, "cohort_scatter_tree", spy)
     runs = {}

@@ -493,6 +493,14 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
         wd[:, 2:4] = sd
     cohort_cache.cohort_scatter_tree(dst, src, 1, 2)
     assert all(torch.equal(a, b) for a, b in zip(dst, want))
+    # the slot route (select mode): cohort 1's rows of ring slot 37, the
+    # slot read from device memory
+    slot = torch.tensor(37, device=cuda_device)
+    rows = [rand(12, 2, 1, 2, 128), rand(12, 2, 1, 2, 128)]
+    for wd, sd in zip(want, rows):
+        ref.ref_cohort_scatter_slot(wd, sd, 1, 2, slot)
+    cohort_cache.cohort_scatter_tree(dst, rows, 1, 2, slot=slot)
+    assert all(torch.equal(a, b) for a, b in zip(dst, want))
     # the paged gather of a layer slice of a stacked store, k and v in one
     # launch; trash and duplicate ids in the table
     ks, vs = rand(3, 769, 16, 2, 128), rand(3, 769, 16, 2, 128)

@@ -268,6 +268,32 @@ def test_cohort_scatter_tree_chain_equals_concat():
         np.testing.assert_array_equal(cur[key].numpy(), np.asarray(jcur[i]))
 
 
+@pytest.mark.parametrize("shape,C,slot", [((3, 8, 16, 2, 8), 4, 5),
+                                          ((2, 6, 4, 3), 3, 3),
+                                          ((4, 2, 7, 1), 2, 0)])
+def test_cohort_scatter_slot_route_matches_at_set(shape, C, slot):
+    """The slot route lands cohort c's rows of one ring slot: the JAX
+    cohort scatter of the slot's (L, B, ...) plane, every other slot
+    untouched."""
+    rng = np.random.default_rng(16)
+    L, B = shape[0], shape[1]
+    Bc = B // C
+    dst = rng.standard_normal(shape).astype(np.float32)
+    tdst = torch.from_numpy(dst.copy())
+    jplane = jnp.asarray(dst[:, :, slot])
+    for c in range(C):
+        src = rng.standard_normal((L, Bc, 1) + shape[3:]).astype(np.float32)
+        jplane = jax_cohort_scatter(jplane, jnp.asarray(src[:, :, 0]), c, C,
+                                    interpret=True)
+        out = ops.cohort_scatter_tree([tdst], [torch.from_numpy(src)], c, C,
+                                      slot=torch.tensor(slot))
+        assert out[0] is tdst                   # in place
+    got = tdst.numpy()
+    np.testing.assert_array_equal(got[:, :, slot], np.asarray(jplane))
+    others = [w for w in range(shape[2]) if w != slot]
+    np.testing.assert_array_equal(got[:, :, others], dst[:, :, others])
+
+
 def test_cohort_scatter_rejects_mismatched_leaves():
     with pytest.raises(ValueError):
         ops.cohort_scatter_tree([torch.zeros(2, 4)], [], 0, 2)

@@ -372,7 +372,7 @@ def test_decode_attention_plain_versions_take_a_device_position():
 def test_compile_time_reported_separately(weights, runtime):
     """Each runtime's first decode dispatch (the device runtime's capture,
     on a card) lands in ``compile_seconds`` and outside every window
-    metric; reset_metrics keeps it."""
+    metric, the per-dispatch spread included; reset_metrics keeps it."""
     _, params = weights
     cfg = _tiny(thresholds=(0.6, 0.0), exit_mode="cond_batch")
     eng = _run(cfg, params, runtime, budgets=(6, 6), n_lanes=1)
@@ -385,9 +385,16 @@ def test_compile_time_reported_separately(weights, runtime):
     first = 1 if runtime == "host" else 4
     assert st["decode_tokens"] == 2 * (5 - first)
     assert st["decode_dispatches"] == (4 if runtime == "host" else 1)
+    # the window's dispatches, each timed: (min, median, max)
+    spread = st["dispatch_spread"]
+    assert spread["n"] == st["decode_dispatches"]
+    for key in ("ms", "us_per_token"):
+        lo, mid, hi = spread[key]
+        assert 0 < lo <= mid <= hi
     eng.reset_metrics()
     assert eng.stats()["compile_seconds"] == st["compile_seconds"]
     assert eng.stats()["decode_tokens"] == 0
+    assert eng.stats()["dispatch_spread"] is None
 
 
 # ---------------------------------------------------------------------------
@@ -433,10 +440,10 @@ def test_graph_replays_match_eager_bits_on_card(weights, cuda_device, mode):
 
 @pytest.mark.cuda
 def test_no_sync_during_replays_on_card(weights, cuda_device):
-    """Every replay of a chunk runs under sync debug mode "error"
-    (``run_chunk`` sets it around the replays and the result copy): a
-    chunk that synced would raise.  Two chunks of one lane reuse its
-    capture."""
+    """With ``sync_check`` every replay of a chunk runs under sync debug
+    mode "error" (``run_chunk`` sets it around the replays and the result
+    copy, then restores the caller's mode): a chunk that synced would
+    raise.  Two chunks of one lane reuse its capture."""
     _, params = weights
     params = nn.tree_map(lambda x: x.to(cuda_device), params)
     cfg = _tiny(thresholds=MID, exit_mode="cond_batch", n_cohorts=2)
@@ -447,8 +454,15 @@ def test_no_sync_during_replays_on_card(weights, cuda_device):
     pred, _, _, cache, state = prefill(params, toks,
                                        model.init_cache(2, 32))
     loop = DeviceDecodeLoop(model, cfg, chunk=4, cache_len=32)
-    ch, cache, state = loop.run_chunk(params, pred.cpu().numpy()[:, None],
-                                      cache, state, np.array([6, 6]))
+    loop.sync_check = True
+    token = pred.cpu().numpy()[:, None]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        ch, cache, state = loop.run_chunk(params, token, cache, state,
+                                          np.array([6, 6]))
+        assert torch.cuda.get_sync_debug_mode() == 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     ch2, cache, state = loop.run_chunk(params, ch.tokens[-1][:, None], cache,
                                        state, ch.remaining)
     assert ch.compiled and not ch2.compiled
