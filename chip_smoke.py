@@ -33,8 +33,12 @@ source, all at once).  Phases, each of which fails the run on a miss:
    launch a call (``torch.profiler``) and a CUDA graph's replays bit for
    bit like the eager call; decode attention reading its position from
    device memory, both routes replayed in a CUDA graph at positions the
-   capture never saw; the cohort scatter at the ring-slot rows select
-   mode lands and at a whole segment slab;
+   capture never saw; exit_update and the megakernel reading δ̂ from
+   device memory, the same bits for δ̂ as a vector element and as a float
+   at 0, 0.3, 1.1 and a threshold equal to a row's confidence, and
+   replayed in a CUDA graph with δ̂ rewritten between replays; the
+   cohort scatter at the ring-slot rows select mode lands and at a whole
+   segment slab;
 3. slice 1 at full width: qwen2.5-3b (36 layers, bf16, 3 components,
    kernels on, cond_batch, one cohort) through ``CascadeServingEngine`` —
    8 requests at thresholds (0.9, 0.9, 0.0) and again at (0, 0, 0);
@@ -70,9 +74,19 @@ source, all at once).  Phases, each of which fails the run on a miss:
    with the cohort scatter vs cond_batch, each on the dense and the paged
    layout — identical token and exit streams; and the device runtime
    against the host runtime in select and cond_batch, dense and paged;
-9. the serve CLI (``python -m repro_torch.launch.serve ... --cache-layout
+9. slice 9 at full width: autotune (exit telemetry with a shadow step
+   every 4 positions, live thresholds the exit kernels read from device
+   memory) — the device runtime with autotune off and on in turns (off,
+   on, on, off) at (0.9, 0.9, 0.0) and (0, 0, 0), one cohort and two with
+   the megakernel, identical streams; the host runtime with autotune on,
+   every telemetry counter, segments_run and launch count equal to the
+   device runtime's; a threshold push that captures nothing and serves
+   what a fresh engine at the pushed vector serves; and the calibrate CLI
+   (``python -m repro_torch.launch.calibrate ... --runtime device``) in a
+   subprocess, which must exit 0 with an artifact that round-trips;
+10. the serve CLI (``python -m repro_torch.launch.serve ... --cache-layout
    paged``) in a subprocess, which must exit 0;
-10. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+11. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -88,6 +102,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -581,6 +596,63 @@ def _exit_logits(B, V, dt, dev, gen):
     return x.to(dt)
 
 
+THRESHOLD_TIE = "tie"
+
+
+def threshold_forms(tag, kernel, plain, check, carry, n_m):
+    """Rows 3 and 4 read δ̂ from device memory (the ``dynamic`` route of
+    the reference): ``kernel(*carry, threshold=, m=, n_components=)``
+    given δ̂ as element m of an (n_m,) f32 vector on the card must give,
+    bit for bit, what it gives for δ̂ as a float (filled into a 0-d
+    tensor by the wrapper), at δ̂ = 0, 0.3, 1.1 and a tie (δ̂ equal to a
+    row's confidence as the kernel computes it: ``conf >= δ̂`` opens that
+    row's gate), and agree with the plain version given the same tensor
+    (``check``).  Then one call on a 0-d δ̂ tensor captured in a CUDA graph
+    and replayed with the tensor rewritten between replays: each replay
+    bit for bit the eager call at that δ̂.  Returns the tie value and the
+    replayed δ̂s."""
+    import torch
+    m = 0
+    fresh = (torch.zeros_like(carry[0]),) + tuple(carry[1:])
+    raw = kernel(*fresh, threshold=0.0, m=m, n_components=n_m)[3]
+    tie = float(raw[1])
+    vec = torch.zeros(n_m, device=carry[0].device)
+    values = [0.0, 0.3, tie, 1.1]
+    for value in values:
+        vec[m] = value
+        kw = dict(m=m, n_components=n_m)
+        got = kernel(*carry, threshold=vec, **kw)
+        flt = kernel(*carry, threshold=value, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, flt)):
+            fail(f"{tag} δ̂={value}: the vector and float forms differ")
+        if value != tie:
+            check(f"{tag} δ̂={value} device", got, plain(*carry,
+                                                         threshold=vec, **kw))
+    vec[m] = tie
+    opened = kernel(*fresh, threshold=vec, m=m, n_components=n_m)
+    if not bool(opened[0][1]) or int(opened[2][1]) != m:
+        fail(f"{tag}: δ̂ equal to row 1's confidence must open its gate")
+    thr = torch.zeros((), device=carry[0].device)
+    kernel(*carry, threshold=thr, m=m, n_components=n_m)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = kernel(*carry, threshold=thr, m=m, n_components=n_m)
+    replayed = [1.1, 0.0, tie, 0.3]
+    for value in replayed:
+        thr.fill_(value)
+        g.replay()
+        want = kernel(*carry, threshold=value, m=m, n_components=n_m)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            fail(f"{tag}: a replay at δ̂={value} differs from the eager "
+                 f"call")
+    del g
+    return {"values": values, "tie": tie, "replayed": replayed,
+            "vector_bit_equal_float": True, "replays_bit_equal": True}
+
+
 def phase_exit_update(dev, gen):
     """The vocab split over the SMs at B = 1, 4, 8, 16 in bf16 and f32:
     ints equal the plain version's (every carry case at B = 4: m, patience,
@@ -632,7 +704,23 @@ def phase_exit_update(dev, gen):
                 fail("exit_update: answered rows must keep their prediction")
             nbytes = x.numel() * x.element_size() + B * 4 * 13
             b, by = bound_ms(nbytes, 4 * x.numel(), name)
-            cases.append({
+            extra = {}
+            if B == 4:
+
+                def check(tag, got, want):
+                    for idx in (0, 1, 2, 4):
+                        check_equal(tag, got[idx], want[idx])
+                    for idx in (3, 5):
+                        check_close(tag, got[idx], want[idx], 0.0, 1e-5)
+
+                extra["device_threshold"] = threshold_forms(
+                    f"exit_update B={B} {name}",
+                    functools.partial(exit_update, x),
+                    functools.partial(ref.ref_exit_update, x), check, carry,
+                    n_m)
+            # timed as the serving path calls it: δ̂ a device vector
+            kw["threshold"] = torch.full((n_m,), 0.3, device=dev)
+            cases.append({**extra,
                 "shape": [B, V], "dtype": name, "max_abs_err": max(errs),
                 "ms": time_ms(lambda: exit_update(x, *carry, **kw)),
                 "plain_ms": time_ms(lambda: ref.ref_exit_update(x, *carry,
@@ -909,17 +997,31 @@ def phase_megakernel(dev, gen):
             for o, c in zip(dead, carry):
                 check_equal(f"megakernel B={B} {name} all dead", o,
                             c.to(o.dtype))
-            kw = dict(threshold=0.5, m=0, n_components=n_m, live=live)
+            # timed as the serving path calls it: δ̂ a device vector
+            ths = torch.full((n_m,), 0.5, device=dev)
+            kw = dict(threshold=ths, m=0, n_components=n_m, live=live)
+            extra = {}
+            if B == 4:
+
+                def check(tag, got, want, ties=ties):
+                    _mega_check(tag, got, want, carry, live, ties, name)
+
+                extra["device_threshold"] = threshold_forms(
+                    f"megakernel B={B} {name}",
+                    functools.partial(exit_head_update, h, w, hc, live=live),
+                    functools.partial(ref.ref_exit_head_update, h, w, hc,
+                                      live=live), check, carry, n_m)
             es = h.element_size()
             nbytes = hc.numel() * es + h.numel() * es + d * 4 + B * 4 * 14
             b, by = bound_ms(nbytes, 2 * B * d * V, name)
 
             def library():
                 x = F.rms_norm(h, (d,), w.to(dt), 1e-5)
-                return exit_update(x @ hc, *carry, threshold=0.5, m=0,
+                return exit_update(x @ hc, *carry, threshold=ths, m=0,
                                    n_components=n_m)
 
             cases.append({
+                **extra,
                 "shape": [B, d, V], "dtype": name, "route": route,
                 "live": live.tolist(), "tie_rows": int(ties.sum()),
                 "max_abs_err": max(errs),
@@ -1132,16 +1234,24 @@ def check_launched(tag, launches, expected):
              f"({launches})")
 
 
-def serve(cfg, model, params, reqs, **engine_kw):
-    """One engine run; returns (finished, stats, seconds, launches)."""
-    import torch
-    from repro_torch import kernels
+def make_engine(cfg, model, params, **engine_kw):
     from repro_torch.serving.engine import CascadeServingEngine
     engine = CascadeServingEngine(cfg, model, params, device=DEV,
                                   **engine_kw)
     if engine.loop is not None:
         # the device runtime's replays: any device sync there raises
         engine.loop.sync_check = True
+    return engine
+
+
+def serve(cfg, model, params, reqs, engine=None, **engine_kw):
+    """One engine run (on ``engine``, or a fresh one); returns (finished,
+    stats, seconds, launches).  With autotune on, ``stats["telemetry"]``
+    holds every lane's counters merged (fetched after the run)."""
+    import torch
+    from repro_torch import kernels
+    if engine is None:
+        engine = make_engine(cfg, model, params, **engine_kw)
     for r in reqs:
         engine.submit(r)
     torch.cuda.synchronize()
@@ -1180,6 +1290,10 @@ def serve(cfg, model, params, reqs, **engine_kw):
             fail(f"{cfg.name} {cfg.dtype}: {name} routes {routes}, expected "
                  f"all {launches[name]} launches on {want}")
         stats[f"{name}_routes"] = routes
+    if cfg.autotune.enabled:
+        from repro_torch.autotune import merge_telemetry
+        stats["telemetry"] = {k: v.tolist() for k, v in merge_telemetry(
+            engine.lane_telemetry()).items()}
     return finished, stats, seconds, launches
 
 
@@ -1585,6 +1699,193 @@ def phase_device_runtime(params, mixed):
     return headline
 
 
+AUTOTUNE = dict(enabled=True, bins=32, shadow_every=4)
+
+
+def phase_autotune(params):
+    """Slice 9's path at full width (dense, lane_batch 4, 2 lanes,
+    cache_len 512, chunk 8, autotune with 32 bins and a shadow step every
+    4 positions, 8 requests x 32 tokens):
+
+    (a) the device runtime with autotune off and on, in turns (off, on,
+        on, off), at (0.9, 0.9, 0.0) and (0, 0, 0), one cohort and two
+        with the megakernel: identical streams and exits, decode µs/token
+        of both, shadow_steps;
+    (b) the host runtime with autotune on, on the same requests: every
+        telemetry counter, the carried segments_run and the launches by
+        route and by threshold form equal the device runtime's;
+    (c) an engine at (0.9, 0.9, 0.0) serves, is pushed (1.1, 0.5, 0.0) —
+        current_thresholds() must return those floats — then (0, 0, 0),
+        and serves 8 requests of one prompt length again: its captures are
+        unchanged and its streams are a fresh (0, 0, 0) engine's;
+    (d) the calibrate CLI in a subprocess on the device runtime: exit 0,
+        and its artifact round-trips.
+
+    Returns the launches of the device runtime's autotune-on runs at
+    (0, 0, 0): {variant: launches}."""
+    import statistics as stats_mod
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch")
+    reqs = make_requests(8, (128, 256), base.vocab_size, 32, seed=0)
+    kw = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+    variants = [
+        ("dense, 1 cohort", base),
+        ("dense, 2 cohorts, megakernel",
+         base.with_cascade(n_cohorts=2, cohort_layout="major")
+         .with_kernel_tune(megakernel=True, cohort_scatter=True))]
+    launches_on = {}
+    for name, cfg0 in variants:
+        model = build_model(cfg0, device=DEV)
+        for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
+            off = cfg0.with_cascade(thresholds=ths)
+            on = off.with_autotune(**AUTOTUNE)
+            runs = {"off": [], "on": []}
+            ref = on_run = None
+            for which in ("off", "on", "on", "off"):
+                fin, st, secs, launches = serve(
+                    on if which == "on" else off, model, params, reqs,
+                    runtime="device", **kw)
+                tag = f"autotune {name} {ths} {which}"
+                if sorted(fin) != list(range(8)) or any(
+                        len(r["tokens"]) != 32 for r in fin.values()):
+                    fail(f"{tag}: not every request got its 32 tokens")
+                if ref is None:
+                    ref = _streams(fin)
+                if _streams(fin) != ref:
+                    fail(f"{tag}: streams differ from autotune off's")
+                if st["host_syncs"] != st["decode_dispatches"]:
+                    fail(f"{tag}: {st['host_syncs']} host syncs for "
+                         f"{st['decode_dispatches']} lane chunks")
+                if st["captures"] != kw["n_lanes"]:
+                    fail(f"{tag}: {st['captures']} captures for "
+                         f"{kw['n_lanes']} lanes")
+                if which == "on":
+                    on_run = (st, launches)
+                runs[which].append({
+                    "decode_us_per_token": st["wallclock_us_per_token"],
+                    "seconds": secs,
+                    "host_syncs_per_token": st["host_syncs_per_token"],
+                    "compile_seconds": st["compile_seconds"],
+                    "segments_run": st["segments_run"],
+                    "carried_segments_run": st["carried_segments_run"],
+                    "shadow_steps": (st["autotune"]["shadow_steps"]
+                                     if which == "on" else None)})
+            # (b) the host runtime, autotune on
+            fin, st, secs, launches = serve(on, model, params, reqs,
+                                            runtime="host", **kw)
+            dev_st, dev_launches = on_run
+            tag = f"autotune {name} {ths} host runtime"
+            if _streams(fin) != ref:
+                fail(f"{tag}: streams differ from the device runtime's")
+            for key in ("telemetry", "carried_segments_run"):
+                if st[key] != dev_st[key]:
+                    fail(f"{tag}: {key} differ from the device runtime's: "
+                         f"{st[key]} against {dev_st[key]}")
+            if launches != dev_launches or any(
+                    st[k] != dev_st[k] for k in st if k.endswith("_routes")):
+                fail(f"{tag}: launches differ from the device runtime's: "
+                     f"{launches} against {dev_launches}")
+            if ths == (0.0, 0.0, 0.0):
+                launches_on[name] = dev_launches
+            med = {w: stats_mod.median(r["decode_us_per_token"]
+                                       for r in rr)
+                   for w, rr in runs.items()}
+            emit({"phase": "autotune", "config": "qwen2.5-3b",
+                  "dtype": base.dtype, "variant": name,
+                  "thresholds": list(ths), "chunk": kw["chunk"],
+                  "requests": 8, "max_new_tokens": 32, "autotune": AUTOTUNE,
+                  "order": "off, on, on, off", "identical": True,
+                  "runs": runs, "decode_us_per_token_median": med,
+                  "on_over_off": med["on"] / med["off"],
+                  "telemetry_equal_host_runtime": True,
+                  "shadow_steps": dev_st["autotune"]["shadow_steps"],
+                  "exit_counts": dev_st["autotune"]["exit_counts"],
+                  "host_runtime_us_per_token": st["wallclock_us_per_token"],
+                  "launches_on": dev_launches})
+        del model
+        torch.cuda.empty_cache()
+    phase_autotune_push(params, base, kw)
+    phase_autotune_cli()
+    return launches_on
+
+
+def phase_autotune_push(params, base, kw):
+    """(c) of :func:`phase_autotune`: a push costs no capture."""
+    import torch
+    from repro_torch.models.model import build_model
+    cfg = base.with_autotune(**AUTOTUNE)
+    model = build_model(cfg, device=DEV)
+    reqs = make_requests(8, (128,), base.vocab_size, 32, seed=1)
+    engine = make_engine(cfg.with_cascade(thresholds=(0.9, 0.9, 0.0)), model,
+                         params, runtime="device", **kw)
+    serve(cfg, model, params, reqs, engine=engine)
+    captures = engine.stats()["captures"]
+    engine.finished.clear()
+    for push in ((1.1, 0.5, 0.0), (0.0, 0.0, 0.0)):
+        engine.push_thresholds(push)
+        if engine.current_thresholds() != push:
+            fail(f"autotune push: current_thresholds() "
+                 f"{engine.current_thresholds()} after pushing {push}")
+    t0 = time.perf_counter()
+    fin, st, _, _ = serve(cfg, model, params, reqs, engine=engine)
+    pushed = _streams(fin)
+    if st["captures"] != captures:
+        fail(f"autotune push: {st['captures'] - captures} new captures")
+    if st["host_syncs"] != st["decode_dispatches"]:
+        fail("autotune push: more than one host sync a lane chunk")
+    fresh, _, _, _ = serve(cfg.with_cascade(thresholds=(0.0, 0.0, 0.0)),
+                           model, params, reqs, runtime="device", **kw)
+    if _streams(fresh) != pushed:
+        fail("autotune push: the pushed engine's streams differ from a "
+             "fresh engine's at the pushed thresholds")
+    emit({"phase": "autotune_push", "captures_before": captures,
+          "captures_after": st["captures"],
+          "pushed": [[1.1, 0.5, 0.0], [0.0, 0.0, 0.0]],
+          "current_thresholds": list(engine.current_thresholds()),
+          "streams_equal_fresh_engine": True,
+          "serve_seconds_after_push": time.perf_counter() - t0,
+          "compile_seconds": st["compile_seconds"]})
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def phase_autotune_cli():
+    """(d) of :func:`phase_autotune`: ``python -m
+    repro_torch.launch.calibrate`` on the card, in a subprocess."""
+    import os
+    import tempfile
+    from repro_torch.autotune import load_artifact
+    from repro_torch.configs import get_config
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.calibrate",
+               "--arch", "qwen2.5-3b", "--epsilon", "0.05", "--requests",
+               "8", "--max-new", "32", "--runtime", "device", "--out", out]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                                   if env.get("PYTHONPATH") else []))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"calibrate CLI exited {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        art = load_artifact(out, get_config("qwen2.5-3b").with_autotune(
+            enabled=True, bins=32))
+        if art is None or list(art.thresholds) != summary["thresholds"]:
+            fail("calibrate CLI: its artifact does not round-trip")
+    emit({"phase": "autotune_cli", "command": " ".join(cmd[1:-1]), "rc": 0,
+          "seconds": time.perf_counter() - t0,
+          "thresholds": summary["thresholds"],
+          "shadow_steps": summary["shadow_steps"],
+          "agreement": summary["agreement"],
+          "requests_finished": summary["requests_finished"]})
+
+
 def phase_algorithm1(model, params):
     """Algorithm 1 on the full-width model: component m runs segment m on
     the prompt's hidden state and returns the exit logits at the last
@@ -1912,6 +2213,7 @@ def main() -> int:
     algorithm1 = phase_algorithm1(model, params)
     paged_routes = phase_full_width_paged(params)
     device_runtime = phase_device_runtime(params, records[2]["thresholds"][0])
+    autotune = phase_autotune(params)
     del model, params
     torch.cuda.empty_cache()
     select, gathers = phase_route_parity()
@@ -1975,15 +2277,27 @@ def main() -> int:
                      "launches_device_runtime": device_runtime[name],
                      "path_device_runtime": "device runtime, dense 1 "
                      "cohort, (0.9, 0.9, 0.0), 8 requests x 32 tokens",
+                     # launches on the autotune path: the device runtime
+                     # with autotune on at (0, 0, 0) (shadow steps observe
+                     # the skipped segments), one cohort and two with the
+                     # megakernel
+                     "launches_autotune": {v: n[name]
+                                           for v, n in autotune.items()},
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"],
                      **extra.get(name, {}),
+                     # rows 3 and 4 read δ̂ from device memory ("ms"):
+                     # bit-equality with δ̂ given as a float, eager and
+                     # under replays that rewrite δ̂
+                     **({"device_threshold": c["device_threshold"]}
+                        if "device_threshold" in c else {}),
                      "headline_case": {k: c[k] for k in c
                                        if k not in ("ms", "plain_ms",
                                                     "bound_ms", "bound_by",
-                                                    "library_ms")}})
+                                                    "library_ms",
+                                                    "device_threshold")}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

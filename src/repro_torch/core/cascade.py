@@ -12,9 +12,8 @@ The counterpart of the JAX package's ``core/cascade.py``:
   arrays over a dataset and the per-component MAC prefix costs, the exit
   distribution, accuracy, average MACs and speedup for one threshold
   vector (the paper's analytic accounting, §6.2).
-
-``sweep_epsilons`` (the Figure-3 sweep) needs the §5 calibrators and comes
-with the calibration slice of the port.
+* :func:`sweep_epsilons` — the Figure-3 sweep: calibrate δ̂(ε) on one
+  split with a §5 calibrator, evaluate on another, for each ε.
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.policy import ExitDecider
+from repro_torch.core.policy import Calibrator, ExitDecider, get_calibrator
 
 
 @dataclasses.dataclass
@@ -84,3 +83,22 @@ def cascade_evaluate(confidences: Sequence[np.ndarray],
         speedup=float(mac_prefix[-1] / avg),
         exit_fractions=fractions,
         thresholds=tuple(float(t) for t in thresholds))
+
+
+def sweep_epsilons(confidences_cal, corrects_cal, confidences_test,
+                   predictions_test, labels_test, mac_prefix,
+                   epsilons: Sequence[float],
+                   calibrator: "str | Calibrator" = "self"):
+    """Calibrate δ̂(ε) on the calibration split, evaluate accuracy / MACs
+    on the test split: one ``(ε, CalibrationResult, CascadeEvalResult)``
+    per ε.  ``calibrator`` is a registry spec ("self" = paper §5, "final",
+    "holdout") or a Calibrator instance."""
+    if isinstance(calibrator, str):
+        calibrator = get_calibrator(calibrator)
+    results = []
+    for eps in epsilons:
+        cal = calibrator.calibrate(confidences_cal, corrects_cal, eps)
+        res = cascade_evaluate(confidences_test, predictions_test,
+                               labels_test, mac_prefix, cal.thresholds)
+        results.append((eps, cal, res))
+    return results

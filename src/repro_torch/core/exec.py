@@ -58,6 +58,27 @@ no cohort rows to write there).
 The per-slot ``DecodeState.active`` mask also rides in the decode context
 (``ctx["live"]``), where the decode-attention kernel skips dead slots and
 the megakernel passes dead rows' carries through.
+
+The threshold vector δ̂ is always an ``(n_components,)`` f32 device tensor
+the exit kernels read from device memory: the lane's live vector
+(``DecodeState.thresholds``, autotune) or, without one, the executor's own
+copy of the config's resolved vector, rewritten in place if it changes.
+A captured step therefore reads δ̂ at replay time.
+
+With ``cfg.autotune.enabled`` the decision carry holds the telemetry rider
+(``tcode``) and the step folds it into ``DecodeState.tel``
+(:mod:`repro_torch.autotune.telemetry`).  Every
+``autotune.shadow_every``-th step (``t % shadow_every == 0``) is a shadow
+step: a cell the skip predicate drops is OBSERVED — the segment computes
+from the shadow hidden chain ``hs`` and lands only its rider row, while
+the caches (its slot rows put back, then the skip path's backfill), h, the
+decision carry and the streaks keep skip semantics — so token streams are
+those of autotune off.  Under ``cond_batch`` the skip branch becomes
+``IF(shadow) observe else skip`` (two IF nodes under a capture), the major
+layout takes the mixed branch on a shadow step whenever a cohort skips,
+and ``select`` mode runs from the shadow chain and takes the rider row
+from the run.  On the host runtime the shadow flag is a host bool from the
+caller's position mirror; under a capture it is read on the device.
 """
 from __future__ import annotations
 
@@ -107,6 +128,12 @@ class DecodeState:
     block_tables  (n_components, B, W/block_size) int32 paged-cache block
                                tables (``cache_layout="paged"``), or None
                                (dense slab).
+    tel           :class:`repro_torch.autotune.telemetry.ExitTelemetry`
+                               counters (updated in place), or None
+                               (autotune off).
+    thresholds    (n_components,) f32 device tensor: the live threshold
+                               vector (autotune; a push writes into it), or
+                               None (the config's vector).
     """
 
     t: torch.Tensor
@@ -115,6 +142,8 @@ class DecodeState:
     ema_conf: torch.Tensor
     segments_run: np.ndarray
     block_tables: Optional[torch.Tensor] = None
+    tel: Optional[object] = None
+    thresholds: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "DecodeState":
         return dataclasses.replace(self, **kw)
@@ -122,8 +151,10 @@ class DecodeState:
 
 def init_decode_state(decider: ExitDecider, batch: int, n_components: int,
                       t: int = 0, active=None, device=None,
-                      block_tables=None) -> DecodeState:
-    """Fresh decode carry for a lane of ``batch`` sequences."""
+                      block_tables=None, telemetry=None,
+                      thresholds=None) -> DecodeState:
+    """Fresh decode carry for a lane of ``batch`` sequences; ``telemetry``
+    and a ``thresholds`` vector (autotune) ride it as given."""
     active = (torch.ones(batch, dtype=torch.bool, device=device)
               if active is None
               else torch.as_tensor(active, dtype=torch.bool, device=device))
@@ -133,7 +164,10 @@ def init_decode_state(decider: ExitDecider, batch: int, n_components: int,
         policy=decider.measure.init_state(n_components, batch, device),
         ema_conf=torch.zeros(batch, dtype=torch.float32, device=device),
         segments_run=np.zeros(n_components, np.int32),
-        block_tables=block_tables)
+        block_tables=block_tables,
+        tel=telemetry,
+        thresholds=(None if thresholds is None else torch.as_tensor(
+            np.asarray(thresholds, np.float32)).to(active.device)))
 
 
 def _slice_ctx(ctx, lo: int, hi: int):
@@ -156,12 +190,7 @@ def _slice_ctx(ctx, lo: int, hi: int):
 def _check_supported(cfg) -> None:
     if cfg.kernel_tune.enabled:
         raise NotImplementedError(
-            "kernel tile autotuning comes with the autotune slice of the "
-            "port")
-    if cfg.autotune.enabled:
-        raise NotImplementedError(
-            "the autotune telemetry rider and live thresholds come with the "
-            "autotune slice of the port")
+            "kernel tile autotuning comes with a later slice of the port")
 
 
 class StagedExecutor:
@@ -189,14 +218,70 @@ class StagedExecutor:
         # the branch runner (repro_torch.kernels.cond_node): None reads each
         # predicate to the host; a capture makes each branch an IF node
         self.branches = None
+        # the config's resolved threshold vector: (tuple, (n_m,) f32 tensor
+        # on the model's device, written in place when the tuple changes)
+        self._static_ths = None
 
     # ------------------------------------------------------------------
+    # sentinel: init_state should build fresh telemetry itself
+    _AUTO_TELEMETRY = object()
+
     def init_state(self, batch: int, t: int = 0, active=None,
-                   block_tables=None) -> DecodeState:
-        """Fresh carry; ``block_tables`` (paged layout) ride it as data."""
+                   block_tables=None, mac_weights=None,
+                   telemetry=_AUTO_TELEMETRY) -> DecodeState:
+        """Fresh carry; ``block_tables`` (paged layout) ride it as data.
+        With ``cfg.autotune.enabled`` it also gets zeroed telemetry
+        (``mac_weights`` prices the exits) — or ``telemetry``, existing
+        counters a lane's re-prefill carries over — and a live threshold
+        vector seeded from the config."""
+        tel = thresholds = None
+        if self.cfg.autotune.enabled:
+            if telemetry is self._AUTO_TELEMETRY:
+                from repro_torch.autotune.telemetry import telemetry_for
+                tel = telemetry_for(self.cfg, mac_weights,
+                                    device=self.model.device)
+            else:
+                tel = telemetry
+            thresholds = self.cfg.cascade.thresholds
         return init_decode_state(self.decider, batch, self.n_components, t=t,
                                  active=active, device=self.model.device,
-                                 block_tables=block_tables)
+                                 block_tables=block_tables, telemetry=tel,
+                                 thresholds=thresholds)
+
+    def thresholds(self, state: DecodeState) -> torch.Tensor:
+        """The δ̂ vector a step gates on, as an (n_components,) f32 device
+        tensor: the live vector when the state has one, else the
+        executor's copy of the resolved config vector (rewritten in place
+        when the resolution changes, e.g. a refitted budget policy: a
+        captured step reads its address)."""
+        n_m = self.n_components
+        if state.thresholds is not None:
+            return self.decider.resolved_thresholds(n_m, state.thresholds)
+        ths = self.decider.resolved_thresholds(n_m)
+        if self._static_ths is None:
+            self._static_ths = (ths, torch.tensor(
+                ths, dtype=torch.float32, device=self.model.device))
+        elif self._static_ths[0] != ths:
+            vec = self._static_ths[1]
+            vec.copy_(torch.tensor(ths, dtype=torch.float32))
+            self._static_ths = (ths, vec)
+        return self._static_ths[1]
+
+    def _shadow(self, state: DecodeState, position: Optional[int]):
+        """This step's shadow flag: False without telemetry; a 0-d device
+        bool under a branch runner (read from ``state.t`` when the graph
+        runs); else a host bool from ``position`` (the caller's mirror of
+        ``state.t``) or, without one, from a read of ``state.t``."""
+        if state.tel is None:
+            return False
+        every = int(self.cfg.autotune.shadow_every)
+        if self.branches is not None:
+            return (state.t % every) == 0
+        if position is None:
+            if state.t.device.type != "cpu":
+                self.host_syncs += 1
+            position = int(state.t)
+        return position % every == 0
 
     def _carry_forward(self, state: DecodeState,
                        decision: ExitDecision) -> DecodeState:
@@ -217,8 +302,13 @@ class StagedExecutor:
             state = self.init_state(tokens.shape[0])
         logits, cache = self.model.prefill(params, tokens, cache,
                                            block_tables=state.block_tables)
-        decision, _ = self.decider.decide_with_carry(
-            logits, state=state.policy, active=state.active)
+        decision, carry = self.decider.decide_with_carry(
+            logits, thresholds=self.thresholds(state), state=state.policy,
+            active=state.active)
+        if state.tel is not None:
+            # prefill computed every component: a free shadow observation
+            from repro_torch.autotune.telemetry import accumulate_prefill
+            accumulate_prefill(state.tel, carry["tcode"], state.active)
         state = self._carry_forward(state, decision).replace(
             t=self.model.position(tokens.shape[1]))
         return decision, cache, state
@@ -297,8 +387,22 @@ class StagedExecutor:
         if self.cfg.cascade.state_backfill:
             self.model.backfill_segment(si, params, h, ctx, seg_cache)
 
+    def _observe_cell(self, si, ctx, params, ths, h, hs, seg_cache, sc):
+        """A shadow step's skipped cell: compute segment ``si`` from the
+        shadow chain ``hs`` for observation only — its slot rows put back,
+        only the rider row landed, ``hs`` advanced — then take the skip
+        path, so the caches, h and the carry keep skip semantics."""
+        rows = _SlotRows(seg_cache, ctx, si)
+        before = rows.read()
+        h2s, _, _ = self.model.run_segment(si, params, hs, ctx, seg_cache)
+        rows.write(before)
+        obs = self._scan_exit(si, params, h2s, ths, sc, live=ctx.get("live"))
+        sc["tcode"].copy_(obs["tcode"])
+        hs.copy_(h2s)
+        self._skip_cell(si, ctx, params, h, seg_cache)
+
     def _segment_step(self, si, ctx, params, ths, h, seg_cache, sc, active,
-                      skip=None, land=None):
+                      skip=None, land=None, shadow=False, hs=None):
         """One (segment, cohort) cell: branch-skip in ``cond_batch`` mode,
         compute-and-select in ``select`` mode.  ``h`` and the carry ``sc``
         (views of the step's tensors for a cohort) are updated in place.
@@ -309,27 +413,54 @@ class StagedExecutor:
         it (cohort-split steps read all C at once); otherwise ``cond_batch``
         reads it here.  ``land(selected)`` writes ``select`` mode's
         selected slot rows into the slab (the cohort scatter); without it
-        they land by index copies."""
+        they land by index copies.
+
+        ``shadow`` / ``hs`` are the telemetry shadow pass (False / None on
+        steps that are not shadow steps, and without telemetry): a skipped
+        cell is observed (:meth:`_observe_cell`), a computed one carries
+        the shadow chain along (``hs`` = h), and ``ran`` counts the
+        observation."""
         if self.mode == "cond_batch":
             if skip is None:
                 skip = self._read_skip(sc, active)
-            self._if(skip, lambda: self._skip_cell(si, ctx, params, h,
-                                                   seg_cache))
-            self._if(skip, lambda: self._land(h, sc, *self._run_cell(
-                si, ctx, params, ths, h, seg_cache, sc)), negate=True)
+            if shadow is False:
+                self._if(skip, lambda: self._skip_cell(si, ctx, params, h,
+                                                       seg_cache))
+                self._if(skip, lambda: self._land(h, sc, *self._run_cell(
+                    si, ctx, params, ths, h, seg_cache, sc)), negate=True)
+                if self.branches is None:
+                    return 0 if skip else 1
+                return (~skip).to(torch.int32)
+
+            def skipped():
+                self._if(shadow, lambda: self._observe_cell(
+                    si, ctx, params, ths, h, hs, seg_cache, sc))
+                self._if(shadow, lambda: self._skip_cell(
+                    si, ctx, params, h, seg_cache), negate=True)
+
+            def computed():
+                self._land(h, sc, *self._run_cell(si, ctx, params, ths, h,
+                                                  seg_cache, sc))
+                hs.copy_(h)
+
+            self._if(skip, skipped)
+            self._if(skip, computed, negate=True)
             if self.branches is None:
-                return 0 if skip else 1
-            return (~skip).to(torch.int32)
+                return 0 if (skip and not shadow) else 1
+            return (~skip | shadow).to(torch.int32)
         # select: both paths compute and the predicate selects.  Caches are
         # written in place and a decode step writes only ring slot t % W:
         # snapshot the slot's rows, run, read the run's rows, put the
         # snapshot back, take the skip path, read its rows, land the
-        # selection.
+        # selection.  On a shadow step the run starts from the shadow
+        # chain (equal to h while any sample is undecided) and its rider
+        # row lands even where the cell skips.
         pred = self.decider.should_skip(sc, active)
         rows = _SlotRows(seg_cache, ctx, si)
         before = rows.read()
-        h_full, sc_full = self._run_cell(si, ctx, params, ths, h, seg_cache,
-                                         sc)
+        h_full, sc_full = self._run_cell(si, ctx, params, ths,
+                                         h if hs is None else hs,
+                                         seg_cache, sc)
         full = rows.read()
         rows.write(before)
         self._skip_cell(si, ctx, params, h, seg_cache)
@@ -339,22 +470,30 @@ class StagedExecutor:
             rows.write(sel)
         else:
             land(rows, sel)
-        self._land(h, sc, torch.where(pred, h, h_full),
-                   {k: (None if v is None else torch.where(pred, sc[k], v))
-                    for k, v in sc_full.items()})
+        picked = {k: (None if v is None else torch.where(pred, sc[k], v))
+                  for k, v in sc_full.items()}
+        if shadow is not False and sc_full["tcode"] is not None:
+            picked["tcode"] = torch.where(~pred | shadow, sc_full["tcode"],
+                                          sc["tcode"])
+        self._land(h, sc, torch.where(pred, h, h_full), picked)
+        if hs is not None:
+            hs.copy_(h_full)
         return 1
 
     # ------------------------------------------------------------------
-    def decode_step(self, params, token, cache, state: DecodeState):
+    def decode_step(self, params, token, cache, state: DecodeState,
+                    position: Optional[int] = None):
         """One staged decode step.  token: (B, 1) int32.
 
         Returns (decision, cache, state).  Segment 0 always runs; each
         deeper segment runs only while some live sequence (of the cohort,
         with ``n_cohorts > 1``) has not exited (cond_batch), or
         computes-but-masks (select).  ``segments_run`` counts in cohort
-        units: C per segment per step when nothing skips.  Under a branch
-        runner (:attr:`branches`) the counts go to its device counters and
-        ``state.segments_run`` is returned as it came.
+        units: C per segment per step when nothing skips; a shadow step's
+        observations count too.  Under a branch runner (:attr:`branches`)
+        the counts go to its device counters and ``state.segments_run`` is
+        returned as it came.  ``position`` is the caller's host mirror of
+        ``state.t`` (the shadow schedule reads it on the host runtime).
 
         ``cascade.cohort_layout`` (outputs identical):
 
@@ -362,12 +501,14 @@ class StagedExecutor:
           mask split into per-cohort views ONCE; each deep segment then
           dispatches on the C predicates: all skip -> one whole-batch
           backfill; none skip -> one whole-batch segment; mixed -> the
-          per-cohort steps over cohort views of the cache slab.
+          per-cohort steps over cohort views of the cache slab.  A shadow
+          step takes the mixed branch whenever a cohort skips.
         * ``"copy"`` — every deep segment steps each cohort on its slice
           of h and the carry, whatever the exit state.
         """
         model, decider, n_m = self.model, self.decider, self.n_components
-        ths = decider.resolved_thresholds(n_m)
+        ths = self.thresholds(state)
+        shadow = self._shadow(state, position)
         t = state.t
         C = effective_cohorts(self.cfg.cascade.n_cohorts, token.shape[0])
         h, ctx = model.begin_decode(params, token, t, cache)
@@ -380,16 +521,24 @@ class StagedExecutor:
         h, _, _ = model.run_segment(0, params, h, ctx, segs[0])
         sc = self._scan_exit(0, params, h, ths, state=state.policy,
                              live=state.active)
+        # the shadow chain starts at the committed hidden state
+        hs = None if shadow is False else h.clone()
         if C == 1:
             ran = [1] + [self._segment_step(si, ctx, params, ths, h, segs[si],
-                                            sc, state.active)
+                                            sc, state.active, shadow=shadow,
+                                            hs=hs)
                          for si in range(1, n_m)]
         else:
             step = self._cohorts_copy if self.layout == "copy" \
                 else self._cohorts_major
-            ran = [C] + step(params, ths, h, ctx, segs, sc, state.active, C)
+            ran = [C] + step(params, ths, h, ctx, segs, sc, state.active, C,
+                             shadow, hs)
         decision = decider.finish_scan(sc)
         cache = model.commit_decode(cache, segs, t)
+        if state.tel is not None:
+            from repro_torch.autotune.telemetry import accumulate_decode
+            accumulate_decode(state.tel, sc["tcode"], decision.exit_index,
+                              state.active, shadow, run_if=self._if)
         segments_run = state.segments_run
         if self.branches is None:
             segments_run = segments_run + np.asarray(ran, np.int32)
@@ -410,7 +559,8 @@ class StagedExecutor:
             return seg
         return nn.tree_map(lambda x: x[:, lo:hi], seg)
 
-    def _cohorts_copy(self, params, ths, h, ctx, segs, sc, active, C):
+    def _cohorts_copy(self, params, ths, h, ctx, segs, sc, active, C,
+                      shadow=False, hs=None):
         """The copy layout: step every deep segment per cohort, on views of
         h and the carry.  Returns ran[1:]."""
         decider = self.decider
@@ -426,25 +576,34 @@ class StagedExecutor:
                 self._segment_step(
                     si, _slice_ctx(ctx, lo, hi), params, ths, h[lo:hi],
                     self._cohort_views(segs[si], lo, hi, ctx), sc_parts[c],
-                    active[lo:hi], skip=preds[c])
+                    active[lo:hi], skip=preds[c], shadow=shadow,
+                    hs=None if hs is None else hs[lo:hi])
                 for c, (lo, hi) in enumerate(spans)))
         return ran
 
-    def _dispatch(self, preds, C):
+    def _dispatch(self, preds, C, shadow=False):
         """The major layout's branch predicates {all_skip, mixed, all_run}
         from the C cohort skip predicates, counted; and the segment's
-        ``ran`` (cohorts that compute)."""
+        ``ran`` (cohorts that compute or, on a shadow step, observe).  A
+        shadow step never takes all_skip: its skipped cohorts are observed
+        in the mixed branch."""
         if self.mode == "select":
             # select: the fixed-graph per-cohort path every step
             cases = {"all_skip": False, "mixed": True, "all_run": False}
-            n_skip = 0
+            ran = C
         elif self.branches is None:
             n_skip = sum(preds)
-            cases = {"all_skip": n_skip == C, "all_run": n_skip == 0}
+            cases = {"all_skip": n_skip == C and not shadow,
+                     "all_run": n_skip == 0}
             cases["mixed"] = not (cases["all_skip"] or cases["all_run"])
+            ran = C if shadow else C - n_skip
         else:
             n_skip = torch.stack(preds).sum(dtype=torch.int32)
             cases = {"all_skip": n_skip == C, "all_run": n_skip == 0}
+            ran = C - n_skip
+            if shadow is not False:
+                cases["all_skip"] = cases["all_skip"] & ~shadow
+                ran = torch.where(shadow, C, ran)
             cases["mixed"] = ~(cases["all_skip"] | cases["all_run"])
         if self.branches is None:
             self.dispatch[next(k for k in DISPATCH if cases[k])] += 1
@@ -453,15 +612,17 @@ class StagedExecutor:
         else:
             self.branches.dispatch.add_(torch.stack(
                 [cases[k] for k in DISPATCH]).to(torch.int32))
-        return cases, C - n_skip
+        return cases, ran
 
-    def _cohorts_major(self, params, ths, h, ctx, segs, sc, active, C):
+    def _cohorts_major(self, params, ths, h, ctx, segs, sc, active, C,
+                       shadow=False, hs=None):
         """The major layout's three-way dispatch per deep segment, on views
         of h and the carry.  Returns ran[1:]."""
-        model, decider = self.model, self.decider
+        decider = self.decider
         Bc = h.shape[0] // C
         spans = [(c * Bc, (c + 1) * Bc) for c in range(C)]
         h_parts = [h[lo:hi] for lo, hi in spans]
+        hs_parts = [None if hs is None else hs[lo:hi] for lo, hi in spans]
         sc_parts = [decider.slice_carry(sc, lo, hi) for lo, hi in spans]
         ctx_parts = [_slice_ctx(ctx, lo, hi) for lo, hi in spans]
         act_parts = [active[lo:hi] for lo, hi in spans]
@@ -470,7 +631,7 @@ class StagedExecutor:
             seg = segs[si]
             preds = (self._read_skips(sc_parts, act_parts)
                      if self.mode == "cond_batch" else [None] * C)
-            cases, r_si = self._dispatch(preds, C)
+            cases, r_si = self._dispatch(preds, C, shadow)
 
             def all_skip(si=si, seg=seg):
                 self._skip_cell(si, ctx, params, h, seg)
@@ -478,6 +639,8 @@ class StagedExecutor:
             def all_run(si=si, seg=seg):
                 self._land(h, sc, *self._run_cell(si, ctx, params, ths, h,
                                                   seg, sc))
+                if hs is not None:
+                    hs.copy_(h)
 
             def mixed(si=si, seg=seg):
                 for c, (lo, hi) in enumerate(spans):
@@ -492,7 +655,8 @@ class StagedExecutor:
                     self._segment_step(
                         si, ctx_parts[c], params, ths, h_parts[c],
                         self._cohort_views(seg, lo, hi, ctx), sc_parts[c],
-                        act_parts[c], skip=preds[c], land=land)
+                        act_parts[c], skip=preds[c], land=land,
+                        shadow=shadow, hs=hs_parts[c])
 
             self._if(cases["all_skip"], all_skip)
             self._if(cases["all_run"], all_run)

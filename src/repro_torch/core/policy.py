@@ -1,24 +1,34 @@
 """Exit-policy layer: confidence measures and exit policies behind
 registries, plus the single exit-decision engine (:class:`ExitDecider`).
 
-The counterpart of the JAX package's ``core/policy.py`` for what the
-serving path and Algorithm 1 need: the ``softmax_max`` measure (Def. 3.3)
-and ``patience@k`` over it, the ``threshold`` policy (Algorithm 1), the
-decider's component scan (from logits, or from the hidden state through
-the exit-head megakernel), its cohort slicing, and the
+The counterpart of the JAX package's ``core/policy.py``: the
+``softmax_max`` measure (Def. 3.3) and ``patience@k`` over it, the
+``threshold`` policy (Algorithm 1) and the ``budget`` policy (thresholds
+fitted to an average-MAC budget by the autotune solver), the §5
+calibrators ``self``, ``final`` and ``holdout``, the decider's component
+scan (from logits, or from the hidden state through the exit-head
+megakernel) with the autotune telemetry rider, its cohort slicing, and the
 precomputed-confidence exit selection of the evaluation harness.  Config
-strings (``cascade.confidence`` / ``cascade.policy``) resolve through the
-registries exactly as there.  The entropy and margin measures, the budget
-policy and the calibrators come in a later slice of the port.
+strings (``cascade.confidence`` / ``cascade.policy`` /
+``cascade.calibrator``) resolve through the registries exactly as there.
+The entropy and margin measures come in a later slice of the port.
+
+A threshold vector is a tuple of floats or, on the autotune
+live-threshold path and in the staged executor, an ``(n_components,)``
+f32 device tensor that the exit kernels read from device memory (so a
+push never re-captures a CUDA graph).  Both gate ``conf >= δ̂`` in f32.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import warnings
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.calibration import (CalibrationResult,
+                                          threshold_for_epsilon)
 from repro_torch.core.confidence import softmax_outputs
 
 # ---------------------------------------------------------------------------
@@ -27,8 +37,9 @@ from repro_torch.core.confidence import softmax_outputs
 
 _MEASURES: Dict[str, Callable[[str], "ConfidenceMeasure"]] = {}
 _POLICIES: Dict[str, Callable[[str], "ExitPolicy"]] = {}
+_CALIBRATORS: Dict[str, Callable[[str], "Calibrator"]] = {}
 # registered in the reference, not ported yet
-_LATER = {"entropy", "margin", "budget", "self", "final", "holdout"}
+_LATER = {"entropy", "margin"}
 
 
 def _register(table, name):
@@ -49,6 +60,10 @@ def register_policy(name: str):
     return _register(_POLICIES, name)
 
 
+def register_calibrator(name: str):
+    return _register(_CALIBRATORS, name)
+
+
 def _resolve(table, spec: str, kind: str):
     name, _, arg = spec.partition("@")
     if name not in table:
@@ -67,8 +82,25 @@ def get_measure(spec: str) -> "ConfidenceMeasure":
 
 
 def get_policy(spec: str) -> "ExitPolicy":
-    """``threshold``"""
+    """``threshold`` | ``budget@<avg-mac-target>``"""
     return _resolve(_POLICIES, spec, "exit policy")
+
+
+def get_calibrator(spec: str) -> "Calibrator":
+    """``self`` | ``final`` | ``holdout[@frac[:target]]``"""
+    return _resolve(_CALIBRATORS, spec, "calibrator")
+
+
+def available_measures() -> List[str]:
+    return sorted(_MEASURES)
+
+
+def available_policies() -> List[str]:
+    return sorted(_POLICIES)
+
+
+def available_calibrators() -> List[str]:
+    return sorted(_CALIBRATORS)
 
 
 # ---------------------------------------------------------------------------
@@ -197,8 +229,253 @@ class ThresholdPolicy(ExitPolicy):
         if m >= n_components - 1:
             return torch.ones(conf.shape, dtype=torch.bool,
                               device=conf.device)
-        # the threshold is compared at the confidence's precision (f32)
+        # the threshold is compared at the confidence's precision (f32): a
+        # device vector's element, or a float rounded to f32
+        if isinstance(thresholds, torch.Tensor):
+            return conf >= thresholds[m]
         return conf >= float(np.float32(thresholds[m]))
+
+
+# one-time deprecation notice for the shared-quantile fit
+_SHARED_QUANTILE_WARNED = False
+
+
+@register_policy("budget")
+class BudgetPolicy(ThresholdPolicy):
+    """Pick thresholds hitting a target *average* MAC budget per sample.
+
+    Spec ``budget@<avg_macs>``: :meth:`fit` builds the joint confidence
+    histogram from calibration confidences + correctness and runs the
+    autotune solver (:func:`repro_torch.autotune.solver.solve_budget`),
+    seeded from the shared-quantile solution, so it fits no worse.
+    ``budget@<avg_macs>:shared`` is the deprecated legacy alias: it warns
+    once and fits like the default spelling; only a :meth:`fit` WITHOUT
+    ``corrects`` still runs the legacy shared-quantile bisection.  Resolve
+    it, call :meth:`fit`, then decide or serve with it.
+    """
+
+    name = "budget"
+
+    def __init__(self, arg: str = ""):
+        spec, _, mode = arg.partition(":")
+        self.mac_budget = float(spec) if spec else None
+        if mode not in ("", "shared", "solver"):
+            raise ValueError(
+                f"budget policy mode must be 'shared' or 'solver', "
+                f"got {mode!r}")
+        self.mode = mode or "solver"
+        self.thresholds: Optional[Tuple[float, ...]] = None
+
+    def resolve_thresholds(self, thresholds, explicit: bool = False):
+        if explicit and thresholds is not None:
+            if self.thresholds is not None:
+                warnings.warn(
+                    "BudgetPolicy has fitted thresholds AND explicit "
+                    "thresholds were passed per call; honoring the per-call "
+                    "override (drop one of the two to silence this)",
+                    stacklevel=3)
+            return thresholds
+        if self.thresholds is None:
+            raise RuntimeError(
+                "BudgetPolicy has no fitted thresholds: call "
+                "decider.policy.fit(calibration_confidences, mac_prefix) "
+                "after construction (a budget@ config string alone cannot "
+                "fit — fitting needs held-out confidences)")
+        return self.thresholds
+
+    @staticmethod
+    def _warn_shared():
+        global _SHARED_QUANTILE_WARNED
+        if _SHARED_QUANTILE_WARNED:
+            return
+        _SHARED_QUANTILE_WARNED = True
+        warnings.warn(
+            "BudgetPolicy's shared-quantile fit is deprecated: the "
+            "per-component solver (repro_torch.autotune.solver.solve_budget)"
+            " dominates it at equal budget.  Pass corrects= to fit() to "
+            "use it, or spell budget@<macs>:shared to keep the legacy "
+            "ablation behavior explicitly.",
+            DeprecationWarning, stacklevel=4)
+
+    def _fit_shared(self, conf, macs, budget, iters):
+        """Legacy shared-quantile bisection; the gates compare in f32."""
+        confs = torch.as_tensor(conf.astype(np.float32))
+
+        def avg_macs(q):
+            ths = np.quantile(conf, q, axis=1)
+            ths[-1] = 0.0
+            idx = _first_open_gate(
+                ThresholdPolicy().gates(confs, ths)).numpy()
+            return float(macs[idx].mean()), tuple(float(t) for t in ths)
+
+        lo, hi = 0.0, 1.0                      # q=0: all exit first; macs min
+        best = avg_macs(0.0)
+        for _ in range(iters):
+            mid = 0.5 * (lo + hi)
+            got, ths = avg_macs(mid)
+            if abs(got - budget) < abs(best[0] - budget):
+                best = (got, ths)
+            if got > budget:                   # too much compute: exit more
+                hi = mid
+            else:
+                lo = mid
+        return best[1], best[0]
+
+    def fit(self, confidences: Sequence[np.ndarray],
+            mac_prefix: Sequence[float],
+            mac_budget: Optional[float] = None,
+            corrects: Optional[Sequence[np.ndarray]] = None,
+            iters: int = 40, bins: int = 64) -> Tuple[float, ...]:
+        """Calibrate thresholds so mean MACs <= mac_budget on
+        ``confidences``; with ``corrects`` the per-component solver
+        allocates the budget, without them the legacy shared quantile
+        runs (deprecated)."""
+        budget = self.mac_budget if mac_budget is None else mac_budget
+        if budget is None:
+            raise ValueError("no MAC budget given (budget@<float> or fit())")
+        conf = np.stack([np.asarray(c, np.float64) for c in confidences])
+        macs = np.asarray(mac_prefix, np.float64)
+        budget = float(np.clip(budget, macs[0], macs[-1]))
+
+        if corrects is None:
+            self._warn_shared()
+            self.thresholds, self.fitted_avg_macs = self._fit_shared(
+                conf, macs, budget, iters)
+            return self.thresholds
+        if self.mode == "shared":
+            self._warn_shared()
+
+        from repro_torch.autotune.solver import (ExitHistogram,
+                                                 edges_from_thresholds,
+                                                 solve_budget)
+        corr = np.stack([np.asarray(c, np.float64) for c in corrects])
+        hist = ExitHistogram.from_samples(conf, corr, macs, bins)
+        shared_ths, _ = self._fit_shared(conf, macs, budget, iters)
+        res = solve_budget(hist, budget,
+                           init_edges=edges_from_thresholds(shared_ths,
+                                                            bins))
+        self.thresholds = res.thresholds
+        self.fitted_avg_macs = res.avg_macs
+        return self.thresholds
+
+
+# ---------------------------------------------------------------------------
+# calibrators (§5)
+# ---------------------------------------------------------------------------
+
+class Calibrator:
+    """Per-component confidences + correctness → δ̂(ε) thresholds.
+
+    ``val_confidences`` / ``val_corrects`` (optional, per-component arrays
+    like the calibration set) are the paper's validation-set remark: α*_m
+    (and the target) still come from the calibration arrays, but each
+    threshold is *selected* on the validation accuracy curve.
+    """
+
+    name = "base"
+
+    def calibrate(self, confidences: Sequence[np.ndarray],
+                  corrects: Sequence[np.ndarray],
+                  epsilon: float,
+                  val_confidences: Optional[Sequence[np.ndarray]] = None,
+                  val_corrects: Optional[Sequence[np.ndarray]] = None
+                  ) -> CalibrationResult:
+        raise NotImplementedError
+
+    def _run(self, confidences, corrects, epsilon, target,
+             val_confidences=None, val_corrects=None):
+        n_m = len(confidences)
+        ths, stars = [], []
+        for m in range(n_m):
+            t, a = threshold_for_epsilon(
+                confidences[m], corrects[m], epsilon, target=target,
+                val_conf=(None if val_confidences is None
+                          else val_confidences[m]),
+                val_correct=(None if val_corrects is None
+                             else val_corrects[m]))
+            ths.append(0.0 if m == n_m - 1 else t)
+            stars.append(a)
+        return CalibrationResult(tuple(ths), tuple(stars), epsilon)
+
+
+@register_calibrator("self")
+class SelfCalibrator(Calibrator):
+    """The paper's §5 rule: δ_m(ε) targets the component's OWN α*_m − ε."""
+
+    name = "self"
+
+    def __init__(self, arg: str = ""):
+        del arg
+
+    def calibrate(self, confidences, corrects, epsilon,
+                  val_confidences=None, val_corrects=None):
+        return self._run(confidences, corrects, epsilon, target=None,
+                         val_confidences=val_confidences,
+                         val_corrects=val_corrects)
+
+
+@register_calibrator("final")
+class FinalCalibrator(Calibrator):
+    """Cascade-level rule: every component targets the FINAL component's
+    realized accuracy − ε (its accuracy at threshold 0, not its α*)."""
+
+    name = "final"
+
+    def __init__(self, arg: str = ""):
+        del arg
+
+    def calibrate(self, confidences, corrects, epsilon,
+                  val_confidences=None, val_corrects=None):
+        alpha_final = float(np.mean(corrects[-1]))
+        return self._run(confidences, corrects, epsilon, target=alpha_final,
+                         val_confidences=val_confidences,
+                         val_corrects=val_corrects)
+
+
+@register_calibrator("holdout")
+class HoldoutCalibrator(Calibrator):
+    """§5 with a validation split: α*_m from a statistics split, the
+    threshold the smallest δ whose accuracy on a DISJOINT validation split
+    clears α*_m − ε.  Spec ``holdout`` (validation fraction 0.5),
+    ``holdout@0.3``, ``holdout@0.3:final`` (the cascade-level target).
+    The internal split is deterministic and interleaved; explicit
+    ``val_confidences`` / ``val_corrects`` skip it."""
+
+    name = "holdout"
+
+    def __init__(self, arg: str = ""):
+        frac, _, target = arg.partition(":")
+        self.val_frac = float(frac) if frac else 0.5
+        if not 0.0 < self.val_frac < 1.0:
+            raise ValueError(
+                f"holdout fraction must be in (0, 1), got {self.val_frac}")
+        if target not in ("", "self", "final"):
+            raise ValueError(f"holdout target must be 'self' or 'final', "
+                             f"got {target!r}")
+        self.target_mode = target or "self"
+
+    def _split(self, arrays):
+        stats, vals = [], []
+        for a in arrays:
+            a = np.asarray(a)
+            n = len(a)
+            n_val = max(1, min(n - 1, int(round(n * self.val_frac))))
+            idx = np.zeros(n, bool)
+            idx[np.round(np.linspace(0, n - 1, n_val)).astype(int)] = True
+            stats.append(a[~idx])
+            vals.append(a[idx])
+        return stats, vals
+
+    def calibrate(self, confidences, corrects, epsilon,
+                  val_confidences=None, val_corrects=None):
+        if val_confidences is None:
+            confidences, val_confidences = self._split(confidences)
+            corrects, val_corrects = self._split(corrects)
+        target = (float(np.mean(corrects[-1]))
+                  if self.target_mode == "final" else None)
+        return self._run(confidences, corrects, epsilon, target=target,
+                         val_confidences=val_confidences,
+                         val_corrects=val_corrects)
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +492,13 @@ class ExitDecision:
 
 def _where(cond, a, b):
     return None if a is None else torch.where(cond, a, b)
+
+
+def _set_row(x: torch.Tensor, m: int, row: torch.Tensor) -> torch.Tensor:
+    """A copy of the component-major ``x`` with row ``m`` set to ``row``."""
+    out = x.clone()
+    out[m] = row
+    return out
 
 
 def _first_open_gate(gates: torch.Tensor) -> torch.Tensor:
@@ -235,27 +519,26 @@ class ExitDecider:
     def __init__(self, measure, policy="threshold",
                  thresholds: Optional[Sequence[float]] = None,
                  use_kernels: bool = False, telemetry_bins: int = 0):
-        if telemetry_bins:
-            raise NotImplementedError(
-                "decision-scan telemetry comes with the autotune slice of "
-                "the port")
         self.measure = (get_measure(measure) if isinstance(measure, str)
                         else measure)
         self.policy = (get_policy(policy) if isinstance(policy, str)
                        else policy)
         self.thresholds = tuple(thresholds) if thresholds is not None else None
         self.use_kernels = use_kernels
+        # > 0 enables the autotune telemetry rider: every scan also records
+        # each component's packed raw prediction / confidence bin in the
+        # carry's "tcode" rows (repro_torch.autotune.telemetry reads them);
+        # 0 keeps the carry as it was without autotune
+        self.telemetry_bins = int(telemetry_bins)
 
     @classmethod
     def from_config(cls, cfg) -> "ExitDecider":
         """Resolve a ModelConfig's cascade strings through the registries."""
-        if cfg.autotune.enabled:
-            raise NotImplementedError(
-                "autotune telemetry and live thresholds come with the "
-                "autotune slice of the port")
         cas = cfg.cascade
         return cls(measure=cas.confidence, policy=cas.policy,
-                   thresholds=cas.thresholds, use_kernels=cfg.use_kernels)
+                   thresholds=cas.thresholds, use_kernels=cfg.use_kernels,
+                   telemetry_bins=(cfg.autotune.bins
+                                   if cfg.autotune.enabled else 0))
 
     @property
     def fused_scan(self) -> bool:
@@ -280,18 +563,27 @@ class ExitDecider:
         return self.measure.init_state(n_exits, batch, device)
 
     def resolved_thresholds(self, n_components: int,
-                            thresholds: Optional[Sequence[float]] = None
-                            ) -> Tuple[float, ...]:
+                            thresholds: Optional[Sequence[float]] = None):
         """The threshold vector the scan gates on: per-call ``thresholds``
-        > the policy's own > the decider's configured vector."""
+        > the policy's own > the decider's configured vector.  A tuple of
+        floats, or — the live-threshold path, an ``(n_components,)`` f32
+        tensor the kernels read from device memory — the tensor itself
+        after a length check."""
         explicit = thresholds is not None
+        if explicit and not isinstance(thresholds, torch.Tensor):
+            thresholds = tuple(thresholds)
         ths = self.policy.resolve_thresholds(
-            self.thresholds if thresholds is None else tuple(thresholds),
+            self.thresholds if thresholds is None else thresholds,
             explicit=explicit)
         if ths is None:
             raise ValueError(
                 "no thresholds: configure them on the decider/config or "
                 "pass them per call")
+        if isinstance(ths, torch.Tensor):
+            if ths.shape != (n_components,):
+                raise ValueError(f"{tuple(ths.shape)} thresholds for "
+                                 f"{n_components} cascade components")
+            return ths
         ths = tuple(float(t) for t in ths)
         if len(ths) != n_components:
             raise ValueError(f"{len(ths)} thresholds for {n_components} "
@@ -330,6 +622,12 @@ class ExitDecider:
             "streak": streak,
             "ema": None,
             "act": None,
+            # the telemetry rider: one packed code row per component; rows
+            # of segments that skipped unobserved stay 0 (the accumulator
+            # masks them with the exit index).  Never read by the decision
+            "tcode": (torch.zeros((n_components,) + tuple(confidence.shape),
+                                  dtype=torch.int32, device=confidence.device)
+                      if self.telemetry_bins else None),
         }
 
     def scan_component(self, m: int, n_components: int,
@@ -357,6 +655,11 @@ class ExitDecider:
             if m == n_components - 1:
                 gate = torch.ones_like(gate)
         fresh = gate & ~carry["answered"]
+        tcode = None
+        if carry.get("tcode") is not None:
+            from repro_torch.autotune.telemetry import pack_rider
+            tcode = _set_row(carry["tcode"], m, pack_rider(
+                prediction, confidence, self.telemetry_bins))
         return {
             "answered": carry["answered"] | gate,
             "pred": torch.where(fresh, prediction.to(carry["pred"].dtype),
@@ -367,6 +670,7 @@ class ExitDecider:
             "streak": streak,
             "ema": carry.get("ema"),
             "act": carry.get("act"),
+            "tcode": tcode,
         }
 
     def fold_ema(self, carry, decay: float):
@@ -444,27 +748,36 @@ class ExitDecider:
         return carry, srow, ema, act
 
     def _fused_kw(self, m, n_components, thresholds, carry, ema_decay):
-        return dict(threshold=float(thresholds[m]), m=m,
-                    n_components=n_components,
+        # a device vector goes to the kernel whole (it reads element m
+        # from device memory); a float vector gives its element m
+        return dict(threshold=(thresholds if isinstance(thresholds,
+                                                        torch.Tensor)
+                               else float(thresholds[m])),
+                    m=m, n_components=n_components,
                     patience_k=(self.measure.patience_k
                                 if self.measure.stateful else 0),
                     ema_decay=(float(ema_decay)
-                               if carry.get("ema") is not None else 0.0))
+                               if carry.get("ema") is not None else 0.0),
+                    tel_bins=(self.telemetry_bins
+                              if carry.get("tcode") is not None else 0))
 
     @staticmethod
     def _fused_carry_out(m, carry, outs):
         ans, pred, exi, conf, srow_n, ema_n = outs[:6]
         streak = carry["streak"]
         if streak is not None:
-            streak = streak.clone()
-            streak[m] = srow_n
+            streak = _set_row(streak, m, srow_n)
         return {"answered": ans, "pred": pred, "exit": exi, "conf": conf,
                 "streak": streak,
                 "ema": ema_n if carry.get("ema") is not None else None,
-                "act": carry.get("act")}
+                "act": carry.get("act"),
+                "tcode": (None if carry.get("tcode") is None
+                          else _set_row(carry["tcode"], m, outs[6]))}
 
     # carry keys laid out (n_components, batch): slice/concat axis 1
-    _COMPONENT_MAJOR_KEYS = frozenset(("streak",))
+    _COMPONENT_MAJOR_KEYS = frozenset(("streak", "tcode"))
+    # telemetry rows: they land whatever the skip predicate says
+    _TELEMETRY_KEYS = frozenset(("tcode",))
 
     def slice_carry(self, carry, lo: int, hi: int):
         """Batch-slice a decision-scan carry (cohort-split execution):
@@ -512,9 +825,11 @@ class ExitDecider:
                 carry = new
             else:
                 # components a staged run would have skipped leave the
-                # decision and its state untouched
+                # decision and its state untouched; the telemetry rider
+                # rows always land (the logits were computed here anyway)
                 skip = self.should_skip(carry, active)
-                carry = {k: _where(skip, carry[k], v)
+                carry = {k: (v if k in self._TELEMETRY_KEYS
+                             else _where(skip, carry[k], v))
                          for k, v in new.items()}
         return self.finish_scan(carry), carry
 

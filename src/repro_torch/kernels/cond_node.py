@@ -118,7 +118,9 @@ class CapturedBranches:
         dev = self.device.index if self.device.index is not None \
             else torch.cuda.current_device()
         side = self._stream("capture")
-        for depth in range(3):       # the guard, a branch, a cohort's cell
+        # the guard, a dispatch branch, a cohort's cell and its shadow
+        # branch: bodies nest this deep at most
+        for depth in range(4):
             self._stream(depth)
         side.wait_stream(torch.cuda.current_stream(self.device))
         before = kernels.launch_snapshot()

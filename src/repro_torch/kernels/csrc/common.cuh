@@ -312,8 +312,9 @@ struct ExitCarry {
   float* conf_out;
   int* streak_out;
   float* ema_out;
-  int* tcode_out;  // nullptr unless tel_bins > 0
-  float threshold;
+  int* tcode_out;    // nullptr unless tel_bins > 0
+  const float* thr;  // δ̂, an f32 in device memory (read when the gate
+                     // needs it, so a graph replays at its current value)
   int m_idx;
   int n_components;
   int patience_k;
@@ -337,7 +338,7 @@ __device__ __forceinline__ void exit_carry_merge(const ExitCarry& c, int b,
     return;
   }
   const bool last = c.m_idx >= c.n_components - 1;
-  bool gate = last ? true : (conf >= c.threshold);
+  bool gate = last ? true : (conf >= *c.thr);
   int srow = c.streak_in[b];
   if (c.patience_k > 0) {
     srow = gate ? srow + 1 : 0;

@@ -15,7 +15,10 @@
 //  * telemetry: pred * bins + clip(int(delta * bins), 0, bins - 1).
 // The reduction and the carry merge live in common.cuh, shared with the
 // exit-head megakernel and the confidence kernel.
-// The threshold is a runtime argument: a threshold push never rebuilds.
+// The threshold δ̂ is an f32 in device memory (the reference's `dynamic`
+// route, `th_ref` there), which the row's merging CTA reads when it
+// gates: a captured graph replays at whatever value it holds at replay
+// time, so a threshold push never re-captures and never rebuilds.
 //
 // Bound on the H100: bytes.  The logits are read once (B * V * sizeof(x);
 // 1.2 MB at the serving shape (4, 151936) in bf16, 0.36 us at 3.35 TB/s);
@@ -137,6 +140,7 @@ __global__ void __launch_bounds__(kThreads)
 // `workspace` is a (3, B, ceil(V / 4096)) f32 scratch; `tickets` is B
 // uint32 zeros, and each row's last CTA puts its ticket back to 0, so
 // launches that share a tickets buffer must be ordered (one stream).
+// `thr` points at the component's δ̂, an f32 on the device.
 extern "C" int exit_update_launch(
     const void* logits, long long row_stride, int B, int V, int dtype,
     void* workspace, void* tickets,
@@ -144,10 +148,10 @@ extern "C" int exit_update_launch(
     const void* conf_in, const void* streak_in, const void* ema_in,
     const void* act_in, void* ans_out, void* pred_out, void* exit_out,
     void* conf_out, void* streak_out, void* ema_out, void* tcode_out,
-    float threshold, int m_idx, int n_components, int patience_k,
+    const void* thr, int m_idx, int n_components, int patience_k,
     float ema_decay, float ema_keep, int tel_bins, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (B > 65535 || V <= 0 || tickets == nullptr)
+  if (B > 65535 || V <= 0 || tickets == nullptr || thr == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const ExitCarry carry{
@@ -155,7 +159,7 @@ extern "C" int exit_update_launch(
       (const float*)conf_in,  (const int*)streak_in, (const float*)ema_in,
       (const uint8_t*)act_in, (uint8_t*)ans_out,   (int*)pred_out,
       (int*)exit_out,         (float*)conf_out,    (int*)streak_out,
-      (float*)ema_out,        (int*)tcode_out,     threshold,
+      (float*)ema_out,        (int*)tcode_out,     (const float*)thr,
       m_idx,                  n_components,        patience_k,
       ema_decay,              ema_keep,            tel_bins};
   const int n_tiles = (V + kTile - 1) / kTile;

@@ -19,7 +19,9 @@
 //  * argmax is the FIRST index of the row maximum; delta = 1 / sum(exp);
 //  * then exit_carry_merge of common.cuh, shared with the fused exit-update
 //    kernel, with dead rows (live false) passing every carry through.
-// The threshold is a runtime argument: a threshold push never rebuilds.
+// The threshold δ̂ is an f32 in device memory that the combine reads once
+// per row when it gates (the reference's `dynamic` route): a threshold
+// push never rebuilds, and a captured graph replays at its current value.
 // Both routes write (max, sum-exp, first-argmax) partials to a (3, B, P)
 // workspace; a second launch (`head_combine_kernel`) merges each row's P
 // partials in a fixed order (merge_partials) and applies the carry merge,
@@ -603,9 +605,10 @@ cudaError_t launch_tc(const T* h, long long h_stride, const float* w,
 
 // the combine launch of both routes: (3, B, n_parts) partials -> carries
 int combine(int B, int n_parts, float* pm, const uint8_t* live,
-            const void* const* carries, float threshold, int m_idx,
+            const void* const* carries, const void* thr, int m_idx,
             int n_components, int patience_k, float ema_decay,
             float ema_keep, int tel_bins, cudaStream_t s) {
+  if (thr == nullptr) return (int)cudaErrorInvalidValue;
   float* pl = pm + (long long)B * n_parts;
   int* pa = (int*)(pl + (long long)B * n_parts);
   const ExitCarry carry{
@@ -616,7 +619,7 @@ int combine(int B, int n_parts, float* pm, const uint8_t* live,
       (int*)carries[8],           (int*)carries[9],
       (float*)carries[10],        (int*)carries[11],
       (float*)carries[12],        (int*)carries[13],
-      threshold,                  m_idx,
+      (const float*)thr,          m_idx,
       n_components,               patience_k,
       ema_decay,                  ema_keep,
       tel_bins};
@@ -644,12 +647,12 @@ extern "C" long long megakernel_smem_bytes(int d, int nb, int dtype) {
 
 // carries: the 7 inputs (answered, pred, exit, conf, streak, ema, active),
 // then the 7 outputs (the same six and the telemetry code, NULL unless
-// tel_bins > 0)
+// tel_bins > 0); `thr` points at the component's δ̂, an f32 on the device
 extern "C" int megakernel_launch(
     const void* h, long long h_stride, const void* w, const void* head,
     long long ld, int B, int d, int V, int dtype, int nb, const void* live,
     float eps, int warp_norm, void* workspace, const void* const* carries,
-    float threshold, int m_idx, int n_components, int patience_k,
+    const void* thr, int m_idx, int n_components, int patience_k,
     float ema_decay, float ema_keep, int tel_bins, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
@@ -685,7 +688,7 @@ extern "C" int megakernel_launch(
     }
   });
   if (err != cudaSuccess) return (int)err;
-  return combine(B, n_tiles, pm, lv, carries, threshold, m_idx, n_components,
+  return combine(B, n_tiles, pm, lv, carries, thr, m_idx, n_components,
                  patience_k, ema_decay, ema_keep, tel_bins, s);
 }
 
@@ -699,7 +702,7 @@ extern "C" int megakernel_tc_launch(
     const void* h, long long h_stride, const void* w, const void* head,
     long long ld, int B, int d, int V, int dtype, int n_ctas,
     const void* live, float eps, void* workspace, const void* const* carries,
-    float threshold, int m_idx, int n_components, int patience_k,
+    const void* thr, int m_idx, int n_components, int patience_k,
     float ema_decay, float ema_keep, int tel_bins, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (B > 16 || d <= 0 || d % 8 || d > kTcMaxD || V <= 0 || n_ctas <= 0 ||
@@ -732,6 +735,6 @@ extern "C" int megakernel_tc_launch(
     return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  return combine(B, n_ctas, pm, lv, carries, threshold, m_idx, n_components,
+  return combine(B, n_ctas, pm, lv, carries, thr, m_idx, n_components,
                  patience_k, ema_decay, ema_keep, tel_bins, s);
 }

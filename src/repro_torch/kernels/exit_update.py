@@ -18,8 +18,15 @@ over the SMs: a grid of (V / 4096 tiles, B) CTAs, 16-byte loads, one
 (max, Σexp, first-argmax) partial per CTA; the last CTA of each row merges
 the row's partials in tile order and applies the carry merge, all in ONE
 launch (a per-row ticket, put back to 0 by that CTA, in a per-device
-buffer this module keeps).  See the source's header for the design.  The
-threshold is a runtime argument: pushing a new one never rebuilds.
+buffer this module keeps).  See the source's header for the design.
+
+The kernel reads the threshold δ̂ from device memory (the reference's
+``dynamic`` route): the wrapper takes an f32 tensor — 0-d, or the
+``(n_components,)`` vector whose element ``m`` gates — or a float, which
+it makes into a 0-d tensor on the device (:func:`threshold_operand`).  A
+captured CUDA graph replays at whatever the tensor holds when it replays,
+so a threshold push is a write into the tensor: no rebuild, no new
+capture.
 """
 from __future__ import annotations
 
@@ -35,32 +42,57 @@ TILE = 4096  # vocab columns per CTA: kTile in csrc/exit_update.cu
 
 _SIG = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_void_p] * 14
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_void_p] * 15
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def threshold_operand(threshold, m: int, device) -> torch.Tensor:
+    """The gate's δ̂ for component ``m`` as a 0-d f32 tensor: element ``m``
+    of an ``(n_components,)`` vector (a view: the kernel reads it from
+    device memory at launch or replay time), a 0-d tensor as given, or a
+    float rounded to f32 (the gate compares at the confidence's precision)
+    and filled into a new tensor on ``device`` (a fill launch, no copy
+    from the host)."""
+    if isinstance(threshold, torch.Tensor):
+        if threshold.dtype != torch.float32 or threshold.dim() > 1:
+            raise TypeError(f"threshold tensor must be 0-d or (n_components,)"
+                            f" f32, got {threshold.dtype} "
+                            f"{tuple(threshold.shape)}")
+        return threshold if threshold.dim() == 0 else threshold[m]
+    return torch.full((), float(np.float32(threshold)), dtype=torch.float32,
+                      device=device)
+
+
+def _tensors(threshold):
+    """``threshold`` for a device check: () unless it is a tensor."""
+    return (threshold,) if isinstance(threshold, torch.Tensor) else ()
 
 
 def exit_update(logits, answered, pred, exit_idx, conf, streak, ema, active,
-                *, threshold: float, m: int, n_components: int,
+                *, threshold, m: int, n_components: int,
                 patience_k: int = 0, ema_decay: float = 0.0,
                 tel_bins: int = 0):
     """One fused component step of the exit-decision scan.
 
     logits (B, V); answered/active (B,) bool; pred/exit_idx/streak (B,)
-    int32; conf/ema (B,) f32.  Returns (answered', pred', exit', conf',
-    streak', ema') — bool, int32, int32, f32, int32, f32 — plus the (B,)
-    int32 telemetry code ``raw_pred * tel_bins + conf_bin`` when
-    ``tel_bins > 0``.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
-    # the gate compares at the confidence's precision: δ̂ rounds to f32
-    kw = dict(threshold=float(np.float32(threshold)), m=int(m),
-              n_components=int(n_components), patience_k=int(patience_k),
-              ema_decay=float(ema_decay), tel_bins=int(tel_bins))
+    int32; conf/ema (B,) f32; ``threshold`` an f32 tensor on the logits'
+    device or a float (see :func:`threshold_operand`).  Returns
+    (answered', pred', exit', conf', streak', ema') — bool, int32, int32,
+    f32, int32, f32 — plus the (B,) int32 telemetry code ``raw_pred *
+    tel_bins + conf_bin`` when ``tel_bins > 0``.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    kw = dict(m=int(m), n_components=int(n_components),
+              patience_k=int(patience_k), ema_decay=float(ema_decay),
+              tel_bins=int(tel_bins))
     if logits.device.type == "cpu":
         return ref_exit_update(logits, answered, pred, exit_idx, conf, streak,
-                               ema, active, **kw)
+                               ema, active, threshold=threshold_operand(
+                                   threshold, m, "cpu"), **kw)
     carries = (answered, pred, exit_idx, conf, streak, ema, active)
-    build.require_cuda("exit_update", logits, *carries)
+    build.require_cuda("exit_update", logits, *carries,
+                       *_tensors(threshold))
+    thr = threshold_operand(threshold, m, logits.device)
     if logits.dim() != 2 or logits.stride(1) != 1:
         raise ValueError("exit_update: logits must be (B, V) with a "
                          f"contiguous last dim, got {tuple(logits.shape)}")
@@ -90,8 +122,8 @@ def exit_update(logits, answered, pred, exit_idx, conf, streak, ema, active,
         p(logits), logits.stride(0), B, V, build.dtype_code(logits),
         p(workspace), p(_tickets(dev, B)),
         p(ans_in), p(pred_in), p(exit_in), p(conf_in), p(streak_in),
-        p(ema_in), p(act_in), *(p(o) for o in outs[:6]), p(tcode),
-        kw["threshold"], kw["m"], kw["n_components"], kw["patience_k"],
+        p(ema_in), p(act_in), *(p(o) for o in outs[:6]), p(tcode), p(thr),
+        kw["m"], kw["n_components"], kw["patience_k"],
         kw["ema_decay"], 1.0 - kw["ema_decay"], kw["tel_bins"],
         build.stream_of(logits)), "exit_update")
     exit_update.launches += 1

@@ -27,9 +27,11 @@ shapes and the alignment alone (never on a failure):
 Both write one (max, Σexp, first-argmax) partial per row per CTA / block,
 merged in a fixed order by a second launch that applies the carry merge
 shared with ``exit_update`` (``csrc/common.cuh``); the threshold is a
-runtime argument.  The norm uses the arithmetic of the ``rmsnorm`` route
-the same rows would take, so fused and unfused exit heads normalise a row
-bit for bit alike.  ``exit_head_update.launches`` counts every call,
+runtime argument the combine reads from device memory
+(:func:`repro_torch.kernels.exit_update.threshold_operand`).  The norm
+uses the arithmetic of the ``rmsnorm`` route the same rows would take, so
+fused and unfused exit heads normalise a row bit for bit alike.
+``exit_head_update.launches`` counts every call,
 ``exit_head_update.launches_by_route`` each route's.  Bound on the H100:
 bytes — one read of the (d, V) head (622 MB in bf16 at qwen2.5-3b).
 """
@@ -38,10 +40,10 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.exit_update import _tensors, threshold_operand
 from repro_torch.kernels.ref import ref_exit_head_update
 from repro_torch.kernels.rmsnorm import warp_rows_ok
 
@@ -55,7 +57,7 @@ _COMMON = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_float])
-_TAIL = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_float,
+_TAIL = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _SIG = {"cuda_core": _COMMON + [ctypes.c_int] + _TAIL,   # + warp_norm
@@ -141,7 +143,7 @@ def _group_rows(B: int, d: int, dcode: int) -> int:
 
 
 def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
-                     ema, active, *, threshold: float, m: int,
+                     ema, active, *, threshold, m: int,
                      n_components: int, patience_k: int = 0,
                      ema_decay: float = 0.0, tel_bins: int = 0, live=None,
                      eps: float = 1e-5):
@@ -151,18 +153,23 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
     :func:`repro_torch.kernels.exit_update.exit_update`; ``live`` the
     per-slot exit mask ((B,) bool, None = all live).  Live rows return
     exactly what ``exit_update(rmsnorm(h) @ head, ...)`` returns up to the
-    product's summation order; dead rows pass every carry through.  CPU
+    product's summation order; dead rows pass every carry through.
+    ``threshold`` is an f32 tensor on h's device or a float (see
+    :func:`~repro_torch.kernels.exit_update.threshold_operand`).  CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
-    kw = dict(threshold=float(np.float32(threshold)), m=int(m),
-              n_components=int(n_components), patience_k=int(patience_k),
-              ema_decay=float(ema_decay), tel_bins=int(tel_bins))
+    kw = dict(m=int(m), n_components=int(n_components),
+              patience_k=int(patience_k), ema_decay=float(ema_decay),
+              tel_bins=int(tel_bins))
     if h.device.type == "cpu":
-        return ref_exit_head_update(h, norm_w, head, answered, pred,
-                                    exit_idx, conf, streak, ema, active,
-                                    live=live, eps=eps, **kw)
+        return ref_exit_head_update(
+            h, norm_w, head, answered, pred, exit_idx, conf, streak, ema,
+            active, live=live, eps=eps,
+            threshold=threshold_operand(threshold, m, "cpu"), **kw)
     carries = (answered, pred, exit_idx, conf, streak, ema, active)
     build.require_cuda("exit_head_update", h, norm_w, head, *carries,
-                       *(() if live is None else (live,)))
+                       *(() if live is None else (live,)),
+                       *_tensors(threshold))
+    thr = threshold_operand(threshold, m, h.device)
     if h.dim() != 2 or head.dim() != 2 or head.shape[0] != h.shape[1] \
             or norm_w.shape != (h.shape[1],):
         raise ValueError(f"exit_head_update: h (B, d), norm_w (d,), head "
@@ -222,7 +229,7 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
     if r == "cuda_core":
         args.append(int(warp_norm))
     build.check(fn(
-        *args, p(workspace), carries, kw["threshold"], kw["m"],
+        *args, p(workspace), carries, p(thr), kw["m"],
         kw["n_components"], kw["patience_k"], kw["ema_decay"],
         1.0 - kw["ema_decay"], kw["tel_bins"], build.stream_of(h)),
         "exit_head_update")

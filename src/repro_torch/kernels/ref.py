@@ -159,12 +159,17 @@ def ref_exit_update(logits, answered, pred, exit_idx, conf, streak, ema,
 def _carry_merge(idx, delta, answered, pred, exit_idx, conf, streak, ema,
                  active, *, threshold, m, n_components, patience_k=0,
                  ema_decay=0.0, tel_bins=0):
-    """The exit-update step given each row's prediction and confidence."""
+    """The exit-update step given each row's prediction and confidence.
+    ``threshold`` is a float or an f32 tensor: 0-d, or the
+    ``(n_components,)`` vector whose element ``m`` gates (both compared at
+    f32, as the kernels compare)."""
     last = m >= n_components - 1
     # final component: gate open BEFORE the patience rewrite (dense order)
     if last:
         gate = torch.ones_like(delta, dtype=torch.bool)
     else:
+        if isinstance(threshold, torch.Tensor) and threshold.dim() == 1:
+            threshold = threshold[m]
         gate = delta >= threshold
     streak_n = streak.to(torch.int32)
     if patience_k > 0:

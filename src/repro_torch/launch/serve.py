@@ -9,10 +9,15 @@ The single-engine path of the JAX package's ``launch/serve.py``, with its
 flags.  Runs on CUDA unless ``--device cpu``.  The hot ops always take the
 port's hand-written kernels (``cfg.use_kernels``; on the CPU their wrappers
 take the plain versions).  ``--runtime device --chunk K`` decodes K tokens
-per lane per dispatch (on CUDA from a captured CUDA graph).  Weights are
-random, drawn from ``torch.Generator(...).manual_seed(0)``.  The flags of
-later slices (autotune, escalation tiers, fleets, observability) are
-accepted and refused with an error naming the slice.
+per lane per dispatch (on CUDA from a captured CUDA graph).  ``--autotune``
+turns on the exit telemetry and a
+:class:`~repro_torch.autotune.ThresholdController` that re-solves the
+thresholds from live traffic (``--epsilon`` or ``--budget-macs``) and
+pushes them into the running engine, warm-starting from and persisting to
+``--artifacts``.  Weights are random, drawn from
+``torch.Generator(...).manual_seed(0)``.  The flags of later slices
+(escalation tiers, fleets, observability) are accepted and refused with an
+error naming the slice.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.autotune import ThresholdController
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.macs import segment_macs_per_token
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import CascadeServingEngine, Request
 from repro_torch.utils import get_logger, resolve_device
@@ -74,11 +81,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged layout: total pool blocks; 0 sizes the "
                          "pool to the dense-equivalent footprint (+1 "
                          "trash block)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="online exit telemetry + a ThresholdController "
+                         "that periodically re-solves the thresholds from "
+                         "live traffic and pushes them into the engine "
+                         "(no re-capture)")
+    ap.add_argument("--epsilon", type=float, default=0.05,
+                    help="autotune target accuracy degradation ε (ignored "
+                         "when --budget-macs is set)")
+    ap.add_argument("--budget-macs", type=float, default=0.0,
+                    help="autotune target average MACs/token (> 0 overrides "
+                         "--epsilon as the direction)")
+    ap.add_argument("--artifacts", default=None,
+                    help="autotune artifact directory: warm-start from a "
+                         "matching artifact, persist new resolutions")
     # flags of later slices: parsed, then refused by name
-    ap.add_argument("--autotune", action="store_true")
-    ap.add_argument("--epsilon", type=float, default=0.05)
-    ap.add_argument("--budget-macs", type=float, default=0.0)
-    ap.add_argument("--artifacts", default=None)
     ap.add_argument("--escalate-layers", type=int, default=0)
     ap.add_argument("--escalate-arch", default=None)
     ap.add_argument("--escalate-threshold", type=float, default=0.5)
@@ -93,9 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_later_slices(args) -> None:
     later = []
-    if args.autotune or args.budget_macs or args.artifacts:
-        later.append("--autotune/--budget-macs/--artifacts (the autotune "
-                     "slice)")
     if args.escalate_layers > 0 or args.escalate_arch:
         later.append("--escalate-* (the cross-model escalation slice)")
     if args.fleet > 1 or args.drain:
@@ -122,18 +136,26 @@ def main(argv=None) -> dict:
         thresholds=ths, exit_mode=args.exit_mode, n_cohorts=args.cohorts)
     if args.confidence:
         cfg = cfg.with_cascade(confidence=args.confidence)
+    if args.autotune:
+        cfg = cfg.with_autotune(enabled=True, epsilon=args.epsilon,
+                                mac_budget=args.budget_macs)
     if args.cache_layout == "paged":
         cfg = cfg.with_paged_cache(layout="paged",
                                    block_size=args.block_size,
                                    num_blocks=args.num_blocks)
     model = build_model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
+    controller = None
+    if args.autotune:
+        controller = ThresholdController(
+            cfg, segment_macs_per_token(cfg, args.cache_len),
+            artifact_dir=args.artifacts)
     engine = CascadeServingEngine(cfg, model, params,
                                   lane_batch=args.lane_batch,
                                   n_lanes=args.lanes,
                                   cache_len=args.cache_len,
                                   runtime=args.runtime, chunk=args.chunk,
-                                  device=device)
+                                  autotune=controller, device=device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         engine.submit(Request(
@@ -144,6 +166,9 @@ def main(argv=None) -> dict:
     engine.run()
     stats = engine.stats()
     log.info("stats: %s", json.dumps(stats, indent=2, default=str))
+    if args.autotune:
+        log.info("autotune: live thresholds %s, controller %s",
+                 engine.current_thresholds(), engine.controller.stats())
     if args.exit_mode == "cond_batch":
         log.info("real skip rate %.3f (opportunity %.3f), %.1f us/token "
                  "(%s runtime, first dispatch %.2fs)",

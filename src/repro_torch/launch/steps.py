@@ -30,7 +30,9 @@ from repro_torch.core.exec import (DISPATCH, DecodeState, StagedExecutor,
 from repro_torch.core.policy import ExitDecider
 
 # IF bodies one captured iteration may hold (counter slots): the guard,
-# and per deep segment at most 3 dispatch branches and 2 per cohort
+# per deep segment at most 3 dispatch branches and 4 per cohort (skip,
+# run, and the shadow pass's observe / skip inside the skip), and the
+# telemetry's shadow fold
 MAX_BODIES = 256
 
 
@@ -176,11 +178,16 @@ def make_decode_loop_step(model, cfg: ModelConfig, chunk: int,
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, t: int = 0,
-                      device=None) -> DecodeState:
-    """A fresh DecodeState for ``batch`` slots of this config."""
+                      device=None, mac_weights=None) -> DecodeState:
+    """A fresh DecodeState for ``batch`` slots of this config.  With
+    ``cfg.autotune.enabled`` it carries zeroed exit-telemetry counters and
+    the config's thresholds as a live (n_components,) f32 vector on
+    ``device`` (see :mod:`repro_torch.autotune`)."""
+    telemetry = thresholds = None
     if cfg.autotune.enabled:
-        raise NotImplementedError(
-            "the autotune telemetry and live thresholds in the DecodeState "
-            "come with the autotune slice of the port")
+        from repro_torch.autotune.telemetry import telemetry_for
+        telemetry = telemetry_for(cfg, mac_weights, device=device)
+        thresholds = cfg.cascade.thresholds
     return init_decode_state(ExitDecider.from_config(cfg), batch,
-                             cfg.cascade.n_components, t=t, device=device)
+                             cfg.cascade.n_components, t=t, device=device,
+                             telemetry=telemetry, thresholds=thresholds)

@@ -40,11 +40,22 @@ Two execution runtimes (``runtime=`` at construction):
 
 Each lane keeps a host mirror of its position (``DecodeState.t`` is a
 device scalar): a prefill sets it, a host tick adds 1, a chunk adds its
-steps, and the finish rule and the paged admission read it, so the host
-runtime adds no sync for it.  Both runtimes time their first dispatch (a
-device-runtime capture) as ``compile_seconds``, outside every window
-metric.  Autotune, escalation, fleet and observability hooks come in later
-slices of the port and are refused here.
+steps, and the finish rule, the paged admission and the telemetry shadow
+schedule read it, so the host runtime adds no sync for it.  Both runtimes
+time their first dispatch (a device-runtime capture) as
+``compile_seconds``, outside every window metric.
+
+Autotune (``autotune=True`` or a
+:class:`~repro_torch.autotune.controller.ThresholdController`, with
+``cfg.autotune.enabled``): every lane's DecodeState carries exit
+telemetry, accumulated inside the decode step on both runtimes, and a live
+(n_components,) f32 threshold vector; both live as long as the lane,
+across its re-prefills.  :meth:`push_thresholds` writes the vector in
+place — the exit kernels read it from device memory, so a push costs no
+capture — and the controller resolves and pushes from
+:meth:`lane_telemetry` at its resolve ticks (``maybe_update`` each tick).
+Escalation, fleet and observability hooks come in later slices of the
+port and are refused here.
 """
 from __future__ import annotations
 
@@ -87,12 +98,10 @@ class _Slot:
     done: bool = True
 
 
-def _refuse_unported(cfg: ModelConfig, mesh, autotune) -> None:
+def _refuse_unported(cfg: ModelConfig, mesh) -> None:
     later = []
     if mesh is not None:
         later.append("mesh sharding")
-    if autotune is not None and autotune is not False:
-        later.append("autotune")
     if cfg.obs.enabled:
         later.append("the observability flight recorder")
     if cfg.escalation.enabled:
@@ -131,7 +140,13 @@ class CascadeServingEngine:
         if runtime not in ("host", "device"):
             raise ValueError(
                 f"runtime must be 'host' or 'device', got {runtime!r}")
-        _refuse_unported(cfg, mesh, autotune)
+        _refuse_unported(cfg, mesh)
+        if autotune is not None and autotune is not False \
+                and not cfg.autotune.enabled:
+            raise ValueError(
+                "autotune= needs telemetry in the decode steps: build the "
+                "model/engine with cfg.with_autotune(enabled=True) (plus "
+                "epsilon= or mac_budget=) before passing a controller")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "
@@ -166,7 +181,7 @@ class CascadeServingEngine:
             lane = {
                 "slots": [_Slot() for _ in range(lane_batch)],
                 "state": self.executor.init_state(
-                    lane_batch, block_tables=(
+                    lane_batch, mac_weights=self.mac_prefix, block_tables=(
                         self.pcache.device_tables(i).clone() if self.paged
                         else None)),
                 # host mirror of the lane's position (state.t)
@@ -192,7 +207,20 @@ class CascadeServingEngine:
         self.loop = (DeviceDecodeLoop(model, cfg, chunk=chunk,
                                       cache_len=cache_len)
                      if runtime == "device" else None)
+        # live thresholds (autotune): the vector every lane decodes with, as
+        # pushed (its f32 rounding lives in the lanes' device tensors)
+        self._live_thresholds = (tuple(cfg.cascade.thresholds)
+                                 if cfg.autotune.enabled else None)
+        # a ThresholdController (or True: one built from cfg.autotune)
+        self.controller = None
+        if autotune is True:
+            from repro_torch.autotune.controller import ThresholdController
+            self.controller = ThresholdController(cfg, self.mac_prefix)
+        elif autotune:
+            self.controller = autotune
         self.reset_metrics()
+        if self.controller is not None:
+            self.controller.attach(self)
 
     def reset_metrics(self):
         """Zero the MAC / wall-clock / skip-rate / host-sync accounting;
@@ -234,10 +262,14 @@ class CascadeServingEngine:
         into the lane's own, in place: they keep their addresses for the
         engine's life (what a captured graph reads)."""
         own = lane["state"]
-        for f in ("t", "active", "policy", "ema_conf", "block_tables"):
+        for f in ("t", "active", "policy", "ema_conf", "block_tables",
+                  "thresholds"):
             new = getattr(state, f)
             if new is not None and new is not getattr(own, f):
                 getattr(own, f).copy_(new)
+        if state.tel is not None and state.tel is not own.tel:
+            for dst, src in zip(own.tel.tensors(), state.tel.tensors()):
+                dst.copy_(src)
         own.segments_run = state.segments_run
 
     def _sync_tables(self, lane, lane_id: int):
@@ -443,7 +475,8 @@ class CascadeServingEngine:
                             device=dev),
             torch.as_tensor(write_slots, device=dev), tables)
         d, _ = self.decider.decide_with_carry(
-            logits, state=self.decider.measure.init_state(
+            logits, thresholds=self.executor.thresholds(state),
+            state=self.decider.measure.init_state(
                 self.cfg.cascade.n_components, 1, dev),
             active=torch.ones(1, dtype=torch.bool, device=dev))
         tok = int(d.prediction[0])         # syncs the device
@@ -530,10 +563,17 @@ class CascadeServingEngine:
                 x.zero_()
             lane["cache"]["kpos"].fill_(-1)
         cache_in = self._lane_cache(lane)
+        # the re-prefill restarts the lane's DecodeState (streaks, EMA,
+        # cursor); its telemetry and live thresholds live as long as the
+        # lane and carry over (the prefill adds its shadow observation)
+        old = lane["state"]
         state = self.executor.init_state(
             self.lane_batch, active=self._live_mask(lane),
+            mac_weights=self.mac_prefix, telemetry=old.tel,
             block_tables=(self.pcache.device_tables(lane_id)
                           if self.paged else None))
+        if old.thresholds is not None:
+            state = state.replace(thresholds=old.thresholds)
         t_pre = time.perf_counter()
         d, cache, state = self.executor.prefill(
             self.params, torch.as_tensor(toks, device=self.device), cache_in,
@@ -574,6 +614,41 @@ class CascadeServingEngine:
                 self._device_tick(lane, lane_id)
             else:
                 self._host_tick(lane, lane_id)
+        if self.controller is not None:
+            self.controller.maybe_update(self)
+
+    # -- autotune surface -------------------------------------------------
+    def lane_telemetry(self) -> List:
+        """The lanes' device telemetry counters (lane order)."""
+        return [lane["state"].tel for lane in self.lanes
+                if lane["state"].tel is not None]
+
+    def current_thresholds(self):
+        """The live threshold vector lanes decode with, or None (static
+        config thresholds)."""
+        return self._live_thresholds
+
+    def push_thresholds(self, thresholds) -> None:
+        """Write a threshold vector into every lane's live vector, in
+        place: the exit kernels read it from device memory, so neither
+        runtime rebuilds or re-captures anything."""
+        pushed = tuple(float(t) for t in thresholds)
+        ths = np.asarray(pushed, np.float32)
+        n_m = self.cfg.cascade.n_components
+        if ths.shape != (n_m,):
+            raise ValueError(f"threshold vector shape {ths.shape} != "
+                             f"({n_m},)")
+        if not self.cfg.autotune.enabled:
+            raise ValueError(
+                "live threshold pushes need autotune-enabled decode steps "
+                "(cfg.with_autotune(enabled=True)); without them the "
+                "config's thresholds are fixed")
+        src = torch.as_tensor(ths)
+        for lane in self.lanes:
+            lane["state"].thresholds.copy_(src)
+        # report what the caller pushed, not its f32 rounding (the 1.1
+        # never-exit sentinel must round-trip exactly)
+        self._live_thresholds = pushed
 
     def _account(self, lane_id: int, depths: np.ndarray, n_tokens: int,
                  ran: np.ndarray, steps: int, max_depths):
@@ -606,7 +681,8 @@ class CascadeServingEngine:
             self.pcache.pool.begin_chunk()
         t0 = time.perf_counter()
         d, cache, state = self.executor.decode_step(
-            self.params, token, self._lane_cache(lane), state)
+            self.params, token, self._lane_cache(lane), state,
+            position=lane["t"])
         tok = d.prediction.cpu().numpy()   # syncs the device
         exit_idx = d.exit_index.cpu().numpy()
         conf = d.confidence.cpu().numpy()
@@ -783,8 +859,8 @@ class CascadeServingEngine:
             "runtime": self.runtime,
             # tokens per lane per dispatch
             "chunk": self.chunk if self.runtime == "device" else 1,
-            # CUDA graphs the device runtime captured (lanes x threshold
-            # vectors), cumulative
+            # CUDA graphs the device runtime captured (one per lane: a
+            # threshold push captures nothing), cumulative
             "captures": self.loop.captures if self.loop is not None else 0,
             "n_cohorts": self.cohorts,
             "cohort_layout": self.cfg.cascade.cohort_layout,
@@ -818,4 +894,26 @@ class CascadeServingEngine:
                 float(lane["state"].ema_conf.float().mean().item())
                 for lane in self.lanes],
             "provenance": self.kernel_provenance(),
+            "autotune": self._autotune_stats(),
         })
+
+    def _autotune_stats(self):
+        if not self.cfg.autotune.enabled:
+            return None
+        from repro_torch.autotune.telemetry import merge_telemetry
+        out = {
+            "thresholds": (list(self._live_thresholds)
+                           if self._live_thresholds is not None else None),
+            "controller": (self.controller.stats()
+                           if self.controller is not None else None),
+        }
+        tels = self.lane_telemetry()
+        if tels:
+            tel = merge_telemetry(tels)
+            out.update({
+                "steps": float(tel["steps"]),
+                "shadow_steps": float(tel["shadow_steps"]),
+                "exit_counts": [float(c) for c in tel["exit_counts"]],
+                "mac_spent": float(tel["mac_spent"]),
+            })
+        return out

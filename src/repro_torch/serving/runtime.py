@@ -17,16 +17,19 @@ buffers, and the chunk reaches the host in ONE copy into pinned memory and
 one stream synchronize.
 
 The graph reads fixed addresses, so a lane's cache, kpos ring and
-DecodeState tensors are the captured ones for its whole life (the engine
-writes them in place; a re-prefill refills them); the token and the
-budgets are the loop's own buffers, loaded at each chunk.  One capture
-serves one (lane buffers, threshold vector) key: :attr:`captures` counts
-them.  Before a capture, one iteration runs eagerly over scratch copies
-with every branch forced, so that every kernel route is built, loaded and
+DecodeState tensors — its telemetry counters and live threshold vector
+included — are the captured ones for its whole life (the engine writes
+them in place; a re-prefill refills them and carries the telemetry over);
+the token and the budgets are the loop's own buffers, loaded at each
+chunk.  One capture serves one set of lane buffers: :attr:`captures`
+counts them.  The exit kernels read δ̂ from device memory (the lane's
+live vector, or the executor's copy of the config's), so a threshold push
+is a write into a captured tensor and costs no capture.  Before a
+capture, one iteration runs eagerly over scratch copies with every branch
+forced — the telemetry shadow pass's observe and skip branches and its
+fold included — so that every kernel route is built, loaded and
 configured and no capture meets a lazy set-up.  A failed capture raises;
-there is no eager fallback on CUDA.  The threshold δ̂ is a launch argument
-of the exit kernels, baked into a capture: the threshold vector is part
-of the key.
+there is no eager fallback on CUDA.
 
 The port's kernel launch counters are Python increments, which a replay
 does not run: after each chunk the loop adds each IF body's launches (as
@@ -95,8 +98,21 @@ class DecodeChunk:
 
 
 def _state_tensors(state: DecodeState):
+    tel = [] if state.tel is None else state.tel.tensors()
     return [x for x in (state.t, state.active, state.policy, state.ema_conf,
-                        state.block_tables) if x is not None]
+                        state.block_tables, state.thresholds, *tel)
+            if x is not None]
+
+
+def _scratch_state(state: DecodeState) -> DecodeState:
+    """A copy of ``state`` whose tensors (and telemetry) are clones."""
+    fields = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor) or (f.name == "tel" and v is not None):
+            v = v.clone()
+        fields[f.name] = v
+    return dataclasses.replace(state, **fields)
 
 
 def _key_of(*tensors) -> tuple:
@@ -154,8 +170,8 @@ class DeviceDecodeLoop:
                                           self.cache_len)
         self.executor = self.step.executor
         self.compile_seconds = 0.0
-        # graphs captured (one per lane buffers x threshold vector) and
-        # device -> host syncs (one per CUDA chunk)
+        # graphs captured (one per lane buffers) and device -> host syncs
+        # (one per CUDA chunk)
         self.captures = 0
         self.host_syncs = 0
         # a check for tests and the card smoke: run each chunk's replays
@@ -210,13 +226,7 @@ class DeviceDecodeLoop:
         step, executor = self.step, self.executor
         snap = kernels.launch_snapshot()
         # 1. every route and branch once, eagerly, on scratch copies
-        scratch = (nn.tree_map(torch.clone, cache),
-                   dataclasses.replace(state, **{
-                       f.name: (getattr(state, f.name).clone()
-                                if isinstance(getattr(state, f.name),
-                                              torch.Tensor)
-                                else getattr(state, f.name))
-                       for f in dataclasses.fields(state)}),
+        scratch = (nn.tree_map(torch.clone, cache), _scratch_state(state),
                    LoopBuffers(self.chunk, B, n_m, dev))
         scratch[2].remaining.fill_(1)
         executor.branches = WarmBranches(n_m, dev)
@@ -248,10 +258,11 @@ class DeviceDecodeLoop:
                       remaining, active):
         dev = state.active.device
         B = state.active.shape[0]
-        ths = self.executor.decider.resolved_thresholds(
-            self.cfg.cascade.n_components)
-        key = (ths, _key_of(*nn.tree_leaves(params), *nn.tree_leaves(cache),
-                            *_state_tensors(state)))
+        # the executor's static δ̂ vector: written in place (outside the
+        # replays) if the config's resolution changed
+        ths = self.executor.thresholds(state)
+        key = _key_of(*nn.tree_leaves(params), *nn.tree_leaves(cache),
+                      *_state_tensors(state), ths)
         t0 = time.perf_counter()
         cap = self._graphs.get(key)
         compiled = cap is None

@@ -273,7 +273,7 @@ def test_serve_cli_device_runtime_on_cpu():
     assert stats["runtime"] == "device" and stats["chunk"] == 4
 
 
-@pytest.mark.parametrize("flags", [["--autotune"],
+@pytest.mark.parametrize("flags", [["--drain"],
                                    ["--escalate-layers", "1"],
                                    ["--fleet", "2"], ["--obs"],
                                    ["--trace-out", "x.json"]])

@@ -121,7 +121,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     mods = _port_modules()
     assert {"repro_torch.serving.engine", "repro_torch.core.cascade",
             "repro_torch.kernels.megakernel", "repro_torch.kernels.confidence",
-            "repro_torch.kernels.cohort_cache"} <= set(mods)
+            "repro_torch.kernels.cohort_cache",
+            "repro_torch.autotune.telemetry", "repro_torch.autotune.solver",
+            "repro_torch.autotune.controller",
+            "repro_torch.autotune.artifacts",
+            "repro_torch.core.calibration",
+            "repro_torch.launch.calibrate"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -300,15 +305,23 @@ def test_unported_configurations_are_refused():
     kw = dict(lane_batch=2, n_lanes=1, cache_len=32, device="cpu")
     for bad, what in (
             (dict(mesh=object()), "mesh"),
-            (dict(runtime="device", mesh=object()), "mesh"),
-            (dict(autotune=True), "autotune")):
+            (dict(runtime="device", mesh=object()), "mesh")):
         with pytest.raises(NotImplementedError, match=what):
             CascadeServingEngine(cfg, model, params, **{**kw, **bad})
     for cfg_bad in (cfg.with_kernel_tune(enabled=True),
-                    cfg.with_autotune(enabled=True),
-                    cfg.with_cascade(confidence="entropy")):
-        with pytest.raises(NotImplementedError):
+                    cfg.with_cascade(confidence="entropy"),
+                    cfg.with_cascade(confidence="margin"),
+                    cfg.with_obs(),
+                    cfg.with_escalation(enabled=True)):
+        with pytest.raises(NotImplementedError, match="later slice"):
             CascadeServingEngine(cfg_bad, model, params, **kw)
+    # autotune is ported (slice 9): it constructs with the config's
+    # telemetry, and a controller without it is a caller error
+    with pytest.raises(ValueError, match="autotune"):
+        CascadeServingEngine(cfg, model, params, autotune=True, **kw)
+    tuned = cfg.with_autotune(enabled=True)
+    assert CascadeServingEngine(tuned, model, params, autotune=True,
+                                **kw).controller is not None
     with pytest.raises(NotImplementedError):
         build_model(cfg.replace(family="moe"), device="cpu")
     # the paged KV layout is ported (slice 3): it constructs

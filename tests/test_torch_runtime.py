@@ -281,9 +281,14 @@ def test_decode_loop_refuses_bad_arguments(weights):
         DeviceDecodeLoop(model, cfg, chunk=0)
     with pytest.raises(NotImplementedError, match="mesh"):
         DeviceDecodeLoop(model, cfg, chunk=4, mesh=object())
-    with pytest.raises(NotImplementedError, match="autotune"):
-        make_decode_state(cfg.with_autotune(enabled=True), 2)
+    # autotune (slice 9): telemetry counters and a live f32 δ̂ vector
+    tuned = make_decode_state(cfg.with_autotune(enabled=True, bins=8), 2,
+                              device="cpu")
+    assert tuned.tel.conf_hist.shape == (2, 8)
+    assert tuned.thresholds.dtype == torch.float32
+    assert tuned.thresholds.tolist() == [0.6000000238418579, 0.0]
     st = make_decode_state(cfg, 2, t=5, device="cpu")
+    assert st.tel is None and st.thresholds is None
     assert st.t.dtype == torch.int32 and st.t.dim() == 0 and int(st.t) == 5
     assert kernel_provenance(cfg, "cpu") == {"kernel_backend": "torch-cpu",
                                             "kernel_platform": "cpu"}
