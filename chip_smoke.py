@@ -86,7 +86,18 @@ source, all at once).  Phases, each of which fails the run on a miss:
    subprocess, which must exit 0 with an artifact that round-trips;
 10. the serve CLI (``python -m repro_torch.launch.serve ... --cache-layout
    paged``) in a subprocess, which must exit 0;
-11. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+11. slice 10, the paper's experiment: CI-RESNET(18) (n = 18, enhance_dim
+    128, 10 classes) backtrack-trained (Algorithm 2) in f32 on 4096
+    synthetic images for n_e = 6 epochs at a base LR of 0.01; its
+    component accuracies, the
+    Fig. 3 ε-sweep, Fig. 4's linearity r, the staged evaluation's measured
+    wall clock against the dense cascade at ε = 0.10 and 0.02; then
+    Algorithm 1 on a 256-image batch, the confidence kernel (3 launches a
+    call) against the plain measure;
+12. slice 10, full-width training: the train CLI (qwen2.5-3b, 8 steps of
+    4 x 64 tokens) in a subprocess, which must exit 0, and its checkpoint
+    loaded back bit for bit;
+13. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -2162,6 +2173,276 @@ def phase_cli():
           "pool_line": pool[-1] if pool else None})
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the paper's experiment and training on the card
+# ---------------------------------------------------------------------------
+
+# the paper phase's data and training, cut from the paper's CIFAR runs
+# (50000 images, 64000 SGD steps) to under a minute of card time: 4096
+# synthetic training images, n_e = 6 epochs (phases of 1.25 n_e, then n_e
+# a head).  The base LR is 0.01, the rate He et al. start ResNet-110 with
+# (resnet_paper_schedule's docstring): at 0.1 and n_e = 3, CI-RESNET(18)
+# ended with component accuracies of 0.10-0.43 in each of three runs on
+# the card, its sweep not monotone in two; at 0.01 and n_e = 3 the early
+# heads (trained at a tenth of the base LR) stayed at 0.37 / 0.43, with
+# component 0's confidence anti-correlated with its accuracy (Fig. 4's r
+# = -0.59); scripts/paper_recipes.py reruns both.  cuDNN's deterministic
+# algorithms make a run repeat its bits.
+PAPER_SPLITS = dict(n_classes=10, n_train=4096, n_val=1024, n_test=2048,
+                    seed=11)
+PAPER_TRAIN = dict(n_epochs=6, batch_size=128, augment=False, base_lr=0.01)
+# Fig. 3's grid (benchmarks/bench_fig3.py), the ε of its wall-clock rows,
+# and its monotonicity slack
+PAPER_EPSILONS = [0.20, 0.15, 0.10, 0.08, 0.06, 0.04, 0.02, 0.01, 0.0]
+PAPER_WALLCLOCK_EPSILONS = (0.10, 0.02)
+MONOTONE_SLACK = 0.02
+ALG1_BATCH = 256
+
+
+def phase_paper():
+    """CI-RESNET(18) (``ci-resnet18``: n = 18, enhance_dim 128), 10
+    classes: backtrack training (Algorithm 2) in f32 with TF32 off and
+    cuDNN's deterministic algorithms, the
+    component accuracies, the Fig. 3 ε-sweep calibrated on the validation
+    split (§5, ``self``), Fig. 4's linearity r of α_m(δ) per component,
+    and the staged evaluation's measured wall clock against the dense
+    cascade at ε = 0.10 and 0.02.  Training and evaluation launch no
+    hand-written kernel (convolutions are cuDNN's): checked.  Then
+    Algorithm 1 on a 256-image test batch through CI-ResNet's
+    ``component_fns``, the confidence kernel against the plain measure:
+    predictions equal, δ within 1e-5 relative, exactly 3 launches a call
+    (the Python counter and the profiler's ``conf_cluster_kernel``
+    count).  Fails on a non-finite loss, a phase-0 loss that does not
+    fall, or a sweep that is not monotone within 0.02."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibration import accuracy_vs_confidence
+    from repro_torch.core.cascade import cascade_infer_sequential
+    from repro_torch.core.macs import resnet_component_macs
+    from repro_torch.core.policy import ExitDecider, get_calibrator
+    from repro_torch.core.resnet_trainer import (collect_logits,
+                                                 evaluate_tradeoff,
+                                                 evaluate_wallclock,
+                                                 score_logits,
+                                                 train_backtrack)
+    from repro_torch.data.synth_images import make_image_splits
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.confidence import confidence
+    from repro_torch.models.resnet import CIResNet
+    cfg = get_config("ci-resnet18")
+    n, enh = cfg.cascade.exit_boundaries[0], cfg.cascade.enhance_dim
+    classes = PAPER_SPLITS["n_classes"]
+    model = CIResNet(n, classes, enh, device=DEV)
+    train, val, test = make_image_splits(**PAPER_SPLITS)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("paper: TF32 is on")
+    kernels.reset_launch_counts()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = train_backtrack(model, train, test=test, seed=0, **PAPER_TRAIN)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    losses = {k: np.asarray(v) for k, v in rep.phase_losses.items()}
+    steps = {k: len(v) for k, v in losses.items()}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        fail("paper: a non-finite training loss (finite steps by phase: "
+             f"{ {k: int(np.isfinite(v).sum()) for k, v in losses.items()} })")
+    first = losses["backbone+last"]
+    if not first[-20:].mean() < first[0]:
+        fail(f"paper: the phase-0 loss did not fall ({first[0]:.4f} -> "
+             f"{first[-20:].mean():.4f})")
+    t0 = time.perf_counter()
+    sweep = evaluate_tradeoff(model, rep.params, rep.state, val, test,
+                              PAPER_EPSILONS, classes,
+                              measure="softmax_max", calibrator="self")
+    sweep_s = time.perf_counter() - t0
+    accs = np.array([r.accuracy for _, r in sweep])
+    macs = np.array([r.avg_macs for _, r in sweep])
+    monotone = bool(np.all(np.diff(accs[np.argsort(macs)])
+                           >= -MONOTONE_SLACK))
+    if not monotone:
+        fail(f"paper: the ε-sweep is not monotone within {MONOTONE_SLACK} "
+             f"(accuracies {accs.round(4).tolist()} at average MACs "
+             f"{macs.round(-3).tolist()}; component accuracies "
+             f"{rep.component_acc})")
+    logits_t = collect_logits(model, rep.params, rep.state, test)
+    conf_t, _, corr_t = score_logits(logits_t, test.labels)
+    linearity = []
+    for m in range(3):
+        grid, alpha = accuracy_vs_confidence(conf_t[m], corr_t[m])
+        linearity.append(float(np.corrcoef(grid, alpha)[0, 1])
+                         if len(grid) > 10 else None)
+    logits_v = collect_logits(model, rep.params, rep.state, val)
+    conf_v, _, corr_v = score_logits(logits_v, val.labels)
+    analytic = {eps: r for eps, r in sweep}
+    wallclock = []
+    for eps in PAPER_WALLCLOCK_EPSILONS:
+        cal = get_calibrator("self").calibrate(conf_v, corr_v, eps)
+        wc = evaluate_wallclock(model, rep.params, rep.state, test,
+                                cal.thresholds, repeats=3)
+        wallclock.append({"epsilon": eps,
+                          "thresholds": list(cal.thresholds),
+                          "t_staged_s": wc["t_staged_s"],
+                          "t_dense_s": wc["t_dense_s"],
+                          "wallclock_speedup": wc["wallclock_speedup"],
+                          "exit_fractions": wc["exit_fractions"],
+                          "analytic_speedup": analytic[eps].speedup,
+                          "analytic_exit_fractions":
+                              analytic[eps].exit_fractions.tolist()})
+    torch.cuda.synchronize()
+    idle = kernels.launch_counts()
+    if any(idle.values()):
+        fail(f"paper: training and evaluation launched kernels {idle}")
+
+    # Algorithm 1 on CI-ResNet's components: the confidence kernel at the
+    # (256, 10) f32 logits of each component against the plain measure
+    fns = model.component_fns(rep.params, rep.state)
+    x = torch.from_numpy(test.images[:ALG1_BATCH]).to(DEV)
+    ths = tuple(wallclock[0]["thresholds"])
+    res = {}
+    with torch.no_grad():
+        for use_kernels in (False, True):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            pred, conf = cascade_infer_sequential(
+                fns, ths, x, ExitDecider("softmax_max",
+                                         use_kernels=use_kernels))
+            torch.cuda.synchronize()
+            res[use_kernels] = (pred, conf, kernels.launch_counts())
+        launches = res[True][2]
+        check_launched("paper algorithm 1", launches, {"confidence"})
+        if launches["confidence"] != 3:
+            fail(f"paper algorithm 1: {launches['confidence']} confidence "
+                 "launches, expected 3")
+        check_launched("paper algorithm 1 plain", res[False][2], set())
+        check_equal("paper algorithm 1 predictions", res[True][0],
+                    res[False][0])
+        check_close("paper algorithm 1 confidences", res[True][1],
+                    res[False][1], 0.0, 1e-5)
+        prof = [(k, c) for k, c in _device_kernels(
+            lambda: cascade_infer_sequential(
+                fns, ths, x, ExitDecider("softmax_max", use_kernels=True)))
+            if "conf_cluster_kernel" in k]
+        if sum(c for _, c in prof) != 3:
+            fail(f"paper algorithm 1: the profiler saw {prof} confidence "
+                 "kernels in one call, expected 3")
+        times = _algorithm1_times(fns, ths, x)
+        # the kernel at the path's shape: each component's logits
+        cases = []
+        carry = None
+        for m, fn in enumerate(fns):
+            lg, carry = fn(x, carry)
+            got, want = confidence(lg), ref.ref_confidence(lg)
+            check_equal(f"paper confidence m={m} argmax", got[0], want[0])
+            check_close(f"paper confidence m={m} delta", got[1], want[1],
+                        0.0, 1e-5)
+            b_, by = bound_ms(lg.numel() * 4 + lg.shape[0] * 8,
+                              4 * lg.numel(), "float32")
+            cases.append({
+                "component": m, "shape": list(lg.shape), "dtype": "float32",
+                "max_abs_err": max_err(got[1], want[1]),
+                "ms": time_ms(lambda: confidence(lg)),
+                "plain_ms": time_ms(lambda: ref.ref_confidence(lg)),
+                "library_ms": time_ms(
+                    lambda: torch.softmax(lg.float(), -1).max(-1)),
+                "bound_ms": b_, "bound_by": by})
+    emit({"phase": "paper", "config": "ci-resnet18",
+          "n_blocks": n, "enhance_dim": enh, "n_classes": classes,
+          "reduced": "synthetic images (data/synth_images.py): "
+                     f"{len(train)} train, {len(val)} val, {len(test)} "
+                     f"test; n_e = {PAPER_TRAIN['n_epochs']} epochs (the "
+                     "paper: CIFAR, 64000 steps); f32, TF32 off",
+          "macs_per_image": resnet_component_macs(n, classes,
+                                                  enhance_dim=enh),
+          "train_recipe": PAPER_TRAIN, "cudnn_deterministic": True,
+          "train_seconds": train_s, "steps": steps,
+          "phase_loss": {k: {"first": float(v[0]),
+                             "last20_mean": float(v[-20:].mean())}
+                         for k, v in losses.items()},
+          "component_acc": rep.component_acc,
+          "sweep_seconds": sweep_s,
+          "sweep": [{"epsilon": eps, "accuracy": r.accuracy,
+                     "avg_macs": r.avg_macs, "speedup": r.speedup,
+                     "exit_fractions": r.exit_fractions.tolist(),
+                     "thresholds": list(r.thresholds)} for eps, r in sweep],
+          "monotone": monotone, "linearity_r": linearity,
+          "wallclock": wallclock,
+          "algorithm1": {"batch": ALG1_BATCH, "thresholds": list(ths),
+                         "launches": launches,
+                         "profiler_conf_kernels": prof,
+                         "max_abs_err": max_err(res[True][1],
+                                                res[False][1]),
+                         **times},
+          "confidence_cases": cases})
+    return launches
+
+
+def phase_train():
+    """Full-width LM training on one card: the train CLI (``python -m
+    repro_torch.launch.train --arch qwen2.5-3b --steps 8 --batch 4 --seq
+    64 --ckpt-dir ...``, the reference CLI's batch and sequence) in a
+    subprocess, which must exit 0 (its own checks: finite losses, a loss
+    that trends down); its per-step ms, peak device memory and loss curve;
+    then the checkpoint loaded back into the full-width tree on the card,
+    its digest equal to the trained params' bit for bit."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.ckpt import load_checkpoint, tree_digest
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen2.5-3b", "--steps", "8", "--batch", "4", "--seq", "64",
+           "--ckpt-dir", str(ckpt), "--log-every", "1"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        fail(f"train CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    try:
+        t0 = time.perf_counter()
+        like = build_model(get_config("qwen2.5-3b"), device=DEV).init(0)
+        init_digest = tree_digest(like)
+        loaded = load_checkpoint(str(ckpt), like)
+        digest = tree_digest(loaded)
+        load_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(summary["checkpoint"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if digest != summary["params_digest"]:
+        fail("train: the checkpoint does not load back bit for bit")
+    if digest == init_digest:
+        fail("train: the checkpoint holds the untrained params")
+    del like, loaded
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "command": " ".join(cmd[1:-4]), "rc": 0,
+          "seconds": seconds, "params": summary["params"],
+          "steps": summary["steps"], "batch": summary["batch"],
+          "seq": summary["seq"], "losses": summary["losses"],
+          "step_ms": summary["step_ms"],
+          "max_memory_allocated": summary["max_memory_allocated"],
+          "checkpoint_bytes": ckpt_bytes, "checkpoint_load_seconds": load_s,
+          "checkpoint_bit_exact": True})
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2218,6 +2499,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     select, gathers = phase_route_parity()
     phase_cli()
+    paper = phase_paper()
+    phase_train()
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -2250,7 +2533,10 @@ def main() -> int:
     # the launches on the path by route, for the kernels that have two
     paged_case = next(c for c in checks["decode_attention"]
                       if c["dtype"] == "bfloat16" and c["route"] == "paged")
-    extra = {"flash_attention": {"routes": slice1_routes["flash_attention"]},
+    extra = {"confidence": {"launches_cnn": paper["confidence"],
+                            "path_cnn": "paper: Algorithm 1 on CI-RESNET(18),"
+                            f" {ALG1_BATCH} images, (B, 10) f32"},
+             "flash_attention": {"routes": slice1_routes["flash_attention"]},
              "rmsnorm": {"routes": slice1_routes["rmsnorm"]},
              "megakernel": {"routes": cohort_routes},
              # decode's dense route on slice 1's path, its paged route on

@@ -7,35 +7,24 @@ leaves are stacked on a leading layer axis), ``exits[m]``, ``final_norm``
 and ``lm_head`` — and returns the same structure of torch tensors on
 ``device``, dtypes kept.  ``params_to_numpy`` is the inverse, so a round
 trip is bit-exact.
+
+``resnet_params_from_jax`` does the same for CI-ResNet's ``(params,
+state)`` (``models/resnet.py``): convolution weights go from the
+reference's HWIO to the OIHW of ``F.conv2d``, fully connected weights stay
+``(in, out)``; ``resnet_params_to_numpy`` is its inverse, bit-exact.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import numpy as np
-import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.nn import tree_map
-from repro_torch.utils import resolve_device
+from repro_torch.utils import (numpy_to_tensor, resolve_device,
+                               tensor_to_numpy)
 
 _KEYS = ("embed", "segments", "exits", "final_norm", "lm_head")
-
-
-def _to_torch(x, device) -> torch.Tensor:
-    a = np.asarray(x)
-    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: same bits
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
-
-
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        import ml_dtypes  # the bfloat16 numpy dtype the reference uses
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy()
 
 
 def params_from_jax(np_params: Any, cfg: ModelConfig, device=None):
@@ -52,9 +41,35 @@ def params_from_jax(np_params: Any, cfg: ModelConfig, device=None):
     shape = tuple(np.shape(np_params["embed"]))
     if shape != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {shape} does not match the config")
-    return tree_map(lambda x: _to_torch(x, device), np_params)
+    return tree_map(lambda x: numpy_to_tensor(x, device), np_params)
 
 
 def params_to_numpy(params: Any):
     """The port's parameters -> the same tree with numpy leaves."""
-    return tree_map(_to_numpy, params)
+    return tree_map(tensor_to_numpy, params)
+
+
+def _conv_to_oihw(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(a, (3, 2, 0, 1)))
+
+
+def resnet_params_from_jax(np_params: Any, np_state: Any, device=None):
+    """The reference CIResNet's ``(params, state)`` (numpy leaves) -> the
+    port's: 4-D (convolution) leaves HWIO -> OIHW, the rest as they are."""
+    device = resolve_device(device)
+
+    def one(x):
+        a = np.asarray(x)
+        return numpy_to_tensor(_conv_to_oihw(a) if a.ndim == 4 else a,
+                               device)
+    return tree_map(one, np_params), tree_map(one, np_state)
+
+
+def resnet_params_to_numpy(params: Any, state: Any):
+    """The port's CIResNet ``(params, state)`` -> numpy leaves in the
+    reference's layout (OIHW -> HWIO)."""
+    def one(t):
+        a = tensor_to_numpy(t)
+        return (np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
+                if a.ndim == 4 else a)
+    return tree_map(one, params), tree_map(one, state)

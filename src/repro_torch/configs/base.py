@@ -644,6 +644,7 @@ def list_configs():
 
 
 def _load_all():
-    # import for registration side effect; the port serves qwen2.5-3b only
-    # so far (the other architectures come with their families' slices)
-    from repro_torch.configs import qwen2p5_3b  # noqa: F401
+    # import for registration side effect; the port has qwen2.5-3b and the
+    # paper's ci-resnet18 so far (the other architectures come with their
+    # families' slices)
+    from repro_torch.configs import ci_resnet18, qwen2p5_3b  # noqa: F401

@@ -6,6 +6,9 @@
 Both are computed from logits without materializing the softmax vector:
 δ = exp(max z − logsumexp z), as in the JAX package's
 ``core/confidence.py``.
+
+``entropy_confidence`` is the BranchyNet [TMK16] baseline the paper
+compares against (confidence = −entropy, higher = more confident).
 """
 from __future__ import annotations
 
@@ -23,3 +26,12 @@ def softmax_outputs(logits: torch.Tensor
     m = torch.amax(x, dim=-1)
     lse = m + torch.log(torch.sum(torch.exp(x - m[..., None]), dim=-1))
     return out, torch.exp(m - lse)
+
+
+def entropy_confidence(logits: torch.Tensor) -> torch.Tensor:
+    """BranchyNet-style confidence: −entropy(softmax(z)), in (−inf, 0].
+    Higher is more confident; its thresholds live on another scale than
+    δ's, so calibration (§5) is rerun when this measure is selected."""
+    p = torch.softmax(logits.float(), dim=-1)
+    ent = -torch.sum(p * torch.log(torch.clamp(p, 1e-30, 1.0)), dim=-1)
+    return -ent

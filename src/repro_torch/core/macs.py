@@ -1,8 +1,13 @@
-"""Analytic MAC accounting for the cascade segments (dense family).
+"""Analytic MAC accounting: CI-ResNet components and the cascade
+segments (dense family).
 
-The counterpart of ``segment_macs_per_token`` in the JAX package's
-``core/macs.py``: decode-time MACs of each cascade segment, the quantity
-the early exit saves, which the serving engine's analytic speedup reads.
+The counterpart of the JAX package's ``core/macs.py``.  The paper counts
+MACs "analytically by summing up the linear operations in the
+convolutional layers and the fully connected layers, excluding
+activations and batch normalization" (§6.2); ``resnet_component_macs``
+follows that scope.  ``segment_macs_per_token`` gives decode-time MACs of
+each cascade segment, the quantity the early exit saves, which the
+serving engine's analytic speedup reads.
 """
 from __future__ import annotations
 
@@ -11,6 +16,48 @@ from typing import List
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import layer_kinds
 
+
+# ---------------------------------------------------------------------------
+# CI-ResNet (paper scope: conv + fc only)
+# ---------------------------------------------------------------------------
+
+def conv_macs(k: int, c_in: int, c_out: int, h_out: int, w_out: int) -> int:
+    return k * k * c_in * c_out * h_out * w_out
+
+
+def resnet_component_macs(n_blocks: int, n_classes: int,
+                          widths=(16, 32, 64), image_hw: int = 32,
+                          enhance_dim: int = 128) -> List[float]:
+    """Cumulative MACs after components 0, 1, 2 of CI-RESNET(n) (per
+    image): component m = stem + modules 0..m + its classifier, as
+    ``models/resnet.py`` computes it."""
+    macs_prefix = []
+    total = conv_macs(3, 3, widths[0], image_hw, image_hw)      # stem
+    hw = image_hw
+    for mod in range(3):
+        c_in = widths[mod - 1] if mod else widths[0]
+        c_out = widths[mod]
+        stride = 1 if mod == 0 else 2
+        if stride == 2:
+            hw //= 2
+        # first block (possibly strided, with a projection shortcut)
+        total += conv_macs(3, c_in, c_out, hw, hw)
+        total += conv_macs(3, c_out, c_out, hw, hw)
+        if stride == 2 or c_in != c_out:
+            total += conv_macs(1, c_in, c_out, hw, hw)
+        for _ in range(n_blocks - 1):
+            total += 2 * conv_macs(3, c_out, c_out, hw, hw)
+        if mod < 2 and enhance_dim:                 # enhanced classifier
+            head = c_out * enhance_dim + enhance_dim * n_classes
+        else:
+            head = c_out * n_classes
+        macs_prefix.append(total + head)
+    return [float(m) for m in macs_prefix]
+
+
+# ---------------------------------------------------------------------------
+# LLM cascade segments
+# ---------------------------------------------------------------------------
 
 def _layer_macs_per_token(cfg: ModelConfig, kind: str, kv_len: int) -> float:
     """Decode-time MACs of one layer for one new token, KV length kv_len."""

@@ -2,7 +2,9 @@
 registries, plus the single exit-decision engine (:class:`ExitDecider`).
 
 The counterpart of the JAX package's ``core/policy.py``: the
-``softmax_max`` measure (Def. 3.3) and ``patience@k`` over it, the
+``softmax_max`` measure (Def. 3.3), the ``entropy`` and ``margin``
+baselines (no fused kernel: a decider with either never takes the fused
+exit-update or megakernel route) and ``patience@k`` over any of them, the
 ``threshold`` policy (Algorithm 1) and the ``budget`` policy (thresholds
 fitted to an average-MAC budget by the autotune solver), the §5
 calibrators ``self``, ``final`` and ``holdout``, the decider's component
@@ -11,7 +13,6 @@ megakernel) with the autotune telemetry rider, its cohort slicing, and the
 precomputed-confidence exit selection of the evaluation harness.  Config
 strings (``cascade.confidence`` / ``cascade.policy`` /
 ``cascade.calibrator``) resolve through the registries exactly as there.
-The entropy and margin measures come in a later slice of the port.
 
 A threshold vector is a tuple of floats or, on the autotune
 live-threshold path and in the staged executor, an ``(n_components,)``
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch.core.calibration import (CalibrationResult,
                                           threshold_for_epsilon)
-from repro_torch.core.confidence import softmax_outputs
+from repro_torch.core.confidence import entropy_confidence, softmax_outputs
 
 # ---------------------------------------------------------------------------
 # registries
@@ -38,8 +39,6 @@ from repro_torch.core.confidence import softmax_outputs
 _MEASURES: Dict[str, Callable[[str], "ConfidenceMeasure"]] = {}
 _POLICIES: Dict[str, Callable[[str], "ExitPolicy"]] = {}
 _CALIBRATORS: Dict[str, Callable[[str], "Calibrator"]] = {}
-# registered in the reference, not ported yet
-_LATER = {"entropy", "margin"}
 
 
 def _register(table, name):
@@ -67,17 +66,13 @@ def register_calibrator(name: str):
 def _resolve(table, spec: str, kind: str):
     name, _, arg = spec.partition("@")
     if name not in table:
-        if name in _LATER:
-            raise NotImplementedError(
-                f"{kind} {name!r} is not ported yet (a later slice of the "
-                f"port); ported: {sorted(table)}")
         raise KeyError(f"unknown {kind} {name!r}; registered: "
                        f"{sorted(table)}")
     return table[name](arg)
 
 
 def get_measure(spec: str) -> "ConfidenceMeasure":
-    """``softmax_max`` | ``patience@k[:base]``"""
+    """``softmax_max`` | ``entropy`` | ``margin`` | ``patience@k[:base]``"""
     return _resolve(_MEASURES, spec, "confidence measure")
 
 
@@ -147,6 +142,43 @@ class SoftmaxMaxMeasure(ConfidenceMeasure):
             return None
         from repro_torch.kernels.ops import softmax_confidence_fused
         return softmax_confidence_fused(logits)
+
+
+@register_measure("entropy")
+class EntropyMeasure(ConfidenceMeasure):
+    """BranchyNet [TMK16] baseline: −entropy, mapped onto (0, 1] via
+    1/(1 + H) so §5 calibration grids behave like δ's."""
+
+    name = "entropy"
+
+    def __init__(self, arg: str = ""):
+        del arg
+
+    def __call__(self, logits):
+        out = torch.argmax(logits, dim=-1).to(torch.int32)
+        neg_ent = entropy_confidence(logits)          # (−inf, 0]
+        return out, 1.0 / (1.0 - neg_ent)
+
+
+@register_measure("margin")
+class MarginMeasure(ConfidenceMeasure):
+    """Top-2 softmax probability gap (IDK-cascade style), in [0, 1).  Tied
+    top logits give a gap of 0; the prediction is the first index of the
+    maximum."""
+
+    name = "margin"
+
+    def __init__(self, arg: str = ""):
+        del arg
+
+    def __call__(self, logits):
+        x = logits.float()
+        out = torch.argmax(x, dim=-1).to(torch.int32)
+        top2 = torch.topk(x, 2, dim=-1).values          # (..., 2) descending
+        m = top2[..., 0]
+        lse = m + torch.log(torch.sum(torch.exp(x - m[..., None]), dim=-1))
+        p = torch.exp(top2 - lse[..., None])
+        return out, p[..., 0] - p[..., 1]
 
 
 @register_measure("patience")
@@ -599,6 +631,12 @@ class ExitDecider:
             if pair is not None:
                 return pair
         return self.measure(logits)
+
+    def measure_all(self, logits_list: Sequence[torch.Tensor]):
+        """(outs, confs) stacked (n_m, ...) through :meth:`measure_one`."""
+        pairs = [self.measure_one(lg) for lg in logits_list]
+        return (torch.stack([p[0] for p in pairs]),
+                torch.stack([p[1] for p in pairs]))
 
     # -- the component scan ----------------------------------------------
     def _init_carry(self, m: int, n_components: int, prediction, confidence,

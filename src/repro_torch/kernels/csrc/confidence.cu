@@ -28,7 +28,11 @@
 //    the raw 16-bit pairs (__hmax2); only a batch that raises the thread's
 //    maximum looks for its first index (the first chunk whose maximum it
 //    is, then the first element of that chunk); the sum is of
-//    exp2(x log2 e - m log2 e), one FMA and one ex2.approx an element;
+//    exp2((x - m) log2 e), a subtraction, a multiply and one ex2.approx an
+//    element (the max subtracted before the scaling: folding a pre-scaled
+//    max into one FMA, x log2 e - m log2 e, rounds m log2 e and so loses
+//    |m| 2^-24 of every exponent — 7e-5 of δ at the CI-ResNet heads'
+//    logits);
 //  * the reductions (lanes, warps, cluster ranks) take the maximum first,
 //    then rescale each sum to it once and add the sums and the smallest
 //    index among the maximum's holders, in a fixed shuffle-tree order, so
@@ -156,7 +160,6 @@ __device__ __forceinline__ void fold_batch(const T* e, const float (&cm)[U],
     }
     a = j0 + ub * stride + first;
   }
-  const float mb = m * kLog2e;
   float s[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -164,7 +167,7 @@ __device__ __forceinline__ void fold_batch(const T* e, const float (&cm)[U],
     if (u < nu) {
 #pragma unroll
       for (int i = 0; i < K; ++i)
-        s[u] += ex2(fmaf(to_f32(e[u * K + i]), kLog2e, -mb));
+        s[u] += ex2((to_f32(e[u * K + i]) - m) * kLog2e);
     }
   }
 #pragma unroll

@@ -54,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--threshold", type=float, default=0.5)
     ap.add_argument("--confidence", default=None,
                     help="confidence-measure registry spec (softmax_max, "
-                         "patience@k[:base])")
+                         "entropy, margin, patience@k[:base])")
     ap.add_argument("--exit-mode", default="select",
                     choices=["select", "cond_batch"])
     ap.add_argument("--runtime", default="host", choices=["host", "device"],

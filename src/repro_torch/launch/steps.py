@@ -15,10 +15,13 @@ Serve-step signature::
     serve_step(params, token, cache, state, extra=None)
         -> (prediction, exit_index, confidence, cache, state)
 
+``make_optimizer`` / ``make_train_step``: the joint-loss cascade training
+step (forward, backward, AdamW), with the plain ops only: a
+``use_kernels`` config is refused (no kernel has a backward).
+
 The dense family takes no extra inputs: ``extra`` must be None.  The
-training step (``make_train_step``) comes with the training slice of the
-port, and the dry-run's ``make_decode_state_struct`` /
-``make_batch_structs`` with the dry-run slice.
+dry-run's ``make_decode_state_struct`` / ``make_batch_structs`` come with
+the dry-run slice.
 """
 from __future__ import annotations
 
@@ -28,6 +31,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exec import (DISPATCH, DecodeState, StagedExecutor,
                                    init_decode_state)
 from repro_torch.core.policy import ExitDecider
+from repro_torch.core.training import cascade_loss
+from repro_torch.models.nn import tree_leaves, tree_unflatten
+from repro_torch.optim import adamw
+from repro_torch.optim.optimizer import Optimizer, apply_updates
 
 # IF bodies one captured iteration may hold (counter slots): the guard,
 # per deep segment at most 3 dispatch branches and 4 per cohort (skip,
@@ -41,6 +48,39 @@ def _no_extra(extra) -> None:
         raise NotImplementedError(
             "extra model inputs come with the families that take them (a "
             "later slice of the port); the dense family takes none")
+
+
+def make_optimizer(cfg: ModelConfig) -> Optimizer:
+    return adamw(lr=3e-4, weight_decay=0.1)
+
+
+def make_train_step(model, cfg: ModelConfig, optimizer: Optimizer):
+    """``train_step(params, opt_state, step, batch) -> (params, opt_state,
+    loss)``: the cascade loss (``cfg.cascade.loss_mode``, joint by
+    default) of ``model.forward_train`` on ``batch["tokens"]`` /
+    ``batch["labels"]``, its gradients and one optimizer update, applied
+    to the params in place.  ``loss`` is a 0-d tensor on the device."""
+    if cfg.use_kernels:
+        raise NotImplementedError(
+            "make_train_step with use_kernels: no kernel of the port (nor "
+            "of the reference) has a backward, and differentiating around "
+            "one would be a silent fallback; train with use_kernels off")
+
+    def train_step(params, opt_state, step, batch):
+        _no_extra(batch.get("extra"))
+        leaves = list(tree_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+        logits, aux = model.forward_train(params, batch["tokens"])
+        loss = cascade_loss(logits, batch["labels"],
+                            cfg.cascade.loss_mode or "joint",
+                            joint_weights=cfg.cascade.joint_weights,
+                            aux=aux, aux_coef=cfg.router_aux_coef)
+        grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+        updates, opt_state = optimizer.update(grads, opt_state, params, step)
+        params = apply_updates(params, updates)
+        return params, opt_state, loss.detach()
+    return train_step
 
 
 def make_prefill_step(model, cfg: ModelConfig):

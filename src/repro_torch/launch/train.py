@@ -1,0 +1,116 @@
+"""Training launcher: the cascade's joint-loss training on the synthetic
+token stream, on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --smoke --steps 50 --batch 4 --seq 64 [--device cpu]
+
+The counterpart of the JAX package's ``launch/train.py``, with its flags.
+``--smoke`` trains the reduced config; without it the full config trains on
+one card (the reference's production mesh, ``--multi-pod``, comes with the
+launch and multi-GPU slice and is refused by name).  Runs on CUDA unless
+``--device cpu``.  Weights are drawn from ``model.init(0)``; batches come
+from ``SyntheticLMStream`` (seed 0); the step is ``make_train_step`` with
+``make_optimizer``'s AdamW.  ``--ckpt-dir`` saves the final params as
+``step_<steps>.npz``.  The last line of standard output is one JSON
+object: the losses, each step's wall time in ms (synced by reading its
+loss), the peak device memory, the params count, and — with a checkpoint —
+its path and the params' ``tree_digest``.  As the reference does, it fails
+on a non-finite loss and, at 6 steps or more, on a loss that does not
+trend down.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.ckpt import save_checkpoint, tree_digest
+from repro_torch.configs import get_config, reduced
+from repro_torch.data.lm_pipeline import SyntheticLMStream
+from repro_torch.launch.steps import make_optimizer, make_train_step
+from repro_torch.models.model import build_model
+from repro_torch.utils import get_logger, resolve_device, tree_size
+
+log = get_logger("train")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.train",
+        description="Train the cascade (joint exit loss, AdamW) on the "
+                    "synthetic token stream.")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced config (2 layers, d_model 256, f32)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs on the "
+                         "CPU)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the production mesh (not ported yet: refused)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--log-every", type=int, default=5)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.multi_pod:
+        raise SystemExit("--multi-pod: the production mesh is not ported "
+                         "yet (the launch and multi-GPU slice of the port)")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    model = build_model(cfg, device=device)
+    params = model.init(0)
+    n_params = tree_size(params)
+    log.info("arch=%s params=%s device=%s", cfg.name, f"{n_params:,}",
+             device)
+    opt = make_optimizer(cfg)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, cfg, opt)
+
+    stream = SyntheticLMStream(cfg.vocab_size, args.seq, args.batch)
+    losses, step_ms = [], []
+    t0 = time.perf_counter()
+    for step, (toks, labels) in zip(range(args.steps), stream):
+        batch = {"tokens": torch.from_numpy(toks).to(device),
+                 "labels": torch.from_numpy(labels).to(device)}
+        ts = time.perf_counter()
+        params, opt_state, loss = step_fn(params, opt_state, step, batch)
+        losses.append(float(loss))
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        if step % args.log_every == 0:
+            log.info("step %d loss %.4f (%.1f ms)", step, losses[-1],
+                     step_ms[-1])
+    dt = time.perf_counter() - t0
+    log.info("done: %d steps in %.1fs; loss %.4f -> %.4f", args.steps, dt,
+             losses[0], losses[-1])
+    summary = {"arch": cfg.name, "smoke": args.smoke, "device": str(device),
+               "params": n_params, "steps": args.steps, "batch": args.batch,
+               "seq": args.seq, "seconds": dt, "losses": losses,
+               "step_ms": step_ms,
+               "max_memory_allocated": (torch.cuda.max_memory_allocated(
+                   device) if device.type == "cuda" else None)}
+    if args.ckpt_dir:
+        summary["checkpoint"] = save_checkpoint(args.ckpt_dir, args.steps,
+                                                params)
+        summary["params_digest"] = tree_digest(params)
+        log.info("checkpoint: %s", summary["checkpoint"])
+    print(json.dumps(summary), flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss")
+    if args.steps >= 6:  # trend check (per-batch noise dominates tiny runs)
+        k = max(2, args.steps // 3)
+        if not np.mean(losses[-k:]) < np.mean(losses[:k]):
+            raise AssertionError("loss did not trend down")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,7 @@ by default); the final head is the standard norm + unembedding.
 
 Public entry points:
   init(generator)                                -> params
+  forward_train(params, tokens)                  -> (exit_logits, aux)
   init_cache(batch, cache_len, dtype)            -> cache
   prefill(params, tokens, cache[, block_tables]) -> (exit_logits_last, cache)
   prefill_into(params, tokens, cache, ...)       -> exit_logits_last (paged)
@@ -30,6 +31,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
@@ -194,6 +196,59 @@ class CascadeModel:
 
     def _embed(self, params, tokens):
         return params["embed"][tokens.long()]
+
+    # ------------------------------------------------------------------
+    # training / full-sequence forward
+    # ------------------------------------------------------------------
+    def _train_segment(self, si, params, h, ctx):
+        """Segment ``si`` over a full sequence with no cache; with
+        ``cfg.remat`` each block is recomputed in the backward pass
+        (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+        of the scan body: the same numbers, less activation memory)."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for pi, (kind, _) in enumerate(self.segment_runs[si]):
+            block = BLOCKS[kind]
+            stacked = params["segments"][si][pi]
+
+            def layer(h, pa, _block=block):
+                return _block.apply(self.cfg, pa, h, ctx, None)[0]
+            for i in range(next(nn.tree_leaves(stacked)).shape[0]):
+                pa = nn.tree_index(stacked, i)
+                h = (checkpoint(layer, h, pa, use_reentrant=False) if remat
+                     else layer(h, pa))
+        return h
+
+    def forward_train(self, params, tokens, extra=None):
+        """tokens: (B, S).  Returns ([exit logits (B, S', V)] * n_exits,
+        aux): the intermediate exits at every ``cascade.exit_loss_stride``-th
+        position, the final exit at every position.
+
+        It computes with the plain ops only: no kernel of the port has a
+        backward (nor has any of the reference's), so a ``use_kernels``
+        config is refused rather than differentiated around a kernel."""
+        cfg = self.cfg
+        if cfg.use_kernels:
+            raise NotImplementedError(
+                "forward_train with use_kernels: no kernel of the port has "
+                "a backward; train with use_kernels off (as the reference's "
+                "training configs do)")
+        if extra:
+            raise NotImplementedError(
+                "extra model inputs come with the families that take them "
+                "(a later slice of the port); the dense family takes none")
+        S = tokens.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        h = self._embed(params, tokens)
+        ctx = {"mode": "full", "positions": positions, "write_slots": None,
+               "kpos": None}
+        logits = []
+        stride = max(1, cfg.cascade.exit_loss_stride)
+        for si in range(self.n_exits):
+            h = self._train_segment(si, params, h, ctx)
+            if si < self.n_exits - 1:
+                logits.append(self.exit_logits(params, si, h[:, ::stride]))
+        logits.append(self.exit_logits(params, self.n_exits - 1, h))
+        return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
     # ------------------------------------------------------------------
     # caches

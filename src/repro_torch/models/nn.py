@@ -67,6 +67,13 @@ def tree_leaves(tree):
         yield tree
 
 
+def tree_unflatten(like, leaves):
+    """A tree of the structure of ``like`` holding ``leaves``, in
+    :func:`tree_leaves` order (None stays None)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def tree_map(fn, tree):
     """``fn`` over every tensor leaf of nested dicts/lists (None kept)."""
     if tree is None:

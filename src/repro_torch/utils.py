@@ -1,9 +1,12 @@
-"""Small shared helpers: dtype mapping, logging, device resolution."""
+"""Small shared helpers: dtype mapping, logging, device resolution, tree
+paths and sizes, and the numpy form of a tensor's bits."""
 from __future__ import annotations
 
 import logging
 import sys
+from typing import Any, Iterator, Tuple
 
+import numpy as np
 import torch
 
 
@@ -62,3 +65,69 @@ def resolve_device(device=None) -> torch.device:
                                "not available")
         _setup_cuda()
     return dev
+
+
+# ---------------------------------------------------------------------------
+# trees: nested dicts and lists of tensors
+# ---------------------------------------------------------------------------
+
+def tree_flatten_with_path(tree, prefix: Tuple = ()
+                           ) -> Iterator[Tuple[Tuple, Any]]:
+    """``(path, leaf)`` for every leaf of nested dicts / lists / tuples,
+    in order (None skipped); a path is the tuple of dict keys and list
+    indices leading to the leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_flatten_with_path(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_flatten_with_path(v, prefix + (i,))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def path_str(path) -> str:
+    """Render a tree path as 'a/b/0/c' — the JAX package's key for the
+    same leaf (its dict keys and sequence indices, slash-joined)."""
+    return "/".join(str(p) for p in path)
+
+
+def tree_size(tree) -> int:
+    """Total number of elements in a tree of tensors."""
+    return sum(int(np.prod(tuple(x.shape)))
+               for _, x in tree_flatten_with_path(tree))
+
+
+# ---------------------------------------------------------------------------
+# a tensor's bits as numpy, and back (no ml_dtypes: numpy has no bfloat16)
+# ---------------------------------------------------------------------------
+
+def bf16_numpy_dtype() -> np.dtype:
+    """The numpy dtype a bfloat16 tensor's bits are given as: the
+    ``bfloat16`` type when a module of the process registered it with
+    numpy (ml_dtypes, which JAX loads), else two raw bytes (``|V2``, what
+    ``np.savez`` writes for a bfloat16 array).  Never imports ml_dtypes."""
+    try:
+        return np.dtype("bfloat16")
+    except TypeError:
+        return np.dtype("V2")
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array with the same bits; bfloat16 comes
+    back as :func:`bf16_numpy_dtype`."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(bf16_numpy_dtype())
+    return t.numpy()
+
+
+def numpy_to_tensor(a, device="cpu") -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor on ``device`` with the
+    same bits; any 2-byte void or ``bfloat16`` array is read as
+    bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)

@@ -195,25 +195,24 @@ def test_calibrators_equal_reference(spec, seed):
 
 
 def test_registries_resolve_and_refuse_as_ported():
-    # the reference's built-ins but entropy and margin (other test files
-    # register more names in both packages' registries)
+    # the reference's built-ins, entropy and margin among them since the
+    # training slice (other test files register more names in both
+    # packages' registries)
     ported = {"calibrators": {"self", "final", "holdout"},
               "policies": {"threshold", "budget"},
-              "measures": {"softmax_max", "patience"}}
+              "measures": {"softmax_max", "patience", "entropy", "margin"}}
     for kind, names in ported.items():
         assert names <= set(getattr(policy, f"available_{kind}")())
         assert names <= set(getattr(jpolicy, f"available_{kind}")())
-    assert {"entropy", "margin"} <= set(jpolicy.available_measures())
-    assert not {"entropy", "margin"} & set(policy.available_measures())
     assert isinstance(policy.get_policy("budget@2.5"), policy.BudgetPolicy)
     for bad in ("holdout@1.5", "holdout@0.5:bogus"):
         with pytest.raises(ValueError):
             policy.get_calibrator(bad)
     with pytest.raises(ValueError):
         policy.get_policy("budget@1:bogus")
-    for later in ("entropy", "margin"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            policy.get_measure(later)
+    for name in ("entropy", "margin"):
+        assert policy.get_measure(name).name == name
+        assert policy.get_measure(f"patience@2:{name}").base.name == name
     with pytest.raises(KeyError):
         policy.get_calibrator("nope")
 

@@ -426,6 +426,19 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
         torch.testing.assert_close(conf, want_c, atol=0, rtol=1e-5)
         again = confidence.confidence(lg)
         assert torch.equal(again[0], idx) and torch.equal(again[1], conf)
+    # logits of large magnitude (a CI-RESNET(18) head trained at too high
+    # a learning rate reaches |z| ~ 5e3): the row max is subtracted before
+    # the exponent is scaled, so δ keeps its 1e-5 relative bound there too
+    # — against δ in float64: the plain version forms m - logsumexp in
+    # f32, which itself loses up to ulp(m) / 2 of the exponent (~1e-4 of
+    # δ at |m| ~ 3e3)
+    for scale in (1e2, 1e3):
+        lg = (torch.randn(256, 10, generator=g, device=cuda_device)
+              * scale).to(dtype)
+        exact = torch.softmax(lg.double(), -1).amax(-1)
+        idx, conf = confidence.confidence(lg)
+        assert torch.equal(idx, ref.ref_confidence(lg)[0]), scale
+        torch.testing.assert_close(conf.double(), exact, atol=0, rtol=1e-5)
     # the megakernel at the full head width, at the last component (every
     # live row answers); a confident row, a dead row.  bf16 takes the tc
     # route at B = 1 .. 16, f32 the CUDA-core one; two calls repeat their

@@ -61,7 +61,8 @@ def test_full_config_and_registry():
     assert dataclasses.asdict(ours) == dataclasses.asdict(
         jax_get_config("qwen2.5-3b"))
     assert ours.segments == ((0, 12), (12, 24), (24, 36))
-    assert list_configs() == ["qwen2.5-3b"]
+    # the paper's CNN joined the registry in the training slice
+    assert list_configs() == ["ci-resnet18", "qwen2.5-3b"]
     with pytest.raises(KeyError):
         get_config("mixtral-8x7b")
 
@@ -126,7 +127,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "repro_torch.autotune.controller",
             "repro_torch.autotune.artifacts",
             "repro_torch.core.calibration",
-            "repro_torch.launch.calibrate"} <= set(mods)
+            "repro_torch.launch.calibrate",
+            "repro_torch.models.resnet", "repro_torch.core.resnet_trainer",
+            "repro_torch.core.training", "repro_torch.optim.optimizer",
+            "repro_torch.ckpt.checkpoint", "repro_torch.data.synth_images",
+            "repro_torch.data.lm_pipeline",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -309,12 +315,16 @@ def test_unported_configurations_are_refused():
         with pytest.raises(NotImplementedError, match=what):
             CascadeServingEngine(cfg, model, params, **{**kw, **bad})
     for cfg_bad in (cfg.with_kernel_tune(enabled=True),
-                    cfg.with_cascade(confidence="entropy"),
-                    cfg.with_cascade(confidence="margin"),
                     cfg.with_obs(),
                     cfg.with_escalation(enabled=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             CascadeServingEngine(cfg_bad, model, params, **kw)
+    # the entropy and margin measures are ported (the training slice): the
+    # engine constructs with either
+    for measure in ("entropy", "margin"):
+        eng = CascadeServingEngine(cfg.with_cascade(confidence=measure),
+                                   model, params, **kw)
+        assert eng.executor.decider.measure.name == measure
     # autotune is ported (slice 9): it constructs with the config's
     # telemetry, and a controller without it is a caller error
     with pytest.raises(ValueError, match="autotune"):
