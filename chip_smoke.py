@@ -97,7 +97,17 @@ source, all at once).  Phases, each of which fails the run on a miss:
 12. slice 10, full-width training: the train CLI (qwen2.5-3b, 8 steps of
     4 x 64 tokens) in a subprocess, which must exit 0, and its checkpoint
     loaded back bit for bit;
-13. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+13. slice 11, cross-model escalation: a 12-layer draft of qwen2.5-3b
+    (seed 0) in front of the 36-layer model (seed 1), two engines on one
+    card — the corners (escalation threshold 0.0: the draft alone; 1.1:
+    the 36-layer model alone) bit for bit in host and device runtimes x
+    dense and paged; a middle threshold with defers at a token > 0,
+    replay accounting and identical streams on both runtimes; the tier
+    controller's solves and pushes capturing nothing; yi-9b at full width
+    (48 layers, d 4096, vocab 64000) as a restarting second stage, bit
+    for bit yi-9b alone; the serve CLI's tier path in a subprocess; and
+    phase 2's kernels at yi-9b's shapes;
+14. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -1255,6 +1265,37 @@ def make_engine(cfg, model, params, **engine_kw):
     return engine
 
 
+def check_routes(cfg, launches):
+    """Every prefill of a bf16 / fp16 model takes flash's wgmma route and
+    every exit head the megakernel's tc route, of an f32 one their
+    CUDA-core routes; every norm of the model's width takes rmsnorm's
+    warp route; every decode attention over paged stores whose block size
+    divides the 32-key tile takes the paged route (no gather), any other
+    the dense one.  Returns each kernel's launches by route since the
+    counters were last reset."""
+    from repro_torch.kernels.decode_attention import TILE, decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.megakernel import exit_head_update
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    f32 = cfg.dtype == "float32"
+    paged = (cfg.paged_cache.layout == "paged"
+             and TILE % cfg.paged_cache.block_size == 0)
+    out = {}
+    for name, fn, want in (
+            ("flash_attention", flash_attention,
+             "cuda_core" if f32 else "wgmma"),
+            ("megakernel", exit_head_update, "cuda_core" if f32 else "tc"),
+            ("rmsnorm", rmsnorm, "warp"),
+            ("decode_attention", decode_attention,
+             "paged" if paged else "dense")):
+        routes = dict(fn.launches_by_route)
+        if routes[want] != launches[name]:
+            fail(f"{cfg.name} {cfg.dtype}: {name} routes {routes}, expected "
+                 f"all {launches[name]} launches on {want}")
+        out[name] = routes
+    return out
+
+
 def serve(cfg, model, params, reqs, engine=None, **engine_kw):
     """One engine run (on ``engine``, or a fresh one); returns (finished,
     stats, seconds, launches).  With autotune on, ``stats["telemetry"]``
@@ -1276,30 +1317,7 @@ def serve(cfg, model, params, reqs, engine=None, **engine_kw):
     # the lanes' carried segments_run: every decode step, warm-up included
     stats["carried_segments_run"] = [
         int(x) for x in sum(ln["state"].segments_run for ln in engine.lanes)]
-    # every prefill of a bf16 / fp16 model takes flash's wgmma route and
-    # every exit head the megakernel's tc route, of an f32 one their
-    # CUDA-core routes; every norm of the model's width takes rmsnorm's
-    # warp route; every decode attention over paged stores whose block
-    # size divides the 32-key tile takes the paged route (no gather), any
-    # other the dense one
-    from repro_torch.kernels.decode_attention import TILE, decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.megakernel import exit_head_update
-    from repro_torch.kernels.rmsnorm import rmsnorm
-    f32 = cfg.dtype == "float32"
-    paged = (cfg.paged_cache.layout == "paged"
-             and TILE % cfg.paged_cache.block_size == 0)
-    for name, fn, want in (
-            ("flash_attention", flash_attention,
-             "cuda_core" if f32 else "wgmma"),
-            ("megakernel", exit_head_update, "cuda_core" if f32 else "tc"),
-            ("rmsnorm", rmsnorm, "warp"),
-            ("decode_attention", decode_attention,
-             "paged" if paged else "dense")):
-        routes = dict(fn.launches_by_route)
-        if routes[want] != launches[name]:
-            fail(f"{cfg.name} {cfg.dtype}: {name} routes {routes}, expected "
-                 f"all {launches[name]} launches on {want}")
+    for name, routes in check_routes(cfg, launches).items():
         stats[f"{name}_routes"] = routes
     if cfg.autotune.enabled:
         from repro_torch.autotune import merge_telemetry
@@ -2443,6 +2461,668 @@ def phase_train():
           "checkpoint_bit_exact": True})
 
 
+# ---------------------------------------------------------------------------
+# slice 11: cross-model escalation on the card
+# ---------------------------------------------------------------------------
+
+# yi-9b's serving shapes: model width, heads over KV heads, vocabulary,
+# and its paged store (the auto-sized pool of 2 lanes x 4 slots x 3
+# components x 32 ring blocks + the trash block)
+YI_D, YI_H, YI_KV, YI_VOCAB = 4096, 32, 4, 64000
+YI_PAGED_STORE = (769, 16, YI_KV, 128)
+
+
+def phase_yi_kernels(dev, gen):
+    """Phase 2's cases at yi-9b's shapes, each against its plain version
+    at the tolerances above: rmsnorm (4, 4096) bf16 on the warp route;
+    exit_update (4, 64000) bf16; the megakernel's tc route at h (4, 4096)
+    x (4096, 64000) (d = 4096 is the route's upper limit); decode
+    attention q (4, 32, 128) over 4 KV heads at W 512, dense and paged
+    (the paged route bit for bit like the dense one over the gathered
+    views); flash attention (4, 32/4, 256, 128) on the wgmma route.
+    Returns {kernel: [case]}, each case marked ``"config": "yi-9b"``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.exit_update import exit_update
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.megakernel import exit_head_update
+    from repro_torch.kernels.paged_gather import paged_gather_kv
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    bf = torch.bfloat16
+    name, B, hd, n_m = "bfloat16", 4, 128, 3
+    out = {}
+
+    def case(kernel, **c):
+        out.setdefault(kernel, []).append({"config": "yi-9b",
+                                           "dtype": name, **c})
+
+    # rmsnorm
+    x = torch.randn(B, YI_D, generator=gen, device=dev).to(bf)
+    w = 1 + 0.1 * torch.randn(YI_D, generator=gen, device=dev)
+    got, route = route_of(lambda: rmsnorm(x, w, 1e-5), rmsnorm)
+    want = ref.ref_rmsnorm(x, w, 1e-5)
+    check_close("rmsnorm yi-9b", got, want, *TOL[name])
+    if route != "warp":
+        fail(f"rmsnorm yi-9b: took the {route} route")
+    b, by = bound_ms(2 * x.numel() * 2 + YI_D * 4, 4 * x.numel(), name)
+    case("rmsnorm", shape=[B, YI_D], route=route,
+         max_abs_err=max_err(got, want),
+         ms=time_ms(lambda: rmsnorm(x, w, 1e-5)),
+         plain_ms=time_ms(lambda: ref.ref_rmsnorm(x, w, 1e-5)),
+         library_ms=time_ms(lambda: F.rms_norm(x, (YI_D,), w.to(bf), 1e-5)),
+         bound_ms=b, bound_by=by)
+    # exit_update
+    x = _exit_logits(B, YI_VOCAB, bf, dev, gen)
+    carry = _carries(B, n_m, dev)
+    kw = dict(threshold=torch.full((n_m,), 0.3, device=dev), m=0,
+              n_components=n_m, tel_bins=32)
+    got = exit_update(x, *carry, **kw)
+    want = ref.ref_exit_update(x, *carry, **kw)
+    for idx in (0, 1, 2, 4, 6):
+        check_equal("exit_update yi-9b", got[idx], want[idx])
+    for idx in (3, 5):
+        check_close("exit_update yi-9b", got[idx], want[idx], 0.0, 1e-5)
+    b, by = bound_ms(x.numel() * 2 + B * 4 * 13, 4 * x.numel(), name)
+    case("exit_update", shape=[B, YI_VOCAB],
+         max_abs_err=max(max_err(got[3], want[3]), max_err(got[5], want[5])),
+         ms=time_ms(lambda: exit_update(x, *carry, **kw)),
+         plain_ms=time_ms(lambda: ref.ref_exit_update(x, *carry, **kw)),
+         library_ms=time_ms(lambda: torch.softmax(x.float(), -1).max(-1)),
+         bound_ms=b, bound_by=by)
+    # the megakernel's tc route at d = 4096
+    h = torch.randn(B, YI_D, generator=gen, device=dev).to(bf)
+    head = (0.02 * torch.randn(YI_D, YI_VOCAB, generator=gen,
+                               device=dev)).to(bf)
+    head[:, 77] = (ref.ref_rmsnorm(h[1:2], w)[0].float() * 0.05).to(bf)
+    live = torch.arange(B, device=dev) % 4 != 2
+    ties = _mega_ties(h, w, head, name)
+    kw = dict(threshold=torch.full((n_m,), 0.5, device=dev), m=0,
+              n_components=n_m, live=live)
+    got, route = route_of(lambda: exit_head_update(h, w, head, *carry, **kw),
+                          exit_head_update)
+    want = ref.ref_exit_head_update(h, w, head, *carry, **kw)
+    if route != "tc":
+        fail(f"megakernel yi-9b: took the {route} route")
+    err = _mega_check("megakernel yi-9b", got, want, carry, live, ties, name)
+    if int(got[1][1]) != 77:
+        fail("megakernel yi-9b: the confident row must answer 77")
+    b, by = bound_ms(head.numel() * 2 + h.numel() * 2 + YI_D * 4 + B * 56,
+                     2 * B * YI_D * YI_VOCAB, name)
+
+    def library():
+        xn = F.rms_norm(h, (YI_D,), w.to(bf), 1e-5)
+        return exit_update(xn @ head, *carry, threshold=kw["threshold"],
+                           m=0, n_components=n_m)
+
+    case("megakernel", shape=[B, YI_D, YI_VOCAB], route=route,
+         live=live.tolist(), tie_rows=int(ties.sum()), max_abs_err=err,
+         ms=time_ms(lambda: exit_head_update(h, w, head, *carry, **kw)),
+         plain_ms=time_ms(lambda: ref.ref_exit_head_update(h, w, head,
+                                                           *carry, **kw)),
+         library_ms=time_ms(library), bound_ms=b, bound_by=by)
+    del head
+    # decode attention, dense and paged, 32 heads over 4 KV heads
+    t, W = 700, 512
+    t_dev = torch.full((), t, dtype=torch.int32, device=dev)
+    kpos = torch.as_tensor(decode_ring(t, W), device=dev)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    q = torch.randn(B, YI_H, hd, generator=gen, device=dev).to(bf)
+    kc = torch.randn(B, W, YI_KV, hd, generator=gen, device=dev).to(bf)
+    vc = torch.randn(B, W, YI_KV, hd, generator=gen, device=dev).to(bf)
+    got, route = route_of(lambda: decode_attention(q, kc, vc, t_dev, kpos,
+                                                   live), decode_attention)
+    want = ref.ref_decode_attention(q, kc, vc, t, kpos, live=live)
+    check_close("decode yi-9b dense", got, want, *TOL[name])
+    if route != "dense":
+        fail(f"decode yi-9b: took the {route} route")
+    nbytes = (2 * B * W * YI_KV * hd + 2 * q.numel()) * 2 + W * 4
+    b, by = bound_ms(nbytes, 4 * YI_H * hd * B * W, name)
+    mask = torch.ones(B, 1, 1, W, dtype=torch.bool, device=dev)
+    case("decode_attention", shape=[B, YI_H, YI_KV, W, hd], t=t, window=0,
+         live=[1] * B, kpos="lane", route=route,
+         max_abs_err=max_err(got, want),
+         ms=time_ms(lambda: decode_attention(q, kc, vc, t_dev, kpos, live)),
+         plain_ms=time_ms(lambda: ref.ref_decode_attention(
+             q, kc, vc, t, kpos, live=live)),
+         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+             q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+             attn_mask=mask, enable_gqa=True)),
+         bound_ms=b, bound_by=by)
+    NB = YI_PAGED_STORE[0]
+    ks = torch.randn(YI_PAGED_STORE, generator=gen, device=dev).to(bf)
+    vs = torch.randn(YI_PAGED_STORE, generator=gen, device=dev).to(bf)
+    table = torch.randint(1, NB, PAGED_TABLE, generator=gen, device=dev,
+                          dtype=torch.int32)
+    table[1, 20:] = 0
+    views = paged_gather_kv(ks, vs, table)
+    kpos = torch.stack([kpos - 2 * i for i in range(B)]).clamp(min=-1)
+    got, route = route_of(lambda: decode_attention(
+        q, ks, vs, t_dev, kpos, live, table=table), decode_attention)
+    dense = decode_attention(q, *views, t_dev, kpos, live)
+    want = ref.ref_decode_attention(q, *views, t, kpos, live=live)
+    if route != "paged":
+        fail(f"decode yi-9b paged: took the {route} route")
+    if not torch.equal(got, dense):
+        fail("decode yi-9b paged: differs from the dense route over the "
+             "gathered views")
+    check_close("decode yi-9b paged", got, want, *TOL[name])
+    n_vis = int(((kpos >= 0) & (kpos <= t)).sum().item())
+    nbytes = (2 * n_vis * YI_KV * hd + 2 * q.numel()) * 2 + \
+        kpos.numel() * 4 + table.numel() * 4
+    b, by = bound_ms(nbytes, 4 * YI_H * hd * n_vis, name)
+    case("decode_attention", shape=[B, YI_H, YI_KV, W, hd], t=t, window=0,
+         live=[1] * B, kpos="per-slot", route=route,
+         store=list(YI_PAGED_STORE), table=list(PAGED_TABLE),
+         max_abs_err=max_err(got, want),
+         ms=time_ms(lambda: decode_attention(q, ks, vs, t_dev, kpos, live,
+                                             table=table)),
+         dense_ms=time_ms(lambda: decode_attention(q, *views, t_dev, kpos,
+                                                   live)),
+         plain_ms=time_ms(lambda: ref.ref_decode_attention(
+             q, ref.ref_paged_gather(ks, table),
+             ref.ref_paged_gather(vs, table), t, kpos, live=live)),
+         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+             q[:, :, None], *(v.transpose(1, 2) for v in views),
+             attn_mask=((kpos >= 0) & (kpos <= t))[:, None, None, :],
+             enable_gqa=True)),
+         bound_ms=b, bound_by=by)
+    del ks, vs, views
+    # flash attention, 32 heads over 4 KV heads
+    S = 256
+    q = torch.randn(B, YI_H, S, hd, generator=gen, device=dev).to(bf)
+    k = torch.randn(B, YI_KV, S, hd, generator=gen, device=dev).to(bf)
+    v = torch.randn(B, YI_KV, S, hd, generator=gen, device=dev).to(bf)
+    got, route = route_of(lambda: flash_attention(q, k, v, causal=True),
+                          flash_attention)
+    want = ref.ref_flash_attention(q, k, v, causal=True)
+    check_close("flash yi-9b", got, want, *TOL[name])
+    if route != "wgmma":
+        fail(f"flash yi-9b: took the {route} route")
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    b, by = bound_ms(nbytes, 4 * hd * B * YI_H * S * (S + 1) // 2, name)
+    case("flash_attention", shape=[B, YI_H, YI_KV, S, hd], window=0,
+         route=route, max_abs_err=max_err(got, want),
+         ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
+         plain_ms=time_ms(lambda: ref.ref_flash_attention(q, k, v,
+                                                          causal=True)),
+         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, is_causal=True, enable_gqa=True)),
+         bound_ms=b, bound_by=by)
+    torch.cuda.empty_cache()
+    return out
+
+
+# the escalate phase's stack: qwen2.5-3b widths throughout, bf16, kernels
+# on, cond_batch; a draft cut to 12 layers (seed 0) in front of the full
+# 36-layer model (seed 1); lane_batch 4, 2 lanes, cache_len 512, chunk 8;
+# 8 requests of 128-token prompts and 32 new tokens
+ESC_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+ESC_DRAFT_LAYERS = 12
+ESC_INTRA = (0.9, 0.9, 0.0)
+ESC_ALWAYS = (1.1, 1.1, 0.0)
+
+
+def _records(fin):
+    """Every field of the tier's (or an engine's) finished records that
+    the bit-identity checks compare."""
+    return {rid: (r["tokens"], r["exit_depths"], r["confs"],
+                  r.get("final_stage"), r.get("spans"))
+            for rid, r in fin.items()}
+
+
+def serve_tier(cfgs, models, params, reqs, runtime, controller=None):
+    """One tier run of ``reqs`` over fresh engines (``cfgs[s]`` on
+    ``models[s]`` / ``params[s]``), with the launch counters set to 0
+    just before and read just after.  Returns (tier, finished, seconds,
+    launches, routes): every bf16 prefill on flash's wgmma route, every
+    norm on rmsnorm's warp route, every decode on the layout's route."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.escalate import ModelCascadeTier
+    engines = [make_engine(c, m, p, runtime=runtime, **ESC_ENGINE)
+               for c, m, p in zip(cfgs, models, params)]
+    tier = ModelCascadeTier(engines, controller=controller)
+    for r in reqs:
+        tier.submit(r)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    finished = tier.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    routes = check_routes(cfgs[0], launches)
+    if sorted(finished) != [r.rid for r in reqs] or any(
+            len(f["tokens"]) != r.max_new_tokens
+            for f, r in zip((finished[r.rid] for r in reqs), reqs)):
+        fail(f"tier {runtime}: not every request got its budget")
+    return tier, finished, seconds, launches, routes
+
+
+def _defer_points(fin, th, n_m):
+    """Each request's first token answered at the final component below
+    ``th`` (the router's rule), or None."""
+    return {rid: next((i for i, (d, c) in enumerate(zip(r["exit_depths"],
+                                                         r["confs"]))
+                       if d == n_m - 1 and c < th), None)
+            for rid, r in fin.items()}
+
+
+def escalation_middle(fin, n_m):
+    """The middle escalation threshold: the midpoint of two neighbouring
+    sorted final-component confidences of the draft's own run, the median
+    first and then outward, until (a) a request defers at a token > 0,
+    (b) a request never defers, and (c) every deferring request defers at
+    the same token, so that both runtimes hand stage 1 its escalated
+    requests in one admission (the host runtime finds a defer at token d
+    the tick after it; the device runtime at the chunk's end, and a dense
+    lane re-prefilled by a later admission re-pads its residents: admission
+    points decide streams, the reference's sanctioned divergence).  None
+    if no threshold has all three.  Returns (threshold, its rank from the
+    median, the defer points, the median threshold and its defer
+    points)."""
+    import numpy as np
+    c = np.unique([x for r in fin.values()
+                   for d, x in zip(r["exit_depths"], r["confs"])
+                   if d == n_m - 1])
+    mids = [(abs(i - len(c) / 2), float((c[i - 1] + c[i]) / 2))
+            for i in range(1, len(c))]
+    mids.sort()
+    median = mids[0][1], _defer_points(fin, mids[0][1], n_m)
+    for rank, (_, th) in enumerate(mids):
+        pts = _defer_points(fin, th, n_m)
+        deferred = {d for d in pts.values() if d is not None}
+        if (len(deferred) == 1 and min(deferred) > 0
+                and None in pts.values()):
+            return th, rank, pts, median
+    return None, None, None, median
+
+
+def phase_escalate():
+    """Slice 11's path at full width: the cross-model escalation tier
+    (``repro_torch.escalate``), two engines on one card.
+
+    (a) corners, host and device runtimes x dense and paged (block size
+        16): escalation threshold 0.0 gives the draft alone bit for bit
+        (tokens, exit depths, confidences); 1.1 with the draft's intra
+        thresholds at 1.1 gives the 36-layer model alone bit for bit, with
+        nothing replayed; paged pools end with no block in use;
+    (b) the middle threshold (:func:`escalation_middle`), host and device
+        runtimes, dense: a request defers at a token > 0 and one never
+        does; each committed prefix is the draft's stream up to its defer;
+        escalated admissions equal the deferred requests and replayed
+        prefill positions the sum of the defer points; both runtimes'
+        streams identical;
+    (b') the median of the draft's confidences on the device runtime,
+        dense and paged (:func:`phase_escalate_median`): defers at several
+        tokens, held to the draft's stream and the replay accounting;
+    (c) TierThresholdController(epsilon=0.05) on the device runtime,
+        route_final telemetry on the draft, escalation threshold at the
+        median of the draft's confidences: at least one solve and push,
+        each engine's captures the same before and after every push, the
+        lanes' δ̂ the pushed vectors; stage_agree reported;
+    (d) the restart path: yi-9b at full width (48 layers, seed 1) behind
+        a 12-layer draft of qwen2.5-3b's widths at yi-9b's vocabulary
+        (a tier's stages share the prompt vocabulary) with share_prefix
+        off: at 1.1 the tier is yi-9b alone bit for bit, nothing replayed
+        (every request defers at token 0, so this shows only that an
+        empty prefix is routed to the other vocabulary; the restart of a
+        request with draft tokens to discard is held to the JAX tier on
+        the CPU, ``tests/test_torch_escalate.py``);
+    (e) the serve CLI's tier path in a subprocess.
+
+    Returns the launches of the device runtime's middle run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    target = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=ESC_INTRA)
+    draft = target.replace(n_layers=ESC_DRAFT_LAYERS)
+    n_m = draft.cascade.n_components
+    reqs = make_requests(8, (128,), target.vocab_size, 32, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = [build_model(c, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(s))
+        for s, c in enumerate((draft, target))]
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    layouts = {"dense": (draft, target),
+               "paged": (paged_config(draft), paged_config(target))}
+    models = {k: [build_model(c, device=DEV) for c in v]
+              for k, v in layouts.items()}
+    alone = {}
+    for layout, (d_cfg, t_cfg) in layouts.items():
+        for runtime in ("host", "device"):
+            tag = f"escalate {layout} {runtime}"
+            fin0, st0, secs0, _ = serve(d_cfg, models[layout][0], params[0],
+                                        reqs, runtime=runtime, **ESC_ENGINE)
+            fin1, st1, secs1, _ = serve(t_cfg, models[layout][1], params[1],
+                                        reqs, runtime=runtime, **ESC_ENGINE)
+            alone[layout, runtime] = (fin0, st0, secs0, st1, secs1)
+            corners = {}
+            for th, intra, want, stage in ((0.0, ESC_INTRA, fin0, 0),
+                                           (1.1, ESC_ALWAYS, fin1, 1)):
+                cfg0 = d_cfg.with_cascade(thresholds=intra).with_escalation(
+                    enabled=True, threshold=th)
+                tier, fin, secs, _, _ = serve_tier(
+                    (cfg0, t_cfg), models[layout], params, reqs, runtime)
+                got = {rid: r[:3] for rid, r in _records(fin).items()}
+                if got != {rid: r[:3] for rid, r in _records(want).items()}:
+                    fail(f"{tag} threshold {th}: the tier is not stage "
+                         f"{stage} alone bit for bit")
+                st = tier.stats()
+                # cancels return their blocks: both pools end empty
+                if any(e.paged and e.pcache.pool.used for e in tier.engines):
+                    fail(f"{tag} threshold {th}: blocks left in a pool "
+                         f"after the run")
+                esc1 = st["stages"][1]["escalation"]
+                if (st["final_stage_histogram"][stage] != len(reqs)
+                        or esc1["escalated_requests_admitted"]
+                        != stage * len(reqs)
+                        or esc1["prefill_positions_replayed"] != 0):
+                    fail(f"{tag} threshold {th}: escalations "
+                         f"{st['final_stage_histogram']}, {esc1}")
+                corners[th] = {"seconds": secs,
+                               "escalations": st["escalations_total"],
+                               "final_stage_histogram":
+                                   st["final_stage_histogram"]}
+            emit({"phase": "escalate_corners", "layout": layout,
+                  "runtime": runtime, "draft_layers": ESC_DRAFT_LAYERS,
+                  "target_layers": target.n_layers,
+                  "never_equals_draft": True, "always_equals_target": True,
+                  "corners": corners,
+                  "draft_alone": {"seconds": secs0, "decode_us_per_token":
+                                  st0["wallclock_us_per_token"]},
+                  "target_alone": {"seconds": secs1, "decode_us_per_token":
+                                   st1["wallclock_us_per_token"]}})
+    # (b) the middle threshold
+    draft_fin = alone["dense", "host"][0]
+    th, rank, pts, (median_th, median_pts) = escalation_middle(draft_fin,
+                                                                n_m)
+    if th is None:
+        fail(f"escalate middle: no threshold defers one group at a token "
+             f"> 0 and spares a request (median's defer points "
+             f"{median_pts})")
+    runs = {}
+    for runtime in ("host", "device"):
+        cfg0 = draft.with_escalation(enabled=True, threshold=th)
+        torch.cuda.reset_peak_memory_stats()
+        tier, fin, secs, launches, _ = serve_tier(
+            (cfg0, target), models["dense"], params, reqs, runtime)
+        check_launched(f"escalate middle {runtime}", launches, SLICE1)
+        tag = f"escalate middle {runtime}"
+        for rid, d in pts.items():
+            want, r = draft_fin[rid], fin[rid]
+            if d is None:
+                ok = (r["tokens"] == want["tokens"]
+                      and r["final_stage"] == 0)
+            else:
+                ok = (r["tokens"][:d] == want["tokens"][:d]
+                      and r["confs"][:d] == want["confs"][:d]
+                      and r["spans"][0] == {"stage": 0, "n_tokens": d,
+                                            "kept": True}
+                      and r["final_stage"] == 1 and r["escalations"] == 1)
+            if not ok:
+                fail(f"{tag}: request {rid} (defer point {d}) left the "
+                     f"draft's committed stream")
+        st = tier.stats()
+        deferred = [d for d in pts.values() if d is not None]
+        esc1 = st["stages"][1]["escalation"]
+        if (esc1["escalated_requests_admitted"] != len(deferred)
+                or esc1["prefill_positions_replayed"] != sum(deferred)
+                or not esc1["replay_prefill_seconds"] > 0):
+            fail(f"{tag}: escalation accounting {esc1} for defer points "
+                 f"{pts}")
+        n_tok = sum(len(r["tokens"]) for r in fin.values())
+        runs[runtime] = (fin, launches)
+        emit({"phase": "escalate_middle", "runtime": runtime,
+              "threshold": th, "rank_from_median": rank,
+              "defer_points": pts, "median_threshold": median_th,
+              "median_defer_points": median_pts,
+              "seconds": secs, "tier_tokens_per_s": n_tok / secs,
+              "escalations": st["escalations_total"],
+              "final_stage_histogram": st["final_stage_histogram"],
+              "router": st["router"],
+              "stages": [{
+                  "n_layers": e.cfg.n_layers,
+                  "decode_us_per_token": s_["wallclock_us_per_token"],
+                  "decode_tokens": s_["decode_tokens"],
+                  "prefill_seconds": s_["prefill_seconds"],
+                  "captures": s_["captures"],
+                  **s_["escalation"]}
+                  for e, s_ in zip(tier.engines, st["stages"])],
+              "replay_share_of_wall": sum(
+                  s_["escalation"]["replay_prefill_seconds"]
+                  for s_ in st["stages"]) / secs,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": launches})
+    if _records(runs["host"][0]) != _records(runs["device"][0]):
+        fail("escalate middle: the host and device runtimes' streams "
+             "differ")
+    # (b') the median threshold itself, device runtime, both layouts
+    for layout in ("dense", "paged"):
+        phase_escalate_median(layouts[layout], models[layout], params, reqs,
+                              alone[layout, "device"][0], median_th, layout)
+    # (c) the tier controller on the device runtime, at the median
+    # threshold: most requests defer early, so both stages' telemetry
+    # fills within the run
+    phase_escalate_autotune(draft, target, models["dense"], params, reqs,
+                            median_th)
+    del tier, models, layouts, alone
+    params.clear()
+    torch.cuda.empty_cache()
+    phase_escalate_restart(draft)
+    phase_escalate_cli()
+    emit({"phase": "escalate", "init_seconds": init_seconds,
+          "streams_host_equal_device": True})
+    return runs["device"][1]
+
+
+def phase_escalate_median(cfgs, models, params, reqs, draft_fin, th,
+                          layout):
+    """(b') of :func:`phase_escalate`: the device runtime at the median of
+    the draft's final-component confidences, where requests defer at
+    several tokens and several escalated admissions share stage 1's lanes.
+    Held to the draft's own stream (``draft_fin``, the draft alone on the
+    same runtime and layout), not to the host runtime: there admission
+    points differ (see :func:`escalation_middle`).  Each committed prefix
+    is the draft's stream up to its defer point, a request that never
+    defers is the draft's stream whole; escalated admissions equal the
+    deferred requests, replayed prefill positions the sum of the defer
+    points; paged pools end with no block in use and no lane's promise
+    outstanding."""
+    import torch
+    n_m = cfgs[0].cascade.n_components
+    pts = _defer_points(draft_fin, th, n_m)
+    deferred = [d for d in pts.values() if d is not None]
+    tag = f"escalate median device {layout}"
+    if not any(d > 0 for d in deferred):
+        fail(f"{tag}: no request defers at a token > 0 ({pts})")
+    cfg0 = cfgs[0].with_escalation(enabled=True, threshold=th)
+    torch.cuda.reset_peak_memory_stats()
+    tier, fin, secs, launches, _ = serve_tier(
+        (cfg0, cfgs[1]), models, params, reqs, "device")
+    check_launched(tag, launches, SLICE1)
+    for rid, d in pts.items():
+        want, r = draft_fin[rid], fin[rid]
+        if d is None:
+            ok = r["tokens"] == want["tokens"] and r["final_stage"] == 0
+        else:
+            ok = (r["tokens"][:d] == want["tokens"][:d]
+                  and r["confs"][:d] == want["confs"][:d]
+                  and r["spans"][0] == {"stage": 0, "n_tokens": d,
+                                        "kept": True}
+                  and r["final_stage"] == 1 and r["escalations"] == 1)
+        if not ok:
+            fail(f"{tag}: request {rid} (defer point {d}) left the "
+                 f"draft's committed stream")
+    st = tier.stats()
+    esc1 = st["stages"][1]["escalation"]
+    if (esc1["escalated_requests_admitted"] != len(deferred)
+            or esc1["prefill_positions_replayed"] != sum(deferred)):
+        fail(f"{tag}: escalation accounting {esc1} for defer points {pts}")
+    for e in tier.engines:
+        if e.paged and (e.pcache.pool.used or e._promised_blocks()):
+            fail(f"{tag}: {e.pcache.pool.used} blocks in use and "
+                 f"{e._promised_blocks()} promised after the run")
+    n_tok = sum(len(r["tokens"]) for r in fin.values())
+    emit({"phase": "escalate_median", "runtime": "device",
+          "layout": layout, "threshold": th, "defer_points": pts,
+          "distinct_defer_points": sorted(set(deferred)),
+          "seconds": secs, "tier_tokens_per_s": n_tok / secs,
+          "escalations": st["escalations_total"],
+          "final_stage_histogram": st["final_stage_histogram"],
+          "stages": [{"decode_us_per_token": s_["wallclock_us_per_token"],
+                      "captures": s_["captures"], **s_["escalation"]}
+                     for s_ in st["stages"]],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    del tier
+
+
+def phase_escalate_autotune(draft, target, models, params, reqs, th):
+    """(c) of :func:`phase_escalate`: solves and pushes that capture
+    nothing."""
+    import numpy as np
+    from repro_torch.escalate import TierThresholdController
+    # 8 bins: the composed tier histogram has 3 + 2 routing axes (the
+    # draft's three with route_final, the target's two), 8^5 cells
+    auto = dict(AUTOTUNE, bins=8, epsilon=0.05)
+    cfgs = (draft.with_autotune(**auto, route_final=True).with_escalation(
+        enabled=True, threshold=th), target.with_autotune(**auto))
+    ctl = TierThresholdController(epsilon=0.05, interval=1, min_shadow=4.0,
+                                  min_escalations=2)
+    pushes = []
+    solve = ctl.update
+
+    def update(tier):
+        before = [e.loop.captures for e in tier.engines]
+        solved = solve(tier)
+        if solved:
+            pushes.append({"captures_before": before,
+                           "captures_after": [e.loop.captures
+                                              for e in tier.engines],
+                           "thresholds": ctl.stats()["thresholds"]})
+            for e, ths in zip(tier.engines, (ctl.last_thresholds[0],
+                                             ctl.last_thresholds[2])):
+                for lane in e.lanes:
+                    if not np.array_equal(
+                            lane["state"].thresholds.cpu().numpy(),
+                            np.asarray(ths, np.float32)):
+                        fail("escalate autotune: a lane's δ̂ is not the "
+                             "pushed vector")
+        return solved
+
+    ctl.update = update
+    tier, fin, secs, launches, _ = serve_tier(cfgs, models, params, reqs,
+                                              "device", controller=ctl)
+    if not pushes:
+        fail(f"escalate autotune: no solve ({ctl.stats()})")
+    for p in pushes:
+        if p["captures_before"] != p["captures_after"]:
+            fail(f"escalate autotune: a push captured: {p}")
+    st = tier.stats()
+    for e, s_ in zip(tier.engines, st["stages"]):
+        if s_["captures"] > ESC_ENGINE["n_lanes"]:
+            fail(f"escalate autotune: {s_['captures']} captures for "
+                 f"{ESC_ENGINE['n_lanes']} lanes")
+    emit({"phase": "escalate_autotune", "epsilon": 0.05, "seconds": secs,
+          "solves": ctl.solves, "pushes": pushes,
+          "controller": st["controller"], "router": st["router"],
+          "stage_agree": st["controller"]["stage_agree"],
+          "final_stage_histogram": st["final_stage_histogram"],
+          "captures": [s_["captures"] for s_ in st["stages"]],
+          "decode_us_per_token": [s_["wallclock_us_per_token"]
+                                  for s_ in st["stages"]]})
+
+
+def phase_escalate_restart(draft):
+    """(d) of :func:`phase_escalate`: yi-9b at full width as the second
+    stage of a tier that restarts, not replays."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    yi = get_config("yi-9b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=ESC_INTRA)
+    rdraft = draft.replace(vocab_size=yi.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = [build_model(c, device=DEV) for c in (rdraft, yi)]
+    params = [m.init(torch.Generator(device=DEV).manual_seed(s))
+              for s, m in enumerate(models)]
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in nn.tree_leaves(params[1]))
+    reqs = make_requests(8, (128,), yi.vocab_size, 32, seed=0)
+    fin, st, secs, launches = serve(yi, models[1], params[1], reqs,
+                                    runtime="device", **ESC_ENGINE)
+    check_launched("yi-9b alone", launches, SLICE1)
+    cfg0 = rdraft.with_cascade(thresholds=ESC_ALWAYS).with_escalation(
+        enabled=True, threshold=1.1, share_prefix=False)
+    tier, tfin, tsecs, tlaunches, _ = serve_tier((cfg0, yi), models, params,
+                                                 reqs, "device")
+    if {rid: r[:3] for rid, r in _records(tfin).items()} != \
+            {rid: r[:3] for rid, r in _records(fin).items()}:
+        fail("escalate restart: the tier at 1.1 is not yi-9b alone bit for "
+             "bit")
+    tst = tier.stats()
+    esc1 = tst["stages"][1]["escalation"]
+    if (tst["final_stage_histogram"] != [0, len(reqs)]
+            or esc1["prefill_positions_replayed"] != 0
+            or any(r["spans"][0]["kept"] for r in tfin.values())):
+        fail(f"escalate restart: {tst['final_stage_histogram']}, {esc1}")
+    n_tok = sum(len(r["tokens"]) for r in fin.values())
+    emit({"phase": "escalate_restart", "config": "yi-9b",
+          "n_layers": yi.n_layers, "d_model": yi.d_model,
+          "vocab": yi.vocab_size, "params": n_params,
+          "init_seconds": init_seconds, "identical": True,
+          "alone": {"seconds": secs, "tokens_per_s": n_tok / secs,
+                    "decode_us_per_token": st["wallclock_us_per_token"],
+                    "compile_seconds": st["compile_seconds"],
+                    "captures": st["captures"], "launches": launches},
+          "tier": {"seconds": tsecs,
+                   "discarded_draft_tokens": tst["discarded_draft_tokens"],
+                   "decode_us_per_token": [
+                       s_["wallclock_us_per_token"] for s_ in tst["stages"]],
+                   "launches": tlaunches},
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del tier, models, params
+    torch.cuda.empty_cache()
+
+
+def phase_escalate_cli():
+    """(e) of :func:`phase_escalate`: ``python -m repro_torch.launch.serve
+    --escalate-layers 36 --runtime device --autotune`` on the card, in a
+    subprocess that must exit 0 and end with its JSON summary."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen2.5-3b", "--escalate-layers", "36", "--runtime", "device",
+           "--autotune", "--requests", "8", "--max-new", "16"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"serve --escalate-layers exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    if summary["requests_finished"] != 8:
+        fail(f"serve --escalate-layers: {summary}")
+    emit({"phase": "escalate_cli", "command": " ".join(cmd[1:]), "rc": 0,
+          "seconds": time.perf_counter() - t0,
+          "escalations": summary["escalations_total"],
+          "final_stage_histogram": summary["final_stage_histogram"],
+          "controller": summary["controller"],
+          "stages": summary["stages"]})
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2481,6 +3161,10 @@ def main() -> int:
               "megakernel": phase_megakernel(dev, gen),
               "cohort_scatter": phase_cohort_scatter(dev, gen),
               "paged_gather": phase_paged_gather(dev, gen)}
+    # the same kernels at yi-9b's shapes, the escalate phase's second
+    # published width
+    for name, cases in phase_yi_kernels(dev, gen).items():
+        checks[name] += cases
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
 
@@ -2501,6 +3185,7 @@ def main() -> int:
     phase_cli()
     paper = phase_paper()
     phase_train()
+    escalate = phase_escalate()
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -2569,6 +3254,11 @@ def main() -> int:
                      # megakernel
                      "launches_autotune": {v: n[name]
                                            for v, n in autotune.items()},
+                     # launches on the escalation tier's path: the device
+                     # runtime's middle-threshold run, both stages (a
+                     # 12-layer draft and the 36-layer model, dense, one
+                     # cohort)
+                     "launches_escalate": escalate[name],
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

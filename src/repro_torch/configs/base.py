@@ -644,7 +644,8 @@ def list_configs():
 
 
 def _load_all():
-    # import for registration side effect; the port has qwen2.5-3b and the
-    # paper's ci-resnet18 so far (the other architectures come with their
-    # families' slices)
-    from repro_torch.configs import ci_resnet18, qwen2p5_3b  # noqa: F401
+    # import for registration side effect; the port has qwen2.5-3b, yi-9b
+    # and the paper's ci-resnet18 so far (the other architectures come with
+    # their families' slices)
+    from repro_torch.configs import (  # noqa: F401
+        ci_resnet18, qwen2p5_3b, yi_9b)

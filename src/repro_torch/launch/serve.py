@@ -14,9 +14,17 @@ turns on the exit telemetry and a
 :class:`~repro_torch.autotune.ThresholdController` that re-solves the
 thresholds from live traffic (``--epsilon`` or ``--budget-macs``) and
 pushes them into the running engine, warm-starting from and persisting to
-``--artifacts``.  Weights are random, drawn from
-``torch.Generator(...).manual_seed(0)``.  The flags of later slices
-(escalation tiers, fleets, observability) are accepted and refused with an
+``--artifacts``.  ``--escalate-layers N`` / ``--escalate-arch ARCH``
+serve a two-stage cross-model escalation tier
+(:class:`~repro_torch.escalate.ModelCascadeTier`): stage 0 is ``--arch``,
+stage 1 the same arch at N layers (or ARCH, which must share the prompt
+vocabulary); stage-0 final-component answers below
+``--escalate-threshold`` defer to stage 1, and with ``--autotune`` a
+:class:`~repro_torch.escalate.TierThresholdController` solves and pushes
+both stages' thresholds and the escalation threshold.  The tier path ends
+with a one-line JSON summary on standard output.  Weights are random,
+drawn from ``torch.Generator(...).manual_seed(s)`` for stage s.  The flags
+of later slices (fleets, observability) are accepted and refused with an
 error naming the slice.
 """
 from __future__ import annotations
@@ -95,10 +103,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--artifacts", default=None,
                     help="autotune artifact directory: warm-start from a "
                          "matching artifact, persist new resolutions")
+    ap.add_argument("--escalate-layers", type=int, default=0,
+                    help="> 0 serves a 2-stage escalation tier: stage 0 is "
+                         "--arch as configured, stage 1 the same arch with "
+                         "this many layers (same vocab and family, so "
+                         "committed prefixes replay as prefill)")
+    ap.add_argument("--escalate-arch", default=None,
+                    help="stage-1 arch id of the escalation tier (instead "
+                         "of the same arch; must share the prompt vocab)")
+    ap.add_argument("--escalate-threshold", type=float, default=0.5,
+                    help="stage-0 escalation threshold: final-component "
+                         "answers below it defer to stage 1 (0.0 never, "
+                         "1.1 always)")
     # flags of later slices: parsed, then refused by name
-    ap.add_argument("--escalate-layers", type=int, default=0)
-    ap.add_argument("--escalate-arch", default=None)
-    ap.add_argument("--escalate-threshold", type=float, default=0.5)
     ap.add_argument("--fleet", type=int, default=1)
     ap.add_argument("--drain", action="store_true")
     ap.add_argument("--obs", action="store_true")
@@ -110,8 +127,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_later_slices(args) -> None:
     later = []
-    if args.escalate_layers > 0 or args.escalate_arch:
-        later.append("--escalate-* (the cross-model escalation slice)")
     if args.fleet > 1 or args.drain:
         later.append("--fleet/--drain (the fleet slice)")
     if (args.obs or args.metrics_port is not None
@@ -136,13 +151,19 @@ def main(argv=None) -> dict:
         thresholds=ths, exit_mode=args.exit_mode, n_cohorts=args.cohorts)
     if args.confidence:
         cfg = cfg.with_cascade(confidence=args.confidence)
+    escalate = bool(args.escalate_layers > 0 or args.escalate_arch)
     if args.autotune:
+        # under a tier the escalation threshold is solved over stage 0's
+        # final-component confidence axis: route_final telemetry
         cfg = cfg.with_autotune(enabled=True, epsilon=args.epsilon,
-                                mac_budget=args.budget_macs)
+                                mac_budget=args.budget_macs,
+                                route_final=escalate)
     if args.cache_layout == "paged":
         cfg = cfg.with_paged_cache(layout="paged",
                                    block_size=args.block_size,
                                    num_blocks=args.num_blocks)
+    if escalate:
+        return _serve_tier(args, cfg, device)
     model = build_model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     controller = None
@@ -187,6 +208,104 @@ def main(argv=None) -> dict:
                  mem["reclaimed_by_exit"], mem["reclaimed_at_retire"],
                  stats["admission_wait_mean"] or 0.0,
                  stats["slot_prefills"])
+    if stats["requests_finished"] != args.requests:
+        raise SystemExit(f"finished {stats['requests_finished']} of "
+                         f"{args.requests} requests")
+    return stats
+
+
+def _serve_tier(args, cfg0, device) -> dict:
+    """Two-stage cross-model escalation (:mod:`repro_torch.escalate`)."""
+    from repro_torch.escalate import ModelCascadeTier, TierThresholdController
+
+    cfg0 = cfg0.with_escalation(enabled=True,
+                                threshold=args.escalate_threshold)
+    if args.escalate_arch:
+        cfg1 = get_config(args.escalate_arch)
+        if args.smoke:
+            cfg1 = reduced(cfg1)
+        cfg1 = cfg1.replace(dtype=cfg0.dtype, use_kernels=True)
+        if args.escalate_layers > 0:
+            cfg1 = cfg1.replace(n_layers=args.escalate_layers)
+        cfg1 = cfg1.with_cascade(exit_mode=args.exit_mode,
+                                 n_cohorts=args.cohorts)
+        if args.confidence:
+            cfg1 = cfg1.with_cascade(confidence=args.confidence)
+    else:
+        cfg1 = cfg0.replace(n_layers=args.escalate_layers) \
+            .with_escalation(enabled=False)
+    n1 = cfg1.cascade.n_components
+    cfg1 = cfg1.with_cascade(
+        thresholds=tuple([args.threshold] * (n1 - 1) + [0.0]))
+    if args.autotune:
+        # stage 1 carries ordinary telemetry; only stage 0 routes on its
+        # final confidence (the escalation axis)
+        cfg1 = cfg1.with_autotune(enabled=True, epsilon=args.epsilon,
+                                  mac_budget=args.budget_macs,
+                                  route_final=False)
+    if args.cache_layout == "paged":
+        cfg1 = cfg1.with_paged_cache(layout="paged",
+                                     block_size=args.block_size,
+                                     num_blocks=args.num_blocks)
+    engines = []
+    for s, cfg in enumerate((cfg0, cfg1)):
+        model = build_model(cfg, device=device)
+        params = model.init(torch.Generator(device=device).manual_seed(s))
+        engines.append(CascadeServingEngine(
+            cfg, model, params, lane_batch=args.lane_batch,
+            n_lanes=args.lanes, cache_len=args.cache_len,
+            runtime=args.runtime, chunk=args.chunk, device=device))
+    controller = None
+    if args.autotune:
+        controller = TierThresholdController(
+            epsilon=None if args.budget_macs > 0 else args.epsilon,
+            mac_budget=args.budget_macs if args.budget_macs > 0 else None,
+            # smoke runs are dozens of ticks: solve early so the whole
+            # solve-split-push path runs
+            interval=8 if args.smoke else 64,
+            min_shadow=4.0 if args.smoke else 64.0,
+            min_escalations=2 if args.smoke else 8)
+    tier = ModelCascadeTier(engines, controller=controller)
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        tier.submit(Request(
+            rid=i,
+            prompt=rng.integers(0, cfg0.vocab_size,
+                                args.prompt_len).astype(np.int32),
+            max_new_tokens=args.max_new))
+    tier.run()
+    stats = tier.stats()
+    log.info("tier: %d finished, %d escalations, final-stage histogram "
+             "%s, %d draft tokens discarded",
+             stats["requests_finished"], stats["escalations_total"],
+             stats["final_stage_histogram"],
+             stats["discarded_draft_tokens"])
+    log.info("router: %s", json.dumps(stats["router"]))
+    for s, es in enumerate(stats["stages"]):
+        esc = es["escalation"]
+        log.info("stage %d: speedup %.2fx, %d replayed / %d fresh "
+                 "prefill positions, %d escalated admissions, %s us/token",
+                 s, es["analytic_speedup"],
+                 esc["prefill_positions_replayed"],
+                 esc["prefill_positions_fresh"],
+                 esc["escalated_requests_admitted"],
+                 es["wallclock_us_per_token"])
+    if args.autotune:
+        log.info("tier controller: %s",
+                 json.dumps(stats["controller"], default=str))
+    print(json.dumps({
+        "requests_finished": stats["requests_finished"],
+        "escalations_total": stats["escalations_total"],
+        "final_stage_histogram": stats["final_stage_histogram"],
+        "discarded_draft_tokens": stats["discarded_draft_tokens"],
+        "router": stats["router"],
+        "controller": stats["controller"],
+        "stages": [{"arch": e.cfg.name, "n_layers": e.cfg.n_layers,
+                    "escalation": es["escalation"],
+                    "decode_us_per_token": es["wallclock_us_per_token"],
+                    "captures": es["captures"]}
+                   for e, es in zip(engines, stats["stages"])],
+    }, default=str), flush=True)
     if stats["requests_finished"] != args.requests:
         raise SystemExit(f"finished {stats['requests_finished']} of "
                          f"{args.requests} requests")

@@ -54,8 +54,17 @@ across its re-prefills.  :meth:`push_thresholds` writes the vector in
 place — the exit kernels read it from device memory, so a push costs no
 capture — and the controller resolves and pushes from
 :meth:`lane_telemetry` at its resolve ticks (``maybe_update`` each tick).
-Escalation, fleet and observability hooks come in later slices of the
-port and are refused here.
+
+Cross-model escalation (:mod:`repro_torch.escalate`): a tier drives the
+engine through :meth:`cancel` (retire a live request at its defer point,
+or drop a queued one) and re-submits deferred requests tagged with
+``extra["escalation"]``; the engine attributes their replayed prompt
+prefix to the escalation window of :meth:`stats` (``"escalation"``), not
+to fresh traffic.  :meth:`free_slot_count`, :meth:`queued_count`,
+:meth:`live_rids` and :meth:`take_queue` are the surface a scheduler in
+front of several engines reads.  Mesh sharding and
+the observability recorder come in later slices of the port and are
+refused here.
 """
 from __future__ import annotations
 
@@ -78,7 +87,7 @@ from repro_torch.models.model import CascadeModel
 from repro_torch.serving.batching import DepthCompactor, cohort_capacity
 from repro_torch.serving.paged import PagedCascadeCache
 from repro_torch.serving.runtime import DeviceDecodeLoop, kernel_provenance
-from repro_torch.utils import resolve_device
+from repro_torch.utils import quantiles, resolve_device
 
 
 @dataclasses.dataclass
@@ -98,14 +107,21 @@ class _Slot:
     done: bool = True
 
 
+def _escalation_extra(req: Request) -> Optional[dict]:
+    """The tier's re-submission tag, set by :mod:`repro_torch.escalate`
+    when a deferred request is replayed into this engine (None for fresh
+    traffic).  Its ``replayed`` is how many of the prompt's trailing tokens
+    are a prefix another stage already decoded."""
+    esc = (req.extra or {}).get("escalation")
+    return esc if isinstance(esc, dict) else None
+
+
 def _refuse_unported(cfg: ModelConfig, mesh) -> None:
     later = []
     if mesh is not None:
         later.append("mesh sharding")
     if cfg.obs.enabled:
         later.append("the observability flight recorder")
-    if cfg.escalation.enabled:
-        later.append("cross-model escalation")
     if later:
         raise NotImplementedError(
             "not ported yet (later slices of the port): " + ", ".join(later))
@@ -223,9 +239,11 @@ class CascadeServingEngine:
             self.controller.attach(self)
 
     def reset_metrics(self):
-        """Zero the MAC / wall-clock / skip-rate / host-sync accounting;
-        the compactor's learned depth EMAs and ``compile_seconds`` survive,
-        and per-request outputs (``finished``) are not cleared."""
+        """Zero the MAC / wall-clock / skip-rate / host-sync accounting and
+        the escalation window (replayed-prefix prefill, escalated
+        admissions, cancels); the compactor's learned depth EMAs and
+        ``compile_seconds`` survive, and per-request outputs (``finished``)
+        are not cleared."""
         self.compactor.reset_skip_counters()
         self._macs_spent = 0.0
         self._macs_dense = 0.0
@@ -244,6 +262,14 @@ class CascadeServingEngine:
         # (seconds, tokens) of each decode dispatch in the window
         self._dispatch_log: List[tuple] = []
         self._dispatch = dict.fromkeys(self.executor.dispatch, 0)
+        # escalation window: replayed-prefix prefill is attributed to the
+        # escalated requests that caused it, never to fresh traffic
+        self._prefill_positions_fresh = 0
+        self._prefill_positions_replayed = 0
+        self._replay_prefill_macs = 0.0
+        self._replay_prefill_seconds = 0.0
+        self._escalated_admitted = 0
+        self._cancelled_for_escalation = 0
         # the pool's peak occupancy and lifetime reclaim counters survive
         # (high-water capacity); only its per-chunk reclaim window clears
         if self.paged:
@@ -285,6 +311,27 @@ class CascadeServingEngine:
         self._submit_tick.setdefault(req.rid, self._tick)
         self.queue.append(req)
 
+    def free_slot_count(self) -> int:
+        """Slots a placement could admit into right now (all lanes)."""
+        return sum(1 for ln in self.lanes for s in ln["slots"] if s.done)
+
+    def queued_count(self) -> int:
+        return len(self.queue)
+
+    def live_rids(self) -> List[int]:
+        """Rids decoding in a slot (admitted, not finished)."""
+        return [s.request.rid for ln in self.lanes for s in ln["slots"]
+                if not s.done and s.request is not None]
+
+    def take_queue(self) -> List[Request]:
+        """Remove and return every queued request (FIFO order) and forget
+        their submit ticks, so a scheduler can requeue them elsewhere
+        without this engine counting them as admitted or dropped."""
+        taken, self.queue = self.queue, []
+        for req in taken:
+            self._submit_tick.pop(req.rid, None)
+        return taken
+
     def _predict_depth(self, req: Request) -> float:
         hint = (req.extra or {}).get("predicted_depth")
         return self.compactor.predict_depth(hint)
@@ -292,6 +339,33 @@ class CascadeServingEngine:
     def _record_admit(self, req: Request):
         sub = self._submit_tick.pop(req.rid, self._tick)
         self._admit_waits.append(self._tick - sub)
+        if _escalation_extra(req) is not None:
+            self._escalated_admitted += 1
+
+    def _replayed_len(self, req: Request) -> int:
+        """Trailing prompt tokens another stage already decoded (0 for
+        fresh traffic)."""
+        esc = _escalation_extra(req)
+        if esc is None:
+            return 0
+        return max(0, min(int(esc.get("replayed", 0)), len(req.prompt)))
+
+    def _account_prefill(self, req: Request, seconds: float,
+                         padded_positions: int):
+        """Attribute one newly admitted request's prefill: its prompt
+        positions split into fresh traffic and a replayed prefix.  Replayed
+        positions are priced at the full-depth MAC cost a token (prefill
+        computes every component) and charged to the escalation window,
+        never to the decode window; ``seconds`` of a shared dispatch are
+        attributed by the request's replayed share of its padded
+        positions."""
+        replayed = self._replayed_len(req)
+        self._prefill_positions_fresh += len(req.prompt) - replayed
+        self._prefill_positions_replayed += replayed
+        if replayed:
+            self._replay_prefill_macs += replayed * float(self.mac_prefix[-1])
+            self._replay_prefill_seconds += seconds * (
+                replayed / max(1, padded_positions))
 
     @staticmethod
     def _claim(slot: _Slot, req: Request):
@@ -384,9 +458,16 @@ class CascadeServingEngine:
     def _lane_plan_fits(self, lane_id: int, req: Request) -> bool:
         """Whole-lane path feasibility: would the lane's re-prefill plan
         (every live slot + ``req``, padded to the common context length)
-        fit the pool once the lane's current reservations are released?"""
-        have = (self.pcache.pool.free_blocks + self._lane_held(lane_id)
-                - self._promised_blocks(but=lane_id))
+        fit the pool once the lane's current reservations are released,
+        under the pool's soft cap (a tier's block budget)?  The reference
+        checks the free list alone, so a binding cap fails the prefill's
+        allocation; the port keeps the request queued instead."""
+        pool = self.pcache.pool
+        held = self._lane_held(lane_id)
+        have = pool.free_blocks + held
+        if pool.soft_cap is not None:
+            have = min(have, pool.soft_cap - pool.used + held)
+        have -= self._promised_blocks(but=lane_id)
         return self._lane_plan(lane_id, req) <= have
 
     def _admit_paged(self):
@@ -482,8 +563,10 @@ class CascadeServingEngine:
         tok = int(d.prediction[0])         # syncs the device
         exit_idx = int(d.exit_index[0])
         conf = float(d.confidence[0])
-        self._prefill_seconds += time.perf_counter() - t_pre
+        dt_pre = time.perf_counter() - t_pre
+        self._prefill_seconds += dt_pre
         self._slot_prefills += 1
+        self._account_prefill(req, dt_pre, P_pad)
         # merge the B = 1 prefill decision into the lane's carried state:
         # it seeds the stateful-measure streak as a whole-lane prefill does
         if state.policy is not None and d.state is not None:
@@ -507,14 +590,15 @@ class CascadeServingEngine:
                 or pos >= self.cache_len - 1):
             self._retire(s, lane_id, slot_idx)
 
-    def _retire(self, s: _Slot, lane_id: int, slot_idx: int):
+    def _retire(self, s: _Slot, lane_id: int, slot_idx: int,
+                escalated: bool = False):
         s.done = True
         self.finished[s.request.rid] = {
             "tokens": list(s.generated),
             "exit_depths": list(s.exit_depths),
             "confs": list(s.confs),
             "lane": lane_id,
-            "escalated": False,
+            "escalated": escalated,
         }
         self.compactor.observe_retire(lane_id)
         if self.paged:
@@ -524,6 +608,43 @@ class CascadeServingEngine:
             md = max(s.exit_depths) if s.exit_depths else None
             self.pcache.release_slot(lane_id, slot_idx, max_exit_depth=md)
             self._tables_stale.add(lane_id)
+
+    def cancel(self, rid: int, keep: Optional[int] = None
+               ) -> Optional[dict]:
+        """Retire request ``rid`` early, keeping only its first ``keep``
+        generated tokens (None = all): the escalation tier's defer hook,
+        called between engine ticks.  Returns the finished record (its
+        ``escalated`` flag set), or None if ``rid`` is not known here.
+
+        A live slot retires through the ordinary path: it leaves the next
+        dispatch's active mask (under the device runtime, through the live
+        mask the chunk loads into the buffers its graph reads: no
+        capture), and a paged slot's blocks return to the pool.  Tokens
+        past ``keep`` were decoded and their compute stays in the MAC
+        window: it was spent.  A queued request (never admitted) leaves the
+        queue with an empty record (no tokens, no lane) and does not count
+        toward ``cancelled_for_escalation``."""
+        for lane_id, lane in enumerate(self.lanes):
+            for slot_idx, s in enumerate(lane["slots"]):
+                if s.done or s.request is None or s.request.rid != rid:
+                    continue
+                if keep is not None:
+                    s.generated = s.generated[:keep]
+                    s.exit_depths = s.exit_depths[:keep]
+                    s.confs = s.confs[:keep]
+                self._cancelled_for_escalation += 1
+                self._retire(s, lane_id, slot_idx, escalated=True)
+                return self.finished[rid]
+        for qi, req in enumerate(self.queue):
+            if req.rid != rid:
+                continue
+            self.queue.pop(qi)
+            self._submit_tick.pop(rid, None)
+            self.finished[rid] = {"tokens": [], "exit_depths": [],
+                                  "confs": [], "lane": None,
+                                  "escalated": True}
+            return self.finished[rid]
+        return None
 
     def _live_mask(self, lane) -> np.ndarray:
         return np.array([not s.done for s in lane["slots"]])
@@ -574,6 +695,7 @@ class CascadeServingEngine:
                           if self.paged else None))
         if old.thresholds is not None:
             state = state.replace(thresholds=old.thresholds)
+        fresh_admits = [s for s in slots if not s.done and not s.generated]
         t_pre = time.perf_counter()
         d, cache, state = self.executor.prefill(
             self.params, torch.as_tensor(toks, device=self.device), cache_in,
@@ -581,8 +703,13 @@ class CascadeServingEngine:
         tok = d.prediction.cpu().numpy()   # syncs the device
         exit_idx = d.exit_index.cpu().numpy()
         conf = d.confidence.cpu().numpy()
-        self._prefill_seconds += time.perf_counter() - t_pre
+        dt_pre = time.perf_counter() - t_pre
+        self._prefill_seconds += dt_pre
         self._prefills += 1
+        # this shared dispatch's replayed-prefix share goes to the newly
+        # admitted escalated requests riding in it
+        for s in fresh_admits:
+            self._account_prefill(s.request, dt_pre, self.lane_batch * S)
         self._set_state(lane, state)
         lane["t"] = S
         for i, s in enumerate(slots):
@@ -649,6 +776,15 @@ class CascadeServingEngine:
         # report what the caller pushed, not its f32 rounding (the 1.1
         # never-exit sentinel must round-trip exactly)
         self._live_thresholds = pushed
+
+    def latency_stats(self) -> dict:
+        """p50/p95/p99 latency summaries: ``admission_wait_ticks`` from
+        the window counter (it resets with :meth:`reset_metrics`); the
+        reference's recorder-fed distributions are None (the observability
+        slice)."""
+        return {"admission_wait_ticks": quantiles(self._admit_waits),
+                "e2e_seconds": None, "per_token_seconds": None,
+                "macs_per_request": None, "tokens_per_request": None}
 
     def _account(self, lane_id: int, depths: np.ndarray, n_tokens: int,
                  ran: np.ndarray, steps: int, max_depths):
@@ -894,7 +1030,19 @@ class CascadeServingEngine:
                 float(lane["state"].ema_conf.float().mean().item())
                 for lane in self.lanes],
             "provenance": self.kernel_provenance(),
+            "latency": self.latency_stats(),
             "autotune": self._autotune_stats(),
+            # cross-model escalation: the replayed-prefix prefill split from
+            # fresh traffic, so a tier never counts a committed prefix twice
+            "escalation": {
+                "escalated_requests_admitted": self._escalated_admitted,
+                "cancelled_for_escalation": self._cancelled_for_escalation,
+                "prefill_positions_fresh": self._prefill_positions_fresh,
+                "prefill_positions_replayed":
+                    self._prefill_positions_replayed,
+                "replay_prefill_macs": self._replay_prefill_macs,
+                "replay_prefill_seconds": self._replay_prefill_seconds,
+            },
         })
 
     def _autotune_stats(self):

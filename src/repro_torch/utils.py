@@ -131,3 +131,20 @@ def numpy_to_tensor(a, device="cpu") -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
+
+
+def quantiles(values, qs=(0.5, 0.95, 0.99)):
+    """p-quantile summary of a value list (None when empty): count, sum and
+    ``p50``/``p95``/``p99`` by linear interpolation on the sorted sample
+    (numpy's default), as the reference's flight recorder reports them."""
+    if not values:
+        return None
+    xs = sorted(float(v) for v in values)
+    n = len(xs)
+    out = {"count": n, "sum": float(sum(xs))}
+    for q in qs:
+        pos = q * (n - 1)
+        lo = int(pos)
+        hi = min(lo + 1, n - 1)
+        out[f"p{int(q * 100)}"] = xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+    return out

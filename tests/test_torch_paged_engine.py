@@ -274,7 +274,7 @@ def test_serve_cli_device_runtime_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--drain"],
-                                   ["--escalate-layers", "1"],
+                                   ["--metrics-port", "9100"],
                                    ["--fleet", "2"], ["--obs"],
                                    ["--trace-out", "x.json"]])
 def test_serve_cli_refuses_later_slices(flags):

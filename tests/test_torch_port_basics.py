@@ -61,8 +61,14 @@ def test_full_config_and_registry():
     assert dataclasses.asdict(ours) == dataclasses.asdict(
         jax_get_config("qwen2.5-3b"))
     assert ours.segments == ((0, 12), (12, 24), (24, 36))
-    # the paper's CNN joined the registry in the training slice
-    assert list_configs() == ["ci-resnet18", "qwen2.5-3b"]
+    # the paper's CNN joined the registry in the training slice, yi-9b
+    # (the escalation tier's second published width) in slice 11
+    assert list_configs() == ["ci-resnet18", "qwen2.5-3b", "yi-9b"]
+    yi = get_config("yi-9b")
+    assert dataclasses.asdict(yi) == dataclasses.asdict(
+        jax_get_config("yi-9b"))
+    assert yi.segments == jax_get_config("yi-9b").segments == (
+        (0, 16), (16, 32), (32, 48))
     with pytest.raises(KeyError):
         get_config("mixtral-8x7b")
 
@@ -132,7 +138,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "repro_torch.core.training", "repro_torch.optim.optimizer",
             "repro_torch.ckpt.checkpoint", "repro_torch.data.synth_images",
             "repro_torch.data.lm_pipeline",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.escalate",
+            "repro_torch.escalate.tier", "repro_torch.escalate.router",
+            "repro_torch.escalate.replay",
+            "repro_torch.configs.yi_9b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -159,6 +168,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
         for m in pat.finditer(path.read_text()):
             hits.append(f"{path}: {m.group(0).strip()}")
     assert len(files) > 20
+    assert {"tier.py", "router.py", "replay.py"} <= {
+        p.name for p in files if p.parent.name == "escalate"}
     assert not hits, hits
 
 
@@ -186,6 +197,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert eng.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         bridge.params_from_jax({}, cfg)
+    # the escalation tier's entry point: the serve CLI's tier path builds
+    # its stages on CUDA unless --device cpu is given, and a tier runs on
+    # its engines' devices
+    from repro_torch.escalate import ModelCascadeTier
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen2.5-3b", "--smoke",
+                    "--escalate-layers", "1"])
+    tier = ModelCascadeTier([eng, CascadeServingEngine(
+        cfg, model, params, lane_batch=2, n_lanes=1, cache_len=32,
+        device="cpu")])
+    assert {e.device.type for e in tier.engines} == {"cpu"}
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -315,10 +338,16 @@ def test_unported_configurations_are_refused():
         with pytest.raises(NotImplementedError, match=what):
             CascadeServingEngine(cfg, model, params, **{**kw, **bad})
     for cfg_bad in (cfg.with_kernel_tune(enabled=True),
-                    cfg.with_obs(),
-                    cfg.with_escalation(enabled=True)):
+                    cfg.with_obs()):
         with pytest.raises(NotImplementedError, match="later slice"):
             CascadeServingEngine(cfg_bad, model, params, **kw)
+    # cross-model escalation is ported (slice 11): an escalation stage's
+    # engine constructs
+    eng = CascadeServingEngine(cfg.with_escalation(enabled=True,
+                                                   threshold=0.5),
+                               model, params, **kw)
+    assert eng.cfg.escalation.enabled
+    assert eng.stats()["escalation"]["cancelled_for_escalation"] == 0
     # the entropy and margin measures are ported (the training slice): the
     # engine constructs with either
     for measure in ("entropy", "margin"):
