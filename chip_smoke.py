@@ -107,14 +107,34 @@ source, all at once).  Phases, each of which fails the run on a miss:
     (48 layers, d 4096, vocab 64000) as a restarting second stage, bit
     for bit yi-9b alone; the serve CLI's tier path in a subprocess; and
     phase 2's kernels at yi-9b's shapes;
-14. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+14. slice 12, the dense family whole: phase 2's kernels at
+    deepseek-coder-33b's shapes (GQA group 7, d 7168: rmsnorm's block
+    route, the megakernel's cuda_core route in bf16) and minitron-4b's
+    (group 3, vocab 256000: the megakernel's tc route, confidence at its
+    16-CTA cap); then deepseek-coder-33b (62 layers, 67 GB of bf16
+    weights) and minitron-4b at full width, each alone on the card —
+    init time, peak memory, the prefill's and first decode steps' logits
+    against the plain path, 8 requests on the host and device runtimes
+    in turns with identical streams, and for minitron-4b 2 cohorts with
+    the megakernel at a mixed threshold;
+15. a 4-layer f32 model of qwen2.5-3b's widths with layernorm, learned
+    positions and tied embeddings through the engine, kernels on (the
+    megakernel falls back: 0 launches) and off, identical streams;
+16. the kernel tile autotuner: both presets swept into a temporary
+    directory and loaded back with no sweep; the full-width qwen2.5-3b
+    model at cache 1024 in two cells at thresholds that split the exit
+    decisions (one cohort; two with the megakernel), each on the default,
+    the tuned and other non-default tiles with identical tokens and exit
+    depths; and an install after a capture capturing again;
+17. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after, and fails unless exactly its expected kernels launched;
 every prefill of a bf16 model must take flash attention's wgmma route and
-every exit head the megakernel's tc route, of an f32 one their CUDA-core
-routes, every norm rmsnorm's warp route, and every decode attention the
+every exit head the megakernel's tc route up to d 4096, of an f32 one
+their CUDA-core routes, every norm rmsnorm's warp route up to 512 16-byte
+chunks a row (the block route beyond), and every decode attention the
 paged route on paged stores of block size 16, else the dense one.
 
 Every line of standard output but the ``nvidia-smi`` line is one JSON
@@ -1267,25 +1287,29 @@ def make_engine(cfg, model, params, **engine_kw):
 
 def check_routes(cfg, launches):
     """Every prefill of a bf16 / fp16 model takes flash's wgmma route and
-    every exit head the megakernel's tc route, of an f32 one their
-    CUDA-core routes; every norm of the model's width takes rmsnorm's
-    warp route; every decode attention over paged stores whose block size
-    divides the 32-key tile takes the paged route (no gather), any other
-    the dense one.  Returns each kernel's launches by route since the
-    counters were last reset."""
+    every exit head the megakernel's tc route up to d 4096, of an f32 one
+    (or a wider one: the head) their CUDA-core routes; every norm of the
+    model's width takes rmsnorm's warp route while a row is at most 512
+    16-byte chunks, else the block route (d 7168 in bf16); every decode
+    attention over paged stores whose block size divides the 32-key tile
+    takes the paged route (no gather), any other the dense one.  Returns
+    each kernel's launches by route since the counters were last
+    reset."""
     from repro_torch.kernels.decode_attention import TILE, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.megakernel import exit_head_update
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.megakernel import _TC_MAX_D, exit_head_update
+    from repro_torch.kernels.rmsnorm import MAX_CHUNKS, rmsnorm
     f32 = cfg.dtype == "float32"
     paged = (cfg.paged_cache.layout == "paged"
              and TILE % cfg.paged_cache.block_size == 0)
+    wide_norm = cfg.d_model * (4 if f32 else 2) > 16 * MAX_CHUNKS
     out = {}
     for name, fn, want in (
             ("flash_attention", flash_attention,
              "cuda_core" if f32 else "wgmma"),
-            ("megakernel", exit_head_update, "cuda_core" if f32 else "tc"),
-            ("rmsnorm", rmsnorm, "warp"),
+            ("megakernel", exit_head_update,
+             "cuda_core" if f32 or cfg.d_model > _TC_MAX_D else "tc"),
+            ("rmsnorm", rmsnorm, "block" if wide_norm else "warp"),
             ("decode_attention", decode_attention,
              "paged" if paged else "dense")):
         routes = dict(fn.launches_by_route)
@@ -2465,76 +2489,107 @@ def phase_train():
 # slice 11: cross-model escalation on the card
 # ---------------------------------------------------------------------------
 
-# yi-9b's serving shapes: model width, heads over KV heads, vocabulary,
-# and its paged store (the auto-sized pool of 2 lanes x 4 slots x 3
-# components x 32 ring blocks + the trash block)
-YI_D, YI_H, YI_KV, YI_VOCAB = 4096, 32, 4, 64000
-YI_PAGED_STORE = (769, 16, YI_KV, 128)
+# the serving shapes of the dense family's other published widths: model
+# width, heads over KV heads, vocabulary, and the routes their norms and
+# exit heads take in bf16 (d 7168 is past rmsnorm's warp route, 896
+# 16-byte chunks a row, and past the megakernel's tc route, whose shared
+# memory at B <= 8 would be 128 KB of ring + 8 x 7168 x 2 bytes of rows)
+DENSE_SHAPES = {
+    "yi-9b": dict(d=4096, H=32, KV=4, vocab=64000, norm="warp", head="tc"),
+    "deepseek-coder-33b": dict(d=7168, H=56, KV=8, vocab=32256,
+                               norm="block", head="cuda_core"),
+    "minitron-4b": dict(d=3072, H=24, KV=8, vocab=256000, norm="warp",
+                        head="tc", confidence=True),
+}
 
 
 def phase_yi_kernels(dev, gen):
-    """Phase 2's cases at yi-9b's shapes, each against its plain version
-    at the tolerances above: rmsnorm (4, 4096) bf16 on the warp route;
-    exit_update (4, 64000) bf16; the megakernel's tc route at h (4, 4096)
-    x (4096, 64000) (d = 4096 is the route's upper limit); decode
-    attention q (4, 32, 128) over 4 KV heads at W 512, dense and paged
-    (the paged route bit for bit like the dense one over the gathered
-    views); flash attention (4, 32/4, 256, 128) on the wgmma route.
-    Returns {kernel: [case]}, each case marked ``"config": "yi-9b"``."""
+    """Phase 2's cases at yi-9b's shapes (:func:`config_kernel_cases`)."""
+    return config_kernel_cases(dev, gen, "yi-9b")
+
+
+def config_kernel_cases(dev, gen, arch):
+    """Phase 2's cases at ``arch``'s serving shapes (:data:`DENSE_SHAPES`,
+    B = 4, bf16), each against its plain version at the tolerances above:
+    rmsnorm (4, d) on the route the width takes; exit_update (4, V); the
+    megakernel at h (4, d) x (d, V) on its route (against cuBLAS +
+    ``exit_update`` as the library call); decode attention q (4, H, 128)
+    over KV heads at W 512, dense and paged (the paged route bit for bit
+    like the dense one over the gathered views); flash attention (4, H/KV,
+    256, 128) on the wgmma route; and, where marked, confidence (4, V) at
+    its cluster cap.  Returns {kernel: [case]}, each case marked
+    ``"config": arch``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
+    from repro_torch.kernels.confidence import confidence, plan
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.exit_update import exit_update
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch.kernels.paged_gather import paged_gather_kv
     from repro_torch.kernels.rmsnorm import rmsnorm
+    shp = DENSE_SHAPES[arch]
+    D, H, KV, V = shp["d"], shp["H"], shp["KV"], shp["vocab"]
     bf = torch.bfloat16
     name, B, hd, n_m = "bfloat16", 4, 128, 3
     out = {}
 
     def case(kernel, **c):
-        out.setdefault(kernel, []).append({"config": "yi-9b",
-                                           "dtype": name, **c})
+        out.setdefault(kernel, []).append({"config": arch, "dtype": name,
+                                           **c})
 
     # rmsnorm
-    x = torch.randn(B, YI_D, generator=gen, device=dev).to(bf)
-    w = 1 + 0.1 * torch.randn(YI_D, generator=gen, device=dev)
+    x = torch.randn(B, D, generator=gen, device=dev).to(bf)
+    w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
     got, route = route_of(lambda: rmsnorm(x, w, 1e-5), rmsnorm)
     want = ref.ref_rmsnorm(x, w, 1e-5)
-    check_close("rmsnorm yi-9b", got, want, *TOL[name])
-    if route != "warp":
-        fail(f"rmsnorm yi-9b: took the {route} route")
-    b, by = bound_ms(2 * x.numel() * 2 + YI_D * 4, 4 * x.numel(), name)
-    case("rmsnorm", shape=[B, YI_D], route=route,
+    check_close(f"rmsnorm {arch}", got, want, *TOL[name])
+    if route != shp["norm"]:
+        fail(f"rmsnorm {arch}: took the {route} route")
+    b, by = bound_ms(2 * x.numel() * 2 + D * 4, 4 * x.numel(), name)
+    case("rmsnorm", shape=[B, D], route=route,
          max_abs_err=max_err(got, want),
          ms=time_ms(lambda: rmsnorm(x, w, 1e-5)),
          plain_ms=time_ms(lambda: ref.ref_rmsnorm(x, w, 1e-5)),
-         library_ms=time_ms(lambda: F.rms_norm(x, (YI_D,), w.to(bf), 1e-5)),
+         library_ms=time_ms(lambda: F.rms_norm(x, (D,), w.to(bf), 1e-5)),
          bound_ms=b, bound_by=by)
     # exit_update
-    x = _exit_logits(B, YI_VOCAB, bf, dev, gen)
+    x = _exit_logits(B, V, bf, dev, gen)
     carry = _carries(B, n_m, dev)
     kw = dict(threshold=torch.full((n_m,), 0.3, device=dev), m=0,
               n_components=n_m, tel_bins=32)
     got = exit_update(x, *carry, **kw)
     want = ref.ref_exit_update(x, *carry, **kw)
     for idx in (0, 1, 2, 4, 6):
-        check_equal("exit_update yi-9b", got[idx], want[idx])
+        check_equal(f"exit_update {arch}", got[idx], want[idx])
     for idx in (3, 5):
-        check_close("exit_update yi-9b", got[idx], want[idx], 0.0, 1e-5)
+        check_close(f"exit_update {arch}", got[idx], want[idx], 0.0, 1e-5)
     b, by = bound_ms(x.numel() * 2 + B * 4 * 13, 4 * x.numel(), name)
-    case("exit_update", shape=[B, YI_VOCAB],
+    case("exit_update", shape=[B, V],
          max_abs_err=max(max_err(got[3], want[3]), max_err(got[5], want[5])),
          ms=time_ms(lambda: exit_update(x, *carry, **kw)),
          plain_ms=time_ms(lambda: ref.ref_exit_update(x, *carry, **kw)),
          library_ms=time_ms(lambda: torch.softmax(x.float(), -1).max(-1)),
          bound_ms=b, bound_by=by)
-    # the megakernel's tc route at d = 4096
-    h = torch.randn(B, YI_D, generator=gen, device=dev).to(bf)
-    head = (0.02 * torch.randn(YI_D, YI_VOCAB, generator=gen,
-                               device=dev)).to(bf)
+    if shp.get("confidence"):
+        xc, _ = _conf_logits(B, V, bf, dev, gen)
+        got = confidence(xc)
+        want = ref.ref_confidence(xc)
+        check_equal(f"confidence {arch}", got[0], want[0])
+        check_close(f"confidence {arch}", got[1], want[1], 0.0, 1e-5)
+        b, by = bound_ms(xc.numel() * 2 + B * 8, 4 * xc.numel(), name)
+        case("confidence", shape=[B, V], cluster=plan(V),
+             max_abs_err=max_err(got[1], want[1]),
+             ms=time_ms(lambda: confidence(xc)),
+             plain_ms=time_ms(lambda: ref.ref_confidence(xc)),
+             library_ms=time_ms(lambda: torch.softmax(xc.float(),
+                                                      -1).max(-1)),
+             bound_ms=b, bound_by=by)
+        del xc
+    # the megakernel on the route the width takes
+    h = torch.randn(B, D, generator=gen, device=dev).to(bf)
+    head = (0.02 * torch.randn(D, V, generator=gen, device=dev)).to(bf)
     head[:, 77] = (ref.ref_rmsnorm(h[1:2], w)[0].float() * 0.05).to(bf)
     live = torch.arange(B, device=dev) % 4 != 2
     ties = _mega_ties(h, w, head, name)
@@ -2543,44 +2598,45 @@ def phase_yi_kernels(dev, gen):
     got, route = route_of(lambda: exit_head_update(h, w, head, *carry, **kw),
                           exit_head_update)
     want = ref.ref_exit_head_update(h, w, head, *carry, **kw)
-    if route != "tc":
-        fail(f"megakernel yi-9b: took the {route} route")
-    err = _mega_check("megakernel yi-9b", got, want, carry, live, ties, name)
+    if route != shp["head"]:
+        fail(f"megakernel {arch}: took the {route} route")
+    err = _mega_check(f"megakernel {arch}", got, want, carry, live, ties,
+                      name)
     if int(got[1][1]) != 77:
-        fail("megakernel yi-9b: the confident row must answer 77")
-    b, by = bound_ms(head.numel() * 2 + h.numel() * 2 + YI_D * 4 + B * 56,
-                     2 * B * YI_D * YI_VOCAB, name)
+        fail(f"megakernel {arch}: the confident row must answer 77")
+    b, by = bound_ms(head.numel() * 2 + h.numel() * 2 + D * 4 + B * 56,
+                     2 * B * D * V, name)
 
     def library():
-        xn = F.rms_norm(h, (YI_D,), w.to(bf), 1e-5)
+        xn = F.rms_norm(h, (D,), w.to(bf), 1e-5)
         return exit_update(xn @ head, *carry, threshold=kw["threshold"],
                            m=0, n_components=n_m)
 
-    case("megakernel", shape=[B, YI_D, YI_VOCAB], route=route,
+    case("megakernel", shape=[B, D, V], route=route,
          live=live.tolist(), tie_rows=int(ties.sum()), max_abs_err=err,
          ms=time_ms(lambda: exit_head_update(h, w, head, *carry, **kw)),
          plain_ms=time_ms(lambda: ref.ref_exit_head_update(h, w, head,
                                                            *carry, **kw)),
          library_ms=time_ms(library), bound_ms=b, bound_by=by)
     del head
-    # decode attention, dense and paged, 32 heads over 4 KV heads
+    # decode attention, dense and paged
     t, W = 700, 512
     t_dev = torch.full((), t, dtype=torch.int32, device=dev)
     kpos = torch.as_tensor(decode_ring(t, W), device=dev)
     live = torch.ones(B, dtype=torch.bool, device=dev)
-    q = torch.randn(B, YI_H, hd, generator=gen, device=dev).to(bf)
-    kc = torch.randn(B, W, YI_KV, hd, generator=gen, device=dev).to(bf)
-    vc = torch.randn(B, W, YI_KV, hd, generator=gen, device=dev).to(bf)
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(bf)
+    kc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(bf)
+    vc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(bf)
     got, route = route_of(lambda: decode_attention(q, kc, vc, t_dev, kpos,
                                                    live), decode_attention)
     want = ref.ref_decode_attention(q, kc, vc, t, kpos, live=live)
-    check_close("decode yi-9b dense", got, want, *TOL[name])
+    check_close(f"decode {arch} dense", got, want, *TOL[name])
     if route != "dense":
-        fail(f"decode yi-9b: took the {route} route")
-    nbytes = (2 * B * W * YI_KV * hd + 2 * q.numel()) * 2 + W * 4
-    b, by = bound_ms(nbytes, 4 * YI_H * hd * B * W, name)
+        fail(f"decode {arch}: took the {route} route")
+    nbytes = (2 * B * W * KV * hd + 2 * q.numel()) * 2 + W * 4
+    b, by = bound_ms(nbytes, 4 * H * hd * B * W, name)
     mask = torch.ones(B, 1, 1, W, dtype=torch.bool, device=dev)
-    case("decode_attention", shape=[B, YI_H, YI_KV, W, hd], t=t, window=0,
+    case("decode_attention", shape=[B, H, KV, W, hd], t=t, window=0,
          live=[1] * B, kpos="lane", route=route,
          max_abs_err=max_err(got, want),
          ms=time_ms(lambda: decode_attention(q, kc, vc, t_dev, kpos, live)),
@@ -2590,11 +2646,11 @@ def phase_yi_kernels(dev, gen):
              q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
              attn_mask=mask, enable_gqa=True)),
          bound_ms=b, bound_by=by)
-    NB = YI_PAGED_STORE[0]
-    ks = torch.randn(YI_PAGED_STORE, generator=gen, device=dev).to(bf)
-    vs = torch.randn(YI_PAGED_STORE, generator=gen, device=dev).to(bf)
-    table = torch.randint(1, NB, PAGED_TABLE, generator=gen, device=dev,
-                          dtype=torch.int32)
+    store = (769, 16, KV, hd)
+    ks = torch.randn(store, generator=gen, device=dev).to(bf)
+    vs = torch.randn(store, generator=gen, device=dev).to(bf)
+    table = torch.randint(1, store[0], PAGED_TABLE, generator=gen,
+                          device=dev, dtype=torch.int32)
     table[1, 20:] = 0
     views = paged_gather_kv(ks, vs, table)
     kpos = torch.stack([kpos - 2 * i for i in range(B)]).clamp(min=-1)
@@ -2603,19 +2659,18 @@ def phase_yi_kernels(dev, gen):
     dense = decode_attention(q, *views, t_dev, kpos, live)
     want = ref.ref_decode_attention(q, *views, t, kpos, live=live)
     if route != "paged":
-        fail(f"decode yi-9b paged: took the {route} route")
+        fail(f"decode {arch} paged: took the {route} route")
     if not torch.equal(got, dense):
-        fail("decode yi-9b paged: differs from the dense route over the "
+        fail(f"decode {arch} paged: differs from the dense route over the "
              "gathered views")
-    check_close("decode yi-9b paged", got, want, *TOL[name])
+    check_close(f"decode {arch} paged", got, want, *TOL[name])
     n_vis = int(((kpos >= 0) & (kpos <= t)).sum().item())
-    nbytes = (2 * n_vis * YI_KV * hd + 2 * q.numel()) * 2 + \
+    nbytes = (2 * n_vis * KV * hd + 2 * q.numel()) * 2 + \
         kpos.numel() * 4 + table.numel() * 4
-    b, by = bound_ms(nbytes, 4 * YI_H * hd * n_vis, name)
-    case("decode_attention", shape=[B, YI_H, YI_KV, W, hd], t=t, window=0,
-         live=[1] * B, kpos="per-slot", route=route,
-         store=list(YI_PAGED_STORE), table=list(PAGED_TABLE),
-         max_abs_err=max_err(got, want),
+    b, by = bound_ms(nbytes, 4 * H * hd * n_vis, name)
+    case("decode_attention", shape=[B, H, KV, W, hd], t=t, window=0,
+         live=[1] * B, kpos="per-slot", route=route, store=list(store),
+         table=list(PAGED_TABLE), max_abs_err=max_err(got, want),
          ms=time_ms(lambda: decode_attention(q, ks, vs, t_dev, kpos, live,
                                              table=table)),
          dense_ms=time_ms(lambda: decode_attention(q, *views, t_dev, kpos,
@@ -2629,20 +2684,20 @@ def phase_yi_kernels(dev, gen):
              enable_gqa=True)),
          bound_ms=b, bound_by=by)
     del ks, vs, views
-    # flash attention, 32 heads over 4 KV heads
+    # flash attention
     S = 256
-    q = torch.randn(B, YI_H, S, hd, generator=gen, device=dev).to(bf)
-    k = torch.randn(B, YI_KV, S, hd, generator=gen, device=dev).to(bf)
-    v = torch.randn(B, YI_KV, S, hd, generator=gen, device=dev).to(bf)
+    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(bf)
+    k = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(bf)
+    v = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(bf)
     got, route = route_of(lambda: flash_attention(q, k, v, causal=True),
                           flash_attention)
     want = ref.ref_flash_attention(q, k, v, causal=True)
-    check_close("flash yi-9b", got, want, *TOL[name])
+    check_close(f"flash {arch}", got, want, *TOL[name])
     if route != "wgmma":
-        fail(f"flash yi-9b: took the {route} route")
+        fail(f"flash {arch}: took the {route} route")
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    b, by = bound_ms(nbytes, 4 * hd * B * YI_H * S * (S + 1) // 2, name)
-    case("flash_attention", shape=[B, YI_H, YI_KV, S, hd], window=0,
+    b, by = bound_ms(nbytes, 4 * hd * B * H * S * (S + 1) // 2, name)
+    case("flash_attention", shape=[B, H, KV, S, hd], window=0,
          route=route, max_abs_err=max_err(got, want),
          ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
          plain_ms=time_ms(lambda: ref.ref_flash_attention(q, k, v,
@@ -3123,6 +3178,458 @@ def phase_escalate_cli():
           "stages": summary["stages"]})
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the dense family whole on the card
+# ---------------------------------------------------------------------------
+
+# the full-width phases' serving cell: lane_batch 4, 2 lanes, cache_len
+# 512, chunk 8; 8 requests of 128 / 256 prompt tokens and 16 new
+DENSE_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+# kernels against plain logits at full depth in bf16: both paths round the
+# residual stream to bf16 at every layer, at other points (the kernel norm
+# multiplies by w in f32 before its rounding, the plain one after; flash
+# rounds P to bf16 before P·V; split-KV decode merges in f32), so the
+# hidden states part by a few bf16 ulps (2^-8 relative) a layer, summing
+# like a random walk over the layers: ~sqrt(62 x 4) x 2^-8 ≈ 6 % at
+# deepseek-coder-33b's depth, as a normwise relative error of the logits
+LOGIT_REL_TOL = 0.1
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _logits_against_plain(cfg, model, params, n_steps=2):
+    """The prefill's last-position logits of every exit and the first
+    ``n_steps`` dense decode steps' final-exit logits, kernels on against
+    the port's plain path (``use_kernels`` off) on the same parameters,
+    the kernels' greedy tokens fed to both: normwise relative error each,
+    within :data:`LOGIT_REL_TOL`.  Returns the errors and the share of
+    rows whose argmax agrees."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    plain = build_model(cfg.replace(use_kernels=False), device=DEV)
+    rng = np.random.default_rng(5)
+    S = 256
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, S)),
+                           dtype=torch.int32, device=DEV)
+    caches = [m.init_cache(4, DENSE_ENGINE["cache_len"])
+              for m in (model, plain)]
+    with torch.no_grad():
+        got, caches[0] = model.prefill(params, toks, caches[0])
+        want, caches[1] = plain.prefill(params, toks, caches[1])
+        errs = {"prefill": [], "decode": []}
+        agree = []
+
+        def rel(a, b):
+            a, b = a.float(), b.float()
+            e = float((a - b).norm() / b.norm())
+            agree.append(float((a.argmax(-1) == b.argmax(-1))
+                               .float().mean()))
+            return e
+        errs["prefill"] = [rel(a, b) for a, b in zip(got, want)]
+        for i in range(n_steps):
+            tok = got[-1].argmax(-1).to(torch.int32)[:, None]
+            got, caches[0] = model.decode_step(params, tok, S + i,
+                                               caches[0])
+            want, caches[1] = plain.decode_step(params, tok, S + i,
+                                                caches[1])
+            errs["decode"].append(rel(got[-1], want[-1]))
+    worst = max(errs["prefill"] + errs["decode"])
+    if not worst <= LOGIT_REL_TOL:
+        fail(f"{cfg.name}: kernel logits part from the plain path's by "
+             f"{worst:.3e} (normwise, tolerance {LOGIT_REL_TOL})")
+    del caches, plain
+    return {"rel_err": errs, "max_rel_err": worst, "tolerance":
+            LOGIT_REL_TOL, "argmax_agree": agree}
+
+
+def _runtime_turns(tag, cfg, model, params, reqs, order):
+    """Serve ``reqs`` on each runtime of ``order`` in turn: identical
+    streams, carried segments_run, launches and routes, one capture a
+    lane and one host sync a lane chunk on the device runtime.  Returns
+    (per-runtime records, the device runtime's launches, the streams)."""
+    import statistics as stats_mod
+    runs = {"host": [], "device": []}
+    ref = None
+    dev_launches = None
+    n_req, n_new = len(reqs), reqs[0].max_new_tokens
+    for runtime in order:
+        fin, st, secs, launches = serve(cfg, model, params, reqs,
+                                        runtime=runtime, **DENSE_ENGINE)
+        t = f"{tag} {runtime}"
+        if sorted(fin) != list(range(n_req)) or any(
+                len(r["tokens"]) != n_new for r in fin.values()):
+            fail(f"{t}: not every request got its {n_new} tokens")
+        got = {"streams": _streams(fin),
+               "segments": st["carried_segments_run"], "launches": launches,
+               "routes": {k: st[k] for k in st if k.endswith("_routes")}}
+        if ref is None:
+            ref = got
+        for key, what in got.items():
+            if what != ref[key]:
+                fail(f"{t}: {key} differ from the first run's: {what} "
+                     f"against {ref[key]}")
+        if runtime == "device":
+            if st["host_syncs"] != st["decode_dispatches"]:
+                fail(f"{t}: {st['host_syncs']} host syncs for "
+                     f"{st['decode_dispatches']} lane chunks")
+            if st["captures"] != DENSE_ENGINE["n_lanes"]:
+                fail(f"{t}: {st['captures']} captures for "
+                     f"{DENSE_ENGINE['n_lanes']} lanes")
+            dev_launches = launches
+        n_tok = sum(len(r["tokens"]) for r in fin.values())
+        runs[runtime].append({
+            "decode_us_per_token": st["wallclock_us_per_token"],
+            "tokens_per_s": n_tok / secs, "seconds": secs,
+            "prefill_seconds": st["prefill_seconds"],
+            "compile_seconds": st["compile_seconds"],
+            "host_syncs_per_token": st["host_syncs_per_token"],
+            "captures": st["captures"], "segments_run": st["segments_run"],
+            "cohort_dispatch": st["cohort_dispatch"]})
+    med = {rt: stats_mod.median(r["decode_us_per_token"] for r in rr)
+           for rt, rr in runs.items() if rr}
+    return ({"order": ", ".join(order), "identical": True, **runs,
+             "decode_us_per_token_median": med, "launches": ref["launches"],
+             "routes": ref["routes"]}, dev_launches, ref["streams"])
+
+
+def phase_dense_full_width(arch, smi, megakernel=False):
+    """``arch`` (deepseek-coder-33b or minitron-4b) at its published
+    widths and full depth, bf16, seed 0, 3 components, kernels on,
+    cond_batch, one cohort, at (0.9, 0.9, 0.0) (untrained heads never
+    exit): the card freed of every earlier model first; the parameters'
+    init time and the peak device memory; the prefill's and the first
+    decode steps' logits against the plain path
+    (:func:`_logits_against_plain`); 8 requests on the host and device
+    runtimes in turns (host, device, device, host), identical streams.
+    With ``megakernel``: the same model with 2 cohorts and
+    ``kernel_tune.megakernel`` at a mixed component-0 threshold on the
+    device runtime, megakernel on and off (identical streams), so the
+    megakernel's route runs at the model's vocabulary.  Returns the
+    device runtime's launches by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    held = _free_card()
+    base = get_config(arch).replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(base, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = list(nn.tree_leaves(params))
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    logits = _logits_against_plain(base, model, params)
+    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+    turns, dev_launches, _ = _runtime_turns(
+        arch, base, model, params, reqs, ("host", "device", "device",
+                                          "host"))
+    check_launched(arch, turns["launches"], SLICE1)
+    out = {"one_cohort": dev_launches}
+    mega = None
+    if megakernel:
+        two = base.with_cascade(n_cohorts=2, cohort_layout="major") \
+            .with_kernel_tune(megakernel=True)
+        zero = two.with_cascade(thresholds=(0.0, 0.0, 0.0))
+        calib = serve(zero, model, params, reqs, runtime="device",
+                      **DENSE_ENGINE)[0]
+        th, quantile = mixed_threshold(
+            calib, lambda th: serve(two.with_cascade(
+                thresholds=(th, 0.9, 0.0)), model, params, reqs,
+                runtime="device", **DENSE_ENGINE)[1]["cohort_dispatch"],
+            f"{arch} megakernel")
+        mixed = two.with_cascade(thresholds=(th, 0.9, 0.0))
+        on, on_launches, on_streams = _runtime_turns(
+            f"{arch} megakernel", mixed, model, params, reqs,
+            ("device", "host"))
+        off, _, off_streams = _runtime_turns(
+            f"{arch} megakernel off", mixed.with_kernel_tune(
+                megakernel=False), model, params, reqs, ("device",))
+        if on_streams != off_streams:
+            fail(f"{arch}: the megakernel's streams differ from the unfused "
+                 "exit heads'")
+        check_launched(f"{arch} megakernel", on["launches"],
+                       SLICE1 | {"megakernel"})
+        out["megakernel"] = on_launches
+        mega = {"thresholds": [th, 0.9, 0.0], "threshold_quantile": quantile,
+                "n_cohorts": 2, "on": on, "off": off}
+    emit({"phase": "dense_full_width", "config": arch,
+          "n_layers": base.n_layers, "d_model": base.d_model,
+          "n_heads": base.n_heads, "n_kv_heads": base.n_kv_heads,
+          "vocab": base.vocab_size, "dtype": base.dtype, "params": n_params,
+          "param_bytes": param_bytes, "held_before": held,
+          "init_seconds": init_seconds,
+          "init_max_memory_allocated": init_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "logits_against_plain": logits, "thresholds": [0.9, 0.9, 0.0],
+          "requests": len(reqs), "max_new_tokens": 16, "turns": turns,
+          "megakernel": mega, "nvidia_smi": smi})
+    del model, params
+    _free_card()
+    return out
+
+
+def phase_dense_variants():
+    """A 4-layer f32 model of qwen2.5-3b's widths with layernorm, learned
+    absolute positions (``rope_theta=0``) and tied embeddings, all three,
+    through the engine at (0.9, 0.9, 0.0) and (0, 0, 0): kernels off; on
+    with one cohort; on with 2 cohorts and ``kernel_tune.megakernel`` on
+    both runtimes — identical streams, and the megakernel never launched
+    (a layernorm head has a bias, a tied head is ``embed.T``: both take
+    ``exit_logits`` + ``exit_update``), nor rmsnorm (every norm is a
+    layernorm).  Returns the launches of the megakernel run at (0.9, 0.9,
+    0.0) on the device runtime."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    import torch
+    _free_card()
+    base = get_config("qwen2.5-3b").replace(
+        n_layers=4, dtype="float32", norm="layernorm", rope_theta=0.0,
+        tie_embeddings=True).with_cascade(exit_mode="cond_batch")
+    model = build_model(base, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(1))
+    if "lm_head" in params or "pos_embed" not in params:
+        fail("dense variants: the tree has an lm_head or no pos_embed")
+    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=1)
+    expect = {"exit_update", "decode_attention", "flash_attention"}
+    out = None
+    for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
+        cfg = base.with_cascade(thresholds=ths)
+        mega = cfg.replace(use_kernels=True).with_cascade(
+            n_cohorts=2, cohort_layout="major").with_kernel_tune(
+            megakernel=True)
+        runs = {"kernels_off": (cfg, "host"),
+                "kernels_on": (cfg.replace(use_kernels=True), "host"),
+                "megakernel_host": (mega, "host"),
+                "megakernel_device": (mega, "device")}
+        want = None
+        rec = {}
+        for name, (c, runtime) in runs.items():
+            fin, st, secs, launches = serve(
+                c, build_model(c, device=DEV), params, reqs,
+                runtime=runtime, **DENSE_ENGINE)
+            check_launched(f"dense variants {ths} {name}", launches,
+                           expect if c.use_kernels else set())
+            got = _streams(fin)
+            if want is None:
+                want = got
+            if got != want:
+                fail(f"dense variants {ths}: {name} differs from kernels "
+                     "off")
+            rec[name] = {"launches": launches, "seconds": secs,
+                         "decode_us_per_token": st[
+                             "wallclock_us_per_token"]}
+            if name == "megakernel_device" and ths[0] > 0:
+                out = launches
+        emit({"phase": "dense_variants", "config": "qwen2.5-3b widths",
+              "n_layers": 4, "dtype": "float32", "norm": "layernorm",
+              "rope_theta": 0.0, "tie_embeddings": True,
+              "thresholds": list(ths), "identical": True,
+              "megakernel_launches": 0, "runs": rec})
+    del model, params
+    _free_card()
+    return out
+
+
+# non-default tiles for the kernel-tune phase's identity runs: another
+# vocab split in both exit kernels (exit_update's tile, the megakernel's
+# tc CTAs), the megakernel's cuda_core rows, the confidence cluster cap
+# and rmsnorm's block rows
+TUNE_OTHER = {"exit_update": {"vt": 2048},
+              "megakernel": {"tc_ctas": 66, "rows": 2},
+              "confidence": {"max_cluster": 4},
+              "rmsnorm": {"rows": 4}}
+
+
+def _median_threshold(fin):
+    """The midpoint of the two decode confidences around the median of
+    ``fin`` (a run where every token answers at component 0)."""
+    import numpy as np
+    c = np.sort([x for r in fin.values() for x in r["confs"][1:]])
+    i = max(len(c) // 2, 1)
+    return float((c[i - 1] + c[i]) / 2)
+
+
+def phase_kernel_tune():
+    """The kernel tile autotuner on the card: ``ensure_tuned`` on the
+    tiny and serving presets into a temporary artifact directory (each
+    kernel's default and tuned µs and its winner, every row at or above
+    1.0), each artifact loaded a second time with no sweep.  Then the
+    full-width qwen2.5-3b model (8 requests, device runtime, cache 1024)
+    in two cells whose exit decisions the tiles could move: one cohort
+    (``exit_update`` decides) at the median of the component-0
+    confidences, and 2 cohorts with the megakernel (it decides) at a
+    threshold where the cohorts disagree; each served with the default
+    tiles, the serving preset's tuned tiles (the engine's constructor
+    installs them) and :data:`TUNE_OTHER` — identical tokens and exit
+    depths, and both exit depths taken.  Last, tiles installed after a
+    lane's capture in the megakernel cell make the lane capture again
+    (the capture key holds the registry's generation), the streams still
+    the defaults'.  Returns each cell's launches under the tuned tiles."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune as kat
+    from repro_torch.models.model import build_model
+    _free_card()
+    kat.reset_tiles()
+    arts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for preset in ("tiny", "serving"):
+            t0 = time.perf_counter()
+            art = kat.ensure_tuned(artifact_dir=tmp, shapes=preset,
+                                   device=DEV)
+            sweep_s = time.perf_counter() - t0
+            bad = [r for r in art.rows if r["tuned_speedup"] < 1.0]
+            if bad:
+                fail(f"kernel tune {preset}: tuned slower than default "
+                     f"{bad}")
+            kat.reset_tiles()
+            real = kat.sweep
+
+            def no_sweep(*a, **k):
+                fail(f"kernel tune {preset}: swept again despite the "
+                     "artifact")
+            kat.sweep = no_sweep
+            try:
+                again = kat.ensure_tuned(artifact_dir=tmp, shapes=preset,
+                                         device=DEV)
+            finally:
+                kat.sweep = real
+            if again.tiles != art.tiles:
+                fail(f"kernel tune {preset}: the artifact loaded other "
+                     "tiles")
+            kat.reset_tiles()
+            arts[preset] = art
+            emit({"phase": "kernel_tune", "preset": preset,
+                  "sweep_seconds": sweep_s, "device": art.device,
+                  "backend": art.backend, "winners": art.tiles,
+                  "defaults": kat.DEFAULT_TILES, "rows": art.rows,
+                  "loaded_without_sweep": True})
+        base = get_config("qwen2.5-3b").replace(use_kernels=True) \
+            .with_cascade(exit_mode="cond_batch")
+        model = build_model(base, device=DEV)
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+        kw = dict(DENSE_ENGINE, cache_len=1024, runtime="device")
+        one = base
+        two = base.with_cascade(n_cohorts=2, cohort_layout="major") \
+            .with_kernel_tune(megakernel=True)
+        launches = {}
+        wants = {}
+        for tag, cell, decider in (("one cohort", one, "exit_update"),
+                                   ("two cohorts, megakernel", two,
+                                    "megakernel")):
+            calib = serve(cell.with_cascade(thresholds=(0.0, 0.0, 0.0)),
+                          model, params, reqs, **kw)[0]
+            if cell is one:
+                th, quantile = _median_threshold(calib), 0.5
+            else:
+                th, quantile = mixed_threshold(
+                    calib, lambda th: serve(cell.with_cascade(
+                        thresholds=(th, 0.9, 0.0)), model, params, reqs,
+                        **kw)[1]["cohort_dispatch"], f"kernel tune {tag}")
+            cfg = cell.with_cascade(thresholds=(th, 0.9, 0.0))
+            runs = {}
+            for name in ("default", "tuned", "other"):
+                kat.reset_tiles()
+                c = cfg
+                if name == "tuned":
+                    c = cfg.with_kernel_tune(enabled=True, artifact_dir=tmp,
+                                             shapes="serving")
+                elif name == "other":
+                    kat.install_tiles(TUNE_OTHER)
+                fin, st, _, n = serve(c, model, params, reqs, **kw)
+                installed = kat.current_tiles()
+                kat.reset_tiles()
+                want_tiles = {k: {**kat.DEFAULT_TILES[k], **v} for k, v in (
+                    arts["serving"].tiles if name == "tuned" else
+                    TUNE_OTHER if name == "other" else {}).items()}
+                for k, v in want_tiles.items():
+                    if installed[k] != v:
+                        fail(f"kernel tune {tag} {name}: {k} ran at "
+                             f"{installed[k]}, expected {v}")
+                if not n[decider]:
+                    fail(f"kernel tune {tag} {name}: {decider} never "
+                         "launched")
+                depths = [d for r in fin.values() for d in r["exit_depths"]]
+                runs[name] = {"streams": _streams(fin), "launches": n,
+                              "decode_us_per_token":
+                                  st["wallclock_us_per_token"],
+                              "exit_depth_counts": {
+                                  str(d): depths.count(d)
+                                  for d in sorted(set(depths))}}
+            if set(runs["default"]["exit_depth_counts"]) != {"0", "2"}:
+                fail(f"kernel tune {tag}: exit depths "
+                     f"{runs['default']['exit_depth_counts']} at {th}: the "
+                     "threshold splits no decisions")
+            for name in ("tuned", "other"):
+                if runs[name]["streams"] != runs["default"]["streams"]:
+                    fail(f"kernel tune {tag}: the {name} tiles' tokens or "
+                         "exit depths differ from the defaults'")
+            wants[tag] = runs["default"]["streams"]
+            launches[tag] = runs["tuned"]["launches"]
+            emit({"phase": "kernel_tune_serve", "config": "qwen2.5-3b",
+                  "cell": tag, "runtime": "device",
+                  "cache_len": kw["cache_len"],
+                  "thresholds": [th, 0.9, 0.0],
+                  "threshold_quantile": quantile, "identical": True,
+                  "tuned_tiles": arts["serving"].tiles,
+                  "other_tiles": TUNE_OTHER,
+                  **{f"{name}_{k}": r[k] for name, r in runs.items()
+                     for k in ("decode_us_per_token", "exit_depth_counts",
+                               "launches")}})
+            if cell is two:
+                mixed = cfg
+        # tiles installed after a capture: the lanes capture again
+        engine = make_engine(mixed, model, params, **kw)
+        for r in reqs:
+            engine.submit(r)
+        for _ in range(100):    # until a lane's first chunk captured
+            if engine.stats()["captures"]:
+                break
+            engine.step()
+        before = engine.stats()["captures"]
+        if not before:
+            fail("kernel tune: no lane captured in 100 engine steps")
+        gen_before = kat.generation()
+        after_tiles = {k: TUNE_OTHER[k] for k in ("exit_update",
+                                                   "megakernel")}
+        kat.install_tiles(after_tiles)
+        if kat.generation() == gen_before:
+            fail("kernel tune: the install after the capture changed no "
+                 "tile")
+        fin = engine.run(max_ticks=10_000)
+        after = engine.stats()["captures"]
+        if after <= before:
+            fail(f"kernel tune: {after} captures after an install at "
+                 f"{before}: a replay would launch stale tiles")
+        if _streams(fin) != wants["two cohorts, megakernel"]:
+            fail("kernel tune: the streams after the install differ from "
+                 "the defaults'")
+        emit({"phase": "kernel_tune_recapture", "config": "qwen2.5-3b",
+              "cell": "two cohorts, megakernel", "runtime": "device",
+              "captures_before_install": before,
+              "captures_after_install": after,
+              "installed_after": after_tiles, "recaptured": True,
+              "identical": True})
+        kat.reset_tiles()
+        del engine, model, params
+    _free_card()
+    return launches
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3161,10 +3668,12 @@ def main() -> int:
               "megakernel": phase_megakernel(dev, gen),
               "cohort_scatter": phase_cohort_scatter(dev, gen),
               "paged_gather": phase_paged_gather(dev, gen)}
-    # the same kernels at yi-9b's shapes, the escalate phase's second
-    # published width
-    for name, cases in phase_yi_kernels(dev, gen).items():
-        checks[name] += cases
+    # the same kernels at the dense family's other published widths:
+    # yi-9b's (the escalate phase's second stage), deepseek-coder-33b's
+    # and minitron-4b's
+    for arch in DENSE_SHAPES:
+        for name, cases in config_kernel_cases(dev, gen, arch).items():
+            checks[name] += cases
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
 
@@ -3186,6 +3695,11 @@ def main() -> int:
     paper = phase_paper()
     phase_train()
     escalate = phase_escalate()
+    # slice 12: the dense family whole, each model alone on the card
+    deepseek = phase_dense_full_width("deepseek-coder-33b", smi)
+    minitron = phase_dense_full_width("minitron-4b", smi, megakernel=True)
+    variants = phase_dense_variants()
+    tuned = phase_kernel_tune()
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -3259,6 +3773,22 @@ def main() -> int:
                      # 12-layer draft and the 36-layer model, dense, one
                      # cohort)
                      "launches_escalate": escalate[name],
+                     # launches on slice 12's paths, device runtime, 8
+                     # requests x 16 tokens at (0.9, 0.9, 0.0): each
+                     # full-width model with one cohort; minitron-4b with
+                     # 2 cohorts and the megakernel at a mixed threshold;
+                     # the 4-layer layernorm / learned-position / tied
+                     # model with the megakernel on (it falls back); the
+                     # full-width qwen2.5-3b model on the serving preset's
+                     # tuned tiles at a split threshold, one cohort and two
+                     # with the megakernel
+                     "launches_deepseek_33b": deepseek["one_cohort"][name],
+                     "launches_minitron_4b": minitron["one_cohort"][name],
+                     "launches_minitron_4b_megakernel":
+                         minitron["megakernel"][name],
+                     "launches_dense_variants": variants[name],
+                     "launches_kernel_tune": {c: n[name]
+                                              for c, n in tuned.items()},
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

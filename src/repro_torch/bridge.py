@@ -2,9 +2,11 @@
 
 ``params_from_jax`` takes the pytree of the reference's
 ``CascadeModel.init`` (``models/model.py:73-121``) with every leaf turned
-into a numpy array — ``embed``, ``segments[si][pi]`` (stage dicts whose
-leaves are stacked on a leading layer axis), ``exits[m]``, ``final_norm``
-and ``lm_head`` — and returns the same structure of torch tensors on
+into a numpy array — ``embed``, ``pos_embed`` (learned positions, when
+``rope_theta <= 0``), ``segments[si][pi]`` (stage dicts whose leaves are
+stacked on a leading layer axis), ``exits[m]``, ``final_norm`` and
+``lm_head`` (absent with tied embeddings); a layernorm's ``"b"`` rides in
+its norm dict — and returns the same structure of torch tensors on
 ``device``, dtypes kept.  ``params_to_numpy`` is the inverse, so a round
 trip is bit-exact.
 
@@ -24,14 +26,22 @@ from repro_torch.models.nn import tree_map
 from repro_torch.utils import (numpy_to_tensor, resolve_device,
                                tensor_to_numpy)
 
-_KEYS = ("embed", "segments", "exits", "final_norm", "lm_head")
+def _keys(cfg: ModelConfig):
+    """The top-level parameter keys of a dense model of ``cfg``."""
+    keys = ["embed", "segments", "exits", "final_norm"]
+    if cfg.rope_theta <= 0:
+        keys.append("pos_embed")
+    if not cfg.tie_embeddings:
+        keys.append("lm_head")
+    return keys
 
 
 def params_from_jax(np_params: Any, cfg: ModelConfig, device=None):
     """The reference's parameter pytree (numpy leaves) -> the port's."""
     device = resolve_device(device)
-    missing = [k for k in _KEYS if k not in np_params]
-    extra = sorted(set(np_params) - set(_KEYS))
+    keys = _keys(cfg)
+    missing = [k for k in keys if k not in np_params]
+    extra = sorted(set(np_params) - set(keys))
     if missing or extra:
         raise ValueError(f"parameter tree keys: missing {missing}, "
                          f"unsupported {extra} (dense family only)")

@@ -644,8 +644,9 @@ def list_configs():
 
 
 def _load_all():
-    # import for registration side effect; the port has qwen2.5-3b, yi-9b
-    # and the paper's ci-resnet18 so far (the other architectures come with
-    # their families' slices)
+    # import for registration side effect; the port has the dense family
+    # (qwen2.5-3b, yi-9b, deepseek-coder-33b, minitron-4b) and the paper's
+    # ci-resnet18 so far (the other architectures come with their
+    # families' slices)
     from repro_torch.configs import (  # noqa: F401
-        ci_resnet18, qwen2p5_3b, yi_9b)
+        ci_resnet18, deepseek_coder_33b, minitron_4b, qwen2p5_3b, yi_9b)

@@ -187,19 +187,12 @@ def _slice_ctx(ctx, lo: int, hi: int):
     return out
 
 
-def _check_supported(cfg) -> None:
-    if cfg.kernel_tune.enabled:
-        raise NotImplementedError(
-            "kernel tile autotuning comes with a later slice of the port")
-
-
 class StagedExecutor:
     """Segment-at-a-time cascade decode under one :class:`ExitDecider`."""
 
     def __init__(self, model, cfg=None, decider: Optional[ExitDecider] = None):
         self.model = model
         self.cfg = cfg or model.cfg
-        _check_supported(self.cfg)
         self.decider = decider or ExitDecider.from_config(self.cfg)
         self.mode = self.cfg.cascade.exit_mode
         self.layout = self.cfg.cascade.cohort_layout

@@ -27,12 +27,13 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.ref import ref_confidence
 
 UNIT = 8            # columns: the split's unit (16 bytes of bf16)
 CTA_COLS = 8192     # C doubles while a CTA would hold more columns
-MAX_CLUSTER = 16
+# the cap on C by default (the tile registry's ``confidence.max_cluster``)
+MAX_CLUSTER = autotune.DEFAULT_TILES["confidence"]["max_cluster"]
 GROUP_COLS = 1024   # rows this short take a group of lanes each (C = 1)
 
 _SIG = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -40,13 +41,16 @@ _SIG = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
 
 
-def plan(V: int) -> int:
+def plan(V: int, max_cluster: int | None = None) -> int:
     """The cluster size C (CTAs per row) the kernel is launched with for
     rows of V columns: doubled from 1 while a CTA would hold more than
-    ``CTA_COLS`` columns, at most ``MAX_CLUSTER``.  (C = 1 at V at most
+    ``CTA_COLS`` columns, at most ``max_cluster`` (the tile registry's,
+    :data:`MAX_CLUSTER` = 16 by default).  (C = 1 at V at most
     ``GROUP_COLS`` is the kernel's lane-group route.)"""
+    if max_cluster is None:
+        max_cluster = autotune.tile("confidence", "max_cluster")
     C = 1
-    while C < MAX_CLUSTER and V > C * CTA_COLS:
+    while C < max_cluster and V > C * CTA_COLS:
         C *= 2
     return C
 

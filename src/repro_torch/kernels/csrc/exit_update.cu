@@ -26,10 +26,12 @@
 // round trips cost more than the bytes, so the design puts every row's
 // reads on many SMs at once and ends in the same launch:
 //  * grid (n_tiles, B): CTA (tile, b) reduces columns [tile * kTile,
-//    (tile + 1) * kTile) of row b.  kTile = 4096 (confidence.cu's split):
-//    at B = 4 that is 38 x 4 = 152 CTAs, at least one on each of the 132
-//    SMs, and a CTA's 8 KB (bf16) is two 16-byte loads a thread, both in
-//    flight before the first is used;
+//    (tile + 1) * kTile) of row b.  kTile is the tile registry's
+//    `exit_update.vt` (kernels/autotune.py), one of 2048, 4096 (the
+//    default) and 8192, each its own instantiation: at 4096 and B = 4 the
+//    serving (4, 151936) is 38 x 4 = 152 CTAs, at least one on each of the
+//    132 SMs, and a CTA's 8 KB (bf16) is two 16-byte loads a thread, both
+//    in flight before the first is used;
 //  * 16-byte loads when the row base, its stride and V allow (vec16_ok):
 //    8 bf16 / fp16 or 4 f32 a load; a thread pushes its elements in index
 //    order, so triple_push's strict > keeps the first index of a tie;
@@ -49,11 +51,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 4096;  // vocab columns per CTA
 
 // Columns [tile * kTile, min(V, (tile + 1) * kTile)) of one row reduced to
 // this thread's triple (the block's threads together cover the tile).
-template <typename T>
+template <typename T, int kTile>
 __device__ __forceinline__ void tile_triple(const T* __restrict__ row, int V,
                                             int tile, bool vec, float& m,
                                             float& l, int& a) {
@@ -105,7 +106,7 @@ __device__ __forceinline__ void merge_partials_l2(const float* pm,
 
 // One CTA per (tile, row); the row's last CTA to finish merges the
 // partials and applies the carry merge.
-template <typename T>
+template <typename T, int kTile>
 __global__ void __launch_bounds__(kThreads)
     exit_update_tile_kernel(const T* __restrict__ logits, long long row_stride,
                             int V, bool vec, float* pm, float* pl, int* pa,
@@ -113,7 +114,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tile = blockIdx.x, b = blockIdx.y, n_tiles = gridDim.x;
   float m, l;
   int a;
-  tile_triple(logits + (long long)b * row_stride, V, tile, vec, m, l, a);
+  tile_triple<T, kTile>(logits + (long long)b * row_stride, V, tile, vec, m,
+                       l, a);
   block_reduce_triple<kThreads>(m, l, a);
   const long long o = (long long)b * n_tiles;
   __shared__ int is_last;
@@ -135,9 +137,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The kernel instantiated at the CTA's vocab tile `tile`.
+template <typename T>
+int launch_tiles(int tile, const dim3& grid, cudaStream_t s, const T* logits,
+                 long long row_stride, int V, bool vec, float* pm, float* pl,
+                 int* pa, unsigned int* tickets, const ExitCarry& carry) {
+  switch (tile) {
+    case 2048:
+      exit_update_tile_kernel<T, 2048><<<grid, kThreads, 0, s>>>(
+          logits, row_stride, V, vec, pm, pl, pa, tickets, carry);
+      break;
+    case 4096:
+      exit_update_tile_kernel<T, 4096><<<grid, kThreads, 0, s>>>(
+          logits, row_stride, V, vec, pm, pl, pa, tickets, carry);
+      break;
+    case 8192:
+      exit_update_tile_kernel<T, 8192><<<grid, kThreads, 0, s>>>(
+          logits, row_stride, V, vec, pm, pl, pa, tickets, carry);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// `workspace` is a (3, B, ceil(V / 4096)) f32 scratch; `tickets` is B
+// `tile` is the vocab columns a CTA reduces: 2048, 4096 or 8192.
+// `workspace` is a (3, B, ceil(V / tile)) f32 scratch; `tickets` is B
 // uint32 zeros, and each row's last CTA puts its ticket back to 0, so
 // launches that share a tickets buffer must be ordered (one stream).
 // `thr` points at the component's δ̂, an f32 on the device.
@@ -149,9 +176,10 @@ extern "C" int exit_update_launch(
     const void* act_in, void* ans_out, void* pred_out, void* exit_out,
     void* conf_out, void* streak_out, void* ema_out, void* tcode_out,
     const void* thr, int m_idx, int n_components, int patience_k,
-    float ema_decay, float ema_keep, int tel_bins, void* stream) {
+    float ema_decay, float ema_keep, int tel_bins, int tile, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (B > 65535 || V <= 0 || tickets == nullptr || thr == nullptr)
+  if (B > 65535 || V <= 0 || tickets == nullptr || thr == nullptr ||
+      (tile != 2048 && tile != 4096 && tile != 8192))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const ExitCarry carry{
@@ -162,7 +190,7 @@ extern "C" int exit_update_launch(
       (float*)ema_out,        (int*)tcode_out,     (const float*)thr,
       m_idx,                  n_components,        patience_k,
       ema_decay,              ema_keep,            tel_bins};
-  const int n_tiles = (V + kTile - 1) / kTile;
+  const int n_tiles = (V + tile - 1) / tile;
   const long long n = (long long)B * n_tiles;
   float* pm = (float*)workspace;
   float* pl = pm + n;
@@ -170,10 +198,8 @@ extern "C" int exit_update_launch(
   const dim3 grid(n_tiles, B);
   DISPATCH_DTYPE(dtype, T, {
     const bool vec = vec16_ok<T>((const T*)logits, V, {row_stride});
-    exit_update_tile_kernel<T><<<grid, kThreads, 0, s>>>(
-        (const T*)logits, row_stride, V, vec, pm, pl, pa,
-        (unsigned int*)tickets, carry);
-    return (int)cudaGetLastError();
+    return launch_tiles<T>(tile, grid, s, (const T*)logits, row_stride, V,
+                           vec, pm, pl, pa, (unsigned int*)tickets, carry);
   });
   return (int)cudaErrorInvalidValue;
 }

@@ -24,9 +24,13 @@
 // exit-head megakernel's prologue calls too, so the fused head and the
 // unfused route normalise a row bit for bit alike.
 //
-// Route "block" (`rmsnorm_kernel`; every other shape): one block of 256
-// threads per row, a strided sum and block_sum of common.cuh, the row read
-// a second time (from L1/L2) for the scale.
+// Route "block" (`rmsnorm_kernel`; every other shape — d 7168 in bf16,
+// 896 16-byte chunks, is past the warp route): a block of 256 threads
+// takes `rows_per_block` consecutive rows (the tile registry's
+// `rmsnorm.rows`, kernels/autotune.py; 1 by default), one after another;
+// per row a strided sum and block_sum of common.cuh, the row read a second
+// time (from L1/L2) for the scale.  The rows a block only schedules rows,
+// so every value gives the same bits.
 #include "common.cuh"
 
 namespace {
@@ -37,20 +41,26 @@ constexpr int kRowsPerBlock = 4;  // route "warp": one warp a row
 template <typename T, typename TW>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_kernel(const T* __restrict__ x, const TW* __restrict__ w,
-                   T* __restrict__ out, int d, float eps) {
+                   T* __restrict__ out, long long rows, int d, float eps,
+                   int rows_per_block) {
   __shared__ float partial[kThreads / 32];
-  const long long row = blockIdx.x;
-  const T* xr = x + row * d;
-  T* orow = out + row * d;
-
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 =
+      r0 + rows_per_block < rows ? r0 + rows_per_block : rows;
+  for (long long row = r0; row < r1; ++row) {
+    const T* xr = x + row * d;
+    T* orow = out + row * d;
+    float ss = 0.f;
+    for (int i = threadIdx.x; i < d; i += kThreads) {
+      const float v = to_f32(xr[i]);
+      ss += v * v;
+    }
+    // block_sum ends in a barrier, so `partial` is free for the next row
+    const float r =
+        rsqrtf(block_sum<kThreads>(ss, partial) / (float)d + eps);
+    for (int i = threadIdx.x; i < d; i += kThreads)
+      orow[i] = from_f32<T>((to_f32(xr[i]) * r) * to_f32(w[i]));
   }
-  const float r = rsqrtf(block_sum<kThreads>(ss, partial) / (float)d + eps);
-  for (int i = threadIdx.x; i < d; i += kThreads)
-    orow[i] = from_f32<T>((to_f32(xr[i]) * r) * to_f32(w[i]));
 }
 
 template <typename T, typename TW, int NV>
@@ -110,14 +120,18 @@ int launch_warp(const void* x, const void* w, void* out, long long rows,
 
 }  // namespace
 
+// The "block" route; `rows_per_block` rows a block (>= 1).
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
                               long long rows, int d, float eps, int x_dtype,
-                              int w_dtype, void* stream) {
+                              int w_dtype, int rows_per_block, void* stream) {
   if (rows <= 0) return (int)cudaSuccess;
+  if (rows_per_block < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const unsigned grid =
+      (unsigned)((rows + rows_per_block - 1) / rows_per_block);
   DISPATCH_DTYPE(x_dtype, T, DISPATCH_DTYPE(w_dtype, TW, {
-    rmsnorm_kernel<T, TW><<<(unsigned)rows, kThreads, 0, s>>>(
-        (const T*)x, (const TW*)w, (T*)out, d, eps);
+    rmsnorm_kernel<T, TW><<<grid, kThreads, 0, s>>>(
+        (const T*)x, (const TW*)w, (T*)out, rows, d, eps, rows_per_block);
   }));
   return (int)cudaGetLastError();
 }

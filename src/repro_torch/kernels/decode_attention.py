@@ -36,12 +36,14 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.ref import (ref_decode_attention,
                                     ref_paged_gather)
 
 TILE = 32         # the kernel's key tile
-MAX_SPLITS = 16  # partials per row at most
+# partials per row at most: the tile registry's one candidate (another
+# split would merge in another order, so change the bits)
+MAX_SPLITS = autotune.DEFAULT_TILES["decode_attention"]["max_splits"]
 ROUTES = ("dense", "paged")
 
 _SIG = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
@@ -52,11 +54,13 @@ _SIG = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
 
 def split_plan(W: int):
     """(chunk, n_split) for a cache of W slots: the smallest multiple of
-    the 32-key tile that splits W into at most 16 chunks.  A function of W
-    alone, so dense and paged calls (same W) split alike.  W = 512 gives
+    the 32-key tile that splits W into at most 16 chunks (the tile
+    registry's ``decode_attention.max_splits``, read here).  A function of
+    W alone, so dense and paged calls (same W) split alike.  W = 512 gives
     16 chunks of 32 keys: 128 blocks at the serving path's B = 4, KV = 2
     on the H100's 132 SMs."""
-    chunk = TILE * max(1, -(-W // (TILE * MAX_SPLITS)))
+    max_splits = autotune.tile("decode_attention", "max_splits")
+    chunk = TILE * max(1, -(-W // (TILE * max_splits)))
     return chunk, -(-W // chunk)
 
 

@@ -14,7 +14,9 @@ keeps the port on one build route, and a ctypes launch is cheaper on the
 host than a Triton launch on this per-token, per-component path.
 
 Bound on the H100: bytes (one read of the logits).  The vocab is split
-over the SMs: a grid of (V / 4096 tiles, B) CTAs, 16-byte loads, one
+over the SMs: a grid of (V / vt tiles, B) CTAs — vt the tile registry's
+``exit_update.vt`` (:mod:`repro_torch.kernels.autotune`: 2048, 4096 by
+default, or 8192, each an instantiation of the kernel) —, 16-byte loads, one
 (max, Σexp, first-argmax) partial per CTA; the last CTA of each row merges
 the row's partials in tile order and applies the carry merge, all in ONE
 launch (a per-row ticket, put back to 0 by that CTA, in a per-device
@@ -35,16 +37,18 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.ref import ref_exit_update
 
-TILE = 4096  # vocab columns per CTA: kTile in csrc/exit_update.cu
+# vocab columns per CTA by default: kTile of csrc/exit_update.cu's default
+# instantiation
+TILE = autotune.DEFAULT_TILES["exit_update"]["vt"]
 
 _SIG = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_void_p] * 15
         + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+           ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def threshold_operand(threshold, m: int, device) -> torch.Tensor:
@@ -115,7 +119,8 @@ def exit_update(logits, answered, pred, exit_idx, conf, streak, ema, active,
     if kw["tel_bins"]:
         outs.append(torch.empty(B, dtype=i32, device=dev))
     tcode = outs[6] if kw["tel_bins"] else None
-    workspace = torch.empty((3, B, -(-V // TILE)), dtype=f32, device=dev)
+    vt = int(autotune.tile("exit_update", "vt"))
+    workspace = torch.empty((3, B, -(-V // vt)), dtype=f32, device=dev)
     p = build.ptr
     fn = build.function("exit_update", "exit_update_launch", _SIG)
     build.check(fn(
@@ -124,7 +129,7 @@ def exit_update(logits, answered, pred, exit_idx, conf, streak, ema, active,
         p(ans_in), p(pred_in), p(exit_in), p(conf_in), p(streak_in),
         p(ema_in), p(act_in), *(p(o) for o in outs[:6]), p(tcode), p(thr),
         kw["m"], kw["n_components"], kw["patience_k"],
-        kw["ema_decay"], 1.0 - kw["ema_decay"], kw["tel_bins"],
+        kw["ema_decay"], 1.0 - kw["ema_decay"], kw["tel_bins"], vt,
         build.stream_of(logits)), "exit_update")
     exit_update.launches += 1
     return tuple(outs)

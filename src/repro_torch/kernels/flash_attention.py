@@ -20,7 +20,10 @@ the views' alignment alone (never on a failure):
   attention in any type: f32 math on the CUDA cores.
 
 q, k and v are read through their strides, so the (B, S, H, hd) model
-layout needs no transposed copy.  ``flash_attention.launches`` counts every
+layout needs no transposed copy.  Both routes are compiled at one tile
+(64 query rows x 64 keys): the tile registry's ``flash_attention`` entry
+(:mod:`repro_torch.kernels.autotune`) holds it as its one candidate, read
+at each call for the sequence check.  ``flash_attention.launches`` counts every
 launch, ``flash_attention.launches_by_route`` each route's.  Bound on the
 H100: bytes at the serving path's S, operations at long S; see the
 source's header for both designs.
@@ -32,10 +35,9 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.ref import ref_flash_attention
 
-TILE = 64  # the kernels' query and key tile: S must be a multiple
 ROUTES = ("wgmma", "cuda_core")
 _SYMBOLS = {"wgmma": "flash_attention_wgmma_launch",
             "cuda_core": "flash_attention_launch"}
@@ -77,8 +79,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if k.shape != (B, KV, S, hd) or v.shape != k.shape or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}")
-    if S % TILE or hd not in (64, 128):
-        raise ValueError(f"flash_attention: the kernel takes S % {TILE} == 0 "
+    tq, tk = (autotune.tile("flash_attention", p) for p in ("tq", "tk"))
+    if S % tq or S % tk or hd not in (64, 128):
+        raise ValueError(f"flash_attention: the kernel takes S % {tq} == 0 "
                          f"and hd in (64, 128); got S={S}, hd={hd}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention: q, k, v must share a dtype")

@@ -42,7 +42,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.exit_update import _tensors, threshold_operand
 from repro_torch.kernels.ref import ref_exit_head_update
 from repro_torch.kernels.rmsnorm import warp_rows_ok
@@ -117,23 +117,27 @@ def plan(V: int, n_ctas: int) -> List[Tuple[int, int]]:
 
 
 def _tc_ctas(dev: torch.device, V: int) -> int:
-    """One CTA per SM (the SM count read once per device), at most one per
-    vocab tile."""
+    """The tile registry's ``megakernel.tc_ctas`` persistent CTAs (0, the
+    default: one per SM, the SM count read once per device), at most one
+    per vocab tile and at most one per SM."""
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
-    return min(_sm_counts[idx], -(-V // TC_COLS))
+    n = int(autotune.tile("megakernel", "tc_ctas")) or _sm_counts[idx]
+    return min(n, _sm_counts[idx], -(-V // TC_COLS))
 
 
 def _group_rows(B: int, d: int, dcode: int) -> int:
     """Rows per block of the cuda_core route (1, 2, 4 or 8): the smallest
-    that covers B, capped by the block's shared memory (the normalised
-    rows live there)."""
+    that covers B, at most the tile registry's ``megakernel.rows`` (8 by
+    default), capped by the block's shared memory (the normalised rows
+    live there)."""
     smem = build.function("megakernel", "megakernel_smem_bytes",
                           [ctypes.c_int, ctypes.c_int, ctypes.c_int])
     smem.restype = ctypes.c_longlong
-    nb = next(n for n in (1, 2, 4, 8) if n >= min(B, 8))
+    cap = int(autotune.tile("megakernel", "rows"))
+    nb = min(cap, next(n for n in (1, 2, 4, 8) if n >= min(B, 8)))
     while nb > 1 and smem(d, nb, dcode) > _MAX_SMEM:
         nb //= 2
     if smem(d, nb, dcode) > _MAX_SMEM:

@@ -5,11 +5,12 @@ The counterparts of the JAX package's ``kernels/ops.py`` adapters
 ``decode_attention_cache``, ``exit_update_fused``, ``exit_head_fused``,
 ``cohort_scatter_tree``, ``paged_gather``; ``paged_gather_kv`` gathers a
 layer's k and v stores in one launch, for paged stores decode attention's
-``paged`` route does not take).  Each kernel takes its tile sizes
-as constants in its own module; there is no tile registry yet.  The
-kernels read the model's (B, S, H, hd) and (B, W, KV, hd) layouts through
-strides, so these adapters only reshape and take views — no transposed
-copies.
+``paged`` route does not take).  Each kernel wrapper reads its launch
+parameters from the tile registry (:mod:`repro_torch.kernels.autotune`)
+at call time, so ``install_tiles`` / ``ensure_tuned`` move every kernel
+onto the tuned parameters with no call-site change.  The kernels read
+the model's (B, S, H, hd) and (B, W, KV, hd) layouts through strides, so
+these adapters only reshape and take views — no transposed copies.
 """
 from __future__ import annotations
 

@@ -15,7 +15,9 @@ on the shape, the dtypes and the alignment alone:
   every norm of the serving paths.  The exit-head megakernel's prologue
   uses the same row arithmetic (``csrc/common.cuh``), so fused and unfused
   exit heads normalise a row bit for bit alike;
-- ``"block"`` — one 256-thread block a row, for every other shape.
+- ``"block"`` — a 256-thread block takes ``rows`` consecutive rows (the
+  tile registry's ``rmsnorm.rows``, :mod:`repro_torch.kernels.autotune`;
+  1 by default), for every other shape (d 7168 in bf16 among them).
 
 ``rmsnorm.launches`` counts every launch, ``rmsnorm.launches_by_route``
 each route's.  Bound on the H100: bytes (one read and one write of x, one
@@ -27,16 +29,19 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.ref import ref_rmsnorm
 
 ROUTES = ("warp", "block")
 _SYMBOLS = {"warp": "rmsnorm_warp_launch", "block": "rmsnorm_launch"}
 MAX_CHUNKS = 16 * 32   # 16-byte chunks a row may hold on the warp route
 
-_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+         ctypes.c_int]
+# the block route takes its rows a block before the stream
+_SIG = {"warp": _ARGS + [ctypes.c_void_p],
+        "block": _ARGS + [ctypes.c_int, ctypes.c_void_p]}
 
 
 def warp_rows_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -77,10 +82,12 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     w = w.contiguous()
     out = torch.empty_like(x)
     r = route(x, w)
-    fn = build.function("rmsnorm", _SYMBOLS[r], _SIG)
-    build.check(fn(build.ptr(x), build.ptr(w), build.ptr(out), x.shape[0],
-                   x.shape[1], float(eps), build.dtype_code(x),
-                   build.dtype_code(w), build.stream_of(x)), "rmsnorm")
+    fn = build.function("rmsnorm", _SYMBOLS[r], _SIG[r])
+    args = [build.ptr(x), build.ptr(w), build.ptr(out), x.shape[0],
+            x.shape[1], float(eps), build.dtype_code(x), build.dtype_code(w)]
+    if r == "block":
+        args.append(int(autotune.tile("rmsnorm", "rows")))
+    build.check(fn(*args, build.stream_of(x)), "rmsnorm")
     rmsnorm.launches += 1
     rmsnorm.launches_by_route[r] += 1
     return out

@@ -34,20 +34,30 @@ def rmsnorm(x, weight, eps: float = 1e-5):
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
+def layernorm(x, weight, bias, eps: float = 1e-5):
+    """Mean and variance in f32 (the variance the mean of squared
+    deviations, as ``jnp.var``), cast to x's dtype before the affine."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * weight + bias
+
+
 def norm_init(gen, cfg, dim=None):
     d = dim or cfg.d_model
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            "layernorm comes with the families that use it (a later slice "
-            "of the port)")
-    return {"w": nn.ones_init(gen, (d,))}
+    if cfg.norm == "rmsnorm":
+        return {"w": nn.ones_init(gen, (d,))}
+    return {"w": nn.ones_init(gen, (d,)), "b": nn.zeros_init(gen, (d,))}
 
 
 def norm_apply(params, cfg, x):
+    """Layernorm when the norm has a bias (plain ops: the reference has no
+    layernorm kernel either), else rmsnorm — the kernel with
+    ``use_kernels``."""
     if "b" in params:
-        raise NotImplementedError(
-            "layernorm comes with the families that use it (a later slice "
-            "of the port)")
+        return layernorm(x, params["w"].to(x.dtype), params["b"].to(x.dtype),
+                         cfg.norm_eps)
     if cfg.use_kernels:
         from repro_torch.kernels.ops import rmsnorm_fused
         return rmsnorm_fused(x, params["w"], eps=cfg.norm_eps)

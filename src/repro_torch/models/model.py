@@ -9,7 +9,11 @@ Python loop over the layers takes the place of ``lax.scan``.
 
 Exit heads branch after every segment but the last (``norm →
 [enhancement MLP] → unembed``, the unembedding shared with the final head
-by default); the final head is the standard norm + unembedding.
+by default); the final head is the standard norm + unembedding.  Norms are
+rmsnorm or layernorm (``cfg.norm``); positions are RoPE, or learned
+absolute ones (``pos_embed``) when ``rope_theta <= 0``; with
+``tie_embeddings`` the unembedding is ``embed.T`` and there is no
+``lm_head``.
 
 Public entry points:
   init(generator)                                -> params
@@ -18,8 +22,9 @@ Public entry points:
   prefill(params, tokens, cache[, block_tables]) -> (exit_logits_last, cache)
   prefill_into(params, tokens, cache, ...)       -> exit_logits_last (paged)
   decode_step(params, token, t, cache)           -> (exit_logits, cache)
+  decode(params, token, cache, state)            -> (decision, cache, state)
 (``t`` a 0-d int32 device tensor or an int; caches and the kpos ring are
-written in place)
+written in place; ``decode`` is the staged step of ``core/exec.py``)
 and the segment primitives the staged executor (``core/exec.py``) runs:
 ``begin_decode`` / ``run_segment`` / ``backfill_segment`` / ``exit_logits``
 / ``commit_decode``.
@@ -55,10 +60,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: only the dense family "
             f"is; the others come in later slices of the port")
-    if cfg.rope_theta <= 0 or cfg.tie_embeddings:
-        raise NotImplementedError(
-            "learned absolute positions and tied embeddings come with the "
-            "families that use them (a later slice of the port)")
 
 
 class CascadeModel:
@@ -89,6 +90,9 @@ class CascadeModel:
         cast = (lambda x: x.to(dt) if x.is_floating_point() else x)
         p: Dict[str, Any] = {}
         p["embed"] = nn.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
+        if cfg.rope_theta <= 0:
+            p["pos_embed"] = nn.embed_init(
+                gen, (cfg.max_seq_len, cfg.d_model), dt)
         segs = []
         for runs in self.segment_runs:
             stages = []
@@ -113,7 +117,9 @@ class CascadeModel:
             exits.append(e)
         p["exits"] = exits
         p["final_norm"] = norm_init(gen, cfg)
-        p["lm_head"] = nn.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
+        if not cfg.tie_embeddings:
+            p["lm_head"] = nn.dense_init(
+                gen, (cfg.d_model, cfg.vocab_size), dt)
         return p
 
     # ------------------------------------------------------------------
@@ -164,6 +170,8 @@ class CascadeModel:
     # heads
     # ------------------------------------------------------------------
     def _unembed(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"].T
         return params["lm_head"]
 
     def exit_logits(self, params, m: int, h):
@@ -182,20 +190,35 @@ class CascadeModel:
 
     def exit_head_params(self, params, m: int):
         """``(norm_w, head)`` when exit head ``m`` fits the fused exit-head
-        shape (rmsnorm + one unembed matmul), else None."""
+        shape (rmsnorm + one unembed matmul over a head whose rows are
+        contiguous), else None: a layernorm bias, an enhancement MLP or a
+        tied head (``embed.T``, a transposed view the megakernel does not
+        read) take ``exit_logits`` + the exit-update kernel instead."""
         if m >= self.n_exits - 1:
             norm = params["final_norm"]
-            if "b" in norm:
+            head = self._unembed(params)
+        else:
+            e = params["exits"][m]
+            if "enh_w1" in e:
                 return None
-            return norm["w"], self._unembed(params)
-        e = params["exits"][m]
-        if "b" in e["norm"] or "enh_w1" in e:
+            norm = e["norm"]
+            head = e["head"] if "head" in e else self._unembed(params)
+        if "b" in norm or head.stride(-1) != 1:
             return None
-        head = e["head"] if "head" in e else self._unembed(params)
-        return e["norm"]["w"], head
+        return norm["w"], head
 
-    def _embed(self, params, tokens):
-        return params["embed"][tokens.long()]
+    def _embed(self, params, tokens, positions=None):
+        """Token embeddings, plus the learned position embeddings at
+        ``positions`` (a tensor; ``arange(S)`` by default) when the model
+        has them.  Positions past the table read its last row, as the
+        reference's clamped gather does."""
+        h = params["embed"][tokens.long()]
+        if "pos_embed" in params:
+            if positions is None:
+                positions = torch.arange(tokens.shape[1], device=h.device)
+            table = params["pos_embed"]
+            h = h + table[positions.long().clamp(max=table.shape[0] - 1)]
+        return h
 
     # ------------------------------------------------------------------
     # training / full-sequence forward
@@ -238,7 +261,7 @@ class CascadeModel:
                 "(a later slice of the port); the dense family takes none")
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-        h = self._embed(params, tokens)
+        h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions, "write_slots": None,
                "kpos": None}
         logits = []
@@ -295,7 +318,7 @@ class CascadeModel:
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
         # per-slot gather index == the absolute position held by the slot
         write_slots = torch.as_tensor(_prefill_kpos(S, W), device=self.device)
-        h = self._embed(params, tokens)
+        h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions,
                "write_slots": write_slots, "kpos": cache["kpos"]}
         if block_tables is not None:
@@ -323,7 +346,7 @@ class CascadeModel:
         lane's cache is untouched.  Returns [exit logits at the last
         position (1, V)] * n_exits.
         """
-        h = self._embed(params, tokens)
+        h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions,
                "write_slots": write_slots, "kpos": None,
                "block_tables": block_tables}
@@ -369,7 +392,7 @@ class CascadeModel:
         W = cache["kpos"].shape[-1]
         slot = (t % W).long()
         kpos_t = self._record(cache["kpos"].clone(), t)
-        h = self._embed(params, token)
+        h = self._embed(params, token, t.view(1))
         ctx = {"mode": "decode", "t": t, "slot": slot,
                "kpos": cache["kpos"], "kpos_t": kpos_t}
         return h, ctx
@@ -392,6 +415,26 @@ class CascadeModel:
                                        cache["segments"][si])
             logits.append(self.exit_logits(params, si, h)[:, 0, :])
         return logits, self.commit_decode(cache, cache["segments"], t)
+
+    def decode(self, params, token, cache, state, extra=None, decider=None):
+        """The staged decode step under ``cfg.cascade.exit_mode``: token
+        (B, 1) int32 and a :class:`repro_torch.core.exec.DecodeState` ->
+        (ExitDecision, cache, state), cond_batch skipping the segments no
+        live sequence needs.  The executor is built once and kept (a new
+        one for each ``decider`` given)."""
+        if extra:
+            raise NotImplementedError(
+                "extra model inputs come with the families that take them "
+                "(a later slice of the port); the dense family takes none")
+        from repro_torch.core.exec import StagedExecutor
+        if decider is not None:
+            executor = StagedExecutor(self, self.cfg, decider)
+        else:
+            executor = getattr(self, "_staged_executor", None)
+            if executor is None:
+                executor = self._staged_executor = StagedExecutor(self,
+                                                                  self.cfg)
+        return executor.decode_step(params, token, cache, state)
 
 
 def _prefill_kpos(S: int, W: int) -> np.ndarray:

@@ -39,14 +39,28 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
 
 
 def stack_init(init_fn: Callable, gen: torch.Generator, n: int):
-    """Initialize ``n`` identical blocks and stack each leaf on axis 0."""
-    return tree_stack([init_fn(gen) for _ in range(n)])
+    """Initialize ``n`` identical blocks, each leaf stacked on axis 0.
+
+    The stacked leaves are allocated once and filled layer by layer, so a
+    stage never exists twice (as a list of ``n`` layers and their stack):
+    a stage of a model that fills the card must fit beside the others
+    once.  ``init_fn`` is called ``n`` times in layer order, so the values
+    are those of stacking ``n`` calls."""
+    first = init_fn(gen)
+    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
+    _fill_layer(out, first, 0)
+    del first
+    for i in range(1, n):
+        _fill_layer(out, init_fn(gen), i)
+    return out
 
 
-def tree_stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _fill_layer(stacked, layer, i: int) -> None:
+    if isinstance(stacked, dict):
+        for k, v in stacked.items():
+            _fill_layer(v, layer[k], i)
+    else:
+        stacked[i].copy_(layer)
 
 
 def tree_index(tree, i: int):

@@ -82,6 +82,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exec import (CONF_EMA_DECAY, StagedExecutor,
                                    effective_cohorts)
 from repro_torch.core.macs import segment_macs_per_token
+from repro_torch.kernels.autotune import ensure_tuned
 from repro_torch.models import nn
 from repro_torch.models.model import CascadeModel
 from repro_torch.serving.batching import DepthCompactor, cohort_capacity
@@ -170,6 +171,9 @@ class CascadeServingEngine:
         self.cfg = cfg
         self.model = model
         self.params = params
+        # tuned kernel tiles install before anything runs or is captured
+        if cfg.kernel_tune.enabled:
+            ensure_tuned(cfg, device=self.device)
         lane_batch = cohort_capacity(lane_batch, cfg.cascade.n_cohorts)
         self.lane_batch = lane_batch
         self.n_lanes = n_lanes

@@ -36,6 +36,14 @@ does not run: after each chunk the loop adds each IF body's launches (as
 captured) times its executions (counted on the device and fetched in the
 chunk's copy), so the counters report the launches the replays ran.
 
+A captured launch keeps the kernel launch parameters it was captured with
+(``kernels/autotune.py``): with ``kernel_tune.enabled`` the constructor
+installs the tuned tiles before anything is captured, and a capture key
+holds the tile registry's :func:`~repro_torch.kernels.autotune.generation`,
+so tiles installed after a capture make the lane capture again (counted in
+:attr:`captures`; the stale graphs are dropped) — a replay never launches
+stale tiles.
+
 On a CPU lane the same iteration runs eagerly, its guard and branches read
 on the host (a device read there costs nothing and takes the same
 branches).  As in the reference, requests still queued when a chunk
@@ -54,6 +62,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.exec import DISPATCH, DecodeState
+from repro_torch.kernels import autotune as kernel_autotune
 from repro_torch.kernels.cond_node import CapturedBranches, WarmBranches
 from repro_torch.launch.steps import LoopBuffers, make_decode_loop_step
 from repro_torch.models import nn
@@ -166,6 +175,9 @@ class DeviceDecodeLoop:
         self.model = model
         self.chunk = int(chunk)
         self.cache_len = int(cache_len)
+        # tuned kernel tiles install before anything is captured
+        if cfg.kernel_tune.enabled:
+            kernel_autotune.ensure_tuned(cfg, device=model.device)
         self.step = make_decode_loop_step(model, cfg, self.chunk,
                                           self.cache_len)
         self.executor = self.step.executor
@@ -179,6 +191,8 @@ class DeviceDecodeLoop:
         # there raises
         self.sync_check = False
         self._graphs: Dict[tuple, _Capture] = {}
+        # the tile generation the graphs were captured at
+        self._tiles_gen = kernel_autotune.generation()
         self._pinned: Dict[tuple, torch.Tensor] = {}
         self._warm = False
 
@@ -261,6 +275,12 @@ class DeviceDecodeLoop:
         # the executor's static δ̂ vector: written in place (outside the
         # replays) if the config's resolution changed
         ths = self.executor.thresholds(state)
+        gen = kernel_autotune.generation()
+        if gen != self._tiles_gen:
+            # tiles installed since these graphs were captured: their
+            # launches hold the old ones, so every lane captures again
+            self._graphs.clear()
+            self._tiles_gen = gen
         key = _key_of(*nn.tree_leaves(params), *nn.tree_leaves(cache),
                       *_state_tensors(state), ths)
         t0 = time.perf_counter()

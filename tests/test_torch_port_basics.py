@@ -62,8 +62,11 @@ def test_full_config_and_registry():
         jax_get_config("qwen2.5-3b"))
     assert ours.segments == ((0, 12), (12, 24), (24, 36))
     # the paper's CNN joined the registry in the training slice, yi-9b
-    # (the escalation tier's second published width) in slice 11
-    assert list_configs() == ["ci-resnet18", "qwen2.5-3b", "yi-9b"]
+    # (the escalation tier's second published width) in slice 11,
+    # deepseek-coder-33b and minitron-4b (the dense family whole) in
+    # slice 12
+    assert list_configs() == ["ci-resnet18", "deepseek-coder-33b",
+                              "minitron-4b", "qwen2.5-3b", "yi-9b"]
     yi = get_config("yi-9b")
     assert dataclasses.asdict(yi) == dataclasses.asdict(
         jax_get_config("yi-9b"))
@@ -337,10 +340,14 @@ def test_unported_configurations_are_refused():
             (dict(runtime="device", mesh=object()), "mesh")):
         with pytest.raises(NotImplementedError, match=what):
             CascadeServingEngine(cfg, model, params, **{**kw, **bad})
-    for cfg_bad in (cfg.with_kernel_tune(enabled=True),
-                    cfg.with_obs()):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            CascadeServingEngine(cfg_bad, model, params, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        CascadeServingEngine(cfg.with_obs(), model, params, **kw)
+    # kernel tile autotuning is ported (slice 12): the engine loads or
+    # sweeps its tiles, and on the CPU, with no artifact, the sweep (CUDA
+    # events over the CUDA kernels) refuses
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        CascadeServingEngine(cfg.with_kernel_tune(enabled=True), model,
+                             params, **kw)
     # cross-model escalation is ported (slice 11): an escalation stage's
     # engine constructs
     eng = CascadeServingEngine(cfg.with_escalation(enabled=True,
