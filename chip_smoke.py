@@ -15,8 +15,13 @@ source, all at once).  Phases, each of which fails the run on a miss:
    (wgmma for causal bf16 / fp16 at hd = 128 over views TMA can address,
    CUDA cores for f32 and unaligned views), the exit-head megakernel (tc
    at B = 1, 2, 4, 8, 16 in bf16 and for a vocab 8 columns short of a
-   whole tile, after a one-hot layout diagnostic; CUDA cores for f32 and
-   a vocab not a multiple of 8), rmsnorm (warp at the model width in bf16
+   whole tile, after a one-hot layout diagnostic; tc past d 4096 at
+   deepseek-coder-33b's (B, 7168) x (7168, 32256) for B = 1, 4, 8, its
+   normalised rows bit for bit against rmsnorm's block kernel, its ints
+   against the unfused route's, δ̂ in device memory replayed in a CUDA
+   graph, and the cuda_core route timed beside it; CUDA cores for f32, a
+   vocab not a multiple of 8 and B = 16 at d 7168), rmsnorm (warp at the
+   model width in bf16
    and f32, block for a width that is not a whole number of 16-byte
    chunks and for 32 chunks a lane);
    decode attention's split-KV at its edges (a short last chunk, chunks
@@ -24,7 +29,12 @@ source, all at once).  Phases, each of which fails the run on a miss:
    bits repeated from run to run, and so the megakernel's; decode
    attention's paged route (a layer slice of a stacked store read through
    a block table with trash, duplicate and all-trash rows) bit for bit
-   against the dense route over ``paged_gather_kv``'s views; exit_update's
+   against the dense route over ``paged_gather_kv``'s views; the paged
+   gather (bulk copies) at the serving store, the block-64 stores and
+   qwen2.5-3b's 134 MB layer store of block size 64 for 16 slots, with
+   trash, duplicate and all-trash rows, CUDA-event and profiler device
+   times, a CUDA graph's replays over a rewritten table, and an unaligned
+   store refused; exit_update's
    vocab split at B = 1, 4, 8, 16 with ties across and straddling CTA
    tiles; the confidence kernel's cluster split at B = 1 .. 64 in bf16,
    in f32 and fp16, at (70000, 10) f32 and at vocabularies that make the
@@ -57,7 +67,12 @@ source, all at once).  Phases, each of which fails the run on a miss:
    equal-memory burst of 24 requests (paged: 8 slots per lane in the
    4-slot dense block count, with continuous single-slot admission and
    skip-aware reclamation; dense: 4 slots); every paged decode attention
-   takes the paged route, so no paged_gather launches;
+   takes the paged route, so no paged_gather launches; then the paged
+   cache at block size 64 (slice 13), which the paged decode route does
+   not take: 2 cohorts, major, cond_batch on the device and host
+   runtimes in turns at (0.9, 0.9, 0.0) and (0, 0, 0), every decode
+   attention on the dense route over views paged_gather gathers (one
+   gather a decode attention), the streams the dense layout's;
 7. slice 8 at full width: the device runtime (chunk 8: a captured CUDA
    graph replayed 8 times a lane a dispatch, the cond_batch skips as
    conditional nodes, one host sync a chunk) against the host runtime in
@@ -109,14 +124,15 @@ source, all at once).  Phases, each of which fails the run on a miss:
     phase 2's kernels at yi-9b's shapes;
 14. slice 12, the dense family whole: phase 2's kernels at
     deepseek-coder-33b's shapes (GQA group 7, d 7168: rmsnorm's block
-    route, the megakernel's cuda_core route in bf16) and minitron-4b's
+    route, the megakernel's tc route past d 4096) and minitron-4b's
     (group 3, vocab 256000: the megakernel's tc route, confidence at its
     16-CTA cap); then deepseek-coder-33b (62 layers, 67 GB of bf16
     weights) and minitron-4b at full width, each alone on the card —
     init time, peak memory, the prefill's and first decode steps' logits
     against the plain path, 8 requests on the host and device runtimes
-    in turns with identical streams, and for minitron-4b 2 cohorts with
-    the megakernel at a mixed threshold;
+    in turns with identical streams, and for both 2 cohorts with the
+    megakernel at a mixed threshold (deepseek-coder-33b's exit heads on
+    the tc route since slice 13), streams equal with it on and off;
 15. a 4-layer f32 model of qwen2.5-3b's widths with layernorm, learned
     positions and tied embeddings through the engine, kernels on (the
     megakernel falls back: 0 launches) and off, identical streams;
@@ -132,7 +148,7 @@ source, all at once).  Phases, each of which fails the run on a miss:
 Every path is driven with the launch counters set to 0 just before it and
 read just after, and fails unless exactly its expected kernels launched;
 every prefill of a bf16 model must take flash attention's wgmma route and
-every exit head the megakernel's tc route up to d 4096, of an f32 one
+every exit head the megakernel's tc route (d 7168 included), of an f32 one
 their CUDA-core routes, every norm rmsnorm's warp route up to 512 16-byte
 chunks a row (the block route beyond), and every decode attention the
 paged route on paged stores of block size 16, else the dense one.
@@ -177,6 +193,11 @@ PAGED_TABLE = (4, 32)
 # trash block), and one lane's block table (4 slots x 8 ring blocks)
 GATHER_STORE = (193, 64, 2, 128)
 GATHER_TABLE = (4, 8)
+# a shape where the bytes dominate the gather: qwen2.5-3b's layer store at
+# block size 64 for 16 slots of a 4096-position ring (16 x 64 blocks and
+# the trash block; 134 MB moved for k and v)
+GATHER_BIG_STORE = (1025, 64, 2, 128)
+GATHER_BIG_TABLE = (16, 64)
 
 # where each TPU kernel's pallas_call sits in the reference package
 REPLACES = {
@@ -966,7 +987,7 @@ def megakernel_layout_diagnostic(dev):
         for b in range(B):
             h[b, ks[b]] = 1.0
             head[ks[b], cs[b]] = 1.0
-        if route(h, head, w) != "tc":
+        if route(h, head) != "tc":
             fail(f"megakernel diagnostic B={B}: not on the tc route")
         carry = list(_carries(B, n_m, dev))
         carry[0] = torch.zeros_like(carry[0])       # none answered yet
@@ -1100,6 +1121,123 @@ def phase_megakernel(dev, gen):
     return cases
 
 
+def phase_megakernel_wide(dev, gen):
+    """The tc route past d 4096: deepseek-coder-33b's exit head, h (B,
+    7168) x (7168, 32256) in bf16, at B = 1, 4, 8 on tc (its ring 7
+    stages beside the 112 KB of rows) and B = 16 on cuda_core (the rows
+    alone take 224 KB).  Against the plain version (ints exact but the
+    prediction on tie rows, floats within MEGA_TOL), the normalised rows
+    the tc prologue computes (``xn_out``) bit for bit against rmsnorm's
+    block-route kernel, the ints against the unfused route's (rmsnorm +
+    the head product + exit_update), δ̂ read from device memory and
+    replayed in a CUDA graph (B = 4), two calls bit for bit; timed against
+    the plain version, cuBLAS + exit_update, and the cuda_core route at
+    the same shape (the parent's route there, its kernel unchanged)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import megakernel, ref
+    from repro_torch.kernels.exit_update import exit_update
+    from repro_torch.kernels.megakernel import exit_head_update
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    shp = DENSE_SHAPES["deepseek-coder-33b"]
+    d, V, n_m, bf, name = shp["d"], shp["vocab"], 3, torch.bfloat16, \
+        "bfloat16"
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    head = (0.02 * torch.randn(d, V, generator=gen, device=dev)).to(bf)
+    cases = []
+    for B, want_route in ((1, "tc"), (4, "tc"), (8, "tc"),
+                          (16, "cuda_core")):
+        h = torch.randn(B, d, generator=gen, device=dev).to(bf)
+        hc = head.clone()
+        r1 = 1 if B > 1 else 0
+        hc[:, 77] = (ref.ref_rmsnorm(h[r1:r1 + 1], w)[0].float()
+                     * 0.05).to(bf)
+        carry = _carries(B, n_m, dev)
+        live = torch.arange(B, device=dev) % 4 != 2
+        ties = _mega_ties(h, w, hc, name)
+        tag = f"megakernel d={d} B={B}"
+        xn = rmsnorm(h, w)
+        errs = []
+        for m, pk, decay in ((1, 2, 0.0), (2, 0, 0.8)):
+            kw = dict(threshold=0.5, m=m, n_components=n_m, patience_k=pk,
+                      ema_decay=decay, live=live)
+            got, route = route_of(lambda: exit_head_update(
+                h, w, hc, *carry, **kw), exit_head_update)
+            if route != want_route or \
+                    megakernel.route(h, hc) != want_route:
+                fail(f"{tag}: took the {route} route, expected "
+                     f"{want_route}")
+            want = ref.ref_exit_head_update(h, w, hc, *carry, **kw)
+            errs.append(_mega_check(f"{tag} m={m}", got, want, carry, live,
+                                    ties, name))
+            unfused = ref._pass_dead(
+                exit_update(xn @ hc, *carry, **{k: v for k, v in kw.items()
+                                                if k != "live"}),
+                live, *carry[:6], 0)
+            _mega_check(f"{tag} m={m} unfused", got, unfused, carry, live,
+                        ties, name)
+        err = max(errs)
+        extra = {}
+        if route == "tc":
+            rows = torch.empty_like(h)
+            exit_head_update(h, w, hc, *carry, **kw, xn_out=rows)
+            torch.cuda.synchronize()
+            if not torch.equal(rows, xn):
+                fail(f"{tag}: the tc prologue's rows differ from rmsnorm's "
+                     f"block route by {max_err(rows, xn):.3e}")
+        again = exit_head_update(h, w, hc, *carry, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{tag}: two calls on one input differ")
+        if int(got[1][r1]) != 77:
+            fail(f"{tag}: the confident row must answer 77, got "
+                 f"{int(got[1][r1])}")
+        ths = torch.full((n_m,), 0.5, device=dev)
+        kw = dict(threshold=ths, m=0, n_components=n_m, live=live)
+        if B == 4:
+
+            def check(t, g, w_, ties=ties, carry=carry, live=live):
+                _mega_check(t, g, w_, carry, live, ties, name)
+
+            extra["device_threshold"] = threshold_forms(
+                tag, functools.partial(exit_head_update, h, w, hc,
+                                       live=live),
+                functools.partial(ref.ref_exit_head_update, h, w, hc,
+                                  live=live), check, carry, n_m)
+            # the parent's route at this shape, its kernel unchanged
+            real = megakernel.route
+            megakernel.route = lambda *a: "cuda_core"
+            try:
+                extra["cuda_core_ms"] = time_ms(
+                    lambda: exit_head_update(h, w, hc, *carry, **kw))
+            finally:
+                megakernel.route = real
+
+        def library(h=h, hc=hc, carry=carry, ths=ths):
+            x = F.rms_norm(h, (d,), w.to(bf), 1e-5)
+            return exit_update(x @ hc, *carry, threshold=ths, m=0,
+                               n_components=n_m)
+
+        b, by = bound_ms(hc.numel() * 2 + h.numel() * 2 + d * 4 + B * 56,
+                         2 * B * d * V, name)
+        cases.append({
+            **extra, "config": "deepseek-coder-33b", "shape": [B, d, V],
+            "dtype": name, "route": route,
+            "stages": megakernel.tc_stages(B, d), "live": live.tolist(),
+            "tie_rows": int(ties.sum()), "max_abs_err": err,
+            "xn_bit_equal_block_rmsnorm": route == "tc",
+            "ms": time_ms(lambda: exit_head_update(h, w, hc, *carry, **kw)),
+            "plain_ms": time_ms(lambda: ref.ref_exit_head_update(
+                h, w, hc, *carry, **kw)),
+            "library_ms": time_ms(library),
+            "cublas_only_ms": time_ms(
+                lambda: F.rms_norm(h, (d,), w.to(bf), 1e-5) @ hc),
+            "bound_ms": b, "bound_by": by})
+        del hc
+    del head
+    torch.cuda.empty_cache()
+    return cases
+
+
 def phase_cohort_scatter(dev, gen):
     """The scatter, exact: its slot route (what select mode lands on the
     serving path: cohort c's rows of one ring slot of a deep segment's
@@ -1197,18 +1335,44 @@ def phase_cohort_scatter(dev, gen):
     return cases
 
 
+def _device_us(fn, kernel: str, calls: int = 20) -> float:
+    """Device µs per call of ``fn`` spent in kernels whose name holds
+    ``kernel``, by torch.profiler over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0)
+                for e in prof.key_averages() if kernel in e.key)
+    return total / calls
+
+
 def phase_paged_gather(dev, gen):
-    """The gather, exact, at the serving store (bf16, f32; block size 16)
-    and at the route-parity run's f32 store of block size 64, the one
-    serving path that launches it (the paged decode route reads block
-    size 16 through the table)."""
+    """The gather, exact, at the serving store (bf16, f32; block size 16),
+    at the block-64 stores (f32: the route-parity run's; bf16: the
+    full-width qwen2.5-3b run's, where the paged decode route does not
+    take the block size and the gather serves every decode attention) and
+    at qwen2.5-3b's layer store of block size 64 for 16 slots of a 4096
+    ring (134 MB: the bytes, not the launch, set the time); trash,
+    duplicate and all-trash rows, a layer slice of a stacked store, both
+    stores in one launch; the CUDA-event time and the profiler's device
+    time a call; and one launch captured in a CUDA graph, replayed with
+    the table rewritten between replays."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_gather import paged_gather, paged_gather_kv
     cases = []
     for store, tshape, dt in ((PAGED_STORE, PAGED_TABLE, torch.bfloat16),
                               (PAGED_STORE, PAGED_TABLE, torch.float32),
-                              (GATHER_STORE, GATHER_TABLE, torch.float32)):
+                              (GATHER_STORE, GATHER_TABLE, torch.float32),
+                              (GATHER_STORE, GATHER_TABLE, torch.bfloat16),
+                              (GATHER_BIG_STORE, GATHER_BIG_TABLE,
+                               torch.bfloat16)):
         name = str(dt).split(".")[-1]
         NB = store[0]
         B, nblk = tshape
@@ -1235,20 +1399,62 @@ def phase_paged_gather(dev, gen):
 
         lib = library()
         check_equal(f"paged_gather {name} library", lib[0], want[0])
+        extra = {}
+        if store == PAGED_STORE and dt == torch.bfloat16:
+            # captured once; each replay reads the table as it then is
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = paged_gather_kv(k, v, table)
+            for shift in (1, 2, 0):
+                table.copy_(torch.roll(table, shift, 1))
+                graph.replay()
+                torch.cuda.synchronize()
+                for g, x in zip(out, (k, v)):
+                    check_equal(f"paged_gather {name} replay",
+                                g, ref.ref_paged_gather(x, table))
+            extra["graph_replays_bit_equal"] = 3
+            del graph, out
         nbytes = 2 * 2 * want[0].numel() * want[0].element_size() + \
             table.numel() * 4
         b, by = bound_ms(nbytes, 0, name)
         cases.append({
-            "shape": [list(store), list(tshape)], "stores": 2,
-            "dtype": name, "max_abs_err": max(max_err(g, w)
-                                              for g, w in zip(got, want)),
+            **extra, "shape": [list(store), list(tshape)], "stores": 2,
+            "dtype": name, "bytes": nbytes,
+            "max_abs_err": max(max_err(g, w) for g, w in zip(got, want)),
             "ms": time_ms(lambda: paged_gather_kv(k, v, table)),
+            "device_ms_profiler": 1e-3 * _device_us(
+                lambda: paged_gather_kv(k, v, table), "paged_gather"),
             "plain_ms": time_ms(lambda: (ref.ref_paged_gather(k, table),
                                          ref.ref_paged_gather(v, table))),
             "library_ms": time_ms(library),
             "bound_ms": b, "bound_by": by})
-        del ks, vs
+        del ks, vs, got, want, one, lib
+    torch.cuda.empty_cache()
     return cases
+
+
+def paged_gather_refuses_unaligned(dev):
+    """The bulk copy moves 16-byte aligned bytes only: a store whose base
+    or block size is off 16 bytes is refused before the launch (a
+    ValueError, no launch counted), never copied another way."""
+    import torch
+    from repro_torch.kernels.paged_gather import paged_gather
+    table = torch.ones((2, 3), dtype=torch.int32, device=dev)
+    base = torch.zeros(4 * 16 * 2 * 128 + 4, dtype=torch.bfloat16,
+                       device=dev)[4:].view(4, 16, 2, 128)
+    odd = torch.zeros((4, 3, 1, 5), dtype=torch.bfloat16, device=dev)
+    for tag, store in (("base off 8 bytes", base),
+                       ("30-byte blocks", odd)):
+        before = paged_gather.launches
+        try:
+            paged_gather(store, table)
+        except ValueError:
+            pass
+        else:
+            fail(f"paged_gather: an unaligned store ({tag}) was copied")
+        if paged_gather.launches != before:
+            fail(f"paged_gather: a refused store ({tag}) counted a launch")
+    return {"refused": ["base off 8 bytes", "30-byte blocks"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1287,8 +1493,9 @@ def make_engine(cfg, model, params, **engine_kw):
 
 def check_routes(cfg, launches):
     """Every prefill of a bf16 / fp16 model takes flash's wgmma route and
-    every exit head the megakernel's tc route up to d 4096, of an f32 one
-    (or a wider one: the head) their CUDA-core routes; every norm of the
+    every exit head the megakernel's tc route (d 7168 included: the
+    serving paths' cohorts hold at most 8 rows), of an f32 one their
+    CUDA-core routes; every norm of the
     model's width takes rmsnorm's warp route while a row is at most 512
     16-byte chunks, else the block route (d 7168 in bf16); every decode
     attention over paged stores whose block size divides the 32-key tile
@@ -1297,7 +1504,7 @@ def check_routes(cfg, launches):
     reset."""
     from repro_torch.kernels.decode_attention import TILE, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.megakernel import _TC_MAX_D, exit_head_update
+    from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch.kernels.rmsnorm import MAX_CHUNKS, rmsnorm
     f32 = cfg.dtype == "float32"
     paged = (cfg.paged_cache.layout == "paged"
@@ -1308,7 +1515,7 @@ def check_routes(cfg, launches):
             ("flash_attention", flash_attention,
              "cuda_core" if f32 else "wgmma"),
             ("megakernel", exit_head_update,
-             "cuda_core" if f32 or cfg.d_model > _TC_MAX_D else "tc"),
+             "cuda_core" if f32 else "tc"),
             ("rmsnorm", rmsnorm, "block" if wide_norm else "warp"),
             ("decode_attention", decode_attention,
              "paged" if paged else "dense")):
@@ -1644,6 +1851,50 @@ def phase_full_width_paged(params):
           "thresholds": list(ths), "requests": len(burst),
           "num_blocks": nb, "paged": out[True], "dense": out[False]})
     return headline
+
+
+def phase_paged_gather_full_width(params):
+    """The gather's serving path at full width: qwen2.5-3b with the paged
+    cache at block size 64, which the paged decode route does not take (it
+    reads block sizes dividing its 32-key tile), so every decode attention
+    takes the dense route over views ``paged_gather_kv`` gathers first —
+    one gather launch per decode attention call.  2 cohorts, major,
+    cond_batch, lane batch 4, 2 lanes, cache_len 512, chunk 8; the 8
+    requests of phase 3 at (0.9, 0.9, 0.0) and (0, 0, 0) on the device and
+    host runtimes in turns (identical streams, launches and routes), the
+    streams equal to the dense layout's (device runtime).  Returns the
+    device runtime's launches at (0.9, 0.9, 0.0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", n_cohorts=2, cohort_layout="major")
+    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+    out = None
+    for ths in ((0.9, 0.9, 0.0), (0.0, 0.0, 0.0)):
+        dense = base.with_cascade(thresholds=ths)
+        cfg = paged_config(dense, block_size=64)
+        tag = f"paged block 64 {ths}"
+        turns, dev_launches, streams = _runtime_turns(
+            tag, cfg, build_model(cfg, device=DEV), params, reqs,
+            ("device", "host"))
+        launches = turns["launches"]
+        check_launched(tag, launches, SLICE1 | {"paged_gather"})
+        if launches["paged_gather"] != launches["decode_attention"]:
+            fail(f"{tag}: {launches['paged_gather']} gathers for "
+                 f"{launches['decode_attention']} decode attentions")
+        fin = serve(dense, build_model(dense, device=DEV), params, reqs,
+                    runtime="device", **DENSE_ENGINE)[0]
+        if _streams(fin) != streams:
+            fail(f"{tag}: the paged streams differ from the dense layout's")
+        emit({"phase": "paged_gather_full_width", "config": "qwen2.5-3b",
+              "n_layers": base.n_layers, "dtype": base.dtype,
+              "n_cohorts": 2, "cohort_layout": "major",
+              "exit_mode": "cond_batch", "block_size": 64,
+              "thresholds": list(ths), "streams_equal_dense": True,
+              "turns": turns})
+        if out is None:
+            out = dev_launches
+    return out
 
 
 def phase_device_runtime(params, mixed):
@@ -2492,12 +2743,13 @@ def phase_train():
 # the serving shapes of the dense family's other published widths: model
 # width, heads over KV heads, vocabulary, and the routes their norms and
 # exit heads take in bf16 (d 7168 is past rmsnorm's warp route, 896
-# 16-byte chunks a row, and past the megakernel's tc route, whose shared
-# memory at B <= 8 would be 128 KB of ring + 8 x 7168 x 2 bytes of rows)
+# 16-byte chunks a row; the megakernel's tc route takes it at B <= 8 with
+# a 7-stage ring beside 8 x 7168 x 2 bytes of rows, its prologue in the
+# block route's order)
 DENSE_SHAPES = {
     "yi-9b": dict(d=4096, H=32, KV=4, vocab=64000, norm="warp", head="tc"),
     "deepseek-coder-33b": dict(d=7168, H=56, KV=8, vocab=32256,
-                               norm="block", head="cuda_core"),
+                               norm="block", head="tc"),
     "minitron-4b": dict(d=3072, H=24, KV=8, vocab=256000, norm="warp",
                         head="tc", confidence=True),
 }
@@ -3665,7 +3917,8 @@ def main() -> int:
               "decode_attention": phase_decode(dev, gen),
               "exit_update": phase_exit_update(dev, gen),
               "confidence": phase_confidence(dev, gen),
-              "megakernel": phase_megakernel(dev, gen),
+              "megakernel": phase_megakernel(dev, gen)
+              + phase_megakernel_wide(dev, gen),
               "cohort_scatter": phase_cohort_scatter(dev, gen),
               "paged_gather": phase_paged_gather(dev, gen)}
     # the same kernels at the dense family's other published widths:
@@ -3676,6 +3929,8 @@ def main() -> int:
             checks[name] += cases
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
+    emit({"phase": "paged_gather_unaligned",
+          **paged_gather_refuses_unaligned(dev)})
 
     # each kernel's launches come from the path that runs it: slice 1's
     # one-cohort run, slice 2's cohort run at the mixed threshold vector,
@@ -3686,6 +3941,7 @@ def main() -> int:
         phase_full_width_cohorts()
     algorithm1 = phase_algorithm1(model, params)
     paged_routes = phase_full_width_paged(params)
+    gather_full_width = phase_paged_gather_full_width(params)
     device_runtime = phase_device_runtime(params, records[2]["thresholds"][0])
     autotune = phase_autotune(params)
     del model, params
@@ -3696,7 +3952,9 @@ def main() -> int:
     phase_train()
     escalate = phase_escalate()
     # slice 12: the dense family whole, each model alone on the card
-    deepseek = phase_dense_full_width("deepseek-coder-33b", smi)
+    # slice 13: deepseek-coder-33b's exit heads on the tc route
+    deepseek = phase_dense_full_width("deepseek-coder-33b", smi,
+                                      megakernel=True)
     minitron = phase_dense_full_width("minitron-4b", smi, megakernel=True)
     variants = phase_dense_variants()
     tuned = phase_kernel_tune()
@@ -3715,7 +3973,8 @@ def main() -> int:
                               "(0.9, 0.9, 0.0)", gathers)}
 
     # the headline case of each kernel: the serving path's bf16 shape;
-    # paged_gather's is the f32 block-64 store its launches come from
+    # paged_gather's the bf16 block-64 store of the full-width run whose
+    # decode attentions it serves
     headline = {
         "rmsnorm": lambda c: c["shape"] == [4, D_MODEL]
         and c["route"] == "warp",
@@ -3727,7 +3986,8 @@ def main() -> int:
         "megakernel": lambda c: c["shape"][0] == 4 and c["route"] == "tc",
         "cohort_scatter": lambda c: c["route"] == "slot",
         "paged_gather": lambda c: c["shape"] == [list(GATHER_STORE),
-                                                 list(GATHER_TABLE)],
+                                                 list(GATHER_TABLE)]
+        and c["dtype"] == "bfloat16",
     }
     # the launches on the path by route, for the kernels that have two
     paged_case = next(c for c in checks["decode_attention"]
@@ -3786,6 +4046,15 @@ def main() -> int:
                      "launches_minitron_4b": minitron["one_cohort"][name],
                      "launches_minitron_4b_megakernel":
                          minitron["megakernel"][name],
+                     # slice 13's paths, device runtime, 8 requests x 16
+                     # tokens: deepseek-coder-33b with 2 cohorts and the
+                     # megakernel (tc at d 7168) at a mixed threshold;
+                     # qwen2.5-3b at full width with the paged cache at
+                     # block size 64 (every decode attention over views
+                     # paged_gather gathers), 2 cohorts, (0.9, 0.9, 0.0)
+                     "launches_deepseek_33b_megakernel":
+                         deepseek["megakernel"][name],
+                     "launches_paged_block64": gather_full_width[name],
                      "launches_dense_variants": variants[name],
                      "launches_kernel_tune": {c: n[name]
                                               for c, n in tuned.items()},

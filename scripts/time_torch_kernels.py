@@ -9,7 +9,10 @@ one by default) into its own ``build/`` and runs that checkout's
 version, then CUDA-event times of the kernel, the plain version and the
 library call.  Prints the card line, then one JSON line per phase.  Run it
 on two checkouts in turns (parent, change, change, parent) to compare two
-versions of a kernel on one card.  Needs one CUDA card.
+versions of a kernel on one card.  ``--src DIR`` takes the port's package
+from another checkout's ``src`` while the phases stay ``--root``'s: the
+newer checks and shapes timed on an older kernel (one whose wrapper keeps
+the same signature).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -24,13 +27,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", default="rmsnorm,megakernel")
+    ap.add_argument("--src", default=None,
+                    help="the src directory to import repro_torch from "
+                    "(default: ROOT/src)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("time_torch_kernels: no CUDA device", file=sys.stderr)
         return 2
     root = Path(args.root).resolve()
-    sys.path[:0] = [str(root), str(root / "src")]
+    src = Path(args.src).resolve() if args.src else root / "src"
+    sys.path[:0] = [str(root), str(src)]
     import chip_smoke
     from repro_torch.kernels import build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -42,8 +49,8 @@ def main() -> int:
     for name in args.phases.split(","):
         cases = getattr(chip_smoke, f"phase_{name}")(torch.device("cuda"),
                                                     gen)
-        print(json.dumps({"root": str(root), "card": smi, "kernel": name,
-                          "cases": cases}), flush=True)
+        print(json.dumps({"root": str(root), "src": str(src), "card": smi,
+                          "kernel": name, "cases": cases}), flush=True)
     return 0
 
 

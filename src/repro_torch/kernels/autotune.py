@@ -328,8 +328,7 @@ def launch_of(kernel: str, params: Dict[str, Any], shape: Dict[str, Any],
     if kernel == "megakernel":
         B, d, V = shape["B"], shape["d"], shape["V"]
         if (esz == 2 and B <= megakernel._TC_MAX_B and d % 8 == 0
-                and d <= megakernel._TC_MAX_D and V % 8 == 0
-                and megakernel._tc_smem_bytes(B, d) <= megakernel._MAX_SMEM):
+                and megakernel.tc_stages(B, d) and V % 8 == 0):
             n = params["tc_ctas"] or n_sm
             return ("tc", min(n, n_sm, -(-V // megakernel.TC_COLS)))
         rows = next(n for n in (1, 2, 4, 8) if n >= min(B, 8))

@@ -34,20 +34,34 @@
 // product is 2 * B * d * V flops (5 GFLOP at B = 8, ~5 us at the tensor
 // cores' rate, ~75 us on the CUDA cores).
 //
-// Route "tc" (`head_tc_kernel`; bf16 / fp16, B <= 16, d <= 4096, a head
-// and rows TMA and 16-byte loads can address: every exit head of the bf16
-// serving paths).  A persistent grid, one CTA per SM, each owning a
-// contiguous range of 64-column vocab tiles (~18 at V = 151936 on 132
-// SMs).  One producer warp streams the range's head by TMA into an
-// 8-stage mbarrier ring of 16 KB stages, 128 KB in flight per SM where
-// Little's law at 3.35 TB/s asks for ~20 KB.  A stage is two neighbouring
+// Route "tc" (`head_tc_kernel`; bf16 / fp16, B <= 16, a head and rows TMA
+// and 16-byte loads can address, and a ring of at least kTcMinStages
+// stages beside the normalised rows in shared memory: every exit head of
+// the bf16 serving paths, d 7168 at B <= 8 included).  A persistent grid,
+// one CTA per SM, each owning a contiguous range of 64-column vocab tiles
+// (~18 at V = 151936 on 132 SMs, 3 or 4 at V = 32256).  One producer warp
+// streams the range's head by TMA into an mbarrier ring of 16 KB stages:
+// 8 stages, 128 KB in flight per SM where Little's law at 3.35 TB/s asks
+// for ~20 KB, wherever they fit beside the rows (every d <= 4096 at
+// B <= 8), else as many as fit (tc_stages: 7 at d 7168 and B <= 8, whose
+// rows take 112 KB; B > 8 there leaves no room for 4 and takes
+// "cuda_core").  A stage is two neighbouring
 // tiles' boxes of 64 columns x 64 rows (128-byte swizzle), so each head
 // row is read 256 contiguous bytes at a time.  At B = 4 one tile's 128
 // rows a stage (128-byte reads, each in another DRAM page) ran at 63 % of
 // the HBM rate, 2 x 64 at 86 %, 4 x 32 at 85 %, 8 x 16 at 80 %; 4 stages
 // ran as fast as 8, and freeing a stage one stage late gained nothing
 // (H100 80GB HBM3, 700 W).  The consumer warpgroup normalises the B rows
-// into shared memory once per CTA while the first stages load, then
+// into shared memory once per CTA while the first stages load, in the
+// arithmetic of the rmsnorm route the rows take: "warp" up to 16 16-byte
+// chunks a lane, else the "block" route's order (each lane carrying 8 of
+// its 256 threads' strided sums, a warp a row, block_sum's shuffle tree
+// split across lanes and registers).  The block route's operands are
+// fetched before the ring's first loads (the raw rows by cp.async, the
+// weights into registers), and the producer stops after 2 stages until
+// the rows have landed: behind ~15 MB of ring loads over the card, and
+// summed a 2-byte read at a time, they held the first wgmma back by 24 us
+// at B = 4 (H100 80GB HBM3, 700 W; PERF.md §5, §6).  Then the warpgroup
 // computes logitsᵀ = headᵀ xnᵀ on the tensor cores (swap-AB: wgmma
 // m64nNk16, N = 8 for B <= 8 and 16 above, the head tile as the M-major A
 // operand, the normalised rows as the K-major B operand, f32
@@ -292,12 +306,19 @@ cudaError_t launch_partial(const T* h, long long h_stride, const float* w,
 constexpr int kTcCols = 64;        // vocab columns per tile: one 128-byte row
 constexpr int kTcGroup = 2;        // tiles side by side in a stage
 constexpr int kTcRows = 64;        // head rows per stage (the boxes' height)
-constexpr int kTcStages = 8;       // ring depth: 128 KB in flight per SM
+constexpr int kTcStages = 8;       // ring depth where it fits: 128 KB
+constexpr int kTcMinStages = 4;    // the least ring the route takes
 constexpr int kTcBox = kTcCols * kTcRows * 2;  // 8 KB: one tile's box
 constexpr int kTcStage = kTcGroup * kTcBox;    // 16 KB a stage
 constexpr int kTcConsumers = 128;  // one warpgroup
 constexpr int kTcThreads = kTcConsumers + 32;  // + the producer warp
-constexpr int kTcMaxD = 4096;      // 16 16-byte chunks a lane in the norm
+constexpr int kTcBlockThreads = 256;  // the "block" norm's virtual threads
+// the block norm's weight chunks a consumer thread holds: 8 floats each,
+// chunks tid + 128 k; rows that leave a ring of kTcMinStages have at most
+// 1296 chunks (d 10368 at B <= 8)
+constexpr int kTcMaxWChunks = 11;
+constexpr int kTcHeadStart = 2;  // ring stages loaded before the rows land
+constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory opt-in
 
 // d (64 x N, f32) += A (64 x 16) B (16 x N): A M-major (the head tile,
 // vocab contiguous: transpose bit set), B K-major (the normalised rows),
@@ -345,14 +366,25 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kTcConsumers) : "memory");
 }
 
-// Shared memory of the tc kernel: the ring, the normalised rows (d padded
-// to whole 64-element chunks), the barriers and the warps' triples.
+// Shared memory of the tc kernel: the ring of `stages` stages, the
+// normalised rows (d padded to whole 64-element chunks), the barriers (8
+// pairs at any depth, and the block norm's `ready`) and the warps'
+// triples.
 __host__ __device__ constexpr size_t tc_xs_bytes(int n, int d) {
   return (size_t)n * ((d + 63) / 64) * 64 * 2;
 }
-__host__ __device__ constexpr size_t tc_smem_bytes(int n, int d) {
-  return (size_t)kTcStages * kTcStage + tc_xs_bytes(n, d) +
-         2 * kTcStages * sizeof(uint64_t) + 4 * n * 3 * sizeof(float);
+__host__ __device__ constexpr size_t tc_smem_bytes(int n, int d,
+                                                   int stages) {
+  return (size_t)stages * kTcStage + tc_xs_bytes(n, d) +
+         (2 * kTcStages + 1) * sizeof(uint64_t) + 4 * n * 3 * sizeof(float);
+}
+// The ring's depth for n rows of width d: 8 stages where they fit beside
+// the rows, else as many as fit (below kTcMinStages the route is refused)
+inline int tc_stages(int n, int d) {
+  const size_t rest = tc_smem_bytes(n, d, 0);
+  if (rest >= kMaxSmem) return 0;
+  const size_t fit = (kMaxSmem - rest) / kTcStage;
+  return fit < (size_t)kTcStages ? (int)fit : kTcStages;
 }
 
 // One CTA per SM walks a contiguous range of 64-column vocab tiles
@@ -377,9 +409,11 @@ template <typename T, int N>
 __global__ void __launch_bounds__(kTcThreads, 1) head_tc_kernel(
     const __grid_constant__ CUtensorMap tm_head, const T* __restrict__ h,
     long long h_stride, const float* __restrict__ w, int B, int d, int V,
-    const uint8_t* __restrict__ live, float eps, int n_ctas,
-    float* __restrict__ pm, float* __restrict__ pl, int* __restrict__ pa) {
+    const uint8_t* __restrict__ live, float eps, int warp_norm, int stages,
+    T* __restrict__ xn_out, int n_ctas, float* __restrict__ pm,
+    float* __restrict__ pl, int* __restrict__ pa) {
   constexpr int kVec = 16 / sizeof(T);
+  static_assert(kVec == 8, "the tc route takes 16-bit rows");
   constexpr int NR = N / 2;     // accumulator registers a tile
   constexpr int NQ = N / 4;     // batch rows a thread holds
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -389,10 +423,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) head_tc_kernel(
   // row r's K chunk kc (64 elements) at xs + kc * N * 128 + r * 128, its
   // 16-byte unit u at (u ^ (r % 8)) * 16: the 128-byte swizzle, so one
   // descriptor per k16 step reads it as a K-major operand
-  unsigned char* xs = ring + kTcStages * kTcStage;
+  unsigned char* xs = ring + stages * kTcStage;
   uint64_t* full = reinterpret_cast<uint64_t*>(xs + tc_xs_bytes(N, d));
   uint64_t* empty = full + kTcStages;
-  float* red_m = reinterpret_cast<float*>(empty + kTcStages);  // [4][N]
+  uint64_t* ready = empty + kTcStages;  // the block norm's rows have landed
+  float* red_m = reinterpret_cast<float*>(ready + 1);  // [4][N]
   float* red_l = red_m + 4 * N;
   int* red_a = reinterpret_cast<int*>(red_l + 4 * N);
 
@@ -407,39 +442,153 @@ __global__ void __launch_bounds__(kTcThreads, 1) head_tc_kernel(
   for (int r = 0; r < B && !any_live; ++r) any_live = live[r] != 0;
   if (!any_live) return;  // every row passes its carries through
 
+  const int warp = tid / 32, lane = tid % 32;
+  const int n_units = (int)(tc_xs_bytes(1, d) / 16);  // 16-byte units a row
+  const int nu = d / kVec;                             // units of row data
+  // row r's 16-byte unit c (8 elements) in the swizzled layout below
+  auto unit = [&](int r, int c) {
+    return reinterpret_cast<uint4*>(xs + (c / 8) * N * 128 + r * 128 +
+                                    (((c % 8) ^ (r % 8)) << 4));
+  };
+  // the "block" norm's operands are fetched before the producer's first
+  // loads, not behind them (~15 MB of ring loads over the card): the raw
+  // rows by cp.async into their places in the swizzled layout, every
+  // thread's weight chunks c = tid + 128 k into registers
+  float4 wpre[kTcMaxWChunks][2];
+  if (!warp_norm && tid < kTcConsumers) {
+    for (int r = 0; r < B; ++r)
+      for (int c = tid; c < nu; c += kTcConsumers)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         smem_u32(unit(r, c))),
+                     "l"(reinterpret_cast<const uint4*>(
+                             h + (long long)r * h_stride) +
+                         c)
+                     : "memory");
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < kTcMaxWChunks; ++k) {
+      const int c = tid + k * kTcConsumers;
+      if (c < nu) {
+        wpre[k][0] = __ldg(reinterpret_cast<const float4*>(w) + 2 * c);
+        wpre[k][1] = __ldg(reinterpret_cast<const float4*>(w) + 2 * c + 1);
+      }
+    }
+  }
+
   if (tid == kTcConsumers) prefetch_map(&tm_head);
   if (tid == 0) {
-    for (int st = 0; st < kTcStages; ++st) {
+    for (int st = 0; st < stages; ++st) {
       mbar_init(&full[st], 1);
       mbar_init(&empty[st], kTcConsumers);
     }
+    mbar_init(ready, kTcConsumers);
     mbar_fence_init();
   }
   __syncthreads();
 
   if (tid >= kTcConsumers) {  // the producer warp: lane 0 issues every load
     if (tid == kTcConsumers) {
-      int it = 0;
+      // load `it` fills stage st in its round-th pass over the ring
+      int it = 0, st = 0, round = 0;
       for (int g0 = t0; g0 < t1; g0 += kTcGroup) {
         const int ng = min(kTcGroup, t1 - g0);
         for (int kb = 0; kb < nkb; ++kb, ++it) {
-          const int st = it % kTcStages, round = it / kTcStages;
+          // past a head start, the ring waits for the block norm's rows:
+          // behind ~15 MB of ring loads over the card they land late
+          if (!warp_norm && it == kTcHeadStart) mbar_wait(ready, 0);
           if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
           mbar_expect_tx(&full[st], ng * kTcBox);
           for (int g = 0; g < ng; ++g)
             tma_load(ring + st * kTcStage + g * kTcBox, &tm_head, &full[st],
                      (g0 + g) * kTcCols, kb * kTcRows);
+          if (++st == stages) {
+            st = 0;
+            ++round;
+          }
         }
       }
     }
     return;
   }
 
-  // the rows' rmsnorm, csrc/rmsnorm.cu's "warp" arithmetic (common.cuh),
-  // while the first stages load; rows past B and columns past d are zero
-  const int warp = tid / 32, lane = tid % 32;
-  const int n_units = (int)(tc_xs_bytes(1, d) / 16);  // 16-byte units a row
-  for (int r = warp; r < N; r += 4) {
+  // the rows' rmsnorm while the first stages load, in the arithmetic of
+  // the csrc/rmsnorm.cu route the same rows take; rows past B and columns
+  // past d are zero
+  if (!warp_norm) {
+    // the "block" route (rmsnorm_kernel): zeros past B and d beside the
+    // raw rows, which land by cp.async
+    for (int r = 0; r < N; ++r)
+      for (int c = r < B ? nu + tid : tid; c < n_units; c += kTcConsumers)
+        *unit(r, c) = make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    mbar_arrive(ready);
+    consumers_sync();
+    // virtual thread t < 256 sums x_i^2 over i = t, t + 256, ... in order:
+    // element t % 8 of units t / 8 + 32 j.  Warp w takes rows w, w + 4,
+    // lane q carrying virtual threads 8q .. 8q + 7 of the row, so one
+    // 16-byte read feeds 8 of them, each in its own order.  block_sum's
+    // shuffle tree over a virtual warp (lanes 4 vw .. 4 vw + 3) is its
+    // offsets 16 and 8 across lanes (xor 2, 1) and 4, 2, 1 across a lane's
+    // 8 sums; then warp 0 adds the 8 warp sums as block_sum does (part:
+    // [N][8] sums, then [N] scales).
+    float* part = red_m;
+    for (int r = warp; r < B; r += 4) {
+      float ss[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) ss[e] = 0.f;
+#pragma unroll 4
+      for (int c = lane; c < nu; c += 32) {
+        const uint4 raw = *unit(r, c);
+        const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float v = to_f32(x[e]);
+          ss[e] += v * v;  // rmsnorm_kernel's expression: the same FMA
+        }
+      }
+#pragma unroll
+      for (int o = 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          ss[e] += __shfl_xor_sync(0xffffffffu, ss[e], o);
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) {
+        float t[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) t[e] = ss[e] + ss[e ^ o];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) ss[e] = t[e];
+      }
+      if (lane % 4 == 0) part[r * 8 + lane / 4] = ss[0];
+    }
+    consumers_sync();
+    if (warp == 0) {
+      for (int r = 0; r < B; ++r) {
+        float s = lane < kTcBlockThreads / 32 ? part[r * 8 + lane] : 0.f;
+        s = warp_sum(s);
+        if (lane == 0) part[N * 8 + r] = rsqrtf(s / (float)d + eps);
+      }
+    }
+    consumers_sync();
+    // xn = T((x * rs) * w), in place
+#pragma unroll
+    for (int k = 0; k < kTcMaxWChunks; ++k) {
+      const int c = tid + k * kTcConsumers;
+      if (c < nu) {
+        const float wf[kVec] = {wpre[k][0].x, wpre[k][0].y, wpre[k][0].z,
+                                wpre[k][0].w, wpre[k][1].x, wpre[k][1].y,
+                                wpre[k][1].z, wpre[k][1].w};
+#pragma unroll
+        for (int r = 0; r < N; ++r) {
+          if (r < B) {
+            uint4* p = unit(r, c);
+            *p = warp_row_scale<T>(*p, part[N * 8 + r], wf);
+          }
+        }
+      }
+    }
+  }
+  for (int r = warp; r < N && warp_norm; r += 4) {
     unsigned char* xr = xs + r * 128;
     int c0 = 0;
     if (r < B) {
@@ -467,6 +616,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) head_tc_kernel(
   // generic-proxy stores, read next by wgmma through the async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   consumers_sync();
+  if (xn_out != nullptr && cta == 0) {  // the checks' copy of the rows
+    for (int i = tid; i < B * nu; i += kTcConsumers)
+      reinterpret_cast<uint4*>(xn_out)[i] = *unit(i / nu, i % nu);
+  }
 
   float m_r[NQ], l_r[NQ];
   int a_r[NQ];
@@ -476,7 +629,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) head_tc_kernel(
     l_r[q] = 0.f;
     a_r[q] = INT_MAX;
   }
-  int it = 0;
+  int st = 0;          // the stage the next load lands in,
+  uint32_t phase = 0;  // in this parity of its barrier
   for (int g0 = t0; g0 < t1; g0 += kTcGroup) {
     const int ng = min(kTcGroup, t1 - g0);
     float acc[kTcGroup][NR];
@@ -484,9 +638,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) head_tc_kernel(
     for (int g = 0; g < kTcGroup; ++g)
 #pragma unroll
       for (int i = 0; i < NR; ++i) acc[g][i] = 0.f;
-    for (int kb = 0; kb < nkb; ++kb, ++it) {
-      const int st = it % kTcStages;
-      mbar_wait(&full[st], (it / kTcStages) & 1);
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(&full[st], phase);
       __syncwarp();  // the warp is converged for the .aligned wgmma ops
       const unsigned char* a = ring + st * kTcStage;
 #pragma unroll
@@ -514,6 +667,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) head_tc_kernel(
 #pragma unroll
       for (int g = 0; g < kTcGroup; ++g) fence_regs(acc[g]);
       mbar_arrive(&empty[st]);  // this stage is free for the producer
+      if (++st == stages) {
+        st = 0;
+        phase ^= 1;
+      }
     }
     // fold the group's logits in ascending column order
 #pragma unroll
@@ -570,8 +727,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) head_tc_kernel(
 template <typename T, int N>
 cudaError_t launch_tc(const T* h, long long h_stride, const float* w,
                       const T* head, long long ld, int B, int d, int V,
-                      const uint8_t* live, float eps, int n_ctas, float* pm,
-                      float* pl, int* pa, cudaStream_t s) {
+                      const uint8_t* live, float eps, int warp_norm,
+                      T* xn_out, int n_ctas, float* pm, float* pl, int* pa,
+                      cudaStream_t s) {
+  const int stages = tc_stages(N, d);
+  if (stages < kTcMinStages) return cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   // the head as a 2-D map, dims innermost first (V, d), row stride ld;
@@ -589,7 +749,7 @@ cudaError_t launch_tc(const T* h, long long h_stride, const float* w,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  const size_t smem = tc_smem_bytes(N, d);
+  const size_t smem = tc_smem_bytes(N, d, stages);
   static size_t configured = 0;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -599,7 +759,8 @@ cudaError_t launch_tc(const T* h, long long h_stride, const float* w,
     configured = smem;
   }
   head_tc_kernel<T, N><<<n_ctas, kTcThreads, smem, s>>>(
-      map, h, h_stride, w, B, d, V, live, eps, n_ctas, pm, pl, pa);
+      map, h, h_stride, w, B, d, V, live, eps, warp_norm, stages, xn_out,
+      n_ctas, pm, pl, pa);
   return cudaGetLastError();
 }
 
@@ -692,20 +853,35 @@ extern "C" int megakernel_launch(
                  patience_k, ema_decay, ema_keep, tel_bins, s);
 }
 
+// The ring depth of the "tc" route for B rows of width d (0 where the rows
+// leave room for fewer than kTcMinStages stages: the route refuses them).
+extern "C" int megakernel_tc_stages(int B, int d) {
+  const int stages = tc_stages(B <= 8 ? 8 : 16, d);
+  return stages < kTcMinStages ? 0 : stages;
+}
+
 // The "tc" route: the same arguments with n_ctas (persistent CTAs, the
-// workspace holding (3, B, n_ctas)) in place of nb and warp_norm.  bf16 /
-// fp16 only, B <= 16, d a multiple of 8 up to 4096, the head's base and
-// row stride and h's base and row stride 16-byte aligned, w 16-byte
-// aligned; anything else is refused with cudaErrorInvalidValue (the
-// wrapper picks the route before the launch).
+// workspace holding (3, B, n_ctas)) in place of nb.  bf16 / fp16 only,
+// B <= 16, d a multiple of 8 whose rows leave room for a ring of
+// kTcMinStages (megakernel_tc_stages), warp_norm only for rows of at most
+// 16 16-byte chunks a lane, the head's base and row stride and h's base
+// and row stride 16-byte aligned, w 16-byte aligned; anything else is
+// refused with cudaErrorInvalidValue (the wrapper picks the route before
+// the launch).  xn_out: NULL, or a contiguous (B, d) array in h's dtype
+// into which CTA 0 copies the normalised rows (the checks' view of the
+// prologue).
 extern "C" int megakernel_tc_launch(
     const void* h, long long h_stride, const void* w, const void* head,
     long long ld, int B, int d, int V, int dtype, int n_ctas,
-    const void* live, float eps, void* workspace, const void* const* carries,
-    const void* thr, int m_idx, int n_components, int patience_k,
-    float ema_decay, float ema_keep, int tel_bins, void* stream) {
+    const void* live, float eps, int warp_norm, void* xn_out,
+    void* workspace, const void* const* carries, const void* thr, int m_idx,
+    int n_components, int patience_k, float ema_decay, float ema_keep,
+    int tel_bins, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (B > 16 || d <= 0 || d % 8 || d > kTcMaxD || V <= 0 || n_ctas <= 0 ||
+  if (B > 16 || d <= 0 || d % 8 || megakernel_tc_stages(B, d) == 0 ||
+      (warp_norm && d / 8 > 16 * 32) ||
+      (!warp_norm && d / 8 > kTcMaxWChunks * kTcConsumers) || V <= 0 ||
+      n_ctas <= 0 ||
       (uintptr_t)h % 16 || (B > 1 && (h_stride * 2) % 16) ||
       (uintptr_t)head % 16 ||
       (ld * 2) % 16 || (uintptr_t)w % 16)
@@ -720,17 +896,21 @@ extern "C" int megakernel_tc_launch(
   if (dtype == DT_BF16) {
     using T = __nv_bfloat16;
     err = B <= 8 ? launch_tc<T, 8>((const T*)h, h_stride, wf, (const T*)head,
-                                   ld, B, d, V, lv, eps, n_ctas, pm, pl, pa, s)
+                                   ld, B, d, V, lv, eps, warp_norm,
+                                   (T*)xn_out, n_ctas, pm, pl, pa, s)
                  : launch_tc<T, 16>((const T*)h, h_stride, wf,
                                     (const T*)head, ld, B, d, V, lv, eps,
-                                    n_ctas, pm, pl, pa, s);
+                                    warp_norm, (T*)xn_out, n_ctas, pm, pl,
+                                    pa, s);
   } else if (dtype == DT_F16) {
     using T = __half;
     err = B <= 8 ? launch_tc<T, 8>((const T*)h, h_stride, wf, (const T*)head,
-                                   ld, B, d, V, lv, eps, n_ctas, pm, pl, pa, s)
+                                   ld, B, d, V, lv, eps, warp_norm,
+                                   (T*)xn_out, n_ctas, pm, pl, pa, s)
                  : launch_tc<T, 16>((const T*)h, h_stride, wf,
                                     (const T*)head, ld, B, d, V, lv, eps,
-                                    n_ctas, pm, pl, pa, s);
+                                    warp_norm, (T*)xn_out, n_ctas, pm, pl,
+                                    pa, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -12,17 +12,22 @@ Route: CUDA C++ (``csrc/megakernel.cu``), ctypes-bound, with two device
 routes that :func:`route` picks before the launch, on the dtype, the
 shapes and the alignment alone (never on a failure):
 
-- ``"tc"`` — bf16 / fp16, B ≤ 16, d ≤ 4096, a head with ``V % 8 == 0``
-  and rows TMA and 16-byte loads can address (every exit head of the
-  bf16 serving paths): a persistent grid of one CTA per SM, each owning
-  the contiguous range of 64-column vocab tiles :func:`plan` gives it; a
-  producer warp streams the head by TMA through an 8-stage mbarrier ring
-  and a warpgroup computes logitsᵀ = headᵀ·xnᵀ on the tensor cores
-  (wgmma, f32 accumulation), the rows' norm computed once per CTA while
-  the first stages load;
+- ``"tc"`` — bf16 / fp16, B ≤ 16, a head with ``V % 8 == 0``, rows TMA
+  and 16-byte loads can address, and rows that leave shared memory room
+  for a ring of at least 4 stages (:func:`tc_stages`; every exit head of
+  the bf16 serving paths, deepseek-coder-33b's d 7168 at B ≤ 8
+  included): a persistent grid of one CTA per SM, each owning the
+  contiguous range of 64-column vocab tiles :func:`plan` gives it; a
+  producer warp streams the head by TMA through an mbarrier ring (8
+  stages where they fit beside the rows, 7 at d 7168) and a warpgroup
+  computes logitsᵀ = headᵀ·xnᵀ on the tensor cores (wgmma, f32
+  accumulation), the rows' norm computed once per CTA while the first
+  stages load;
 - ``"cuda_core"`` — f32 (the tensor cores would mean TF32, which the port
-  keeps off), unaligned or ``V % 8 != 0`` heads, B > 16: ~600 vocab blocks
-  of f32 products on the CUDA cores.
+  keeps off), unaligned or ``V % 8 != 0`` heads, B > 16, and B > 8 at
+  widths whose rows crowd the ring out (9–16 rows of d 7168 alone take
+  224 KB of the 227): ~600 vocab blocks of f32 products on the CUDA
+  cores.
 
 Both write one (max, Σexp, first-argmax) partial per row per CTA / block,
 merged in a fixed order by a second launch that applies the carry merge
@@ -49,8 +54,9 @@ from repro_torch.kernels.rmsnorm import warp_rows_ok
 
 ROUTES = ("tc", "cuda_core")
 TC_COLS = 64           # vocab columns per tile of the tc route
-_TC_RING = 8 * 16384   # the 8-stage ring of 16 KB stages, bytes
-_TC_MAX_B, _TC_MAX_D = 16, 4096
+_TC_STAGE = 16384      # bytes of one ring stage
+_TC_STAGES, _TC_MIN_STAGES = 8, 4   # the ring's depth where it fits; least
+_TC_MAX_B = 16
 _MAX_SMEM = 227 * 1024      # dynamic shared memory a block may opt into
 
 _COMMON = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -60,18 +66,31 @@ _COMMON = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
 _TAIL = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_SIG = {"cuda_core": _COMMON + [ctypes.c_int] + _TAIL,   # + warp_norm
-        "tc": _COMMON + _TAIL}
+# + warp_norm, and on tc the checks' xn_out
+_SIG = {"cuda_core": _COMMON + [ctypes.c_int] + _TAIL,
+        "tc": _COMMON + [ctypes.c_int, ctypes.c_void_p] + _TAIL}
 _SYMBOLS = {"tc": "megakernel_tc_launch", "cuda_core": "megakernel_launch"}
 _sm_counts: Dict[int, int] = {}
 
 
-def _tc_smem_bytes(B: int, d: int) -> int:
+def _tc_smem_bytes(B: int, d: int, stages: int = _TC_STAGES) -> int:
     """The tc kernel's shared memory (csrc/megakernel.cu:tc_smem_bytes):
-    the ring, the normalised rows padded to whole 64-element chunks, the
-    barriers and the warps' triples."""
+    the ring of ``stages`` 16 KB stages, the normalised rows padded to
+    whole 64-element chunks, the 17 barriers and the warps' triples."""
     n = 8 if B <= 8 else 16
-    return _TC_RING + n * -(-d // 64) * 64 * 2 + 2 * 8 * 8 + 4 * n * 3 * 4
+    return (stages * _TC_STAGE + n * -(-d // 64) * 64 * 2 + 17 * 8
+            + 4 * n * 3 * 4)
+
+
+def tc_stages(B: int, d: int) -> int:
+    """The tc route's ring depth for B rows of width d
+    (csrc/megakernel.cu:megakernel_tc_stages): 8 stages where they fit
+    beside the rows in shared memory (every d ≤ 4096 at B ≤ 8), else as
+    many as fit, and 0 — the route refused — below 4 (7 at d 7168 and
+    B ≤ 8; 0 there at B > 8, whose rows alone take 224 KB)."""
+    fit = (_MAX_SMEM - _tc_smem_bytes(B, d, 0)) // _TC_STAGE
+    fit = min(fit, _TC_STAGES)
+    return fit if fit >= _TC_MIN_STAGES else 0
 
 
 def _aligned_rows(x: torch.Tensor) -> bool:
@@ -81,21 +100,20 @@ def _aligned_rows(x: torch.Tensor) -> bool:
                                        or x.stride(0) * esz % 16 == 0)
 
 
-def route(h: torch.Tensor, head: torch.Tensor,
-          norm_w: torch.Tensor | None = None) -> str:
+def route(h: torch.Tensor, head: torch.Tensor) -> str:
     """The device route a launch on ``h`` (B, d) and ``head`` (d, V) takes:
-    ``"tc"`` for bf16 / fp16 with B ≤ 16, d a multiple of 8 up to 4096,
-    ``V % 8 == 0`` and 16-byte aligned bases and row strides of h and the
-    head (and, when given, norm weights the warp-per-row norm takes), else
-    ``"cuda_core"``."""
+    ``"tc"`` for bf16 / fp16 with B ≤ 16, d a multiple of 8 whose rows
+    leave room for the ring (:func:`tc_stages`), ``V % 8 == 0`` and
+    16-byte aligned bases and row strides of h and the head, else
+    ``"cuda_core"``.  Both routes normalise with the arithmetic of the
+    rmsnorm route the rows and the norm weights take (``warp`` or
+    ``block``), so the weights do not pick the route."""
     B, d = h.shape
     if (h.dtype in (torch.bfloat16, torch.float16) and head.dtype == h.dtype
-            and 0 < B <= _TC_MAX_B and d % 8 == 0 and d <= _TC_MAX_D
+            and 0 < B <= _TC_MAX_B and d % 8 == 0 and tc_stages(B, d)
             and head.shape[1] % 8 == 0 and h.stride(1) == 1
             and head.stride(1) == 1 and _aligned_rows(h)
-            and _aligned_rows(head)
-            and _tc_smem_bytes(B, d) <= _MAX_SMEM
-            and (norm_w is None or warp_rows_ok(h, norm_w))):
+            and _aligned_rows(head)):
         return "tc"
     return "cuda_core"
 
@@ -150,7 +168,7 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
                      ema, active, *, threshold, m: int,
                      n_components: int, patience_k: int = 0,
                      ema_decay: float = 0.0, tel_bins: int = 0, live=None,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, xn_out=None):
     """One fused exit-head component step.
 
     h (B, d); norm_w (d,); head (d, V) in h's dtype; carries as
@@ -160,7 +178,10 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
     product's summation order; dead rows pass every carry through.
     ``threshold`` is an f32 tensor on h's device or a float (see
     :func:`~repro_torch.kernels.exit_update.threshold_operand`).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel.
+    ``xn_out``: None, or a contiguous (B, d) tensor in h's dtype into
+    which a ``tc`` launch copies its normalised rows (the checks' view of
+    its prologue; refused on the ``cuda_core`` route)."""
     kw = dict(m=int(m), n_components=int(n_components),
               patience_k=int(patience_k), ema_decay=float(ema_decay),
               tel_bins=int(tel_bins))
@@ -200,12 +221,18 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
                                    for t in (pred, exit_idx, streak))
     conf_in, ema_in = (t.to(f32).contiguous() for t in (conf, ema))
     live_in = None if live is None else live.to(torch.bool).contiguous()
-    r = route(h, head, norm_w)
+    r = route(h, head)
     # the norm takes the rmsnorm route the unfused head would take; its
     # f32 weights are read 16 bytes at a time
     warp_norm = warp_rows_ok(h, norm_w)
     if w32.data_ptr() % 16:
         w32 = w32.clone()
+    if xn_out is not None and (r != "tc" or xn_out.shape != (B, d)
+                               or xn_out.dtype != h.dtype
+                               or not xn_out.is_contiguous()):
+        raise ValueError("exit_head_update: xn_out takes the tc route's "
+                         "normalised rows, a contiguous (B, d) tensor in "
+                         "h's dtype")
     if r == "tc":
         parts = _tc_ctas(dev, V)
         size_arg = parts
@@ -229,9 +256,9 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
                        act_in, *outs[:6], tcode)))
     fn = build.function("megakernel", _SYMBOLS[r], _SIG[r])
     args = [p(h), h.stride(0), p(w32), p(head), head.stride(0), B, d, V,
-            dcode, size_arg, p(live_in), float(eps)]
-    if r == "cuda_core":
-        args.append(int(warp_norm))
+            dcode, size_arg, p(live_in), float(eps), int(warp_norm)]
+    if r == "tc":
+        args.append(p(xn_out))
     build.check(fn(
         *args, p(workspace), carries, p(thr), kw["m"],
         kw["n_components"], kw["patience_k"], kw["ema_decay"],

@@ -13,11 +13,21 @@ route does not take.
 
 Route: CUDA C++ (``csrc/paged_gather.cu``), ctypes-bound.  A paged decode
 gathers a layer's k and v stores in ONE launch (:func:`paged_gather_kv`)
-where the TPU code makes two ``pallas_call`` s.
+where the TPU code makes two ``pallas_call`` s.  The copy engine moves
+the blocks: a persistent grid of at most one CTA (one warp) per SM; the
+(store, slot, ring block) units' blocks cut into boxes of at most 16 KB
+(:func:`boxes`), each CTA walking the contiguous range of boxes
+:func:`plan` gives it, one lane issuing a ``cp.async.bulk`` copy of each
+box global → shared through an 8-stage mbarrier ring and shared →
+global from the same stage.  The bulk copy moves 16-byte aligned bytes
+only: a store whose base, block stride or block size is not a multiple
+of 16 bytes is refused before the launch (:func:`aligned`), never copied
+another way.
 The store's block stride is passed to the kernel, so a layer slice of a
-stacked store is read without a copy.  Bound on the H100: bytes (each
-gathered block read once, written once); at the serving shape the launch
-itself dominates.
+stacked store is read without a copy; the table is read on the device,
+so a captured launch reads each replay's table.  Bound on the H100:
+bytes (each gathered block read once, written once); at the serving
+shape the launch itself dominates.
 """
 from __future__ import annotations
 
@@ -25,13 +35,59 @@ import ctypes
 
 import torch
 
+from typing import Dict, List, Tuple
+
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_paged_gather
+
+BOX = 16384     # bytes a bulk copy moves at most (one ring stage)
 
 _SIG = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_void_p])
+_sm_counts: Dict[int, int] = {}
+
+
+def plan(n_items: int, n_ctas: int) -> List[Tuple[int, int]]:
+    """The kernel's split of its items — box x of unit u = (store · B +
+    slot) · nblk + ring block is item u · n_boxes + x — over ``n_ctas``
+    CTAs: the range [start, stop) of each, in CTA order — contiguous,
+    disjoint, covering [0, n_items), the first ``n_items % n_ctas`` CTAs
+    one item more.  The kernel computes the same split from its block
+    index."""
+    per, rem = divmod(n_items, n_ctas)
+    out = []
+    for c in range(n_ctas):
+        u0 = c * per + min(c, rem)
+        out.append((u0, u0 + per + (1 if c < rem else 0)))
+    return out
+
+
+def boxes(block_bytes: int) -> List[Tuple[int, int]]:
+    """The (offset, size) bulk copies a block of ``block_bytes`` moves in:
+    whole boxes of :data:`BOX` bytes, then the rest."""
+    return [(o, min(BOX, block_bytes - o))
+            for o in range(0, block_bytes, BOX)]
+
+
+def aligned(store: torch.Tensor) -> bool:
+    """Whether the bulk copy can read ``store``'s blocks: a 16-byte
+    aligned base, block stride and block size."""
+    es = store.element_size()
+    block = store[0].numel() * es if store.shape[0] else 0
+    return (store.data_ptr() % 16 == 0 and store.stride(0) * es % 16 == 0
+            and block % 16 == 0)
+
+
+def _n_ctas(dev: torch.device) -> int:
+    """One persistent CTA per SM (the SM count read once per device)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def _gather(stores, table):
@@ -53,6 +109,9 @@ def _gather(stores, table):
     if table.dtype != torch.int32:
         raise TypeError(f"paged_gather: table must be int32, got "
                         f"{table.dtype}")
+    if not all(aligned(s) for s in stores):
+        raise ValueError("paged_gather: the bulk copy needs 16-byte aligned "
+                         "store bases, block strides and block sizes")
     B, nblk = table.shape
     es = s0.element_size()
     outs = [torch.empty((B, nblk * bs, kv, hd), dtype=s0.dtype,
@@ -67,7 +126,7 @@ def _gather(stores, table):
         stores[0].stride(0) * es, stores[1].stride(0) * es if two else 0,
         p(outs[0]), p(outs[1] if two else None), p(table),
         table.stride(0), table.stride(1), B, nblk, bs * kv * hd * es,
-        build.stream_of(s0)), "paged_gather")
+        _n_ctas(s0.device), build.stream_of(s0)), "paged_gather")
     paged_gather.launches += 1
     return outs
 

@@ -266,12 +266,48 @@ def ref_rmsnorm_warp(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     return ((x32 * rs.float()) * w.float()).to(x.dtype)
 
 
+def ref_rmsnorm_block(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    """Plain emulation of rmsnorm's ``block`` route (``csrc/rmsnorm.cu``
+    rmsnorm_kernel, and the megakernel's prologues past the warp route):
+    thread t of 256 sums the squares of elements t, t + 256, ... in order
+    in f32 (each step one fused multiply-add, emulated in f64 and
+    rounded); each warp's 32 sums meet in a xor tree (offsets 16, 8, 4, 2,
+    1), then warp 0 adds the 8 warp sums (and 24 zeros) in the same tree;
+    rs = 1 / sqrt(sum / d + eps) in f32; then ``(x * rs) * w`` in f32 and
+    one cast.  x: (R, d), any d."""
+    R, d = x.shape
+    n_t = 256
+    steps = -(-d // n_t)
+    x32 = x.float()
+    padded = torch.zeros((R, steps * n_t), dtype=torch.float32)
+    padded[:, :d] = x32
+    # (R, 256 threads, steps) in each thread's order
+    lanes = padded.reshape(R, steps, n_t).permute(0, 2, 1).double()
+    ss = torch.zeros((R, n_t), dtype=torch.float32)
+    for i in range(steps):
+        v = lanes[:, :, i]
+        ss = (ss.double() + v * v).float()
+    ss = ss.reshape(R, 8, 32)
+    for o in (16, 8, 4, 2, 1):
+        ss = ss + ss[:, :, torch.arange(32) ^ o]
+    tot = torch.zeros((R, 32), dtype=torch.float32)
+    tot[:, :8] = ss[:, :, 0]
+    for o in (16, 8, 4, 2, 1):
+        tot = tot + tot[:, torch.arange(32) ^ o]
+    mean = tot[:, :1] / torch.tensor(float(d), dtype=torch.float32)
+    rs = 1.0 / torch.sqrt((mean + torch.tensor(eps, dtype=torch.float32))
+                          .double())
+    return ((x32 * rs.float()) * w.float()).to(x.dtype)
+
+
 def ref_exit_head_update_tc(h, norm_w, head, answered, pred, exit_idx, conf,
                             streak, ema, active, *, threshold, m,
                             n_components, n_ctas, patience_k=0,
                             ema_decay=0.0, tel_bins=0, eps=1e-5, live=None):
     """Plain emulation of the megakernel's ``tc`` route (tests only): xn
-    from :func:`ref_rmsnorm_warp`, rounded to the model dtype; each logit
+    from :func:`ref_rmsnorm_warp` where the rows and weights take
+    rmsnorm's warp route (``rmsnorm.warp_rows_ok``), else from
+    :func:`ref_rmsnorm_block`, rounded to the model dtype; each logit
     the f32 sum of the k16 steps' partial products (each step's 16
     products summed exactly, then rounded to f32 and added in k order);
     each logit rounded to the model dtype; per CTA the vocab range of
@@ -279,7 +315,9 @@ def ref_exit_head_update_tc(h, norm_w, head, answered, pred, exit_idx, conf,
     first-argmax) partial; the partials merged in CTA order; then the
     exit-update step with dead rows passing their carries through."""
     from repro_torch.kernels.megakernel import plan
-    xn = ref_rmsnorm_warp(h, norm_w, eps)
+    from repro_torch.kernels.rmsnorm import warp_rows_ok
+    norm = ref_rmsnorm_warp if warp_rows_ok(h, norm_w) else ref_rmsnorm_block
+    xn = norm(h, norm_w, eps)
     B, d = xn.shape
     V = head.shape[1]
     x64, w64 = xn.double(), head.double()
@@ -380,3 +418,34 @@ def ref_paged_gather(store, table):
     B, nblk = table.shape
     return store[table.long()].reshape((B, nblk * store.shape[1])
                                        + store.shape[2:])
+
+
+def ref_paged_gather_bulk(stores, table, n_ctas: int):
+    """Plain emulation of the paged gather kernel's order (tests only):
+    each block of the units u = (store · B + slot) · nblk + ring block cut
+    into ``paged_gather.boxes`` copies, box x of unit u item u · n_boxes
+    + x; the items split over ``n_ctas`` CTAs by ``paged_gather.plan``,
+    each CTA walking its range in order; the source block read at the
+    store's block stride (a layer slice of a stacked store in place).
+    stores: 1 or 2 of (NB, bs, kv, hd); returns one (B, nblk · bs, kv,
+    hd) view per store."""
+    from repro_torch.kernels.paged_gather import boxes, plan
+    B, nblk = table.shape
+    s0 = stores[0]
+    bs = s0.shape[1]
+    block = s0[0].numel() * s0.element_size()
+    outs = [torch.empty((B, nblk * bs) + s0.shape[2:], dtype=s0.dtype)
+            for _ in stores]
+    dst = [o.view(B * nblk, -1).view(torch.uint8) for o in outs]
+    ids = table.long()
+    per_store = B * nblk
+    cuts = boxes(block)
+    for i0, i1 in plan(len(stores) * per_store * len(cuts), n_ctas):
+        for i in range(i0, i1):
+            u, x = divmod(i, len(cuts))
+            z, bj = divmod(u, per_store)
+            src = stores[z][int(ids[bj // nblk, bj % nblk])] \
+                .reshape(-1).view(torch.uint8)
+            off, size = cuts[x]
+            dst[z][bj, off:off + size] = src[off:off + size]
+    return outs

@@ -9,9 +9,10 @@ Configs: ``reduced(...)`` at 3 layers and 3 components (exits after layers
 deepseek-coder-33b's 7 (14 / 2 heads of 32), minitron-4b's 3 (6 / 2 of
 32).  The variants are ``reduced(qwen2.5-3b)`` with ``norm="layernorm"``,
 ``rope_theta=0`` (learned positions) and ``tie_embeddings=True``, each
-alone and all together.  The widths d 7168 forces on the card (rmsnorm's
-``block`` route, the megakernel's ``cuda_core`` route) exist only there:
-``chip_smoke.py`` phase 2 holds them against their plain versions.
+alone and all together.  The routes d 7168 takes on the card (rmsnorm's
+``block`` route, the megakernel's ``tc`` route with its prologue in the
+block route's order) exist only there: ``chip_smoke.py`` phase 2 holds
+them against their plain versions.
 
 Tolerances: exit logits 1e-4 absolute and relative (three layers of f32
 matmuls summed in other orders, as ``tests/test_torch_model.py``);

@@ -6,7 +6,9 @@ interpret mode, as ``tests/test_torch_megakernel.py`` runs them) on the
 same numpy inputs:
 
 - the megakernel's ``tc`` route: ``ref.ref_exit_head_update_tc`` (the
-  warp-per-row norm rounded to bf16, the head product summed in f32 over
+  warp-per-row norm — past 16 16-byte chunks a lane, at d 4104 and
+  deepseek-coder-33b's 7168, the block route's order — rounded to bf16,
+  the head product summed in f32 over
   k16 steps, logits rounded to bf16, one partial per CTA over
   ``megakernel.plan``'s vocab ranges, merged in CTA order) against
   ``repro.kernels.ops.exit_head_fused``.  Tolerances: the integers
@@ -22,7 +24,11 @@ same numpy inputs:
   squares in load order, a xor tree over the lanes) against
   ``repro.kernels.ops.rmsnorm_fused``: bf16 within one bf16 ulp (the two
   sums differ in order and f32 rounding, which may move a product across
-  a bf16 rounding edge), f32 within 1e-6 relative (a few f32 ulps).
+  a bf16 rounding edge), f32 within 1e-6 relative (a few f32 ulps); and
+  its ``block`` route, ``ref.ref_rmsnorm_block`` (256 threads' strided
+  sums, each warp's xor tree, warp 0 over the 8 warp sums), the same way
+  (the tc route's prologue past the warp route has this order; the card
+  holds it bit for bit against the block kernel).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -73,12 +79,28 @@ TC_CASES = {
 def test_tc_emulator_matches_jax_megakernel(B, case):
     """d = 128 (8 k16 steps); V = 700, not a multiple of the 64-column
     tile (the last tile is partial)."""
+    _tc_case(B, case, 128)
+
+
+@pytest.mark.parametrize("d", [4104, 7168])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tc_emulator_matches_jax_megakernel_wide(B, case, d):
+    """Past the warp route: d 4104 (a whole number of 16-byte chunks,
+    not of 64-element K chunks) and deepseek-coder-33b's 7168, where the
+    tc prologue normalises in the block route's order; V = 700."""
+    _tc_case(B, case, d)
+
+
+def _tc_case(B, case, d):
     m, k, decay, bins, live_pat, n_ctas = TC_CASES[case]
-    d, V, n_m = 128, 700, 3
-    rng = np.random.default_rng(1000 * B + len(case))
+    V, n_m = 700, 3
+    rng = np.random.default_rng(1000 * B + len(case) + d - 128)
     h = rng.standard_normal((B, d)).astype(np.float32)
     w = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
-    head = (0.3 * rng.standard_normal((d, V))).astype(np.float32)
+    # logits of the same spread at every width
+    head = (0.3 * (128 / d) ** 0.5
+            * rng.standard_normal((d, V))).astype(np.float32)
     carry = (rng.integers(0, 2, B).astype(bool),
              rng.integers(0, V, B).astype(np.int32),
              rng.integers(0, n_m, B).astype(np.int32),
@@ -190,6 +212,17 @@ MK_ROUTES = {
                                _head(1032)[:, 4:], "cuda_core"),
     "h_rows_off_16_bytes": (torch.zeros(4, 260, dtype=torch.bfloat16)
                             [:, 4:], _head(1024), "cuda_core"),
+    # deepseek-coder-33b's exit head: a 7-stage ring beside 112 KB of rows
+    "deepseek_b4_d7168": (torch.zeros(4, 7168, dtype=torch.bfloat16),
+                          _head(32256, d=7168), "tc"),
+    "deepseek_b8_d7168": (torch.zeros(8, 7168, dtype=torch.bfloat16),
+                          _head(32256, d=7168), "tc"),
+    # 9-16 rows of 7168 take 224 KB of shared memory alone: no ring fits
+    "deepseek_b16_d7168": (torch.zeros(16, 7168, dtype=torch.bfloat16),
+                           _head(32256, d=7168), "cuda_core"),
+    # 16 rows of 4096 leave room for 6 stages
+    "b16_d4096": (torch.zeros(16, 4096, dtype=torch.bfloat16),
+                  _head(1024, d=4096), "tc"),
 }
 
 
@@ -201,14 +234,33 @@ def test_megakernel_route(case):
 
 def test_megakernel_route_follows_the_norm_weights():
     """Weights the warp-per-row norm cannot read (bf16 beside f16 rows)
-    keep the whole call on the CUDA-core route, whose norm then takes the
-    block route's arithmetic, as the unfused rmsnorm would."""
+    no longer move the call off the tc route: its prologue, like the
+    CUDA-core route's, then takes the block route's arithmetic, as the
+    unfused rmsnorm would on the same rows and weights."""
     h = torch.zeros(4, 256, dtype=torch.float16)
     head = _head(1024, torch.float16)
-    assert megakernel.route(h, head, torch.ones(256)) == "tc"
-    assert megakernel.route(h, head,
-                            torch.ones(256, dtype=torch.bfloat16)) \
-        == "cuda_core"
+    for w, norm in ((torch.ones(256), "warp"),
+                    (torch.ones(256, dtype=torch.bfloat16), "block")):
+        assert megakernel.route(h, head) == "tc"
+        assert rmsnorm.route(h, w) == norm
+
+
+@pytest.mark.parametrize("B,d,stages", [
+    (4, 2048, 8), (16, 2048, 8), (8, 4096, 8), (16, 3072, 8),
+    (16, 4096, 6), (1, 7168, 7), (8, 7168, 7), (9, 7168, 0),
+    (8, 10368, 4), (8, 10432, 0)])
+def test_tc_ring_depth(B, d, stages):
+    """8 stages wherever they fit beside the rows (every launch the route
+    took before it went past d 4096 keeps its depth), else as many as fit
+    under the 227 KB cap, and 0 — not on tc — below 4."""
+    assert megakernel.tc_stages(B, d) == stages
+    cap = megakernel._MAX_SMEM
+    if stages:
+        assert megakernel._tc_smem_bytes(B, d, stages) <= cap
+        assert stages == 8 or megakernel._tc_smem_bytes(B, d,
+                                                        stages + 1) > cap
+    else:
+        assert megakernel._tc_smem_bytes(B, d, 4) > cap
 
 
 NORM_ROUTES = {
@@ -243,6 +295,20 @@ def test_rmsnorm_route(case):
 @pytest.mark.parametrize("R", [1, 4, 37])
 @pytest.mark.parametrize("d", [64, 2048])
 def test_warp_rmsnorm_emulator_matches_jax_kernel(dtype, R, d):
+    _norm_case(ref.ref_rmsnorm_warp, dtype, R, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R", [1, 4, 8])
+@pytest.mark.parametrize("d", [300, 4104, 7168])
+def test_block_rmsnorm_emulator_matches_jax_kernel(dtype, R, d):
+    """The block route's order at widths past the warp route (4104,
+    deepseek-coder-33b's 7168) and one under a thread's second element
+    (300)."""
+    _norm_case(ref.ref_rmsnorm_block, dtype, R, d)
+
+
+def _norm_case(emulator, dtype, R, d):
     rng = np.random.default_rng(R * d)
     x = (3 * rng.standard_normal((R, d))).astype(np.float32)
     w = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
@@ -252,7 +318,7 @@ def test_warp_rmsnorm_emulator_matches_jax_kernel(dtype, R, d):
         jx, tx = jnp.asarray(x), torch.from_numpy(x)
     want = np.asarray(jops.rmsnorm_fused(jx, jnp.asarray(w), eps=1e-5),
                       np.float32)
-    got = ref.ref_rmsnorm_warp(tx, torch.from_numpy(w), 1e-5)
+    got = emulator(tx, torch.from_numpy(w), 1e-5)
     assert got.dtype == tx.dtype and got.shape == (R, d)
     got = got.float().numpy()
     if dtype == "bfloat16":

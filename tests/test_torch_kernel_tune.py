@@ -242,16 +242,16 @@ def test_sweep_rows_speedup_and_provenance(monkeypatch):
               "confidence": 1, "exit_update": 3, "megakernel": 3,
               "paged_gather": 1}),
     ("serving", {"decode_attention": 1, "flash_attention": 1, "rmsnorm": 4,
-                 "confidence": 4, "exit_update": 3, "megakernel": 6,
+                 "confidence": 4, "exit_update": 3, "megakernel": 3,
                  "paged_gather": 1})])
 def test_sweep_times_one_candidate_per_distinct_launch(monkeypatch, preset,
                                                        timed):
     """Candidates that make the same launch at every shape of the preset
-    are timed once, the default first: at the serving preset's B = 4 the
-    megakernel's rows 4 and 8 launch alike on the cuda_core shape and
-    tc_ctas does not reach it, rows does not reach the tc shape (3 x 2
-    launches of 9); the tiny preset's norm (warp route) and confidence (C
-    = 1 at V 2048) have one launch each."""
+    are timed once, the default first: at the serving preset's B = 4 both
+    megakernel shapes (d 2048 and deepseek-coder-33b's 7168) take the tc
+    route, which rows does not reach (3 launches of 9: one per tc_ctas);
+    the tiny preset's norm (warp route) and confidence (C = 1 at V 2048)
+    have one launch each."""
     monkeypatch.setattr(at, "_require_cuda", lambda device: torch.device(
         "cpu"))
     monkeypatch.setattr(at, "_sm_count", lambda device: 132)

@@ -492,7 +492,7 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
                                  device=cuda_device)).to(dt)
         hd[:, 77] = (ref.ref_rmsnorm(h[-1:], wd)[0].float() * 0.05).to(dt)
         cb = tuple(c[:1].expand(B).contiguous() for c in carry)
-        assert megakernel.route(h, hd, wd) == "tc"
+        assert megakernel.route(h, hd) == "tc"
         got = mk(h, wd, hd, *cb, **kw)
         want = ref.ref_exit_head_update(h, wd, hd, *cb, **kw)
         assert int(got[1][-1]) == int(want[1][-1]) == 77
