@@ -142,7 +142,21 @@ source, all at once).  Phases, each of which fails the run on a miss:
     decisions (one cohort; two with the megakernel), each on the default,
     the tuned and other non-default tiles with identical tokens and exit
     depths; and an install after a capture capturing again;
-17. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+17. slice 14, observability and the fleet tier: qwen2.5-3b at full width
+    on the device runtime (chunk 8, lane batch 4, 2 lanes, cache 512) —
+    the flight recorder off, on, on and off in turns with identical
+    streams, launches, routes, host syncs and captures, complete flights
+    on the host runtime and on the paged layout (block 16, 2 cohorts,
+    megakernel), the scrape, the metrics server over loopback and the
+    trace export, and the recorder-on / off µs per token ratio ("obs");
+    then two members on one set of weights ("fleet"): 16 dense requests
+    against one 4-lane engine, paged members with member 0 drained in
+    migrate mode mid-decode (no request or committed token lost, flights
+    on both members, the drain on the trace's fleet track, no block
+    held), and autotune members under a TelemetryAggregator whose pushes
+    capture nothing; and ``python -m repro_torch.launch.serve --fleet 2
+    --drain --obs --trace-out ... --runtime device`` in a subprocess;
+18. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -3882,6 +3896,516 @@ def phase_kernel_tune():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 14: observability and the fleet tier on the card
+# ---------------------------------------------------------------------------
+
+# the slice's serving cell: qwen2.5-3b at full width, the device runtime
+# (chunk 8), lane_batch 4, 2 lanes, cache_len 512; 8 requests of 128 / 256
+# prompt tokens and 32 new at (0.9, 0.9, 0.0)
+OBS_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+OBS_THRESHOLDS = (0.9, 0.9, 0.0)
+# the kernel backend a flight on the card records (the hand-written kernels)
+FLIGHT_BACKEND = "cuda"
+
+
+def qwen_full_width():
+    """qwen2.5-3b as registered (36 layers, d 2048, bf16, vocab 151936,
+    exits after layers 12 and 24), kernels on, cond_batch, with its seed-0
+    weights on the card: (config, model, params)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=OBS_THRESHOLDS)
+    model = build_model(base, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    return base, model, params
+
+
+def check_launch_total(tag, got, want):
+    """A launch count derived from the run's own records (the recorder's
+    prefill events, the engine's prefill counters)."""
+    if got != want:
+        fail(f"{tag}: {got} launches, the run's records give {want}")
+
+
+def check_device_runtime(tag, st, n_lanes):
+    """One host sync a lane chunk and one capture a lane (the recorder
+    and a threshold push add neither)."""
+    if st["host_syncs"] != st["decode_dispatches"]:
+        fail(f"{tag}: {st['host_syncs']} host syncs for "
+             f"{st['decode_dispatches']} lane chunks")
+    if st["captures"] != n_lanes:
+        fail(f"{tag}: {st['captures']} captures for {n_lanes} lanes")
+
+
+def check_flights(tag, flights, fin):
+    """Every finished request's flight is complete: queue_wait, admit, a
+    prefill, its chunks and exactly one ``exit`` terminal; the chunks'
+    token counts and exit components are the stream after its prefill
+    token; the flight records the card's kernels (``cuda``)."""
+    from repro_torch.obs.recorder import TERMINAL_KINDS
+    for rid, rec in fin.items():
+        f = flights.get(rid)
+        if f is None:
+            fail(f"{tag}: request {rid} has no flight")
+        names = [s["name"] for s in f["spans"]]
+        terms = [n for n in names if n in TERMINAL_KINDS]
+        chunks = [s["attrs"] for s in f["spans"] if s["name"] == "chunk"]
+        if (names[:2] != ["queue_wait", "admit"] or "prefill" not in names
+                or not chunks or terms != ["exit"]
+                or f["terminal"] != "exit"):
+            fail(f"{tag}: request {rid}'s flight is incomplete: {names}")
+        if (sum(c["tokens"] for c in chunks) != len(rec["tokens"]) - 1
+                or [e for c in chunks for e in c["exit_components"]]
+                != rec["exit_depths"][1:]):
+            fail(f"{tag}: request {rid}'s chunk spans differ from its "
+                 "stream")
+        if f["attrs"].get("kernel_backend") != FLIGHT_BACKEND:
+            fail(f"{tag}: request {rid} recorded kernel backend "
+                 f"{f['attrs'].get('kernel_backend')}")
+
+
+def check_prefill_flash(tag, cfg, launches, recorders):
+    """Flash attention launches once a layer for every prefill dispatch
+    whose length is a multiple of 128 (fresh 128- and 256-token prompts,
+    continuous admissions padded to a power of two) and never for any
+    other (a migrated request's prompt + committed prefix), as the
+    reference routes them: the recorders' prefill events give the
+    lengths."""
+    lens = [e["attrs"]["positions"] for rec in recorders
+            for e in rec.events.snapshot() if e["name"] == "lane_prefill"]
+    if any(rec.events.dropped for rec in recorders):
+        fail(f"{tag}: the event log dropped events")
+    check_launch_total(f"{tag} flash", launches["flash_attention"],
+                       cfg.n_layers * sum(n % 128 == 0 for n in lens))
+    return sorted(lens)
+
+
+def obs_endpoints(eng, fin):
+    """The scrape parses back, its exit-component counter sums to the
+    tokens served, and the metrics server answers over loopback; the
+    trace export validates."""
+    import tempfile
+    import urllib.request
+    from repro_torch.obs import (MetricsServer, export_trace,
+                                 parse_prometheus, trace_events)
+    samples = parse_prometheus(eng.scrape())
+    n_tok = sum(len(r["tokens"]) for r in fin.values())
+    exits = sum(s["value"] for s in samples
+                if s["name"] == "repro_exit_component_total")
+    if exits != n_tok:
+        fail(f"obs: repro_exit_component_total sums to {exits}, {n_tok} "
+             "tokens were served")
+    rid = min(fin)
+    with MetricsServer(0, eng.scrape, scrape_json=eng.scrape_json,
+                       flights=eng.flights, flight=eng.dump_flight,
+                       trace=lambda: trace_events([eng.flight])) as srv:
+        base = f"http://127.0.0.1:{srv.port}"
+
+        def get(path):
+            return urllib.request.urlopen(base + path, timeout=30).read()
+
+        served = parse_prometheus(get("/metrics").decode())
+        if {s["name"] for s in served} != {s["name"] for s in samples}:
+            fail("obs: /metrics serves other samples than scrape()")
+        as_json = json.loads(get("/metrics.json"))
+        flight = json.loads(get(f"/flights/{rid}"))
+        trace = json.loads(get("/trace"))["traceEvents"]
+    if (flight["rid"] != rid or flight["terminal"] != "exit"
+            or "repro_requests_finished_total" not in as_json):
+        fail(f"obs: the server answered {flight} / {sorted(as_json)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = export_trace(f"{tmp}/trace.json", [("engine", eng.flight)])
+    return {"samples": len(samples), "exit_component_total": exits,
+            "trace_events_served": len(trace),
+            "trace_events_exported": len(doc["traceEvents"]),
+            "port": srv.port}
+
+
+def phase_obs(base, model, params):
+    """Slice 14's recorder on the card.  (a) The device runtime with the
+    recorder off, on, on and off in turns, the 8 requests of phase 3 with
+    32 new tokens at (0.9, 0.9, 0.0): identical tokens and exits, launches
+    and routes, host syncs (one a lane chunk) and captures (one a lane),
+    the replays under sync debug mode "error" (:func:`make_engine`); the
+    recorder-on / off µs per token ratio of the medians (not gated: the
+    host's clock spreads ~2x between calls).  (b) The host runtime with
+    the recorder on: the device runtime's streams.  (c) The paged layout
+    (block 16, 2 cohorts, megakernel on), device runtime, recorder on.
+    Every flight complete; the scrape, the metrics server over loopback
+    and the trace export of (a)'s first recorder-on run."""
+    import statistics as stats_mod
+    t_phase = time.perf_counter()
+    reqs = make_requests(8, (128, 256), base.vocab_size, 32, seed=0)
+    n_lanes = OBS_ENGINE["n_lanes"]
+    runs = {False: [], True: []}
+    ref = endpoints = None
+    for obs in (False, True, True, False):
+        cfg = base.with_obs() if obs else base
+        eng = make_engine(cfg, model, params, runtime="device", **OBS_ENGINE)
+        fin, st, secs, launches = serve(cfg, model, params, reqs,
+                                        engine=eng)
+        tag = f"obs device runtime recorder={'on' if obs else 'off'}"
+        if any(len(r["tokens"]) != 32 for r in fin.values()) or len(fin) != 8:
+            fail(f"{tag}: not every request got its 32 tokens")
+        got = {"streams": _streams(fin), "launches": launches,
+               "routes": {k: st[k] for k in st if k.endswith("_routes")},
+               "segments": st["carried_segments_run"],
+               "host_syncs": st["host_syncs"], "captures": st["captures"]}
+        if ref is None:
+            ref = got
+        for key, what in got.items():
+            if what != ref[key]:
+                fail(f"{tag}: {key} differ from the recorder-off run's: "
+                     f"{what} against {ref[key]}")
+        check_device_runtime(tag, st, n_lanes)
+        check_launched(tag, launches, SLICE1)
+        if obs:
+            check_flights(tag, {f["rid"]: f for f in eng.flights()}, fin)
+            check_prefill_flash(tag, cfg, launches, [eng.flight])
+            if endpoints is None:
+                endpoints = obs_endpoints(eng, fin)
+        runs[obs].append({
+            "decode_us_per_token": st["wallclock_us_per_token"],
+            "tokens_per_s": sum(len(r["tokens"]) for r in fin.values())
+            / secs, "seconds": secs, "host_syncs": st["host_syncs"],
+            "decode_dispatches": st["decode_dispatches"],
+            "captures": st["captures"], "obs": st["obs"]})
+        del eng
+    med = {obs: stats_mod.median(r["decode_us_per_token"] for r in rr)
+           for obs, rr in runs.items()}
+    # (b) the host runtime, recorder on
+    cfg = base.with_obs()
+    eng = make_engine(cfg, model, params, runtime="host", **OBS_ENGINE)
+    fin, st, _, launches = serve(cfg, model, params, reqs, engine=eng)
+    if _streams(fin) != ref["streams"]:
+        fail("obs host runtime: its streams differ from the device "
+             "runtime's")
+    check_launched("obs host runtime", launches, SLICE1)
+    check_flights("obs host runtime", {f["rid"]: f for f in eng.flights()},
+                  fin)
+    host = {"decode_us_per_token": st["wallclock_us_per_token"],
+            "host_syncs_per_token": st["host_syncs_per_token"],
+            "obs": st["obs"]}
+    del eng
+    # (c) the paged layout, 2 cohorts, the megakernel, device runtime
+    cfg = paged_config(base.with_cascade(n_cohorts=2, cohort_layout="major")
+                       ).with_kernel_tune(megakernel=True).with_obs()
+    eng = make_engine(cfg, model, params, runtime="device", **OBS_ENGINE)
+    fin, st, _, launches = serve(cfg, model, params, reqs, engine=eng)
+    check_launched("obs paged", launches, SLICE1 | {"megakernel"})
+    check_flights("obs paged", {f["rid"]: f for f in eng.flights()}, fin)
+    paged_lens = check_prefill_flash("obs paged", cfg, launches,
+                                     [eng.flight])
+    if st["memory"]["blocks_used"]:
+        fail(f"obs paged: {st['memory']['blocks_used']} blocks still held")
+    paged = {"decode_us_per_token": st["wallclock_us_per_token"],
+             "captures": st["captures"], "host_syncs": st["host_syncs"],
+             "decode_dispatches": st["decode_dispatches"],
+             "prefill_lengths": paged_lens, "launches": launches,
+             "streams_equal_dense": _streams(fin) == ref["streams"],
+             "obs": st["obs"]}
+    del eng
+    emit({"phase": "obs", "config": "qwen2.5-3b", "n_layers": base.n_layers,
+          "dtype": base.dtype, "thresholds": list(OBS_THRESHOLDS),
+          "chunk": OBS_ENGINE["chunk"], "requests": 8, "max_new_tokens": 32,
+          "order": "off, on, on, off", "identical": True,
+          "recorder_off": runs[False], "recorder_on": runs[True],
+          "decode_us_per_token_median": {"off": med[False], "on": med[True]},
+          "on_over_off_us_per_token": med[True] / med[False],
+          "host_runtime": host, "paged": paged, "endpoints": endpoints,
+          "launches": ref["launches"],
+          "seconds": time.perf_counter() - t_phase})
+    return ref["launches"]
+
+
+def run_fleet(cfg, fleet, reqs, drain_after=None):
+    """Submit ``reqs`` to ``fleet`` and run it to the end, with the launch
+    counters zeroed before and read after; with ``drain_after``, member 0
+    drains in ``migrate`` mode after that many fleet ticks.  Returns
+    (seconds, launches, routes, the drain summary, the committed prefixes
+    member 0 held when it drained)."""
+    import torch
+    from repro_torch import kernels
+    for r in reqs:
+        fleet.submit(r)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, prefixes = None, {}
+    if drain_after is not None:
+        for _ in range(drain_after):
+            fleet.step()
+        prefixes = {s.request.rid: list(s.generated)
+                    for ln in fleet.members[0].lanes for s in ln["slots"]
+                    if not s.done and s.request is not None}
+        summary = fleet.drain(0, mode="migrate")
+    fleet.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    return seconds, launches, check_routes(cfg, launches), summary, prefixes
+
+
+def fleet_rates(fleet, seconds):
+    """The fleet's decode µs per token (its members' decode windows) and
+    tokens per second of wall clock."""
+    st = [m.stats() for m in fleet.members]
+    sec = sum(s["decode_seconds"] for s in st)
+    tok = sum(s["decode_tokens"] for s in st)
+    n_tok = sum(len(r["tokens"]) for r in fleet.finished.values())
+    return {"decode_us_per_token": 1e6 * sec / tok if tok else None,
+            "tokens_per_s": n_tok / seconds, "seconds": seconds,
+            "host_syncs": sum(s["host_syncs"] for s in st),
+            "decode_dispatches": sum(s["decode_dispatches"] for s in st),
+            "captures": [s["captures"] for s in st]}
+
+
+def phase_fleet(base, model, params):
+    """Slice 14's fleet on the card: two members built on one model and
+    one set of weights (the serve CLI's rule), device runtime.  (a) Dense,
+    one cohort: 16 requests (two members' worth of slots) served in full
+    with no migration and by both members, against one engine with 4
+    lanes on the same requests (the streams that agree are counted; a
+    request's prefill is padded to its lane's longest prompt, so its lane
+    mates can change its stream); the fleet's µs per token, tokens per
+    second and peak memory beside that engine's.  (b) Paged members
+    (block 16, 2 cohorts, megakernel on, recorder on): member 0 drains in
+    migrate mode after 3 ticks; every committed prefix kept, no token
+    discarded, every budget served, the sibling's replayed prefill > 0,
+    one terminal a member flight, migrated requests on both members, a
+    valid trace with the drain on the ``fleet`` track, no block held
+    after.  (c) Autotune members (32 bins, shadow every 4) under a
+    TelemetryAggregator, the 16 requests of (a): at least one resolve and one push, every
+    member's thresholds the fleet's, no capture after the first push, and
+    a member added afterwards starting at the fleet's vector.  Each run's
+    launches are checked by route."""
+    import torch
+    from repro_torch.fleet import FleetScheduler, TelemetryAggregator
+    from repro_torch.obs import validate_trace_events
+    t_phase = time.perf_counter()
+    out = {}
+
+    def members(cfg, n=2):
+        return [make_engine(cfg, model, params, runtime="device",
+                            **OBS_ENGINE) for _ in range(n)]
+
+    # (a) dense, one cohort, 16 requests
+    reqs16 = make_requests(16, (128, 256), base.vocab_size, 32, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = FleetScheduler(members(base))
+    secs, launches, routes, _, _ = run_fleet(base, fleet, reqs16)
+    peak_fleet = torch.cuda.max_memory_allocated()
+    fin = fleet.finished
+    if sorted(fin) != list(range(16)) or any(
+            len(r["tokens"]) != 32 or r["migrations"]
+            for r in fin.values()):
+        fail("fleet dense: not every request got its 32 tokens unmoved")
+    if {r["engine"] for r in fin.values()} != {0, 1}:
+        fail("fleet dense: one member served everything")
+    check_launched("fleet dense", launches, SLICE1)
+    dense = fleet_rates(fleet, secs)
+    for i, m in enumerate(fleet.members):
+        check_device_runtime(f"fleet dense member {i}", m.stats(),
+                             OBS_ENGINE["n_lanes"])
+    fleet_streams = _streams(fin)
+    placements = {rid: r["engine"] for rid, r in fin.items()}
+    out["dense"] = launches
+    del fleet
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lone_fin, lone_st, lone_secs, lone_launches = serve(
+        base, model, params, reqs16, runtime="device",
+        **{**OBS_ENGINE, "n_lanes": 4})
+    peak_lone = torch.cuda.max_memory_allocated()
+    lone_streams = _streams(lone_fin)
+    same = sorted(rid for rid in lone_streams
+                  if lone_streams[rid] == fleet_streams[rid])
+    lone = {"decode_us_per_token": lone_st["wallclock_us_per_token"],
+            "tokens_per_s": sum(len(r["tokens"]) for r in lone_fin.values())
+            / lone_secs, "seconds": lone_secs,
+            "lanes": {rid: r["lane"] for rid, r in lone_fin.items()}}
+    torch.cuda.empty_cache()
+
+    # (b) paged members, recorder on, a drain mid-decode
+    reqs8 = make_requests(8, (128, 256), base.vocab_size, 32, seed=0)
+    pcfg = paged_config(base.with_cascade(n_cohorts=2, cohort_layout="major")
+                        ).with_kernel_tune(megakernel=True).with_obs() \
+        .with_fleet(n_engines=2, drain_mode="migrate")
+    fleet = FleetScheduler(members(pcfg))
+    secs, launches, routes_b, summary, prefixes = run_fleet(
+        pcfg, fleet, reqs8, drain_after=3)
+    fin = fleet.finished
+    st = fleet.stats()
+    tag = "fleet paged drain"
+    if not summary["migrated"]:
+        fail(f"{tag}: the drain caught no request in flight: {summary}")
+    if sorted(fin) != list(range(8)) or any(len(r["tokens"]) != 32
+                                            for r in fin.values()):
+        fail(f"{tag}: not every request got its 32 tokens")
+    for rid, prefix in prefixes.items():
+        if fin[rid]["tokens"][:len(prefix)] != prefix:
+            fail(f"{tag}: request {rid} lost its committed prefix")
+    sib = fleet.members[1].stats()
+    if (st["discarded_tokens"] or 0 not in fleet.drained
+            or sib["escalation"]["prefill_positions_replayed"] <= 0):
+        fail(f"{tag}: discarded {st['discarded_tokens']}, drained "
+             f"{st['drained']}, replayed "
+             f"{sib['escalation']['prefill_positions_replayed']}")
+    for rid in fin:
+        fl = fleet.dump_flight(rid)
+        terms = [m["terminal"] for m in fl["members"]]
+        if any(t is None for t in terms):
+            fail(f"{tag}: request {rid} has a flight with no terminal")
+        want = (["migrate"] if rid in summary["completed"]
+                else ["migrate", "exit"] if rid in summary["migrated"]
+                else ["exit", "cancelled"] if rid in summary["requeued"]
+                else ["exit"])
+        if sorted(terms, reverse=True) != want:
+            fail(f"{tag}: request {rid}'s member flights end {terms}")
+        if rid in summary["migrated"] and {m["member"] for m in
+                                           fl["members"]} != {0, 1}:
+            fail(f"{tag}: migrated request {rid} is not on both members")
+    evs = fleet.trace_events()
+    validate_trace_events(evs, require_names=("drain",))
+    if not any(e["ph"] == "i" and e["name"] == "drain" and e["pid"] == 0
+               for e in evs):
+        fail(f"{tag}: the trace's fleet track holds no drain")
+    for i, m in enumerate(fleet.members):
+        if m.stats()["memory"]["blocks_used"]:
+            fail(f"{tag}: member {i} still holds blocks")
+    check_launched(tag, launches, SLICE1 | {"megakernel"})
+    prefill_lens = check_prefill_flash(tag, pcfg, launches,
+                                       [m.flight for m in fleet.members])
+    n_prefills = sum(m.stats()["prefills"] + m.stats()["slot_prefills"]
+                     for m in fleet.members)
+    check_launch_total(f"{tag} exit_update", launches["exit_update"],
+                       pcfg.cascade.n_components * n_prefills)
+    migrated = summary["migrated"]
+    drain = {**fleet_rates(fleet, secs), "summary": summary,
+             "committed": {rid: len(p) for rid, p in prefixes.items()},
+             "replayed_positions":
+                 sib["escalation"]["prefill_positions_replayed"],
+             "prefill_lengths": prefill_lens,
+             "trace_events": len(evs), "launches": launches,
+             "routes": routes_b, "events": st["events"]}
+    out["paged_drain"] = launches
+    del fleet
+    torch.cuda.empty_cache()
+
+    # (c) autotune members under a TelemetryAggregator
+    acfg = base.with_autotune(**AUTOTUNE)
+    ms = members(acfg)
+    agg = TelemetryAggregator(acfg, ms[0].mac_prefix, resolve_every=2,
+                              min_shadow=8, hysteresis=0.0)
+    fleet = FleetScheduler(ms, aggregator=agg)
+    from repro_torch import kernels
+    # 16 requests fill every slot: each lane of each member captures
+    for r in reqs16:
+        fleet.submit(r)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    caps_at_push = None
+    while fleet._tracked:
+        fleet.step()
+        if agg.pushes and caps_at_push is None:
+            caps_at_push = [m.loop.captures for m in ms]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    routes_c = check_routes(acfg, launches)
+    check_launched("fleet autotune", launches, SLICE1)
+    ths = fleet.current_thresholds()
+    if agg.resolves < 1 or agg.pushes < 1 or ths is None:
+        fail(f"fleet autotune: {agg.resolves} resolves, {agg.pushes} pushes")
+    if any(m.current_thresholds() != ths for m in ms):
+        fail("fleet autotune: a member's thresholds are not the fleet's")
+    caps = [m.loop.captures for m in ms]
+    if caps != caps_at_push:
+        fail(f"fleet autotune: captures {caps_at_push} at the first push, "
+             f"{caps} after")
+    for i, m in enumerate(ms):
+        check_device_runtime(f"fleet autotune member {i}", m.stats(),
+                             OBS_ENGINE["n_lanes"])
+    added = make_engine(acfg, model, params, runtime="device", **OBS_ENGINE)
+    idx = fleet.add_member(added)
+    f32 = [float(torch.tensor(t, dtype=torch.float32)) for t in ths]
+    if added.current_thresholds() != ths or any(
+            ln["state"].thresholds.tolist() != f32 for ln in added.lanes):
+        fail("fleet autotune: the added member did not start at the "
+             "fleet's thresholds")
+    autotune = {"resolves": agg.resolves, "pushes": agg.pushes,
+                "thresholds": list(ths), "captures": caps,
+                "added_member": idx, "launches": launches,
+                "routes": routes_c,
+                "per_member_shadow": agg.per_member_shadow(fleet)}
+    del fleet, ms, added
+    torch.cuda.empty_cache()
+    emit({"phase": "fleet", "config": "qwen2.5-3b",
+          "n_layers": base.n_layers, "dtype": base.dtype,
+          "thresholds": list(OBS_THRESHOLDS), "members": 2,
+          "engine": OBS_ENGINE,
+          "dense": {"requests": 16, "max_new_tokens": 32, **dense,
+                    "placements": placements,
+                    "max_memory_allocated": peak_fleet,
+                    "launches": out["dense"], "routes": routes},
+          "lone_4_lanes": {**lone, "max_memory_allocated": peak_lone,
+                           "launches": lone_launches},
+          "streams_equal_lone": len(same), "streams_equal_rids": same,
+          "fleet_over_lone_tokens_per_s":
+              dense["tokens_per_s"] / lone["tokens_per_s"],
+          "fleet_minus_lone_peak_bytes": peak_fleet - peak_lone,
+          "paged_drain": {"requests": 8, "max_new_tokens": 32,
+                          "migrated": migrated, **drain},
+          "autotune": autotune,
+          "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def phase_fleet_cli():
+    """``python -m repro_torch.launch.serve --arch qwen2.5-3b --runtime
+    device --fleet 2 --drain --obs --trace-out PATH --flight-dump 0
+    --max-new 32`` in a subprocess on the card: it must exit 0, its drain
+    migrate requests in flight (32 new tokens outlast the 3 ticks before
+    it) and its trace validate."""
+    import os
+    import re
+    import tempfile
+    from repro_torch.obs import validate_trace_events
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = f"{tmp}/trace.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "qwen2.5-3b", "--runtime", "device", "--fleet", "2",
+               "--drain", "--obs", "--trace-out", trace, "--flight-dump",
+               "0", "--max-new", "32"]
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"serve --fleet 2 exited {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+        with open(trace) as fh:
+            doc = json.load(fh)
+    validate_trace_events(doc["traceEvents"], require_names=("drain",))
+    fleet_line = [ln for ln in proc.stderr.splitlines()
+                  if "serve INFO: fleet:" in ln]
+    migrated = re.search(r"(\d+) migrations", fleet_line[-1]
+                         if fleet_line else "")
+    if migrated is None or int(migrated.group(1)) == 0:
+        fail(f"serve --fleet 2 --drain migrated nothing: {fleet_line}")
+    emit({"phase": "fleet_cli",
+          "command": " ".join(cmd[1:]).replace(trace, "TRACE"), "rc": 0,
+          "seconds": time.perf_counter() - t0,
+          "trace_events": len(doc["traceEvents"]),
+          "fleet_line": fleet_line[-1] if fleet_line else None})
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3958,6 +4482,14 @@ def main() -> int:
     minitron = phase_dense_full_width("minitron-4b", smi, megakernel=True)
     variants = phase_dense_variants()
     tuned = phase_kernel_tune()
+    # slice 14: the flight recorder and the fleet tier, the last phases
+    # before the kernels line
+    base, model, params = qwen_full_width()
+    phase_obs(base, model, params)
+    fleet = phase_fleet(base, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    phase_fleet_cli()
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -4058,6 +4590,13 @@ def main() -> int:
                      "launches_dense_variants": variants[name],
                      "launches_kernel_tune": {c: n[name]
                                               for c, n in tuned.items()},
+                     # slice 14's fleet paths, two qwen2.5-3b members on
+                     # the device runtime at (0.9, 0.9, 0.0): paged (block
+                     # 16, 2 cohorts, megakernel, recorder on) with member
+                     # 0 drained mid-decode, 8 requests x 32 tokens; and
+                     # dense with one cohort, 16 requests x 32 tokens
+                     "launches_fleet": fleet["paged_drain"][name],
+                     "launches_fleet_dense": fleet["dense"][name],
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

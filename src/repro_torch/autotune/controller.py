@@ -54,10 +54,13 @@ class ThresholdController:
 
     The "engine" the controller drives only needs the three-method surface
     ``lane_telemetry()`` / ``current_thresholds()`` / ``push_thresholds()``
+    — :class:`repro_torch.fleet.TelemetryAggregator` subclasses this
+    controller and attaches it to a whole
+    :class:`~repro_torch.fleet.FleetScheduler` through that surface
     (``source`` marks the artifacts it writes).
     """
 
-    # artifact provenance tag
+    # artifact provenance tag; the fleet aggregator overrides with "fleet"
     source = "engine"
 
     def __init__(self, cfg, mac_prefix, *, epsilon: Optional[float] = None,
@@ -183,6 +186,10 @@ class ThresholdController:
             res = solve_epsilon(hist, self.epsilon)
         self.resolves += 1
         self.last_result = res
+        # the recorder's event log (repro_torch.obs) of the engine or fleet:
+        # a resolve is recorded even when hysteresis holds the push, so the
+        # timeline shows why the thresholds stood still
+        obs_log = getattr(engine, "obs_events", None)
 
         cur = engine.current_thresholds()
         if (not force and cur is not None
@@ -191,11 +198,24 @@ class ThresholdController:
                        for a, b in zip(res.thresholds[:-1], cur[:-1]))
             if move < self.hysteresis:
                 self.skipped_small += 1
+                if obs_log is not None:
+                    obs_log.add("autotune_resolve", {
+                        "pushed": False, "reason": "hysteresis",
+                        "thresholds": [float(t) for t in res.thresholds],
+                        "agreement": float(res.agreement),
+                        "avg_macs": float(res.avg_macs)})
                 return None
         engine.push_thresholds(res.thresholds)
         self.pushes += 1
         self.thresholds = res.thresholds
         self.last_shadow = float(base["shadow_steps"])
+        if obs_log is not None:
+            obs_log.add("autotune_resolve", {
+                "pushed": True,
+                "thresholds": [float(t) for t in res.thresholds],
+                "agreement": float(res.agreement),
+                "avg_macs": float(res.avg_macs),
+                "shadow_steps": float(base["shadow_steps"])})
         log.info("pushed thresholds %s (%s=%s, agreement %.4f, avg MACs "
                  "%.3g, %d shadow obs)", res.thresholds, self.direction,
                  self.mac_budget or self.epsilon, res.agreement,

@@ -33,6 +33,10 @@ runtime chunk cancels the request at the deferring token; the slot leaves
 the engine's next chunk through the live mask the chunk loads, and the
 chunk's tail tokens stay counted as spent compute, as in the reference.
 
+A tier is also a fleet member (:mod:`repro_torch.fleet`) through its entry
+stage, and with the stages' flight recorders on, :meth:`ModelCascadeTier.
+dump_flight` returns a request's flight on every stage it touched.
+
 Parity corners (pinned by ``tests/test_torch_escalate.py``): escalation
 threshold 0.0 never defers — the tier is bit-identical to stage 0 alone;
 threshold 1.1 with stage 0's intra thresholds at the 1.1 never-exit
@@ -123,6 +127,66 @@ class ModelCascadeTier:
                                               order=self._order)
         self._order += 1
         self.engines[0].submit(req)
+
+    # -- fleet member surface --------------------------------------------
+    # A tier can be a FleetScheduler member beside plain engines: the fleet
+    # talks to a tier through its ENTRY stage (stage 0), where fresh
+    # traffic lands, queues and is admission-gated.  Deeper stages are
+    # internal to the tier (escalated requests carry committed prefixes
+    # the fleet must not requeue), so anything past the stage-0 queue
+    # counts as live.  A tier has no fleet ``cancel``: a drain of it
+    # degrades to "finish" mode.
+    @property
+    def cfg(self):
+        """The ENTRY stage's config: what fleet placement and the
+        aggregator's config_key check see."""
+        return self.engines[0].cfg
+
+    @property
+    def admitting(self) -> bool:
+        return self.engines[0].admitting
+
+    @admitting.setter
+    def admitting(self, value: bool) -> None:
+        self.engines[0].admitting = bool(value)
+
+    def free_slot_count(self) -> int:
+        return self.engines[0].free_slot_count()
+
+    def queued_count(self) -> int:
+        return self.engines[0].queued_count()
+
+    def live_rids(self) -> List[int]:
+        """Tracked rids past the entry queue: decoding on some stage, or
+        escalated (committed prefix held; never requeued by a fleet)."""
+        queued = {r.rid for r in self.engines[0].queue}
+        return [rid for rid in self._tracked if rid not in queued]
+
+    def take_queue(self) -> List[Request]:
+        """Fleet drain hook: remove and return the ENTRY queue's fresh
+        requests (nothing decoded yet) and untrack them, so that a
+        scheduler can requeue them to a sibling member.  Escalated
+        requests never sit in the stage-0 queue (escalation only moves
+        forward), so everything returned is an original submission."""
+        taken = self.engines[0].take_queue()
+        for req in taken:
+            self._tracked.pop(req.rid, None)
+        return taken
+
+    def lane_telemetry(self) -> List:
+        """The ENTRY stage's lane telemetry only: deeper stages run other
+        cascades (another mac_prefix, maybe route_final axes), so their
+        telemetry does not merge into a homogeneous fleet histogram —
+        cross-stage solving is the TierThresholdController's job."""
+        return self.engines[0].lane_telemetry()
+
+    def current_thresholds(self):
+        return self.engines[0].current_thresholds()
+
+    def push_thresholds(self, thresholds) -> None:
+        """Fleet-pushed thresholds land on the ENTRY stage (the cascade the
+        fleet's merged histogram describes)."""
+        self.engines[0].push_thresholds(thresholds)
 
     def set_escalation_threshold(self, stage: int, threshold: float):
         """Live escalation-threshold swap — plain data, like the engines'
@@ -233,6 +297,20 @@ class ModelCascadeTier:
         tr.escalations += 1
         tr.pending_regen = rejected if share else None
         self._escalations_total += 1
+        # flight recorder (repro_torch.obs): the source engine's flight
+        # already carries its terminal ("escalate" through cancel, or
+        # "exit" when the defer fired after a natural finish); stamp the
+        # routing context only the tier knows, and log the hop on the
+        # source engine's event track
+        flight = self.engines[stage].flight
+        if flight is not None:
+            flight.annotate(base.rid, {
+                "escalated_to_stage": stage + 1, "deferred_at": d,
+                "replayed": replayed, "committed": len(tr.committed)})
+            flight.on_event("escalate", {
+                "rid": base.rid, "from_stage": stage,
+                "to_stage": stage + 1, "deferred_at": d,
+                "replayed": replayed, "kept": share})
 
     def _base_request(self, tr: _TierRequest) -> Request:
         """The ORIGINAL submission (prompt/budget before any replay)."""
@@ -337,6 +415,17 @@ class ModelCascadeTier:
                 continue
             slack, d = max(donors)
             self.donate_blocks(d, s, min(self.donate_quantum, slack))
+
+    # -- observability (repro_torch.obs) ----------------------------------
+    def dump_flight(self, rid: int):
+        """Every stage's flight for ``rid`` (an escalated request shows one
+        per stage it touched), or None when no stage recorded it."""
+        out = []
+        for k, eng in enumerate(self.engines):
+            d = eng.dump_flight(rid)
+            if d is not None:
+                out.append({"stage": k, **d})
+        return out or None
 
     # -- metrics ---------------------------------------------------------
     def stats(self) -> dict:

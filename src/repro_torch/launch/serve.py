@@ -5,7 +5,7 @@ engine.
         --smoke --requests 8 --max-new 8 --threshold 0.5 \\
         --cache-layout paged --cohorts 2 --exit-mode cond_batch
 
-The single-engine path of the JAX package's ``launch/serve.py``, with its
+The counterpart of the JAX package's ``launch/serve.py``, with its
 flags.  Runs on CUDA unless ``--device cpu``.  The hot ops always take the
 port's hand-written kernels (``cfg.use_kernels``; on the CPU their wrappers
 take the plain versions).  ``--runtime device --chunk K`` decodes K tokens
@@ -22,10 +22,20 @@ vocabulary); stage-0 final-component answers below
 ``--escalate-threshold`` defer to stage 1, and with ``--autotune`` a
 :class:`~repro_torch.escalate.TierThresholdController` solves and pushes
 both stages' thresholds and the escalation threshold.  The tier path ends
-with a one-line JSON summary on standard output.  Weights are random,
-drawn from ``torch.Generator(...).manual_seed(s)`` for stage s.  The flags
-of later slices (fleets, observability) are accepted and refused with an
-error naming the slice.
+with a one-line JSON summary on standard output.  ``--fleet N`` serves a
+:class:`~repro_torch.fleet.FleetScheduler` over N engines sharing one
+set of weights (with ``--autotune``, one
+:class:`~repro_torch.fleet.TelemetryAggregator` instead of per-engine
+controllers); ``--drain`` drains member 0 in ``migrate`` mode three fleet
+ticks in.  ``--obs`` turns on the flight recorder; ``--metrics-port P``
+serves ``/metrics``, ``/metrics.json``, ``/flights`` and ``/trace`` on
+127.0.0.1:P for one round-tripped scrape, ``--trace-out PATH`` writes the
+recording as Chrome trace-event JSON and ``--flight-dump RID`` logs one
+request's span tree (each implies ``--obs``).  Weights are random, drawn
+from ``torch.Generator(...).manual_seed(s)`` for stage s.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --smoke --device cpu --fleet 2 --drain --obs --trace-out trace.json
 """
 from __future__ import annotations
 
@@ -115,32 +125,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stage-0 escalation threshold: final-component "
                          "answers below it defer to stage 1 (0.0 never, "
                          "1.1 always)")
-    # flags of later slices: parsed, then refused by name
-    ap.add_argument("--fleet", type=int, default=1)
-    ap.add_argument("--drain", action="store_true")
-    ap.add_argument("--obs", action="store_true")
-    ap.add_argument("--metrics-port", type=int, default=None)
-    ap.add_argument("--flight-dump", type=int, default=None, metavar="RID")
-    ap.add_argument("--trace-out", default=None, metavar="PATH")
+    ap.add_argument("--fleet", type=int, default=1,
+                    help="> 1 serves a FleetScheduler over this many engine "
+                         "replicas sharing one set of weights: depth/load-"
+                         "aware placement, and with --autotune one "
+                         "TelemetryAggregator solving the merged fleet "
+                         "telemetry instead of per-engine controllers")
+    ap.add_argument("--drain", action="store_true",
+                    help="fleet: drain engine 0 (mode migrate) three ticks "
+                         "into the run — queued work requeues, in-flight "
+                         "committed prefixes replay into a sibling, and "
+                         "every request must still finish")
+    ap.add_argument("--obs", action="store_true",
+                    help="the flight recorder: a bounded per-request span "
+                         "tree assembled at the existing host syncs (no "
+                         "extra sync, no capture)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve /metrics (Prometheus text), /metrics.json, "
+                         "/flights and /trace on 127.0.0.1:<port> and "
+                         "round-trip one scrape before exiting (0 picks a "
+                         "free port); implies --obs")
+    ap.add_argument("--flight-dump", type=int, default=None, metavar="RID",
+                    help="after the run, log this request's span tree as "
+                         "JSON; implies --obs")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="after the run, write the recording as Chrome "
+                         "trace-event JSON (Perfetto, chrome://tracing); "
+                         "implies --obs")
     return ap
-
-
-def _refuse_later_slices(args) -> None:
-    later = []
-    if args.fleet > 1 or args.drain:
-        later.append("--fleet/--drain (the fleet slice)")
-    if (args.obs or args.metrics_port is not None
-            or args.flight_dump is not None or args.trace_out):
-        later.append("--obs/--metrics-port/--flight-dump/--trace-out (the "
-                     "observability slice)")
-    if later:
-        raise SystemExit("not ported yet (later slices of the port): "
-                         + "; ".join(later))
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    _refuse_later_slices(args)
+    if (args.metrics_port is not None or args.flight_dump is not None
+            or args.trace_out):
+        args.obs = True
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -162,8 +181,16 @@ def main(argv=None) -> dict:
         cfg = cfg.with_paged_cache(layout="paged",
                                    block_size=args.block_size,
                                    num_blocks=args.num_blocks)
+    if args.obs:
+        cfg = cfg.with_obs()
     if escalate:
+        if args.fleet > 1:
+            raise SystemExit("--fleet combines with plain engines; to "
+                             "fleet escalation tiers build them "
+                             "programmatically (repro_torch.fleet)")
         return _serve_tier(args, cfg, device)
+    if args.fleet > 1 or args.drain:
+        return _serve_fleet(args, cfg, device)
     model = build_model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     controller = None
@@ -208,9 +235,131 @@ def main(argv=None) -> dict:
                  mem["reclaimed_by_exit"], mem["reclaimed_at_retire"],
                  stats["admission_wait_mean"] or 0.0,
                  stats["slot_prefills"])
+    if args.obs:
+        lat = stats["latency"]
+        log.info("latency: admission %s ticks, e2e %s s",
+                 json.dumps(lat["admission_wait_ticks"]),
+                 json.dumps(lat["e2e_seconds"]))
+        _obs_wrapup(args, scrape_text=engine.scrape,
+                    scrape_json=engine.scrape_json,
+                    recorders=[("engine", engine.flight)],
+                    dump=engine.dump_flight, flights=engine.flights)
     if stats["requests_finished"] != args.requests:
         raise SystemExit(f"finished {stats['requests_finished']} of "
                          f"{args.requests} requests")
+    return stats
+
+
+def _obs_wrapup(args, *, scrape_text, scrape_json=None, recorders=(),
+                extra_events=None, dump=None, flights=None):
+    """The --metrics-port / --trace-out / --flight-dump epilogue.
+
+    The metrics server round-trips one scrape through a loopback socket
+    (the text must parse back), the trace export validates against the
+    Chrome trace-event schema before it is written, and the flight dump
+    logs one request's span tree."""
+    from repro_torch.obs import (MetricsServer, export_trace,
+                                 parse_prometheus, trace_events)
+    if args.metrics_port is not None:
+        from urllib.request import urlopen
+        with MetricsServer(args.metrics_port, scrape_text,
+                           scrape_json=scrape_json,
+                           flights=flights, flight=dump,
+                           trace=(lambda: trace_events(
+                               recorders, extra_events=extra_events))
+                           if recorders else None) as srv:
+            body = urlopen(f"http://127.0.0.1:{srv.port}/metrics",
+                           timeout=10).read().decode()
+            samples = parse_prometheus(body)
+            log.info("metrics: %d samples served on port %d "
+                     "(scrape round trip OK)", len(samples), srv.port)
+    if args.trace_out:
+        recs = [(n, r) for n, r in recorders if r is not None]
+        if recs or extra_events:
+            doc = export_trace(args.trace_out, recs,
+                               extra_events=extra_events)
+            log.info("trace: %d events -> %s",
+                     len(doc["traceEvents"]), args.trace_out)
+        else:
+            log.warning("trace: nothing recorded (pass --obs)")
+    if args.flight_dump is not None and dump is not None:
+        fl = dump(args.flight_dump)
+        if fl is None:
+            log.warning("flight %d: not recorded (evicted, or recorder "
+                        "off)", args.flight_dump)
+        else:
+            log.info("flight %d: %s", args.flight_dump,
+                     json.dumps(fl, indent=2, default=str))
+
+
+def _serve_fleet(args, cfg, device) -> dict:
+    """An N-engine fleet (:mod:`repro_torch.fleet`): one scheduler, one
+    merged solve.
+
+    The replicas share ONE set of weights: fleet placement moves requests
+    between engines, so migrated streams are only exact when every member
+    computes the same function (replicas serving one checkpoint)."""
+    from repro_torch.fleet import FleetScheduler, TelemetryAggregator
+
+    n_engines = max(2, args.fleet)
+    cfg = cfg.with_fleet(n_engines=n_engines, drain_mode="migrate")
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    members = [CascadeServingEngine(cfg, model, params,
+                                    lane_batch=args.lane_batch,
+                                    n_lanes=args.lanes,
+                                    cache_len=args.cache_len,
+                                    runtime=args.runtime, chunk=args.chunk,
+                                    device=device)
+               for _ in range(n_engines)]
+    aggregator = None
+    if args.autotune:
+        aggregator = TelemetryAggregator(
+            cfg, segment_macs_per_token(cfg, args.cache_len),
+            # smoke runs are dozens of ticks: resolve early so the merged
+            # solve and its fan-out push run
+            resolve_every=8 if args.smoke else None,
+            min_shadow=4 if args.smoke else None,
+            artifact_dir=args.artifacts)
+    fleet = FleetScheduler(members, aggregator=aggregator)
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        fleet.submit(Request(
+            rid=i,
+            prompt=rng.integers(0, cfg.vocab_size,
+                                args.prompt_len).astype(np.int32),
+            max_new_tokens=args.max_new))
+    if args.drain:
+        for _ in range(3):
+            fleet.step()
+        summary = fleet.drain(0, mode="migrate")
+        log.info("drain(0): %s", json.dumps(summary))
+    fleet.run()
+    stats = fleet.stats()
+    log.info("fleet: %d members, %d finished (%d placements, %d "
+             "migrations, %d requeues, %d tokens discarded), drained %s",
+             stats["n_members"], stats["requests_finished"],
+             stats["placements"], stats["migrations"], stats["requeues"],
+             stats["discarded_tokens"], stats["drained"])
+    for i, ms in enumerate(stats["members"]):
+        log.info("member %d: %s", i, json.dumps(ms, default=str))
+    if args.autotune:
+        log.info("aggregator: thresholds %s, %s",
+                 fleet.current_thresholds(),
+                 json.dumps(stats["aggregator"], default=str))
+    if args.obs:
+        log.info("fleet events: %s", json.dumps(stats["events"]))
+        _obs_wrapup(args, scrape_text=fleet.scrape,
+                    scrape_json=fleet.scrape_json,
+                    recorders=fleet._recorders(),
+                    extra_events=fleet.events.snapshot(),
+                    dump=fleet.dump_flight)
+    if stats["requests_finished"] != args.requests:
+        raise SystemExit(f"finished {stats['requests_finished']} of "
+                         f"{args.requests} requests")
+    if stats["discarded_tokens"]:
+        raise SystemExit("a same-config migration discarded "
+                         f"{stats['discarded_tokens']} committed tokens")
     return stats
 
 
@@ -247,6 +396,8 @@ def _serve_tier(args, cfg0, device) -> dict:
         cfg1 = cfg1.with_paged_cache(layout="paged",
                                      block_size=args.block_size,
                                      num_blocks=args.num_blocks)
+    if args.obs:
+        cfg1 = cfg1.with_obs()
     engines = []
     for s, cfg in enumerate((cfg0, cfg1)):
         model = build_model(cfg, device=device)
@@ -293,6 +444,21 @@ def _serve_tier(args, cfg0, device) -> dict:
     if args.autotune:
         log.info("tier controller: %s",
                  json.dumps(stats["controller"], default=str))
+    if args.obs:
+        from repro_torch.obs import MetricsRegistry, engine_metrics_into
+
+        def _tier_scrape(as_json=False):
+            reg = MetricsRegistry()
+            for s, e in enumerate(tier.engines):
+                engine_metrics_into(reg, e, {"stage": str(s)})
+            return reg.render_json() if as_json else reg.render_text()
+
+        _obs_wrapup(args, scrape_text=_tier_scrape,
+                    scrape_json=lambda: _tier_scrape(as_json=True),
+                    recorders=[(f"stage{s}", e.flight)
+                               for s, e in enumerate(tier.engines)
+                               if e.flight is not None],
+                    dump=tier.dump_flight)
     print(json.dumps({
         "requests_finished": stats["requests_finished"],
         "escalations_total": stats["escalations_total"],

@@ -60,11 +60,27 @@ engine through :meth:`cancel` (retire a live request at its defer point,
 or drop a queued one) and re-submits deferred requests tagged with
 ``extra["escalation"]``; the engine attributes their replayed prompt
 prefix to the escalation window of :meth:`stats` (``"escalation"``), not
-to fresh traffic.  :meth:`free_slot_count`, :meth:`queued_count`,
-:meth:`live_rids` and :meth:`take_queue` are the surface a scheduler in
-front of several engines reads.  Mesh sharding and
-the observability recorder come in later slices of the port and are
-refused here.
+to fresh traffic.
+
+Fleet members (:mod:`repro_torch.fleet`): :meth:`free_slot_count`,
+:meth:`queued_count`, :meth:`live_rids` and :meth:`take_queue` are the
+surface a scheduler in front of several engines reads, the ``admitting``
+gate stops admission for a drain, and ``cancel(..., reason="migrate")``
+hands a live request's committed prefix to a sibling.
+
+Observability (``cfg.obs.enabled``, :mod:`repro_torch.obs`): a
+:class:`~repro_torch.obs.recorder.FlightRecorder` files each request's
+spans (queue wait, admit, prefill, chunks, one terminal) from data the
+engine already holds on the host at its sync points — the result of a host
+tick's fetch, a device-runtime chunk's one fetch (``DecodeChunk``), the
+host mirror of ``segments_run`` — and host clocks around them; it reads no
+CUDA tensor, so it adds no host sync and no capture.  Its flights carry
+the port's kernel provenance: ``kernel_backend`` is ``"cuda"`` (the
+hand-written kernels), ``"torch-cpu"`` (their plain versions) or
+``"off"``, where the reference records ``"interpret"`` or ``"compiled"``
+(the Pallas interpreter or Mosaic).  :meth:`scrape` renders the reference's
+Prometheus metric names.  Mesh sharding comes in a later slice of the port
+and is refused here.
 """
 from __future__ import annotations
 
@@ -85,10 +101,16 @@ from repro_torch.core.macs import segment_macs_per_token
 from repro_torch.kernels.autotune import ensure_tuned
 from repro_torch.models import nn
 from repro_torch.models.model import CascadeModel
+from repro_torch.obs.metrics import MetricsRegistry, engine_metrics_into
+from repro_torch.obs.recorder import FlightRecorder
 from repro_torch.serving.batching import DepthCompactor, cohort_capacity
 from repro_torch.serving.paged import PagedCascadeCache
 from repro_torch.serving.runtime import DeviceDecodeLoop, kernel_provenance
 from repro_torch.utils import quantiles, resolve_device
+
+# flight-recorder process naming (trace tracks, fleet scrape labels):
+# engines number themselves in construction order
+_ENGINE_SEQ = itertools.count()
 
 
 @dataclasses.dataclass
@@ -117,15 +139,10 @@ def _escalation_extra(req: Request) -> Optional[dict]:
     return esc if isinstance(esc, dict) else None
 
 
-def _refuse_unported(cfg: ModelConfig, mesh) -> None:
-    later = []
+def _refuse_unported(mesh) -> None:
     if mesh is not None:
-        later.append("mesh sharding")
-    if cfg.obs.enabled:
-        later.append("the observability flight recorder")
-    if later:
         raise NotImplementedError(
-            "not ported yet (later slices of the port): " + ", ".join(later))
+            "not ported yet (a later slice of the port): mesh sharding")
 
 
 def _spread(log) -> Optional[dict]:
@@ -157,7 +174,7 @@ class CascadeServingEngine:
         if runtime not in ("host", "device"):
             raise ValueError(
                 f"runtime must be 'host' or 'device', got {runtime!r}")
-        _refuse_unported(cfg, mesh)
+        _refuse_unported(mesh)
         if autotune is not None and autotune is not False \
                 and not cfg.autotune.enabled:
             raise ValueError(
@@ -171,6 +188,14 @@ class CascadeServingEngine:
         self.cfg = cfg
         self.model = model
         self.params = params
+        # flight recorder (repro_torch.obs): host bookkeeping at the
+        # existing sync points, so it can neither capture nor change streams
+        self.flight = None
+        self._provenance = None
+        if cfg.obs.enabled:
+            self.flight = FlightRecorder.from_config(
+                cfg.obs, name=f"engine{next(_ENGINE_SEQ)}")
+            self._provenance = kernel_provenance(cfg, self.device)
         # tuned kernel tiles install before anything runs or is captured
         if cfg.kernel_tune.enabled:
             ensure_tuned(cfg, device=self.device)
@@ -214,6 +239,9 @@ class CascadeServingEngine:
             self.lanes.append(lane)
         self.queue: List[Request] = []
         self.finished: Dict[int, dict] = {}
+        # admission gate (a fleet drain): False stops step() admitting
+        # while the in-flight slots decode on to exit or budget
+        self.admitting = True
         # admission-latency accounting (ticks between submit and admit) and
         # lanes whose block tables changed since their state last synced
         self._tick = 0
@@ -314,6 +342,8 @@ class CascadeServingEngine:
     def submit(self, req: Request):
         self._submit_tick.setdefault(req.rid, self._tick)
         self.queue.append(req)
+        if self.flight is not None:
+            self.flight.on_submit(req.rid, self._tick)
 
     def free_slot_count(self) -> int:
         """Slots a placement could admit into right now (all lanes)."""
@@ -334,17 +364,37 @@ class CascadeServingEngine:
         taken, self.queue = self.queue, []
         for req in taken:
             self._submit_tick.pop(req.rid, None)
+            if self.flight is not None:
+                # the rid leaves without being admitted: its flight ends
+                # here (the engine that takes it records a new one)
+                self.flight.on_finish(req.rid, "cancelled",
+                                      {"queued": True, "reason": "requeue",
+                                       "n_tokens": 0})
         return taken
 
     def _predict_depth(self, req: Request) -> float:
         hint = (req.extra or {}).get("predicted_depth")
         return self.compactor.predict_depth(hint)
 
-    def _record_admit(self, req: Request):
+    def _record_admit(self, req: Request, lane_id: int, slot_idx: int,
+                      depth: float):
         sub = self._submit_tick.pop(req.rid, self._tick)
-        self._admit_waits.append(self._tick - sub)
-        if _escalation_extra(req) is not None:
+        wait = self._tick - sub
+        self._admit_waits.append(wait)
+        esc = _escalation_extra(req)
+        if esc is not None:
             self._escalated_admitted += 1
+        if self.flight is not None:
+            attrs = dict(self._provenance)
+            if esc is not None:
+                attrs["escalated_from"] = esc.get("rid")
+                attrs["replayed"] = esc.get("replayed")
+                attrs["migrated"] = bool(esc.get("migrated"))
+            self.flight.on_admit(
+                req.rid, lane=lane_id, slot=slot_idx,
+                cohort=slot_idx // max(1, self.lane_batch // self.cohorts),
+                predicted_depth=float(depth), wait_ticks=wait,
+                tick=self._tick, attrs=attrs)
 
     def _replayed_len(self, req: Request) -> int:
         """Trailing prompt tokens another stage already decoded (0 for
@@ -397,7 +447,7 @@ class CascadeServingEngine:
             self._claim(lane["slots"][slot_idx], req)
             # the cache is shared per lane: admission re-prefills the lane
             lane["dirty"] = True
-            self._record_admit(req)
+            self._record_admit(req, lane_id, slot_idx, depth)
 
     # -- paged admission --------------------------------------------------
     def _free_per_cohort(self, lane) -> List[int]:
@@ -514,7 +564,7 @@ class CascadeServingEngine:
             self._claim(lane["slots"][slot_idx], req)
             lane["dirty"] = True
             self.queue.pop(0)
-            self._record_admit(req)
+            self._record_admit(req, lane_id, slot_idx, depth)
 
     def _admit_continuous(self, lane_id: int, req: Request, depth: float):
         """Prefill ``req`` into a single freed slot of a live lane.
@@ -535,7 +585,7 @@ class CascadeServingEngine:
         slot_idx = self.compactor.pick_slot(
             depth, free_slots, self.lane_batch, self.cohorts,
             free_per_cohort=self._free_per_cohort(lane))
-        self._record_admit(req)
+        self._record_admit(req, lane_id, slot_idx, depth)
         ok = self.pcache.alloc_slot(lane_id, slot_idx, t0 - P_pad,
                                     t0 + req.max_new_tokens)
         assert ok, "continuous admission raced the feasibility check"
@@ -571,6 +621,9 @@ class CascadeServingEngine:
         self._prefill_seconds += dt_pre
         self._slot_prefills += 1
         self._account_prefill(req, dt_pre, P_pad)
+        if self.flight is not None:
+            self.flight.on_prefill(lane_id, t_pre, dt_pre, [req.rid],
+                                   [req.rid], P_pad)
         # merge the B = 1 prefill decision into the lane's carried state:
         # it seeds the stateful-measure streak as a whole-lane prefill does
         if state.policy is not None and d.state is not None:
@@ -595,7 +648,7 @@ class CascadeServingEngine:
             self._retire(s, lane_id, slot_idx)
 
     def _retire(self, s: _Slot, lane_id: int, slot_idx: int,
-                escalated: bool = False):
+                escalated: bool = False, reason: str = "escalate"):
         s.done = True
         self.finished[s.request.rid] = {
             "tokens": list(s.generated),
@@ -604,6 +657,19 @@ class CascadeServingEngine:
             "lane": lane_id,
             "escalated": escalated,
         }
+        if self.flight is not None:
+            ds = np.asarray(s.exit_depths, np.int64)
+            self.flight.on_finish(
+                s.request.rid, reason if escalated else "exit", {
+                    "n_tokens": len(s.generated),
+                    "exit_component_last": int(ds[-1]) if ds.size else None,
+                    "mean_exit_depth": (float(ds.mean()) if ds.size
+                                        else None),
+                    "macs": (float(np.sum(np.asarray(self.mac_prefix)[ds]))
+                             if ds.size else 0.0),
+                    "lane": lane_id,
+                    "slot": slot_idx,
+                })
         self.compactor.observe_retire(lane_id)
         if self.paged:
             # skip-aware reclamation at the first host sync after the slot
@@ -613,12 +679,14 @@ class CascadeServingEngine:
             self.pcache.release_slot(lane_id, slot_idx, max_exit_depth=md)
             self._tables_stale.add(lane_id)
 
-    def cancel(self, rid: int, keep: Optional[int] = None
-               ) -> Optional[dict]:
+    def cancel(self, rid: int, keep: Optional[int] = None,
+               reason: str = "escalate") -> Optional[dict]:
         """Retire request ``rid`` early, keeping only its first ``keep``
-        generated tokens (None = all): the escalation tier's defer hook,
-        called between engine ticks.  Returns the finished record (its
-        ``escalated`` flag set), or None if ``rid`` is not known here.
+        generated tokens (None = all): the escalation tier's defer hook and
+        a fleet drain's migration hook (``reason="migrate"``, the terminal
+        its flight records), called between engine ticks.  Returns the
+        finished record (its ``escalated`` flag set), or None if ``rid`` is
+        not known here.
 
         A live slot retires through the ordinary path: it leaves the next
         dispatch's active mask (under the device runtime, through the live
@@ -637,7 +705,8 @@ class CascadeServingEngine:
                     s.exit_depths = s.exit_depths[:keep]
                     s.confs = s.confs[:keep]
                 self._cancelled_for_escalation += 1
-                self._retire(s, lane_id, slot_idx, escalated=True)
+                self._retire(s, lane_id, slot_idx, escalated=True,
+                             reason=reason)
                 return self.finished[rid]
         for qi, req in enumerate(self.queue):
             if req.rid != rid:
@@ -647,6 +716,11 @@ class CascadeServingEngine:
             self.finished[rid] = {"tokens": [], "exit_depths": [],
                                   "confs": [], "lane": None,
                                   "escalated": True}
+            if self.flight is not None:
+                # never admitted: "cancelled" whatever the reason
+                self.flight.on_finish(rid, "cancelled",
+                                      {"queued": True, "reason": reason,
+                                       "n_tokens": 0})
             return self.finished[rid]
         return None
 
@@ -714,6 +788,12 @@ class CascadeServingEngine:
         # admitted escalated requests riding in it
         for s in fresh_admits:
             self._account_prefill(s.request, dt_pre, self.lane_batch * S)
+        if self.flight is not None:
+            # before the slot loop below, which may retire flights
+            self.flight.on_prefill(
+                lane_id, t_pre, dt_pre,
+                [s.request.rid for s in slots if not s.done],
+                [s.request.rid for s in fresh_admits], S)
         self._set_state(lane, state)
         lane["t"] = S
         for i, s in enumerate(slots):
@@ -734,7 +814,8 @@ class CascadeServingEngine:
         token per live lane (``runtime="host"``) or up to ``chunk`` tokens
         per lane in one dispatch (``runtime="device"``)."""
         self._tick += 1
-        self._admit()
+        if self.admitting:
+            self._admit()
         for lane_id, lane in enumerate(self.lanes):
             if all(s.done for s in lane["slots"]):
                 continue
@@ -780,15 +861,48 @@ class CascadeServingEngine:
         # report what the caller pushed, not its f32 rounding (the 1.1
         # never-exit sentinel must round-trip exactly)
         self._live_thresholds = pushed
+        if self.flight is not None:
+            self.flight.on_event("threshold_push",
+                                 {"thresholds": list(pushed),
+                                  "tick": self._tick})
+
+    # -- observability surface (repro_torch.obs) --------------------------
+    @property
+    def obs_events(self):
+        """The engine-level event log (None with the recorder off): where
+        a ThresholdController records its resolves."""
+        return self.flight.events if self.flight is not None else None
+
+    def dump_flight(self, rid: int) -> Optional[dict]:
+        """One request's span tree (live or from the done ring), or None
+        if unknown, evicted from the ring or the recorder is off."""
+        return self.flight.dump(rid) if self.flight is not None else None
+
+    def flights(self, include_live: bool = False) -> List[dict]:
+        return (self.flight.flights(include_live)
+                if self.flight is not None else [])
 
     def latency_stats(self) -> dict:
         """p50/p95/p99 latency summaries: ``admission_wait_ticks`` from
-        the window counter (it resets with :meth:`reset_metrics`); the
-        reference's recorder-fed distributions are None (the observability
-        slice)."""
-        return {"admission_wait_ticks": quantiles(self._admit_waits),
-                "e2e_seconds": None, "per_token_seconds": None,
-                "macs_per_request": None, "tokens_per_request": None}
+        the window counter (it resets with :meth:`reset_metrics`), the rest
+        from the recorder's lifetime reservoirs (None with it off)."""
+        out = {"admission_wait_ticks": quantiles(self._admit_waits)}
+        if self.flight is not None:
+            lat = self.flight.latency()
+            lat.pop("admission_wait_ticks", None)
+            out.update(lat)
+        else:
+            out.update({"e2e_seconds": None, "per_token_seconds": None,
+                        "macs_per_request": None,
+                        "tokens_per_request": None})
+        return out
+
+    def scrape(self) -> str:
+        """Prometheus text exposition of this engine's metrics."""
+        return engine_metrics_into(MetricsRegistry(), self).render_text()
+
+    def scrape_json(self) -> dict:
+        return engine_metrics_into(MetricsRegistry(), self).render_json()
 
     def _account(self, lane_id: int, depths: np.ndarray, n_tokens: int,
                  ran: np.ndarray, steps: int, max_depths):
@@ -845,6 +959,15 @@ class CascadeServingEngine:
         lane["t"] += 1
         depths = exit_idx[live]
         ran = state.segments_run - run_before
+        if self.flight is not None:
+            # the chunk span lands before the slot loop below, which may
+            # retire flights
+            self.flight.on_chunk(
+                lane_id, t0, dt, 1,
+                [(s.request.rid, [int(tok[i])], [int(exit_idx[i])],
+                  [float(conf[i])])
+                 for i, s in enumerate(lane["slots"]) if not s.done],
+                compiled=not warm, segments_run=ran)
         if warm:
             # the warm-up dispatch is excluded from every window metric
             self._account(lane_id, depths, n_live, ran, steps=1,
@@ -901,6 +1024,22 @@ class CascadeServingEngine:
             if self.paged:
                 self.pcache.pool.end_chunk()
             return
+        ran = state.segments_run - run_before
+        if self.flight is not None:
+            # the chunk's one fetch already brought every row to the host
+            entries = []
+            for i, s in enumerate(slots):
+                if s.done:
+                    continue
+                rows = [step for step in range(n) if chunk.live[step, i]]
+                entries.append((
+                    s.request.rid,
+                    [int(chunk.tokens[r, i]) for r in rows],
+                    [int(chunk.exits[r, i]) for r in rows],
+                    [float(chunk.confs[r, i]) for r in rows]))
+            self.flight.on_chunk(lane_id, chunk.t_host, chunk.seconds, n,
+                                 entries, compiled=chunk.compiled,
+                                 segments_run=ran)
         if not chunk.compiled:
             # like the host tick: the capture chunk is excluded from every
             # window metric so that all stats() rates cover the same steps
@@ -908,9 +1047,8 @@ class CascadeServingEngine:
             for step in range(n):
                 d = chunk.exits[step][chunk.live[step]]
                 max_depths.append(int(d.max()) if d.size else 0)
-            self._account(lane_id, chunk.exits[chunk.live], n_tok,
-                          state.segments_run - run_before, steps=n,
-                          max_depths=max_depths)
+            self._account(lane_id, chunk.exits[chunk.live], n_tok, ran,
+                          steps=n, max_depths=max_depths)
         for i, s in enumerate(slots):
             if s.done:
                 continue
@@ -1035,6 +1173,8 @@ class CascadeServingEngine:
                 for lane in self.lanes],
             "provenance": self.kernel_provenance(),
             "latency": self.latency_stats(),
+            "obs": (self.flight.stats() if self.flight is not None
+                    else None),
             "autotune": self._autotune_stats(),
             # cross-model escalation: the replayed-prefix prefill split from
             # fresh traffic, so a tier never counts a committed prefix twice

@@ -736,10 +736,32 @@ def test_serve_cli_serves_a_tier(flags, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--fleet", "2"], ["--drain"], ["--obs"]])
-def test_serve_cli_tier_refuses_later_slices(flags):
-    with pytest.raises(SystemExit, match="later slices"):
-        serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
-                    "--escalate-layers", "1", *flags])
+def test_serve_cli_tier_refuses_later_slices(flags, capsys):
+    """The fleet and observability flags beside a tier, as the reference
+    takes them (slice 14 ported them): ``--fleet 2`` is refused with the
+    reference's message, ``--drain`` serves the tier (a drain needs a
+    fleet) and ``--obs`` records both stages' flights."""
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+            "--escalate-layers", "1", "--requests", "4", *flags]
+    if "--fleet" in flags:
+        with pytest.raises(SystemExit, match="combines with plain engines"):
+            serve.main(argv)
+        return
+    if "--obs" in flags:
+        argv += ["--flight-dump", "2"]
+    stats = serve.main(argv)
+    assert stats["requests_finished"] == 4
+    assert stats["final_stage_histogram"] == [0, 4]
+    obs = [st["obs"] for st in stats["stages"]]
+    if "--obs" in flags:
+        # every request escalated: one terminal flight on each stage
+        assert [o["flights_done"] for o in obs] == [4, 4]
+        assert [o["flights_live"] for o in obs] == [0, 0]
+        assert obs[0]["event_counts"]["escalate"] == 4
+    else:
+        assert obs == [None, None]
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["final_stage_histogram"] == [0, 4]
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,8 @@ identical; at thresholds (0.6, 0.0) every token answers at the final
 component and at (0, 0) at component 0, so no exit decision sits on a
 rounding edge.
 """
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch import serve
 from repro_torch.models.model import build_model
+from repro_torch.obs import validate_trace_events
 from repro_torch.serving.engine import CascadeServingEngine, Request
 
 
@@ -274,13 +277,29 @@ def test_serve_cli_device_runtime_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--drain"],
-                                   ["--metrics-port", "9100"],
+                                   ["--metrics-port", "0"],
                                    ["--fleet", "2"], ["--obs"],
                                    ["--trace-out", "x.json"]])
-def test_serve_cli_refuses_later_slices(flags):
-    with pytest.raises(SystemExit, match="later slices"):
-        serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
-                    *flags])
+def test_serve_cli_refuses_later_slices(flags, tmp_path):
+    """The fleet and observability flags on the paged layout, which
+    slice 14 ported (they were refused before): ``--drain`` and
+    ``--fleet 2`` serve a two-engine fleet, the others one engine with
+    the flight recorder on (``--metrics-port 0`` round-trips a scrape on
+    a free loopback port, ``--trace-out`` writes a valid trace)."""
+    flags = [str(tmp_path / f) if f.endswith(".json") else f for f in flags]
+    stats = serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+                        "--cache-layout", "paged", "--requests", "4",
+                        *flags])
+    assert stats["requests_finished"] == 4
+    if "--drain" in flags or "--fleet" in flags:
+        assert stats["n_members"] == 2 and stats["discarded_tokens"] == 0
+        assert ("drain" in stats["events"]) == ("--drain" in flags)
+        return
+    assert stats["obs"]["flights_done"] == 4
+    assert stats["cache_layout"] == "paged"
+    if "--trace-out" in flags:
+        doc = json.loads((tmp_path / "x.json").read_text())
+        validate_trace_events(doc["traceEvents"])
 
 
 def test_two_lane_plans_never_promise_the_same_blocks(weights):

@@ -144,7 +144,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "repro_torch.launch.train", "repro_torch.escalate",
             "repro_torch.escalate.tier", "repro_torch.escalate.router",
             "repro_torch.escalate.replay",
-            "repro_torch.configs.yi_9b"} <= set(mods)
+            "repro_torch.configs.yi_9b",
+            "repro_torch.obs", "repro_torch.obs.recorder",
+            "repro_torch.obs.metrics", "repro_torch.obs.traceviz",
+            "repro_torch.obs.server", "repro_torch.fleet",
+            "repro_torch.fleet.scheduler", "repro_torch.fleet.health",
+            "repro_torch.fleet.aggregator"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -173,6 +178,10 @@ def test_source_scan_finds_no_jax_or_reference_import():
     assert len(files) > 20
     assert {"tier.py", "router.py", "replay.py"} <= {
         p.name for p in files if p.parent.name == "escalate"}
+    assert {"recorder.py", "metrics.py", "traceviz.py", "server.py"} <= {
+        p.name for p in files if p.parent.name == "obs"}
+    assert {"scheduler.py", "health.py", "aggregator.py"} <= {
+        p.name for p in files if p.parent.name == "fleet"}
     assert not hits, hits
 
 
@@ -340,8 +349,9 @@ def test_unported_configurations_are_refused():
             (dict(runtime="device", mesh=object()), "mesh")):
         with pytest.raises(NotImplementedError, match=what):
             CascadeServingEngine(cfg, model, params, **{**kw, **bad})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        CascadeServingEngine(cfg.with_obs(), model, params, **kw)
+    # the flight recorder is ported (slice 14): the engine carries one
+    eng = CascadeServingEngine(cfg.with_obs(), model, params, **kw)
+    assert eng.flight is not None and eng.stats()["obs"]["flights_live"] == 0
     # kernel tile autotuning is ported (slice 12): the engine loads or
     # sweeps its tiles, and on the CPU, with no artifact, the sweep (CUDA
     # events over the CUDA kernels) refuses
