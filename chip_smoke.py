@@ -156,7 +156,21 @@ source, all at once).  Phases, each of which fails the run on a miss:
     held), and autotune members under a TelemetryAggregator whose pushes
     capture nothing; and ``python -m repro_torch.launch.serve --fleet 2
     --drain --obs --trace-out ... --runtime device`` in a subprocess;
-18. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+18. slice 15, the moe family ("moe"): phase 2's kernels at
+    mixtral-8x7b's shapes (decode attention over a ring of 4096 with
+    window 4096 past the wrap, flash attention at S 4224 with the window
+    live) and qwen3-moe-235b-a22b's (GQA group 16, the megakernel's tc
+    route at (4096, 151936)); then mixtral-8x7b cut to 16 of its 32
+    layers and qwen3-moe-235b-a22b to 8 of its 94 at their published
+    widths, each alone on the card — init time, peak memory, the logits
+    against the plain path with the router's choices compared layer by
+    layer (the plain path routed on the kernel path's experts; every
+    disagreement a near-tie), 8 requests on the host and device runtimes
+    in turns, 2 cohorts with the megakernel at a mixed threshold (on and
+    off, host and device: the two-way dispatch, never all_run) and, for
+    mixtral, 4 requests of 4224 prompt tokens over its 4096 window past
+    the ring's wrap on both runtimes;
+19. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -2767,6 +2781,19 @@ DENSE_SHAPES = {
     "minitron-4b": dict(d=3072, H=24, KV=8, vocab=256000, norm="warp",
                         head="tc", confidence=True),
 }
+# the moe family's serving shapes (slice 15), which the paged layout
+# refuses (no paged decode case): mixtral-8x7b's windowed attention —
+# decode over a ring of W 4096 with window 4096 at t past the wrap, the
+# prefill's flash attention at S 4224 (33 x 128, the window run's prompt)
+# with the window live — and qwen3-moe-235b-a22b's GQA group 16 and its
+# exit head (4096, 151936)
+MOE_SHAPES = {
+    "mixtral-8x7b": dict(d=4096, H=32, KV=8, vocab=32000, norm="warp",
+                         head="tc", W=4096, t=4096 + 700, window=4096,
+                         S=4224, paged=False),
+    "qwen3-moe-235b-a22b": dict(d=4096, H=64, KV=4, vocab=151936,
+                                norm="warp", head="tc", paged=False),
+}
 
 
 def phase_yi_kernels(dev, gen):
@@ -2776,15 +2803,16 @@ def phase_yi_kernels(dev, gen):
 
 def config_kernel_cases(dev, gen, arch):
     """Phase 2's cases at ``arch``'s serving shapes (:data:`DENSE_SHAPES`,
-    B = 4, bf16), each against its plain version at the tolerances above:
-    rmsnorm (4, d) on the route the width takes; exit_update (4, V); the
-    megakernel at h (4, d) x (d, V) on its route (against cuBLAS +
-    ``exit_update`` as the library call); decode attention q (4, H, 128)
-    over KV heads at W 512, dense and paged (the paged route bit for bit
+    :data:`MOE_SHAPES`; B = 4, bf16), each against its plain version at
+    the tolerances above: rmsnorm (4, d) on the route the width takes;
+    exit_update (4, V); the megakernel at h (4, d) x (d, V) on its route
+    (against cuBLAS + ``exit_update`` as the library call); decode
+    attention q (4, H, 128) over KV heads at W 512 (or the shape's W, t and
+    window), dense and, unless marked, paged (the paged route bit for bit
     like the dense one over the gathered views); flash attention (4, H/KV,
-    256, 128) on the wgmma route; and, where marked, confidence (4, V) at
-    its cluster cap.  Returns {kernel: [case]}, each case marked
-    ``"config": arch``."""
+    256, 128) (or the shape's S and window) on the wgmma route; and, where
+    marked, confidence (4, V) at its cluster cap.  Returns {kernel:
+    [case]}, each case marked ``"config": arch``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -2795,7 +2823,7 @@ def config_kernel_cases(dev, gen, arch):
     from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch.kernels.paged_gather import paged_gather_kv
     from repro_torch.kernels.rmsnorm import rmsnorm
-    shp = DENSE_SHAPES[arch]
+    shp = {**DENSE_SHAPES, **MOE_SHAPES}[arch]
     D, H, KV, V = shp["d"], shp["H"], shp["KV"], shp["vocab"]
     bf = torch.bfloat16
     name, B, hd, n_m = "bfloat16", 4, 128, 3
@@ -2886,32 +2914,96 @@ def config_kernel_cases(dev, gen, arch):
          library_ms=time_ms(library), bound_ms=b, bound_by=by)
     del head
     # decode attention, dense and paged
-    t, W = 700, 512
+    t, W, win = shp.get("t", 700), shp.get("W", 512), shp.get("window", 0)
     t_dev = torch.full((), t, dtype=torch.int32, device=dev)
     kpos = torch.as_tensor(decode_ring(t, W), device=dev)
     live = torch.ones(B, dtype=torch.bool, device=dev)
     q = torch.randn(B, H, hd, generator=gen, device=dev).to(bf)
     kc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(bf)
     vc = torch.randn(B, W, KV, hd, generator=gen, device=dev).to(bf)
-    got, route = route_of(lambda: decode_attention(q, kc, vc, t_dev, kpos,
-                                                   live), decode_attention)
-    want = ref.ref_decode_attention(q, kc, vc, t, kpos, live=live)
+    got, route = route_of(lambda: decode_attention(
+        q, kc, vc, t_dev, kpos, live, window=win), decode_attention)
+    want = ref.ref_decode_attention(q, kc, vc, t, kpos, window=win,
+                                    live=live)
     check_close(f"decode {arch} dense", got, want, *TOL[name])
     if route != "dense":
         fail(f"decode {arch}: took the {route} route")
-    nbytes = (2 * B * W * KV * hd + 2 * q.numel()) * 2 + W * 4
-    b, by = bound_ms(nbytes, 4 * H * hd * B * W, name)
-    mask = torch.ones(B, 1, 1, W, dtype=torch.bool, device=dev)
-    case("decode_attention", shape=[B, H, KV, W, hd], t=t, window=0,
-         live=[1] * B, kpos="lane", route=route,
+    # the keys the slots see: in the ring, at most t, inside the window
+    vis = (kpos >= 0) & (kpos <= t)
+    if win:
+        vis &= t - kpos < win
+    n_vis = int(vis.sum().item())
+    nbytes = (2 * B * n_vis * KV * hd + 2 * q.numel()) * 2 + W * 4
+    b, by = bound_ms(nbytes, 4 * H * hd * B * n_vis, name)
+    mask = vis.view(1, 1, 1, W).expand(B, 1, 1, W)
+    case("decode_attention", shape=[B, H, KV, W, hd], t=t, window=win,
+         live=[1] * B, kpos="lane", route=route, visible_keys=n_vis,
          max_abs_err=max_err(got, want),
-         ms=time_ms(lambda: decode_attention(q, kc, vc, t_dev, kpos, live)),
+         ms=time_ms(lambda: decode_attention(q, kc, vc, t_dev, kpos, live,
+                                             window=win)),
          plain_ms=time_ms(lambda: ref.ref_decode_attention(
-             q, kc, vc, t, kpos, live=live)),
+             q, kc, vc, t, kpos, window=win, live=live)),
          library_ms=time_ms(lambda: F.scaled_dot_product_attention(
              q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
              attn_mask=mask, enable_gqa=True)),
          bound_ms=b, bound_by=by)
+    if shp.get("paged", True):
+        _paged_decode_case(case, arch, dev, gen, q, t, t_dev, kpos, live)
+    del kc, vc
+    # flash attention
+    S = shp.get("S", 256)
+    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(bf)
+    k = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(bf)
+    v = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(bf)
+    got, route = route_of(lambda: flash_attention(q, k, v, causal=True,
+                                                  window=win),
+                          flash_attention)
+    want = ref.ref_flash_attention(q, k, v, causal=True, window=win)
+    check_close(f"flash {arch}", got, want, *TOL[name])
+    err = max_err(got, want)
+    del got, want
+    if route != "wgmma":
+        fail(f"flash {arch}: took the {route} route")
+    # the (query, key) pairs inside the causal band and the window
+    i = torch.arange(S, dtype=torch.int64)
+    pairs = int((torch.minimum(i + 1, torch.full_like(i, win))
+                 if win else i + 1).sum())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    b, by = bound_ms(nbytes, 4 * hd * B * H * pairs, name)
+    pos = torch.arange(S, device=dev)
+    band = pos[:, None] >= pos[None, :]
+    if win:
+        band &= pos[:, None] - pos[None, :] < win
+    case("flash_attention", shape=[B, H, KV, S, hd], window=win,
+         route=route, max_abs_err=err,
+         ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                            window=win)),
+         # the plain version holds the (S, S) scores: fewer calls at 4224
+         plain_ms=time_ms(lambda: ref.ref_flash_attention(
+             q, k, v, causal=True, window=win),
+             **({} if S <= 1024 else dict(iters=5, warmup=1))),
+         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, attn_mask=band, enable_gqa=True) if win else
+             F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                            enable_gqa=True)),
+         bound_ms=b, bound_by=by)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _paged_decode_case(case, arch, dev, gen, q, t, t_dev, kpos, live):
+    """The paged route at ``arch``'s decode shape: a layer's paged stores
+    read through a block table with trash rows, bit for bit like the
+    dense route over the gathered views."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_gather import paged_gather_kv
+    bf, name = torch.bfloat16, "bfloat16"
+    B, H, hd = q.shape
+    KV = DENSE_SHAPES[arch]["KV"]
+    W = PAGED_TABLE[1] * 16
     store = (769, 16, KV, hd)
     ks = torch.randn(store, generator=gen, device=dev).to(bf)
     vs = torch.randn(store, generator=gen, device=dev).to(bf)
@@ -2950,29 +3042,6 @@ def config_kernel_cases(dev, gen, arch):
              enable_gqa=True)),
          bound_ms=b, bound_by=by)
     del ks, vs, views
-    # flash attention
-    S = 256
-    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(bf)
-    k = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(bf)
-    v = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(bf)
-    got, route = route_of(lambda: flash_attention(q, k, v, causal=True),
-                          flash_attention)
-    want = ref.ref_flash_attention(q, k, v, causal=True)
-    check_close(f"flash {arch}", got, want, *TOL[name])
-    if route != "wgmma":
-        fail(f"flash {arch}: took the {route} route")
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    b, by = bound_ms(nbytes, 4 * hd * B * H * S * (S + 1) // 2, name)
-    case("flash_attention", shape=[B, H, KV, S, hd], window=0,
-         route=route, max_abs_err=max_err(got, want),
-         ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
-         plain_ms=time_ms(lambda: ref.ref_flash_attention(q, k, v,
-                                                          causal=True)),
-         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-             q, k, v, is_causal=True, enable_gqa=True)),
-         bound_ms=b, bound_by=by)
-    torch.cuda.empty_cache()
-    return out
 
 
 # the escalate phase's stack: qwen2.5-3b widths throughout, bf16, kernels
@@ -3469,57 +3538,99 @@ def _free_card():
     return torch.cuda.memory_allocated()
 
 
-def _logits_against_plain(cfg, model, params, n_steps=2):
+def _logits_against_plain(cfg, model, params, n_steps=2, probe=None):
     """The prefill's last-position logits of every exit and the first
     ``n_steps`` dense decode steps' final-exit logits, kernels on against
     the port's plain path (``use_kernels`` off) on the same parameters,
     the kernels' greedy tokens fed to both: normwise relative error each,
-    within :data:`LOGIT_REL_TOL`.  Returns the errors and the share of
+    within :data:`LOGIT_REL_TOL`.  With an MoE ``probe``
+    (:class:`_RouterProbe`) the plain path routes on the kernel path's
+    expert choices, and the errors held to the tolerance are those of the
+    rows whose own choices agreed at every layer (the errors over all
+    rows are reported beside them).  Returns the errors and the share of
     rows whose argmax agrees."""
     import numpy as np
     import torch
     from repro_torch.models.model import build_model
     plain = build_model(cfg.replace(use_kernels=False), device=DEV)
     rng = np.random.default_rng(5)
-    S = 256
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, S)),
+    B, S = 4, 256
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                            dtype=torch.int32, device=DEV)
-    caches = [m.init_cache(4, DENSE_ENGINE["cache_len"])
+    caches = [m.init_cache(B, DENSE_ENGINE["cache_len"])
               for m in (model, plain)]
+
+    def both(kernel, plain_fn, n_tokens, compared):
+        """Run the kernel path, then the plain one; the compared rows'
+        mask (all rows without a probe)."""
+        if probe is not None:
+            probe.start("kernel", n_tokens)
+        a = kernel()
+        if probe is not None:
+            probe.start("plain", n_tokens)
+        b = plain_fn()
+        rows = (torch.ones(B, dtype=torch.bool) if probe is None
+                else probe.finish(compared))
+        return a, b, rows.to(DEV)
+
     with torch.no_grad():
-        got, caches[0] = model.prefill(params, toks, caches[0])
-        want, caches[1] = plain.prefill(params, toks, caches[1])
+        got, want, rows = both(
+            lambda: model.prefill(params, toks, caches[0]),
+            lambda: plain.prefill(params, toks, caches[1]),
+            B * S, np.arange(B) * S + S - 1)
+        (got, caches[0]), (want, caches[1]) = got, want
         errs = {"prefill": [], "decode": []}
+        errs_all = {"prefill": [], "decode": []}
         agree = []
 
-        def rel(a, b):
+        def rel(a, b, rows):
             a, b = a.float(), b.float()
-            e = float((a - b).norm() / b.norm())
             agree.append(float((a.argmax(-1) == b.argmax(-1))
                                .float().mean()))
-            return e
-        errs["prefill"] = [rel(a, b) for a, b in zip(got, want)]
+            every = float((a - b).norm() / b.norm())
+            if not rows.any():
+                return None, every
+            a, b = a[rows], b[rows]
+            return float((a - b).norm() / b.norm()), every
+
+        for a, b in zip(got, want):
+            e, every = rel(a, b, rows)
+            errs["prefill"].append(e)
+            errs_all["prefill"].append(every)
         for i in range(n_steps):
             tok = got[-1].argmax(-1).to(torch.int32)[:, None]
-            got, caches[0] = model.decode_step(params, tok, S + i,
-                                               caches[0])
-            want, caches[1] = plain.decode_step(params, tok, S + i,
-                                                caches[1])
-            errs["decode"].append(rel(got[-1], want[-1]))
-    worst = max(errs["prefill"] + errs["decode"])
+            (got, caches[0]), (want, caches[1]), rows = both(
+                lambda: model.decode_step(params, tok, S + i, caches[0]),
+                lambda: plain.decode_step(params, tok, S + i, caches[1]),
+                B, np.arange(B))
+            e, every = rel(got[-1], want[-1], rows)
+            errs["decode"].append(e)
+            errs_all["decode"].append(every)
+    held = [e for e in errs["prefill"] + errs["decode"] if e is not None]
+    if not held:
+        fail(f"{cfg.name}: no compared row's experts agreed at every layer")
+    worst = max(held)
     if not worst <= LOGIT_REL_TOL:
         fail(f"{cfg.name}: kernel logits part from the plain path's by "
              f"{worst:.3e} (normwise, tolerance {LOGIT_REL_TOL})")
     del caches, plain
-    return {"rel_err": errs, "max_rel_err": worst, "tolerance":
-            LOGIT_REL_TOL, "argmax_agree": agree}
+    out = {"rel_err": errs, "max_rel_err": worst, "tolerance":
+           LOGIT_REL_TOL, "argmax_agree": agree}
+    if probe is not None:
+        out["rel_err_all_rows"] = errs_all
+        out["max_rel_err_all_rows"] = max(errs_all["prefill"]
+                                          + errs_all["decode"])
+        out["routing"] = probe.report()
+    return out
 
 
-def _runtime_turns(tag, cfg, model, params, reqs, order):
-    """Serve ``reqs`` on each runtime of ``order`` in turn: identical
-    streams, carried segments_run, launches and routes, one capture a
-    lane and one host sync a lane chunk on the device runtime.  Returns
-    (per-runtime records, the device runtime's launches, the streams)."""
+def _runtime_turns(tag, cfg, model, params, reqs, order,
+                   engine=DENSE_ENGINE):
+    """Serve ``reqs`` on each runtime of ``order`` in turn (engine settings
+    ``engine``): identical streams, carried segments_run, launches and
+    routes, one capture a lane and one host sync a lane chunk on the
+    device runtime.  Returns (per-runtime records, the device runtime's
+    launches, the streams)."""
     import statistics as stats_mod
     runs = {"host": [], "device": []}
     ref = None
@@ -3527,7 +3638,7 @@ def _runtime_turns(tag, cfg, model, params, reqs, order):
     n_req, n_new = len(reqs), reqs[0].max_new_tokens
     for runtime in order:
         fin, st, secs, launches = serve(cfg, model, params, reqs,
-                                        runtime=runtime, **DENSE_ENGINE)
+                                        runtime=runtime, **engine)
         t = f"{tag} {runtime}"
         if sorted(fin) != list(range(n_req)) or any(
                 len(r["tokens"]) != n_new for r in fin.values()):
@@ -3545,9 +3656,9 @@ def _runtime_turns(tag, cfg, model, params, reqs, order):
             if st["host_syncs"] != st["decode_dispatches"]:
                 fail(f"{t}: {st['host_syncs']} host syncs for "
                      f"{st['decode_dispatches']} lane chunks")
-            if st["captures"] != DENSE_ENGINE["n_lanes"]:
+            if st["captures"] != engine["n_lanes"]:
                 fail(f"{t}: {st['captures']} captures for "
-                     f"{DENSE_ENGINE['n_lanes']} lanes")
+                     f"{engine['n_lanes']} lanes")
             dev_launches = launches
         n_tok = sum(len(r["tokens"]) for r in fin.values())
         runs[runtime].append({
@@ -4406,6 +4517,286 @@ def phase_fleet_cli():
           "fleet_line": fleet_line[-1] if fleet_line else None})
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the moe family on the card
+# ---------------------------------------------------------------------------
+
+# each model cut in depth only, to what one 80 GB card holds beside its
+# serving temporaries: mixtral-8x7b's 32 layers are 93.9 GB of bf16
+# weights, 16 are 47.5 GB (segments (0, 5), (5, 11), (11, 16));
+# qwen3-moe-235b-a22b's 94 layers are 473 GB, 8 are 44.8 GB (segments
+# (0, 3), (3, 5), (5, 8))
+MOE_LAYERS = {"mixtral-8x7b": 16, "qwen3-moe-235b-a22b": 8}
+# mixtral's window run: 4 requests of 33 x 128 prompt tokens (flash takes
+# them; T = 16896 routes as 5 groups of 4096, the last padded with 3584
+# zero rows) and 32 new, cache_len 4352, so the ring is the 4096-position
+# window and decode runs past its wrap
+MOE_WINDOW_ENGINE = dict(lane_batch=4, n_lanes=1, cache_len=4352, chunk=8)
+MOE_WINDOW_PROMPT = 33 * 128
+MOE_WINDOW_NEW = 32
+# a router disagreement between the kernel and the plain path is a fault
+# unless the k-th and (k+1)-th router logits lie within this many bf16 ulps
+# in at least one path (a near-tie that the paths' rounding flips, as the
+# reference's routing would).  The ulp is that of the row's largest
+# logit: the k-th logit can sit near 0, where its own ulp is far finer
+# than the rounding by which the paths' logits part (both ulps are
+# reported)
+ROUTER_TIE_ULPS = 4
+
+
+class _RouterProbe:
+    """The port's ``moe.route_topk`` wrapped (as the launch counters wrap
+    the kernels) for :func:`_logits_against_plain`.  On the kernel path
+    each call's router logits and routing are kept.  On the plain path
+    call i (layer i of the same forward) routes its own logits, compares
+    its expert set token by token with the kernel path's call i, records
+    the router margin of each disagreement in both paths in bf16 ulps, and
+    returns the routing of the kernel path's experts over its own router
+    probabilities: the two paths' hidden states then part only by the
+    kernels' rounding, which :data:`LOGIT_REL_TOL` covers, and not by a
+    flipped expert."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe = moe
+        self.orig = moe.route_topk
+        self.calls = []
+        self.layers = []     # per compared forward: (L, T) bool agreement
+        self.drift = []      # per compared forward: [router logit rel err]
+        self.flips = []      # per disagreement: layer, token, margins
+
+    def __enter__(self):
+        self.moe.route_topk = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route_topk = self.orig
+
+    def start(self, mode, n_tokens):
+        self.mode, self.n_tokens, self.i = mode, n_tokens, 0
+        if mode == "kernel":
+            self.calls = []
+        else:
+            self.agree, self.rel = [], []
+
+    def _route(self, logits, top_k, cap):
+        import torch
+        own = self.orig(logits, top_k, cap)
+        if self.mode == "kernel":
+            self.calls.append((logits, own))
+            return own
+        k_logits, k_route = self.calls[self.i]
+        layer, self.i = self.i, self.i + 1
+        E, T = logits.shape[-1], self.n_tokens
+
+        def experts(r):
+            e = r.experts.reshape(-1, top_k)[:T]
+            return torch.zeros(T, E, dtype=torch.bool,
+                               device=e.device).scatter_(1, e, True)
+        same = (experts(k_route) == experts(own)).all(-1).cpu()
+        self.agree.append(same)
+        a, b = (x.reshape(-1, E)[:T].float() for x in (k_logits, logits))
+        self.rel.append(float((a - b).norm() / b.norm()))
+        bad = (~same).nonzero().flatten().tolist()
+        if bad:
+            rows = [x.reshape(-1, E)[bad].float().cpu()
+                    for x in (k_logits, logits)]
+            for tok, a, b in zip(bad, *rows):
+                self.flips.append({
+                    "layer": layer, "token": tok,
+                    "margin_ulps": [self._margin_ulps(x, top_k)
+                                    for x in (a, b)],
+                    "margin_ulps_of_kth": [self._margin_ulps(x, top_k, True)
+                                           for x in (a, b)]})
+        return self.moe.route_experts(torch.softmax(logits.float(), -1),
+                                      k_route.experts, cap)
+
+    @staticmethod
+    def _margin_ulps(row, k, of_kth=False):
+        """The gap between the k-th and (k+1)-th logit of ``row``, in bf16
+        ulps of the row's largest logit (of the k-th with ``of_kth``)."""
+        import math
+        top = row.sort(descending=True).values
+        ref = float(top[k - 1]) if of_kth else float(row.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(ref), 2.0 ** -126)))
+                      - 7)
+        return (float(top[k - 1]) - float(top[k])) / ulp
+
+    def finish(self, compared):
+        """The forward's (L, T) agreement; returns whether each compared
+        token (indices ``compared``) agreed at every layer."""
+        import torch
+        layers = torch.stack(self.agree)
+        self.layers.append(layers)
+        self.drift.append(self.rel)
+        return layers.all(0)[torch.as_tensor(compared)]
+
+    def report(self):
+        import torch
+        layers = torch.cat(self.layers, dim=1)
+        every = layers.all(0)
+        faults = [f for f in self.flips
+                  if min(f["margin_ulps"]) > ROUTER_TIE_ULPS]
+        return {"tokens": int(every.numel()),
+                "agree_share_by_layer": layers.float().mean(1).tolist(),
+                # the router logits' normwise relative error between the
+                # paths, by layer, worst over the compared forwards
+                "logit_rel_err_by_layer": [max(x) for x in
+                                           zip(*self.drift)],
+                "rows_agree_every_layer": float(every.float().mean()),
+                "flipped_rows": int((~every).sum()),
+                "disagreements": len(self.flips),
+                "max_tie_margin_ulps": max(
+                    (min(f["margin_ulps"]) for f in self.flips),
+                    default=None),
+                "max_tie_margin_ulps_of_kth": max(
+                    (min(f["margin_ulps_of_kth"]) for f in self.flips),
+                    default=None),
+                "tie_ulps_limit": ROUTER_TIE_ULPS,
+                "faults": faults[:8], "n_faults": len(faults)}
+
+
+def _expert_bytes(params):
+    """Bytes of every expert weight (w_gate, w_up, w_down): what a decode
+    step of the GShard formulation reads, every expert's C slots
+    computed."""
+    return sum(x.numel() * x.element_size()
+               for seg in params["segments"] for stage in seg
+               for key, x in stage["moe"].items() if key.startswith("w_"))
+
+
+def phase_moe(arch, smi, window_run=False):
+    """``arch`` (mixtral-8x7b or qwen3-moe-235b-a22b) at its published
+    widths, cut in depth to :data:`MOE_LAYERS`, bf16, seed 0, 3
+    components, kernels on, cond_batch, at (0.9, 0.9, 0.0) (untrained
+    heads never exit), alone on the card: the init time and peak memory;
+    the logits check (:func:`_logits_against_plain` with a
+    :class:`_RouterProbe`: a disagreement wider than a near-tie, fewer
+    than half the routed rows agreeing at every layer, or agreeing rows
+    past :data:`LOGIT_REL_TOL` fail the phase); 8 requests on the host
+    and device runtimes in turns (host, device, device, host), identical
+    streams; 2 cohorts with the megakernel at a mixed component-0
+    threshold on the device and host runtimes and with the megakernel off,
+    identical streams, no step on the all_run branch (the two-way
+    dispatch) and some on mixed.  With ``window_run`` (mixtral): 4
+    requests of 4224 prompt tokens at cache_len 4352 (the 4096 window's
+    ring), device and host runtimes, identical streams past the wrap.
+    Prints each run's decode µs per token beside the floor of reading
+    every expert weight once a step.  Returns the device runtime's
+    launches by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    held = _free_card()
+    base = get_config(arch).replace(
+        n_layers=MOE_LAYERS[arch], use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(base, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = list(nn.tree_leaves(params))
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    floor_ms = 1e3 * _expert_bytes(params) / HBM_BYTES_PER_S
+    with _RouterProbe() as probe:
+        logits = _logits_against_plain(base, model, params, probe=probe)
+    routing = logits["routing"]
+    if routing["n_faults"]:
+        fail(f"{arch}: a router disagreement wider than "
+             f"{ROUTER_TIE_ULPS} bf16 ulps in both paths: "
+             f"{routing['faults']}")
+    if routing["rows_agree_every_layer"] < 0.5:
+        fail(f"{arch}: {routing['rows_agree_every_layer']:.3f} of the routed "
+             "rows agree at every layer (fewer than half)")
+    reqs = make_requests(8, (128, 256), base.vocab_size, 16, seed=0)
+    turns, dev_launches, _ = _runtime_turns(
+        arch, base, model, params, reqs, ("host", "device", "device",
+                                          "host"))
+    check_launched(arch, turns["launches"], SLICE1)
+    out = {"one_cohort": dev_launches}
+
+    two = base.with_cascade(n_cohorts=2, cohort_layout="major") \
+        .with_kernel_tune(megakernel=True)
+    zero = two.with_cascade(thresholds=(0.0, 0.0, 0.0))
+    calib = serve(zero, model, params, reqs, runtime="device",
+                  **DENSE_ENGINE)[0]
+    th, quantile = mixed_threshold(
+        calib, lambda th: serve(two.with_cascade(
+            thresholds=(th, 0.9, 0.0)), model, params, reqs,
+            runtime="device", **DENSE_ENGINE)[1]["cohort_dispatch"],
+        f"{arch} megakernel")
+    mixed = two.with_cascade(thresholds=(th, 0.9, 0.0))
+    on, on_launches, on_streams = _runtime_turns(
+        f"{arch} megakernel", mixed, model, params, reqs,
+        ("device", "host"))
+    off, _, off_streams = _runtime_turns(
+        f"{arch} megakernel off", mixed.with_kernel_tune(megakernel=False),
+        model, params, reqs, ("device",))
+    if on_streams != off_streams:
+        fail(f"{arch}: the megakernel's streams differ from the unfused "
+             "exit heads'")
+    check_launched(f"{arch} megakernel", on["launches"],
+                   SLICE1 | {"megakernel"})
+    for rec in on["device"] + on["host"] + off["device"]:
+        cd = rec["cohort_dispatch"]
+        if cd["all_run"] or not cd["mixed"]:
+            fail(f"{arch} 2 cohorts: cohort dispatch {cd} (MoE takes "
+                 "all_skip or mixed only)")
+    out["megakernel"] = on_launches
+    window = None
+    if window_run:
+        W = model.cache_capacity(MOE_WINDOW_ENGINE["cache_len"])
+        if W != base.attn_window:
+            fail(f"{arch}: the window run's ring is {W}, not the window")
+        wreqs = make_requests(4, (MOE_WINDOW_PROMPT,), base.vocab_size,
+                              MOE_WINDOW_NEW, seed=2)
+        wturns, w_launches, _ = _runtime_turns(
+            f"{arch} window", base, model, params, wreqs,
+            ("device", "host"), engine=MOE_WINDOW_ENGINE)
+        check_launched(f"{arch} window", wturns["launches"], SLICE1)
+        out["window"] = w_launches
+        window = {"prompt": MOE_WINDOW_PROMPT, "new": MOE_WINDOW_NEW,
+                  "ring": W, "window": base.attn_window,
+                  "last_position": MOE_WINDOW_PROMPT + MOE_WINDOW_NEW - 1,
+                  **MOE_WINDOW_ENGINE, "turns": wturns}
+    dev_us = turns["decode_us_per_token_median"]["device"]
+    emit({"phase": "moe", "config": arch, "n_layers": base.n_layers,
+          "published_layers": get_config(arch).n_layers,
+          "segments": [list(x) for x in base.segments],
+          "d_model": base.d_model, "n_heads": base.n_heads,
+          "n_kv_heads": base.n_kv_heads, "d_ff": base.d_ff,
+          "n_experts": base.n_experts, "top_k": base.top_k,
+          "vocab": base.vocab_size, "attn_window": base.attn_window,
+          "dtype": base.dtype, "params": n_params,
+          "param_bytes": param_bytes, "held_before": held,
+          "init_seconds": init_seconds,
+          "init_max_memory_allocated": init_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "logits_against_plain": logits, "thresholds": [0.9, 0.9, 0.0],
+          "requests": len(reqs), "max_new_tokens": 16, "turns": turns,
+          # a decode step of the GShard formulation reads every expert
+          # weight once: the floor of a lane step (4 rows) at the data
+          # sheet's HBM rate, against the device runtime's µs a token x
+          # the lane's 4 rows
+          "expert_bytes_per_step": _expert_bytes(params),
+          "floor_ms_per_step": floor_ms,
+          "device_ms_per_step": (None if dev_us is None
+                                 else dev_us * DENSE_ENGINE["lane_batch"]
+                                 / 1e3),
+          "megakernel": {"thresholds": [th, 0.9, 0.0],
+                         "threshold_quantile": quantile, "n_cohorts": 2,
+                         "on": on, "off": off},
+          "window": window, "nvidia_smi": smi})
+    del model, params
+    _free_card()
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4447,8 +4838,9 @@ def main() -> int:
               "paged_gather": phase_paged_gather(dev, gen)}
     # the same kernels at the dense family's other published widths:
     # yi-9b's (the escalate phase's second stage), deepseek-coder-33b's
-    # and minitron-4b's
-    for arch in DENSE_SHAPES:
+    # and minitron-4b's; and the moe family's: mixtral-8x7b's (the window)
+    # and qwen3-moe-235b-a22b's (group 16, vocab 151936)
+    for arch in (*DENSE_SHAPES, *MOE_SHAPES):
         for name, cases in config_kernel_cases(dev, gen, arch).items():
             checks[name] += cases
     for name, cases in checks.items():
@@ -4490,6 +4882,9 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     phase_fleet_cli()
+    # slice 15: the moe family, each model alone on the card
+    mixtral = phase_moe("mixtral-8x7b", smi, window_run=True)
+    qwen3 = phase_moe("qwen3-moe-235b-a22b", smi)
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -4597,6 +4992,19 @@ def main() -> int:
                      # dense with one cohort, 16 requests x 32 tokens
                      "launches_fleet": fleet["paged_drain"][name],
                      "launches_fleet_dense": fleet["dense"][name],
+                     # slice 15's paths, device runtime: mixtral-8x7b (16
+                     # layers) and qwen3-moe-235b-a22b (8 layers), 8
+                     # requests x 16 tokens at (0.9, 0.9, 0.0), one cohort
+                     # and two with the megakernel at a mixed threshold;
+                     # mixtral's window run (4 requests of 4224 prompt
+                     # tokens + 32, ring 4096)
+                     "launches_mixtral_8x7b": mixtral["one_cohort"][name],
+                     "launches_mixtral_8x7b_megakernel":
+                         mixtral["megakernel"][name],
+                     "launches_mixtral_8x7b_window": mixtral["window"][name],
+                     "launches_qwen3_moe": qwen3["one_cohort"][name],
+                     "launches_qwen3_moe_megakernel":
+                         qwen3["megakernel"][name],
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

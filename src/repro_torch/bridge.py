@@ -6,7 +6,9 @@ into a numpy array — ``embed``, ``pos_embed`` (learned positions, when
 ``rope_theta <= 0``), ``segments[si][pi]`` (stage dicts whose leaves are
 stacked on a leading layer axis), ``exits[m]``, ``final_norm`` and
 ``lm_head`` (absent with tied embeddings); a layernorm's ``"b"`` rides in
-its norm dict — and returns the same structure of torch tensors on
+its norm dict, an moe block's ``moe`` dict (``router`` (d, E), ``w_gate``
+/ ``w_up`` (E, d, ff), ``w_down`` (E, ff, d), ``norm``) in its stage —
+and returns the same structure of torch tensors on
 ``device``, dtypes kept.  ``params_to_numpy`` is the inverse, so a round
 trip is bit-exact.
 
@@ -27,7 +29,9 @@ from repro_torch.utils import (numpy_to_tensor, resolve_device,
                                tensor_to_numpy)
 
 def _keys(cfg: ModelConfig):
-    """The top-level parameter keys of a dense model of ``cfg``."""
+    """The top-level parameter keys of a model of ``cfg`` (dense or moe:
+    the moe leaves — ``router``, ``w_gate``, ``w_up``, ``w_down`` and the
+    block's ``norm`` — ride inside ``segments``)."""
     keys = ["embed", "segments", "exits", "final_norm"]
     if cfg.rope_theta <= 0:
         keys.append("pos_embed")
@@ -44,7 +48,8 @@ def params_from_jax(np_params: Any, cfg: ModelConfig, device=None):
     extra = sorted(set(np_params) - set(keys))
     if missing or extra:
         raise ValueError(f"parameter tree keys: missing {missing}, "
-                         f"unsupported {extra} (dense family only)")
+                         f"unsupported {extra} (the dense and moe families "
+                         f"only)")
     if len(np_params["segments"]) != cfg.cascade.n_components:
         raise ValueError(f"{len(np_params['segments'])} segments for "
                          f"{cfg.cascade.n_components} cascade components")

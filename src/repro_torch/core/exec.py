@@ -495,7 +495,9 @@ class StagedExecutor:
           dispatches on the C predicates: all skip -> one whole-batch
           backfill; none skip -> one whole-batch segment; mixed -> the
           per-cohort steps over cohort views of the cache slab.  A shadow
-          step takes the mixed branch whenever a cohort skips.
+          step takes the mixed branch whenever a cohort skips.  An MoE
+          config's rows are not separable (expert capacity): it has no
+          whole-batch segment branch, so none-skip steps take mixed.
         * ``"copy"`` — every deep segment steps each cohort on its slice
           of h and the carry, whatever the exit state.
         """
@@ -579,7 +581,15 @@ class StagedExecutor:
         from the C cohort skip predicates, counted; and the segment's
         ``ran`` (cohorts that compute or, on a shadow step, observe).  A
         shadow step never takes all_skip: its skipped cohorts are observed
-        in the mixed branch."""
+        in the mixed branch.
+
+        An MoE config (``n_experts > 0``) never takes all_run: expert
+        capacity couples the rows routed together, so a whole-batch
+        segment is not the per-cohort one (the reference's two-way
+        dispatch).  Its all_run predicate is the constant False — no IF
+        node is recorded for it — and every step that is not all_skip is
+        mixed."""
+        separable = self.cfg.n_experts == 0
         if self.mode == "select":
             # select: the fixed-graph per-cohort path every step
             cases = {"all_skip": False, "mixed": True, "all_run": False}
@@ -587,12 +597,13 @@ class StagedExecutor:
         elif self.branches is None:
             n_skip = sum(preds)
             cases = {"all_skip": n_skip == C and not shadow,
-                     "all_run": n_skip == 0}
+                     "all_run": separable and n_skip == 0}
             cases["mixed"] = not (cases["all_skip"] or cases["all_run"])
             ran = C if shadow else C - n_skip
         else:
             n_skip = torch.stack(preds).sum(dtype=torch.int32)
-            cases = {"all_skip": n_skip == C, "all_run": n_skip == 0}
+            cases = {"all_skip": n_skip == C,
+                     "all_run": (n_skip == 0) if separable else False}
             ran = C - n_skip
             if shadow is not False:
                 cases["all_skip"] = cases["all_skip"] & ~shadow
@@ -603,8 +614,10 @@ class StagedExecutor:
         elif self.mode == "select":
             self.branches.dispatch[1:2].add_(1)
         else:
-            self.branches.dispatch.add_(torch.stack(
-                [cases[k] for k in DISPATCH]).to(torch.int32))
+            # MoE's all_run is the constant False: its counter stays 0
+            keys = DISPATCH if separable else DISPATCH[:2]
+            self.branches.dispatch[:len(keys)].add_(torch.stack(
+                [cases[k] for k in keys]).to(torch.int32))
         return cases, ran
 
     def _cohorts_major(self, params, ths, h, ctx, segs, sc, active, C,

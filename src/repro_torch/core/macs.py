@@ -1,5 +1,5 @@
 """Analytic MAC accounting: CI-ResNet components and the cascade
-segments (dense family).
+segments (dense and moe families).
 
 The counterpart of the JAX package's ``core/macs.py``.  The paper counts
 MACs "analytically by summing up the linear operations in the
@@ -61,7 +61,7 @@ def resnet_component_macs(n_blocks: int, n_classes: int,
 
 def _layer_macs_per_token(cfg: ModelConfig, kind: str, kv_len: int) -> float:
     """Decode-time MACs of one layer for one new token, KV length kv_len."""
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"MACs of {kind!r} layers are not ported")
     d = cfg.d_model
     hd = cfg.resolved_head_dim
@@ -70,6 +70,8 @@ def _layer_macs_per_token(cfg: ModelConfig, kind: str, kv_len: int) -> float:
     attn = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d \
         + H * hd * eff_kv * 2                    # projections + qk + pv
     mlp = (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
+    if kind == "moe":                            # router + top_k experts
+        return float(attn + (d * cfg.n_experts + cfg.top_k * mlp))
     return float(attn + mlp)
 
 

@@ -1,4 +1,4 @@
-"""Block kinds of the cascade backbone — the dense kind for now.
+"""Block kinds of the cascade backbone — the dense and moe kinds for now.
 
 A block kind provides, as in the JAX package's ``models/blocks.py``:
   init(gen, cfg)                      -> params (one layer)
@@ -35,6 +35,7 @@ import torch
 from repro_torch.models.layers import (apply_rope, attend_decode, attn_init,
                                        mlp_apply, mlp_init, norm_apply,
                                        pick_attend, qkv_project)
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,9 +249,27 @@ def dense_backfill(cfg, params, h, ctx, cache):
     return _attn_backfill(cfg, params["attn"], h, ctx, cache)
 
 
+# ---------------------------------------------------------------------------
+# moe block: the dense block's attention, then norm -> MoE -> residual
+# ---------------------------------------------------------------------------
+
+def moe_init_block(gen, cfg):
+    return {"attn": attn_init(gen, cfg), "moe": moe_init(gen, cfg)}
+
+
+def moe_apply_block(cfg, params, h, ctx, cache):
+    a, new_cache = _self_attention(cfg, params["attn"], h, ctx, cache)
+    h = h + a
+    x = norm_apply(params["moe"]["norm"], cfg, h)
+    m, aux = moe_apply(params["moe"], cfg, x)
+    return h + m, new_cache, aux
+
+
 BLOCKS: Dict[str, BlockDef] = {
     "dense": BlockDef(dense_init_block, dense_apply, attn_cache_init,
                       dense_backfill),
+    "moe": BlockDef(moe_init_block, moe_apply_block, attn_cache_init,
+                    dense_backfill),
 }
 
 
@@ -258,7 +277,9 @@ def layer_kinds(cfg) -> list[str]:
     """The per-layer kind sequence of an architecture."""
     if cfg.family == "dense":
         return ["dense"] * cfg.n_layers
+    if cfg.family == "moe":
+        return ["moe"] * cfg.n_layers
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: the moe, hybrid, ssm, "
-        f"audio and vlm families come in later slices of the port")
+        f"family {cfg.family!r} is not ported yet: the hybrid, ssm, audio "
+        f"and vlm families come in later slices of the port")
 

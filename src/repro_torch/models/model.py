@@ -1,4 +1,4 @@
-"""CascadeModel — the early-exit model, dense family.
+"""CascadeModel — the early-exit model, dense and moe families.
 
 The counterpart of the JAX package's ``models/model.py``.  The backbone is
 the per-layer kind sequence from ``blocks.layer_kinds(cfg)``, split into
@@ -56,10 +56,11 @@ def _runs(kinds: List[str]) -> List[Tuple[str, int]]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: only the dense family "
-            f"is; the others come in later slices of the port")
+            f"family {cfg.family!r} is not ported yet: the dense and moe "
+            f"families are; the hybrid, ssm, audio and vlm families come in "
+            f"later slices of the port")
 
 
 class CascadeModel:
@@ -126,14 +127,18 @@ class CascadeModel:
     # stages
     # ------------------------------------------------------------------
     def _run_stage(self, kind, stacked, h, ctx, stacked_cache):
+        """The stage's layers in order: (h', caches written in place, the
+        sum of the layers' aux losses — 0.0 for kinds that have none)."""
         block = BLOCKS[kind]
         n = next(nn.tree_leaves(stacked)).shape[0]
+        aux = 0.0
         for i in range(n):
             ca = (None if stacked_cache is None
                   else nn.tree_index(stacked_cache, i))
-            h, _, _ = block.apply(self.cfg, nn.tree_index(stacked, i), h,
+            h, _, a = block.apply(self.cfg, nn.tree_index(stacked, i), h,
                                   ctx, ca)
-        return h, stacked_cache
+            aux = aux + a
+        return h, stacked_cache, aux
 
     @staticmethod
     def _segment_ctx(si, ctx):
@@ -145,13 +150,16 @@ class CascadeModel:
         return ctx
 
     def run_segment(self, si, params, h, ctx, seg_cache):
-        """Compute segment ``si``: (h', seg_cache written in place, aux)."""
+        """Compute segment ``si``: (h', seg_cache written in place, aux —
+        the MoE layers' load-balance losses summed, 0.0 without any)."""
         ctx = self._segment_ctx(si, ctx)
+        aux = 0.0
         for pi, (kind, _) in enumerate(self.segment_runs[si]):
             cache_i = seg_cache[pi] if seg_cache is not None else None
-            h, _ = self._run_stage(kind, params["segments"][si][pi], h, ctx,
-                                   cache_i)
-        return h, seg_cache, 0.0
+            h, _, a = self._run_stage(kind, params["segments"][si][pi], h,
+                                      ctx, cache_i)
+            aux = aux + a
+        return h, seg_cache, aux
 
     def backfill_segment(self, si, params, h, ctx, seg_cache):
         """Write segment ``si``'s caches from the exit hidden state without
@@ -224,27 +232,31 @@ class CascadeModel:
     # training / full-sequence forward
     # ------------------------------------------------------------------
     def _train_segment(self, si, params, h, ctx):
-        """Segment ``si`` over a full sequence with no cache; with
-        ``cfg.remat`` each block is recomputed in the backward pass
+        """Segment ``si`` over a full sequence with no cache: (h', aux).
+        With ``cfg.remat`` each block is recomputed in the backward pass
         (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
         of the scan body: the same numbers, less activation memory)."""
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = 0.0
         for pi, (kind, _) in enumerate(self.segment_runs[si]):
             block = BLOCKS[kind]
             stacked = params["segments"][si][pi]
 
             def layer(h, pa, _block=block):
-                return _block.apply(self.cfg, pa, h, ctx, None)[0]
+                h2, _, a = _block.apply(self.cfg, pa, h, ctx, None)
+                return h2, a
             for i in range(next(nn.tree_leaves(stacked)).shape[0]):
                 pa = nn.tree_index(stacked, i)
-                h = (checkpoint(layer, h, pa, use_reentrant=False) if remat
-                     else layer(h, pa))
-        return h
+                h, a = (checkpoint(layer, h, pa, use_reentrant=False)
+                        if remat else layer(h, pa))
+                aux = aux + a
+        return h, aux
 
     def forward_train(self, params, tokens, extra=None):
         """tokens: (B, S).  Returns ([exit logits (B, S', V)] * n_exits,
         aux): the intermediate exits at every ``cascade.exit_loss_stride``-th
-        position, the final exit at every position.
+        position, the final exit at every position; aux the MoE layers'
+        load-balance losses summed (0 for the dense family).
 
         It computes with the plain ops only: no kernel of the port has a
         backward (nor has any of the reference's), so a ``use_kernels``
@@ -258,20 +270,23 @@ class CascadeModel:
         if extra:
             raise NotImplementedError(
                 "extra model inputs come with the families that take them "
-                "(a later slice of the port); the dense family takes none")
+                "(a later slice of the port); the dense and moe families take "
+                "none")
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions, "write_slots": None,
                "kpos": None}
         logits = []
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         stride = max(1, cfg.cascade.exit_loss_stride)
         for si in range(self.n_exits):
-            h = self._train_segment(si, params, h, ctx)
+            h, a = self._train_segment(si, params, h, ctx)
+            aux = aux + a
             if si < self.n_exits - 1:
                 logits.append(self.exit_logits(params, si, h[:, ::stride]))
         logits.append(self.exit_logits(params, self.n_exits - 1, h))
-        return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+        return logits, aux
 
     # ------------------------------------------------------------------
     # caches
@@ -425,7 +440,8 @@ class CascadeModel:
         if extra:
             raise NotImplementedError(
                 "extra model inputs come with the families that take them "
-                "(a later slice of the port); the dense family takes none")
+                "(a later slice of the port); the dense and moe families take "
+                "none")
         from repro_torch.core.exec import StagedExecutor
         if decider is not None:
             executor = StagedExecutor(self, self.cfg, decider)
