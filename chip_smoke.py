@@ -170,7 +170,20 @@ source, all at once).  Phases, each of which fails the run on a miss:
     off, host and device: the two-way dispatch, never all_run) and, for
     mixtral, 4 requests of 4224 prompt tokens over its 4096 window past
     the ring's wrap on both runtimes;
-19. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+19. slice 16, the hybrid family ("hybrid"): phase 2's kernels at
+    zamba2-1.2b's shapes (rmsnorm (4, 2048) on warp, exit_update (4,
+    32000), the megakernel's tc route at (2048, 32000); no attention
+    kernel: the shared block's attention is the plain one) and the cohort
+    scatter's whole-cohort route over a 5-layer mamba stage's f32 state
+    and bf16 conv window; then zamba2-1.2b at full width and depth (38
+    layers, d 2048, bf16) alone on the card — init time, peak memory, the
+    logits against the plain path, 13 requests (one of 300 prompt tokens:
+    the padded SSD chunk; a lane re-prefills) on the host and device
+    runtimes in turns at (0.9, 0.9, 0.0) and (0, 0, 0), 2 cohorts with the
+    megakernel at a mixed threshold (on and off), select mode with the
+    cohort scatter and autotune's shadow step there (streams equal to
+    cond_batch's), and the paged layout refused;
+20. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -1363,6 +1376,52 @@ def phase_cohort_scatter(dev, gen):
     return cases
 
 
+def phase_state_scatter(dev, gen):
+    """The cohort scatter's whole-cohort route at zamba2-1.2b's state
+    leaves (:data:`HYBRID_STATE_LEAVES`): select mode's land of cohort 1
+    of 2 of a 5-layer mamba stage, the f32 state and the bf16 conv window
+    in one launch, exact against the plain version; timed with its bound
+    (each source byte read once and written once) and the library copy
+    (one ``copy_`` a leaf).  Returns the case."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cohort_cache import cohort_scatter_tree
+    C, c = 2, 1
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dst = [torch.randn(shape, generator=gen, device=dev).to(dts[dt])
+           for shape, dt in HYBRID_STATE_LEAVES]
+    Bc = dst[0].shape[1] // C
+    src = [torch.randn((x.shape[0], Bc) + x.shape[2:], generator=gen,
+                       device=dev).to(x.dtype) for x in dst]
+    want = [x.clone() for x in dst]
+
+    def plain():
+        for wd, sd in zip(want, src):
+            ref.ref_cohort_scatter(wd, sd, c, C)
+
+    def library():
+        for wd, sd in zip(want, src):
+            wd[:, c * Bc:(c + 1) * Bc].copy_(sd)
+
+    def kernel():
+        cohort_scatter_tree(dst, src, c, C)
+
+    plain()
+    kernel()
+    torch.cuda.synchronize()
+    for a, b in zip(dst, want):
+        check_equal("cohort_scatter whole zamba2-1.2b state", a, b)
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in src)
+    b, by = bound_ms(nbytes, 0, "float32")
+    return {"config": "zamba2-1.2b", "route": "whole",
+            "shape": [list(x.shape) for x in dst],
+            "rows": [list(x.shape) for x in src], "leaves": len(dst),
+            "cohort": [c, C], "dtype": "float32 + bfloat16",
+            "max_abs_err": max(max_err(a, b) for a, b in zip(dst, want)),
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library), "bound_ms": b, "bound_by": by}
+
+
 def _device_us(fn, kernel: str, calls: int = 20) -> float:
     """Device µs per call of ``fn`` spent in kernels whose name holds
     ``kernel``, by torch.profiler over ``calls`` calls."""
@@ -1527,9 +1586,10 @@ def check_routes(cfg, launches):
     model's width takes rmsnorm's warp route while a row is at most 512
     16-byte chunks, else the block route (d 7168 in bf16); every decode
     attention over paged stores whose block size divides the 32-key tile
-    takes the paged route (no gather), any other the dense one.  Returns
-    each kernel's launches by route since the counters were last
-    reset."""
+    takes the paged route (no gather), any other the dense one.  The
+    hybrid family's path launches no attention kernel at all
+    (:data:`HYBRID`).  Returns each kernel's launches by route since the
+    counters were last reset."""
     from repro_torch.kernels.decode_attention import TILE, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.megakernel import exit_head_update
@@ -1538,6 +1598,12 @@ def check_routes(cfg, launches):
     paged = (cfg.paged_cache.layout == "paged"
              and TILE % cfg.paged_cache.block_size == 0)
     wide_norm = cfg.d_model * (4 if f32 else 2) > 16 * MAX_CHUNKS
+    if cfg.family == "hybrid":
+        for name in ("flash_attention", "decode_attention"):
+            if launches[name]:
+                fail(f"{cfg.name}: {launches[name]} {name} launches on the "
+                     "hybrid path (its shared block's attention is the "
+                     "plain one)")
     out = {}
     for name, fn, want in (
             ("flash_attention", flash_attention,
@@ -2796,6 +2862,22 @@ MOE_SHAPES = {
 }
 
 
+# the hybrid family's serving shapes (slice 16): zamba2-1.2b's norms and
+# exit heads (the megakernel's tc route at (2048, 32000), the qwen2.5-3b
+# width at mixtral's vocabulary).  Its shared attention block calls the
+# plain attention, as the reference's block does: the hybrid path launches
+# no flash or decode attention, so the shape has no attention case
+HYBRID_SHAPES = {
+    "zamba2-1.2b": dict(d=2048, H=32, KV=32, vocab=32000, norm="warp",
+                        head="tc", attention=False),
+}
+# select mode's land of a 5-layer mamba stage of zamba2-1.2b at lane batch
+# 4, 2 cohorts: the recurrent state (L, B, heads, head_dim, state) f32 and
+# the conv window (L, B, ssm_conv - 1, d_inner + 2 state) bf16, both whole
+HYBRID_STATE_LEAVES = (((5, 4, 64, 64, 64), "float32"),
+                       ((5, 4, 3, 4224), "bfloat16"))
+
+
 def phase_yi_kernels(dev, gen):
     """Phase 2's cases at yi-9b's shapes (:func:`config_kernel_cases`)."""
     return config_kernel_cases(dev, gen, "yi-9b")
@@ -2803,16 +2885,17 @@ def phase_yi_kernels(dev, gen):
 
 def config_kernel_cases(dev, gen, arch):
     """Phase 2's cases at ``arch``'s serving shapes (:data:`DENSE_SHAPES`,
-    :data:`MOE_SHAPES`; B = 4, bf16), each against its plain version at
-    the tolerances above: rmsnorm (4, d) on the route the width takes;
-    exit_update (4, V); the megakernel at h (4, d) x (d, V) on its route
-    (against cuBLAS + ``exit_update`` as the library call); decode
-    attention q (4, H, 128) over KV heads at W 512 (or the shape's W, t and
-    window), dense and, unless marked, paged (the paged route bit for bit
-    like the dense one over the gathered views); flash attention (4, H/KV,
-    256, 128) (or the shape's S and window) on the wgmma route; and, where
-    marked, confidence (4, V) at its cluster cap.  Returns {kernel:
-    [case]}, each case marked ``"config": arch``."""
+    :data:`MOE_SHAPES`, :data:`HYBRID_SHAPES`; B = 4, bf16), each against
+    its plain version at the tolerances above: rmsnorm (4, d) on the route
+    the width takes; exit_update (4, V); the megakernel at h (4, d) x
+    (d, V) on its route (against cuBLAS + ``exit_update`` as the library
+    call); decode attention q (4, H, 128) over KV heads at W 512 (or the
+    shape's W, t and window), dense and, unless marked, paged (the paged
+    route bit for bit like the dense one over the gathered views); flash
+    attention (4, H/KV, 256, 128) (or the shape's S and window) on the
+    wgmma route; where marked, confidence (4, V) at its cluster cap; a
+    shape marked ``attention=False`` (the hybrid's) has no attention case.
+    Returns {kernel: [case]}, each case marked ``"config": arch``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -2823,7 +2906,7 @@ def config_kernel_cases(dev, gen, arch):
     from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch.kernels.paged_gather import paged_gather_kv
     from repro_torch.kernels.rmsnorm import rmsnorm
-    shp = {**DENSE_SHAPES, **MOE_SHAPES}[arch]
+    shp = {**DENSE_SHAPES, **MOE_SHAPES, **HYBRID_SHAPES}[arch]
     D, H, KV, V = shp["d"], shp["H"], shp["KV"], shp["vocab"]
     bf = torch.bfloat16
     name, B, hd, n_m = "bfloat16", 4, 128, 3
@@ -2913,6 +2996,9 @@ def config_kernel_cases(dev, gen, arch):
                                                            *carry, **kw)),
          library_ms=time_ms(library), bound_ms=b, bound_by=by)
     del head
+    if not shp.get("attention", True):
+        torch.cuda.empty_cache()
+        return out
     # decode attention, dense and paged
     t, W, win = shp.get("t", 700), shp.get("W", 512), shp.get("window", 0)
     t_dev = torch.full((), t, dtype=torch.int32, device=dev)
@@ -3667,7 +3753,8 @@ def _runtime_turns(tag, cfg, model, params, reqs, order,
             "prefill_seconds": st["prefill_seconds"],
             "compile_seconds": st["compile_seconds"],
             "host_syncs_per_token": st["host_syncs_per_token"],
-            "captures": st["captures"], "segments_run": st["segments_run"],
+            "captures": st["captures"], "prefills": st["prefills"],
+            "segments_run": st["segments_run"],
             "cohort_dispatch": st["cohort_dispatch"]})
     med = {rt: stats_mod.median(r["decode_us_per_token"] for r in rr)
            for rt, rr in runs.items() if rr}
@@ -4797,6 +4884,210 @@ def phase_moe(arch, smi, window_run=False):
     return out
 
 
+# the hybrid path's kernels (slice 16): rmsnorm on every pre-norm (the
+# gated norm over d_inner stays plain, as the reference's) and exit_update
+# on the exit heads; never flash or decode attention (the shared block's
+# attention is the plain one)
+HYBRID = {"rmsnorm", "exit_update"}
+HYBRID_ARCH = "zamba2-1.2b"
+# 12 requests of 128 or 256 prompt tokens and one of 300 (the SSD chunk of
+# 256 padded to 512) for the 8 slots: a lane re-prefills from a zero state
+HYBRID_LONG_PROMPT = 300
+HYBRID_AUTOTUNE = dict(enabled=True, bins=32, shadow_every=4)
+
+
+def _hybrid_requests(vocab):
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    reqs = make_requests(12, (128, 256), vocab, 16, seed=0)
+    rng = np.random.default_rng(3)
+    reqs.append(Request(rid=12, prompt=rng.integers(
+        0, vocab, size=HYBRID_LONG_PROMPT).astype(np.int32),
+        max_new_tokens=16))
+    return reqs
+
+
+def _hybrid_step_bytes(model, params, lane_batch, cache_len):
+    """Bytes a lane step must move with every segment run: each mamba
+    layer's and LoRA delta's weights once, the shared block's once per
+    invocation, the unembedding once per exit head, every state leaf read
+    and written, and every shared-attention K/V ring read once (the
+    cache's state leaves at ``lane_batch``)."""
+    from repro_torch.models import nn
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in nn.tree_leaves(tree))
+    layers = nbytes(params["segments"])
+    n_shared = sum(n for seg in model.segment_runs for k, n in seg
+                   if k == "attn_shared")
+    cache = model.init_cache(lane_batch, cache_len, device="meta")
+    state = ring = 0
+    for si, seg in enumerate(cache["segments"]):
+        for x, st in zip(nn.tree_leaves(seg), model.state_leaf_mask(si, seg)):
+            if st:
+                state += 2 * x.numel() * x.element_size()
+            else:
+                ring += x.numel() * x.element_size()
+    heads = model.n_exits * params["lm_head"].numel() \
+        * params["lm_head"].element_size()
+    parts = {"layer_weights": layers,
+             "shared_block": n_shared * nbytes(params["shared"]),
+             "unembeddings": heads, "state_read_write": state,
+             "kv_rings": ring}
+    return parts, sum(parts.values())
+
+
+def phase_hybrid(smi):
+    """zamba2-1.2b at its published widths and full depth (38 layers: 31
+    Mamba2 layers, 7 invocations of the shared attention block), bf16,
+    seed 0, 3 components, kernels on, cond_batch, alone on the card: the
+    init time and peak memory; the prefill's and first decode steps'
+    logits against the plain path (:func:`_logits_against_plain`); the
+    serving engine of the qwen cell (lane batch 4, 2 lanes, cache 512) on
+    :func:`_hybrid_requests` (a lane re-prefills; one prompt takes the
+    padded SSD chunk) at (0.9, 0.9, 0.0) on the host and device runtimes
+    in turns (host, device, device, host) and at (0, 0, 0) (device,
+    host), identical streams with one host sync a lane chunk; 2 cohorts
+    with the megakernel at a mixed component-0 threshold (the mixed branch
+    taken), streams equal with it on and off; select mode with the cohort
+    scatter at that vector (its slot route over the shared blocks' rings,
+    its whole-cohort route over the state leaves), streams equal to
+    cond_batch's; autotune's shadow step there, streams equal on and off;
+    and the paged layout refused with the reference's message.  Prints
+    each run's µs per token beside the floor of a lane step's bytes.
+    Returns the device runtime's launches by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.macs import param_count
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    held = _free_card()
+    base = get_config(HYBRID_ARCH).replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(base, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = list(nn.tree_leaves(params))
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    t_phase = time.perf_counter()
+    logits = _logits_against_plain(base, model, params)
+    reqs = _hybrid_requests(base.vocab_size)
+    turns, dev_launches, _ = _runtime_turns(
+        HYBRID_ARCH, base, model, params, reqs,
+        ("host", "device", "device", "host"))
+    check_launched(HYBRID_ARCH, turns["launches"], HYBRID)
+    for rt in ("host", "device"):
+        prefills = [r["prefills"] for r in turns[rt]]
+        if min(prefills) <= DENSE_ENGINE["n_lanes"]:
+            fail(f"{HYBRID_ARCH} {rt}: {prefills} lane prefills (no lane "
+                 "re-prefilled)")
+    zero = base.with_cascade(thresholds=(0.0, 0.0, 0.0))
+    zturns, _, _ = _runtime_turns(f"{HYBRID_ARCH} (0, 0, 0)", zero, model,
+                                  params, reqs, ("device", "host"))
+    check_launched(f"{HYBRID_ARCH} (0, 0, 0)", zturns["launches"], HYBRID)
+    out = {"one_cohort": dev_launches}
+
+    two = base.with_cascade(n_cohorts=2, cohort_layout="major") \
+        .with_kernel_tune(megakernel=True)
+    calib = serve(two.with_cascade(thresholds=(0.0, 0.0, 0.0)), model,
+                  params, reqs, runtime="device", **DENSE_ENGINE)[0]
+    th, quantile = mixed_threshold(
+        calib, lambda th: serve(two.with_cascade(
+            thresholds=(th, 0.9, 0.0)), model, params, reqs,
+            runtime="device", **DENSE_ENGINE)[1]["cohort_dispatch"],
+        f"{HYBRID_ARCH} megakernel")
+    mixed = two.with_cascade(thresholds=(th, 0.9, 0.0))
+    on, on_launches, on_streams = _runtime_turns(
+        f"{HYBRID_ARCH} megakernel", mixed, model, params, reqs,
+        ("device", "host"))
+    off, _, off_streams = _runtime_turns(
+        f"{HYBRID_ARCH} megakernel off", mixed.with_kernel_tune(
+            megakernel=False), model, params, reqs, ("device",))
+    if on_streams != off_streams:
+        fail(f"{HYBRID_ARCH}: the megakernel's streams differ from the "
+             "unfused exit heads'")
+    check_launched(f"{HYBRID_ARCH} megakernel", on["launches"],
+                   HYBRID | {"megakernel"})
+    for rec in on["device"] + on["host"]:
+        if not rec["cohort_dispatch"]["mixed"]:
+            fail(f"{HYBRID_ARCH} 2 cohorts: the mixed branch never ran "
+                 f"({rec['cohort_dispatch']})")
+    out["megakernel"] = on_launches
+    select, sel_launches, sel_streams = _runtime_turns(
+        f"{HYBRID_ARCH} select", mixed.with_cascade(exit_mode="select")
+        .with_kernel_tune(cohort_scatter=True), model, params, reqs,
+        ("device", "host"))
+    if sel_streams != on_streams:
+        fail(f"{HYBRID_ARCH}: select mode's streams differ from "
+             "cond_batch's")
+    check_launched(f"{HYBRID_ARCH} select", select["launches"],
+                   HYBRID | {"megakernel", "cohort_scatter"})
+    out["select_scatter"] = sel_launches
+    shadow, tune_launches, tune_streams = _runtime_turns(
+        f"{HYBRID_ARCH} autotune", mixed.with_autotune(**HYBRID_AUTOTUNE),
+        model, params, reqs, ("device", "host"))
+    if tune_streams != on_streams:
+        fail(f"{HYBRID_ARCH}: autotune's shadow steps changed the streams")
+    check_launched(f"{HYBRID_ARCH} autotune", shadow["launches"],
+                   HYBRID | {"megakernel"})
+    out["autotune"] = tune_launches
+    from repro_torch.serving.engine import CascadeServingEngine
+    paged = base.with_paged_cache(layout="paged", block_size=16)
+    try:
+        CascadeServingEngine(paged, model, params, device=DEV,
+                             **DENSE_ENGINE)
+        fail(f"{HYBRID_ARCH}: the paged layout was not refused")
+    except ValueError as err:
+        refusal = str(err)
+    if "non-attention cache stage (['conv', 'state'])" not in refusal:
+        fail(f"{HYBRID_ARCH}: paged refusal {refusal!r}")
+    phase_seconds = time.perf_counter() - t_phase
+    parts, step_bytes = _hybrid_step_bytes(
+        model, params, DENSE_ENGINE["lane_batch"], DENSE_ENGINE["cache_len"])
+    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    med = turns["decode_us_per_token_median"]
+    emit({"phase": "hybrid", "config": HYBRID_ARCH,
+          "n_layers": base.n_layers, "segments": [list(x) for x in
+                                                  base.segments],
+          "segment_runs": model.segment_runs, "d_model": base.d_model,
+          "n_heads": base.n_heads, "d_ff": base.d_ff,
+          "ssm_state": base.ssm_state, "ssm_head_dim": base.ssm_head_dim,
+          "ssm_expand": base.ssm_expand, "vocab": base.vocab_size,
+          "dtype": base.dtype, "params": n_params,
+          "param_count_analytic": param_count(base),
+          "param_bytes": param_bytes, "held_before": held,
+          "init_seconds": init_seconds,
+          "init_max_memory_allocated": init_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "logits_against_plain": logits, "thresholds": [0.9, 0.9, 0.0],
+          "requests": len(reqs), "prompt_lens": sorted(
+              {len(r.prompt) for r in reqs}), "max_new_tokens": 16,
+          "turns": turns, "turns_all_exit": zturns,
+          "decode_us_per_token": med,
+          "step_bytes": parts, "floor_ms_per_step": floor_ms,
+          "device_ms_per_step": (None if med.get("device") is None
+                                 else med["device"]
+                                 * DENSE_ENGINE["lane_batch"] / 1e3),
+          "host_ms_per_step": (None if med.get("host") is None
+                               else med["host"]
+                               * DENSE_ENGINE["lane_batch"] / 1e3),
+          "megakernel": {"thresholds": [th, 0.9, 0.0],
+                         "threshold_quantile": quantile, "n_cohorts": 2,
+                         "on": on, "off": off},
+          "select_scatter": select, "autotune": {**HYBRID_AUTOTUNE,
+                                                 "turns": shadow},
+          "paged_refusal": refusal, "phase_seconds": phase_seconds,
+          "nvidia_smi": smi})
+    del model, params
+    _free_card()
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4840,9 +5131,12 @@ def main() -> int:
     # yi-9b's (the escalate phase's second stage), deepseek-coder-33b's
     # and minitron-4b's; and the moe family's: mixtral-8x7b's (the window)
     # and qwen3-moe-235b-a22b's (group 16, vocab 151936)
-    for arch in (*DENSE_SHAPES, *MOE_SHAPES):
+    # and the hybrid family's: zamba2-1.2b's norms and exit heads, and the
+    # cohort scatter's whole-cohort route over its state leaves
+    for arch in (*DENSE_SHAPES, *MOE_SHAPES, *HYBRID_SHAPES):
         for name, cases in config_kernel_cases(dev, gen, arch).items():
             checks[name] += cases
+    checks["cohort_scatter"].append(phase_state_scatter(dev, gen))
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
     emit({"phase": "paged_gather_unaligned",
@@ -4885,6 +5179,8 @@ def main() -> int:
     # slice 15: the moe family, each model alone on the card
     mixtral = phase_moe("mixtral-8x7b", smi, window_run=True)
     qwen3 = phase_moe("qwen3-moe-235b-a22b", smi)
+    # slice 16: the hybrid family, alone on the card
+    hybrid = phase_hybrid(smi)
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -5005,6 +5301,14 @@ def main() -> int:
                      "launches_qwen3_moe": qwen3["one_cohort"][name],
                      "launches_qwen3_moe_megakernel":
                          qwen3["megakernel"][name],
+                     # slice 16's paths, device runtime: zamba2-1.2b at
+                     # full width, 13 requests x 16 tokens — one cohort at
+                     # (0.9, 0.9, 0.0); 2 cohorts with the megakernel at a
+                     # mixed threshold; the same in select mode with the
+                     # cohort scatter; the same with autotune's shadow
+                     # step
+                     "launches_hybrid": {p: n[name]
+                                         for p, n in hybrid.items()},
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path, on one GPU.
 
-Serves qwen2.5-3b at full width (36 layers, bf16, 3 components, kernels
-on, cond_batch) through ``CascadeServingEngine`` with the settings of
-``chip_smoke.py`` (lane_batch 4, 2 lanes, cache_len 512, 8 requests of
-128/256 prompt tokens, 16 new tokens each), once to warm up and once under
+Serves qwen2.5-3b (or ``--arch``'s model) at full width (bf16, 3
+components, kernels on, cond_batch) through ``CascadeServingEngine``
+with the settings of ``chip_smoke.py`` (lane_batch 4, 2 lanes, cache_len
+512, 8 requests of 128/256 prompt tokens, 16 new tokens each), once to
+warm up and once under
 ``torch.profiler``.  Prints JSON lines: the card, the profiled run's wall
 time, the device kernel time summed over the run and its share of the
 wall time (the device's busy share; the rest is the host), each device
@@ -25,9 +26,10 @@ kernel time that starts inside their ranges over their summed wall time,
 beside the whole run's ``device_busy_share``.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
-[--thresholds 0.9,0.9,0.0] [--n-cohorts 2] [--megakernel] [--paged]
-[--runtime device --chunk 8] [--root DIR]``.  ``--n-cohorts 2`` serves
-with cohort-split skipping in the ``major`` layout; ``--megakernel`` turns
+[--arch zamba2-1.2b] [--thresholds 0.9,0.9,0.0] [--n-cohorts 2]
+[--megakernel] [--paged] [--runtime device --chunk 8] [--top N]
+[--root DIR]``.  ``--n-cohorts 2`` serves with cohort-split skipping in
+the ``major`` layout; ``--megakernel`` turns
 on the exit-head megakernel and the cohort scatter; ``--paged`` serves
 from the paged KV layout (block size 16); ``--runtime device`` decodes
 ``--chunk`` tokens per lane per dispatch by replaying a captured CUDA
@@ -61,6 +63,7 @@ def _device_time_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--thresholds", default="0.9,0.9,0.0")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--n-cohorts", type=int, default=1)
@@ -87,7 +90,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     ths = tuple(float(x) for x in args.thresholds.split(","))
-    cfg = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+    cfg = get_config(args.arch).replace(use_kernels=True).with_cascade(
         exit_mode="cond_batch", thresholds=ths, n_cohorts=args.n_cohorts,
         cohort_layout="major").with_kernel_tune(
         megakernel=args.megakernel, cohort_scatter=args.megakernel)
@@ -183,7 +186,7 @@ def main() -> int:
         rec["share_of_device"] = rec["device_s"] / (dev_us / 1e6) \
             if dev_us else None
     print(json.dumps({"card": smi, "root": str(Path(args.root).resolve()),
-                      "thresholds": list(ths),
+                      "arch": args.arch, "thresholds": list(ths),
                       "n_cohorts": args.n_cohorts,
                       "megakernel": args.megakernel,
                       "paged": args.paged, "runtime": args.runtime,
@@ -205,7 +208,7 @@ def main() -> int:
                       "by_kernel": totals, "launches": launches,
                       "routes": routes}), flush=True)
     print(json.dumps({"top_kernels": [
-        {"name": e.key[:90], "calls": e.count,
+        {"name": e.key, "calls": e.count,
          "device_ms": _device_time_us(e) / 1e3}
         for e in ranked[:args.top]]}), flush=True)
     return 0

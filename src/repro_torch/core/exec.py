@@ -41,13 +41,20 @@ Caches are written in place, so a cohort's segment step over a view of the
 cache slab leaves its rows in the slab: the reference's per-cohort cache
 re-join (a concat, or the cohort-scatter kernel) has no counterpart under
 ``cond_batch``.  Only ``select`` mode computes a cohort's rows out of place
-(the skip-masked selection).  A decode step writes only ring slot ``t %
-W`` of each layer, so ``select`` snapshots just that slot's rows, not the
-segment's caches: the run's rows and the skip path's rows are read after
-each, and the selection lands back at the slot — through per-leaf index
-copies, or with ``kernel_tune.cohort_scatter`` through one cohort-scatter
-launch per cohort that writes the cohort's slot rows straight into the
-segment's slab.
+(the skip-masked selection).  What a decode step writes depends on the
+leaf's kind (the block kind's ``state_keys``, read through
+``model.state_leaf_mask``): a RING leaf (an attention k/v ring) only at
+ring slot ``t % W``, so ``select`` snapshots just that slot's rows; a
+STATE leaf (a Mamba2 layer's recurrent state and conv window) whole, so
+``select`` snapshots the whole leaf, into scratch the executor allocates
+once per leaf shape outside any capture (:class:`_SlotRows`) — both
+branches must start from the step's entry state, since re-running a
+recurrence in place would advance it twice.  The run's writes and the skip
+path's are read after each, and the selection lands back — through
+in-place copies, or with ``kernel_tune.cohort_scatter`` through the
+cohort-scatter kernel: one launch per cohort writes the cohort's ring slot
+rows straight into the segment's slab (its slot route), one more its state
+leaves whole (the whole-cohort route, the TPU kernel's own contract).
 
 Under the paged layout (``DecodeState.block_tables`` set) the stores are
 shared by every slot and have no batch axis: each cohort steps over the
@@ -77,8 +84,10 @@ those of autotune off.  Under ``cond_batch`` the skip branch becomes
 ``IF(shadow) observe else skip`` (two IF nodes under a capture), the major
 layout takes the mixed branch on a shadow step whenever a cohort skips,
 and ``select`` mode runs from the shadow chain and takes the rider row
-from the run.  On the host runtime the shadow flag is a host bool from the
-caller's position mirror; under a capture it is read on the device.
+from the run.  An observation snapshots and restores a segment's writes as
+``select`` does (ring slot rows, state leaves whole).  On the host runtime
+the shadow flag is a host bool from the caller's position mirror; under a
+capture it is read on the device.
 """
 from __future__ import annotations
 
@@ -214,6 +223,12 @@ class StagedExecutor:
         # the config's resolved threshold vector: (tuple, (n_m,) f32 tensor
         # on the model's device, written in place when the tuple changes)
         self._static_ths = None
+        # snapshot scratch for whole state leaves: (role, the leaf's place
+        # among its segment's state leaves, shape, dtype, device) -> tensor,
+        # allocated on first use outside any capture (a capture's warm-up
+        # iteration forces every branch first); the lanes step one at a
+        # time on one stream, so they share it
+        self._scratch = {}
 
     # ------------------------------------------------------------------
     # sentinel: init_state should build fresh telemetry itself
@@ -385,8 +400,8 @@ class StagedExecutor:
         shadow chain ``hs`` for observation only — its slot rows put back,
         only the rider row landed, ``hs`` advanced — then take the skip
         path, so the caches, h and the carry keep skip semantics."""
-        rows = _SlotRows(seg_cache, ctx, si)
-        before = rows.read()
+        rows = self._rows(seg_cache, ctx, si)
+        before = rows.read("before")
         h2s, _, _ = self.model.run_segment(si, params, hs, ctx, seg_cache)
         rows.write(before)
         obs = self._scan_exit(si, params, h2s, ths, sc, live=ctx.get("live"))
@@ -442,23 +457,22 @@ class StagedExecutor:
                 return 0 if (skip and not shadow) else 1
             return (~skip | shadow).to(torch.int32)
         # select: both paths compute and the predicate selects.  Caches are
-        # written in place and a decode step writes only ring slot t % W:
-        # snapshot the slot's rows, run, read the run's rows, put the
-        # snapshot back, take the skip path, read its rows, land the
-        # selection.  On a shadow step the run starts from the shadow
-        # chain (equal to h while any sample is undecided) and its rider
-        # row lands even where the cell skips.
+        # written in place: snapshot what a step writes (ring slot rows,
+        # state leaves whole), run, read the run's writes, put the
+        # snapshot back, take the skip path from the entry state, select,
+        # land the selection.  On a shadow step the run starts from the
+        # shadow chain (equal to h while any sample is undecided) and its
+        # rider row lands even where the cell skips.
         pred = self.decider.should_skip(sc, active)
-        rows = _SlotRows(seg_cache, ctx, si)
-        before = rows.read()
+        rows = self._rows(seg_cache, ctx, si)
+        before = rows.read("before")
         h_full, sc_full = self._run_cell(si, ctx, params, ths,
                                          h if hs is None else hs,
                                          seg_cache, sc)
-        full = rows.read()
+        full = rows.read("full")
         rows.write(before)
         self._skip_cell(si, ctx, params, h, seg_cache)
-        sel = [torch.where(pred, lite, f) for f, lite in
-               zip(full, rows.read())]
+        sel = rows.select(pred, full)
         if land is None:
             rows.write(sel)
         else:
@@ -670,39 +684,107 @@ class StagedExecutor:
             ran.append(r_si)
         return ran
 
-    @staticmethod
-    def _scatter(seg, c, C, rows, selected):
-        """Land cohort c's selected slot rows in the slab: one
-        cohort-scatter launch writes them (every leaf at once) at the ring
-        slot, which the kernel reads from device memory."""
+    def _rows(self, seg_cache, ctx, si) -> "_SlotRows":
+        return _SlotRows(seg_cache, ctx, si,
+                         self.model.state_leaf_mask(si, seg_cache),
+                         self._scratch_for)
+
+    def _scratch_for(self, role: str, i: int,
+                     like: torch.Tensor) -> torch.Tensor:
+        """The ``role`` snapshot buffer for state leaf ``i`` of a segment
+        (two stages of one length hold leaves of one shape: each needs its
+        own), shaped ``like``, allocated once — never inside a capture,
+        whose warm-up iteration has run every branch and so allocated
+        every buffer a step needs."""
+        key = (role, i, tuple(like.shape), like.dtype, like.device)
+        buf = self._scratch.get(key)
+        if buf is None:
+            if like.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"state snapshot scratch {key} first needed inside a "
+                    "capture: the warm-up iteration must run every branch")
+            buf = self._scratch[key] = torch.empty(
+                like.shape, dtype=like.dtype, device=like.device)
+        return buf
+
+    def _scatter(self, seg, c, C, rows, selected):
+        """Land cohort c's selection in the slab ``seg`` with the cohort
+        scatter: one launch writes every ring leaf's slot rows at the ring
+        slot (read by the kernel from device memory), one more every state
+        leaf whole (the whole-cohort route; the two routes cannot share a
+        launch)."""
         from repro_torch.kernels.ops import cohort_scatter_tree
-        cohort_scatter_tree(list(nn.tree_leaves(seg)), selected, c, C,
-                            slot=rows.slot)
+        leaves = list(nn.tree_leaves(seg))
+        ring = [x for x, st in zip(leaves, rows.mask) if not st]
+        state = [x for x, st in zip(leaves, rows.mask) if st]
+        if ring:
+            cohort_scatter_tree(ring, selected.ring, c, C, slot=rows.slot)
+        if state:
+            cohort_scatter_tree(state, selected.state, c, C)
+
+
+@dataclasses.dataclass
+class _Snapshot:
+    """What a decode step writes in a segment's caches: the ring leaves'
+    slot rows (fresh tensors) and the state leaves whole (scratch
+    buffers), each in its leaves' order."""
+
+    ring: list
+    state: list
 
 
 class _SlotRows:
-    """The rows a decode step writes in segment ``si``'s caches: ring slot
-    ``ctx["slot"]`` of every layer — (L, B, 1, kv, hd) of each dense leaf
-    (L, B, W, kv, hd), or each table row's (block, offset) of a paged
-    store (L, NB, bs, kv, hd), (L, B, kv, hd).  Read and written by index
-    ops on the device slot (no host read)."""
+    """The writes of a decode step in segment ``si``'s caches, by leaf
+    kind (``state_mask``, :meth:`CascadeModel.state_leaf_mask`):
 
-    def __init__(self, seg_cache, ctx, si):
-        self.leaves = list(nn.tree_leaves(seg_cache))
+    * a RING leaf's ring slot ``ctx["slot"]`` of every layer — (L, B, 1,
+      kv, hd) of each dense leaf (L, B, W, kv, hd), or each table row's
+      (block, offset) of a paged store (L, NB, bs, kv, hd), (L, B, kv,
+      hd) — read and written by index ops on the device slot (no host
+      read);
+    * a STATE leaf (L, B, ...) whole, copied into and out of the
+      executor's scratch (``scratch(role, i, like)`` for the segment's
+      i-th state leaf), so its snapshot allocates nothing."""
+
+    def __init__(self, seg_cache, ctx, si, state_mask, scratch):
+        leaves = list(nn.tree_leaves(seg_cache))
+        self.mask = state_mask
+        self.ring = [x for x, st in zip(leaves, state_mask) if not st]
+        self.state = [x for x, st in zip(leaves, state_mask) if st]
+        self.scratch = scratch
         self.slot = ctx["slot"]
         self.index = None
-        if ctx.get("block_tables") is not None:
+        if ctx.get("block_tables") is not None and self.ring:
             self.index = slot_rows(ctx["block_tables"][si], self.slot,
-                                   self.leaves[0].shape[2])
+                                   self.ring[0].shape[2])
 
-    def read(self):
+    def _read_ring(self):
         if self.index is None:
-            return [x.index_select(2, self.slot.view(1)) for x in self.leaves]
-        return [x[(slice(None),) + self.index] for x in self.leaves]
+            return [x.index_select(2, self.slot.view(1)) for x in self.ring]
+        return [x[(slice(None),) + self.index] for x in self.ring]
 
-    def write(self, rows) -> None:
-        for x, r in zip(self.leaves, rows):
+    def read(self, role: str) -> _Snapshot:
+        """Snapshot the step's writes; ``role`` names the state leaves'
+        scratch (two snapshots alive at once need two roles)."""
+        return _Snapshot(self._read_ring(),
+                         [self.scratch(role, i, x).copy_(x)
+                          for i, x in enumerate(self.state)])
+
+    def write(self, snap: _Snapshot) -> None:
+        for x, r in zip(self.ring, snap.ring):
             if self.index is None:
                 x.index_copy_(2, self.slot.view(1), r)
             else:
                 x[(slice(None),) + self.index] = r
+        for x, r in zip(self.state, snap.state):
+            x.copy_(r)
+
+    def select(self, pred, full: _Snapshot) -> _Snapshot:
+        """``where(pred, what the leaves hold now, full)``: fresh ring rows,
+        and the state leaves' selection written into ``full``'s own
+        scratch."""
+        ring = [torch.where(pred, now, f)
+                for f, now in zip(full.ring, self._read_ring())]
+        for x, f in zip(self.state, full.state):
+            torch.where(pred, x, f, out=f)
+        return _Snapshot(ring, full.state)

@@ -1,5 +1,5 @@
-"""Analytic MAC accounting: CI-ResNet components and the cascade
-segments (dense and moe families).
+"""Analytic MAC and parameter accounting: CI-ResNet components and the
+cascade segments (dense, moe and hybrid families).
 
 The counterpart of the JAX package's ``core/macs.py``.  The paper counts
 MACs "analytically by summing up the linear operations in the
@@ -15,6 +15,7 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import layer_kinds
+from repro_torch.models.ssm import dims as ssm_dims
 
 
 # ---------------------------------------------------------------------------
@@ -61,18 +62,36 @@ def resnet_component_macs(n_blocks: int, n_classes: int,
 
 def _layer_macs_per_token(cfg: ModelConfig, kind: str, kv_len: int) -> float:
     """Decode-time MACs of one layer for one new token, KV length kv_len."""
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(f"MACs of {kind!r} layers are not ported")
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     eff_kv = min(kv_len, cfg.attn_window) if cfg.attn_window else kv_len
-    attn = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d \
-        + H * hd * eff_kv * 2                    # projections + qk + pv
-    mlp = (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
-    if kind == "moe":                            # router + top_k experts
-        return float(attn + (d * cfg.n_experts + cfg.top_k * mlp))
-    return float(attn + mlp)
+
+    def attn():
+        proj = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d
+        scores = H * hd * eff_kv * 2             # qk + pv
+        return proj + scores
+
+    def mlp():
+        return (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
+
+    def mamba():
+        d_inner, n_heads, conv_ch = ssm_dims(cfg)
+        in_p = d * (2 * d_inner + 2 * cfg.ssm_state + n_heads)
+        conv = cfg.ssm_conv * conv_ch
+        state = 2 * d_inner * cfg.ssm_state      # state update + C readout
+        out_p = d_inner * d
+        return in_p + conv + state + out_p
+
+    table = {
+        "dense": lambda: attn() + mlp(),
+        "moe": lambda: attn() + d * cfg.n_experts + cfg.top_k * mlp(),
+        "mamba": mamba,
+        "attn_shared": lambda: attn() + mlp(),
+    }
+    if kind not in table:
+        raise NotImplementedError(f"MACs of {kind!r} layers are not ported")
+    return float(table[kind]())
 
 
 def exit_head_macs(cfg: ModelConfig) -> float:
@@ -91,3 +110,39 @@ def segment_macs_per_token(cfg: ModelConfig, kv_len: int) -> List[float]:
             total += _layer_macs_per_token(cfg, kinds[i], kv_len)
         prefix.append(total + exit_head_macs(cfg))
     return prefix
+
+
+def param_count(cfg: ModelConfig) -> float:
+    """Approximate parameter count N (for 6·N·D roofline accounting): the
+    embedding and an untied head, every layer's weights (an attn_shared
+    invocation its LoRA deltas only) and the hybrid's shared block once."""
+    kinds = layer_kinds(cfg)
+    total = cfg.vocab_size * cfg.d_model        # embed
+    total += cfg.vocab_size * cfg.d_model       # untied lm head
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+
+    def attn_p():
+        return d * H * hd + 2 * d * KV * hd + H * hd * d
+
+    def mlp_p():
+        return (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
+
+    def mamba_p():
+        di, nh, cc = ssm_dims(cfg)
+        return d * (2 * di + 2 * cfg.ssm_state + nh) + cfg.ssm_conv * cc \
+            + di * d
+
+    per = {
+        "dense": lambda: attn_p() + mlp_p(),
+        "moe": lambda: attn_p() + d * cfg.n_experts
+        + cfg.n_experts * mlp_p(),
+        "mamba": mamba_p,
+        "attn_shared": lambda: 6 * 16 * d,       # LoRA only; shared block once
+    }
+    for k in kinds:
+        total += per[k]()
+    if cfg.family == "hybrid":
+        total += attn_p() + mlp_p()              # the shared block itself
+    return float(total)
+

@@ -1,12 +1,19 @@
-"""Block kinds of the cascade backbone — the dense and moe kinds for now.
+"""Block kinds of the cascade backbone: the dense, moe, mamba and
+attn_shared kinds (the dense, moe and hybrid families).
 
 A block kind provides, as in the JAX package's ``models/blocks.py``:
   init(gen, cfg)                      -> params (one layer)
   apply(cfg, params, h, ctx, cache)   -> (h, cache, aux)
   init_cache(cfg, batch, W, dtype, device) -> per-layer cache dict
   backfill(cfg, params, h, ctx, cache)-> cache   (cascade state backfill:
-        write this layer's KV from the early-exit hidden state WITHOUT
-        computing the layer's output.)
+        write this layer's KV / recurrent state from the early-exit hidden
+        state WITHOUT computing the layer's output.)
+and, the port's own, ``state_keys``: the names of its cache leaves that a
+decode step rewrites WHOLE (a recurrent state, a rolling conv window).
+Every other leaf is a RING leaf (B, W, ...), written at ring slot
+``t % W`` on axis 1 of a layer (axis 2 of a stage's stacked leaf).  The
+staged executor snapshots and lands a step's writes by that split
+(``core/exec.py``); it never guesses it from shapes.
 
 ``ctx`` carries what is invariant across the layers of a step:
   mode: "full" | "decode"
@@ -20,6 +27,8 @@ A block kind provides, as in the JAX package's ``models/blocks.py``:
   live: (B,) bool per-slot exit mask, or None (decode)
   block_table: (B, nblk) int32 block-table rows of this segment (paged
       layout only; kpos is then the per-slot (B, W) ring)
+  shared: the hybrid family's shared attention + MLP parameters (the
+      'attn_shared' blocks' full-rank weights), or None
 
 Caches are written IN PLACE: where the reference returns updated arrays
 (and donates the old buffers to the jitted step), the port writes the
@@ -28,10 +37,11 @@ ring slots of the very tensors it was given and returns them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.models import nn, ssm
 from repro_torch.models.layers import (apply_rope, attend_decode, attn_init,
                                        mlp_apply, mlp_init, norm_apply,
                                        pick_attend, qkv_project)
@@ -44,6 +54,7 @@ class BlockDef:
     apply: Callable
     init_cache: Callable
     backfill: Callable
+    state_keys: Tuple[str, ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +276,114 @@ def moe_apply_block(cfg, params, h, ctx, cache):
     return h + m, new_cache, aux
 
 
+# ---------------------------------------------------------------------------
+# mamba / hybrid shared-attention blocks
+# ---------------------------------------------------------------------------
+
+def mamba_init_block(gen, cfg):
+    return {"ssm": ssm.ssm_init(gen, cfg)}
+
+
+def mamba_apply(cfg, params, h, ctx, cache):
+    x = norm_apply(params["ssm"]["norm"], cfg, h)
+    if ctx["mode"] == "full":
+        y, new_cache = ssm.ssm_forward_full(params["ssm"], cfg, x, cache)
+    else:
+        y, new_cache = ssm.ssm_decode_step(params["ssm"], cfg, x, cache)
+    return h + y, new_cache, 0.0
+
+
+def mamba_cache(cfg, batch, W, dtype, device):
+    del W
+    return ssm.ssm_init_cache(cfg, batch, dtype, device)
+
+
+def mamba_backfill(cfg, params, h, ctx, cache):
+    """SSM state backfill = run the recurrence but skip out_proj and the
+    gating (and the readout they take)."""
+    if cache is None:
+        return None
+    x = norm_apply(params["ssm"]["norm"], cfg, h)
+    if ctx["mode"] == "full":
+        return ssm.ssm_backfill_full(params["ssm"], cfg, x, cache)
+    return ssm.ssm_backfill_step(params["ssm"], cfg, x, cache)
+
+
+def shared_attn_init(gen, cfg):
+    """Per-invocation params of the zamba2-style shared block: LoRA deltas
+    on q/k/v.  The shared full-rank weights live in ctx['shared']."""
+    r = 16
+    hd = cfg.resolved_head_dim
+    return {
+        "lora_q_a": nn.dense_init(gen, (cfg.d_model, r)),
+        "lora_q_b": nn.zeros_init(gen, (r, cfg.n_heads * hd)),
+        "lora_k_a": nn.dense_init(gen, (cfg.d_model, r)),
+        "lora_k_b": nn.zeros_init(gen, (r, cfg.n_kv_heads * hd)),
+        "lora_v_a": nn.dense_init(gen, (cfg.d_model, r)),
+        "lora_v_b": nn.zeros_init(gen, (r, cfg.n_kv_heads * hd)),
+    }
+
+
+def shared_attn_apply(cfg, params, h, ctx, cache):
+    """The shared attention block with this invocation's LoRA outputs added
+    to q, k and v, then the shared MLP.  Its attention is the plain one in
+    both modes, with or without ``use_kernels`` (the reference's block calls
+    ``pick_attend`` / ``attend_decode`` directly); the norms take the
+    kernel with ``use_kernels``."""
+    shared = ctx["shared"]          # full attention + mlp params, shared
+    attn_p = shared["attn"]
+
+    def proj_with_lora(x, w, a, b):
+        return x @ w.to(x.dtype) + (x @ a.to(x.dtype)) @ b.to(x.dtype)
+
+    x = norm_apply(attn_p["norm"], cfg, h)
+    hd = cfg.resolved_head_dim
+    B, S = x.shape[0], x.shape[1]
+    q = proj_with_lora(x, attn_p["wq"], params["lora_q_a"],
+                       params["lora_q_b"]).reshape(B, S, cfg.n_heads, hd)
+    k = proj_with_lora(x, attn_p["wk"], params["lora_k_a"],
+                       params["lora_k_b"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = proj_with_lora(x, attn_p["wv"], params["lora_v_a"],
+                       params["lora_v_b"]).reshape(B, S, cfg.n_kv_heads, hd)
+    if ctx["mode"] == "full":
+        q = apply_rope(q, ctx["positions"], cfg.rope_theta)
+        k = apply_rope(k, ctx["positions"], cfg.rope_theta)
+        attend = pick_attend(cfg, S, S, differentiable=cache is None)
+        out = attend(q, k, v, ctx["positions"], ctx["positions"],
+                     window=0, causal=True)
+        new_cache = (_write_full(cache, k, v, ctx["write_slots"])
+                     if cache is not None else None)
+    else:
+        t = ctx["t"]
+        q = apply_rope(q, t.view(1, 1), cfg.rope_theta)
+        k = apply_rope(k, t.view(1, 1), cfg.rope_theta)
+        new_cache = _write_decode(cache, k, v, ctx["slot"])
+        out = attend_decode(q, new_cache["k"], new_cache["v"], t,
+                            ctx["kpos_t"])
+    out = out.reshape(B, S, -1) @ attn_p["wo"].to(x.dtype)
+    h = h + out
+    m = mlp_apply(shared["mlp"], cfg, norm_apply(shared["mlp"]["norm"], cfg,
+                                                 h))
+    return h + m, new_cache, 0.0
+
+
+def shared_attn_backfill(cfg, params, h, ctx, cache):
+    """K/V projected from the SHARED weights, without this invocation's
+    LoRA deltas (as the reference's backfill does)."""
+    if cache is None:
+        return None
+    return _attn_backfill(cfg, ctx["shared"]["attn"], h, ctx, cache)
+
+
 BLOCKS: Dict[str, BlockDef] = {
     "dense": BlockDef(dense_init_block, dense_apply, attn_cache_init,
                       dense_backfill),
     "moe": BlockDef(moe_init_block, moe_apply_block, attn_cache_init,
                     dense_backfill),
+    "mamba": BlockDef(mamba_init_block, mamba_apply, mamba_cache,
+                      mamba_backfill, state_keys=("conv", "state")),
+    "attn_shared": BlockDef(shared_attn_init, shared_attn_apply,
+                            attn_cache_init, shared_attn_backfill),
 }
 
 
@@ -279,7 +393,11 @@ def layer_kinds(cfg) -> list[str]:
         return ["dense"] * cfg.n_layers
     if cfg.family == "moe":
         return ["moe"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every
+        return ["attn_shared" if (k and i % k == 0) else "mamba"
+                for i in range(cfg.n_layers)]
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: the hybrid, ssm, audio "
-        f"and vlm families come in later slices of the port")
-
+        f"family {cfg.family!r} is not ported yet: the dense, moe and "
+        f"hybrid families are; the ssm, audio and vlm families come in "
+        f"later slices of the port")

@@ -1,4 +1,4 @@
-"""CascadeModel — the early-exit model, dense and moe families.
+"""CascadeModel — the early-exit model: dense, moe and hybrid families.
 
 The counterpart of the JAX package's ``models/model.py``.  The backbone is
 the per-layer kind sequence from ``blocks.layer_kinds(cfg)``, split into
@@ -13,7 +13,10 @@ by default); the final head is the standard norm + unembedding.  Norms are
 rmsnorm or layernorm (``cfg.norm``); positions are RoPE, or learned
 absolute ones (``pos_embed``) when ``rope_theta <= 0``; with
 ``tie_embeddings`` the unembedding is ``embed.T`` and there is no
-``lm_head``.
+``lm_head``.  The hybrid family (zamba2) interleaves Mamba2 layers with
+invocations of ONE shared attention + MLP block (``params["shared"]``,
+handed to every layer in ``ctx["shared"]``), each invocation adding its
+own LoRA deltas.
 
 Public entry points:
   init(generator)                                -> params
@@ -41,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.blocks import BLOCKS, layer_kinds
-from repro_torch.models.layers import norm_apply, norm_init
+from repro_torch.models.layers import (attn_init, mlp_init, norm_apply,
+                                       norm_init)
 from repro_torch.utils import dtype_of, resolve_device
 
 
@@ -56,10 +60,10 @@ def _runs(kinds: List[str]) -> List[Tuple[str, int]]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the dense and moe "
-            f"families are; the hybrid, ssm, audio and vlm families come in "
+            f"family {cfg.family!r} is not ported yet: the dense, moe and "
+            f"hybrid families are; the ssm, audio and vlm families come in "
             f"later slices of the port")
 
 
@@ -104,6 +108,9 @@ class CascadeModel:
                     gen, n))
             segs.append(stages)
         p["segments"] = segs
+        if cfg.family == "hybrid":
+            shared = {"attn": attn_init(gen, cfg), "mlp": mlp_init(gen, cfg)}
+            p["shared"] = nn.tree_map(cast, shared)
         exits = []
         for _ in range(self.n_exits - 1):
             e: Dict[str, Any] = {"norm": norm_init(gen, cfg)}
@@ -173,6 +180,18 @@ class CascadeModel:
                 block.backfill(self.cfg, nn.tree_index(stacked, i), h, ctx,
                                nn.tree_index(seg_cache[pi], i))
         return seg_cache
+
+    def state_leaf_mask(self, si, seg_cache) -> List[bool]:
+        """For each leaf of segment ``si``'s cache tree (a slab, a cohort's
+        view of it, or a paged store), in :func:`nn.tree_leaves` order:
+        True for a STATE leaf (rewritten whole by a decode step — the
+        block kind's ``state_keys``), False for a RING leaf (one slot
+        written a step)."""
+        mask = []
+        for (kind, _), stage in zip(self.segment_runs[si], seg_cache):
+            keys = BLOCKS[kind].state_keys
+            mask += [name in keys for name, _ in stage.items()]
+        return mask
 
     # ------------------------------------------------------------------
     # heads
@@ -270,13 +289,13 @@ class CascadeModel:
         if extra:
             raise NotImplementedError(
                 "extra model inputs come with the families that take them "
-                "(a later slice of the port); the dense and moe families take "
-                "none")
+                "(a later slice of the port); the dense, moe and hybrid "
+                "families take none")
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions, "write_slots": None,
-               "kpos": None}
+               "kpos": None, "shared": params.get("shared")}
         logits = []
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         stride = max(1, cfg.cascade.exit_loss_stride)
@@ -298,7 +317,9 @@ class CascadeModel:
     def init_cache(self, batch: int, cache_len: int, dtype=None,
                    device=None):
         """Zeroed dense caches on ``device`` (the model's by default;
-        ``"meta"`` gives the shapes without allocating)."""
+        ``"meta"`` gives the shapes without allocating): attention rings in
+        ``dtype``, a Mamba2 layer's conv window in ``dtype`` and its
+        recurrent state in f32 whatever ``dtype`` is."""
         cfg = self.cfg
         dtype = dtype or self.param_dtype
         device = device or self.device
@@ -335,7 +356,8 @@ class CascadeModel:
         write_slots = torch.as_tensor(_prefill_kpos(S, W), device=self.device)
         h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions,
-               "write_slots": write_slots, "kpos": cache["kpos"]}
+               "write_slots": write_slots, "kpos": cache["kpos"],
+               "shared": params.get("shared")}
         if block_tables is not None:
             ctx["block_tables"] = block_tables
         logits = []
@@ -364,7 +386,7 @@ class CascadeModel:
         h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions,
                "write_slots": write_slots, "kpos": None,
-               "block_tables": block_tables}
+               "block_tables": block_tables, "shared": params.get("shared")}
         logits = []
         for si in range(self.n_exits):
             h, _, _ = self.run_segment(si, params, h, ctx,
@@ -409,7 +431,8 @@ class CascadeModel:
         kpos_t = self._record(cache["kpos"].clone(), t)
         h = self._embed(params, token, t.view(1))
         ctx = {"mode": "decode", "t": t, "slot": slot,
-               "kpos": cache["kpos"], "kpos_t": kpos_t}
+               "kpos": cache["kpos"], "kpos_t": kpos_t,
+               "shared": params.get("shared")}
         return h, ctx
 
     def commit_decode(self, cache, new_segs, t):
@@ -440,8 +463,8 @@ class CascadeModel:
         if extra:
             raise NotImplementedError(
                 "extra model inputs come with the families that take them "
-                "(a later slice of the port); the dense and moe families take "
-                "none")
+                "(a later slice of the port); the dense, moe and hybrid "
+                "families take none")
         from repro_torch.core.exec import StagedExecutor
         if decider is not None:
             executor = StagedExecutor(self, self.cfg, decider)

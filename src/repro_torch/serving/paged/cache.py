@@ -81,16 +81,22 @@ class PagedCascadeCache:
 
         # the stores mirror init_cache's (segments x stages) structure with
         # the (B, W) slab dims of every k/v leaf replaced by (num_blocks,
-        # block_size); the template is shapes only (meta tensors)
+        # block_size); any other cache kind (a Mamba2 layer's ssm state and
+        # conv window, ...) has no ring to page — reject rather than keep a
+        # dense slab next to the paged one.  The template is shapes only
+        # (meta tensors)
         template = model.init_cache(lane_batch, cache_len, device="meta")
         for si, stages in enumerate(template["segments"]):
             for stage in stages:
                 if not _stage_is_attn(stage):
+                    what = (list(stage) if isinstance(stage, dict)
+                            else type(stage).__name__)
                     raise ValueError(
                         f"cache_layout='paged' needs every cache leaf to be "
                         f"an attention k/v ring; segment {si} of family "
-                        f"{cfg.family!r} has a non-attention cache stage. "
-                        f"Use cache_layout='dense' for this config.")
+                        f"{cfg.family!r} has a non-attention cache stage "
+                        f"({what}). Use cache_layout='dense' for this "
+                        f"config.")
 
         dense_equiv = n_lanes * lane_batch * self.K * self.nblk
         num_blocks = pc.num_blocks or (dense_equiv + 1)
