@@ -183,7 +183,24 @@ source, all at once).  Phases, each of which fails the run on a miss:
     megakernel at a mixed threshold (on and off), select mode with the
     cohort scatter and autotune's shadow step there (streams equal to
     cond_batch's), and the paged layout refused;
-20. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+20. slice 17, the ssm family ("ssm"): phase 2's kernels at xlstm-350m's
+    shapes (rmsnorm (4, 1024) on warp, exit_update (4, 50304) over 13
+    tiles, the megakernel's tc route at (1024, 50304); no attention
+    kernel) and the cohort scatter's whole-cohort route over a 5-layer
+    mLSTM stage (f32 C, n, m and the bf16 conv window) and an sLSTM
+    stage's four f32 leaves; then xlstm-350m at full width and depth (24
+    layers, d 1024, bf16) alone on the card — init time, peak memory, the
+    logits against the plain path (gated in f32, where the family's
+    amplified rounding stays small; the bf16 paths' drift reported), a
+    lane prefill of 4 x 256 tokens
+    timed and its device kernels counted, the hybrid phase's 13 requests
+    (the 300-token prompt takes the padded mLSTM chunk; a lane
+    re-prefills from the caches' init values) on both runtimes in turns
+    at (0.9, 0.9, 0.0) and (0, 0, 0), 2 cohorts with the megakernel at a
+    mixed threshold (on and off), select mode with the cohort scatter
+    (whole-cohort route only) and autotune's shadow step there (streams
+    equal to cond_batch's), and the paged layout refused;
+21. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -1376,20 +1393,23 @@ def phase_cohort_scatter(dev, gen):
     return cases
 
 
-def phase_state_scatter(dev, gen):
-    """The cohort scatter's whole-cohort route at zamba2-1.2b's state
-    leaves (:data:`HYBRID_STATE_LEAVES`): select mode's land of cohort 1
-    of 2 of a 5-layer mamba stage, the f32 state and the bf16 conv window
-    in one launch, exact against the plain version; timed with its bound
-    (each source byte read once and written once) and the library copy
-    (one ``copy_`` a leaf).  Returns the case."""
+def phase_state_scatter(dev, gen, arch="zamba2-1.2b", leaves=None,
+                        stage="mamba"):
+    """The cohort scatter's whole-cohort route at a stage's state leaves
+    (zamba2-1.2b's by default, :data:`HYBRID_STATE_LEAVES`; xlstm-350m's
+    mLSTM and sLSTM stages, :data:`XLSTM_STATE_LEAVES`): select mode's
+    land of cohort 1 of 2 of the stage, every leaf in one launch, exact
+    against the plain version; timed with its bound (each source byte
+    read once and written once) and the library copy (one ``copy_`` a
+    leaf).  Returns the case."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.cohort_cache import cohort_scatter_tree
     C, c = 2, 1
+    leaves = leaves or HYBRID_STATE_LEAVES
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     dst = [torch.randn(shape, generator=gen, device=dev).to(dts[dt])
-           for shape, dt in HYBRID_STATE_LEAVES]
+           for shape, dt in leaves]
     Bc = dst[0].shape[1] // C
     src = [torch.randn((x.shape[0], Bc) + x.shape[2:], generator=gen,
                        device=dev).to(x.dtype) for x in dst]
@@ -1410,13 +1430,14 @@ def phase_state_scatter(dev, gen):
     kernel()
     torch.cuda.synchronize()
     for a, b in zip(dst, want):
-        check_equal("cohort_scatter whole zamba2-1.2b state", a, b)
+        check_equal(f"cohort_scatter whole {arch} {stage} state", a, b)
     nbytes = 2 * sum(x.numel() * x.element_size() for x in src)
     b, by = bound_ms(nbytes, 0, "float32")
-    return {"config": "zamba2-1.2b", "route": "whole",
+    return {"config": arch, "stage": stage, "route": "whole",
             "shape": [list(x.shape) for x in dst],
             "rows": [list(x.shape) for x in src], "leaves": len(dst),
-            "cohort": [c, C], "dtype": "float32 + bfloat16",
+            "cohort": [c, C], "dtype": " + ".join(sorted({
+                dt for _, dt in leaves})), "bytes": nbytes,
             "max_abs_err": max(max_err(a, b) for a, b in zip(dst, want)),
             "ms": time_ms(kernel), "plain_ms": time_ms(plain),
             "library_ms": time_ms(library), "bound_ms": b, "bound_by": by}
@@ -1587,9 +1608,10 @@ def check_routes(cfg, launches):
     16-byte chunks, else the block route (d 7168 in bf16); every decode
     attention over paged stores whose block size divides the 32-key tile
     takes the paged route (no gather), any other the dense one.  The
-    hybrid family's path launches no attention kernel at all
-    (:data:`HYBRID`).  Returns each kernel's launches by route since the
-    counters were last reset."""
+    hybrid and ssm families' paths launch no attention kernel at all
+    (:data:`HYBRID`, :data:`SSM`), and the ssm family's cohort scatter
+    only its whole-cohort route (it has no ring leaf).  Returns each
+    kernel's launches by route since the counters were last reset."""
     from repro_torch.kernels.decode_attention import TILE, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.megakernel import exit_head_update
@@ -1598,13 +1620,19 @@ def check_routes(cfg, launches):
     paged = (cfg.paged_cache.layout == "paged"
              and TILE % cfg.paged_cache.block_size == 0)
     wide_norm = cfg.d_model * (4 if f32 else 2) > 16 * MAX_CHUNKS
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm"):
         for name in ("flash_attention", "decode_attention"):
             if launches[name]:
                 fail(f"{cfg.name}: {launches[name]} {name} launches on the "
-                     "hybrid path (its shared block's attention is the "
-                     "plain one)")
+                     f"{cfg.family} path (it has no attention kernel)")
     out = {}
+    if cfg.family == "ssm":
+        from repro_torch.kernels.cohort_cache import cohort_scatter_tree
+        routes = dict(cohort_scatter_tree.launches_by_route)
+        if routes["whole"] != launches["cohort_scatter"]:
+            fail(f"{cfg.name}: cohort_scatter routes {routes}, expected all "
+                 f"{launches['cohort_scatter']} launches on whole")
+        out["cohort_scatter"] = routes
     for name, fn, want in (
             ("flash_attention", flash_attention,
              "cuda_core" if f32 else "wgmma"),
@@ -2876,6 +2904,25 @@ HYBRID_SHAPES = {
 # the conv window (L, B, ssm_conv - 1, d_inner + 2 state) bf16, both whole
 HYBRID_STATE_LEAVES = (((5, 4, 64, 64, 64), "float32"),
                        ((5, 4, 3, 4224), "bfloat16"))
+# the ssm family's serving shapes (slice 17): xlstm-350m's norms and exit
+# heads — the megakernel's tc route at (1024, 50304), the narrowest d so
+# far, and exit_update over 13 tiles of 4096 columns a row.  Its path
+# launches no attention kernel
+XLSTM_SHAPES = {
+    "xlstm-350m": dict(d=1024, H=4, KV=4, vocab=50304, norm="warp",
+                       head="tc", attention=False),
+}
+# select mode's land of cohort 1 of 2 at lane batch 4, whole-cohort route:
+# xlstm-350m's 5-layer mLSTM stage (C (L, B, heads, p, p), its conv window
+# (L, B, 3, d_inner) bf16, m (L, B, heads) — 16-byte rows — and n (L, B,
+# heads, p), in the cache's leaf order) and an sLSTM stage's four (1, B,
+# d) f32 leaves (c, h, m, n)
+XLSTM_STATE_LEAVES = {
+    "mlstm": (((5, 4, 4, 512, 512), "float32"),
+              ((5, 4, 3, 2048), "bfloat16"), ((5, 4, 4), "float32"),
+              ((5, 4, 4, 512), "float32")),
+    "slstm": (((1, 4, 1024), "float32"),) * 4,
+}
 
 
 def phase_yi_kernels(dev, gen):
@@ -2885,7 +2932,8 @@ def phase_yi_kernels(dev, gen):
 
 def config_kernel_cases(dev, gen, arch):
     """Phase 2's cases at ``arch``'s serving shapes (:data:`DENSE_SHAPES`,
-    :data:`MOE_SHAPES`, :data:`HYBRID_SHAPES`; B = 4, bf16), each against
+    :data:`MOE_SHAPES`, :data:`HYBRID_SHAPES`, :data:`XLSTM_SHAPES`; B =
+    4, bf16), each against
     its plain version at the tolerances above: rmsnorm (4, d) on the route
     the width takes; exit_update (4, V); the megakernel at h (4, d) x
     (d, V) on its route (against cuBLAS + ``exit_update`` as the library
@@ -2894,7 +2942,8 @@ def config_kernel_cases(dev, gen, arch):
     route bit for bit like the dense one over the gathered views); flash
     attention (4, H/KV, 256, 128) (or the shape's S and window) on the
     wgmma route; where marked, confidence (4, V) at its cluster cap; a
-    shape marked ``attention=False`` (the hybrid's) has no attention case.
+    shape marked ``attention=False`` (the hybrid's and the ssm family's)
+    has no attention case.
     Returns {kernel: [case]}, each case marked ``"config": arch``."""
     import torch
     import torch.nn.functional as F
@@ -2906,7 +2955,8 @@ def config_kernel_cases(dev, gen, arch):
     from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch.kernels.paged_gather import paged_gather_kv
     from repro_torch.kernels.rmsnorm import rmsnorm
-    shp = {**DENSE_SHAPES, **MOE_SHAPES, **HYBRID_SHAPES}[arch]
+    shp = {**DENSE_SHAPES, **MOE_SHAPES, **HYBRID_SHAPES,
+           **XLSTM_SHAPES}[arch]
     D, H, KV, V = shp["d"], shp["H"], shp["KV"], shp["vocab"]
     bf = torch.bfloat16
     name, B, hd, n_m = "bfloat16", 4, 128, 3
@@ -3624,7 +3674,8 @@ def _free_card():
     return torch.cuda.memory_allocated()
 
 
-def _logits_against_plain(cfg, model, params, n_steps=2, probe=None):
+def _logits_against_plain(cfg, model, params, n_steps=2, probe=None,
+                          plain_cfg=None, plain_params=None, gate=True):
     """The prefill's last-position logits of every exit and the first
     ``n_steps`` dense decode steps' final-exit logits, kernels on against
     the port's plain path (``use_kernels`` off) on the same parameters,
@@ -3633,12 +3684,16 @@ def _logits_against_plain(cfg, model, params, n_steps=2, probe=None):
     (:class:`_RouterProbe`) the plain path routes on the kernel path's
     expert choices, and the errors held to the tolerance are those of the
     rows whose own choices agreed at every layer (the errors over all
-    rows are reported beside them).  Returns the errors and the share of
+    rows are reported beside them).  ``plain_cfg`` / ``plain_params``
+    replace the plain side (another dtype's model and weights); with
+    ``gate`` False nothing fails.  Returns the errors and the share of
     rows whose argmax agrees."""
     import numpy as np
     import torch
     from repro_torch.models.model import build_model
-    plain = build_model(cfg.replace(use_kernels=False), device=DEV)
+    plain = build_model(plain_cfg or cfg.replace(use_kernels=False),
+                        device=DEV)
+    plain_params = params if plain_params is None else plain_params
     rng = np.random.default_rng(5)
     B, S = 4, 256
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
@@ -3662,7 +3717,7 @@ def _logits_against_plain(cfg, model, params, n_steps=2, probe=None):
     with torch.no_grad():
         got, want, rows = both(
             lambda: model.prefill(params, toks, caches[0]),
-            lambda: plain.prefill(params, toks, caches[1]),
+            lambda: plain.prefill(plain_params, toks, caches[1]),
             B * S, np.arange(B) * S + S - 1)
         (got, caches[0]), (want, caches[1]) = got, want
         errs = {"prefill": [], "decode": []}
@@ -3687,7 +3742,8 @@ def _logits_against_plain(cfg, model, params, n_steps=2, probe=None):
             tok = got[-1].argmax(-1).to(torch.int32)[:, None]
             (got, caches[0]), (want, caches[1]), rows = both(
                 lambda: model.decode_step(params, tok, S + i, caches[0]),
-                lambda: plain.decode_step(params, tok, S + i, caches[1]),
+                lambda: plain.decode_step(plain_params, tok, S + i,
+                                          caches[1]),
                 B, np.arange(B))
             e, every = rel(got[-1], want[-1], rows)
             errs["decode"].append(e)
@@ -3696,7 +3752,7 @@ def _logits_against_plain(cfg, model, params, n_steps=2, probe=None):
     if not held:
         fail(f"{cfg.name}: no compared row's experts agreed at every layer")
     worst = max(held)
-    if not worst <= LOGIT_REL_TOL:
+    if gate and not worst <= LOGIT_REL_TOL:
         fail(f"{cfg.name}: kernel logits part from the plain path's by "
              f"{worst:.3e} (normwise, tolerance {LOGIT_REL_TOL})")
     del caches, plain
@@ -4908,11 +4964,12 @@ def _hybrid_requests(vocab):
 
 
 def _hybrid_step_bytes(model, params, lane_batch, cache_len):
-    """Bytes a lane step must move with every segment run: each mamba
-    layer's and LoRA delta's weights once, the shared block's once per
-    invocation, the unembedding once per exit head, every state leaf read
-    and written, and every shared-attention K/V ring read once (the
-    cache's state leaves at ``lane_batch``)."""
+    """Bytes a lane step must move with every segment run: each layer's
+    weights once (a mamba, mLSTM or sLSTM layer's, a LoRA delta's), the
+    hybrid's shared block's once per invocation, the unembedding once per
+    exit head, every state leaf read and written, and every
+    shared-attention K/V ring read once (the cache's state leaves at
+    ``lane_batch``)."""
     from repro_torch.models import nn
 
     def nbytes(tree):
@@ -4931,7 +4988,7 @@ def _hybrid_step_bytes(model, params, lane_batch, cache_len):
     heads = model.n_exits * params["lm_head"].numel() \
         * params["lm_head"].element_size()
     parts = {"layer_weights": layers,
-             "shared_block": n_shared * nbytes(params["shared"]),
+             "shared_block": n_shared * nbytes(params.get("shared")),
              "unembeddings": heads, "state_read_write": state,
              "kv_rings": ring}
     return parts, sum(parts.values())
@@ -5088,6 +5145,233 @@ def phase_hybrid(smi):
     return out
 
 
+# the ssm path's kernels (slice 17): rmsnorm on every block pre-norm, the
+# exit norms and the final norm (the mLSTM out norm over d_inner stays
+# plain, as the reference's) and exit_update on the exit heads; the
+# megakernel where it is on and the cohort scatter's whole-cohort route in
+# select mode; never an attention kernel
+SSM = {"rmsnorm", "exit_update"}
+SSM_ARCH = "xlstm-350m"
+# one lane prefill of 4 fresh rows of 256 tokens (one mLSTM chunk; the
+# sLSTM scan a cell a position)
+SSM_PREFILL = (4, 256)
+
+
+def _profile_prefill(model, params, B, S):
+    """One lane prefill of B fresh rows of S tokens: its host seconds,
+    synchronised (two calls), and the device kernels it launches, by
+    torch.profiler (the sLSTM scan's per-position cells are most of
+    them)."""
+    import numpy as np
+    import torch
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, model.cfg.vocab_size, (B, S)), dtype=torch.int32, device=DEV)
+    secs = []
+    with torch.no_grad():
+        for _ in range(2):
+            cache = model.init_cache(B, DENSE_ENGINE["cache_len"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, toks, cache)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        cache = model.init_cache(B, DENSE_ENGINE["cache_len"])
+        kernels = _device_kernels(lambda: model.prefill(params, toks, cache))
+    return {"rows": B, "tokens": S, "seconds": secs,
+            "device_kernel_launches": sum(n for _, n in kernels),
+            "top_kernels": sorted(kernels, key=lambda k: -k[1])[:8]}
+
+
+def _ssm_logits(base, model, params):
+    """xlstm-350m's full-depth logits against the plain path.  At random
+    weights the family amplifies rounding (the mLSTM normaliser and the
+    sLSTM gates, a few-fold a layer): in bf16 the plain path itself parts
+    from its own f32 run by more than :data:`LOGIT_REL_TOL` (0.15 at the
+    first exit, 0.7 at the decode steps on an H100), so the bf16
+    kernel path's distance from the bf16 plain path measures that
+    amplification of a rounding difference, not the kernels.  Gated at
+    :data:`LOGIT_REL_TOL`: the same seed-0 weights widened to f32, the
+    kernels (their f32 routes) against the plain path.  Reported beside
+    it, ungated, on the same tokens: the bf16 kernel path against the
+    bf16 plain path, and the bf16 plain path against the f32 one."""
+    import torch
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    cfg32 = base.replace(dtype="float32")
+    params32 = nn.tree_map(
+        lambda x: x.float() if x.is_floating_point() else x, params)
+    out = _logits_against_plain(cfg32, build_model(cfg32, device=DEV),
+                                params32)
+    out["bf16_kernel_vs_bf16_plain"] = _logits_against_plain(
+        base, model, params, gate=False)
+    plain = base.replace(use_kernels=False)
+    out["bf16_plain_vs_f32_plain"] = _logits_against_plain(
+        plain, build_model(plain, device=DEV), params, plain_cfg=cfg32,
+        plain_params=params32, gate=False)
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm(smi):
+    """xlstm-350m at its published widths and full depth (24 layers: 20
+    mLSTM and 4 sLSTM), bf16, seed 0, 3 components, kernels on,
+    cond_batch, alone on the card: the init time and peak memory; the
+    prefill's and first decode steps' logits against the plain path, in
+    f32 (:func:`_ssm_logits`: bf16's own rounding, amplified, parts the
+    bf16 paths); one lane prefill of 4 x 256 tokens,
+    timed and its device kernels counted; the serving engine of the qwen
+    cell (lane batch 4, 2 lanes, cache 512) on :func:`_hybrid_requests`
+    (a lane re-prefills from the caches' init values; the 300-token prompt
+    takes the padded mLSTM chunk) at (0.9, 0.9, 0.0) on the host and
+    device runtimes in turns (host, device, device, host) and at (0, 0, 0)
+    (device, host), identical streams with one host sync a lane chunk; 2
+    cohorts with the megakernel at a mixed component-0 threshold (the
+    mixed branch taken: the cohorts disagree; the family steps every deep
+    segment per cohort in any branch), streams equal with it on and off;
+    select mode with the cohort scatter at that vector (its whole-cohort
+    route only: the family has no ring leaf), streams equal to
+    cond_batch's;
+    autotune's shadow step there, streams equal on and off; and the paged
+    layout refused with the reference's message.  Prints each run's µs
+    per token beside the floor of a lane step's bytes.  Returns the device
+    runtime's launches by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.macs import param_count
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    held = _free_card()
+    base = get_config(SSM_ARCH).replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(base, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = list(nn.tree_leaves(params))
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    t_phase = time.perf_counter()
+    logits = _ssm_logits(base, model, params)
+    prefill = _profile_prefill(model, params, *SSM_PREFILL)
+    reqs = _hybrid_requests(base.vocab_size)
+    turns, dev_launches, _ = _runtime_turns(
+        SSM_ARCH, base, model, params, reqs,
+        ("host", "device", "device", "host"))
+    check_launched(SSM_ARCH, turns["launches"], SSM)
+    for rt in ("host", "device"):
+        prefills = [r["prefills"] for r in turns[rt]]
+        if min(prefills) <= DENSE_ENGINE["n_lanes"]:
+            fail(f"{SSM_ARCH} {rt}: {prefills} lane prefills (no lane "
+                 "re-prefilled)")
+    zero = base.with_cascade(thresholds=(0.0, 0.0, 0.0))
+    zturns, _, _ = _runtime_turns(f"{SSM_ARCH} (0, 0, 0)", zero, model,
+                                  params, reqs, ("device", "host"))
+    check_launched(f"{SSM_ARCH} (0, 0, 0)", zturns["launches"], SSM)
+    out = {"one_cohort": dev_launches}
+
+    two = base.with_cascade(n_cohorts=2, cohort_layout="major") \
+        .with_kernel_tune(megakernel=True)
+    calib = serve(two.with_cascade(thresholds=(0.0, 0.0, 0.0)), model,
+                  params, reqs, runtime="device", **DENSE_ENGINE)[0]
+    th, quantile = mixed_threshold(
+        calib, lambda th: serve(two.with_cascade(
+            thresholds=(th, 0.9, 0.0)), model, params, reqs,
+            runtime="device", **DENSE_ENGINE)[1]["cohort_dispatch"],
+        f"{SSM_ARCH} megakernel")
+    mixed = two.with_cascade(thresholds=(th, 0.9, 0.0))
+    on, on_launches, on_streams = _runtime_turns(
+        f"{SSM_ARCH} megakernel", mixed, model, params, reqs,
+        ("device", "host"))
+    off, _, off_streams = _runtime_turns(
+        f"{SSM_ARCH} megakernel off", mixed.with_kernel_tune(
+            megakernel=False), model, params, reqs, ("device",))
+    if on_streams != off_streams:
+        fail(f"{SSM_ARCH}: the megakernel's streams differ from the "
+             "unfused exit heads'")
+    check_launched(f"{SSM_ARCH} megakernel", on["launches"],
+                   SSM | {"megakernel"})
+    for rec in on["device"] + on["host"]:
+        if not rec["cohort_dispatch"]["mixed"]:
+            fail(f"{SSM_ARCH} 2 cohorts: the mixed branch never ran "
+                 f"({rec['cohort_dispatch']})")
+    out["megakernel"] = on_launches
+    select, sel_launches, sel_streams = _runtime_turns(
+        f"{SSM_ARCH} select", mixed.with_cascade(exit_mode="select")
+        .with_kernel_tune(cohort_scatter=True), model, params, reqs,
+        ("device", "host"))
+    if sel_streams != on_streams:
+        fail(f"{SSM_ARCH}: select mode's streams differ from "
+             "cond_batch's")
+    check_launched(f"{SSM_ARCH} select", select["launches"],
+                   SSM | {"megakernel", "cohort_scatter"})
+    out["select_scatter"] = sel_launches
+    shadow, tune_launches, tune_streams = _runtime_turns(
+        f"{SSM_ARCH} autotune", mixed.with_autotune(**HYBRID_AUTOTUNE),
+        model, params, reqs, ("device", "host"))
+    if tune_streams != on_streams:
+        fail(f"{SSM_ARCH}: autotune's shadow steps changed the streams")
+    check_launched(f"{SSM_ARCH} autotune", shadow["launches"],
+                   SSM | {"megakernel"})
+    out["autotune"] = tune_launches
+    from repro_torch.serving.engine import CascadeServingEngine
+    paged = base.with_paged_cache(layout="paged", block_size=16)
+    try:
+        CascadeServingEngine(paged, model, params, device=DEV,
+                             **DENSE_ENGINE)
+        fail(f"{SSM_ARCH}: the paged layout was not refused")
+    except ValueError as err:
+        refusal = str(err)
+    if "non-attention cache stage (['C', 'conv', 'm', 'n'])" not in refusal:
+        fail(f"{SSM_ARCH}: paged refusal {refusal!r}")
+    phase_seconds = time.perf_counter() - t_phase
+    parts, step_bytes = _hybrid_step_bytes(
+        model, params, DENSE_ENGINE["lane_batch"], DENSE_ENGINE["cache_len"])
+    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    med = turns["decode_us_per_token_median"]
+    lane_prefill = {rt: [r["prefill_seconds"] / r["prefills"]
+                         for r in turns[rt]] for rt in ("host", "device")}
+    emit({"phase": "ssm", "config": SSM_ARCH,
+          "n_layers": base.n_layers, "segments": [list(x) for x in
+                                                  base.segments],
+          "segment_runs": model.segment_runs, "d_model": base.d_model,
+          "n_heads": base.n_heads, "d_ff": base.d_ff,
+          "slstm_every": base.slstm_every, "vocab": base.vocab_size,
+          "dtype": base.dtype, "params": n_params,
+          "param_count_analytic": param_count(base),
+          "param_bytes": param_bytes, "held_before": held,
+          "init_seconds": init_seconds,
+          "init_max_memory_allocated": init_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "logits_against_plain": logits, "prefill": prefill,
+          "lane_prefill_seconds_mean": lane_prefill,
+          "thresholds": [0.9, 0.9, 0.0],
+          "requests": len(reqs), "prompt_lens": sorted(
+              {len(r.prompt) for r in reqs}), "max_new_tokens": 16,
+          "turns": turns, "turns_all_exit": zturns,
+          "decode_us_per_token": med,
+          "step_bytes": parts, "floor_ms_per_step": floor_ms,
+          "device_ms_per_step": (None if med.get("device") is None
+                                 else med["device"]
+                                 * DENSE_ENGINE["lane_batch"] / 1e3),
+          "host_ms_per_step": (None if med.get("host") is None
+                               else med["host"]
+                               * DENSE_ENGINE["lane_batch"] / 1e3),
+          "megakernel": {"thresholds": [th, 0.9, 0.0],
+                         "threshold_quantile": quantile, "n_cohorts": 2,
+                         "on": on, "off": off},
+          "select_scatter": select, "autotune": {**HYBRID_AUTOTUNE,
+                                                 "turns": shadow},
+          "paged_refusal": refusal, "phase_seconds": phase_seconds,
+          "nvidia_smi": smi})
+    del model, params
+    _free_card()
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5133,10 +5417,15 @@ def main() -> int:
     # and qwen3-moe-235b-a22b's (group 16, vocab 151936)
     # and the hybrid family's: zamba2-1.2b's norms and exit heads, and the
     # cohort scatter's whole-cohort route over its state leaves
-    for arch in (*DENSE_SHAPES, *MOE_SHAPES, *HYBRID_SHAPES):
+    # and the ssm family's: xlstm-350m's norms and exit heads (tc at d
+    # 1024), and the whole-cohort route over its mLSTM and sLSTM stages
+    for arch in (*DENSE_SHAPES, *MOE_SHAPES, *HYBRID_SHAPES, *XLSTM_SHAPES):
         for name, cases in config_kernel_cases(dev, gen, arch).items():
             checks[name] += cases
     checks["cohort_scatter"].append(phase_state_scatter(dev, gen))
+    for stage, leaves in XLSTM_STATE_LEAVES.items():
+        checks["cohort_scatter"].append(phase_state_scatter(
+            dev, gen, "xlstm-350m", leaves, stage))
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
     emit({"phase": "paged_gather_unaligned",
@@ -5181,6 +5470,8 @@ def main() -> int:
     qwen3 = phase_moe("qwen3-moe-235b-a22b", smi)
     # slice 16: the hybrid family, alone on the card
     hybrid = phase_hybrid(smi)
+    # slice 17: the ssm family, alone on the card
+    ssm = phase_ssm(smi)
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -5309,6 +5600,10 @@ def main() -> int:
                      # step
                      "launches_hybrid": {p: n[name]
                                          for p, n in hybrid.items()},
+                     # slice 17's paths, device runtime: xlstm-350m at
+                     # full width, 13 requests x 16 tokens — the same four
+                     # paths as the hybrid's
+                     "launches_ssm": {p: n[name] for p, n in ssm.items()},
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -9,8 +9,9 @@ stacked on a leading layer axis), ``exits[m]``, ``final_norm`` and
 ``shared`` (the shared block's ``attn`` and ``mlp`` dicts); a layernorm's
 ``"b"`` rides in its norm dict, an moe block's ``moe`` dict (``router``
 (d, E), ``w_gate`` / ``w_up`` (E, d, ff), ``w_down`` (E, ff, d),
-``norm``) in its stage, a mamba block's ``ssm`` dict and an attn_shared
-block's ``lora_*`` leaves in theirs — and returns the same structure of torch tensors on
+``norm``) in its stage, a mamba block's ``ssm`` dict, an attn_shared
+block's ``lora_*`` leaves and an mlstm or slstm block's ``mlstm`` /
+``slstm`` dict in theirs — and returns the same structure of torch tensors on
 ``device``, dtypes kept.  ``params_to_numpy`` is the inverse, so a round
 trip is bit-exact.
 
@@ -31,9 +32,10 @@ from repro_torch.utils import (numpy_to_tensor, resolve_device,
                                tensor_to_numpy)
 
 def _keys(cfg: ModelConfig):
-    """The top-level parameter keys of a model of ``cfg`` (dense, moe or
-    hybrid: the moe and mamba leaves and the LoRA deltas ride inside
-    ``segments``; the hybrid's shared block is ``shared``)."""
+    """The top-level parameter keys of a model of ``cfg`` (dense, moe,
+    hybrid or ssm: the moe, mamba, mLSTM and sLSTM leaves and the LoRA
+    deltas ride inside ``segments``; the hybrid's shared block is
+    ``shared``)."""
     keys = ["embed", "segments", "exits", "final_norm"]
     if cfg.family == "hybrid":
         keys.append("shared")
@@ -52,8 +54,8 @@ def params_from_jax(np_params: Any, cfg: ModelConfig, device=None):
     extra = sorted(set(np_params) - set(keys))
     if missing or extra:
         raise ValueError(f"parameter tree keys: missing {missing}, "
-                         f"unsupported {extra} (the dense, moe and hybrid "
-                         f"families only)")
+                         f"unsupported {extra} (the dense, moe, hybrid and "
+                         f"ssm families only)")
     if len(np_params["segments"]) != cfg.cascade.n_components:
         raise ValueError(f"{len(np_params['segments'])} segments for "
                          f"{cfg.cascade.n_components} cascade components")

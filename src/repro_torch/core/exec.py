@@ -511,7 +511,9 @@ class StagedExecutor:
           per-cohort steps over cohort views of the cache slab.  A shadow
           step takes the mixed branch whenever a cohort skips.  An MoE
           config's rows are not separable (expert capacity): it has no
-          whole-batch segment branch, so none-skip steps take mixed.
+          whole-batch segment branch, so none-skip steps take mixed.  An
+          ssm (xLSTM) config has no whole-batch branch at all: every step
+          steps per cohort (:meth:`_dispatch`).
         * ``"copy"`` — every deep segment steps each cohort on its slice
           of h and the carry, whatever the exit state.
         """
@@ -602,7 +604,18 @@ class StagedExecutor:
         segment is not the per-cohort one (the reference's two-way
         dispatch).  Its all_run predicate is the constant False — no IF
         node is recorded for it — and every step that is not all_skip is
-        mixed."""
+        mixed.
+
+        An ssm (xLSTM) config never takes a whole-batch branch: its
+        segments step per cohort every step, as select mode's do (the
+        counters still count the branch the exit state picked).  Its
+        decode cells round a row otherwise in a batch of C rows than in a
+        cohort's (the batched products and reductions over the recurrent
+        state — mLSTM's ``q @ C`` and ``q · n``, sLSTM's ``h @ r`` — take
+        other cuBLAS and PyTorch kernels by batch size), and at random
+        weights the family amplifies such rounding into other tokens
+        (PERF.md §6), so only the per-cohort cell keeps cond_batch's
+        streams bit for bit select mode's and autotune's shadow steps'."""
         separable = self.cfg.n_experts == 0
         if self.mode == "select":
             # select: the fixed-graph per-cohort path every step
@@ -632,6 +645,9 @@ class StagedExecutor:
             keys = DISPATCH if separable else DISPATCH[:2]
             self.branches.dispatch[:len(keys)].add_(torch.stack(
                 [cases[k] for k in keys]).to(torch.int32))
+        if self.cfg.family == "ssm":
+            # counted as the exit state picked, stepped per cohort
+            cases = {"all_skip": False, "mixed": True, "all_run": False}
         return cases, ran
 
     def _cohorts_major(self, params, ths, h, ctx, segs, sc, active, C,
@@ -714,13 +730,24 @@ class StagedExecutor:
         leaf whole (the whole-cohort route; the two routes cannot share a
         launch)."""
         from repro_torch.kernels.ops import cohort_scatter_tree
-        leaves = list(nn.tree_leaves(seg))
-        ring = [x for x, st in zip(leaves, rows.mask) if not st]
-        state = [x for x, st in zip(leaves, rows.mask) if st]
+        ring, state = _split_leaves(seg, rows.mask)
         if ring:
             cohort_scatter_tree(ring, selected.ring, c, C, slot=rows.slot)
         if state:
             cohort_scatter_tree(state, selected.state, c, C)
+
+
+def _split_leaves(seg_cache, state_mask):
+    """A segment's cache leaves split by ``state_mask`` into (ring leaves,
+    state leaves), each in :func:`nn.tree_leaves` order.  A mask that does
+    not have one entry per leaf is refused: a leaf it misses would be
+    neither snapshotted nor landed."""
+    leaves = list(nn.tree_leaves(seg_cache))
+    if len(leaves) != len(state_mask):
+        raise ValueError(f"state leaf mask of {len(state_mask)} entries for "
+                         f"{len(leaves)} cache leaves")
+    return ([x for x, st in zip(leaves, state_mask) if not st],
+            [x for x, st in zip(leaves, state_mask) if st])
 
 
 @dataclasses.dataclass
@@ -747,10 +774,8 @@ class _SlotRows:
       i-th state leaf), so its snapshot allocates nothing."""
 
     def __init__(self, seg_cache, ctx, si, state_mask, scratch):
-        leaves = list(nn.tree_leaves(seg_cache))
         self.mask = state_mask
-        self.ring = [x for x, st in zip(leaves, state_mask) if not st]
-        self.state = [x for x, st in zip(leaves, state_mask) if st]
+        self.ring, self.state = _split_leaves(seg_cache, state_mask)
         self.scratch = scratch
         self.slot = ctx["slot"]
         self.index = None

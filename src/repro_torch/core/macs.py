@@ -1,5 +1,5 @@
 """Analytic MAC and parameter accounting: CI-ResNet components and the
-cascade segments (dense, moe and hybrid families).
+cascade segments (dense, moe, hybrid and ssm families).
 
 The counterpart of the JAX package's ``core/macs.py``.  The paper counts
 MACs "analytically by summing up the linear operations in the
@@ -16,6 +16,7 @@ from typing import List
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import layer_kinds
 from repro_torch.models.ssm import dims as ssm_dims
+from repro_torch.models.xlstm import mlstm_dims
 
 
 # ---------------------------------------------------------------------------
@@ -83,11 +84,26 @@ def _layer_macs_per_token(cfg: ModelConfig, kind: str, kv_len: int) -> float:
         out_p = d_inner * d
         return in_p + conv + state + out_p
 
+    def mlstm():
+        d_inner, h, p = mlstm_dims(cfg)
+        up = d * 2 * d_inner
+        qkv = 3 * d_inner * d_inner
+        cell = 3 * h * p * p                     # C update + readout
+        down = d_inner * d
+        return up + qkv + cell + down
+
+    def slstm():
+        p = d // cfg.n_heads
+        rec = 4 * cfg.n_heads * p * p
+        return d * 4 * d + rec + d * (4 * d) // 3 + ((4 * d) // 3) * d
+
     table = {
         "dense": lambda: attn() + mlp(),
         "moe": lambda: attn() + d * cfg.n_experts + cfg.top_k * mlp(),
         "mamba": mamba,
         "attn_shared": lambda: attn() + mlp(),
+        "mlstm": mlstm,
+        "slstm": slstm,
     }
     if kind not in table:
         raise NotImplementedError(f"MACs of {kind!r} layers are not ported")
@@ -139,6 +155,10 @@ def param_count(cfg: ModelConfig) -> float:
         + cfg.n_experts * mlp_p(),
         "mamba": mamba_p,
         "attn_shared": lambda: 6 * 16 * d,       # LoRA only; shared block once
+        "mlstm": lambda: (lambda di, h, p: d * 2 * di + 3 * di * di
+                          + 2 * di * cfg.n_heads + di * d)(*mlstm_dims(cfg)),
+        "slstm": lambda: d * 4 * d + 4 * d * (d // cfg.n_heads)
+        + d * (4 * d) // 3 + ((4 * d) // 3) * d,
     }
     for k in kinds:
         total += per[k]()

@@ -21,6 +21,9 @@ covers every leaf of a cache tree (up to 16 leaves per launch): the leaves'
 pointers, strides and sizes ride in the launch's parameter block, so no
 descriptor array is copied to the card first.  Bound on the H100: bytes
 (each source byte read once and written once), copied 16 bytes at a time.
+``cohort_scatter_tree.launches`` counts every launch,
+``cohort_scatter_tree.launches_by_route`` each route's: ``slot`` (ring
+slot rows) and ``whole`` (whole-cohort rows: state leaves).
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (ref_cohort_scatter,
                                      ref_cohort_scatter_slot)
 from repro_torch.models import nn
+
+ROUTES = ("slot", "whole")
 
 _SIG = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -130,10 +135,13 @@ def cohort_scatter_tree(dst_tree, src_tree, c: int, C: int, slot=None):
         build.check(fn(n, ptrs, srcp, strides, chunk, lays, rows,
                        build.ptr(slot), stream), "cohort_scatter")
         cohort_scatter_tree.launches += 1
+        cohort_scatter_tree.launches_by_route[
+            "whole" if slot is None else "slot"] += 1
     return dst_tree
 
 
 cohort_scatter_tree.launches = 0
+cohort_scatter_tree.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def cohort_scatter(dst, src, c: int, C: int):
@@ -144,3 +152,4 @@ def cohort_scatter(dst, src, c: int, C: int):
 
 def reset_launches() -> None:
     cohort_scatter_tree.launches = 0
+    cohort_scatter_tree.launches_by_route.update(dict.fromkeys(ROUTES, 0))

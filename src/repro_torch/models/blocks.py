@@ -1,5 +1,6 @@
-"""Block kinds of the cascade backbone: the dense, moe, mamba and
-attn_shared kinds (the dense, moe and hybrid families).
+"""Block kinds of the cascade backbone: the dense, moe, mamba,
+attn_shared, mlstm and slstm kinds (the dense, moe, hybrid and ssm
+families).
 
 A block kind provides, as in the JAX package's ``models/blocks.py``:
   init(gen, cfg)                      -> params (one layer)
@@ -9,7 +10,8 @@ A block kind provides, as in the JAX package's ``models/blocks.py``:
         write this layer's KV / recurrent state from the early-exit hidden
         state WITHOUT computing the layer's output.)
 and, the port's own, ``state_keys``: the names of its cache leaves that a
-decode step rewrites WHOLE (a recurrent state, a rolling conv window).
+decode step rewrites WHOLE (a recurrent state, a rolling conv window); a
+key that names a dict (sLSTM's ``state``) names every leaf beneath it.
 Every other leaf is a RING leaf (B, W, ...), written at ring slot
 ``t % W`` on axis 1 of a layer (axis 2 of a stage's stacked leaf).  The
 staged executor snapshots and lands a step's writes by that split
@@ -41,7 +43,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.models import nn, ssm
+from repro_torch.models import nn, ssm, xlstm
 from repro_torch.models.layers import (apply_rope, attend_decode, attn_init,
                                        mlp_apply, mlp_init, norm_apply,
                                        pick_attend, qkv_project)
@@ -375,6 +377,70 @@ def shared_attn_backfill(cfg, params, h, ctx, cache):
     return _attn_backfill(cfg, ctx["shared"]["attn"], h, ctx, cache)
 
 
+# ---------------------------------------------------------------------------
+# xLSTM blocks (the ssm family)
+# ---------------------------------------------------------------------------
+
+def mlstm_init_block(gen, cfg):
+    return {"mlstm": xlstm.mlstm_init(gen, cfg)}
+
+
+def mlstm_apply(cfg, params, h, ctx, cache):
+    x = norm_apply(params["mlstm"]["norm"], cfg, h)
+    if ctx["mode"] == "full":
+        y, new_cache = xlstm.mlstm_forward_full(params["mlstm"], cfg, x,
+                                                cache)
+    else:
+        y, new_cache = xlstm.mlstm_decode_step(params["mlstm"], cfg, x, cache)
+    return h + y, new_cache, 0.0
+
+
+def mlstm_cache(cfg, batch, W, dtype, device):
+    del W
+    return xlstm.mlstm_init_cache(cfg, batch, dtype, device)
+
+
+def mlstm_backfill(cfg, params, h, ctx, cache):
+    """mLSTM state backfill = run the recurrence but skip the readout's
+    norm, gate and down projection."""
+    if cache is None:
+        return None
+    x = norm_apply(params["mlstm"]["norm"], cfg, h)
+    if ctx["mode"] == "full":
+        return xlstm.mlstm_backfill_full(params["mlstm"], cfg, x, cache)
+    return xlstm.mlstm_backfill_step(params["mlstm"], cfg, x, cache)
+
+
+def slstm_init_block(gen, cfg):
+    return {"slstm": xlstm.slstm_init(gen, cfg)}
+
+
+def slstm_apply(cfg, params, h, ctx, cache):
+    x = norm_apply(params["slstm"]["norm"], cfg, h)
+    if ctx["mode"] == "full":
+        y, new_cache = xlstm.slstm_forward_full(params["slstm"], cfg, x,
+                                                cache)
+    else:
+        y, new_cache = xlstm.slstm_decode_step(params["slstm"], cfg, x, cache)
+    return h + y, new_cache, 0.0
+
+
+def slstm_cache(cfg, batch, W, dtype, device):
+    del W
+    return xlstm.slstm_init_cache(cfg, batch, dtype, device)
+
+
+def slstm_backfill(cfg, params, h, ctx, cache):
+    """sLSTM state backfill = run the cell but skip the up / down
+    projection."""
+    if cache is None:
+        return None
+    x = norm_apply(params["slstm"]["norm"], cfg, h)
+    if ctx["mode"] == "full":
+        return xlstm.slstm_backfill_full(params["slstm"], cfg, x, cache)
+    return xlstm.slstm_backfill_step(params["slstm"], cfg, x, cache)
+
+
 BLOCKS: Dict[str, BlockDef] = {
     "dense": BlockDef(dense_init_block, dense_apply, attn_cache_init,
                       dense_backfill),
@@ -384,6 +450,10 @@ BLOCKS: Dict[str, BlockDef] = {
                       mamba_backfill, state_keys=("conv", "state")),
     "attn_shared": BlockDef(shared_attn_init, shared_attn_apply,
                             attn_cache_init, shared_attn_backfill),
+    "mlstm": BlockDef(mlstm_init_block, mlstm_apply, mlstm_cache,
+                      mlstm_backfill, state_keys=("conv", "C", "n", "m")),
+    "slstm": BlockDef(slstm_init_block, slstm_apply, slstm_cache,
+                      slstm_backfill, state_keys=("state",)),
 }
 
 
@@ -393,11 +463,17 @@ def layer_kinds(cfg) -> list[str]:
         return ["dense"] * cfg.n_layers
     if cfg.family == "moe":
         return ["moe"] * cfg.n_layers
+    if cfg.family == "ssm":  # xlstm
+        k = cfg.slstm_every
+        if k:
+            return ["slstm" if i % k == k - 1 else "mlstm"
+                    for i in range(cfg.n_layers)]
+        return ["mamba"] * cfg.n_layers
     if cfg.family == "hybrid":
         k = cfg.shared_attn_every
         return ["attn_shared" if (k and i % k == 0) else "mamba"
                 for i in range(cfg.n_layers)]
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: the dense, moe and "
-        f"hybrid families are; the ssm, audio and vlm families come in "
-        f"later slices of the port")
+        f"family {cfg.family!r} is not ported yet: the dense, moe, hybrid "
+        f"and ssm families are; the audio and vlm families come in later "
+        f"slices of the port")

@@ -1,4 +1,5 @@
-"""CascadeModel — the early-exit model: dense, moe and hybrid families.
+"""CascadeModel — the early-exit model: dense, moe, hybrid and ssm
+families.
 
 The counterpart of the JAX package's ``models/model.py``.  The backbone is
 the per-layer kind sequence from ``blocks.layer_kinds(cfg)``, split into
@@ -16,7 +17,10 @@ absolute ones (``pos_embed``) when ``rope_theta <= 0``; with
 ``lm_head``.  The hybrid family (zamba2) interleaves Mamba2 layers with
 invocations of ONE shared attention + MLP block (``params["shared"]``,
 handed to every layer in ``ctx["shared"]``), each invocation adding its
-own LoRA deltas.
+own LoRA deltas.  The ssm family (xlstm) interleaves mLSTM and sLSTM
+layers (every ``slstm_every``-th an sLSTM one), whose caches are
+recurrent states only: an sLSTM stage's cache nests a dict of four state
+leaves under ``"state"``.
 
 Public entry points:
   init(generator)                                -> params
@@ -60,11 +64,11 @@ def _runs(kinds: List[str]) -> List[Tuple[str, int]]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the dense, moe and "
-            f"hybrid families are; the ssm, audio and vlm families come in "
-            f"later slices of the port")
+            f"family {cfg.family!r} is not ported yet: the dense, moe, "
+            f"hybrid and ssm families are; the audio and vlm families come "
+            f"in later slices of the port")
 
 
 class CascadeModel:
@@ -185,12 +189,13 @@ class CascadeModel:
         """For each leaf of segment ``si``'s cache tree (a slab, a cohort's
         view of it, or a paged store), in :func:`nn.tree_leaves` order:
         True for a STATE leaf (rewritten whole by a decode step — the
-        block kind's ``state_keys``), False for a RING leaf (one slot
-        written a step)."""
+        block kind's ``state_keys``; a key naming a dict marks every leaf
+        beneath it), False for a RING leaf (one slot written a step)."""
         mask = []
         for (kind, _), stage in zip(self.segment_runs[si], seg_cache):
             keys = BLOCKS[kind].state_keys
-            mask += [name in keys for name, _ in stage.items()]
+            for name, sub in stage.items():
+                mask += [name in keys] * len(list(nn.tree_leaves(sub)))
         return mask
 
     # ------------------------------------------------------------------
@@ -289,8 +294,8 @@ class CascadeModel:
         if extra:
             raise NotImplementedError(
                 "extra model inputs come with the families that take them "
-                "(a later slice of the port); the dense, moe and hybrid "
-                "families take none")
+                "(a later slice of the port); the dense, moe, hybrid and "
+                "ssm families take none")
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         h = self._embed(params, tokens, positions)
@@ -316,10 +321,14 @@ class CascadeModel:
 
     def init_cache(self, batch: int, cache_len: int, dtype=None,
                    device=None):
-        """Zeroed dense caches on ``device`` (the model's by default;
-        ``"meta"`` gives the shapes without allocating): attention rings in
-        ``dtype``, a Mamba2 layer's conv window in ``dtype`` and its
-        recurrent state in f32 whatever ``dtype`` is."""
+        """Fresh dense caches on ``device`` (the model's by default;
+        ``"meta"`` gives the shapes without allocating), each leaf at its
+        block kind's init value: attention rings zero in ``dtype``; a
+        Mamba2 layer's conv window zero in ``dtype`` and its recurrent
+        state zero in f32; an xLSTM layer's conv window zero in ``dtype``
+        and its states in f32, the stabilisers ``m`` at their sentinels
+        (:mod:`repro_torch.models.xlstm`).  Each stage's leaves are
+        stacked on a leading layer axis, nested dicts leaf by leaf."""
         cfg = self.cfg
         dtype = dtype or self.param_dtype
         device = device or self.device
@@ -329,12 +338,24 @@ class CascadeModel:
             stages = []
             for kind, n in runs:
                 one = BLOCKS[kind].init_cache(cfg, batch, W, dtype, device)
-                stages.append({k: v[None].repeat((n,) + (1,) * v.dim())
-                               for k, v in one.items()})
+                stages.append(nn.tree_map(
+                    lambda v, n=n: v[None].repeat((n,) + (1,) * v.dim()),
+                    one))
             segs.append(stages)
         return {"kpos": torch.full((W,), -1, dtype=torch.int32,
                                    device=device),
                 "segments": segs}
+
+    def reset_cache(self, cache) -> None:
+        """Put every leaf of a dense cache back to its init value, in place
+        (each keeps its address), and the kpos ring to empty: the
+        values of :meth:`init_cache`, broadcast from a one-row, one-slot
+        template (an xLSTM stabiliser restarts at its sentinel, not 0)."""
+        fresh = self.init_cache(1, 1)
+        for x, v in zip(nn.tree_leaves(cache["segments"]),
+                        nn.tree_leaves(fresh["segments"]), strict=True):
+            x.copy_(v.expand_as(x))
+        cache["kpos"].fill_(-1)
 
     # ------------------------------------------------------------------
     # prefill
@@ -463,8 +484,8 @@ class CascadeModel:
         if extra:
             raise NotImplementedError(
                 "extra model inputs come with the families that take them "
-                "(a later slice of the port); the dense, moe and hybrid "
-                "families take none")
+                "(a later slice of the port); the dense, moe, hybrid and "
+                "ssm families take none")
         from repro_torch.core.exec import StagedExecutor
         if decider is not None:
             executor = StagedExecutor(self, self.cfg, decider)

@@ -757,10 +757,9 @@ class CascadeServingEngine:
             lane["kpos"].fill_(-1)
             self._tables_stale.discard(lane_id)
         else:
-            # the lane's slab, refilled in place (it keeps its address)
-            for x in nn.tree_leaves(lane["cache"]["segments"]):
-                x.zero_()
-            lane["cache"]["kpos"].fill_(-1)
+            # the lane's slab, back to its init values in place (it keeps
+            # its address; an xLSTM stabiliser restarts at its sentinel)
+            self.model.reset_cache(lane["cache"])
         cache_in = self._lane_cache(lane)
         # the re-prefill restarts the lane's DecodeState (streaks, EMA,
         # cursor); its telemetry and live thresholds live as long as the
