@@ -200,12 +200,30 @@ source, all at once).  Phases, each of which fails the run on a miss:
     mixed threshold (on and off), select mode with the cohort scatter
     (whole-cohort route only) and autotune's shadow step there (streams
     equal to cond_batch's), and the paged layout refused;
-21. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+21. slice 18, the audio family ("audio"): phase 2's kernels at
+    whisper-tiny's shapes (head dim 64: decode attention over the W 448
+    ring, flash attention on its CUDA-core route in bf16 at S 256 and
+    128; exit_update (4, 51865) over 13 tiles; the cohort scatter's slot
+    route over a 2-layer stage's self K/V rings; no rmsnorm or megakernel
+    case: the path has neither); then whisper-tiny at full width and
+    depth (4 encdec layers, a 4-layer encoder over 1500 frames, bf16)
+    alone on the card — init time, peak memory, the logits against the
+    plain path over random frames, a lane prefill of 4 x 256 tokens timed
+    with the encoder's share, the hybrid phase's 13 requests at cache_len
+    448 (a lane re-prefills, its cross K/V rewritten in place) on both
+    runtimes in turns at (0.9, 0.9, 0.0) and (0, 0, 0), 2 cohorts with
+    the megakernel on at a mixed threshold (0 megakernel launches: the
+    layernorm heads take exit_update; streams equal with it off), select
+    mode with the cohort scatter (slot route only: the cross K/V are
+    read-only leaves) and autotune's shadow step there (streams equal to
+    cond_batch's), and the paged layout refused;
+22. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after, and fails unless exactly its expected kernels launched;
-every prefill of a bf16 model must take flash attention's wgmma route and
+every prefill of a bf16 model at hd 128 must take flash attention's wgmma
+route (whisper's hd 64 its CUDA-core route) and
 every exit head the megakernel's tc route (d 7168 included), of an f32 one
 their CUDA-core routes, every norm rmsnorm's warp route up to 512 16-byte
 chunks a row (the block route beyond), and every decode attention the
@@ -1443,6 +1461,52 @@ def phase_state_scatter(dev, gen, arch="zamba2-1.2b", leaves=None,
             "library_ms": time_ms(library), "bound_ms": b, "bound_by": by}
 
 
+def phase_ring_scatter(dev, gen, arch, shape, slot):
+    """The cohort scatter's slot route at a stage's self K/V rings of
+    ``shape`` (whisper-tiny's, :data:`WHISPER_RING`): select mode's land
+    of cohort 1 of 2's rows of ring slot ``slot`` (read from device
+    memory) into both leaves in one launch, exact against the plain
+    version; timed with its bound and the library copy (one
+    ``index_copy_`` a leaf).  Returns the case."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cohort_cache import cohort_scatter_tree
+    C, c = 2, 1
+    L, B = shape[:2]
+    Bc = B // C
+    dst = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+           for _ in range(2)]
+    src = [torch.randn((L, Bc, 1) + tuple(shape[3:]), generator=gen,
+                       device=dev).to(torch.bfloat16) for _ in range(2)]
+    at = torch.tensor(slot, device=dev)
+    want = [x.clone() for x in dst]
+
+    def plain():
+        for wd, sd in zip(want, src):
+            ref.ref_cohort_scatter_slot(wd, sd, c, C, at)
+
+    def library():
+        for wd, sd in zip(want, src):
+            wd[:, c * Bc:(c + 1) * Bc].index_copy_(2, at.view(1), sd)
+
+    def kernel():
+        cohort_scatter_tree(dst, src, c, C, slot=at)
+
+    plain()
+    kernel()
+    torch.cuda.synchronize()
+    for a, b in zip(dst, want):
+        check_equal(f"cohort_scatter slot {arch}", a, b)
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in src)
+    b, by = bound_ms(nbytes, 0, "bfloat16")
+    return {"config": arch, "route": "slot", "shape": list(shape),
+            "rows": list(src[0].shape), "leaves": 2, "slot": slot,
+            "cohort": [c, C], "dtype": "bfloat16",
+            "max_abs_err": max(max_err(a, b) for a, b in zip(dst, want)),
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library), "bound_ms": b, "bound_by": by}
+
+
 def _device_us(fn, kernel: str, calls: int = 20) -> float:
     """Device µs per call of ``fn`` spent in kernels whose name holds
     ``kernel``, by torch.profiler over ``calls`` calls."""
@@ -1610,8 +1674,12 @@ def check_routes(cfg, launches):
     takes the paged route (no gather), any other the dense one.  The
     hybrid and ssm families' paths launch no attention kernel at all
     (:data:`HYBRID`, :data:`SSM`), and the ssm family's cohort scatter
-    only its whole-cohort route (it has no ring leaf).  Returns each
-    kernel's launches by route since the counters were last reset."""
+    only its whole-cohort route (it has no ring leaf).  The audio family's
+    (:data:`AUDIO`): flash on its CUDA-core route (hd 64: wgmma is hd 128
+    only), decode attention dense, no rmsnorm, megakernel or paged_gather
+    launch (layernorm heads), the cohort scatter's slot route only (its
+    cross K/V are read-only leaves, never landed).  Returns each kernel's
+    launches by route since the counters were last reset."""
     from repro_torch.kernels.decode_attention import TILE, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.megakernel import exit_head_update
@@ -1620,22 +1688,28 @@ def check_routes(cfg, launches):
     paged = (cfg.paged_cache.layout == "paged"
              and TILE % cfg.paged_cache.block_size == 0)
     wide_norm = cfg.d_model * (4 if f32 else 2) > 16 * MAX_CHUNKS
+    flash = "cuda_core" if f32 or cfg.resolved_head_dim != 128 else "wgmma"
+    if cfg.family == "audio":
+        for name in ("rmsnorm", "megakernel", "paged_gather"):
+            if launches[name]:
+                fail(f"{cfg.name}: {launches[name]} {name} launches on the "
+                     f"audio path")
     if cfg.family in ("hybrid", "ssm"):
         for name in ("flash_attention", "decode_attention"):
             if launches[name]:
                 fail(f"{cfg.name}: {launches[name]} {name} launches on the "
                      f"{cfg.family} path (it has no attention kernel)")
     out = {}
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "audio"):
         from repro_torch.kernels.cohort_cache import cohort_scatter_tree
         routes = dict(cohort_scatter_tree.launches_by_route)
-        if routes["whole"] != launches["cohort_scatter"]:
+        only = "whole" if cfg.family == "ssm" else "slot"
+        if routes[only] != launches["cohort_scatter"]:
             fail(f"{cfg.name}: cohort_scatter routes {routes}, expected all "
-                 f"{launches['cohort_scatter']} launches on whole")
+                 f"{launches['cohort_scatter']} launches on {only}")
         out["cohort_scatter"] = routes
     for name, fn, want in (
-            ("flash_attention", flash_attention,
-             "cuda_core" if f32 else "wgmma"),
+            ("flash_attention", flash_attention, flash),
             ("megakernel", exit_head_update,
              "cuda_core" if f32 else "tc"),
             ("rmsnorm", rmsnorm, "block" if wide_norm else "warp"),
@@ -2917,6 +2991,22 @@ XLSTM_SHAPES = {
 # (L, B, 3, d_inner) bf16, m (L, B, heads) — 16-byte rows — and n (L, B,
 # heads, p), in the cache's leaf order) and an sLSTM stage's four (1, B,
 # d) f32 leaves (c, h, m, n)
+# the audio family's serving shapes (slice 18): whisper-tiny's head dim 64
+# (6 / 6 heads, d 384) — decode attention over the W 448 ring at the last
+# position a lane of cache_len 448 reaches (every slot visible: 14 chunks
+# of 32 keys), flash attention on its CUDA-core route in bf16 (wgmma is
+# hd 128 only) at the 256- and 128-token lanes' S — and exit_update over
+# 13 tiles of V 51865 (the layernorm heads never take the megakernel, and
+# the path has no rmsnorm: no norm or megakernel case)
+WHISPER_SHAPES = {
+    "whisper-tiny": dict(d=384, H=6, KV=6, hd=64, vocab=51865, norm=None,
+                         head=None, W=448, t=447, S=(256, 128),
+                         flash="cuda_core", paged=False),
+}
+# select mode's land of cohort 1 of 2 at lane batch 4 in whisper-tiny's
+# segment 1 (an encdec stage of 2 layers): the self K/V rings (L, B, W 448,
+# 6, 64) bf16 at one ring slot; its cross K/V are read-only, never landed
+WHISPER_RING = ((2, 4, 448, 6, 64), 300)
 XLSTM_STATE_LEAVES = {
     "mlstm": (((5, 4, 4, 512, 512), "float32"),
               ((5, 4, 3, 2048), "bfloat16"), ((5, 4, 4), "float32"),
@@ -2932,34 +3022,33 @@ def phase_yi_kernels(dev, gen):
 
 def config_kernel_cases(dev, gen, arch):
     """Phase 2's cases at ``arch``'s serving shapes (:data:`DENSE_SHAPES`,
-    :data:`MOE_SHAPES`, :data:`HYBRID_SHAPES`, :data:`XLSTM_SHAPES`; B =
-    4, bf16), each against
+    :data:`MOE_SHAPES`, :data:`HYBRID_SHAPES`, :data:`XLSTM_SHAPES`,
+    :data:`WHISPER_SHAPES`; B = 4, bf16), each against
     its plain version at the tolerances above: rmsnorm (4, d) on the route
-    the width takes; exit_update (4, V); the megakernel at h (4, d) x
-    (d, V) on its route (against cuBLAS + ``exit_update`` as the library
-    call); decode attention q (4, H, 128) over KV heads at W 512 (or the
-    shape's W, t and window), dense and, unless marked, paged (the paged
-    route bit for bit like the dense one over the gathered views); flash
-    attention (4, H/KV, 256, 128) (or the shape's S and window) on the
-    wgmma route; where marked, confidence (4, V) at its cluster cap; a
-    shape marked ``attention=False`` (the hybrid's and the ssm family's)
+    the width takes (none where the shape's ``norm`` is None); exit_update
+    (4, V); the megakernel at h (4, d) x (d, V) on its route (against
+    cuBLAS + ``exit_update`` as the library call; none where ``head`` is
+    None); decode attention q (4, H, hd) over KV heads at W 512 (or the
+    shape's W, t and window; hd 128 or the shape's), dense and, unless
+    marked, paged (the paged route bit for bit like the dense one over the
+    gathered views); flash attention (4, H/KV, 256, hd) (or the shape's S
+    — one case each — and window) on the wgmma route (or the shape's
+    ``flash`` route); where marked, confidence (4, V) at its cluster cap;
+    a shape marked ``attention=False`` (the hybrid's and the ssm family's)
     has no attention case.
     Returns {kernel: [case]}, each case marked ``"config": arch``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.confidence import confidence, plan
-    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.exit_update import exit_update
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.megakernel import exit_head_update
-    from repro_torch.kernels.paged_gather import paged_gather_kv
     from repro_torch.kernels.rmsnorm import rmsnorm
-    shp = {**DENSE_SHAPES, **MOE_SHAPES, **HYBRID_SHAPES,
-           **XLSTM_SHAPES}[arch]
+    shp = {**DENSE_SHAPES, **MOE_SHAPES, **HYBRID_SHAPES, **XLSTM_SHAPES,
+           **WHISPER_SHAPES}[arch]
     D, H, KV, V = shp["d"], shp["H"], shp["KV"], shp["vocab"]
     bf = torch.bfloat16
-    name, B, hd, n_m = "bfloat16", 4, 128, 3
+    name, B, hd, n_m = "bfloat16", 4, shp.get("hd", 128), 3
     out = {}
 
     def case(kernel, **c):
@@ -2967,20 +3056,22 @@ def config_kernel_cases(dev, gen, arch):
                                            **c})
 
     # rmsnorm
-    x = torch.randn(B, D, generator=gen, device=dev).to(bf)
     w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
-    got, route = route_of(lambda: rmsnorm(x, w, 1e-5), rmsnorm)
-    want = ref.ref_rmsnorm(x, w, 1e-5)
-    check_close(f"rmsnorm {arch}", got, want, *TOL[name])
-    if route != shp["norm"]:
-        fail(f"rmsnorm {arch}: took the {route} route")
-    b, by = bound_ms(2 * x.numel() * 2 + D * 4, 4 * x.numel(), name)
-    case("rmsnorm", shape=[B, D], route=route,
-         max_abs_err=max_err(got, want),
-         ms=time_ms(lambda: rmsnorm(x, w, 1e-5)),
-         plain_ms=time_ms(lambda: ref.ref_rmsnorm(x, w, 1e-5)),
-         library_ms=time_ms(lambda: F.rms_norm(x, (D,), w.to(bf), 1e-5)),
-         bound_ms=b, bound_by=by)
+    if shp["norm"] is not None:
+        x = torch.randn(B, D, generator=gen, device=dev).to(bf)
+        got, route = route_of(lambda: rmsnorm(x, w, 1e-5), rmsnorm)
+        want = ref.ref_rmsnorm(x, w, 1e-5)
+        check_close(f"rmsnorm {arch}", got, want, *TOL[name])
+        if route != shp["norm"]:
+            fail(f"rmsnorm {arch}: took the {route} route")
+        b, by = bound_ms(2 * x.numel() * 2 + D * 4, 4 * x.numel(), name)
+        case("rmsnorm", shape=[B, D], route=route,
+             max_abs_err=max_err(got, want),
+             ms=time_ms(lambda: rmsnorm(x, w, 1e-5)),
+             plain_ms=time_ms(lambda: ref.ref_rmsnorm(x, w, 1e-5)),
+             library_ms=time_ms(lambda: F.rms_norm(x, (D,), w.to(bf),
+                                                   1e-5)),
+             bound_ms=b, bound_by=by)
     # exit_update
     x = _exit_logits(B, V, bf, dev, gen)
     carry = _carries(B, n_m, dev)
@@ -3014,6 +3105,8 @@ def config_kernel_cases(dev, gen, arch):
                                                       -1).max(-1)),
              bound_ms=b, bound_by=by)
         del xc
+    if shp["head"] is None:
+        return _attention_cases(out, case, shp, arch, dev, gen, name, B, hd)
     # the megakernel on the route the width takes
     h = torch.randn(B, D, generator=gen, device=dev).to(bf)
     head = (0.02 * torch.randn(D, V, generator=gen, device=dev)).to(bf)
@@ -3046,6 +3139,19 @@ def config_kernel_cases(dev, gen, arch):
                                                            *carry, **kw)),
          library_ms=time_ms(library), bound_ms=b, bound_by=by)
     del head
+    return _attention_cases(out, case, shp, arch, dev, gen, name, B, hd)
+
+
+def _attention_cases(out, case, shp, arch, dev, gen, name, B, hd):
+    """:func:`config_kernel_cases`' decode and flash attention cases, added
+    to ``out`` through ``case``; none for a shape marked
+    ``attention=False``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    bf = torch.bfloat16
+    H, KV = shp["H"], shp["KV"]
     if not shp.get("attention", True):
         torch.cuda.empty_cache()
         return out
@@ -3086,8 +3192,22 @@ def config_kernel_cases(dev, gen, arch):
     if shp.get("paged", True):
         _paged_decode_case(case, arch, dev, gen, q, t, t_dev, kpos, live)
     del kc, vc
-    # flash attention
-    S = shp.get("S", 256)
+    lens = shp.get("S", 256)
+    for S in lens if isinstance(lens, tuple) else (lens,):
+        _flash_case(case, shp, arch, dev, gen, name, B, H, KV, S, hd, win)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flash_case(case, shp, arch, dev, gen, name, B, H, KV, S, hd, win):
+    """One flash attention case of :func:`config_kernel_cases` at S: the
+    kernel against its plain version on the shape's route (``flash``,
+    wgmma by default), timed beside the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    bf = torch.bfloat16
     q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(bf)
     k = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(bf)
     v = torch.randn(B, KV, S, hd, generator=gen, device=dev).to(bf)
@@ -3098,7 +3218,7 @@ def config_kernel_cases(dev, gen, arch):
     check_close(f"flash {arch}", got, want, *TOL[name])
     err = max_err(got, want)
     del got, want
-    if route != "wgmma":
+    if route != shp.get("flash", "wgmma"):
         fail(f"flash {arch}: took the {route} route")
     # the (query, key) pairs inside the causal band and the window
     i = torch.arange(S, dtype=torch.int64)
@@ -3123,8 +3243,6 @@ def config_kernel_cases(dev, gen, arch):
              F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                             enable_gqa=True)),
          bound_ms=b, bound_by=by)
-    torch.cuda.empty_cache()
-    return out
 
 
 def _paged_decode_case(case, arch, dev, gen, q, t, t_dev, kpos, live):
@@ -3675,7 +3793,8 @@ def _free_card():
 
 
 def _logits_against_plain(cfg, model, params, n_steps=2, probe=None,
-                          plain_cfg=None, plain_params=None, gate=True):
+                          plain_cfg=None, plain_params=None, gate=True,
+                          extra=None):
     """The prefill's last-position logits of every exit and the first
     ``n_steps`` dense decode steps' final-exit logits, kernels on against
     the port's plain path (``use_kernels`` off) on the same parameters,
@@ -3686,7 +3805,8 @@ def _logits_against_plain(cfg, model, params, n_steps=2, probe=None,
     rows whose own choices agreed at every layer (the errors over all
     rows are reported beside them).  ``plain_cfg`` / ``plain_params``
     replace the plain side (another dtype's model and weights); with
-    ``gate`` False nothing fails.  Returns the errors and the share of
+    ``gate`` False nothing fails; ``extra`` (the audio family's frames,
+    4 rows) rides both prefills.  Returns the errors and the share of
     rows whose argmax agrees."""
     import numpy as np
     import torch
@@ -3716,8 +3836,8 @@ def _logits_against_plain(cfg, model, params, n_steps=2, probe=None,
 
     with torch.no_grad():
         got, want, rows = both(
-            lambda: model.prefill(params, toks, caches[0]),
-            lambda: plain.prefill(plain_params, toks, caches[1]),
+            lambda: model.prefill(params, toks, caches[0], extra),
+            lambda: plain.prefill(plain_params, toks, caches[1], extra),
             B * S, np.arange(B) * S + S - 1)
         (got, caches[0]), (want, caches[1]) = got, want
         errs = {"prefill": [], "decode": []}
@@ -5372,6 +5492,248 @@ def phase_ssm(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 18: the audio family on the card
+# ---------------------------------------------------------------------------
+
+AUDIO = {"exit_update", "decode_attention", "flash_attention"}
+AUDIO_ARCH = "whisper-tiny"
+# the qwen cell's engine at whisper's position limit (max_seq_len 448):
+# no position clamps
+AUDIO_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=448, chunk=8)
+# one lane prefill of 4 fresh rows of 256 tokens over the engine's zero
+# frames
+AUDIO_PREFILL = (4, 256)
+
+
+def _audio_prefill(model, params, B, S):
+    """One lane prefill of B fresh rows of S tokens over the engine's zero
+    frames: its host seconds and the encoder's alone (two calls each,
+    synchronised), and the device kernels the prefill launches (by
+    torch.profiler)."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=DEV)
+    frames = torch.zeros(B, cfg.n_audio_frames, cfg.d_model, device=DEV)
+    extra = {"audio_embeds": frames}
+    secs, enc = [], []
+
+    def timed(fn, into):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+
+    with torch.no_grad():
+        for _ in range(2):
+            cache = model.init_cache(B, AUDIO_ENGINE["cache_len"])
+            timed(lambda: model.prefill(params, toks, cache, extra), secs)
+        for _ in range(2):
+            timed(lambda: model._encode_audio(params, frames), enc)
+        cache = model.init_cache(B, AUDIO_ENGINE["cache_len"])
+        kernels = _device_kernels(lambda: model.prefill(params, toks, cache,
+                                                        extra))
+    return {"rows": B, "tokens": S, "frames": cfg.n_audio_frames,
+            "seconds": secs, "encoder_seconds": enc,
+            "encoder_share": min(enc) / min(secs),
+            "device_kernel_launches": sum(n for _, n in kernels),
+            "top_kernels": sorted(kernels, key=lambda k: -k[1])[:8]}
+
+
+def _audio_step_bytes(model, params, lane_batch, cache_len):
+    """Bytes a lane step must move with every segment run: each decoder
+    layer's weights once but the cross-attention's K and V projections
+    (decode reads the cached K/V instead), the unembedding once per exit
+    head, and every cross K/V leaf and self K/V ring read once."""
+    from repro_torch.models import nn
+
+    def nbytes(leaves):
+        return sum(x.numel() * x.element_size() for x in leaves)
+    layers = nbytes(nn.tree_leaves(params["segments"])) - nbytes(
+        stage["xattn"][k] for seg in params["segments"] for stage in seg
+        for k in ("wk", "wv"))
+    cache = model.init_cache(lane_batch, cache_len, device="meta")
+    kinds = {"read": 0, "ring": 0}
+    for si, seg in enumerate(cache["segments"]):
+        for x, k in zip(nn.tree_leaves(seg), model.leaf_kinds(si, seg)):
+            kinds[k] += x.numel() * x.element_size()
+    parts = {"decoder_weights": layers,
+             "unembeddings": model.n_exits * nbytes([params["lm_head"]]),
+             "cross_kv": kinds["read"], "self_kv_rings": kinds["ring"]}
+    return parts, sum(parts.values())
+
+
+def phase_audio(smi):
+    """whisper-tiny at its published widths and full depth (4 decoder
+    encdec layers, a 4-layer encoder over 1500 frames), bf16, seed 0, 3
+    components, kernels on, cond_batch, alone on the card: the init time
+    and peak memory; the prefill's and first decode steps' logits against
+    the plain path over random frames; one lane prefill of 4 x 256 tokens
+    timed with the encoder's share, its device kernels counted; the
+    serving engine of the qwen cell at cache_len 448 (lane batch 4, 2
+    lanes) on :func:`_hybrid_requests` (12 of 128 or 256 prompt tokens,
+    one of 300 whose lane takes the plain attention; a lane re-prefills,
+    its cross K/V rewritten in place) at (0.9, 0.9, 0.0) on the host and
+    device runtimes in turns (host, device, device, host) and at (0, 0,
+    0) (device, host), identical streams with one host sync a lane chunk;
+    2 cohorts with the megakernel at a mixed component-0 threshold (the
+    mixed branch taken; 0 megakernel launches: the layernorm heads take
+    exit_update), streams equal with it on and off; select mode with the
+    cohort scatter at that vector (its slot route only: the cross K/V are
+    read-only), streams equal to cond_batch's; autotune's shadow step
+    there, streams equal on and off; and the paged layout refused with
+    the reference's message.  Prints each run's µs per token beside the
+    floor of a lane step's bytes.  Returns the device runtime's launches
+    by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.macs import param_count
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import CascadeServingEngine
+    held = _free_card()
+    base = get_config(AUDIO_ARCH).replace(use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(base, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = list(nn.tree_leaves(params))
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    encoder_params = sum(x.numel()
+                         for x in nn.tree_leaves(params["encoder"]))
+    t_phase = time.perf_counter()
+    frames = torch.randn(
+        4, base.n_audio_frames, base.d_model, device=DEV,
+        generator=torch.Generator(device=DEV).manual_seed(7))
+    logits = _logits_against_plain(base, model, params,
+                                   extra={"audio_embeds": frames})
+    del frames
+    prefill = _audio_prefill(model, params, *AUDIO_PREFILL)
+    reqs = _hybrid_requests(base.vocab_size)
+    turns, dev_launches, _ = _runtime_turns(
+        AUDIO_ARCH, base, model, params, reqs,
+        ("host", "device", "device", "host"), engine=AUDIO_ENGINE)
+    check_launched(AUDIO_ARCH, turns["launches"], AUDIO)
+    for rt in ("host", "device"):
+        prefills = [r["prefills"] for r in turns[rt]]
+        if min(prefills) <= AUDIO_ENGINE["n_lanes"]:
+            fail(f"{AUDIO_ARCH} {rt}: {prefills} lane prefills (no lane "
+                 "re-prefilled)")
+    zero = base.with_cascade(thresholds=(0.0, 0.0, 0.0))
+    zturns, _, _ = _runtime_turns(f"{AUDIO_ARCH} (0, 0, 0)", zero, model,
+                                  params, reqs, ("device", "host"),
+                                  engine=AUDIO_ENGINE)
+    check_launched(f"{AUDIO_ARCH} (0, 0, 0)", zturns["launches"], AUDIO)
+    out = {"one_cohort": dev_launches}
+
+    two = base.with_cascade(n_cohorts=2, cohort_layout="major") \
+        .with_kernel_tune(megakernel=True)
+    calib = serve(two.with_cascade(thresholds=(0.0, 0.0, 0.0)), model,
+                  params, reqs, runtime="device", **AUDIO_ENGINE)[0]
+    th, quantile = mixed_threshold(
+        calib, lambda th: serve(two.with_cascade(
+            thresholds=(th, 0.9, 0.0)), model, params, reqs,
+            runtime="device", **AUDIO_ENGINE)[1]["cohort_dispatch"],
+        f"{AUDIO_ARCH} megakernel")
+    mixed = two.with_cascade(thresholds=(th, 0.9, 0.0))
+    on, on_launches, on_streams = _runtime_turns(
+        f"{AUDIO_ARCH} megakernel", mixed, model, params, reqs,
+        ("device", "host"), engine=AUDIO_ENGINE)
+    off, _, off_streams = _runtime_turns(
+        f"{AUDIO_ARCH} megakernel off", mixed.with_kernel_tune(
+            megakernel=False), model, params, reqs, ("device",),
+        engine=AUDIO_ENGINE)
+    if on_streams != off_streams:
+        fail(f"{AUDIO_ARCH}: the streams with the megakernel on differ "
+             "from those with it off")
+    # the layernorm heads never take the fusion: 0 megakernel launches
+    check_launched(f"{AUDIO_ARCH} megakernel", on["launches"], AUDIO)
+    for rec in on["device"] + on["host"]:
+        if not rec["cohort_dispatch"]["mixed"]:
+            fail(f"{AUDIO_ARCH} 2 cohorts: the mixed branch never ran "
+                 f"({rec['cohort_dispatch']})")
+    out["megakernel"] = on_launches
+    select, sel_launches, sel_streams = _runtime_turns(
+        f"{AUDIO_ARCH} select", mixed.with_cascade(exit_mode="select")
+        .with_kernel_tune(cohort_scatter=True), model, params, reqs,
+        ("device", "host"), engine=AUDIO_ENGINE)
+    if sel_streams != on_streams:
+        fail(f"{AUDIO_ARCH}: select mode's streams differ from "
+             "cond_batch's")
+    check_launched(f"{AUDIO_ARCH} select", select["launches"],
+                   AUDIO | {"cohort_scatter"})
+    out["select_scatter"] = sel_launches
+    shadow, tune_launches, tune_streams = _runtime_turns(
+        f"{AUDIO_ARCH} autotune", mixed.with_autotune(**HYBRID_AUTOTUNE),
+        model, params, reqs, ("device", "host"), engine=AUDIO_ENGINE)
+    if tune_streams != on_streams:
+        fail(f"{AUDIO_ARCH}: autotune's shadow steps changed the streams")
+    check_launched(f"{AUDIO_ARCH} autotune", shadow["launches"], AUDIO)
+    out["autotune"] = tune_launches
+    paged = base.with_paged_cache(layout="paged", block_size=16)
+    try:
+        CascadeServingEngine(paged, model, params, device=DEV,
+                             **AUDIO_ENGINE)
+        fail(f"{AUDIO_ARCH}: the paged layout was not refused")
+    except ValueError as err:
+        refusal = str(err)
+    if "non-attention cache stage (['cross', 'self'])" not in refusal:
+        fail(f"{AUDIO_ARCH}: paged refusal {refusal!r}")
+    phase_seconds = time.perf_counter() - t_phase
+    parts, step_bytes = _audio_step_bytes(
+        model, params, AUDIO_ENGINE["lane_batch"],
+        AUDIO_ENGINE["cache_len"])
+    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    med = turns["decode_us_per_token_median"]
+    lane_prefill = {rt: [r["prefill_seconds"] / r["prefills"]
+                         for r in turns[rt]] for rt in ("host", "device")}
+    emit({"phase": "audio", "config": AUDIO_ARCH,
+          "n_layers": base.n_layers, "encoder_layers": base.encoder_layers,
+          "segments": [list(x) for x in base.segments],
+          "segment_runs": model.segment_runs, "d_model": base.d_model,
+          "n_heads": base.n_heads, "head_dim": base.resolved_head_dim,
+          "d_ff": base.d_ff, "vocab": base.vocab_size,
+          "n_audio_frames": base.n_audio_frames, "dtype": base.dtype,
+          "params": n_params, "encoder_params": encoder_params,
+          "param_count_analytic": param_count(base),
+          "param_bytes": param_bytes, "held_before": held,
+          "init_seconds": init_seconds,
+          "init_max_memory_allocated": init_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "logits_against_plain": logits, "prefill": prefill,
+          "lane_prefill_seconds_mean": lane_prefill,
+          "engine": AUDIO_ENGINE, "thresholds": [0.9, 0.9, 0.0],
+          "requests": len(reqs), "prompt_lens": sorted(
+              {len(r.prompt) for r in reqs}), "max_new_tokens": 16,
+          "turns": turns, "turns_all_exit": zturns,
+          "decode_us_per_token": med,
+          "step_bytes": parts, "floor_ms_per_step": floor_ms,
+          "device_ms_per_step": (None if med.get("device") is None
+                                 else med["device"]
+                                 * AUDIO_ENGINE["lane_batch"] / 1e3),
+          "host_ms_per_step": (None if med.get("host") is None
+                               else med["host"]
+                               * AUDIO_ENGINE["lane_batch"] / 1e3),
+          "megakernel": {"thresholds": [th, 0.9, 0.0],
+                         "threshold_quantile": quantile, "n_cohorts": 2,
+                         "on": on, "off": off},
+          "select_scatter": select, "autotune": {**HYBRID_AUTOTUNE,
+                                                 "turns": shadow},
+          "paged_refusal": refusal, "phase_seconds": phase_seconds,
+          "nvidia_smi": smi})
+    del model, params
+    _free_card()
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5419,13 +5781,18 @@ def main() -> int:
     # cohort scatter's whole-cohort route over its state leaves
     # and the ssm family's: xlstm-350m's norms and exit heads (tc at d
     # 1024), and the whole-cohort route over its mLSTM and sLSTM stages
-    for arch in (*DENSE_SHAPES, *MOE_SHAPES, *HYBRID_SHAPES, *XLSTM_SHAPES):
+    # and the audio family's: whisper-tiny's head dim 64 (flash's CUDA-core
+    # route in bf16, decode over the W 448 ring) and exit_update at V 51865
+    for arch in (*DENSE_SHAPES, *MOE_SHAPES, *HYBRID_SHAPES, *XLSTM_SHAPES,
+                 *WHISPER_SHAPES):
         for name, cases in config_kernel_cases(dev, gen, arch).items():
             checks[name] += cases
     checks["cohort_scatter"].append(phase_state_scatter(dev, gen))
     for stage, leaves in XLSTM_STATE_LEAVES.items():
         checks["cohort_scatter"].append(phase_state_scatter(
             dev, gen, "xlstm-350m", leaves, stage))
+    checks["cohort_scatter"].append(phase_ring_scatter(
+        dev, gen, "whisper-tiny", *WHISPER_RING))
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
     emit({"phase": "paged_gather_unaligned",
@@ -5472,6 +5839,8 @@ def main() -> int:
     hybrid = phase_hybrid(smi)
     # slice 17: the ssm family, alone on the card
     ssm = phase_ssm(smi)
+    # slice 18: the audio family, alone on the card
+    audio = phase_audio(smi)
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -5604,6 +5973,11 @@ def main() -> int:
                      # full width, 13 requests x 16 tokens — the same four
                      # paths as the hybrid's
                      "launches_ssm": {p: n[name] for p, n in ssm.items()},
+                     # slice 18's paths, device runtime: whisper-tiny at
+                     # full width, cache_len 448, 13 requests x 16 tokens
+                     # — the same four paths as the hybrid's
+                     "launches_audio": {p: n[name]
+                                        for p, n in audio.items()},
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -6,12 +6,15 @@ into a numpy array — ``embed``, ``pos_embed`` (learned positions, when
 ``rope_theta <= 0``), ``segments[si][pi]`` (stage dicts whose leaves are
 stacked on a leading layer axis), ``exits[m]``, ``final_norm`` and
 ``lm_head`` (absent with tied embeddings) and, for the hybrid family,
-``shared`` (the shared block's ``attn`` and ``mlp`` dicts); a layernorm's
+``shared`` (the shared block's ``attn`` and ``mlp`` dicts), for the audio
+family ``encoder`` (its stacked ``enc`` layers' ``stages``, its ``norm``
+and its frame ``pos_embed``); a layernorm's
 ``"b"`` rides in its norm dict, an moe block's ``moe`` dict (``router``
 (d, E), ``w_gate`` / ``w_up`` (E, d, ff), ``w_down`` (E, ff, d),
 ``norm``) in its stage, a mamba block's ``ssm`` dict, an attn_shared
-block's ``lora_*`` leaves and an mlstm or slstm block's ``mlstm`` /
-``slstm`` dict in theirs — and returns the same structure of torch tensors on
+block's ``lora_*`` leaves, an mlstm or slstm block's ``mlstm`` /
+``slstm`` dict and an encdec block's ``attn``, ``xattn`` and ``mlp`` dicts
+in theirs — and returns the same structure of torch tensors on
 ``device``, dtypes kept.  ``params_to_numpy`` is the inverse, so a round
 trip is bit-exact.
 
@@ -33,13 +36,15 @@ from repro_torch.utils import (numpy_to_tensor, resolve_device,
 
 def _keys(cfg: ModelConfig):
     """The top-level parameter keys of a model of ``cfg`` (dense, moe,
-    hybrid or ssm: the moe, mamba, mLSTM and sLSTM leaves and the LoRA
-    deltas ride inside ``segments``; the hybrid's shared block is
-    ``shared``)."""
+    hybrid, ssm or audio: the moe, mamba, mLSTM, sLSTM and encdec leaves
+    and the LoRA deltas ride inside ``segments``; the hybrid's shared
+    block is ``shared``, the audio encoder ``encoder``)."""
     keys = ["embed", "segments", "exits", "final_norm"]
     if cfg.family == "hybrid":
         keys.append("shared")
-    if cfg.rope_theta <= 0:
+    if cfg.family == "audio":
+        keys.append("encoder")
+    if cfg.family == "audio" or cfg.rope_theta <= 0:
         keys.append("pos_embed")
     if not cfg.tie_embeddings:
         keys.append("lm_head")
@@ -54,8 +59,8 @@ def params_from_jax(np_params: Any, cfg: ModelConfig, device=None):
     extra = sorted(set(np_params) - set(keys))
     if missing or extra:
         raise ValueError(f"parameter tree keys: missing {missing}, "
-                         f"unsupported {extra} (the dense, moe, hybrid and "
-                         f"ssm families only)")
+                         f"unsupported {extra} (the dense, moe, hybrid, ssm "
+                         f"and audio families only)")
     if len(np_params["segments"]) != cfg.cascade.n_components:
         raise ValueError(f"{len(np_params['segments'])} segments for "
                          f"{cfg.cascade.n_components} cascade components")

@@ -647,8 +647,10 @@ def _load_all():
     # import for registration side effect; the port has the dense family
     # (qwen2.5-3b, yi-9b, deepseek-coder-33b, minitron-4b), the moe family
     # (mixtral-8x7b, qwen3-moe-235b-a22b), the hybrid family (zamba2-1.2b),
-    # the ssm family (xlstm-350m) and the paper's ci-resnet18 so far (the
-    # audio and vlm architectures come with their families' slices)
+    # the ssm family (xlstm-350m), the audio family (whisper-tiny) and the
+    # paper's ci-resnet18 so far (the vlm architecture comes with its
+    # family's slice)
     from repro_torch.configs import (  # noqa: F401
         ci_resnet18, deepseek_coder_33b, minitron_4b, mixtral_8x7b,
-        qwen2p5_3b, qwen3_moe_235b_a22b, xlstm_350m, yi_9b, zamba2_1p2b)
+        qwen2p5_3b, qwen3_moe_235b_a22b, whisper_tiny, xlstm_350m, yi_9b,
+        zamba2_1p2b)

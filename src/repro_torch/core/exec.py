@@ -42,14 +42,17 @@ cache slab leaves its rows in the slab: the reference's per-cohort cache
 re-join (a concat, or the cohort-scatter kernel) has no counterpart under
 ``cond_batch``.  Only ``select`` mode computes a cohort's rows out of place
 (the skip-masked selection).  What a decode step writes depends on the
-leaf's kind (the block kind's ``state_keys``, read through
-``model.state_leaf_mask``): a RING leaf (an attention k/v ring) only at
+leaf's kind (the block kind's ``state_keys`` and ``read_keys``, read
+through ``model.leaf_kinds``): a RING leaf (an attention k/v ring) only at
 ring slot ``t % W``, so ``select`` snapshots just that slot's rows; a
 STATE leaf (a Mamba2 layer's recurrent state and conv window) whole, so
 ``select`` snapshots the whole leaf, into scratch the executor allocates
 once per leaf shape outside any capture (:class:`_SlotRows`) — both
 branches must start from the step's entry state, since re-running a
-recurrence in place would advance it twice.  The run's writes and the skip
+recurrence in place would advance it twice; a READ-ONLY leaf (an encdec
+layer's cross K/V, written by the prefill) not at all, so it is neither
+snapshotted, selected nor landed — a cohort's step only reads it through
+its view of the slab.  The run's writes and the skip
 path's are read after each, and the selection lands back — through
 in-place copies, or with ``kernel_tune.cohort_scatter`` through the
 cohort-scatter kernel: one launch per cohort writes the cohort's ring slot
@@ -302,13 +305,14 @@ class StagedExecutor:
 
     # ------------------------------------------------------------------
     def prefill(self, params, tokens, cache,
-                state: Optional[DecodeState] = None):
+                state: Optional[DecodeState] = None, extra=None):
         """Full-sequence prefill; returns (decision, cache, state) with the
         prefill decision seeding the stateful-measure carry and ``t`` set
-        past the prompt."""
+        past the prompt.  ``extra`` (the modality inputs) goes to the
+        model's prefill."""
         if state is None:
             state = self.init_state(tokens.shape[0])
-        logits, cache = self.model.prefill(params, tokens, cache,
+        logits, cache = self.model.prefill(params, tokens, cache, extra,
                                            block_tables=state.block_tables)
         decision, carry = self.decider.decide_with_carry(
             logits, thresholds=self.thresholds(state), state=state.policy,
@@ -702,7 +706,7 @@ class StagedExecutor:
 
     def _rows(self, seg_cache, ctx, si) -> "_SlotRows":
         return _SlotRows(seg_cache, ctx, si,
-                         self.model.state_leaf_mask(si, seg_cache),
+                         self.model.leaf_kinds(si, seg_cache),
                          self._scratch_for)
 
     def _scratch_for(self, role: str, i: int,
@@ -728,26 +732,27 @@ class StagedExecutor:
         scatter: one launch writes every ring leaf's slot rows at the ring
         slot (read by the kernel from device memory), one more every state
         leaf whole (the whole-cohort route; the two routes cannot share a
-        launch)."""
+        launch).  Read-only leaves are not landed: nothing wrote them."""
         from repro_torch.kernels.ops import cohort_scatter_tree
-        ring, state = _split_leaves(seg, rows.mask)
+        ring, state = _split_leaves(seg, rows.kinds)
         if ring:
             cohort_scatter_tree(ring, selected.ring, c, C, slot=rows.slot)
         if state:
             cohort_scatter_tree(state, selected.state, c, C)
 
 
-def _split_leaves(seg_cache, state_mask):
-    """A segment's cache leaves split by ``state_mask`` into (ring leaves,
-    state leaves), each in :func:`nn.tree_leaves` order.  A mask that does
-    not have one entry per leaf is refused: a leaf it misses would be
-    neither snapshotted nor landed."""
+def _split_leaves(seg_cache, kinds):
+    """A segment's cache leaves split by their ``kinds``
+    (:meth:`CascadeModel.leaf_kinds`) into (ring leaves, state leaves),
+    each in :func:`nn.tree_leaves` order; read-only leaves are in neither.
+    A list that does not have one entry per leaf is refused: a leaf it
+    misses would be neither snapshotted nor landed."""
     leaves = list(nn.tree_leaves(seg_cache))
-    if len(leaves) != len(state_mask):
-        raise ValueError(f"state leaf mask of {len(state_mask)} entries for "
+    if len(leaves) != len(kinds):
+        raise ValueError(f"leaf kind list of {len(kinds)} entries for "
                          f"{len(leaves)} cache leaves")
-    return ([x for x, st in zip(leaves, state_mask) if not st],
-            [x for x, st in zip(leaves, state_mask) if st])
+    return ([x for x, k in zip(leaves, kinds) if k == "ring"],
+            [x for x, k in zip(leaves, kinds) if k == "state"])
 
 
 @dataclasses.dataclass
@@ -762,7 +767,8 @@ class _Snapshot:
 
 class _SlotRows:
     """The writes of a decode step in segment ``si``'s caches, by leaf
-    kind (``state_mask``, :meth:`CascadeModel.state_leaf_mask`):
+    kind (``kinds``, :meth:`CascadeModel.leaf_kinds`; a read-only leaf
+    has none and is left out):
 
     * a RING leaf's ring slot ``ctx["slot"]`` of every layer — (L, B, 1,
       kv, hd) of each dense leaf (L, B, W, kv, hd), or each table row's
@@ -773,9 +779,9 @@ class _SlotRows:
       executor's scratch (``scratch(role, i, like)`` for the segment's
       i-th state leaf), so its snapshot allocates nothing."""
 
-    def __init__(self, seg_cache, ctx, si, state_mask, scratch):
-        self.mask = state_mask
-        self.ring, self.state = _split_leaves(seg_cache, state_mask)
+    def __init__(self, seg_cache, ctx, si, kinds, scratch):
+        self.kinds = kinds
+        self.ring, self.state = _split_leaves(seg_cache, kinds)
         self.scratch = scratch
         self.slot = ctx["slot"]
         self.index = None

@@ -1,5 +1,5 @@
 """Analytic MAC and parameter accounting: CI-ResNet components and the
-cascade segments (dense, moe, hybrid and ssm families).
+cascade segments (dense, moe, hybrid, ssm and audio families).
 
 The counterpart of the JAX package's ``core/macs.py``.  The paper counts
 MACs "analytically by summing up the linear operations in the
@@ -104,6 +104,10 @@ def _layer_macs_per_token(cfg: ModelConfig, kind: str, kv_len: int) -> float:
         "attn_shared": lambda: attn() + mlp(),
         "mlstm": mlstm,
         "slstm": slstm,
+        # the reference's count: self and cross attention alike over the
+        # self KV length (the cross K/V projections counted, the T memory
+        # keys not)
+        "encdec": lambda: 2 * attn() + mlp(),
     }
     if kind not in table:
         raise NotImplementedError(f"MACs of {kind!r} layers are not ported")
@@ -131,7 +135,8 @@ def segment_macs_per_token(cfg: ModelConfig, kv_len: int) -> List[float]:
 def param_count(cfg: ModelConfig) -> float:
     """Approximate parameter count N (for 6·N·D roofline accounting): the
     embedding and an untied head, every layer's weights (an attn_shared
-    invocation its LoRA deltas only) and the hybrid's shared block once."""
+    invocation its LoRA deltas only), the hybrid's shared block once and
+    the audio encoder's layers."""
     kinds = layer_kinds(cfg)
     total = cfg.vocab_size * cfg.d_model        # embed
     total += cfg.vocab_size * cfg.d_model       # untied lm head
@@ -159,10 +164,13 @@ def param_count(cfg: ModelConfig) -> float:
                           + 2 * di * cfg.n_heads + di * d)(*mlstm_dims(cfg)),
         "slstm": lambda: d * 4 * d + 4 * d * (d // cfg.n_heads)
         + d * (4 * d) // 3 + ((4 * d) // 3) * d,
+        "encdec": lambda: 2 * attn_p() + mlp_p(),
     }
     for k in kinds:
         total += per[k]()
     if cfg.family == "hybrid":
         total += attn_p() + mlp_p()              # the shared block itself
+    if cfg.family == "audio":
+        total += cfg.encoder_layers * (attn_p() + mlp_p())
     return float(total)
 

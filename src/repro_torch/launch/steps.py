@@ -19,7 +19,11 @@ Serve-step signature::
 step (forward, backward, AdamW), with the plain ops only: a
 ``use_kernels`` config is refused (no kernel has a backward).
 
-The dense family takes no extra inputs: ``extra`` must be None.  The
+``extra`` holds the modality inputs of
+:func:`~repro_torch.models.model.extra_input_shapes` (the audio family's
+``audio_embeds``): the train and prefill steps feed them to the model,
+the decode steps take them and ignore them (decode reads the cross K/V
+cached at prefill); a family without such inputs refuses them.  The
 dry-run's ``make_decode_state_struct`` / ``make_batch_structs`` come with
 the dry-run slice.
 """
@@ -32,6 +36,7 @@ from repro_torch.core.exec import (DISPATCH, DecodeState, StagedExecutor,
                                    init_decode_state)
 from repro_torch.core.policy import ExitDecider
 from repro_torch.core.training import cascade_loss
+from repro_torch.models.model import _no_extra
 from repro_torch.models.nn import tree_leaves, tree_unflatten
 from repro_torch.optim import adamw
 from repro_torch.optim.optimizer import Optimizer, apply_updates
@@ -41,13 +46,6 @@ from repro_torch.optim.optimizer import Optimizer, apply_updates
 # run, and the shadow pass's observe / skip inside the skip), and the
 # telemetry's shadow fold
 MAX_BODIES = 256
-
-
-def _no_extra(extra) -> None:
-    if extra is not None:
-        raise NotImplementedError(
-            "extra model inputs come with the families that take them (a "
-            "later slice of the port); the dense family takes none")
 
 
 def make_optimizer(cfg: ModelConfig) -> Optimizer:
@@ -67,11 +65,11 @@ def make_train_step(model, cfg: ModelConfig, optimizer: Optimizer):
             "one would be a silent fallback; train with use_kernels off")
 
     def train_step(params, opt_state, step, batch):
-        _no_extra(batch.get("extra"))
         leaves = list(tree_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
-        logits, aux = model.forward_train(params, batch["tokens"])
+        logits, aux = model.forward_train(params, batch["tokens"],
+                                          batch.get("extra"))
         loss = cascade_loss(logits, batch["labels"],
                             cfg.cascade.loss_mode or "joint",
                             joint_weights=cfg.cascade.joint_weights,
@@ -90,8 +88,8 @@ def make_prefill_step(model, cfg: ModelConfig):
     executor = StagedExecutor(model, cfg)
 
     def prefill_step(params, tokens, cache, extra=None):
-        _no_extra(extra)
-        d, cache, state = executor.prefill(params, tokens, cache)
+        d, cache, state = executor.prefill(params, tokens, cache,
+                                           extra=extra)
         return d.prediction, d.exit_index, d.confidence, cache, state
     return prefill_step
 
@@ -103,7 +101,7 @@ def make_serve_step(model, cfg: ModelConfig):
     executor = StagedExecutor(model, cfg)
 
     def serve_step(params, token, cache, state, extra=None):
-        _no_extra(extra)
+        _no_extra(cfg, extra)
         d, cache, state = executor.decode_step(params, token, cache, state)
         return d.prediction, d.exit_index, d.confidence, cache, state
     return serve_step

@@ -1,6 +1,6 @@
 """Block kinds of the cascade backbone: the dense, moe, mamba,
-attn_shared, mlstm and slstm kinds (the dense, moe, hybrid and ssm
-families).
+attn_shared, mlstm, slstm, encdec and enc kinds (the dense, moe, hybrid,
+ssm and audio families).
 
 A block kind provides, as in the JAX package's ``models/blocks.py``:
   init(gen, cfg)                      -> params (one layer)
@@ -11,11 +11,14 @@ A block kind provides, as in the JAX package's ``models/blocks.py``:
         state WITHOUT computing the layer's output.)
 and, the port's own, ``state_keys``: the names of its cache leaves that a
 decode step rewrites WHOLE (a recurrent state, a rolling conv window); a
-key that names a dict (sLSTM's ``state``) names every leaf beneath it.
-Every other leaf is a RING leaf (B, W, ...), written at ring slot
-``t % W`` on axis 1 of a layer (axis 2 of a stage's stacked leaf).  The
-staged executor snapshots and lands a step's writes by that split
-(``core/exec.py``); it never guesses it from shapes.
+key that names a dict (sLSTM's ``state``) names every leaf beneath it;
+and ``read_keys``: the names of its cache leaves that a decode step never
+writes (an encdec layer's ``cross`` K/V, written by the prefill from the
+encoder's memory and only read after).  Every other leaf is a RING leaf
+(B, W, ...), written at ring slot ``t % W`` on axis 1 of a layer (axis 2
+of a stage's stacked leaf).  The staged executor snapshots and lands a
+step's writes by that three-way split (``core/exec.py``); it never
+guesses it from shapes.
 
 ``ctx`` carries what is invariant across the layers of a step:
   mode: "full" | "decode"
@@ -31,6 +34,9 @@ staged executor snapshots and lands a step's writes by that split
       layout only; kpos is then the per-slot (B, W) ring)
   shared: the hybrid family's shared attention + MLP parameters (the
       'attn_shared' blocks' full-rank weights), or None
+  cross: the memory cross-attention reads, (B, T, d) — the audio
+      encoder's output (full mode; None at decode, which reads the cross
+      K/V cached at prefill)
 
 Caches are written IN PLACE: where the reference returns updated arrays
 (and donates the old buffers to the jitted step), the port writes the
@@ -44,9 +50,10 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.models import nn, ssm, xlstm
-from repro_torch.models.layers import (apply_rope, attend_decode, attn_init,
-                                       mlp_apply, mlp_init, norm_apply,
-                                       pick_attend, qkv_project)
+from repro_torch.models.layers import (apply_rope, attend_decode,
+                                       attend_full, attn_init, mlp_apply,
+                                       mlp_init, norm_apply, pick_attend,
+                                       qkv_project)
 from repro_torch.models.moe import moe_apply, moe_init
 
 
@@ -57,6 +64,7 @@ class BlockDef:
     init_cache: Callable
     backfill: Callable
     state_keys: Tuple[str, ...] = ()
+    read_keys: Tuple[str, ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +449,114 @@ def slstm_backfill(cfg, params, h, ctx, cache):
     return xlstm.slstm_backfill_step(params["slstm"], cfg, x, cache)
 
 
+# ---------------------------------------------------------------------------
+# cross-attention blocks (the audio family; vlm's xattn shares the sublayer)
+# ---------------------------------------------------------------------------
+
+def _cross_attention(cfg, params, h, ctx, cache):
+    """Cross-attend to the memory ``ctx["cross"]`` (B, T, d), non-causal
+    (every query sees all T memory rows) and plain (``attend_full``, as
+    the reference's: no kernel).  Full mode projects the memory's K/V and,
+    with a cache, copies them into it in place; decode mode reads the
+    cached K/V and writes nothing.  A ``gate`` (llama-3.2-vision's) scales
+    the output by its tanh."""
+    x = norm_apply(params["norm"], cfg, h)
+    hd = cfg.resolved_head_dim
+    B, S = x.shape[0], x.shape[1]
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
+    if cache is not None and ctx["mode"] == "decode":
+        k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    else:
+        mem = ctx["cross"].to(x.dtype)
+        T = mem.shape[1]
+        k = (mem @ params["wk"].to(x.dtype)).reshape(B, T, cfg.n_kv_heads,
+                                                      hd)
+        v = (mem @ params["wv"].to(x.dtype)).reshape(B, T, cfg.n_kv_heads,
+                                                      hd)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    T = k.shape[1]
+    kpos = torch.arange(T, device=x.device)
+    qpos = torch.full((S,), T, dtype=torch.int64, device=x.device)
+    out = attend_full(q, k, v, qpos, kpos, window=0, causal=False)
+    out = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    if "gate" in params:
+        out = out * torch.tanh(params["gate"]).to(out.dtype)
+    return out, cache
+
+
+def cross_cache_init(cfg, batch, W, dtype, device):
+    del W
+    hd = cfg.resolved_head_dim
+    T = cfg.n_image_tokens or cfg.n_audio_frames
+    shape = (batch, T, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def encdec_init_block(gen, cfg):
+    return {"attn": attn_init(gen, cfg), "xattn": attn_init(gen, cfg),
+            "mlp": mlp_init(gen, cfg)}
+
+
+def encdec_apply(cfg, params, h, ctx, cache):
+    """Self-attention over the decoder's ring, cross-attention to the
+    encoder's memory (its K/V cached at prefill), then the MLP."""
+    a, _ = _self_attention(cfg, params["attn"], h, ctx,
+                           None if cache is None else cache["self"])
+    h = h + a
+    c, _ = _cross_attention(cfg, params["xattn"], h, ctx,
+                            None if cache is None else cache["cross"])
+    h = h + c
+    m = mlp_apply(params["mlp"], cfg,
+                  norm_apply(params["mlp"]["norm"], cfg, h))
+    return h + m, cache, 0.0
+
+
+def encdec_cache(cfg, batch, W, dtype, device):
+    """``cross`` before ``self``: the reference's key order (the paged
+    layout's refusal names the stage's keys in it)."""
+    return {"cross": cross_cache_init(cfg, batch, W, dtype, device),
+            "self": attn_cache_init(cfg, batch, W, dtype, device)}
+
+
+def encdec_backfill(cfg, params, h, ctx, cache):
+    """The self-attention K/V backfill; the cross K/V depend only on the
+    encoder's memory and stay as they are."""
+    if cache is None:
+        return None
+    _attn_backfill(cfg, params["attn"], h, ctx, cache["self"])
+    return cache
+
+
+def enc_init_block(gen, cfg):
+    return {"attn": attn_init(gen, cfg), "mlp": mlp_init(gen, cfg)}
+
+
+def enc_apply(cfg, params, h, ctx, cache):
+    """Bidirectional encoder layer (whisper's encoder): plain attention
+    over every frame, no cache, no kernel."""
+    x = norm_apply(params["attn"]["norm"], cfg, h)
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    q, k, v = qkv_project(params["attn"], cfg, x, rope_positions=None)
+    out = attend_full(q, k, v, pos, pos, window=0, causal=False)
+    out = out.reshape(x.shape[0], S, -1) @ params["attn"]["wo"].to(x.dtype)
+    h = h + out
+    m = mlp_apply(params["mlp"], cfg,
+                  norm_apply(params["mlp"]["norm"], cfg, h))
+    return h + m, None, 0.0
+
+
+def _no_cache(cfg, batch, W, dtype, device):
+    return {}
+
+
+def _no_backfill(cfg, params, h, ctx, cache):
+    return cache
+
+
 BLOCKS: Dict[str, BlockDef] = {
     "dense": BlockDef(dense_init_block, dense_apply, attn_cache_init,
                       dense_backfill),
@@ -454,6 +570,9 @@ BLOCKS: Dict[str, BlockDef] = {
                       mlstm_backfill, state_keys=("conv", "C", "n", "m")),
     "slstm": BlockDef(slstm_init_block, slstm_apply, slstm_cache,
                       slstm_backfill, state_keys=("state",)),
+    "encdec": BlockDef(encdec_init_block, encdec_apply, encdec_cache,
+                       encdec_backfill, read_keys=("cross",)),
+    "enc": BlockDef(enc_init_block, enc_apply, _no_cache, _no_backfill),
 }
 
 
@@ -473,7 +592,9 @@ def layer_kinds(cfg) -> list[str]:
         k = cfg.shared_attn_every
         return ["attn_shared" if (k and i % k == 0) else "mamba"
                 for i in range(cfg.n_layers)]
+    if cfg.family == "audio":
+        return ["encdec"] * cfg.n_layers
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: the dense, moe, hybrid "
-        f"and ssm families are; the audio and vlm families come in later "
-        f"slices of the port")
+        f"family {cfg.family!r} is not ported yet: the dense, moe, hybrid, "
+        f"ssm and audio families are; the vlm family comes in a later "
+        f"slice of the port")

@@ -1,4 +1,4 @@
-"""CascadeModel — the early-exit model: dense, moe, hybrid and ssm
+"""CascadeModel — the early-exit model: dense, moe, hybrid, ssm and audio
 families.
 
 The counterpart of the JAX package's ``models/model.py``.  The backbone is
@@ -20,18 +20,26 @@ handed to every layer in ``ctx["shared"]``), each invocation adding its
 own LoRA deltas.  The ssm family (xlstm) interleaves mLSTM and sLSTM
 layers (every ``slstm_every``-th an sLSTM one), whose caches are
 recurrent states only: an sLSTM stage's cache nests a dict of four state
-leaves under ``"state"``.
+leaves under ``"state"``.  The audio family (whisper) is an
+encoder-decoder: a bidirectional encoder (``params["encoder"]``) turns the
+stubbed frame embeddings ``extra["audio_embeds"]`` (B, n_audio_frames, d)
+into the memory every decoder layer (``encdec``) cross-attends to; the
+prefill caches each layer's cross K/V, which decode reads and never
+writes (the block kind's ``read_keys``).
 
 Public entry points:
   init(generator)                                -> params
-  forward_train(params, tokens)                  -> (exit_logits, aux)
+  forward_train(params, tokens, extra)           -> (exit_logits, aux)
   init_cache(batch, cache_len, dtype)            -> cache
-  prefill(params, tokens, cache[, block_tables]) -> (exit_logits_last, cache)
+  prefill(params, tokens, cache, extra[, block_tables])
+                                                 -> (exit_logits_last, cache)
   prefill_into(params, tokens, cache, ...)       -> exit_logits_last (paged)
-  decode_step(params, token, t, cache)           -> (exit_logits, cache)
-  decode(params, token, cache, state)            -> (decision, cache, state)
+  decode_step(params, token, t, cache, extra)    -> (exit_logits, cache)
+  decode(params, token, cache, state, extra)     -> (decision, cache, state)
 (``t`` a 0-d int32 device tensor or an int; caches and the kpos ring are
-written in place; ``decode`` is the staged step of ``core/exec.py``)
+written in place; ``decode`` is the staged step of ``core/exec.py``;
+``extra`` the modality inputs of :func:`extra_input_shapes`, None for the
+families that take none)
 and the segment primitives the staged executor (``core/exec.py``) runs:
 ``begin_decode`` / ``run_segment`` / ``backfill_segment`` / ``exit_logits``
 / ``commit_decode``.
@@ -64,11 +72,19 @@ def _runs(kinds: List[str]) -> List[Tuple[str, int]]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: the dense, moe, "
-            f"hybrid and ssm families are; the audio and vlm families come "
-            f"in later slices of the port")
+            f"hybrid, ssm and audio families are; the vlm family comes in a "
+            f"later slice of the port")
+
+
+def _no_extra(cfg: ModelConfig, extra) -> None:
+    """Refuse extra model inputs for a family that takes none."""
+    if extra and not extra_input_shapes(cfg, 1):
+        raise NotImplementedError(
+            f"extra model inputs {sorted(extra)}: the {cfg.family} family "
+            f"takes none")
 
 
 class CascadeModel:
@@ -99,7 +115,7 @@ class CascadeModel:
         cast = (lambda x: x.to(dt) if x.is_floating_point() else x)
         p: Dict[str, Any] = {}
         p["embed"] = nn.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
-        if cfg.rope_theta <= 0:
+        if cfg.family == "audio" or cfg.rope_theta <= 0:
             p["pos_embed"] = nn.embed_init(
                 gen, (cfg.max_seq_len, cfg.d_model), dt)
         segs = []
@@ -115,6 +131,8 @@ class CascadeModel:
         if cfg.family == "hybrid":
             shared = {"attn": attn_init(gen, cfg), "mlp": mlp_init(gen, cfg)}
             p["shared"] = nn.tree_map(cast, shared)
+        if cfg.family == "audio":
+            p["encoder"] = self._init_encoder(gen, cast)
         exits = []
         for _ in range(self.n_exits - 1):
             e: Dict[str, Any] = {"norm": norm_init(gen, cfg)}
@@ -133,6 +151,21 @@ class CascadeModel:
             p["lm_head"] = nn.dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), dt)
         return p
+
+    def _init_encoder(self, gen, cast):
+        """The audio encoder: its stacked ``enc`` layers (cast to the
+        model dtype), the final norm (f32, as the reference leaves it) and
+        the learned frame positions (n_audio_frames, d)."""
+        cfg = self.cfg
+        block = BLOCKS["enc"]
+        return {
+            "stages": nn.stack_init(
+                lambda g: nn.tree_map(cast, block.init(g, cfg)), gen,
+                cfg.encoder_layers),
+            "norm": norm_init(gen, cfg),
+            "pos_embed": nn.embed_init(
+                gen, (cfg.n_audio_frames, cfg.d_model), self.param_dtype),
+        }
 
     # ------------------------------------------------------------------
     # stages
@@ -185,18 +218,26 @@ class CascadeModel:
                                nn.tree_index(seg_cache[pi], i))
         return seg_cache
 
-    def state_leaf_mask(self, si, seg_cache) -> List[bool]:
+    def leaf_kinds(self, si, seg_cache) -> List[str]:
         """For each leaf of segment ``si``'s cache tree (a slab, a cohort's
-        view of it, or a paged store), in :func:`nn.tree_leaves` order:
-        True for a STATE leaf (rewritten whole by a decode step — the
-        block kind's ``state_keys``; a key naming a dict marks every leaf
-        beneath it), False for a RING leaf (one slot written a step)."""
-        mask = []
+        view of it, or a paged store), in :func:`nn.tree_leaves` order, the
+        kind of write a decode step makes in it: ``"state"`` (rewritten
+        whole — the block kind's ``state_keys``), ``"read"`` (never
+        written: read-only — its ``read_keys``, an encdec layer's cross
+        K/V) or ``"ring"`` (one slot written a step).  A key naming a dict
+        marks every leaf beneath it."""
+        kinds = []
         for (kind, _), stage in zip(self.segment_runs[si], seg_cache):
-            keys = BLOCKS[kind].state_keys
+            block = BLOCKS[kind]
             for name, sub in stage.items():
-                mask += [name in keys] * len(list(nn.tree_leaves(sub)))
-        return mask
+                what = ("state" if name in block.state_keys else
+                        "read" if name in block.read_keys else "ring")
+                kinds += [what] * len(list(nn.tree_leaves(sub)))
+        return kinds
+
+    def state_leaf_mask(self, si, seg_cache) -> List[bool]:
+        """:meth:`leaf_kinds` as a mask: True for a STATE leaf."""
+        return [k == "state" for k in self.leaf_kinds(si, seg_cache)]
 
     # ------------------------------------------------------------------
     # heads
@@ -238,6 +279,30 @@ class CascadeModel:
         if "b" in norm or head.stride(-1) != 1:
             return None
         return norm["w"], head
+
+    def _encode_audio(self, params, audio_embeds):
+        """The whisper encoder over stubbed frame embeddings (B, T, d):
+        the learned frame positions added, the bidirectional ``enc``
+        layers, the final norm.  Plain ops only (the reference's encoder
+        has no kernel)."""
+        enc = params["encoder"]
+        h = audio_embeds.to(self.param_dtype) + enc["pos_embed"][None]
+        ctx = {"mode": "full", "positions": None, "write_slots": None,
+               "cross": None, "shared": None}
+        block = BLOCKS["enc"]
+        stages = enc["stages"]
+        for i in range(next(nn.tree_leaves(stages)).shape[0]):
+            h, _, _ = block.apply(self.cfg, nn.tree_index(stages, i), h, ctx,
+                                  None)
+        return norm_apply(enc["norm"], self.cfg, h)
+
+    def _make_cross(self, params, extra, mode):
+        """The memory cross-attention reads in ``mode``: the audio
+        encoder's output in full mode; None at decode (the layers read
+        the cross K/V cached at prefill) and for families without one."""
+        if self.cfg.family == "audio" and mode != "decode":
+            return self._encode_audio(params, extra["audio_embeds"])
+        return None
 
     def _embed(self, params, tokens, positions=None):
         """Token embeddings, plus the learned position embeddings at
@@ -291,16 +356,13 @@ class CascadeModel:
                 "forward_train with use_kernels: no kernel of the port has "
                 "a backward; train with use_kernels off (as the reference's "
                 "training configs do)")
-        if extra:
-            raise NotImplementedError(
-                "extra model inputs come with the families that take them "
-                "(a later slice of the port); the dense, moe, hybrid and "
-                "ssm families take none")
+        _no_extra(cfg, extra)
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions, "write_slots": None,
-               "kpos": None, "shared": params.get("shared")}
+               "kpos": None, "shared": params.get("shared"),
+               "cross": self._make_cross(params, extra or {}, "full")}
         logits = []
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         stride = max(1, cfg.cascade.exit_loss_stride)
@@ -360,16 +422,20 @@ class CascadeModel:
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------
-    def prefill(self, params, tokens, cache, block_tables=None):
+    def prefill(self, params, tokens, cache, extra=None, block_tables=None):
         """Full-sequence forward writing the KV caches (in place).
 
-        tokens (B, S) int.  Returns ([exit logits at last position (B,V)]
-        * n_exits, cache with its kpos ring for the S prompt positions,
-        written in place).  ``block_tables`` ((n_components, B, nblk)
-        int32) switches the cache writes to the paged layout; the ring is
-        then the per-slot (B, W) one (continuous admission rewrites one
-        row at a time) instead of the lane-wide (W,).
+        tokens (B, S) int; ``extra`` the modality inputs (the audio
+        family's ``audio_embeds``: its encoder runs here and each layer's
+        cross K/V are copied into the cache).  Returns ([exit logits at
+        last position (B,V)] * n_exits, cache with its kpos ring for the S
+        prompt positions, written in place).  ``block_tables``
+        ((n_components, B, nblk) int32) switches the cache writes to the
+        paged layout; the ring is then the per-slot (B, W) one (continuous
+        admission rewrites one row at a time) instead of the lane-wide
+        (W,).
         """
+        _no_extra(self.cfg, extra)
         S = tokens.shape[1]
         W = cache["kpos"].shape[-1]
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
@@ -378,7 +444,8 @@ class CascadeModel:
         h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions,
                "write_slots": write_slots, "kpos": cache["kpos"],
-               "shared": params.get("shared")}
+               "shared": params.get("shared"),
+               "cross": self._make_cross(params, extra or {}, "full")}
         if block_tables is not None:
             ctx["block_tables"] = block_tables
         logits = []
@@ -391,7 +458,7 @@ class CascadeModel:
         return logits, {"kpos": kpos, "segments": cache["segments"]}
 
     def prefill_into(self, params, tokens, cache, positions, write_slots,
-                     block_tables):
+                     block_tables, extra=None):
         """Single-request prefill at OFFSET positions into an occupied
         paged lane (continuous admission).
 
@@ -404,10 +471,12 @@ class CascadeModel:
         lane's cache is untouched.  Returns [exit logits at the last
         position (1, V)] * n_exits.
         """
+        _no_extra(self.cfg, extra)
         h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions,
                "write_slots": write_slots, "kpos": None,
-               "block_tables": block_tables, "shared": params.get("shared")}
+               "block_tables": block_tables, "shared": params.get("shared"),
+               "cross": self._make_cross(params, extra or {}, "full")}
         logits = []
         for si in range(self.n_exits):
             h, _, _ = self.run_segment(si, params, h, ctx,
@@ -453,7 +522,7 @@ class CascadeModel:
         h = self._embed(params, token, t.view(1))
         ctx = {"mode": "decode", "t": t, "slot": slot,
                "kpos": cache["kpos"], "kpos_t": kpos_t,
-               "shared": params.get("shared")}
+               "shared": params.get("shared"), "cross": None}
         return h, ctx
 
     def commit_decode(self, cache, new_segs, t):
@@ -462,11 +531,13 @@ class CascadeModel:
         kpos = self._record(cache["kpos"], self.position(t))
         return {"kpos": kpos, "segments": new_segs}
 
-    def decode_step(self, params, token, t, cache):
+    def decode_step(self, params, token, t, cache, extra=None):
         """One DENSE decode step: every segment computes, every exit's
         logits are returned (list of (B,V)).  The reference path the
         consistency tests pin; the staged decode lives in
-        :class:`repro_torch.core.exec.StagedExecutor`."""
+        :class:`repro_torch.core.exec.StagedExecutor`.  ``extra`` as for
+        :meth:`decode`."""
+        _no_extra(self.cfg, extra)
         h, ctx = self.begin_decode(params, token, t, cache)
         logits = []
         for si in range(self.n_exits):
@@ -480,12 +551,11 @@ class CascadeModel:
         (B, 1) int32 and a :class:`repro_torch.core.exec.DecodeState` ->
         (ExitDecision, cache, state), cond_batch skipping the segments no
         live sequence needs.  The executor is built once and kept (a new
-        one for each ``decider`` given)."""
-        if extra:
-            raise NotImplementedError(
-                "extra model inputs come with the families that take them "
-                "(a later slice of the port); the dense, moe, hybrid and "
-                "ssm families take none")
+        one for each ``decider`` given).  ``extra`` is taken for the
+        families that have modality inputs and ignored, as the reference
+        does (decode reads the cross K/V cached at prefill); for the
+        others it is refused."""
+        _no_extra(self.cfg, extra)
         from repro_torch.core.exec import StagedExecutor
         if decider is not None:
             executor = StagedExecutor(self, self.cfg, decider)
@@ -508,3 +578,12 @@ def _prefill_kpos(S: int, W: int) -> np.ndarray:
 
 def build_model(cfg: ModelConfig, device=None) -> CascadeModel:
     return CascadeModel(cfg, device=device)
+
+
+def extra_input_shapes(cfg: ModelConfig, batch: int):
+    """Shapes of the stubbed modality-frontend inputs, if any."""
+    if cfg.family == "vlm":
+        return {"image_embeds": (batch, cfg.n_image_tokens, cfg.d_model)}
+    if cfg.family == "audio":
+        return {"audio_embeds": (batch, cfg.n_audio_frames, cfg.d_model)}
+    return {}

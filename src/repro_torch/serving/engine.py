@@ -38,6 +38,12 @@ Two execution runtimes (``runtime=`` at construction):
   theirs for the engine's life: both runtimes write them in place, and a
   re-prefill refills them.
 
+A family with modality inputs (the audio family's frame embeddings) gets
+the reference engine's stub at every lane prefill: f32 zeros of
+:func:`~repro_torch.models.model.extra_input_shapes`, made once on the
+engine's device.  Decode takes none: it reads the cross K/V the prefill
+cached, which a re-prefill rewrites in place.
+
 Each lane keeps a host mirror of its position (``DecodeState.t`` is a
 device scalar): a prefill sets it, a host tick adds 1, a chunk adds its
 steps, and the finish rule, the paged admission and the telemetry shadow
@@ -100,7 +106,7 @@ from repro_torch.core.exec import (CONF_EMA_DECAY, StagedExecutor,
 from repro_torch.core.macs import segment_macs_per_token
 from repro_torch.kernels.autotune import ensure_tuned
 from repro_torch.models import nn
-from repro_torch.models.model import CascadeModel
+from repro_torch.models.model import CascadeModel, extra_input_shapes
 from repro_torch.obs.metrics import MetricsRegistry, engine_metrics_into
 from repro_torch.obs.recorder import FlightRecorder
 from repro_torch.serving.batching import DepthCompactor, cohort_capacity
@@ -239,6 +245,12 @@ class CascadeServingEngine:
             self.lanes.append(lane)
         self.queue: List[Request] = []
         self.finished: Dict[int, dict] = {}
+        # the stubbed modality inputs every lane prefill feeds (the
+        # reference engine's zeros), or None for a family without any
+        self._extra = {k: torch.zeros(v, dtype=torch.float32,
+                                      device=self.device)
+                       for k, v in extra_input_shapes(cfg, lane_batch)
+                       .items()} or None
         # admission gate (a fleet drain): False stops step() admitting
         # while the in-flight slots decode on to exit or budget
         self.admitting = True
@@ -776,7 +788,7 @@ class CascadeServingEngine:
         t_pre = time.perf_counter()
         d, cache, state = self.executor.prefill(
             self.params, torch.as_tensor(toks, device=self.device), cache_in,
-            state)
+            state, extra=self._extra)
         tok = d.prediction.cpu().numpy()   # syncs the device
         exit_idx = d.exit_index.cpu().numpy()
         conf = d.confidence.cpu().numpy()

@@ -66,19 +66,20 @@ def test_full_config_and_registry():
     # deepseek-coder-33b and minitron-4b (the dense family whole) in
     # slice 12, mixtral-8x7b and qwen3-moe-235b-a22b (the moe family) in
     # slice 15, zamba2-1.2b (the hybrid family) in slice 16, xlstm-350m
-    # (the ssm family) in slice 17
+    # (the ssm family) in slice 17, whisper-tiny (the audio family) in
+    # slice 18
     assert list_configs() == ["ci-resnet18", "deepseek-coder-33b",
                               "minitron-4b", "mixtral-8x7b", "qwen2.5-3b",
-                              "qwen3-moe-235b-a22b", "xlstm-350m", "yi-9b",
-                              "zamba2-1.2b"]
+                              "qwen3-moe-235b-a22b", "whisper-tiny",
+                              "xlstm-350m", "yi-9b", "zamba2-1.2b"]
     yi = get_config("yi-9b")
     assert dataclasses.asdict(yi) == dataclasses.asdict(
         jax_get_config("yi-9b"))
     assert yi.segments == jax_get_config("yi-9b").segments == (
         (0, 16), (16, 32), (32, 48))
-    # the audio family (whisper) is the next one to port
+    # the vlm family (llama-3.2-vision) is the next one to port
     with pytest.raises(KeyError):
-        get_config("whisper-tiny")
+        get_config("llama-3.2-vision-90b")
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +385,7 @@ def test_unported_configurations_are_refused():
     assert CascadeServingEngine(tuned, model, params, autotune=True,
                                 **kw).controller is not None
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="audio"), device="cpu")
+        build_model(cfg.replace(family="vlm"), device="cpu")
     # the paged KV layout is ported (slice 3): it constructs
     paged = cfg.with_paged_cache(layout="paged", block_size=8)
     assert CascadeServingEngine(paged, model, params, **kw).paged

@@ -965,9 +965,9 @@ def test_lane_reprefill_restarts_every_state_at_its_init_value(
     seen = []
     orig = eng.executor.prefill
 
-    def spy(params, toks, cache, state):
+    def spy(params, toks, cache, state, extra=None):
         seen.append([x.clone() for x in nn.tree_leaves(cache["segments"])])
-        return orig(params, toks, cache, state)
+        return orig(params, toks, cache, state, extra=extra)
 
     monkeypatch.setattr(eng.executor, "prefill", spy)
     _drive("torch", cfg, params, engine=eng)
