@@ -217,7 +217,26 @@ source, all at once).  Phases, each of which fails the run on a miss:
     mode with the cohort scatter (slot route only: the cross K/V are
     read-only leaves) and autotune's shadow step there (streams equal to
     cond_batch's), and the paged layout refused;
-22. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+22. slice 19, the vlm family ("vlm"): phase 2's kernels at
+    llama-3.2-vision-90b's shapes (rmsnorm (4, 8192) on its block route,
+    exit_update (4, 128256) over 32 tiles, decode attention at 8 query
+    heads a KV head over the W 512 ring, flash attention on wgmma at S
+    256 and 128; the megakernel's tc route at (B, 8192) x (8192, 128256)
+    for B = 1, 4, 8 on a 6-stage ring and cuda_core at B = 16, against
+    cuBLAS + exit_update; the cohort scatter's slot route over a 4-layer
+    dense stage's rings); then the model at its published widths cut to
+    30 of 100 layers (six xattn layers, bf16, gates drawn non-zero) alone
+    on the card — init time, peak memory, the logits against the plain
+    path over random images, a lane prefill of 4 x 256 tokens timed with
+    the cross K/V projection's share, the hybrid phase's 13 requests (a
+    lane re-prefills, its xattn K/V rewritten in place) on both runtimes
+    in turns at (0.9, 0.9, 0.0) and (0, 0, 0), 2 cohorts with the
+    megakernel at a mixed threshold (every launch on tc; streams equal
+    with it off), select mode with the cohort scatter (slot route only:
+    the xattn K/V are read-only leaves, a whole segment's at a time) and
+    autotune's shadow step there (streams equal to cond_batch's), and the
+    paged layout refused (R4);
+23. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -1197,11 +1216,13 @@ def phase_megakernel(dev, gen):
     return cases
 
 
-def phase_megakernel_wide(dev, gen):
-    """The tc route past d 4096: deepseek-coder-33b's exit head, h (B,
-    7168) x (7168, 32256) in bf16, at B = 1, 4, 8 on tc (its ring 7
-    stages beside the 112 KB of rows) and B = 16 on cuda_core (the rows
-    alone take 224 KB).  Against the plain version (ints exact but the
+def phase_megakernel_wide(dev, gen, arch="deepseek-coder-33b"):
+    """The tc route past d 4096: ``arch``'s exit head in bf16 —
+    deepseek-coder-33b's h (B, 7168) x (7168, 32256), or
+    llama-3.2-vision-90b's (B, 8192) x (8192, 128256) — at B = 1, 4, 8 on
+    tc (its ring 7 stages beside the 112 KB of rows at d 7168, 6 beside
+    the 128 KB at d 8192) and B = 16 on cuda_core (the rows alone take
+    224 KB and 256 KB).  Against the plain version (ints exact but the
     prediction on tie rows, floats within MEGA_TOL), the normalised rows
     the tc prologue computes (``xn_out``) bit for bit against rmsnorm's
     block-route kernel, the ints against the unfused route's (rmsnorm +
@@ -1215,7 +1236,7 @@ def phase_megakernel_wide(dev, gen):
     from repro_torch.kernels.exit_update import exit_update
     from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch.kernels.rmsnorm import rmsnorm
-    shp = DENSE_SHAPES["deepseek-coder-33b"]
+    shp = {**DENSE_SHAPES, **VISION_SHAPES}[arch]
     d, V, n_m, bf, name = shp["d"], shp["vocab"], 3, torch.bfloat16, \
         "bfloat16"
     w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
@@ -1296,7 +1317,7 @@ def phase_megakernel_wide(dev, gen):
         b, by = bound_ms(hc.numel() * 2 + h.numel() * 2 + d * 4 + B * 56,
                          2 * B * d * V, name)
         cases.append({
-            **extra, "config": "deepseek-coder-33b", "shape": [B, d, V],
+            **extra, "config": arch, "shape": [B, d, V],
             "dtype": name, "route": route,
             "stages": megakernel.tc_stages(B, d), "live": live.tolist(),
             "tie_rows": int(ties.sum()), "max_abs_err": err,
@@ -1678,8 +1699,10 @@ def check_routes(cfg, launches):
     (:data:`AUDIO`): flash on its CUDA-core route (hd 64: wgmma is hd 128
     only), decode attention dense, no rmsnorm, megakernel or paged_gather
     launch (layernorm heads), the cohort scatter's slot route only (its
-    cross K/V are read-only leaves, never landed).  Returns each kernel's
-    launches by route since the counters were last reset."""
+    cross K/V are read-only leaves, never landed); the vlm family's
+    (:data:`VLM`) the cohort scatter's slot route only too (the xattn
+    K/V are read-only).  Returns each kernel's launches by route since
+    the counters were last reset."""
     from repro_torch.kernels.decode_attention import TILE, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.megakernel import exit_head_update
@@ -1700,7 +1723,7 @@ def check_routes(cfg, launches):
                 fail(f"{cfg.name}: {launches[name]} {name} launches on the "
                      f"{cfg.family} path (it has no attention kernel)")
     out = {}
-    if cfg.family in ("ssm", "audio"):
+    if cfg.family in ("ssm", "audio", "vlm"):
         from repro_torch.kernels.cohort_cache import cohort_scatter_tree
         routes = dict(cohort_scatter_tree.launches_by_route)
         only = "whole" if cfg.family == "ssm" else "slot"
@@ -3007,6 +3030,23 @@ WHISPER_SHAPES = {
 # segment 1 (an encdec stage of 2 layers): the self K/V rings (L, B, W 448,
 # 6, 64) bf16 at one ring slot; its cross K/V are read-only, never landed
 WHISPER_RING = ((2, 4, 448, 6, 64), 300)
+# the vlm family's serving shapes (slice 19): llama-3.2-vision-90b's d
+# 8192 — rmsnorm (4, 8192) on the block route (1024 16-byte chunks a row),
+# exit_update over 32 tiles of V 128256, decode attention q (4, 64, 128)
+# over 8 KV heads (8 query heads a KV head) at W 512, flash attention on
+# wgmma at the 256- and 128-token lanes' S.  Its megakernel cases are
+# phase_megakernel_wide's (tc at B 1, 4, 8 on a 6-stage ring beside the
+# rows' 128 KB, cuda_core at B 16); the paged layout refuses the family
+# (R4): no paged decode case
+VISION_SHAPES = {
+    "llama-3.2-vision-90b": dict(d=8192, H=64, KV=8, vocab=128256,
+                                 norm="block", head=None, S=(256, 128),
+                                 paged=False),
+}
+# select mode's land of cohort 1 of 2 at lane batch 4 in a 4-layer dense
+# stage of the 30-layer vlm model: the K/V rings (L, B, W 512, 8, 128)
+# bf16 at one ring slot; the xattn stages' K/V are read-only, never landed
+VISION_RING = ((4, 4, 512, 8, 128), 300)
 XLSTM_STATE_LEAVES = {
     "mlstm": (((5, 4, 4, 512, 512), "float32"),
               ((5, 4, 3, 2048), "bfloat16"), ((5, 4, 4), "float32"),
@@ -3023,7 +3063,8 @@ def phase_yi_kernels(dev, gen):
 def config_kernel_cases(dev, gen, arch):
     """Phase 2's cases at ``arch``'s serving shapes (:data:`DENSE_SHAPES`,
     :data:`MOE_SHAPES`, :data:`HYBRID_SHAPES`, :data:`XLSTM_SHAPES`,
-    :data:`WHISPER_SHAPES`; B = 4, bf16), each against
+    :data:`WHISPER_SHAPES`, :data:`VISION_SHAPES`; B = 4, bf16), each
+    against
     its plain version at the tolerances above: rmsnorm (4, d) on the route
     the width takes (none where the shape's ``norm`` is None); exit_update
     (4, V); the megakernel at h (4, d) x (d, V) on its route (against
@@ -3045,7 +3086,7 @@ def config_kernel_cases(dev, gen, arch):
     from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch.kernels.rmsnorm import rmsnorm
     shp = {**DENSE_SHAPES, **MOE_SHAPES, **HYBRID_SHAPES, **XLSTM_SHAPES,
-           **WHISPER_SHAPES}[arch]
+           **WHISPER_SHAPES, **VISION_SHAPES}[arch]
     D, H, KV, V = shp["d"], shp["H"], shp["KV"], shp["vocab"]
     bf = torch.bfloat16
     name, B, hd, n_m = "bfloat16", 4, shp.get("hd", 128), 3
@@ -5547,14 +5588,15 @@ def _audio_step_bytes(model, params, lane_batch, cache_len):
     """Bytes a lane step must move with every segment run: each decoder
     layer's weights once but the cross-attention's K and V projections
     (decode reads the cached K/V instead), the unembedding once per exit
-    head, and every cross K/V leaf and self K/V ring read once."""
+    head, and every cross K/V leaf and self K/V ring read once (the audio
+    family's encdec stages, the vlm family's dense and xattn stages)."""
     from repro_torch.models import nn
 
     def nbytes(leaves):
         return sum(x.numel() * x.element_size() for x in leaves)
     layers = nbytes(nn.tree_leaves(params["segments"])) - nbytes(
         stage["xattn"][k] for seg in params["segments"] for stage in seg
-        for k in ("wk", "wv"))
+        if "xattn" in stage for k in ("wk", "wv"))
     cache = model.init_cache(lane_batch, cache_len, device="meta")
     kinds = {"read": 0, "ring": 0}
     for si, seg in enumerate(cache["segments"]):
@@ -5734,6 +5776,263 @@ def phase_audio(smi):
     return out
 
 
+# the vlm path's kernels (slice 19): rmsnorm on every norm (block route at
+# d 8192), exit_update on the exit heads, decode attention in the dense
+# layers (the xattn layers' cross-attention is the plain one, as the
+# reference's), flash attention in the prefills of S % 128 == 0; the
+# megakernel where it is on and the cohort scatter's slot route in select
+# mode (the xattn K/V are read-only, never landed)
+VLM = {"rmsnorm", "exit_update", "decode_attention", "flash_attention"}
+VLM_ARCH = "llama-3.2-vision-90b"
+# the published widths cut to 30 of 100 layers (the moe configs' cut):
+# the 1:5 pattern kept, xattn at layers 4, 9, ..., 29; 51.3 GB of layers,
+# the embedding and the shared unembedding 2.1 GB each
+VLM_LAYERS = 30
+# the qwen cell's engine
+VLM_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+# one lane prefill of 4 fresh rows of 256 tokens over the engine's zero
+# images
+VLM_PREFILL = (4, 256)
+
+
+def _vlm_prefill(model, params, B, S):
+    """One lane prefill of B fresh rows of S tokens over the engine's zero
+    images: its host seconds and the cross K/V projection's alone (every
+    xattn layer's image tokens times its K and V weights, copied into a
+    cache; two calls each, synchronised), and the device kernels the
+    prefill launches (by torch.profiler)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import nn
+    cfg = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=DEV)
+    images = torch.zeros(B, cfg.n_image_tokens, cfg.d_model, device=DEV)
+    extra = {"image_embeds": images}
+    secs, proj = [], []
+
+    def timed(fn, into):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+
+    def project(cache):
+        mem = images.to(model.param_dtype)
+        hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+        for si, runs in enumerate(model.segment_runs):
+            for pi, (kind, n) in enumerate(runs):
+                if kind != "xattn":
+                    continue
+                st = params["segments"][si][pi]["xattn"]
+                c = cache["segments"][si][pi]
+                for i in range(n):
+                    for w, leaf in (("wk", "k"), ("wv", "v")):
+                        c[leaf][i].copy_((mem @ st[w][i]).reshape(
+                            B, -1, kv, hd))
+
+    with torch.no_grad():
+        for _ in range(2):
+            cache = model.init_cache(B, VLM_ENGINE["cache_len"])
+            timed(lambda: model.prefill(params, toks, cache, extra), secs)
+        for _ in range(2):
+            timed(lambda: project(cache), proj)
+        cache = model.init_cache(B, VLM_ENGINE["cache_len"])
+        kernels = _device_kernels(lambda: model.prefill(params, toks, cache,
+                                                        extra))
+    n_xattn = sum(n for runs in model.segment_runs for k, n in runs
+                  if k == "xattn")
+    cross = sum(x.numel() * x.element_size()
+                for si, seg in enumerate(cache["segments"])
+                for x, k in zip(nn.tree_leaves(seg),
+                                model.leaf_kinds(si, seg)) if k == "read")
+    return {"rows": B, "tokens": S, "image_tokens": cfg.n_image_tokens,
+            "xattn_layers": n_xattn, "cross_kv_bytes": cross,
+            "seconds": secs, "cross_kv_projection_seconds": proj,
+            "cross_kv_projection_share": min(proj) / min(secs),
+            "device_kernel_launches": sum(n for _, n in kernels),
+            "top_kernels": sorted(kernels, key=lambda k: -k[1])[:8]}
+
+
+def phase_vlm(smi):
+    """llama-3.2-vision-90b at its published widths (d 8192, 64 / 8 heads
+    of 128, d_ff 28672, vocab 128256, 1600 image tokens) cut to
+    :data:`VLM_LAYERS` of its 100 layers, bf16, seed 0, 3 components,
+    kernels on, cond_batch, alone on the card; its xattn gates (zero at
+    init, as the reference's, which hides the sublayer) drawn from N(0, 1)
+    with seed 1.  The init time and peak memory; the prefill's and first
+    decode steps' logits against the plain path over random images
+    (normwise within :data:`LOGIT_REL_TOL`, argmax agreement printed); one
+    lane prefill of 4 x 256 tokens timed with the cross K/V projection's
+    share, its device kernels counted; the serving engine of the qwen cell
+    (lane batch 4, 2 lanes, cache 512) on :func:`_hybrid_requests` (12 of
+    128 or 256 prompt tokens, one of 300 whose lane takes the plain
+    attention; a lane re-prefills, its xattn K/V rewritten in place from
+    the engine's zero images) at (0.9, 0.9, 0.0) on the host and device
+    runtimes in turns (host, device, device, host) and at (0, 0, 0)
+    (device, host), identical streams with one host sync a lane chunk; 2
+    cohorts with the megakernel at a mixed component-0 threshold (the
+    mixed branch taken, every launch on tc), streams equal with it off;
+    select mode with the cohort scatter at that vector (its slot route
+    only), streams equal to cond_batch's; autotune's shadow step there,
+    streams equal on and off; and the paged layout refused with R4's
+    message.  Prints each run's µs per token beside the floor of a lane
+    step's bytes.  Returns the device runtime's launches by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.macs import param_count
+    from repro_torch.models import nn
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import CascadeServingEngine
+    held = _free_card()
+    base = get_config(VLM_ARCH).replace(
+        n_layers=VLM_LAYERS, use_kernels=True).with_cascade(
+        exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(base, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    g = torch.Generator(device=DEV).manual_seed(1)
+    gates = []
+    for seg in params["segments"]:
+        for stage in seg:
+            if "xattn" in stage:
+                gate = stage["xattn"]["gate"]
+                gate.copy_(torch.randn(gate.shape, generator=g, device=DEV))
+                gates += gate.float().tolist()
+    leaves = list(nn.tree_leaves(params))
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    t_phase = time.perf_counter()
+    images = torch.randn(
+        4, base.n_image_tokens, base.d_model, device=DEV,
+        generator=torch.Generator(device=DEV).manual_seed(7))
+    logits = _logits_against_plain(base, model, params,
+                                   extra={"image_embeds": images})
+    del images
+    prefill = _vlm_prefill(model, params, *VLM_PREFILL)
+    reqs = _hybrid_requests(base.vocab_size)
+    turns, dev_launches, _ = _runtime_turns(
+        VLM_ARCH, base, model, params, reqs,
+        ("host", "device", "device", "host"), engine=VLM_ENGINE)
+    check_launched(VLM_ARCH, turns["launches"], VLM)
+    for rt in ("host", "device"):
+        prefills = [r["prefills"] for r in turns[rt]]
+        if min(prefills) <= VLM_ENGINE["n_lanes"]:
+            fail(f"{VLM_ARCH} {rt}: {prefills} lane prefills (no lane "
+                 "re-prefilled)")
+    zero = base.with_cascade(thresholds=(0.0, 0.0, 0.0))
+    zturns, _, _ = _runtime_turns(f"{VLM_ARCH} (0, 0, 0)", zero, model,
+                                  params, reqs, ("device", "host"),
+                                  engine=VLM_ENGINE)
+    check_launched(f"{VLM_ARCH} (0, 0, 0)", zturns["launches"], VLM)
+    out = {"one_cohort": dev_launches}
+
+    two = base.with_cascade(n_cohorts=2, cohort_layout="major") \
+        .with_kernel_tune(megakernel=True)
+    calib = serve(two.with_cascade(thresholds=(0.0, 0.0, 0.0)), model,
+                  params, reqs, runtime="device", **VLM_ENGINE)[0]
+    th, quantile = mixed_threshold(
+        calib, lambda th: serve(two.with_cascade(
+            thresholds=(th, 0.9, 0.0)), model, params, reqs,
+            runtime="device", **VLM_ENGINE)[1]["cohort_dispatch"],
+        f"{VLM_ARCH} megakernel")
+    mixed = two.with_cascade(thresholds=(th, 0.9, 0.0))
+    on, on_launches, on_streams = _runtime_turns(
+        f"{VLM_ARCH} megakernel", mixed, model, params, reqs,
+        ("device", "host"), engine=VLM_ENGINE)
+    off, _, off_streams = _runtime_turns(
+        f"{VLM_ARCH} megakernel off", mixed.with_kernel_tune(
+            megakernel=False), model, params, reqs, ("device",),
+        engine=VLM_ENGINE)
+    if on_streams != off_streams:
+        fail(f"{VLM_ARCH}: the streams with the megakernel on differ from "
+             "those with it off")
+    # check_routes held every megakernel launch to the tc route
+    check_launched(f"{VLM_ARCH} megakernel", on["launches"],
+                   VLM | {"megakernel"})
+    for rec in on["device"] + on["host"]:
+        if not rec["cohort_dispatch"]["mixed"]:
+            fail(f"{VLM_ARCH} 2 cohorts: the mixed branch never ran "
+                 f"({rec['cohort_dispatch']})")
+    out["megakernel"] = on_launches
+    select, sel_launches, sel_streams = _runtime_turns(
+        f"{VLM_ARCH} select", mixed.with_cascade(exit_mode="select")
+        .with_kernel_tune(cohort_scatter=True), model, params, reqs,
+        ("device", "host"), engine=VLM_ENGINE)
+    if sel_streams != on_streams:
+        fail(f"{VLM_ARCH}: select mode's streams differ from cond_batch's")
+    check_launched(f"{VLM_ARCH} select", select["launches"],
+                   VLM | {"megakernel", "cohort_scatter"})
+    out["select_scatter"] = sel_launches
+    shadow, tune_launches, tune_streams = _runtime_turns(
+        f"{VLM_ARCH} autotune", mixed.with_autotune(**HYBRID_AUTOTUNE),
+        model, params, reqs, ("device", "host"), engine=VLM_ENGINE)
+    if tune_streams != on_streams:
+        fail(f"{VLM_ARCH}: autotune's shadow steps changed the streams")
+    check_launched(f"{VLM_ARCH} autotune", shadow["launches"],
+                   VLM | {"megakernel"})
+    out["autotune"] = tune_launches
+    paged = base.with_paged_cache(layout="paged", block_size=16)
+    try:
+        CascadeServingEngine(paged, model, params, device=DEV, **VLM_ENGINE)
+        fail(f"{VLM_ARCH}: the paged layout was not refused")
+    except ValueError as err:
+        refusal = str(err)
+    if "cannot page a read-only cache stage" not in refusal \
+            or "family 'vlm'" not in refusal:
+        fail(f"{VLM_ARCH}: paged refusal {refusal!r}")
+    phase_seconds = time.perf_counter() - t_phase
+    parts, step_bytes = _audio_step_bytes(
+        model, params, VLM_ENGINE["lane_batch"], VLM_ENGINE["cache_len"])
+    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    med = turns["decode_us_per_token_median"]
+    lane_prefill = {rt: [r["prefill_seconds"] / r["prefills"]
+                         for r in turns[rt]] for rt in ("host", "device")}
+    emit({"phase": "vlm", "config": VLM_ARCH,
+          "n_layers": base.n_layers, "published_layers": get_config(
+              VLM_ARCH).n_layers,
+          "segments": [list(x) for x in base.segments],
+          "segment_runs": model.segment_runs, "d_model": base.d_model,
+          "n_heads": base.n_heads, "n_kv_heads": base.n_kv_heads,
+          "head_dim": base.resolved_head_dim, "d_ff": base.d_ff,
+          "vocab": base.vocab_size, "n_image_tokens": base.n_image_tokens,
+          "dtype": base.dtype, "gates": gates, "params": n_params,
+          "param_count_analytic": param_count(base),
+          "param_bytes": param_bytes, "held_before": held,
+          "init_seconds": init_seconds,
+          "init_max_memory_allocated": init_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "logits_against_plain": logits, "prefill": prefill,
+          "lane_prefill_seconds_mean": lane_prefill,
+          "engine": VLM_ENGINE, "thresholds": [0.9, 0.9, 0.0],
+          "requests": len(reqs), "prompt_lens": sorted(
+              {len(r.prompt) for r in reqs}), "max_new_tokens": 16,
+          "turns": turns, "turns_all_exit": zturns,
+          "decode_us_per_token": med,
+          "step_bytes": parts, "floor_ms_per_step": floor_ms,
+          "device_ms_per_step": (None if med.get("device") is None
+                                 else med["device"]
+                                 * VLM_ENGINE["lane_batch"] / 1e3),
+          "host_ms_per_step": (None if med.get("host") is None
+                               else med["host"]
+                               * VLM_ENGINE["lane_batch"] / 1e3),
+          "megakernel": {"thresholds": [th, 0.9, 0.0],
+                         "threshold_quantile": quantile, "n_cohorts": 2,
+                         "on": on, "off": off},
+          "select_scatter": select, "autotune": {**HYBRID_AUTOTUNE,
+                                                 "turns": shadow},
+          "paged_refusal": refusal, "phase_seconds": phase_seconds,
+          "nvidia_smi": smi})
+    del model, params
+    _free_card()
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5770,7 +6069,8 @@ def main() -> int:
               "exit_update": phase_exit_update(dev, gen),
               "confidence": phase_confidence(dev, gen),
               "megakernel": phase_megakernel(dev, gen)
-              + phase_megakernel_wide(dev, gen),
+              + phase_megakernel_wide(dev, gen)
+              + phase_megakernel_wide(dev, gen, VLM_ARCH),
               "cohort_scatter": phase_cohort_scatter(dev, gen),
               "paged_gather": phase_paged_gather(dev, gen)}
     # the same kernels at the dense family's other published widths:
@@ -5783,8 +6083,11 @@ def main() -> int:
     # 1024), and the whole-cohort route over its mLSTM and sLSTM stages
     # and the audio family's: whisper-tiny's head dim 64 (flash's CUDA-core
     # route in bf16, decode over the W 448 ring) and exit_update at V 51865
+    # and the vlm family's: llama-3.2-vision-90b's d 8192 (rmsnorm's block
+    # route, exit_update over 32 tiles, decode attention at 8 query heads
+    # a KV head; its exit head above, in phase_megakernel_wide)
     for arch in (*DENSE_SHAPES, *MOE_SHAPES, *HYBRID_SHAPES, *XLSTM_SHAPES,
-                 *WHISPER_SHAPES):
+                 *WHISPER_SHAPES, *VISION_SHAPES):
         for name, cases in config_kernel_cases(dev, gen, arch).items():
             checks[name] += cases
     checks["cohort_scatter"].append(phase_state_scatter(dev, gen))
@@ -5793,6 +6096,8 @@ def main() -> int:
             dev, gen, "xlstm-350m", leaves, stage))
     checks["cohort_scatter"].append(phase_ring_scatter(
         dev, gen, "whisper-tiny", *WHISPER_RING))
+    checks["cohort_scatter"].append(phase_ring_scatter(
+        dev, gen, VLM_ARCH, *VISION_RING))
     for name, cases in checks.items():
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
     emit({"phase": "paged_gather_unaligned",
@@ -5841,6 +6146,8 @@ def main() -> int:
     ssm = phase_ssm(smi)
     # slice 18: the audio family, alone on the card
     audio = phase_audio(smi)
+    # slice 19: the vlm family at 30 of its 100 layers, alone on the card
+    vlm = phase_vlm(smi)
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -5978,6 +6285,11 @@ def main() -> int:
                      # — the same four paths as the hybrid's
                      "launches_audio": {p: n[name]
                                         for p, n in audio.items()},
+                     # slice 19's paths, device runtime:
+                     # llama-3.2-vision-90b at full width cut to 30
+                     # layers, 13 requests x 16 tokens — the same four
+                     # paths as the hybrid's
+                     "launches_vlm": {p: n[name] for p, n in vlm.items()},
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -26,9 +26,11 @@ kernel time that starts inside their ranges over their summed wall time,
 beside the whole run's ``device_busy_share``.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_serving.py
-[--arch zamba2-1.2b] [--thresholds 0.9,0.9,0.0] [--n-cohorts 2]
-[--megakernel] [--paged] [--runtime device --chunk 8] [--top N]
-[--root DIR]``.  ``--n-cohorts 2`` serves with cohort-split skipping in
+[--arch zamba2-1.2b] [--n-layers N] [--thresholds 0.9,0.9,0.0]
+[--n-cohorts 2] [--megakernel] [--paged] [--runtime device --chunk 8]
+[--top N] [--root DIR]``.  ``--n-layers`` cuts the model's depth (the
+published widths kept; llama-3.2-vision-90b fits one 80 GB card at 30
+of its 100 layers, as ``chip_smoke.py`` serves it).  ``--n-cohorts 2`` serves with cohort-split skipping in
 the ``major`` layout; ``--megakernel`` turns
 on the exit-head megakernel and the cohort scatter; ``--paged`` serves
 from the paged KV layout (block size 16); ``--runtime device`` decodes
@@ -64,6 +66,7 @@ def _device_time_us(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--thresholds", default="0.9,0.9,0.0")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--n-cohorts", type=int, default=1)
@@ -90,7 +93,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     ths = tuple(float(x) for x in args.thresholds.split(","))
-    cfg = get_config(args.arch).replace(use_kernels=True).with_cascade(
+    cfg = get_config(args.arch)
+    if args.n_layers:
+        cfg = cfg.replace(n_layers=args.n_layers)
+    cfg = cfg.replace(use_kernels=True).with_cascade(
         exit_mode="cond_batch", thresholds=ths, n_cohorts=args.n_cohorts,
         cohort_layout="major").with_kernel_tune(
         megakernel=args.megakernel, cohort_scatter=args.megakernel)
@@ -186,7 +192,8 @@ def main() -> int:
         rec["share_of_device"] = rec["device_s"] / (dev_us / 1e6) \
             if dev_us else None
     print(json.dumps({"card": smi, "root": str(Path(args.root).resolve()),
-                      "arch": args.arch, "thresholds": list(ths),
+                      "arch": args.arch, "n_layers": cfg.n_layers,
+                      "thresholds": list(ths),
                       "n_cohorts": args.n_cohorts,
                       "megakernel": args.megakernel,
                       "paged": args.paged, "runtime": args.runtime,

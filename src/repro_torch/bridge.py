@@ -13,8 +13,9 @@ and its frame ``pos_embed``); a layernorm's
 (d, E), ``w_gate`` / ``w_up`` (E, d, ff), ``w_down`` (E, ff, d),
 ``norm``) in its stage, a mamba block's ``ssm`` dict, an attn_shared
 block's ``lora_*`` leaves, an mlstm or slstm block's ``mlstm`` /
-``slstm`` dict and an encdec block's ``attn``, ``xattn`` and ``mlp`` dicts
-in theirs — and returns the same structure of torch tensors on
+``slstm`` dict, an xattn block's ``xattn`` (with its 0-d tanh ``gate``,
+stacked to (n,)) and ``mlp`` dicts and an encdec block's ``attn``,
+``xattn`` and ``mlp`` dicts in theirs — and returns the same structure of torch tensors on
 ``device``, dtypes kept.  ``params_to_numpy`` is the inverse, so a round
 trip is bit-exact.
 
@@ -36,8 +37,8 @@ from repro_torch.utils import (numpy_to_tensor, resolve_device,
 
 def _keys(cfg: ModelConfig):
     """The top-level parameter keys of a model of ``cfg`` (dense, moe,
-    hybrid, ssm or audio: the moe, mamba, mLSTM, sLSTM and encdec leaves
-    and the LoRA deltas ride inside ``segments``; the hybrid's shared
+    hybrid, ssm, vlm or audio: the moe, mamba, mLSTM, sLSTM, xattn and
+    encdec leaves and the LoRA deltas ride inside ``segments``; the hybrid's shared
     block is ``shared``, the audio encoder ``encoder``)."""
     keys = ["embed", "segments", "exits", "final_norm"]
     if cfg.family == "hybrid":
@@ -59,8 +60,8 @@ def params_from_jax(np_params: Any, cfg: ModelConfig, device=None):
     extra = sorted(set(np_params) - set(keys))
     if missing or extra:
         raise ValueError(f"parameter tree keys: missing {missing}, "
-                         f"unsupported {extra} (the dense, moe, hybrid, ssm "
-                         f"and audio families only)")
+                         f"unsupported {extra} (the dense, moe, hybrid, ssm, "
+                         f"vlm and audio families only)")
     if len(np_params["segments"]) != cfg.cascade.n_components:
         raise ValueError(f"{len(np_params['segments'])} segments for "
                          f"{cfg.cascade.n_components} cascade components")

@@ -647,10 +647,9 @@ def _load_all():
     # import for registration side effect; the port has the dense family
     # (qwen2.5-3b, yi-9b, deepseek-coder-33b, minitron-4b), the moe family
     # (mixtral-8x7b, qwen3-moe-235b-a22b), the hybrid family (zamba2-1.2b),
-    # the ssm family (xlstm-350m), the audio family (whisper-tiny) and the
-    # paper's ci-resnet18 so far (the vlm architecture comes with its
-    # family's slice)
+    # the ssm family (xlstm-350m), the audio family (whisper-tiny), the vlm
+    # family (llama-3.2-vision-90b) and the paper's ci-resnet18
     from repro_torch.configs import (  # noqa: F401
-        ci_resnet18, deepseek_coder_33b, minitron_4b, mixtral_8x7b,
-        qwen2p5_3b, qwen3_moe_235b_a22b, whisper_tiny, xlstm_350m, yi_9b,
-        zamba2_1p2b)
+        ci_resnet18, deepseek_coder_33b, llama_3p2_vision_90b, minitron_4b,
+        mixtral_8x7b, qwen2p5_3b, qwen3_moe_235b_a22b, whisper_tiny,
+        xlstm_350m, yi_9b, zamba2_1p2b)

@@ -1,5 +1,5 @@
 """Analytic MAC and parameter accounting: CI-ResNet components and the
-cascade segments (dense, moe, hybrid, ssm and audio families).
+cascade segments (dense, moe, hybrid, ssm, vlm and audio families).
 
 The counterpart of the JAX package's ``core/macs.py``.  The paper counts
 MACs "analytically by summing up the linear operations in the
@@ -97,6 +97,12 @@ def _layer_macs_per_token(cfg: ModelConfig, kind: str, kv_len: int) -> float:
         rec = 4 * cfg.n_heads * p * p
         return d * 4 * d + rec + d * (4 * d) // 3 + ((4 * d) // 3) * d
 
+    def xattn():
+        # q and o only at decode (the cross K/V are cached), scores over
+        # the T memory rows
+        T = cfg.n_image_tokens or cfg.n_audio_frames
+        return d * (H * hd) + (H * hd) * d + H * hd * T * 2 + mlp()
+
     table = {
         "dense": lambda: attn() + mlp(),
         "moe": lambda: attn() + d * cfg.n_experts + cfg.top_k * mlp(),
@@ -104,6 +110,7 @@ def _layer_macs_per_token(cfg: ModelConfig, kind: str, kv_len: int) -> float:
         "attn_shared": lambda: attn() + mlp(),
         "mlstm": mlstm,
         "slstm": slstm,
+        "xattn": xattn,
         # the reference's count: self and cross attention alike over the
         # self KV length (the cross K/V projections counted, the T memory
         # keys not)
@@ -164,6 +171,7 @@ def param_count(cfg: ModelConfig) -> float:
                           + 2 * di * cfg.n_heads + di * d)(*mlstm_dims(cfg)),
         "slstm": lambda: d * 4 * d + 4 * d * (d // cfg.n_heads)
         + d * (4 * d) // 3 + ((4 * d) // 3) * d,
+        "xattn": lambda: attn_p() + mlp_p(),
         "encdec": lambda: 2 * attn_p() + mlp_p(),
     }
     for k in kinds:

@@ -20,8 +20,8 @@ step (forward, backward, AdamW), with the plain ops only: a
 ``use_kernels`` config is refused (no kernel has a backward).
 
 ``extra`` holds the modality inputs of
-:func:`~repro_torch.models.model.extra_input_shapes` (the audio family's
-``audio_embeds``): the train and prefill steps feed them to the model,
+:func:`~repro_torch.models.model.extra_input_shapes` (the vlm family's
+``image_embeds``, the audio family's ``audio_embeds``): the train and prefill steps feed them to the model,
 the decode steps take them and ignore them (decode reads the cross K/V
 cached at prefill); a family without such inputs refuses them.  The
 dry-run's ``make_decode_state_struct`` / ``make_batch_structs`` come with

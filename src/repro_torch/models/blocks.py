@@ -1,6 +1,6 @@
 """Block kinds of the cascade backbone: the dense, moe, mamba,
-attn_shared, mlstm, slstm, encdec and enc kinds (the dense, moe, hybrid,
-ssm and audio families).
+attn_shared, mlstm, slstm, xattn, encdec and enc kinds (the dense, moe,
+hybrid, ssm, vlm and audio families).
 
 A block kind provides, as in the JAX package's ``models/blocks.py``:
   init(gen, cfg)                      -> params (one layer)
@@ -13,8 +13,9 @@ and, the port's own, ``state_keys``: the names of its cache leaves that a
 decode step rewrites WHOLE (a recurrent state, a rolling conv window); a
 key that names a dict (sLSTM's ``state``) names every leaf beneath it;
 and ``read_keys``: the names of its cache leaves that a decode step never
-writes (an encdec layer's ``cross`` K/V, written by the prefill from the
-encoder's memory and only read after).  Every other leaf is a RING leaf
+writes (an xattn layer's K/V and an encdec layer's ``cross`` K/V, written
+by the prefill from the image tokens or the encoder's memory and only
+read after).  Every other leaf is a RING leaf
 (B, W, ...), written at ring slot ``t % W`` on axis 1 of a layer (axis 2
 of a stage's stacked leaf).  The staged executor snapshots and lands a
 step's writes by that three-way split (``core/exec.py``); it never
@@ -34,9 +35,9 @@ guesses it from shapes.
       layout only; kpos is then the per-slot (B, W) ring)
   shared: the hybrid family's shared attention + MLP parameters (the
       'attn_shared' blocks' full-rank weights), or None
-  cross: the memory cross-attention reads, (B, T, d) — the audio
-      encoder's output (full mode; None at decode, which reads the cross
-      K/V cached at prefill)
+  cross: the memory cross-attention reads, (B, T, d) — the image
+      embeddings or the audio encoder's output (full mode; None at
+      decode, which reads the cross K/V cached at prefill)
 
 Caches are written IN PLACE: where the reference returns updated arrays
 (and donates the old buffers to the jitted step), the port writes the
@@ -450,7 +451,7 @@ def slstm_backfill(cfg, params, h, ctx, cache):
 
 
 # ---------------------------------------------------------------------------
-# cross-attention blocks (the audio family; vlm's xattn shares the sublayer)
+# cross-attention blocks (the vlm and audio families)
 # ---------------------------------------------------------------------------
 
 def _cross_attention(cfg, params, h, ctx, cache):
@@ -493,6 +494,22 @@ def cross_cache_init(cfg, batch, W, dtype, device):
     shape = (batch, T, cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def xattn_init_block(gen, cfg):
+    return {"xattn": attn_init(gen, cfg, cross=True),
+            "mlp": mlp_init(gen, cfg)}
+
+
+def xattn_apply(cfg, params, h, ctx, cache):
+    """Gated cross-attention to the image tokens (their K/V cached at
+    prefill), then the MLP: llama-3.2-vision's image layer.  Its cache is
+    the cross K/V alone, read-only at decode."""
+    a, _ = _cross_attention(cfg, params["xattn"], h, ctx, cache)
+    h = h + a
+    m = mlp_apply(params["mlp"], cfg,
+                  norm_apply(params["mlp"]["norm"], cfg, h))
+    return h + m, cache, 0.0
 
 
 def encdec_init_block(gen, cfg):
@@ -557,6 +574,10 @@ def _no_backfill(cfg, params, h, ctx, cache):
     return cache
 
 
+# an xattn layer's K/V depend only on the image tokens: nothing to backfill
+xattn_backfill = _no_backfill
+
+
 BLOCKS: Dict[str, BlockDef] = {
     "dense": BlockDef(dense_init_block, dense_apply, attn_cache_init,
                       dense_backfill),
@@ -570,6 +591,8 @@ BLOCKS: Dict[str, BlockDef] = {
                       mlstm_backfill, state_keys=("conv", "C", "n", "m")),
     "slstm": BlockDef(slstm_init_block, slstm_apply, slstm_cache,
                       slstm_backfill, state_keys=("state",)),
+    "xattn": BlockDef(xattn_init_block, xattn_apply, cross_cache_init,
+                      xattn_backfill, read_keys=("k", "v")),
     "encdec": BlockDef(encdec_init_block, encdec_apply, encdec_cache,
                        encdec_backfill, read_keys=("cross",)),
     "enc": BlockDef(enc_init_block, enc_apply, _no_cache, _no_backfill),
@@ -592,9 +615,10 @@ def layer_kinds(cfg) -> list[str]:
         k = cfg.shared_attn_every
         return ["attn_shared" if (k and i % k == 0) else "mamba"
                 for i in range(cfg.n_layers)]
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        return ["xattn" if (k and i % k == k - 1) else "dense"
+                for i in range(cfg.n_layers)]
     if cfg.family == "audio":
         return ["encdec"] * cfg.n_layers
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: the dense, moe, hybrid, "
-        f"ssm and audio families are; the vlm family comes in a later "
-        f"slice of the port")
+    raise ValueError(f"unknown family {cfg.family}")

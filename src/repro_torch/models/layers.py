@@ -91,7 +91,10 @@ def apply_rope(x, positions, theta: float):
 # Attention parameters
 # ---------------------------------------------------------------------------
 
-def attn_init(gen, cfg, d_model: int | None = None):
+def attn_init(gen, cfg, *, cross: bool = False, d_model: int | None = None):
+    """One attention sublayer's weights; with ``cross`` also the scalar
+    tanh ``gate`` of llama-3.2-vision's gated cross-attention, zero (f32,
+    cast with the other float leaves by the model's init)."""
     d = d_model or cfg.d_model
     hd = cfg.resolved_head_dim
     p = {
@@ -105,6 +108,8 @@ def attn_init(gen, cfg, d_model: int | None = None):
         p["bq"] = nn.zeros_init(gen, (cfg.n_heads * hd,))
         p["bk"] = nn.zeros_init(gen, (cfg.n_kv_heads * hd,))
         p["bv"] = nn.zeros_init(gen, (cfg.n_kv_heads * hd,))
+    if cross:
+        p["gate"] = nn.zeros_init(gen, ())
     return p
 
 

@@ -1,5 +1,5 @@
-"""CascadeModel — the early-exit model: dense, moe, hybrid, ssm and audio
-families.
+"""CascadeModel — the early-exit model: dense, moe, hybrid, ssm, vlm and
+audio families.
 
 The counterpart of the JAX package's ``models/model.py``.  The backbone is
 the per-layer kind sequence from ``blocks.layer_kinds(cfg)``, split into
@@ -25,7 +25,12 @@ encoder-decoder: a bidirectional encoder (``params["encoder"]``) turns the
 stubbed frame embeddings ``extra["audio_embeds"]`` (B, n_audio_frames, d)
 into the memory every decoder layer (``encdec``) cross-attends to; the
 prefill caches each layer's cross K/V, which decode reads and never
-writes (the block kind's ``read_keys``).
+writes (the block kind's ``read_keys``).  The vlm family (llama-3.2-vision)
+interleaves dense layers with gated cross-attention layers (``xattn``,
+every ``cross_attn_every``-th) over the stubbed image embeddings
+``extra["image_embeds"]`` (B, n_image_tokens, d); an xattn layer's cache
+is its cross K/V alone, written at prefill and read-only after, so a
+segment may hold no ring or state leaf at all.
 
 Public entry points:
   init(generator)                                -> params
@@ -72,11 +77,13 @@ def _runs(kinds: List[str]) -> List[Tuple[str, int]]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "audio"):
+    """The cnn family (CI-ResNet) is :mod:`repro_torch.models.resnet`'s,
+    not a cascade LM; an unknown family is refused by ``layer_kinds`` with
+    the reference's ``ValueError``."""
+    if cfg.family == "cnn":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the dense, moe, "
-            f"hybrid, ssm and audio families are; the vlm family comes in a "
-            f"later slice of the port")
+            "family 'cnn' has no CascadeModel: CI-ResNet is "
+            "repro_torch.models.resnet")
 
 
 def _no_extra(cfg: ModelConfig, extra) -> None:
@@ -297,10 +304,16 @@ class CascadeModel:
         return norm_apply(enc["norm"], self.cfg, h)
 
     def _make_cross(self, params, extra, mode):
-        """The memory cross-attention reads in ``mode``: the audio
-        encoder's output in full mode; None at decode (the layers read
-        the cross K/V cached at prefill) and for families without one."""
-        if self.cfg.family == "audio" and mode != "decode":
+        """The memory cross-attention reads in ``mode``: in full mode the
+        image embeddings cast to the parameter dtype (vlm) or the audio
+        encoder's output; None at decode (the layers read the cross K/V
+        cached at prefill, so a captured decode step takes no memory) and
+        for families without one."""
+        if mode == "decode":
+            return None
+        if self.cfg.family == "vlm":
+            return extra["image_embeds"].to(self.param_dtype)
+        if self.cfg.family == "audio":
             return self._encode_audio(params, extra["audio_embeds"])
         return None
 
@@ -425,9 +438,10 @@ class CascadeModel:
     def prefill(self, params, tokens, cache, extra=None, block_tables=None):
         """Full-sequence forward writing the KV caches (in place).
 
-        tokens (B, S) int; ``extra`` the modality inputs (the audio
-        family's ``audio_embeds``: its encoder runs here and each layer's
-        cross K/V are copied into the cache).  Returns ([exit logits at
+        tokens (B, S) int; ``extra`` the modality inputs (the vlm
+        family's ``image_embeds`` or the audio family's ``audio_embeds``,
+        whose encoder runs here: each cross-attending layer's K/V are
+        copied into the cache).  Returns ([exit logits at
         last position (B,V)] * n_exits, cache with its kpos ring for the S
         prompt positions, written in place).  ``block_tables``
         ((n_components, B, nblk) int32) switches the cache writes to the

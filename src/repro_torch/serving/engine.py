@@ -38,7 +38,8 @@ Two execution runtimes (``runtime=`` at construction):
   theirs for the engine's life: both runtimes write them in place, and a
   re-prefill refills them.
 
-A family with modality inputs (the audio family's frame embeddings) gets
+A family with modality inputs (the vlm family's image embeddings, the
+audio family's frame embeddings) gets
 the reference engine's stub at every lane prefill: f32 zeros of
 :func:`~repro_torch.models.model.extra_input_shapes`, made once on the
 engine's device.  Decode takes none: it reads the cross K/V the prefill

@@ -36,17 +36,25 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import nn
 from repro_torch.serving.paged.pool import TRASH_BLOCK, BlockPool
 
 
-def _stage_is_attn(stage_cache) -> bool:
-    """A stage cache the paged layout can address: exactly {'k', 'v'} ring
-    leaves of shape (n_layers, B, W, kv_heads, head_dim)."""
+def _stage_is_kv(stage_cache) -> bool:
+    """A stage cache shaped like one the paged layout can address: exactly
+    {'k', 'v'} leaves of shape (n_layers, B, W, kv_heads, head_dim)."""
     if not isinstance(stage_cache, dict):
         return False
     if set(stage_cache.keys()) != {"k", "v"}:
         return False
     return all(v.dim() == 5 for v in stage_cache.values())
+
+
+def _stage_kinds(model, si, stages):
+    """``model.leaf_kinds`` of segment ``si`` split into each stage's
+    entries."""
+    kinds = iter(model.leaf_kinds(si, stages))
+    return [[next(kinds) for _ in nn.tree_leaves(stage)] for stage in stages]
 
 
 class PagedCascadeCache:
@@ -80,23 +88,40 @@ class PagedCascadeCache:
         self.K = cfg.cascade.n_components
 
         # the stores mirror init_cache's (segments x stages) structure with
-        # the (B, W) slab dims of every k/v leaf replaced by (num_blocks,
-        # block_size); any other cache kind (a Mamba2 layer's ssm state and
-        # conv window, ...) has no ring to page — reject rather than keep a
-        # dense slab next to the paged one.  The template is shapes only
-        # (meta tensors)
+        # the (B, W) slab dims of every k/v ring leaf replaced by
+        # (num_blocks, block_size); any other cache kind (a Mamba2 layer's
+        # ssm state and conv window, an xattn layer's read-only cross K/V
+        # over T memory rows, ...) has no ring to page — reject rather
+        # than keep a dense slab next to the paged one.  The template is
+        # shapes only (meta tensors)
         template = model.init_cache(lane_batch, cache_len, device="meta")
         for si, stages in enumerate(template["segments"]):
-            for stage in stages:
-                if not _stage_is_attn(stage):
-                    what = (list(stage) if isinstance(stage, dict)
-                            else type(stage).__name__)
+            kinds = None
+            for pi, stage in enumerate(stages):
+                what = (list(stage) if isinstance(stage, dict)
+                        else type(stage).__name__)
+                if not _stage_is_kv(stage):
                     raise ValueError(
                         f"cache_layout='paged' needs every cache leaf to be "
                         f"an attention k/v ring; segment {si} of family "
                         f"{cfg.family!r} has a non-attention cache stage "
                         f"({what}). Use cache_layout='dense' for this "
                         f"config.")
+                # a ring stage by the model's leaf kinds, not by its keys:
+                # an xattn layer's k/v are read-only, T memory rows long
+                kinds = kinds or _stage_kinds(model, si, stages)
+                if kinds[pi] != ["ring"] * len(kinds[pi]):
+                    what_kind = ("read-only" if set(kinds[pi]) == {"read"}
+                                 else "/".join(kinds[pi]))
+                    raise ValueError(
+                        f"cache_layout='paged' cannot page a {what_kind} "
+                        f"cache stage: segment {si} of family "
+                        f"{cfg.family!r} has a stage ({what}) whose leaves "
+                        f"a decode step does not write at a ring slot "
+                        f"({stage['k'].shape[2]} rows, written at prefill "
+                        f"and only read after), which a {self.W}-row "
+                        f"paged ring cannot hold. Use cache_layout='dense' "
+                        f"for this config.")
 
         dense_equiv = n_lanes * lane_batch * self.K * self.nblk
         num_blocks = pc.num_blocks or (dense_equiv + 1)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_configs as jax_list_configs
 from repro.configs import reduced as jax_reduced
 from repro.models.model import build_model as jax_build_model
 from repro_torch import bridge
@@ -67,19 +68,25 @@ def test_full_config_and_registry():
     # slice 12, mixtral-8x7b and qwen3-moe-235b-a22b (the moe family) in
     # slice 15, zamba2-1.2b (the hybrid family) in slice 16, xlstm-350m
     # (the ssm family) in slice 17, whisper-tiny (the audio family) in
-    # slice 18
+    # slice 18, llama-3.2-vision-90b (the vlm family) in slice 19: the
+    # whole of the reference's registry
     assert list_configs() == ["ci-resnet18", "deepseek-coder-33b",
-                              "minitron-4b", "mixtral-8x7b", "qwen2.5-3b",
+                              "llama-3.2-vision-90b", "minitron-4b",
+                              "mixtral-8x7b", "qwen2.5-3b",
                               "qwen3-moe-235b-a22b", "whisper-tiny",
                               "xlstm-350m", "yi-9b", "zamba2-1.2b"]
+    assert list_configs() == jax_list_configs()
     yi = get_config("yi-9b")
     assert dataclasses.asdict(yi) == dataclasses.asdict(
         jax_get_config("yi-9b"))
     assert yi.segments == jax_get_config("yi-9b").segments == (
         (0, 16), (16, 32), (32, 48))
-    # the vlm family (llama-3.2-vision) is the next one to port
-    with pytest.raises(KeyError):
-        get_config("llama-3.2-vision-90b")
+    # an unknown architecture is refused, as the reference refuses it
+    with pytest.raises(KeyError) as jerr:
+        jax_get_config("llama-3.2-vision-11b")
+    with pytest.raises(KeyError) as err:
+        get_config("llama-3.2-vision-11b")
+    assert str(err.value) == str(jerr.value)
 
 
 # ---------------------------------------------------------------------------
@@ -384,8 +391,14 @@ def test_unported_configurations_are_refused():
     tuned = cfg.with_autotune(enabled=True)
     assert CascadeServingEngine(tuned, model, params, autotune=True,
                                 **kw).controller is not None
-    with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="vlm"), device="cpu")
+    # every family the reference serves is ported (vlm in slice 19); an
+    # unknown family is refused with the reference's error
+    with pytest.raises(ValueError, match="unknown family") as jerr:
+        jax_build_model(_small((jax_get_config, jax_reduced)).replace(
+            family="vision"))
+    with pytest.raises(ValueError, match="unknown family") as err:
+        build_model(cfg.replace(family="vision"), device="cpu")
+    assert str(err.value) == str(jerr.value)
     # the paged KV layout is ported (slice 3): it constructs
     paged = cfg.with_paged_cache(layout="paged", block_size=8)
     assert CascadeServingEngine(paged, model, params, **kw).paged
