@@ -265,10 +265,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 
-# H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 and fp16
-# tensor-core rate, f32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+
+def hbm_bytes_per_s() -> float:
+    """The H100 SXM data sheet's HBM rate (``launch/roofline.py``)."""
+    from repro_torch.launch.roofline import HBM_BW
+    return HBM_BW
+
+
+def peak_flops(dtype: str) -> float:
+    """The data sheet's dense rate for ``dtype``: the bf16 / fp16 tensor
+    cores, f32 outside them (``launch/roofline.py``)."""
+    from repro_torch.launch import roofline
+    return (roofline.PEAK_FLOPS_F32 if dtype == "float32"
+            else roofline.PEAK_FLOPS)
 
 # the serving shapes of qwen2.5-3b: model width, vocabulary, and one deep
 # segment's cache leaf (layers, lane batch, cache_len, KV heads, head dim)
@@ -341,8 +350,8 @@ def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
 
 def bound_ms(bytes_moved: float, flops: float, dtype: str):
     """Least time for the work: max(bytes / HBM rate, flops / peak)."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = bytes_moved / hbm_bytes_per_s()
+    t_ops = flops / peak_flops(dtype)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -2220,6 +2229,254 @@ def phase_device_runtime(params, mixed):
         del model
         torch.cuda.empty_cache()
     return headline
+
+
+# ---------------------------------------------------------------------------
+# slice 20: the launch layer — the device mesh, the dry run, the card's peaks
+# ---------------------------------------------------------------------------
+
+# the mesh phase's engine: phase 4's lanes, three replayed chunks a lane
+MESH_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+MESH_NEW_TOKENS = 32
+# peak device memory with the mesh against without (placing copies nothing)
+MESH_PEAK_SLACK = 64 << 20
+
+
+def _two_rank_refusals(cfg, model, params):
+    """A mesh of two ranks asked of the engine, of the trainer's placement
+    and of the production layout: each refused, by name."""
+    from repro_torch.launch.mesh import AbstractMesh, production_device_mesh
+    from repro_torch.launch.train import place_on_mesh
+    two = AbstractMesh((2, 1), ("data", "model"))
+    out = {}
+    for what, call in (
+            ("engine", lambda: make_engine(cfg, model, params,
+                                           runtime="device", mesh=two,
+                                           **MESH_ENGINE)),
+            ("train", lambda: place_on_mesh(two, cfg, {}, {}))):
+        try:
+            call()
+            fail(f"mesh: a 2-rank mesh was not refused by the {what}")
+        except NotImplementedError as err:
+            out[what] = str(err)
+        if "2 ranks" not in out[what] or "multi-rank" not in out[what]:
+            fail(f"mesh: the {what}'s refusal {out[what]!r}")
+    try:
+        production_device_mesh(DEV)
+        fail("mesh: the production mesh was built in a world of 1")
+    except RuntimeError as err:
+        out["production"] = str(err)
+    if "256 ranks" not in out["production"]:
+        fail(f"mesh: the production refusal {out['production']!r}")
+    return out
+
+
+def phase_mesh(model, params, mixed, smi):
+    """The paper's serving path through a 1x1 device mesh
+    (``make_host_mesh("cuda")``) at full width: qwen2.5-3b, 2 cohorts,
+    major layout, select mode, megakernel and cohort scatter, the device
+    runtime, phase 4's 8 prompts with 32 new tokens each at (mixed, 0.9,
+    0.0), served with ``mesh=None`` and with the mesh in turns (none,
+    mesh, mesh, none).  Fails unless tokens and exits are equal bit for
+    bit, every kernel's launch count and route, the captures and the host
+    syncs (one a lane chunk) are equal, each lane's carry was placed on
+    the mesh once, and the peak device memory with the mesh is within
+    :data:`MESH_PEAK_SLACK` of without; then a mesh of two ranks is
+    refused by the engine, the trainer and the production layout.  Returns
+    the launches of the first mesh run."""
+    import statistics as stats_mod
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.kernels.cohort_cache import cohort_scatter_tree
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
+        exit_mode="select", n_cohorts=2, cohort_layout="major",
+        thresholds=(mixed, 0.9, 0.0)).with_kernel_tune(
+            megakernel=True, cohort_scatter=True)
+    mesh = make_host_mesh(DEV)
+    reqs = make_requests(8, (128, 256), cfg.vocab_size, MESH_NEW_TOKENS,
+                         seed=0)
+    runs = {"none": [], "mesh": []}
+    ref = mesh_launches = None
+    for which in ("none", "mesh", "mesh", "none"):
+        tag = f"mesh phase ({which})"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = make_engine(cfg, model, params, runtime="device",
+                             mesh=mesh if which == "mesh" else None,
+                             **MESH_ENGINE)
+        fin, st, secs, launches = serve(cfg, model, params, reqs,
+                                        engine=engine)
+        peak = torch.cuda.max_memory_allocated()
+        if sorted(fin) != list(range(len(reqs))) or any(
+                len(r["tokens"]) != MESH_NEW_TOKENS for r in fin.values()):
+            fail(f"{tag}: not every request got its {MESH_NEW_TOKENS} "
+                 "tokens")
+        check_launched(tag, launches,
+                       SLICE1 | {"megakernel", "cohort_scatter"})
+        if st["host_syncs"] != st["decode_dispatches"]:
+            fail(f"{tag}: {st['host_syncs']} host syncs for "
+                 f"{st['decode_dispatches']} lane chunks")
+        placed = len(engine.loop.placed)
+        if placed != (MESH_ENGINE["n_lanes"] if which == "mesh" else 0):
+            fail(f"{tag}: {placed} lane carries placed on the mesh")
+        got = {"streams": _streams(fin), "launches": launches,
+               "captures": st["captures"],
+               "segments": st["carried_segments_run"],
+               "routes": {k: st[k] for k in st if k.endswith("_routes")},
+               "scatter_routes": dict(cohort_scatter_tree.launches_by_route)}
+        if ref is None:
+            ref = got
+        for key, what in got.items():
+            if what != ref[key]:
+                fail(f"{tag}: {key} differ from mesh=None's: {what} "
+                     f"against {ref[key]}")
+        if which == "mesh" and mesh_launches is None:
+            mesh_launches = launches
+        n_tok = sum(len(r["tokens"]) for r in fin.values())
+        runs[which].append({
+            "decode_us_per_token": st["wallclock_us_per_token"],
+            "tokens_per_s": n_tok / secs, "seconds": secs,
+            "host_syncs": st["host_syncs"],
+            "decode_dispatches": st["decode_dispatches"],
+            "captures": st["captures"], "compile_seconds":
+                st["compile_seconds"], "placed_lanes": placed,
+            "max_memory_allocated": peak,
+            "cohort_dispatch": st["cohort_dispatch"]})
+        del engine
+        torch.cuda.empty_cache()
+    peaks = {w: max(r["max_memory_allocated"] for r in rr)
+             for w, rr in runs.items()}
+    if abs(peaks["mesh"] - peaks["none"]) > MESH_PEAK_SLACK:
+        fail(f"mesh: peak memory {peaks['mesh']} with the mesh against "
+             f"{peaks['none']} without")
+    refusals = _two_rank_refusals(cfg, model, params)
+    med = {w: stats_mod.median(r["decode_us_per_token"] for r in rr)
+           for w, rr in runs.items()}
+    emit({"phase": "mesh", "config": "qwen2.5-3b", "n_layers": cfg.n_layers,
+          "dtype": cfg.dtype, "mesh": {"data": 1, "model": 1},
+          "mesh_backend": torch.distributed.get_backend(),
+          "n_cohorts": 2, "cohort_layout": "major", "exit_mode": "select",
+          "thresholds": [mixed, 0.9, 0.0], **MESH_ENGINE,
+          "requests": len(reqs), "max_new_tokens": MESH_NEW_TOKENS,
+          "order": "none, mesh, mesh, none", "identical": True,
+          "none": runs["none"], "mesh": runs["mesh"],
+          "decode_us_per_token_median": med,
+          "max_memory_allocated": peaks, "launches": ref["launches"],
+          "routes": {**ref["routes"],
+                     "cohort_scatter_routes": ref["scatter_routes"]},
+          "refusals": refusals,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    return mesh_launches
+
+
+def phase_mesh_train(smi):
+    """``launch.train`` at phase "train"'s config (full-width qwen2.5-3b,
+    8 steps, batch 4, seq 64) with no mesh and with its params and AdamW
+    state placed on the 1x1 device mesh (no mesh, mesh): the losses equal
+    bit for bit, and the peak memory within :data:`MESH_PEAK_SLACK`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")
+    mesh = make_host_mesh(DEV)
+    out = {}
+    for which in ("none", "mesh"):
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        params, summary = train(cfg, torch.device(DEV), 8, 4, 64,
+                                mesh=mesh if which == "mesh" else None,
+                                log_every=8)
+        del params
+        out[which] = summary
+    _free_card()
+    # the phases' world of one rank ends here
+    torch.distributed.destroy_process_group()
+    if out["mesh"]["losses"] != out["none"]["losses"]:
+        fail(f"mesh train: losses {out['mesh']['losses']} with the mesh, "
+             f"{out['none']['losses']} without")
+    peaks = {w: s["max_memory_allocated"] for w, s in out.items()}
+    if abs(peaks["mesh"] - peaks["none"]) > MESH_PEAK_SLACK:
+        fail(f"mesh train: peak memory {peaks}")
+    emit({"phase": "mesh_train", "config": "qwen2.5-3b", "steps": 8,
+          "batch": 4, "seq": 64, "order": "none, mesh",
+          "losses_bit_equal": True, "losses": out["mesh"]["losses"],
+          "step_ms": {w: s["step_ms"] for w, s in out.items()},
+          "max_memory_allocated": peaks,
+          "phase_seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+
+# the dry run's combinations on the host: the serving cell's decode at the
+# serve1d layout, and training at the default (FSDP) layout
+DRYRUN_COMBOS = (("qwen2.5-3b", "decode_32k", "serve1d"),
+                 ("qwen2.5-3b", "train_4k", "default"))
+
+
+def phase_dryrun():
+    """The dry run of :data:`DRYRUN_COMBOS` on the 16x16 production mesh,
+    shape-only on the host (fake tensors, no process group), and each
+    record's roofline row from the H100 data sheet's constants."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import lower_combo
+    for arch, shape, mode in DRYRUN_COMBOS:
+        rec = lower_combo(arch, shape, False, param_mode=mode)
+        t = roofline.terms(rec)
+        if not rec["ok"] or t is None or not rec["flops"] > 0:
+            fail(f"dryrun {arch} {shape} {mode}: {rec}")
+        emit({"phase": "dryrun", "arch": arch, "shape": shape,
+              "param_mode": mode, "mesh": rec["mesh"], "ok": rec["ok"],
+              "trace_seconds": rec["t_lower_s"],
+              "argument_bytes_per_device":
+                  rec["memory"]["argument_size_in_bytes"],
+              "bytes_accessed_per_device": rec["bytes_accessed"],
+              "flops_per_device": rec["flops"],
+              "collective_bytes": rec["collective_bytes"],
+              "model_flops": rec["model_flops"],
+              "roofline_predicted": t,
+              "roofline_row": roofline.table({(arch, shape): rec})
+              .splitlines()[-1]})
+
+
+PEAK_COPY_BYTES = 1 << 30
+PEAK_GEMM = 8192
+
+
+def phase_peaks(dev, gen, smi):
+    """What the card reaches against the data sheet's constants: a
+    device-to-device copy of :data:`PEAK_COPY_BYTES` (read + write bytes
+    over its time) and a :data:`PEAK_GEMM`-cubed bf16 ``torch.mm``
+    (2·N³ over its time), each the median of CUDA-event intervals."""
+    import torch
+    from repro_torch.launch import roofline
+    a = torch.empty(PEAK_COPY_BYTES, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    copy_ms = time_ms(lambda: b.copy_(a), iters=20)
+    del a, b
+    n = PEAK_GEMM
+    x = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+    y = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+    gemm_ms = time_ms(lambda: torch.mm(x, y), iters=20)
+    del x, y
+    torch.cuda.empty_cache()
+    copy_rate = 2 * PEAK_COPY_BYTES / (copy_ms * 1e-3)
+    gemm_rate = 2 * n ** 3 / (gemm_ms * 1e-3)
+    if copy_rate > 1.05 * roofline.HBM_BW or gemm_rate > 1.05 * \
+            roofline.PEAK_FLOPS:
+        fail(f"peaks: {copy_rate:.3g} B/s and {gemm_rate:.3g} FLOP/s "
+             "exceed the data sheet: the timing is wrong")
+    emit({"phase": "peaks", "copy_bytes": PEAK_COPY_BYTES,
+          "copy_ms": copy_ms, "copy_bytes_per_s": copy_rate,
+          "datasheet_hbm_bytes_per_s": roofline.HBM_BW,
+          "copy_share": copy_rate / roofline.HBM_BW,
+          "gemm": [n, n, n], "gemm_dtype": "bfloat16", "gemm_ms": gemm_ms,
+          "gemm_flops_per_s": gemm_rate,
+          "datasheet_bf16_flops_per_s": roofline.PEAK_FLOPS,
+          "gemm_share": gemm_rate / roofline.PEAK_FLOPS,
+          "nvidia_smi": smi})
 
 
 AUTOTUNE = dict(enabled=True, bins=32, shadow_every=4)
@@ -5006,7 +5263,7 @@ def phase_moe(arch, smi, window_run=False):
     leaves = list(nn.tree_leaves(params))
     n_params = sum(x.numel() for x in leaves)
     param_bytes = sum(x.numel() * x.element_size() for x in leaves)
-    floor_ms = 1e3 * _expert_bytes(params) / HBM_BYTES_PER_S
+    floor_ms = 1e3 * _expert_bytes(params) / hbm_bytes_per_s()
     with _RouterProbe() as probe:
         logits = _logits_against_plain(base, model, params, probe=probe)
     routing = logits["routing"]
@@ -5267,7 +5524,7 @@ def phase_hybrid(smi):
     phase_seconds = time.perf_counter() - t_phase
     parts, step_bytes = _hybrid_step_bytes(
         model, params, DENSE_ENGINE["lane_batch"], DENSE_ENGINE["cache_len"])
-    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    floor_ms = 1e3 * step_bytes / hbm_bytes_per_s()
     med = turns["decode_us_per_token_median"]
     emit({"phase": "hybrid", "config": HYBRID_ARCH,
           "n_layers": base.n_layers, "segments": [list(x) for x in
@@ -5491,7 +5748,7 @@ def phase_ssm(smi):
     phase_seconds = time.perf_counter() - t_phase
     parts, step_bytes = _hybrid_step_bytes(
         model, params, DENSE_ENGINE["lane_batch"], DENSE_ENGINE["cache_len"])
-    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    floor_ms = 1e3 * step_bytes / hbm_bytes_per_s()
     med = turns["decode_us_per_token_median"]
     lane_prefill = {rt: [r["prefill_seconds"] / r["prefills"]
                          for r in turns[rt]] for rt in ("host", "device")}
@@ -5733,7 +5990,7 @@ def phase_audio(smi):
     parts, step_bytes = _audio_step_bytes(
         model, params, AUDIO_ENGINE["lane_batch"],
         AUDIO_ENGINE["cache_len"])
-    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    floor_ms = 1e3 * step_bytes / hbm_bytes_per_s()
     med = turns["decode_us_per_token_median"]
     lane_prefill = {rt: [r["prefill_seconds"] / r["prefills"]
                          for r in turns[rt]] for rt in ("host", "device")}
@@ -5989,7 +6246,7 @@ def phase_vlm(smi):
     phase_seconds = time.perf_counter() - t_phase
     parts, step_bytes = _audio_step_bytes(
         model, params, VLM_ENGINE["lane_batch"], VLM_ENGINE["cache_len"])
-    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    floor_ms = 1e3 * step_bytes / hbm_bytes_per_s()
     med = turns["decode_us_per_token_median"]
     lane_prefill = {rt: [r["prefill_seconds"] / r["prefills"]
                          for r in turns[rt]] for rt in ("host", "device")}
@@ -6054,7 +6311,16 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
+    # each phase group's seconds, printed before the kernels line
+    laps, t_lap = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
     build_times = build.build_all(verbose=True)
+    lap("build")
     emit({"phase": "card", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -6102,33 +6368,58 @@ def main() -> int:
         emit({"phase": "kernel_check", "kernel": name, "cases": cases})
     emit({"phase": "paged_gather_unaligned",
           **paged_gather_refuses_unaligned(dev)})
+    lap("kernel checks")
+    phase_peaks(dev, gen, smi)
+    lap("peaks")
 
     # each kernel's launches come from the path that runs it: slice 1's
     # one-cohort run, slice 2's cohort run at the mixed threshold vector,
     # Algorithm 1, slice 3's paged run at capacity, and the select-mode
     # cohort run of the parity phase
     slice1, slice1_routes = phase_full_width()
+    lap("full width")
     (cohorts, cohort_routes), model, params, records = \
         phase_full_width_cohorts()
+    lap("cohorts")
     algorithm1 = phase_algorithm1(model, params)
+    lap("algorithm 1")
     paged_routes = phase_full_width_paged(params)
+    lap("paged")
     gather_full_width = phase_paged_gather_full_width(params)
+    lap("paged block 64")
     device_runtime = phase_device_runtime(params, records[2]["thresholds"][0])
+    lap("device runtime")
     autotune = phase_autotune(params)
+    lap("autotune")
+    # slice 20: the serving path through a 1x1 device mesh
+    mesh = phase_mesh(model, params, records[2]["thresholds"][0], smi)
+    lap("mesh")
     del model, params
     torch.cuda.empty_cache()
     select, gathers = phase_route_parity()
+    lap("route parity")
     phase_cli()
+    lap("cli")
     paper = phase_paper()
+    lap("paper")
     phase_train()
+    lap("train")
+    phase_mesh_train(smi)
+    lap("mesh train")
+    phase_dryrun()
+    lap("dryrun")
     escalate = phase_escalate()
+    lap("escalate")
     # slice 12: the dense family whole, each model alone on the card
     # slice 13: deepseek-coder-33b's exit heads on the tc route
     deepseek = phase_dense_full_width("deepseek-coder-33b", smi,
                                       megakernel=True)
     minitron = phase_dense_full_width("minitron-4b", smi, megakernel=True)
+    lap("dense family")
     variants = phase_dense_variants()
+    lap("dense variants")
     tuned = phase_kernel_tune()
+    lap("kernel tune")
     # slice 14: the flight recorder and the fleet tier, the last phases
     # before the kernels line
     base, model, params = qwen_full_width()
@@ -6137,17 +6428,23 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     phase_fleet_cli()
+    lap("obs and fleet")
     # slice 15: the moe family, each model alone on the card
     mixtral = phase_moe("mixtral-8x7b", smi, window_run=True)
     qwen3 = phase_moe("qwen3-moe-235b-a22b", smi)
+    lap("moe")
     # slice 16: the hybrid family, alone on the card
     hybrid = phase_hybrid(smi)
+    lap("hybrid")
     # slice 17: the ssm family, alone on the card
     ssm = phase_ssm(smi)
+    lap("ssm")
     # slice 18: the audio family, alone on the card
     audio = phase_audio(smi)
+    lap("audio")
     # slice 19: the vlm family at 30 of its 100 layers, alone on the card
     vlm = phase_vlm(smi)
+    lap("vlm")
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -6290,6 +6587,12 @@ def main() -> int:
                      # layers, 13 requests x 16 tokens — the same four
                      # paths as the hybrid's
                      "launches_vlm": {p: n[name] for p, n in vlm.items()},
+                     # slice 20's path, device runtime through a 1x1
+                     # device mesh: qwen2.5-3b at full width, 2 cohorts,
+                     # select mode with the megakernel and the cohort
+                     # scatter, 8 requests x 32 tokens at phase 4's mixed
+                     # vector
+                     "launches_mesh": mesh[name],
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -6305,6 +6608,8 @@ def main() -> int:
                                                     "bound_ms", "bound_by",
                                                     "library_ms",
                                                     "device_threshold")}})
+    emit({"phase": "timings", "seconds": laps,
+          "total_seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ convolutional layers and the fully connected layers, excluding
 activations and batch normalization" (§6.2); ``resnet_component_macs``
 follows that scope.  ``segment_macs_per_token`` gives decode-time MACs of
 each cascade segment, the quantity the early exit saves, which the
-serving engine's analytic speedup reads.
+serving engine's analytic speedup reads; ``model_flops`` gives the
+roofline's MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE), which the
+dry run records.
 """
 from __future__ import annotations
 
@@ -182,3 +184,20 @@ def param_count(cfg: ModelConfig) -> float:
         total += cfg.encoder_layers * (attn_p() + mlp_p())
     return float(total)
 
+
+
+def active_param_count(cfg: ModelConfig) -> float:
+    """Active parameters per token (MoE: top_k of n_experts)."""
+    if not cfg.n_experts:
+        return param_count(cfg)
+    d = cfg.d_model
+    expert_p = (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
+    inactive = (cfg.n_experts - cfg.top_k) * expert_p * cfg.n_layers
+    return param_count(cfg) - inactive
+
+
+def model_flops(cfg: ModelConfig, n_tokens: int, training: bool) -> float:
+    """MODEL_FLOPS = (6 if training else 2) · N_active · tokens (the
+    roofline's useful-work count)."""
+    mult = 6.0 if training else 2.0
+    return mult * active_param_count(cfg) * n_tokens

@@ -57,8 +57,19 @@ class SyntheticLMStream:
 
 
 def shard_batch(batch, mesh, batch_axes=("data",)):
-    """Placing a batch on a device mesh comes with the mesh slice of the
-    port (the launch and multi-GPU slice)."""
-    raise NotImplementedError(
-        "shard_batch is not ported yet: it comes with the mesh slice of the "
-        "port (a later slice); single-card training feeds the batch as is")
+    """Place a batch (a tree of numpy arrays or tensors) on ``mesh``, each
+    leaf's batch dim (dim 0) sharded over ``batch_axes``: a tree of
+    DTensors on the mesh's device type (see
+    :func:`repro_torch.launch.shard_rules.place`)."""
+    import torch
+    from repro_torch.launch.shard_rules import P, map_with_path, place
+    axes = tuple(batch_axes)
+    entry = axes[0] if len(axes) == 1 else axes
+
+    def tensor(_, x):
+        return torch.as_tensor(x).to(mesh.device_type)
+
+    batch = map_with_path(tensor, batch)
+    specs = map_with_path(
+        lambda _, x: P(entry, *([None] * (x.dim() - 1))), batch)
+    return place(mesh, batch, specs)

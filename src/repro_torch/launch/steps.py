@@ -23,9 +23,10 @@ step (forward, backward, AdamW), with the plain ops only: a
 :func:`~repro_torch.models.model.extra_input_shapes` (the vlm family's
 ``image_embeds``, the audio family's ``audio_embeds``): the train and prefill steps feed them to the model,
 the decode steps take them and ignore them (decode reads the cross K/V
-cached at prefill); a family without such inputs refuses them.  The
-dry-run's ``make_decode_state_struct`` / ``make_batch_structs`` come with
-the dry-run slice.
+cached at prefill); a family without such inputs refuses them.
+``make_decode_state_struct`` / ``make_batch_structs``: the fake-tensor
+DecodeState and training batch the dry run traces (shapes and dtypes, no
+storage).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from repro_torch.core.exec import (DISPATCH, DecodeState, StagedExecutor,
                                    init_decode_state)
 from repro_torch.core.policy import ExitDecider
 from repro_torch.core.training import cascade_loss
-from repro_torch.models.model import _no_extra
+from repro_torch.models.model import _no_extra, extra_input_shapes
 from repro_torch.models.nn import tree_leaves, tree_unflatten
 from repro_torch.optim import adamw
 from repro_torch.optim.optimizer import Optimizer, apply_updates
@@ -229,3 +230,35 @@ def make_decode_state(cfg: ModelConfig, batch: int, t: int = 0,
     return init_decode_state(ExitDecider.from_config(cfg), batch,
                              cfg.cascade.n_components, t=t, device=device,
                              telemetry=telemetry, thresholds=thresholds)
+
+
+def fake_mode(mode=None):
+    """``mode``, else the fake-tensor mode that is active, else a new one
+    (tensors of one trace must share one mode)."""
+    if mode is not None:
+        return mode
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return detect_fake_mode() or FakeTensorMode(allow_non_fake_inputs=True)
+
+
+def make_decode_state_struct(cfg: ModelConfig, batch: int, mode=None
+                             ) -> DecodeState:
+    """The DecodeState the serve step carries, its tensors fake (CPU
+    shapes and dtypes, no storage): what the dry run shards and traces."""
+    with fake_mode(mode):
+        return make_decode_state(cfg, batch, device="cpu")
+
+
+def make_batch_structs(cfg: ModelConfig, batch: int, seq: int,
+                       dtype=torch.float32, mode=None) -> dict:
+    """Fake stand-ins for a training batch: (B, S) int32 ``tokens`` and
+    ``labels``, and the family's ``extra`` inputs in ``dtype``."""
+    with fake_mode(mode):
+        d = {"tokens": torch.empty((batch, seq), dtype=torch.int32),
+             "labels": torch.empty((batch, seq), dtype=torch.int32)}
+        extra = {k: torch.empty(v, dtype=dtype)
+                 for k, v in extra_input_shapes(cfg, batch).items()}
+    if extra:
+        d["extra"] = extra
+    return d

@@ -6,8 +6,13 @@ token stream, on one card.
 
 The counterpart of the JAX package's ``launch/train.py``, with its flags.
 ``--smoke`` trains the reduced config; without it the full config trains on
-one card (the reference's production mesh, ``--multi-pod``, comes with the
-launch and multi-GPU slice and is refused by name).  Runs on CUDA unless
+one card.  Either way the params and the AdamW state are placed by
+``param_spec`` (the default layout) on ``make_host_mesh(device)``, a 1x1
+mesh: every local shard is the whole tensor, nothing is copied, and the
+step runs on the local tensors.  ``--multi-pod`` asks for the reference's
+production mesh (2 x 16 x 16), which needs a world of 512 ranks: without
+one it is refused with that size named; with one, multi-rank execution is
+not ported and is refused too (ROADMAP.md).  Runs on CUDA unless
 ``--device cpu``.  Weights are drawn from ``model.init(0)``; batches come
 from ``SyntheticLMStream`` (seed 0); the step is ``make_train_step`` with
 ``make_optimizer``'s AdamW.  ``--ckpt-dir`` saves the final params as
@@ -26,12 +31,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import save_checkpoint, tree_digest
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.lm_pipeline import SyntheticLMStream
+from repro_torch.launch.mesh import (make_host_mesh, mesh_shape, mesh_size,
+                                     production_device_mesh)
+from repro_torch.launch.shard_rules import param_spec, place, to_local
 from repro_torch.launch.steps import make_optimizer, make_train_step
 from repro_torch.models.model import build_model
+from repro_torch.serving.runtime import MULTI_RANK_MISSING
 from repro_torch.utils import get_logger, resolve_device, tree_size
 
 log = get_logger("train")
@@ -52,52 +62,92 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the production mesh (not ported yet: refused)")
+                    help="the production mesh (2 x 16 x 16): needs a world "
+                         "of 512 ranks")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--log-every", type=int, default=5)
     return ap
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.multi_pod:
-        raise SystemExit("--multi-pod: the production mesh is not ported "
-                         "yet (the launch and multi-GPU slice of the port)")
-    device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = reduced(cfg)
+def place_on_mesh(mesh, cfg, params, opt_state):
+    """Params and optimizer state placed by ``param_spec`` on ``mesh``
+    (DTensors; see :func:`~repro_torch.launch.shard_rules.place`) and the
+    trees of their local tensors, which the step runs on.  A mesh of more
+    than one rank is refused: the step would need its collectives."""
+    if mesh_size(mesh) > 1:
+        raise NotImplementedError(
+            f"training on a mesh of {mesh_size(mesh)} ranks: multi-rank "
+            f"execution is not ported ({MULTI_RANK_MISSING}, the gradients' "
+            "reduce-scatter)")
+    placed = (place(mesh, params, param_spec(params, cfg, mesh)),
+              place(mesh, opt_state, param_spec(opt_state, cfg, mesh)))
+    return placed, to_local(placed)
+
+
+def train(cfg, device, steps: int, batch: int, seq: int, mesh=None,
+          log_every: int = 5):
+    """``steps`` joint-loss AdamW steps of a seed-0 model of ``cfg`` on
+    ``SyntheticLMStream`` (seed 0), its params and optimizer state placed
+    on ``mesh`` when one is given.  Returns (params, summary)."""
     model = build_model(cfg, device=device)
     params = model.init(0)
     n_params = tree_size(params)
-    log.info("arch=%s params=%s device=%s", cfg.name, f"{n_params:,}",
-             device)
+    log.info("arch=%s params=%s device=%s mesh=%s", cfg.name,
+             f"{n_params:,}", device, mesh)
     opt = make_optimizer(cfg)
     opt_state = opt.init(params)
+    if mesh is not None:
+        _, (params, opt_state) = place_on_mesh(mesh, cfg, params, opt_state)
     step_fn = make_train_step(model, cfg, opt)
 
-    stream = SyntheticLMStream(cfg.vocab_size, args.seq, args.batch)
+    stream = SyntheticLMStream(cfg.vocab_size, seq, batch)
     losses, step_ms = [], []
     t0 = time.perf_counter()
-    for step, (toks, labels) in zip(range(args.steps), stream):
-        batch = {"tokens": torch.from_numpy(toks).to(device),
-                 "labels": torch.from_numpy(labels).to(device)}
+    for step, (toks, labels) in zip(range(steps), stream):
+        data = {"tokens": torch.from_numpy(toks).to(device),
+                "labels": torch.from_numpy(labels).to(device)}
         ts = time.perf_counter()
-        params, opt_state, loss = step_fn(params, opt_state, step, batch)
+        params, opt_state, loss = step_fn(params, opt_state, step, data)
         losses.append(float(loss))
         step_ms.append(1e3 * (time.perf_counter() - ts))
-        if step % args.log_every == 0:
+        if step % log_every == 0:
             log.info("step %d loss %.4f (%.1f ms)", step, losses[-1],
                      step_ms[-1])
     dt = time.perf_counter() - t0
-    log.info("done: %d steps in %.1fs; loss %.4f -> %.4f", args.steps, dt,
+    log.info("done: %d steps in %.1fs; loss %.4f -> %.4f", steps, dt,
              losses[0], losses[-1])
-    summary = {"arch": cfg.name, "smoke": args.smoke, "device": str(device),
-               "params": n_params, "steps": args.steps, "batch": args.batch,
-               "seq": args.seq, "seconds": dt, "losses": losses,
-               "step_ms": step_ms,
-               "max_memory_allocated": (torch.cuda.max_memory_allocated(
-                   device) if device.type == "cuda" else None)}
+    return params, {
+        "arch": cfg.name, "device": str(device), "params": n_params,
+        "steps": steps, "batch": batch, "seq": seq, "seconds": dt,
+        "losses": losses, "step_ms": step_ms,
+        "mesh": None if mesh is None else mesh_shape(mesh),
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None)}
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    if args.multi_pod:
+        try:
+            mesh = production_device_mesh(device, multi_pod=True)
+        except RuntimeError as err:
+            raise SystemExit(f"--multi-pod: {err}") from err
+    made = not dist.is_initialized()
+    if not args.multi_pod:
+        mesh = make_host_mesh(device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    try:
+        params, summary = train(cfg, device, args.steps, args.batch,
+                                args.seq, mesh=mesh,
+                                log_every=args.log_every)
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    summary["smoke"] = args.smoke
+    losses = summary["losses"]
     if args.ckpt_dir:
         summary["checkpoint"] = save_checkpoint(args.ckpt_dir, args.steps,
                                                 params)

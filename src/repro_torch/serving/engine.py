@@ -86,8 +86,11 @@ the port's kernel provenance: ``kernel_backend`` is ``"cuda"`` (the
 hand-written kernels), ``"torch-cpu"`` (their plain versions) or
 ``"off"``, where the reference records ``"interpret"`` or ``"compiled"``
 (the Pallas interpreter or Mosaic).  :meth:`scrape` renders the reference's
-Prometheus metric names.  Mesh sharding comes in a later slice of the port
-and is refused here.
+Prometheus metric names.
+
+``mesh=`` (a 1x1 :class:`DeviceMesh`, ``launch/mesh.py``) goes to the
+device runtime's loop, which places each lane's carry on it by the shard
+rules; the host runtime refuses a mesh, as the reference's does.
 """
 from __future__ import annotations
 
@@ -146,12 +149,6 @@ def _escalation_extra(req: Request) -> Optional[dict]:
     return esc if isinstance(esc, dict) else None
 
 
-def _refuse_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet (a later slice of the port): mesh sharding")
-
-
 def _spread(log) -> Optional[dict]:
     """(min, median, max) of the dispatches' ms and µs per token."""
     if not log:
@@ -181,7 +178,12 @@ class CascadeServingEngine:
         if runtime not in ("host", "device"):
             raise ValueError(
                 f"runtime must be 'host' or 'device', got {runtime!r}")
-        _refuse_unported(mesh)
+        if mesh is not None and runtime != "device":
+            raise ValueError(
+                "mesh sharding is only applied by the device decode loop; "
+                "the host per-token step runs unsharded — pass "
+                "runtime='device' (or drop mesh=) rather than silently "
+                "serving single-device")
         if autotune is not None and autotune is not False \
                 and not cfg.autotune.enabled:
             raise ValueError(
@@ -266,7 +268,7 @@ class CascadeServingEngine:
         self._compile_seconds = 0.0
         self._decode_warm = False
         self.loop = (DeviceDecodeLoop(model, cfg, chunk=chunk,
-                                      cache_len=cache_len)
+                                      cache_len=cache_len, mesh=mesh)
                      if runtime == "device" else None)
         # live thresholds (autotune): the vector every lane decodes with, as
         # pushed (its f32 rounding lives in the lanes' device tensors)

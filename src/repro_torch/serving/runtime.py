@@ -44,6 +44,16 @@ so tiles installed after a capture make the lane capture again (counted in
 :attr:`captures`; the stale graphs are dropped) — a replay never launches
 stale tiles.
 
+With ``mesh=`` (a 1x1 :class:`DeviceMesh`, ``launch/mesh.py``
+``make_host_mesh``) a lane's first chunk computes the carry's specs by the
+shard rules (``decode_loop_in_specs``: serve1d weights, the cache, the
+DecodeState, token and budgets batch-sharded), checks every placed axis
+against the mesh and places the params, cache and state on it as DTensors
+(:attr:`DeviceDecodeLoop.placed`).  With one rank each local shard is the
+whole tensor, so nothing is copied and the graphs are captured over the
+local tensors: every replay is the ``mesh=None`` replay.  A mesh of more
+than one rank is refused (:data:`MULTI_RANK_MISSING`).
+
 On a CPU lane the same iteration runs eagerly, its guard and branches read
 on the host (a device read there costs nothing and takes the same
 branches).  As in the reference, requests still queued when a chunk
@@ -64,8 +74,19 @@ from repro_torch import kernels
 from repro_torch.core.exec import DISPATCH, DecodeState
 from repro_torch.kernels import autotune as kernel_autotune
 from repro_torch.kernels.cond_node import CapturedBranches, WarmBranches
+from repro_torch.launch.mesh import AbstractMesh, mesh_size
+from repro_torch.launch.shard_rules import (check_spec, decode_loop_in_specs,
+                                            place)
 from repro_torch.launch.steps import LoopBuffers, make_decode_loop_step
 from repro_torch.models import nn
+
+
+# what running the decode loop over a mesh of more than one rank still
+# needs (ROADMAP.md, multi-rank execution)
+MULTI_RANK_MISSING = (
+    "the row-parallel all-reduce in the model, the exit heads' "
+    "softmax-max over a vocab sharded across 'model', expert-parallel MoE "
+    "dispatch, data-parallel decode with the telemetry's all-reduce")
 
 
 def kernel_provenance(cfg, device) -> dict:
@@ -167,10 +188,17 @@ class DeviceDecodeLoop:
                  mesh=None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if mesh is not None:
+        if mesh is not None and mesh_size(mesh) > 1:
             raise NotImplementedError(
-                "mesh sharding of the decode loop comes with the multi-GPU "
-                "slice of the port")
+                f"a device mesh of {mesh_size(mesh)} ranks: multi-rank "
+                f"execution is not ported ({MULTI_RANK_MISSING}); the "
+                "shard rules' specs are computable for any mesh, and the "
+                "decode loop runs on a 1x1 mesh")
+        if isinstance(mesh, AbstractMesh):
+            raise ValueError("the decode loop places its carry on devices: "
+                             "pass a DeviceMesh (make_host_mesh), not a "
+                             "shape-only AbstractMesh")
+        self.mesh = mesh
         self.cfg = cfg
         self.model = model
         self.chunk = int(chunk)
@@ -195,6 +223,9 @@ class DeviceDecodeLoop:
         self._tiles_gen = kernel_autotune.generation()
         self._pinned: Dict[tuple, torch.Tensor] = {}
         self._warm = False
+        # with a mesh: each lane's carry as placed on it (DTensors over the
+        # lane's own tensors), by lane buffers
+        self.placed: Dict[tuple, tuple] = {}
 
     # ------------------------------------------------------------------
     def run_chunk(self, params, token, cache, state: DecodeState, remaining,
@@ -209,6 +240,8 @@ class DeviceDecodeLoop:
         state)``: the cache and state are the ones passed in, updated in
         place (``state.segments_run`` gains the chunk's counts)."""
         dev = state.active.device
+        if self.mesh is not None:
+            self._place(params, token, cache, state, remaining)
         if dev.type == "cuda":
             return self._run_captured(params, token, cache, state, remaining,
                                       active)
@@ -232,6 +265,33 @@ class DeviceDecodeLoop:
                 cache, state)
 
     # ------------------------------------------------------------------
+    def _place(self, params, token, cache, state: DecodeState, remaining):
+        """At a lane's first chunk: its carry's specs
+        (:func:`~repro_torch.launch.shard_rules.decode_loop_in_specs`),
+        every placed axis checked against the mesh, and the params, cache
+        and state placed on it.  The mesh has one rank, so every local
+        shard is the whole tensor: the placed tensors' local views are the
+        lane's own (checked), and the chunk runs — and a CUDA lane
+        captures — over them as with no mesh."""
+        key = _key_of(*nn.tree_leaves(params), *nn.tree_leaves(cache),
+                      *_state_tensors(state))
+        if key in self.placed:
+            return
+        B = state.active.shape[0]
+        p_spec, t_spec, c_spec, s_spec, r_spec, _ = decode_loop_in_specs(
+            params, cache, state, self.cfg, self.mesh, B)
+        check_spec(np.shape(token), t_spec, self.mesh, "token")
+        check_spec(np.shape(remaining), r_spec, self.mesh, "remaining")
+        placed = (place(self.mesh, params, p_spec),
+                  place(self.mesh, cache, c_spec),
+                  place(self.mesh, state, s_spec))
+        got = (*nn.tree_leaves(placed[0]), *nn.tree_leaves(placed[1]),
+               *_state_tensors(placed[2]))
+        if any(g.to_local().data_ptr() != k[0] for g, k in zip(got, key)):
+            raise RuntimeError("placing the decode loop's carry on the mesh "
+                               "copied a leaf")
+        self.placed[key] = placed
+
     def _capture(self, params, cache, state: DecodeState, B: int
                  ) -> _Capture:
         """Warm, then capture one guarded iteration over these buffers."""

@@ -21,6 +21,7 @@ from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.kernels import (cohort_cache, confidence, decode_attention,
                                  exit_update, flash_attention, megakernel,
                                  rmsnorm)
+from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import CascadeServingEngine
 
@@ -357,11 +358,20 @@ def test_unported_configurations_are_refused():
     model = build_model(cfg, device="cpu")
     params = model.init(0)
     kw = dict(lane_batch=2, n_lanes=1, cache_len=32, device="cpu")
-    for bad, what in (
-            (dict(mesh=object()), "mesh"),
-            (dict(runtime="device", mesh=object()), "mesh")):
-        with pytest.raises(NotImplementedError, match=what):
-            CascadeServingEngine(cfg, model, params, **{**kw, **bad})
+    # mesh sharding is ported (slice 20): the host runtime refuses a mesh
+    # with the reference's error; the device runtime takes a 1x1 device
+    # mesh and refuses a shape-only one and any of more than one rank
+    # (multi-rank execution is not ported)
+    with pytest.raises(ValueError, match="runtime='device'"):
+        CascadeServingEngine(cfg, model, params, mesh=object(), **kw)
+    with pytest.raises(NotImplementedError, match="2 ranks: multi-rank"):
+        CascadeServingEngine(cfg, model, params, runtime="device",
+                             mesh=AbstractMesh((1, 2), ("data", "model")),
+                             **kw)
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        CascadeServingEngine(cfg, model, params, runtime="device",
+                             mesh=AbstractMesh((1, 1), ("data", "model")),
+                             **kw)
     # the flight recorder is ported (slice 14): the engine carries one
     eng = CascadeServingEngine(cfg.with_obs(), model, params, **kw)
     assert eng.flight is not None and eng.stats()["obs"]["flights_live"] == 0

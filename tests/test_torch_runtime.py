@@ -29,6 +29,9 @@ from repro.serving.engine import Request as JaxRequest
 from repro_torch import kernels
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, reduced
+from repro_torch.launch.mesh import AbstractMesh, make_host_mesh
+from repro_torch.launch.shard_rules import (cache_spec, decode_state_spec,
+                                            param_spec, place, to_local)
 from repro_torch.launch.steps import (make_decode_loop_step,
                                       make_decode_state, make_prefill_step,
                                       make_serve_step)
@@ -279,8 +282,10 @@ def test_decode_loop_refuses_bad_arguments(weights):
     model = build_model(cfg, device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         DeviceDecodeLoop(model, cfg, chunk=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DeviceDecodeLoop(model, cfg, chunk=4, mesh=object())
+    # a mesh of more than one rank: multi-rank execution is not ported
+    with pytest.raises(NotImplementedError, match="2 ranks: multi-rank"):
+        DeviceDecodeLoop(model, cfg, chunk=4,
+                         mesh=AbstractMesh((2, 1), ("data", "model")))
     # autotune (slice 9): telemetry counters and a live f32 δ̂ vector
     tuned = make_decode_state(cfg.with_autotune(enabled=True, bins=8), 2,
                               device="cpu")
@@ -294,6 +299,127 @@ def test_decode_loop_refuses_bad_arguments(weights):
                                             "kernel_platform": "cpu"}
     assert kernel_provenance(cfg.replace(use_kernels=False),
                              "cpu")["kernel_backend"] == "off"
+
+
+# ---------------------------------------------------------------------------
+# the carry through a 1x1 device mesh (the reference's tests of the loop
+# and of the serve step under jit with mesh shardings)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def host_mesh():
+    """The 1x1 gloo mesh; the process group is destroyed after the module
+    if this fixture made it."""
+    import torch.distributed as dist
+    made = not dist.is_initialized()
+    mesh = make_host_mesh("cpu")
+    yield mesh
+    if made:
+        dist.destroy_process_group()
+
+
+def test_decode_loop_state_survives_jit_and_mesh_sharding(weights,
+                                                           host_mesh):
+    """A patience@2 config through the device loop on the 1x1 mesh:
+    streaks, cursor and cache ride the carry placed by the shard rules;
+    per-slot budgets end the chunk early; the streams equal the loop's
+    with no mesh, and placing copied nothing."""
+    from torch.distributed.tensor import DTensor
+    _, params = weights
+    cfg = _tiny(confidence="patience@2", thresholds=(0.0, 0.0),
+                exit_mode="cond_batch")
+    out = {}
+    for which, mesh in (("none", None), ("mesh", host_mesh)):
+        model, pred, cache, state = _prefilled(params, cfg)
+        loop = DeviceDecodeLoop(model, cfg, chunk=8, cache_len=32,
+                                mesh=mesh)
+        chunk, cache, state = loop.run_chunk(
+            params, pred.numpy()[:, None], cache, state,
+            remaining=np.array([3, 5], np.int32))
+        assert chunk.compiled and loop.compile_seconds > 0
+        assert chunk.n_steps == 5              # ended early: budgets spent
+        assert chunk.live[:3, 0].all() and not chunk.live[3:, 0].any()
+        assert chunk.live[:, 1].all()
+        np.testing.assert_array_equal(chunk.remaining, [0, 0])
+        # the patience streak seeded at prefill survived into the loop:
+        # with threshold 0 and k = 2 every decode step exits at component
+        # 0, reachable only if the carried streaks were not re-initialised
+        assert (chunk.exits[chunk.live] == 0).all()
+        assert int(state.t) == 6 + 5
+        assert int(state.policy[0].min()) >= 2
+        assert not state.active.any()
+        # a drained lane no-ops (0 iterations) and places nothing again
+        chunk2, cache, state = loop.run_chunk(
+            params, chunk.tokens[-1:].T, cache, state, remaining=[0, 0])
+        assert chunk2.n_steps == 0 and not chunk2.compiled
+        assert chunk2.tokens.shape == (0, 2)
+        out[which] = (chunk, loop)
+    (a, _), (b, loop) = out["none"], out["mesh"]
+    for name in ("tokens", "exits", "confs", "live"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    assert len(out["none"][1].placed) == 0 and len(loop.placed) == 1
+    p_placed, c_placed, s_placed = next(iter(loop.placed.values()))
+    assert isinstance(p_placed["embed"], DTensor)
+    assert isinstance(s_placed.policy, DTensor)
+    assert p_placed["embed"].to_local().data_ptr() == \
+        params["embed"].data_ptr()
+
+
+def test_patience_serve_step_state_survives_jit_and_sharding(weights,
+                                                             host_mesh):
+    """A patience@k config serves through the launch step with its
+    params, cache and DecodeState placed on the 1x1 mesh by the shard
+    rules, the step running on their local tensors: the streak reaches k
+    at the first decode step and stays satisfied only because the carried
+    state survived; the exits and tokens equal the unplaced run's."""
+    _, params = weights
+    cfg = _tiny(confidence="patience@2", thresholds=(0.0, 0.0))
+    runs = {}
+    for placed in (False, True):
+        model = build_model(cfg, device="cpu")
+        toks = torch.as_tensor(np.stack(_prompts(cfg.vocab_size, 2)))
+        cache = model.init_cache(2, 32)
+        _, exit0, _, cache, state = make_prefill_step(model, cfg)(
+            params, toks, cache)
+        assert int(exit0.max()) == 1      # streak 1 < k: the final answers
+        p = params
+        if placed:
+            trees = (place(host_mesh, params,
+                           param_spec(params, cfg, host_mesh)),
+                     place(host_mesh, cache,
+                           cache_spec(cache, cfg, host_mesh, 2)),
+                     place(host_mesh, state,
+                           decode_state_spec(state, cfg, host_mesh, 2)))
+            own = state.policy
+            p, cache, state = to_local(trees)
+            assert state.policy.data_ptr() == own.data_ptr()
+        serve = make_serve_step(model, cfg)
+        token = torch.zeros((2, 1), dtype=torch.int32)
+        got = []
+        for _ in range(3):
+            tok, exit_idx, _, cache, state = serve(p, token, cache, state)
+            got.append((tok.tolist(), exit_idx.tolist()))
+            token = tok[:, None]
+        assert [max(e) for _, e in got] == [0, 0, 0]
+        assert int(state.policy[0].min()) >= 2
+        assert int(state.t) == toks.shape[1] + 3
+        runs[placed] = got
+    assert runs[True] == runs[False]
+
+
+def test_device_runtime_on_a_mesh_matches_no_mesh(weights, host_mesh):
+    """The engine's device runtime with ``mesh=`` the 1x1 mesh: every
+    lane's carry placed once, the streams and carried segments_run equal
+    the ``mesh=None`` engine's; the host runtime refuses a mesh with the
+    reference's error."""
+    _, params = weights
+    cfg = _tiny(thresholds=MID, exit_mode="cond_batch", n_cohorts=2)
+    plain = _run(cfg, params, "device")
+    meshed = _run(cfg, params, "device", mesh=host_mesh)
+    _assert_same_streams(plain, meshed)
+    assert len(meshed.loop.placed) == 2 and not plain.loop.placed
+    with pytest.raises(ValueError, match="runtime='device'"):
+        _run(cfg, params, "host", mesh=host_mesh)
 
 
 def test_loop_step_matches_serve_steps(weights):

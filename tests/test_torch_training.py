@@ -562,8 +562,27 @@ def test_lm_stream_bit_for_bit():
         (x1, y1), (x2, y2) = next(got), next(want)
         assert x1.dtype == x2.dtype == np.int32
         assert x1.tobytes() == x2.tobytes() and y1.tobytes() == y2.tobytes()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        shard_batch({"tokens": x1}, mesh=None)
+    # shard_batch (slice 20): each leaf's batch dim over the batch axes of
+    # a 1x1 gloo mesh, the tokens' bits kept
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    made = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh("cpu")
+        placed = shard_batch({"tokens": x1, "labels": torch.as_tensor(y1)},
+                             mesh)
+        for name, want in (("tokens", x1), ("labels", y1)):
+            got = placed[name]
+            assert isinstance(got, DTensor)
+            assert got.placements == (Shard(0), Replicate())
+            assert got.to_local().numpy().tobytes() == want.tobytes()
+        both = shard_batch({"tokens": x1}, mesh, batch_axes=("data",
+                                                             "model"))
+        assert both["tokens"].placements == (Shard(0), Shard(0))
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def test_train_cli_smoke_on_cpu(tmp_path):
