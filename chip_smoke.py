@@ -225,7 +225,7 @@ source, all at once).  Phases, each of which fails the run on a miss:
     for B = 1, 4, 8 on a 6-stage ring and cuda_core at B = 16, against
     cuBLAS + exit_update; the cohort scatter's slot route over a 4-layer
     dense stage's rings); then the model at its published widths cut to
-    30 of 100 layers (six xattn layers, bf16, gates drawn non-zero) alone
+    20 of 100 layers (four xattn layers, bf16, gates drawn non-zero) alone
     on the card — init time, peak memory, the logits against the plain
     path over random images, a lane prefill of 4 x 256 tokens timed with
     the cross K/V projection's share, the hybrid phase's 13 requests (a
@@ -236,7 +236,21 @@ source, all at once).  Phases, each of which fails the run on a miss:
     the xattn K/V are read-only leaves, a whole segment's at a time) and
     autotune's shadow step there (streams equal to cond_batch's), and the
     paged layout refused (R4);
-23. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
+23. slice 21, the trained cascade ("trained cascade"): qwen2.5-3b at its
+    published widths (vocabulary 151936) cut to 6 of its 36 layers,
+    trained 300 steps in f32 on the synthetic Markov stream (vocabulary
+    256, 8 x 64 tokens) through ``examples/train_llm_cascade_torch.py``'s
+    functions, cast to bf16, calibrated (§5) on the bf16 model's held-out
+    δ for both rules at ε 0 .. 0.2, and served (device runtime, 2 cohorts,
+    select mode, megakernel and cohort scatter; 8 requests of 128 stream
+    tokens + 32) at (self, 0.05), (final, 0.05) and full depth — the exit
+    histogram, speedup, µs/token, launches and served agreement of each;
+    the (final, 0.05) streams equal with kernels off and on the host
+    runtime, the full-depth streams equal with kernels off;
+24. the four port examples (``examples/*_torch.py``) as subprocesses on
+    the card ("examples"), and ``attend_chunked_2d`` with the causal skip
+    on and off against ``attend_chunked`` at (1, 4096, 16 / 2, 128) bf16;
+25. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
     line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -938,18 +952,45 @@ def _conf_logits(B, V, dt, dev, gen):
     return x.to(dt), straddle[0]
 
 
+# the marker launched beside a profiled call: torch.cuda._sleep's kernel
+PROFILER_MARKER = "spin_kernel"
+# host seconds of idle before and after the work in each try's window:
+# a window that lost a marker is traced once more, padded.  Why windows
+# come back without the device's work is not known
+PROFILER_PADS = (0.0, 4.0)
+
+
 def _device_kernels(fn):
     """The device kernels one call of ``fn`` launches, by torch.profiler:
-    [(name, count)]."""
+    [(name, count)].  A marker kernel (:data:`PROFILER_MARKER`) launched
+    just before the call and just after it shows that the profiler kept
+    the device's whole stretch of work: a window without both markers is
+    traced once more, with idle host time of :data:`PROFILER_PADS` around
+    the work, and then the run fails.  Nothing else runs on the
+    device in a window (synchronised before it), so the padding adds no
+    kernel.  The markers are left out of the result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt, pad in enumerate(PROFILER_PADS):
+        if attempt:
+            print(f"chip_smoke: profiler window {attempt} lost a marker "
+                  f"kernel; tracing again with {pad} s of padding",
+                  file=sys.stderr)
         torch.cuda.synchronize()
-    return [(e.key, e.count) for e in prof.key_averages()
-            if "CUDA" in str(getattr(e, "device_type", ""))
-            and e.count > 0 and "Activity Buffer" not in e.key]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", ""))
+                   and e.count > 0 and "Activity Buffer" not in e.key]
+        if sum(n for k, n in kernels if PROFILER_MARKER in k) == 2:
+            return [(k, n) for k, n in kernels if PROFILER_MARKER not in k]
+    fail(f"torch.profiler did not keep both marker kernels in any of "
+         f"{len(PROFILER_PADS)} windows")
 
 
 def phase_confidence(dev, gen):
@@ -2412,23 +2453,33 @@ def phase_mesh_train(smi):
 
 # the dry run's combinations on the host: the serving cell's decode at the
 # serve1d layout, and training at the default (FSDP) layout
-DRYRUN_COMBOS = (("qwen2.5-3b", "decode_32k", "serve1d"),
-                 ("qwen2.5-3b", "train_4k", "default"))
+DRYRUN_COMBOS = (("qwen2.5-3b", "decode_32k", "serve1d", None),
+                 ("qwen2.5-3b", "train_4k", "default", 4))
 
 
 def phase_dryrun():
     """The dry run of :data:`DRYRUN_COMBOS` on the 16x16 production mesh,
     shape-only on the host (fake tensors, no process group), and each
-    record's roofline row from the H100 data sheet's constants."""
+    record's roofline row from the H100 data sheet's constants.  A
+    combination's fourth field cuts its depth (widths as published):
+    train_4k's to 4 of 36 layers since slice 21, for the script's time
+    limit — its trace takes ``pick_attend``'s query-and-key chunked path,
+    32 chunk steps a layer."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch import roofline
-    from repro_torch.launch.dryrun import lower_combo
-    for arch, shape, mode in DRYRUN_COMBOS:
-        rec = lower_combo(arch, shape, False, param_mode=mode)
+    from repro_torch.launch.dryrun import adjust_config, lower_combo
+    for arch, shape, mode, layers in DRYRUN_COMBOS:
+        cfg = None if layers is None else adjust_config(
+            get_config(arch).replace(n_layers=layers), INPUT_SHAPES[shape])
+        rec = lower_combo(arch, shape, False, param_mode=mode,
+                          cfg_override=cfg)
         t = roofline.terms(rec)
         if not rec["ok"] or t is None or not rec["flops"] > 0:
             fail(f"dryrun {arch} {shape} {mode}: {rec}")
         emit({"phase": "dryrun", "arch": arch, "shape": shape,
               "param_mode": mode, "mesh": rec["mesh"], "ok": rec["ok"],
+              "n_layers": layers or get_config(arch).n_layers,
+              "published_layers": get_config(arch).n_layers,
               "trace_seconds": rec["t_lower_s"],
               "argument_bytes_per_device":
                   rec["memory"]["argument_size_in_bytes"],
@@ -6041,10 +6092,11 @@ def phase_audio(smi):
 # mode (the xattn K/V are read-only, never landed)
 VLM = {"rmsnorm", "exit_update", "decode_attention", "flash_attention"}
 VLM_ARCH = "llama-3.2-vision-90b"
-# the published widths cut to 30 of 100 layers (the moe configs' cut):
-# the 1:5 pattern kept, xattn at layers 4, 9, ..., 29; 51.3 GB of layers,
-# the embedding and the shared unembedding 2.1 GB each
-VLM_LAYERS = 30
+# the published widths cut to 20 of 100 layers (30 until slice 21, cut
+# for the script's time limit): the 1:5 pattern kept, xattn at layers 4,
+# 9, 14, 19, every segment holding dense and xattn layers; the embedding
+# and the shared unembedding 2.1 GB each
+VLM_LAYERS = 20
 # the qwen cell's engine
 VLM_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
 # one lane prefill of 4 fresh rows of 256 tokens over the engine's zero
@@ -6290,6 +6342,304 @@ def phase_vlm(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 21: the trained cascade and the examples on the card
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at its published widths (d 2048, 16 / 2 heads, hd 128, d_ff
+# 11008, vocabulary 151936) with its depth cut from 36 layers to 6: the
+# default exit boundaries are then (2, 4), 3 components.  Trained in f32
+# (the example's dtype: AdamW's moments live in the params' dtype, and a
+# bf16 update at lr 3e-4 is lost under bf16's rounding) on the example's
+# own stream, then cast to bf16, calibrated on the bf16 model's held-out
+# δ and served
+TRAINED_ARCH = "qwen2.5-3b"
+TRAINED_LAYERS = 6
+TRAINED_STEPS = 300
+TRAINED_STREAM = dict(vocab_size=256, seq_len=64, batch_size=8,
+                      easy_frac=0.7, seed=0)
+TRAINED_EPS = 0.05
+TRAINED_PROMPT = 128
+TRAINED_NEW = 32
+TRAINED_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+# the path's kernels: the serving kernels plus the exit-head megakernel
+# (decode heads) and the cohort scatter (select mode's land)
+TRAINED_PATH = SLICE1 | {"megakernel", "cohort_scatter"}
+
+
+def _load_example(name):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def served_agreement(fin, reqs, next_tok):
+    """The share of generated tokens equal to the stream's most likely
+    successor of the token before them (``next_tok[prev, 0]``; a token
+    outside the stream's vocabulary has none): the served counterpart of
+    the offline accuracy."""
+    prompts = {r.rid: r.prompt for r in reqs}
+    hit = n = 0
+    for rid, r in fin.items():
+        prev = int(prompts[rid][-1])
+        for tok in r["tokens"]:
+            n += 1
+            hit += prev < len(next_tok) and int(tok) == next_tok[prev, 0]
+            prev = int(tok)
+    return hit / n
+
+
+def phase_trained_cascade(smi):
+    """The LLM cascade trained, calibrated and served on the card, through
+    the functions of ``examples/train_llm_cascade_torch.py``: qwen2.5-3b at
+    its published widths cut to :data:`TRAINED_LAYERS` of 36 layers,
+    trained :data:`TRAINED_STEPS` steps in f32 (kernels off: none has a
+    backward) on the example's stream; cast to bf16 with ``tree_cast``
+    and calibrated (§5) on the bf16 model's held-out δ (4 batches), both
+    rules at ε 0, 0.01, 0.05, 0.1, 0.2; then served through the engine —
+    device runtime, 2 cohorts, major layout, select mode, megakernel and
+    cohort scatter — 8 requests of 128 prompt tokens from the stream and
+    32 new tokens each, at (self, ε 0.05), (final, ε 0.05) and full depth.
+    Fails unless the losses are finite and the last 50's mean is below
+    the first 50's, every request gets its tokens, exactly
+    :data:`TRAINED_PATH` launches on each run (heads on ``tc``, prefills
+    on ``wgmma``: :func:`serve`), at (final, 0.05) the token and exit
+    streams equal the same engine's with kernels off and the host
+    runtime's, and at full depth (where every token goes through all the
+    layers, so through every kernel of the path) they equal the same
+    engine's with kernels off.  Returns the (final, 0.05) run's
+    launches."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import SyntheticLMStream
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request
+    from repro_torch.utils import tree_bytes, tree_cast, tree_size
+    ex = _load_example("train_llm_cascade_torch")
+    t_phase = time.perf_counter()
+    _free_card()
+    cfg32 = get_config(TRAINED_ARCH).replace(n_layers=TRAINED_LAYERS,
+                                             dtype="float32")
+    stream = SyntheticLMStream(**TRAINED_STREAM)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg32, device=DEV)
+    params = model.init(0)
+    n_params = tree_size(params)
+    t0 = time.perf_counter()
+    params, losses, step_ms = ex.train(model, cfg32, params, stream,
+                                       TRAINED_STEPS, DEV)
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated()
+    first, last = (statistics.mean(losses[:50]),
+                   statistics.mean(losses[-50:]))
+    if not all(np.isfinite(losses)) or not last < first:
+        fail(f"trained cascade: losses {losses[:3]} ... {losses[-3:]} "
+             f"(first 50 mean {first}, last 50 mean {last})")
+
+    # serve in bf16: δ̂ calibrated on what is served
+    params = tree_cast(params, "bfloat16")
+    _free_card()
+    cfg16 = cfg32.replace(dtype="bfloat16")
+    confs, preds, y = ex.held_out(build_model(cfg16, device=DEV), params,
+                                  stream, DEV)
+    with contextlib.redirect_stdout(sys.stderr):     # the example's table
+        per_exit, rows = ex.calibrate_sweep(cfg16, confs, preds, y,
+                                            TRAINED_STREAM["seq_len"])
+    ths = {(r["rule"], r["eps"]): r["thresholds"] for r in rows}
+    settings = {"self": ths[("self", TRAINED_EPS)],
+                "final": ths[("final", TRAINED_EPS)],
+                "full depth": [1.1] * (cfg16.cascade.n_components - 1)
+                + [0.0]}
+    # held-out prompts of the same stream: two batches end to end
+    prompts = np.concatenate([next(stream)[0], next(stream)[0]], axis=1)
+    if prompts.shape != (8, TRAINED_PROMPT):
+        fail(f"trained cascade: prompts {prompts.shape}")
+    reqs = [Request(rid=i, prompt=prompts[i].astype(np.int32),
+                    max_new_tokens=TRAINED_NEW) for i in range(8)]
+    serve_base = cfg16.replace(use_kernels=True).with_cascade(
+        exit_mode="select", n_cohorts=2,
+        cohort_layout="major").with_kernel_tune(megakernel=True,
+                                               cohort_scatter=True)
+
+    def run(cfg, runtime):
+        fin, st, secs, launches = serve(
+            cfg, build_model(cfg, device=DEV), params, reqs,
+            runtime=runtime, **TRAINED_ENGINE)
+        if sorted(fin) != list(range(len(reqs))) or any(
+                len(r["tokens"]) != TRAINED_NEW for r in fin.values()):
+            fail(f"trained cascade {cfg.cascade.thresholds}: not every "
+                 f"request got its {TRAINED_NEW} tokens")
+        return fin, st, secs, launches
+
+    served, kept = {}, {}
+    for name, th in settings.items():
+        cfg = serve_base.with_cascade(thresholds=tuple(th))
+        fin, st, secs, launches = run(cfg, "device")
+        check_launched(f"trained cascade ({name})", launches, TRAINED_PATH)
+        served[name] = {
+            "thresholds": th, "exit_histogram": st["exit_histogram"],
+            "mean_exit_depth": st["mean_exit_depth"],
+            "analytic_speedup": st["analytic_speedup"],
+            "wallclock_us_per_token": st["wallclock_us_per_token"],
+            "seconds": secs, "captures": st["captures"],
+            "host_syncs": st["host_syncs"],
+            "served_agreement": served_agreement(fin, reqs,
+                                                 stream.next_tok),
+            "launches": launches,
+            "routes": {k: st[k] for k in st if k.endswith("_routes")}}
+        kept[name] = (cfg, _streams(fin))
+    identical = {"final": ["kernels_off", "host_runtime"],
+                 "full depth": ["kernels_off"]}
+    for name, whats in identical.items():
+        cfg, streams = kept[name]
+        for what in whats:
+            fin, _, secs, _ = run(
+                cfg.replace(use_kernels=False) if what == "kernels_off"
+                else cfg, "host" if what == "host_runtime" else "device")
+            if _streams(fin) != streams:
+                fail(f"trained cascade ({name}): the {what} streams differ "
+                     "from the device runtime's with kernels on")
+            served[name][f"{what}_seconds"] = secs
+    del params
+    _free_card()
+    emit({"phase": "trained_cascade", "config": TRAINED_ARCH,
+          "n_layers": cfg32.n_layers,
+          "published_layers": get_config(TRAINED_ARCH).n_layers,
+          "cut": f"depth {get_config(TRAINED_ARCH).n_layers} -> "
+                 f"{TRAINED_LAYERS} layers; widths as published",
+          "segments": [list(x) for x in cfg32.segments],
+          "d_model": cfg32.d_model, "n_heads": cfg32.n_heads,
+          "n_kv_heads": cfg32.n_kv_heads,
+          "head_dim": cfg32.resolved_head_dim, "d_ff": cfg32.d_ff,
+          "vocab": cfg32.vocab_size, "params": n_params,
+          "param_bytes_bf16": 2 * n_params,
+          "stream": TRAINED_STREAM,
+          "train": {"dtype": "float32", "steps": TRAINED_STEPS,
+                    "step_ms_median": statistics.median(step_ms),
+                    "step_ms_first": step_ms[0], "seconds": train_s,
+                    "max_memory_allocated": train_peak,
+                    "loss_first": losses[0], "loss_last": losses[-1],
+                    "loss_mean_first_50": first, "loss_mean_last_50": last,
+                    "losses_every_25": losses[::25]},
+          "calibration": {"dtype": "bfloat16", "held_out_batches": 4,
+                          "per_exit_accuracy": per_exit, "rows": rows},
+          "serve": {"runtime": "device", "n_cohorts": 2,
+                    "cohort_layout": "major", "exit_mode": "select",
+                    "megakernel": True, "cohort_scatter": True,
+                    **TRAINED_ENGINE, "requests": len(reqs),
+                    "prompt_tokens": TRAINED_PROMPT,
+                    "max_new_tokens": TRAINED_NEW, "settings": served},
+          "identical_streams": identical,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    return served["final"]["launches"]
+
+
+# the four examples as subprocesses at their defaults (reduced sizes); the
+# paper reproduction cut to one block, one epoch and 1024 images
+EXAMPLES = (("quickstart_torch", []), ("serve_cascade_torch", []),
+            ("train_llm_cascade_torch", []),
+            ("paper_reproduction_torch", ["--n-blocks", "1", "--epochs", "1",
+                                          "--train-size", "1024"]))
+ATTN_2D_SHAPE = (1, 4096, 16, 2, 128)
+ATTN_2D_TOL = 2e-2
+
+
+def phase_examples(dev, gen, smi):
+    """The four port examples (``examples/*_torch.py``), started together
+    as subprocesses on the card at :data:`EXAMPLES`' arguments (each one's
+    seconds from the common start to its exit): each must exit 0 and
+    print ``cuda`` as its device; then ``attend_chunked_2d`` with the
+    causal skip on (prefill) and off (training: ``pick_attend``'s
+    differentiable case) against ``attend_chunked`` on the same bf16
+    inputs at :data:`ATTN_2D_SHAPE` (B, S, H, KV, hd), normwise within
+    :data:`ATTN_2D_TOL`, all three timed."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import attend_chunked, attend_chunked_2d
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, args in EXAMPLES:
+            out_arg = (["--out", os.path.join(tmp, "repro.json")]
+                       if name == "paper_reproduction_torch" else [])
+            logs = [open(os.path.join(tmp, f"{name}.{x}"), "w+")
+                    for x in ("out", "err")]
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                 *args, *out_arg], cwd=ROOT, env=env, stdout=logs[0],
+                stderr=logs[1], text=True), logs, args)
+        t0 = time.perf_counter()
+        ended = {}
+        while len(ended) < len(procs):
+            for name, (proc, _, _) in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                for proc, _, _ in procs.values():
+                    proc.kill()
+                fail(f"examples: not all ended in 600 s ({sorted(ended)})")
+            time.sleep(0.05)
+        for name, (proc, logs, args) in procs.items():
+            stdout, stderr = ((f.seek(0), f.read())[1] for f in logs)
+            for f in logs:
+                f.close()
+            if proc.returncode != 0:
+                fail(f"example {name} exited {proc.returncode}:\n"
+                     f"{stderr[-3000:]}")
+            first = stdout.splitlines()[0]
+            if not first.startswith("device=cuda"):
+                fail(f"example {name} ran on {first!r}")
+            out[name] = {"args": args, "rc": 0, "seconds": ended[name],
+                         "device_line": first,
+                         "last_line": stdout.splitlines()[-1]}
+    cfg = get_config(TRAINED_ARCH)
+    B, S, H, KV, hd = ATTN_2D_SHAPE
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+
+    def two_d(skip=True):
+        return attend_chunked_2d(q, k, v, pos, pos, qchunk=cfg.attn_qchunk,
+                                 kchunk=cfg.attn_kchunk, causal_skip=skip)
+
+    def one_d():
+        return attend_chunked(q, k, v, pos, pos, chunk=cfg.attn_kchunk)
+    want = one_d().float()
+    rel = {}
+    for skip in (True, False):
+        got = two_d(skip).float()
+        rel[skip] = float((got - want).norm() / want.norm())
+        if not rel[skip] <= ATTN_2D_TOL:
+            fail(f"attend_chunked_2d (causal_skip={skip}) against "
+                 f"attend_chunked: normwise {rel[skip]}")
+    emit({"phase": "examples", "examples": out,
+          "attend_chunked_2d": {
+              "shape": list(ATTN_2D_SHAPE), "dtype": "bfloat16",
+              "qchunk": cfg.attn_qchunk, "kchunk": cfg.attn_kchunk,
+              "normwise_rel_err": rel[True],
+              "normwise_rel_err_no_skip": rel[False], "tol": ATTN_2D_TOL,
+              "ms": time_ms(two_d, iters=10, warmup=2),
+              "ms_no_skip": time_ms(lambda: two_d(False), iters=10,
+                                    warmup=2),
+              "attend_chunked_ms": time_ms(one_d, iters=10, warmup=2)},
+          "nvidia_smi": smi})
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -6442,9 +6792,16 @@ def main() -> int:
     # slice 18: the audio family, alone on the card
     audio = phase_audio(smi)
     lap("audio")
-    # slice 19: the vlm family at 30 of its 100 layers, alone on the card
+    # slice 19: the vlm family at 20 of its 100 layers (30 until slice
+    # 21), alone on the card
     vlm = phase_vlm(smi)
     lap("vlm")
+    # slice 21: the LLM cascade trained, calibrated and served, then the
+    # four examples
+    trained = phase_trained_cascade(smi)
+    lap("trained cascade")
+    phase_examples(dev, gen, smi)
+    lap("examples")
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -6583,7 +6940,7 @@ def main() -> int:
                      "launches_audio": {p: n[name]
                                         for p, n in audio.items()},
                      # slice 19's paths, device runtime:
-                     # llama-3.2-vision-90b at full width cut to 30
+                     # llama-3.2-vision-90b at full width cut to 20
                      # layers, 13 requests x 16 tokens — the same four
                      # paths as the hybrid's
                      "launches_vlm": {p: n[name] for p, n in vlm.items()},
@@ -6593,6 +6950,12 @@ def main() -> int:
                      # scatter, 8 requests x 32 tokens at phase 4's mixed
                      # vector
                      "launches_mesh": mesh[name],
+                     # slice 21's path, device runtime: qwen2.5-3b at its
+                     # published widths cut to 6 layers, trained in f32 and
+                     # served in bf16, 2 cohorts, select mode with the
+                     # megakernel and the cohort scatter, 8 requests x 32
+                     # tokens at the (final, 0.05) calibrated thresholds
+                     "launches_trained": trained[name],
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -28,6 +28,11 @@ def softmax_outputs(logits: torch.Tensor
     return out, torch.exp(m - lse)
 
 
+def softmax_confidence(logits: torch.Tensor) -> torch.Tensor:
+    """δ only (Def. 3.3), float32."""
+    return softmax_outputs(logits)[1]
+
+
 def entropy_confidence(logits: torch.Tensor) -> torch.Tensor:
     """BranchyNet-style confidence: −entropy(softmax(z)), in (−inf, 0].
     Higher is more confident; its thresholds live on another scale than

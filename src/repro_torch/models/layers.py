@@ -169,39 +169,59 @@ def attend_full(q, k, v, qpos, kpos, window: int = 0, causal: bool = True):
     return out.reshape(B, Sq, H, hd)
 
 
+def _online_step(qh, kj, vj, qpj, kpj, window, causal, acc, m, l):
+    """One KV chunk of the online softmax: qh (B, Sq, KV, qpk, hd) f32
+    against kj / vj (B, C, KV, hd) at key positions kpj (B, C); returns
+    the updated (acc, m, l)."""
+    hd = qh.shape[-1]
+    s = torch.einsum("bqkgh,bskh->bqkgs", qh, kj.float()) / math.sqrt(hd)
+    msk = _mask(qpj, kpj, window, causal)
+    s = torch.where(msk[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + torch.sum(p, dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bqkgs,bskh->bqkgh", p.to(vj.dtype), vj).float()
+    return acc, m_new, l
+
+
+def _pad_keys(k, v, kpos, chunk):
+    """K / V padded along the sequence to a multiple of ``chunk``, the
+    padding's key positions -1 (never visible); kpos comes back 2-D."""
+    kpos = _atleast_2d(kpos)
+    pad = -k.shape[1] % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos, (0, pad), value=-1)
+    return k, v, kpos
+
+
+def _softmax_state(B, Sq, KV, qpk, hd, device):
+    return (torch.zeros((B, Sq, KV, qpk, hd), dtype=torch.float32,
+                        device=device),
+            torch.full((B, Sq, KV, qpk), NEG_INF, dtype=torch.float32,
+                       device=device),
+            torch.zeros((B, Sq, KV, qpk), dtype=torch.float32,
+                        device=device))
+
+
 def attend_chunked(q, k, v, qpos, kpos, window: int = 0, causal: bool = True,
                    chunk: int = 1024):
     """Online-softmax attention over KV chunks (memory O(S·chunk))."""
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    kpos = _atleast_2d(kpos)
-    if Sk % chunk != 0:
-        pad = chunk - Sk % chunk
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        kpos = F.pad(kpos, (0, pad), value=-1)
-        Sk += pad
+    KV = k.shape[2]
+    k, v, kpos = _pad_keys(k, v, kpos, chunk)
+    Sk = k.shape[1]
     qpk = H // KV
     qh = q.reshape(B, Sq, KV, qpk, hd).float()
     kpos = kpos.expand(B, Sk)
-    acc = torch.zeros((B, Sq, KV, qpk, hd), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, Sq, KV, qpk), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, Sq, KV, qpk), dtype=torch.float32, device=q.device)
+    acc, m, l = _softmax_state(B, Sq, KV, qpk, hd, q.device)
     for c0 in range(0, Sk, chunk):
-        kj, vj = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        s = torch.einsum("bqkgh,bskh->bqkgs", qh, kj.float()) / math.sqrt(hd)
-        msk = _mask(qpos, kpos[:, c0:c0 + chunk], window, causal)
-        s = torch.where(msk[:, :, None, None, :], s,
-                        torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + torch.sum(p, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bqkgs,bskh->bqkgh", p.to(vj.dtype), vj).float()
-        m = m_new
+        acc, m, l = _online_step(qh, k[:, c0:c0 + chunk], v[:, c0:c0 + chunk],
+                                 qpos, kpos[:, c0:c0 + chunk], window, causal,
+                                 acc, m, l)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
@@ -228,13 +248,86 @@ def attend_decode(q, k_cache, v_cache, t, kpos, window: int = 0):
     return out.reshape(B, 1, H, hd)
 
 
+def _visible_chunks(qpos, kpos, nq, qchunk, nk, kchunk, window):
+    """Each query chunk's KV-chunk range [lo, hi) (host ints): the chunks
+    that hold a key some query of the chunk may see.  Each query chunk's
+    position range and each KV chunk's range of written positions are
+    read in one device-to-host copy for the whole call, and a chunk is
+    visible when its positions meet the queries' causal (and window)
+    band — the reference's ``hi = max(qpos) // kchunk + 1``,
+    ``lo = max(min(qpos) - window + 1, 0) // kchunk`` (0 without a
+    window) wherever keys sit at positions 0, 1, …"""
+    B = qpos.shape[0]
+    qc = qpos.reshape(B, nq, qchunk)
+    kc = kpos.reshape(B, nk, kchunk)
+    big = torch.iinfo(torch.int64).max // 4
+    valid = kc >= 0
+    ranges = torch.cat([
+        qc.amin(dim=(0, 2)).long(), qc.amax(dim=(0, 2)).long(),
+        torch.where(valid, kc.long(), big).amin(dim=(0, 2)),
+        torch.where(valid, kc.long(), -big).amax(dim=(0, 2))]).tolist()
+    qmin, qmax = ranges[:nq], ranges[nq:2 * nq]
+    kmin, kmax = ranges[2 * nq:2 * nq + nk], ranges[2 * nq + nk:]
+    out = []
+    for j in range(nq):
+        seen = [i for i in range(nk) if kmin[i] <= qmax[j] and (
+            not window or kmax[i] > qmin[j] - window)]
+        out.append((seen[0], seen[-1] + 1) if seen else (0, 0))
+    return out
+
+
+def attend_chunked_2d(q, k, v, qpos, kpos, window: int = 0,
+                      causal: bool = True, qchunk: int = 512,
+                      kchunk: int = 1024, causal_skip: bool = True):
+    """Query-and-key chunked attention: for each query chunk, the online
+    softmax over KV chunks.  Transient scores are O(B·H·qchunk·kchunk),
+    independent of S.  Falls back to :func:`attend_chunked` when Sq is
+    not a multiple of ``qchunk``, as the reference does.
+
+    ``causal_skip`` (with ``causal``): each query chunk runs only the KV
+    chunks inside its causal / window band (:func:`_visible_chunks`), so
+    chunks every key of which is masked are never computed — about half
+    the FLOPs of the masked-only loop at long S.  Without it every chunk
+    runs.  The bounds are host ints: qpos's and kpos's ranges are read
+    once for the whole call, never once per chunk."""
+    B, Sq, H, hd = q.shape
+    if Sq % qchunk != 0:
+        return attend_chunked(q, k, v, qpos, kpos, window, causal,
+                              chunk=kchunk)
+    KV = k.shape[2]
+    k, v, kpos = _pad_keys(k, v, kpos, kchunk)
+    Sk = k.shape[1]
+    nq, nk = Sq // qchunk, Sk // kchunk
+    qpk = H // KV
+    qpos = _atleast_2d(qpos).expand(B, Sq)
+    kpos = kpos.expand(B, Sk)
+    if causal_skip and causal:
+        bounds = _visible_chunks(qpos, kpos, nq, qchunk, nk, kchunk, window)
+    else:
+        bounds = [(0, nk)] * nq
+    outs = []
+    for j, (lo, hi) in enumerate(bounds):
+        qs = slice(j * qchunk, (j + 1) * qchunk)
+        qh = q[:, qs].reshape(B, qchunk, KV, qpk, hd).float()
+        acc, m, l = _softmax_state(B, qchunk, KV, qpk, hd, q.device)
+        for i in range(lo, hi):
+            ks = slice(i * kchunk, (i + 1) * kchunk)
+            acc, m, l = _online_step(qh, k[:, ks], v[:, ks], qpos[:, qs],
+                                     kpos[:, ks], window, causal, acc, m, l)
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.reshape(B, qchunk, H, hd).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def pick_attend(cfg, Sq, Sk, differentiable: bool = False):
-    """Choose the attention path by sequence size.  Long sequences take
-    the KV-chunked online softmax; the reference's query-and-key chunked
-    variant with causal chunk skipping (for Sq, Sk >= 4096) is not ported
-    yet and those sizes take the KV-chunked path, which computes the same
-    function."""
-    del Sq, differentiable
+    """Choose the attention path by sequence size, as the reference does:
+    Sq, Sk >= 4096 the query-and-key chunked path (its causal chunk skip
+    off when ``differentiable``, as in the reference, whose skip needs a
+    traced loop bound), Sk >= 2048 the KV-chunked one, else the plain
+    one."""
+    if Sq >= 4096 and Sk >= 4096:
+        return partial(attend_chunked_2d, causal_skip=not differentiable,
+                       qchunk=cfg.attn_qchunk, kchunk=cfg.attn_kchunk)
     if Sk >= 2048:
         return partial(attend_chunked, chunk=cfg.attn_kchunk)
     return attend_full

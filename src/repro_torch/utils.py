@@ -1,9 +1,11 @@
 """Small shared helpers: dtype mapping, logging, device resolution, tree
-paths and sizes, and the numpy form of a tensor's bits."""
+paths, sizes and casts, a wall-clock timer, human-readable sizes and the
+numpy form of a tensor's bits."""
 from __future__ import annotations
 
 import logging
 import sys
+import time
 from typing import Any, Iterator, Tuple
 
 import numpy as np
@@ -96,6 +98,64 @@ def tree_size(tree) -> int:
     """Total number of elements in a tree of tensors."""
     return sum(int(np.prod(tuple(x.shape)))
                for _, x in tree_flatten_with_path(tree))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of the leaves of a tree of tensors (elements times the
+    dtype's size; views count their own shape, not their storage)."""
+    return sum(int(np.prod(tuple(x.shape))) * x.element_size()
+               for _, x in tree_flatten_with_path(tree))
+
+
+def tree_cast(tree, dtype):
+    """The tree with its floating-point leaves cast to ``dtype`` (a
+    torch.dtype or a name of :data:`DTYPES`); integer and bool leaves are
+    kept as they are."""
+    from repro_torch.models.nn import tree_map
+    dt = DTYPES[dtype] if isinstance(dtype, str) else dtype
+    return tree_map(lambda x: x.to(dt) if x.is_floating_point() else x,
+                    tree)
+
+
+def assert_finite(tree, name: str = "tree") -> None:
+    """Raise AssertionError naming the first floating-point leaf (by its
+    :func:`path_str`) that holds a NaN or an infinity."""
+    for path, leaf in tree_flatten_with_path(tree):
+        if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(
+                f"non-finite values in {name} at {path_str(path)}")
+
+
+class Timer:
+    """Wall-clock context timer on the host's clock: ``elapsed`` seconds
+    between ``__enter__`` and ``__exit__``.  It does not wait for the
+    device: synchronise inside the block to time CUDA work."""
+
+    def __init__(self):
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self._t0
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024:
+            return f"{n:.2f}{unit}"
+        n /= 1024
+    return f"{n:.2f}PiB"
+
+
+def human_count(n: float) -> str:
+    for unit in ("", "K", "M", "G", "T", "P"):
+        if abs(n) < 1000:
+            return f"{n:.3g}{unit}"
+        n /= 1000
+    return f"{n:.3g}E"
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,11 @@ def _port_modules():
         for p in (SRC / "repro_torch").rglob("*.py"))
 
 
+def _port_examples():
+    """The port's examples: ``examples/*_torch.py``."""
+    return sorted((SRC.parent / "examples").glob("*_torch.py"))
+
+
 def test_importing_every_port_module_loads_no_jax_and_no_reference():
     mods = _port_modules()
     assert {"repro_torch.serving.engine", "repro_torch.core.cascade",
@@ -164,10 +169,15 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "repro_torch.obs.server", "repro_torch.fleet",
             "repro_torch.fleet.scheduler", "repro_torch.fleet.health",
             "repro_torch.fleet.aggregator"} <= set(mods)
+    examples = [str(p) for p in _port_examples()]
+    assert len(examples) == 4
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -186,6 +196,7 @@ def test_source_scan_finds_no_jax_or_reference_import():
     hits = []
     files = list((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
+    files += _port_examples()
     for path in files:
         for m in pat.finditer(path.read_text()):
             hits.append(f"{path}: {m.group(0).strip()}")
@@ -196,6 +207,9 @@ def test_source_scan_finds_no_jax_or_reference_import():
         p.name for p in files if p.parent.name == "obs"}
     assert {"scheduler.py", "health.py", "aggregator.py"} <= {
         p.name for p in files if p.parent.name == "fleet"}
+    assert {"quickstart_torch.py", "serve_cascade_torch.py",
+            "train_llm_cascade_torch.py", "paper_reproduction_torch.py"} <= {
+        p.name for p in files if p.parent.name == "examples"}
     assert not hits, hits
 
 
