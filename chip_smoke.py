@@ -250,8 +250,27 @@ source, all at once).  Phases, each of which fails the run on a miss:
 24. the four port examples (``examples/*_torch.py``) as subprocesses on
     the card ("examples"), and ``attend_chunked_2d`` with the causal skip
     on and off against ``attend_chunked`` at (1, 4096, 16 / 2, 128) bf16;
-25. the ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``
-    line.
+25. slice 22, multi-rank serving ("multirank"), ranks as processes
+    spawned on the one card (a pool of four, each joining a gloo world
+    through a FileStore for each mesh; ``compute_mode`` recorded): (a)
+    the IPC all-reduce kernel at (4, 2048) and (1024, 2048) in bf16 and
+    f32 on 2 and 4 ranks, bit for bit against the plain rank-ordered sum
+    (its arithmetic), the gather against the stacked inputs, µs a call
+    and its spread, and PyTorch's gloo all-reduce of the same CUDA tensor
+    timed as the library call; (b) the exit kernels' partial route at (4, 151936)
+    bf16 in 2 and 4 vocab slices (``exit_update``; the megakernel's tc
+    over a (2048, 151936) head) against the unsharded kernels and the
+    plain version, carries exact, δ within 1e-5; (c) qwen2.5-3b's widths
+    at 4 layers in f32 (2 cohorts, select, megakernel, scatter, autotune
+    on) on 1 x 2, 2 x 1 and 2 x 2: every rank's streams, segments_run and
+    telemetry equal to the one-rank run's; (d) the main cell, qwen2.5-3b
+    at 36 layers in bf16 on 1 x 2 (8 requests x (128/256 + 16)): the exit
+    logits of a prefill and of a decode step against the one-rank model's
+    (normwise ≤ 0.1), the streams' agreement, µs per token, the
+    collectives a step (counted from the replayed IF bodies) beside the
+    dry run's formula, and the launches (the all-reduce's included);
+26. the ``{"kernels": [...]}`` line (the all-reduce a row of its own),
+    then the final ``{"ok": true, ...}`` line.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after, and fails unless exactly its expected kernels launched;
@@ -268,6 +287,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import statistics
@@ -5621,6 +5641,9 @@ def phase_hybrid(smi):
 # select mode; never an attention kernel
 SSM = {"rmsnorm", "exit_update"}
 SSM_ARCH = "xlstm-350m"
+# the ssm phase's depth: 12 of xlstm-350m's 24 layers (slice 22 cut it to
+# keep the script inside its limit with the multi-rank phase)
+SSM_LAYERS = 12
 # one lane prefill of 4 fresh rows of 256 tokens (one mLSTM chunk; the
 # sLSTM scan a cell a position)
 SSM_PREFILL = (4, 256)
@@ -5683,8 +5706,9 @@ def _ssm_logits(base, model, params):
 
 
 def phase_ssm(smi):
-    """xlstm-350m at its published widths and full depth (24 layers: 20
-    mLSTM and 4 sLSTM), bf16, seed 0, 3 components, kernels on,
+    """xlstm-350m at its published widths cut to :data:`SSM_LAYERS` of its
+    24 layers (full depth until slice 22, whose multi-rank phase needed
+    the time), bf16, seed 0, 3 components, kernels on,
     cond_batch, alone on the card: the init time and peak memory; the
     prefill's and first decode steps' logits against the plain path, in
     f32 (:func:`_ssm_logits`: bf16's own rounding, amplified, parts the
@@ -5711,8 +5735,9 @@ def phase_ssm(smi):
     from repro_torch.models import nn
     from repro_torch.models.model import build_model
     held = _free_card()
-    base = get_config(SSM_ARCH).replace(use_kernels=True).with_cascade(
-        exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
+    base = get_config(SSM_ARCH).replace(
+        use_kernels=True, n_layers=SSM_LAYERS).with_cascade(
+            exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
     torch.cuda.reset_peak_memory_stats()
     model = build_model(base, device=DEV)
     t0 = time.perf_counter()
@@ -6640,6 +6665,670 @@ def phase_examples(dev, gen, smi):
           "nvidia_smi": smi})
 
 
+# ---------------------------------------------------------------------------
+# slice 22: multi-rank serving, ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# (a): the all-reduce at a decode step's (B, d) and at a prefill's (B x S,
+# d), on 2 and 4 ranks; MR_CALLS calls timed in runs of 20
+MR_SHAPES = ((4, D_MODEL), (4 * 256, D_MODEL))
+MR_RANKS = (2, 4)
+MR_CALLS = 200
+# (c): the exact-stream meshes at 4 layers in f32; (d): the main cell
+MR_PARITY_LAYERS = 4
+MR_PARITY_MESHES = ((1, 2), (2, 1), (2, 2))
+MR_PARITY_NEW = 8
+MR_MESH = (1, 2)
+MR_LAYERS = 36
+MR_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
+MR_NEW_TOKENS = 16
+MR_AUTOTUNE = dict(enabled=True, bins=32, shadow_every=4)
+# seconds a rank task may take before the phase fails (the kernel's own
+# wait bound is allreduce.TIMEOUT_S)
+MR_TASK_SECONDS = 400
+# kernels on the multi-rank path: prefill decisions on the whole vocab
+# (exit_update's whole route), the decode scan on the megakernel's partial
+# route and its combine, the collectives
+MULTIRANK = SLICE1 | {"megakernel", "cohort_scatter", "allreduce"}
+
+
+def _rank_main(rank, tasks, results):
+    """One rank process of the multi-rank phase, on the one card: for each
+    task ``(sizes, store file, function name, args)`` it joins a world of
+    ``data x model`` ranks through the FileStore (``make_mesh``), runs the
+    function, leaves the world, and reports ``(rank, result, error)``; a
+    failed task ends the process (a trapped collective leaves its context
+    unusable)."""
+    import io
+    import os
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    while True:
+        task = tasks.get()
+        if task is None:
+            return
+        sizes, init, name, args = task
+        try:
+            from repro_torch import parallel
+            from repro_torch.launch.mesh import make_mesh
+            mesh = make_mesh(sizes, DEV, rank=rank,
+                             world_size=sizes[0] * sizes[1], init_file=init)
+            res = globals()[name](mesh, rank, *args)
+            torch.cuda.synchronize()
+            parallel.transport(mesh).close()
+            dist.destroy_process_group()
+            buf = io.BytesIO()
+            torch.save(res, buf)
+            results.put((rank, buf.getvalue(), None))
+        except BaseException:  # noqa: BLE001 (the parent fails the phase)
+            err = traceback.format_exc()
+            try:
+                from repro_torch.kernels import allreduce
+                allreduce.raise_if_timed_out()
+            except RuntimeError as timed_out:
+                err += f"\n{timed_out}"
+            results.put((rank, None, err))
+            os._exit(1)
+        finally:
+            torch.cuda.empty_cache()
+
+
+class _RankPool:
+    """Up to four rank processes on the card, spawned once and fed one task
+    a mesh (importing torch and the port and reaching the card costs each
+    process seconds)."""
+
+    def __init__(self, n: int):
+        import tempfile
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.tasks = [ctx.Queue() for _ in range(n)]
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+            r, self.tasks[r], self.results)) for r in range(n)]
+        for p in self.procs:
+            p.start()
+        (ROOT / "build").mkdir(exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="multirank_", dir=ROOT / "build")
+        self.n = 0
+
+    def run(self, sizes, name, *args):
+        """``name(mesh, rank, *args)`` on every rank of a ``sizes`` mesh;
+        the results in rank order."""
+        import io
+        import os
+        import queue
+        import torch
+        world = sizes[0] * sizes[1]
+        self.n += 1
+        init = os.path.join(self.dir, f"store{self.n}")
+        for r in range(world):
+            self.tasks[r].put((tuple(sizes), init, name, args))
+        got = {}
+        deadline = time.monotonic() + MR_TASK_SECONDS
+        while len(got) < world:
+            try:
+                rank, raw, err = self.results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                fail(f"multi-rank {name} on {sizes}: {world - len(got)} "
+                     f"ranks silent after {MR_TASK_SECONDS} s")
+            if err is not None:
+                fail(f"multi-rank {name} on {sizes}, rank {rank}:\n{err}")
+            got[rank] = torch.load(io.BytesIO(raw), weights_only=False)
+        return [got[r] for r in range(world)]
+
+    def close(self):
+        import shutil
+        for q in self.tasks:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _mr_input(shape, dt, rank):
+    import torch
+    g = torch.Generator().manual_seed(1000 + 17 * rank + shape[0])
+    return torch.randn(shape, generator=g).to(dt)
+
+
+def _mr_transport(mesh, rank):
+    """(a) on one rank: at each shape and dtype the kernel's sum over the
+    world against the plain rank-ordered sum of every rank's input (drawn
+    here from each rank's seed), the gather against the stacked inputs,
+    and each call's time (CUDA events around runs of 20 calls).  The
+    library time is PyTorch's own all-reduce of the same CUDA tensor over
+    the mesh's gloo world group (it stages through the host: timed here,
+    outside any capture, and never called by the port)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import allreduce
+    from repro_torch.kernels.ref import ref_allreduce
+    from repro_torch import parallel
+    t = parallel.transport(mesh)
+    R = t.size("world")
+    out = []
+    for shape in MR_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            xs = [_mr_input(shape, dt, r) for r in range(R)]
+            x = xs[rank].to(DEV)
+            got = t.all_reduce(x, "world")
+            gathered = t.all_gather(x, "world")
+            torch.cuda.synchronize()
+            want = ref_allreduce(xs)
+            name = str(dt).split(".")[-1]
+            tag = f"allreduce {R} ranks {list(shape)} {name}"
+            check_equal(tag, got, want)
+            check_equal(f"{tag} gather", gathered, torch.stack(xs))
+            launches = allreduce.allreduce.launches
+            per = []
+            for _ in range(MR_CALLS // 20):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                for _ in range(20):
+                    t.all_reduce(x, "world")
+                e1.record()
+                torch.cuda.synchronize()
+                per.append(e0.elapsed_time(e1) / 20)
+            if allreduce.allreduce.launches - launches != MR_CALLS:
+                fail(f"{tag}: {allreduce.allreduce.launches - launches} "
+                     f"launches for {MR_CALLS} calls")
+            lib = x.clone()
+            dist.all_reduce(lib, group=t.groups["world"])
+            lib_per = []
+            for _ in range(MR_CALLS // 20):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                for _ in range(20):
+                    dist.all_reduce(x.clone(), group=t.groups["world"])
+                e1.record()
+                torch.cuda.synchronize()
+                lib_per.append(e0.elapsed_time(e1) / 20)
+            n = x.numel()
+            b, by = bound_ms((R + 1) * n * x.element_size(), (R - 1) * n,
+                             name)
+            parts = [p.to(DEV) for p in xs]
+            out.append({
+                "ranks": R, "shape": list(shape), "dtype": name,
+                "max_abs_err": max_err(got.cpu(), want), "exact": True,
+                "ms": statistics.median(per), "ms_min": min(per),
+                "ms_max": max(per),
+                "plain_ms": time_ms(lambda: ref_allreduce(parts)),
+                "library_ms": statistics.median(lib_per),
+                "library_ms_min": min(lib_per),
+                "library_ms_max": max(lib_per),
+                "library_backend": "torch.distributed.all_reduce, gloo",
+                "library_max_abs_err": max_err(lib.cpu(), want),
+                "bound_ms": b, "bound_by": by})
+    return out
+
+
+def _mr_config(spec):
+    """qwen2.5-3b at its published widths, cut to ``spec["layers"]``, in
+    ``spec["dtype"]``: 2 cohorts, major layout, select mode, kernels on
+    with the megakernel and the cohort scatter, at ``spec["thresholds"]``
+    (autotune's telemetry with ``spec["autotune"]``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2.5-3b").replace(
+        n_layers=spec["layers"], dtype=spec["dtype"],
+        use_kernels=True).with_cascade(
+            exit_mode="select", n_cohorts=2, cohort_layout="major",
+            thresholds=tuple(spec["thresholds"])).with_kernel_tune(
+                megakernel=spec.get("megakernel", True),
+                cohort_scatter=True)
+    if spec.get("autotune"):
+        cfg = cfg.with_autotune(**MR_AUTOTUNE)
+    return cfg
+
+
+def _digest(params) -> float:
+    """A sum over every leaf (the same draw gives the same bits on every
+    rank: this checks it)."""
+    from repro_torch.models import nn
+    return float(sum(x.float().sum() for x in nn.tree_leaves(params)))
+
+
+def _first_logits(model, params, cfg, transport=None):
+    """The exit logits of a prefill of four prompts (seed 5, 128 tokens)
+    and of the first decode step after it (its tokens drawn from the same
+    seed, not argmaxed: a near-tie must not pick the step's input),
+    gathered whole: the main cell's numerics against the one-rank
+    model's."""
+    import numpy as np
+    import torch
+    from repro_torch import parallel
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 129))
+                           .astype(np.int32), device=DEV)
+    with torch.no_grad(), parallel.activate(transport):
+        cache = model.init_cache(4, MR_ENGINE["cache_len"])
+        pre, cache = model.prefill(params, toks[:, :128], cache)
+        out, _ = model.decode_step(params, toks[:, 128:], 128, cache)
+    return {"prefill": [x.float().cpu() for x in pre],
+            "decode": [x.float().cpu() for x in out]}
+
+
+def _per_step(before, after):
+    """What a decode step's replays ran, by axis: the transport's calls and
+    bytes that a run's captured replays counted (each IF body's captured
+    collectives times the executions its device counter read) over the
+    decode steps the run took; None without a step."""
+    steps = after["steps"] - before["steps"]
+    if not steps:
+        return None
+    return {"steps": steps, **{
+        kind: {a: (v - before[kind].get(a, 0)) / steps
+               for a, v in after[kind].items()}
+        for kind in ("calls", "bytes")}}
+
+
+def _mr_serve(mesh, rank, spec):
+    """(c) / (d) on one rank: the model drawn from ``spec["seed"]`` on the
+    card, its engine on the device runtime over ``mesh`` (the rank's
+    shards and data rows), ``spec``'s requests served; the streams, the
+    carried segments_run, the telemetry, the launches, routes and
+    collectives of the run, and with ``spec["probe"]`` the first decode
+    step's logits."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.exit_update import exit_update
+    from repro_torch.kernels.megakernel import exit_head_update
+    from repro_torch import parallel
+    from repro_torch.models.model import build_model
+    cfg = _mr_config(spec)
+    model = build_model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(
+        spec["seed"]))
+    digest = _digest(params)
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine(cfg, model, params, runtime="device", mesh=mesh,
+                         **spec["engine"])
+    del params
+    torch.cuda.empty_cache()
+    probe = (_first_logits(model, engine.params, cfg, engine.transport)
+             if spec.get("probe") else None)
+    t = parallel.transport(mesh)
+    for r in make_requests(8, (128, 256), cfg.vocab_size, spec["new"],
+                           seed=spec["seed"]):
+        engine.submit(r)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    calls0, bytes0 = dict(t.calls), dict(t.bytes)
+    rep0 = copy.deepcopy(engine.loop.replayed_collectives)
+    t0 = time.perf_counter()
+    fin = engine.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = engine.stats()
+    out = {
+        "streams": _streams(fin),
+        "confs": {rid: r["confs"] for rid, r in fin.items()},
+        "carried": [int(x) for x in sum(ln["state"].segments_run
+                                        for ln in engine.lanes)],
+        "launches": launches,
+        "megakernel_routes": dict(exit_head_update.launches_by_route),
+        "exit_update_routes": dict(exit_update.launches_by_route),
+        "collectives_per_step": _per_step(
+            rep0, engine.loop.replayed_collectives),
+        "calls": {a: t.calls[a] - calls0[a] for a in t.calls},
+        "bytes": {a: t.bytes[a] - bytes0[a] for a in t.bytes},
+        "digest": digest, "probe": probe, "seconds": secs,
+        "local_batch": int(engine.lanes[0]["state"].active.shape[0]),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "stats": {k: st[k] for k in (
+            "wallclock_us_per_token", "decode_dispatches", "host_syncs",
+            "captures", "compile_seconds", "prefill_seconds",
+            "segments_run")}}
+    if cfg.autotune.enabled:
+        from repro_torch.autotune import merge_telemetry
+        out["telemetry"] = {k: v.tolist() for k, v in merge_telemetry(
+            engine.lane_telemetry()).items()}
+    return out
+
+
+def _one_rank(spec):
+    """The one-rank run ``_mr_serve`` is held against: the same model and
+    requests with no mesh, in this process."""
+    import torch
+    from repro_torch.models.model import build_model
+    cfg = _mr_config(spec)
+    model = build_model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(
+        spec["seed"]))
+    digest = _digest(params)
+    reqs = make_requests(8, (128, 256), cfg.vocab_size, spec["new"],
+                         seed=spec["seed"])
+    probe = _first_logits(model, params, cfg) if spec.get("probe") else None
+    fin, st, secs, launches = serve(cfg, model, params, reqs,
+                                    runtime="device", **spec["engine"])
+    del model, params
+    _free_card()
+    return {"streams": _streams(fin),
+            "confs": {rid: r["confs"] for rid, r in fin.items()},
+            "carried": st["carried_segments_run"], "launches": launches,
+            "telemetry": st.get("telemetry"), "digest": digest,
+            "probe": probe, "seconds": secs,
+            "wallclock_us_per_token": st["wallclock_us_per_token"]}
+
+
+def phase_multirank_transport(pool=None):
+    """(a): the IPC all-reduce kernel on 2 and 4 rank processes sharing
+    the card (:func:`_mr_transport`); every rank's results."""
+    own = pool is None
+    pool = pool or _RankPool(max(MR_RANKS))
+    try:
+        return {R: pool.run((1, R), "_mr_transport") for R in MR_RANKS}
+    finally:
+        if own:
+            pool.close()
+
+
+def phase_multirank_exit(dev, gen):
+    """(b): the exit kernels' partial contract at (4, 151936) bf16 cut into
+    2 and 4 vocab slices — each slice's partial launch, the triples
+    stacked in rank order (what the gather gives), the combine launch —
+    against the unsharded kernel and the plain version: carries and
+    predictions exact, δ within 1e-5 relative; the megakernel's partial
+    route (tc) over a (2048, 151936) head likewise.  Times one rank's
+    route (partial + combine) beside the whole kernel."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.exit_update import (exit_combine, exit_partial,
+                                                 exit_update)
+    from repro_torch.kernels.megakernel import (exit_head_combine,
+                                                exit_head_partial,
+                                                exit_head_update, route)
+    B, V = (4, VOCAB)
+    n_m = 3
+    dt = torch.bfloat16
+    x = _exit_logits(B, V, dt, dev, gen)
+    h = torch.randn(B, D_MODEL, generator=gen, device=dev).to(dt)
+    w = 1.0 + 0.1 * torch.randn(D_MODEL, generator=gen, device=dev)
+    head = (0.02 * torch.randn(D_MODEL, V, generator=gen, device=dev)).to(dt)
+    head[:, 5] = head[:, V - 100] = head[:, 77]       # ties across slices
+    carry = _carries(B, n_m, dev)
+    live = torch.tensor([True, True, False, True], device=dev)
+    kw = dict(threshold=torch.full((n_m,), 0.3, device=dev), m=1,
+              n_components=n_m, patience_k=2, ema_decay=0.8, tel_bins=32)
+    out = {"exit_update": [], "megakernel": []}
+
+    def check(tag, got, want, plain):
+        for idx in (0, 1, 2, 4, 6):
+            check_equal(f"{tag} vs unsharded", got[idx], want[idx])
+            check_equal(f"{tag} vs plain", got[idx], plain[idx])
+        for idx in (3, 5):
+            check_close(f"{tag} vs unsharded", got[idx], want[idx], 0.0,
+                        1e-5)
+            check_close(f"{tag} vs plain", got[idx], plain[idx], 0.0, 1e-5)
+        return max(max_err(got[i], plain[i]) for i in (3, 5))
+
+    for R in (2, 4):
+        Vr = V // R
+        xs = [x[:, r * Vr:(r + 1) * Vr].contiguous() for r in range(R)]
+        heads = [head[:, r * Vr:(r + 1) * Vr].contiguous() for r in range(R)]
+        if any(route(h, hd) != "tc" for hd in heads):
+            fail(f"multi-rank exit: a {Vr}-column head slice left tc")
+
+        def eu_route():
+            return exit_combine(torch.stack([
+                exit_partial(s, vocab_offset=r * Vr)
+                for r, s in enumerate(xs)]), *carry, **kw)
+
+        def mk_route():
+            return exit_head_combine(torch.stack([
+                exit_head_partial(h, w, hd, vocab_offset=r * Vr, live=live)
+                for r, hd in enumerate(heads)]), *carry, live=live, **kw)
+
+        def eu_plain():
+            return ref.ref_exit_combine(torch.stack([
+                ref.ref_exit_partial(s, r * Vr) for r, s in enumerate(xs)]),
+                *carry, **kw)
+
+        def mk_plain():
+            return ref.ref_exit_combine(torch.stack([
+                ref.ref_exit_head_partial(h, w, hd, r * Vr, live=live)
+                for r, hd in enumerate(heads)]), *carry, live=live, **kw)
+
+        err = check(f"exit_update {R} slices", eu_route(),
+                    exit_update(x, *carry, **kw), eu_plain())
+        nbytes = xs[0].numel() * 2 + B * 4 * 13
+        b, by = bound_ms(nbytes, 4 * xs[0].numel(), "bfloat16")
+        parts = torch.stack([exit_partial(s, vocab_offset=r * Vr)
+                             for r, s in enumerate(xs)])
+        out["exit_update"].append({
+            "slices": R, "shape": [B, Vr], "dtype": "bfloat16",
+            "max_abs_err": err,
+            # one rank's route: its partial, then the combine of R triples
+            "ms": time_ms(lambda: exit_partial(xs[0], vocab_offset=0))
+            + time_ms(lambda: exit_combine(parts, *carry, **kw)),
+            "whole_ms": time_ms(lambda: exit_update(x, *carry, **kw)),
+            "plain_ms": time_ms(lambda: ref.ref_exit_partial(xs[0], 0))
+            + time_ms(lambda: ref.ref_exit_combine(parts, *carry, **kw)),
+            "library_ms": time_ms(lambda: torch.softmax(
+                xs[0].float(), -1).max(-1)),
+            "bound_ms": b, "bound_by": by})
+        err = check(f"megakernel {R} slices", mk_route(),
+                    exit_head_update(h, w, head, *carry, live=live, **kw),
+                    mk_plain())
+        nbytes = heads[0].numel() * 2 + h.numel() * 2 + B * 4 * 13
+        b, by = bound_ms(nbytes, 2 * B * D_MODEL * Vr, "bfloat16")
+        hparts = torch.stack([exit_head_partial(h, w, hd, vocab_offset=r * Vr,
+                                                live=live)
+                              for r, hd in enumerate(heads)])
+        out["megakernel"].append({
+            "slices": R, "shape": [B, D_MODEL, Vr], "dtype": "bfloat16",
+            "route": "tc", "max_abs_err": err,
+            "ms": time_ms(lambda: exit_head_partial(h, w, heads[0],
+                                                    live=live))
+            + time_ms(lambda: exit_head_combine(hparts, *carry, live=live,
+                                                **kw)),
+            "whole_ms": time_ms(lambda: exit_head_update(
+                h, w, head, *carry, live=live, **kw)),
+            "plain_ms": time_ms(lambda: ref.ref_exit_head_partial(
+                h, w, heads[0], 0, live=live))
+            + time_ms(lambda: ref.ref_exit_combine(hparts, *carry,
+                                                   live=live, **kw)),
+            "library_ms": time_ms(lambda: torch.softmax(
+                (h @ heads[0]).float(), -1).max(-1)),
+            "bound_ms": b, "bound_by": by})
+    return out
+
+
+def _dryrun_collectives(spec, sizes, batch):
+    """The dry run's per-device collective bytes and counts
+    (``launch/dryrun.py`` ``collectives``, ring formulas) for ``spec``'s
+    model on a ``sizes`` mesh, one decode step of ``batch`` tokens in the
+    serve1d layout: shape-only, on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shard_rules import param_spec
+    from repro_torch.models.model import build_model
+    cfg = _mr_config(spec)
+    mesh = AbstractMesh(tuple(sizes), ("data", "model"))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = build_model(cfg, device="cpu").init(0)
+        pairs = dryrun._pairs(params, param_spec(params, cfg, mesh,
+                                                 mode="serve1d"))
+    coll, counts = dryrun.collectives(cfg, pairs, mesh, batch, batch, False,
+                                      "serve1d")
+    return {"bytes": coll, "counts": counts}
+
+
+def _mr_agree(tag, ranks, want, floats=False):
+    """Every rank's streams, carried segments_run and telemetry equal the
+    one-rank run's; confidences within 1e-5 in f32 (``floats``)."""
+    for r, got in enumerate(ranks):
+        if got["digest"] != want["digest"]:
+            fail(f"{tag} rank {r}: the weights drawn differ from the "
+                 "one-rank model's")
+        for key in ("streams", "carried", "telemetry"):
+            if got.get(key) != want.get(key):
+                bad = ([rid for rid in want[key] if got[key].get(rid)
+                        != want[key][rid]] if key == "streams" else key)
+                fail(f"{tag} rank {r}: {key} differ from the one-rank "
+                     f"run's ({bad})")
+        if floats:
+            import numpy as np
+            for rid, c in want["confs"].items():
+                if not np.allclose(got["confs"][rid], c, rtol=1e-5,
+                                   atol=1e-7):
+                    fail(f"{tag} rank {r}: request {rid}'s confidences")
+
+
+def phase_multirank(dev, gen, smi, mixed):
+    """Slice 22: the dense cascade served over a ``(data, model)`` mesh of
+    2 and 4 rank processes on the one card (``make_mesh``: gloo for the
+    host, the IPC all-reduce kernel for every collective of the captured
+    step).  (a) the transport; (b) the exit kernels' partial contract;
+    (c) qwen2.5-3b's widths at 4 layers in f32 on 1 x 2, 2 x 1 and 2 x 2:
+    streams, segments_run and telemetry equal to the one-rank run's; (d)
+    the main cell, qwen2.5-3b at 36 layers in bf16 on 1 x 2 (2 cohorts,
+    select, megakernel, cohort scatter, 8 requests x (128/256 + 16)): the
+    first decode step's logits against the one-rank model's, the streams'
+    agreement, µs per token, the collectives per step and the launches
+    (every kernel of the path, the all-reduce included).  Returns
+    {"transport", "exit", "launches", "cell"}."""
+    import torch
+    t_phase = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    pool = _RankPool(4)
+    try:
+        exit_cases = phase_multirank_exit(dev, gen)
+        lap = {"exit": time.perf_counter() - t_phase}
+        transport = phase_multirank_transport(pool)
+        lap["transport"] = time.perf_counter() - t_phase - sum(lap.values())
+        # (c): a threshold vector that splits the exits, from a one-rank
+        # run at (0, 0, 0)
+        parity = dict(layers=MR_PARITY_LAYERS, dtype="float32", seed=1,
+                      new=MR_PARITY_NEW, engine=MR_ENGINE, autotune=True,
+                      thresholds=(0.0, 0.0, 0.0))
+        th = _median_threshold({rid: {"confs": c} for rid, c in
+                                _one_rank(parity)["confs"].items()})
+        parity["thresholds"] = (th, th, 0.0)
+        want = _one_rank(parity)
+        depths = {d for _, e in want["streams"].values() for d in e}
+        if len(depths) < 2:
+            fail(f"multi-rank parity: every token exits at {depths}")
+        parity_out = {}
+        for sizes in MR_PARITY_MESHES:
+            got = pool.run(sizes, "_mr_serve", parity)
+            tag = f"multi-rank parity {sizes[0]}x{sizes[1]}"
+            _mr_agree(tag, got, want, floats=True)
+            for r, g in enumerate(got):
+                # with the lane's 2 cohorts split over 2 data ranks a rank
+                # steps one whole cohort: nothing to scatter
+                check_launched(f"{tag} rank {r}", g["launches"],
+                               MULTIRANK - ({"cohort_scatter"}
+                                            if sizes[0] > 1 else set()))
+            parity_out[f"{sizes[0]}x{sizes[1]}"] = {
+                "identical": True, "calls": got[0]["calls"],
+                "bytes": got[0]["bytes"], "seconds": got[0]["seconds"],
+                "local_batch": got[0]["local_batch"]}
+        # the exit-update kernel's partial route on a served path: the
+        # megakernel off on 1 x 2 (the exits' logits, then partial, gather
+        # and combine); its streams the megakernel run's (kernel routes
+        # agree on ints, as the route-parity phase holds)
+        got = pool.run((1, 2), "_mr_serve", {**parity, "megakernel": False})
+        for r, g in enumerate(got):
+            tag = f"multi-rank parity 1x2 megakernel off rank {r}"
+            if g["streams"] != want["streams"] or \
+                    g["carried"] != want["carried"]:
+                fail(f"{tag}: streams or segments_run differ from the "
+                     "one-rank megakernel run's")
+            check_launched(tag, g["launches"],
+                           MULTIRANK - {"megakernel"})
+            eu = g["exit_update_routes"]
+            if not (eu["partial"] and eu["partial"] == eu["combine"]):
+                fail(f"{tag}: exit_update routes {eu}")
+        parity_out["1x2_exit_update"] = {
+            "identical": True, "exit_update_routes": got[0][
+                "exit_update_routes"], "launches": got[0]["launches"]}
+        lap["parity"] = time.perf_counter() - t_phase - sum(lap.values())
+        # (d): the main cell
+        cell = dict(layers=MR_LAYERS, dtype="bfloat16", seed=0,
+                    new=MR_NEW_TOKENS, engine=MR_ENGINE, probe=True,
+                    thresholds=(mixed, 0.9, 0.0))
+        one = _one_rank(cell)
+        got = pool.run(MR_MESH, "_mr_serve", cell)
+        lap["cell"] = time.perf_counter() - t_phase - sum(lap.values())
+    finally:
+        pool.close()
+    rels = {k: [float((a - b).norm() / b.norm())
+                for a, b in zip(got[0]["probe"][k], one["probe"][k])]
+            for k in ("prefill", "decode")}
+    rel = max(max(v) for v in rels.values())
+    if rel > LOGIT_REL_TOL:
+        fail(f"multi-rank cell: the exit logits differ normwise by "
+             f"{rels} from the one-rank model's")
+    for r, g in enumerate(got):
+        if g["digest"] != one["digest"]:
+            fail(f"multi-rank cell rank {r}: other weights drawn")
+        if g["streams"] != got[0]["streams"]:
+            fail(f"multi-rank cell: rank {r}'s streams differ from rank 0's")
+        check_launched(f"multi-rank cell rank {r}", g["launches"], MULTIRANK)
+        mk = g["megakernel_routes"]
+        if mk["tc"] != mk["combine"] or mk["cuda_core"]:
+            fail(f"multi-rank cell rank {r}: megakernel routes {mk}")
+    n = same = 0
+    for rid, (toks, _) in one["streams"].items():
+        mine = got[0]["streams"][rid][0]
+        n += len(toks)
+        same += sum(a == b for a, b in zip(toks, mine))
+    per = got[0]["collectives_per_step"]
+    if per is None or not per["calls"]["model"]:
+        fail(f"multi-rank cell: no collective counted on the captured "
+             f"replays ({per})")
+    cell_out = {
+        "config": "qwen2.5-3b", "n_layers": MR_LAYERS, "dtype": "bfloat16",
+        "mesh": dict(zip(("data", "model"), MR_MESH)), **MR_ENGINE,
+        "requests": 8, "prompt_lens": [128, 256],
+        "max_new_tokens": MR_NEW_TOKENS,
+        "thresholds": list(cell["thresholds"]),
+        "first_step_logits_rel_err": rel, "logits_rel_err": rels,
+        "token_agreement": same / n, "tokens": n,
+        "decode_us_per_token": got[0]["stats"]["wallclock_us_per_token"],
+        "one_rank_decode_us_per_token": one["wallclock_us_per_token"],
+        "seconds": got[0]["seconds"], "one_rank_seconds": one["seconds"],
+        "collectives_per_step": per,
+        # the dry run's formula for the same mesh and step (ring wire
+        # bytes a device; the measured bytes are each call's own part)
+        "dryrun_collectives_per_step": _dryrun_collectives(
+            cell, MR_MESH, MR_ENGINE["lane_batch"]),
+        "allreduce_launches_per_step": None if per is None else
+        sum(per["calls"].values()),
+        "calls": got[0]["calls"], "bytes": got[0]["bytes"],
+        "launches": got[0]["launches"],
+        "one_rank_launches": one["launches"],
+        "megakernel_routes": got[0]["megakernel_routes"],
+        "exit_update_routes": got[0]["exit_update_routes"],
+        "stats": got[0]["stats"],
+        "max_memory_allocated": [g["max_memory_allocated"] for g in got]}
+    emit({"phase": "multirank", "compute_mode": mode, "nvidia_smi": smi,
+          "transport": transport, "exit": exit_cases, "parity": parity_out,
+          "parity_thresholds": list(parity["thresholds"]),
+          "cell": cell_out, "phase_seconds": time.perf_counter() - t_phase,
+          "laps": lap})
+    ar = next(c for c in transport[2][0] if c["shape"] == list(MR_SHAPES[0])
+              and c["dtype"] == "bfloat16")
+    return {"transport": transport, "exit": exit_cases,
+            "launches": got[0]["launches"], "allreduce": ar,
+            "exit_update_path": parity_out["1x2_exit_update"],
+            "max_abs_err": max(c["max_abs_err"] for rs in transport.values()
+                               for r in rs for c in r)}
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -6802,6 +7491,9 @@ def main() -> int:
     lap("trained cascade")
     phase_examples(dev, gen, smi)
     lap("examples")
+    # slice 22: multi-rank serving, rank processes sharing the card
+    multirank = phase_multirank(dev, gen, smi, records[2]["thresholds"][0])
+    lap("multi-rank")
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -6956,6 +7648,18 @@ def main() -> int:
                      # megakernel and the cohort scatter, 8 requests x 32
                      # tokens at the (final, 0.05) calibrated thresholds
                      "launches_trained": trained[name],
+                     # slice 22's main cell: qwen2.5-3b at 36 layers in
+                     # bf16 on a 1 x 2 mesh (rank 0's launches), 2
+                     # cohorts, select, megakernel (its partial route and
+                     # combine) and cohort scatter, 8 requests x 16 tokens
+                     "launches_multirank": multirank["launches"][name],
+                     **({"partial_route": multirank["exit"][name]}
+                        if name in multirank["exit"] else {}),
+                     # exit_update's partial route served: the 4-layer f32
+                     # parity model on 1 x 2 with the megakernel off
+                     **({"launches_multirank_megakernel_off": multirank[
+                         "exit_update_path"]["exit_update_routes"]}
+                        if name == "exit_update" else {}),
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
                      "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -6971,6 +7675,23 @@ def main() -> int:
                                                     "bound_ms", "bound_by",
                                                     "library_ms",
                                                     "device_threshold")}})
+    ar = multirank["allreduce"]
+    rows.append({
+        "name": "allreduce", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/allreduce.cu",
+        "replaces": "none: the reference's collectives are GSPMD's "
+                    "(src/repro/serving/runtime.py:109)",
+        "launches": multirank["launches"]["allreduce"],
+        "path": "multi-rank cell: qwen2.5-3b, 36 layers, bf16, 1 x 2 mesh, "
+                "rank 0",
+        "max_abs_err": multirank["max_abs_err"],
+        "ms": ar["ms"], "plain_ms": ar["plain_ms"],
+        "bound_ms": ar["bound_ms"], "bound_by": ar["bound_by"],
+        "library_ms": ar["library_ms"],
+        "headline_case": {k: ar[k] for k in ("ranks", "shape", "dtype",
+                                             "ms_min", "ms_max",
+                                             "library_backend")},
+        "note": "ranks are processes time-sliced on one card"})
     emit({"phase": "timings", "seconds": laps,
           "total_seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

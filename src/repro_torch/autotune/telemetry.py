@@ -200,6 +200,35 @@ def accumulate_prefill(tel: ExitTelemetry, tcode, active) -> None:
     _fold_shadow(tel, tbin, tpred, active.float())
 
 
+def sync_telemetry(tel: ExitTelemetry, t) -> None:
+    """Sum a rank's telemetry over the mesh's ``data`` axis, in place: each
+    rank counts its own rows' observations, and the counters are global
+    accumulators (the reference replicates them).  What each rank added
+    since the last sync (its copy of the synced values rides on ``tel``)
+    is gathered through ``t``'s host collective and added in rank order —
+    counts of 0/1 values, exact in f32 below 2^24 — so every rank ends
+    with the one-rank run's counters.  ``mac_weights`` is a constant and
+    stays.  A ``data`` axis of one rank needs nothing."""
+    if t is None or t.size("data") == 1:
+        return
+    names = [f for f in _FIELDS if f != "mac_weights"]
+    now = torch.cat([getattr(tel, f).reshape(-1).float().cpu()
+                     for f in names])
+    synced = getattr(tel, "_synced", None)
+    if synced is None:
+        synced = torch.zeros_like(now)
+    parts = t.host_gather(now - synced, "data")
+    total = synced.clone()
+    for p in parts:
+        total += p
+    at = 0
+    for f in names:
+        x = getattr(tel, f)
+        x.copy_(total[at:at + x.numel()].view(x.shape))
+        at += x.numel()
+    tel._synced = total
+
+
 def _host(tels: Sequence[ExitTelemetry]) -> list:
     """Every counter of every lane in ONE device -> host copy."""
     flat = torch.cat([x.reshape(-1).float() for t in tels

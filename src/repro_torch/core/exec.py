@@ -102,6 +102,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import ExitDecider, ExitDecision
+from repro_torch import parallel
 from repro_torch.models import nn
 from repro_torch.models.blocks import slot_rows
 
@@ -118,6 +119,43 @@ def effective_cohorts(n_cohorts: int, batch: int) -> int:
     while batch % c:
         c -= 1
     return c
+
+
+@dataclasses.dataclass(frozen=True)
+class _MeshCohorts:
+    """The cohorts of a batch split over the mesh's ``data`` ranks: the
+    lane's C_g cohorts are the one-rank run's (``effective_cohorts`` of
+    the whole batch); this rank holds ``local`` of them — whole cohorts
+    (C_g a multiple of the data size), or a fragment of one (the data size
+    a multiple of C_g, ``ranks_per`` ranks a cohort) — at global indices
+    [base, base + local)."""
+
+    total: int
+    local: int
+    base: int
+    ranks_per: int
+
+
+def mesh_cohorts(n_cohorts: int, batch: int, t=None):
+    """:class:`_MeshCohorts` of a rank's ``batch`` rows under transport
+    ``t`` (the active one by default), or None without a mesh of more than
+    one rank.  On a ``model``-only mesh every rank holds the whole lane
+    (its predicates are still agreed, :meth:`StagedExecutor._skip_preds`).
+    A cohort count the data size neither divides nor is divided by is
+    refused."""
+    t = t if t is not None else parallel.active()
+    if t is None or t.size("world") == 1:
+        return None
+    D, di = t.size("data"), t.rank("data")
+    total = effective_cohorts(n_cohorts, batch * D)
+    if total % D == 0:
+        local = total // D
+        return _MeshCohorts(total, local, di * local, 1)
+    if D % total == 0:
+        per = D // total
+        return _MeshCohorts(total, 1, di // per, per)
+    raise ValueError(f"{total} cohorts over a data axis of {D} ranks: "
+                     "neither divides the other")
 
 
 @dataclasses.dataclass
@@ -334,6 +372,10 @@ class StagedExecutor:
         through); heads the fusion cannot express (enhancement MLP,
         layernorm bias) and non-fused deciders take ``exit_logits`` +
         :meth:`ExitDecider.scan_logits`."""
+        tp = parallel.tensor_parallel()
+        if tp is not None and self.decider.fused_scan:
+            return self._scan_exit_parts(tp, si, params, h, ths, sc, state,
+                                         live)
         if self.use_megakernel:
             hp = self.model.exit_head_params(params, si)
             if hp is not None:
@@ -343,6 +385,30 @@ class StagedExecutor:
         lg = self.model.exit_logits(params, si, h)[:, 0, :]
         return self.decider.scan_logits(si, self.n_components, lg, ths, sc,
                                         state=state)
+
+    def _scan_exit_parts(self, tp, si, params, h, ths, sc, state, live):
+        """:meth:`_scan_exit` over a head sharded by vocab across the
+        ``model`` ranks (the exit kernels' partial contract): this rank's
+        (max, Σexp, global argmax) triples — the megakernel's from h, or
+        the exit-update kernel's from the rank's logits — gathered over
+        ``model`` in rank order, then one combine launch folds them into
+        the scan as the single-rank kernel does."""
+        from repro_torch.kernels import ops
+        hp = (self.model.exit_head_params(params, si)
+              if self.use_megakernel else None)
+        if hp is not None:
+            off = tp.rank("model") * hp[1].shape[1]
+            part = ops.exit_head_partial(h[:, 0, :], hp[0], hp[1],
+                                         vocab_offset=off, live=live,
+                                         eps=self.cfg.norm_eps)
+        else:
+            lg = self.model.exit_logits(params, si, h, local=True)[:, 0, :]
+            part = ops.exit_partial(lg.contiguous(), vocab_offset=tp.rank(
+                "model") * lg.shape[1])
+        parts = tp.all_gather(part, "model")
+        return self.decider.scan_parts(
+            si, self.n_components, parts, ths, carry=sc, state=state,
+            live=live if hp is not None else None)
 
     # -- branches ----------------------------------------------------------
     def _if(self, pred, fn, negate: bool = False) -> None:
@@ -364,16 +430,47 @@ class StagedExecutor:
         self.host_syncs += 1
         return bool(pred)
 
-    def _read_skips(self, sc_parts, act_parts):
+    def _read_skips(self, sc_parts, act_parts, mc=None):
         """The C cohorts' skip predicates: stacked and read to the host in
-        one sync on the host runtime, device bools under a branch
-        runner."""
+        one sync on the host runtime, device bools under a branch runner;
+        with the whole lane's agreed skip vector on a multi-rank mesh
+        (``mc``, :meth:`_skip_preds`), else None."""
+        preds, whole = self._skip_preds(sc_parts, act_parts, mc)
+        if self.branches is not None:
+            return preds, whole
+        self.host_syncs += 1
+        return torch.stack(preds).tolist(), whole
+
+    def _skip_preds(self, sc_parts, act_parts, mc=None):
+        """The cohorts' skip predicates as device bools, never read to the
+        host, and None.  On a multi-rank mesh (``mc``, the step's
+        :func:`mesh_cohorts`) they are the one-rank run's over the whole
+        lane: each local cohort's "some row still undecided" flag at its
+        global index of a (C_g,) vector, OR-reduced over the mesh
+        (:func:`~repro_torch.parallel.agree`), so that a cohort split over
+        data ranks skips only where all its rows have exited and every
+        rank takes the same branches; that vector's negation (the whole
+        lane's skips, for the dispatch) comes with them."""
         preds = [self.decider.should_skip(s, a) for s, a in
                  zip(sc_parts, act_parts)]
-        if self.branches is not None:
-            return preds
-        self.host_syncs += 1
-        return torch.stack(preds).tolist()
+        if mc is None:
+            return preds, None
+        vec = torch.zeros(mc.total, dtype=torch.bool,
+                          device=preds[0].device)
+        vec[mc.base:mc.base + mc.local] = ~torch.stack(preds)
+        undecided = parallel.agree(vec)
+        return list(~undecided[mc.base:mc.base + mc.local]), ~undecided
+
+    def _cell_skips(self, sc_parts, act_parts, mc):
+        """A deep segment's C cohort skip predicates and the whole lane's
+        skips (:meth:`_skip_preds`): read under cond_batch; computed in
+        select mode only on a multi-rank mesh, where its selectors must
+        agree; else ``[None] * C`` (each cell computes its own)."""
+        if self.mode == "cond_batch":
+            return self._read_skips(sc_parts, act_parts, mc)
+        if mc is not None:
+            return self._skip_preds(sc_parts, act_parts, mc)
+        return [None] * len(sc_parts), None
 
     @staticmethod
     def _land(h, sc, h_new, sc_new) -> None:
@@ -467,7 +564,8 @@ class StagedExecutor:
         # land the selection.  On a shadow step the run starts from the
         # shadow chain (equal to h while any sample is undecided) and its
         # rider row lands even where the cell skips.
-        pred = self.decider.should_skip(sc, active)
+        pred = (skip if skip is not None
+                else self.decider.should_skip(sc, active))
         rows = self._rows(seg_cache, ctx, si)
         before = rows.read("before")
         h_full, sc_full = self._run_cell(si, ctx, params, ths,
@@ -525,7 +623,10 @@ class StagedExecutor:
         ths = self.thresholds(state)
         shadow = self._shadow(state, position)
         t = state.t
-        C = effective_cohorts(self.cfg.cascade.n_cohorts, token.shape[0])
+        # the step's cohorts over a data axis of more than one rank
+        mc = mesh_cohorts(self.cfg.cascade.n_cohorts, token.shape[0])
+        C = (effective_cohorts(self.cfg.cascade.n_cohorts, token.shape[0])
+             if mc is None else mc.local)
         h, ctx = model.begin_decode(params, token, t, cache)
         ctx["live"] = state.active
         # paged layout: the block tables ride the carry; the model hands
@@ -539,15 +640,17 @@ class StagedExecutor:
         # the shadow chain starts at the committed hidden state
         hs = None if shadow is False else h.clone()
         if C == 1:
-            ran = [1] + [self._segment_step(si, ctx, params, ths, h, segs[si],
-                                            sc, state.active, shadow=shadow,
-                                            hs=hs)
-                         for si in range(1, n_m)]
+            ran = [1] + [self._segment_step(
+                si, ctx, params, ths, h, segs[si], sc, state.active,
+                skip=(None if mc is None else self._cell_skips(
+                    [sc], [state.active], mc)[0][0]),
+                shadow=shadow, hs=hs)
+                for si in range(1, n_m)]
         else:
             step = self._cohorts_copy if self.layout == "copy" \
                 else self._cohorts_major
             ran = [C] + step(params, ths, h, ctx, segs, sc, state.active, C,
-                             shadow, hs)
+                             shadow, hs, mc)
         decision = decider.finish_scan(sc)
         cache = model.commit_decode(cache, segs, t)
         if state.tel is not None:
@@ -575,7 +678,7 @@ class StagedExecutor:
         return nn.tree_map(lambda x: x[:, lo:hi], seg)
 
     def _cohorts_copy(self, params, ths, h, ctx, segs, sc, active, C,
-                      shadow=False, hs=None):
+                      shadow=False, hs=None, mc=None):
         """The copy layout: step every deep segment per cohort, on views of
         h and the carry.  Returns ran[1:]."""
         decider = self.decider
@@ -584,9 +687,8 @@ class StagedExecutor:
         ran = []
         for si in range(1, self.n_components):
             sc_parts = [decider.slice_carry(sc, lo, hi) for lo, hi in spans]
-            preds = (self._read_skips(sc_parts, [active[lo:hi]
-                                                 for lo, hi in spans])
-                     if self.mode == "cond_batch" else [None] * C)
+            preds, _ = self._cell_skips(
+                sc_parts, [active[lo:hi] for lo, hi in spans], mc)
             ran.append(sum(
                 self._segment_step(
                     si, _slice_ctx(ctx, lo, hi), params, ths, h[lo:hi],
@@ -596,7 +698,7 @@ class StagedExecutor:
                 for c, (lo, hi) in enumerate(spans)))
         return ran
 
-    def _dispatch(self, preds, C, shadow=False):
+    def _dispatch(self, preds, C, shadow=False, whole=None):
         """The major layout's branch predicates {all_skip, mixed, all_run}
         from the C cohort skip predicates, counted; and the segment's
         ``ran`` (cohorts that compute or, on a shadow step, observe).  A
@@ -621,21 +723,27 @@ class StagedExecutor:
         (PERF.md §6), so only the per-cohort cell keeps cond_batch's
         streams bit for bit select mode's and autotune's shadow steps'."""
         separable = self.cfg.n_experts == 0
+        # on a multi-rank mesh the branches follow the whole lane's C_g
+        # cohorts (``whole``, their agreed skips); ``ran`` counts this
+        # rank's
+        Cg = C if whole is None else whole.numel()
         if self.mode == "select":
             # select: the fixed-graph per-cohort path every step
             cases = {"all_skip": False, "mixed": True, "all_run": False}
             ran = C
         elif self.branches is None:
-            n_skip = sum(preds)
-            cases = {"all_skip": n_skip == C and not shadow,
+            n_skip = sum(preds) if whole is None else int(whole.sum())
+            cases = {"all_skip": n_skip == Cg and not shadow,
                      "all_run": separable and n_skip == 0}
             cases["mixed"] = not (cases["all_skip"] or cases["all_run"])
-            ran = C if shadow else C - n_skip
+            ran = C if shadow else C - sum(preds)
         else:
             n_skip = torch.stack(preds).sum(dtype=torch.int32)
-            cases = {"all_skip": n_skip == C,
-                     "all_run": (n_skip == 0) if separable else False}
             ran = C - n_skip
+            if whole is not None:
+                n_skip = whole.sum(dtype=torch.int32)
+            cases = {"all_skip": n_skip == Cg,
+                     "all_run": (n_skip == 0) if separable else False}
             if shadow is not False:
                 cases["all_skip"] = cases["all_skip"] & ~shadow
                 ran = torch.where(shadow, C, ran)
@@ -655,7 +763,7 @@ class StagedExecutor:
         return cases, ran
 
     def _cohorts_major(self, params, ths, h, ctx, segs, sc, active, C,
-                       shadow=False, hs=None):
+                       shadow=False, hs=None, mc=None):
         """The major layout's three-way dispatch per deep segment, on views
         of h and the carry.  Returns ran[1:]."""
         decider = self.decider
@@ -669,9 +777,8 @@ class StagedExecutor:
         ran = []
         for si in range(1, self.n_components):
             seg = segs[si]
-            preds = (self._read_skips(sc_parts, act_parts)
-                     if self.mode == "cond_batch" else [None] * C)
-            cases, r_si = self._dispatch(preds, C, shadow)
+            preds, whole = self._cell_skips(sc_parts, act_parts, mc)
+            cases, r_si = self._dispatch(preds, C, shadow, whole)
 
             def all_skip(si=si, seg=seg):
                 self._skip_cell(si, ctx, params, h, seg)

@@ -769,6 +769,28 @@ class ExitDecider:
             **self._fused_kw(m, n_components, thresholds, carry, ema_decay))
         return self._fused_carry_out(m, carry, outs)
 
+    def scan_parts(self, m: int, n_components: int, parts: torch.Tensor,
+                   thresholds, carry=None, state=None,
+                   ema_decay: float = 0.0, live=None):
+        """:meth:`scan_logits` from the (R, 3, B) (max, Σexp, global
+        argmax) triples of the R vocab slices of a head sharded over the
+        mesh's ``model`` ranks, in rank order (the exit kernels' partial
+        contract): one combine launch merges them and folds the step into
+        the scan — the megakernel's (``live``: dead rows pass through) or
+        the exit-update kernel's (``live`` None).  Requires
+        :attr:`fused_scan`."""
+        if not self.fused_scan:
+            raise ValueError("scan_parts requires a fused-scan decider")
+        from repro_torch.kernels import ops
+        carry, srow, ema, act = self._fused_carry_in(
+            m, n_components, parts.shape[2], parts.device, carry, state)
+        kw = self._fused_kw(m, n_components, thresholds, carry, ema_decay)
+        args = (parts, carry["answered"], carry["pred"], carry["exit"],
+                carry["conf"], srow, ema, act)
+        outs = (ops.exit_head_combine(*args, live=live, **kw)
+                if live is not None else ops.exit_combine(*args, **kw))
+        return self._fused_carry_out(m, carry, outs)
+
     def _fused_carry_in(self, m, n_components, B, dev, carry, state):
         """The fused kernels' view of the scan carry: (carry, streak row m,
         EMA rider, active rider), zeros / ones where the carry has none."""

@@ -2,9 +2,10 @@
 launch counters."""
 from __future__ import annotations
 
-from repro_torch.kernels import (cohort_cache, confidence, decode_attention,
-                                 exit_update, flash_attention, megakernel,
-                                 paged_gather, rmsnorm)
+from repro_torch.kernels import (allreduce, cohort_cache, confidence,
+                                 decode_attention, exit_update,
+                                 flash_attention, megakernel, paged_gather,
+                                 rmsnorm)
 
 # kernel name -> (module, its wrapper), in the order of the csrc sources
 _KERNELS = {
@@ -16,6 +17,7 @@ _KERNELS = {
     "megakernel": (megakernel, megakernel.exit_head_update),
     "cohort_scatter": (cohort_cache, cohort_cache.cohort_scatter_tree),
     "paged_gather": (paged_gather, paged_gather.paged_gather),
+    "allreduce": (allreduce, allreduce.allreduce),
 }
 
 

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("rmsnorm", "exit_update", "decode_attention", "flash_attention",
            "confidence", "megakernel", "cohort_scatter", "paged_gather",
-           "cond_node")
+           "cond_node", "allreduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -29,7 +29,10 @@ device counters ``segments`` and ``dispatch``, and ``device``):
   launch counters of the port's kernels are Python increments that run at
   capture only, so each body records the launches captured in it
   (:attr:`CapturedBranches.body_launches`) and the device runtime adds
-  launches per capture × executions after every chunk.
+  launches per capture × executions after every chunk.  The counters read
+  are the runner's ``snapshot``: the device runtime's holds the kernels'
+  launch counters and a multi-rank transport's collective counters, so
+  collectives are counted from the replayed bodies as launches are.
 """
 from __future__ import annotations
 
@@ -73,15 +76,18 @@ class CapturedBranches:
     count their executions in (body i adds 1 to ``counters[i]`` each time
     it runs); ``segments`` and ``dispatch`` are device counters the
     executor adds its per-step ``segments_run`` and cohort-dispatch
-    numbers to.  :meth:`capture` wraps the whole capture."""
+    numbers to.  ``snapshot`` reads the counters each body records
+    (a flat dict like :func:`~repro_torch.kernels.launch_snapshot`'s).
+    :meth:`capture` wraps the whole capture."""
 
     def __init__(self, counters: torch.Tensor, segments: torch.Tensor,
-                 dispatch: torch.Tensor):
+                 dispatch: torch.Tensor, snapshot):
         self.device = counters.device
         self.bodies = counters
         self.segments = segments
         self.dispatch = dispatch
         self.graph = torch.cuda.CUDAGraph()
+        self._snapshot = snapshot
         # launches captured in each body, its nested bodies' excluded; and
         # those outside every body
         self.body_launches: List[Dict] = []
@@ -123,7 +129,7 @@ class CapturedBranches:
         for depth in range(4):
             self._stream(depth)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        before = kernels.launch_snapshot()
+        before = self._snapshot()
         with torch.cuda.stream(side):
             pool = torch.cuda.graph_pool_handle()
             self.graph.capture_begin(pool=pool)
@@ -143,8 +149,7 @@ class CapturedBranches:
                 torch._C._cuda_releasePool(dev, pool)
                 self.graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self.top_launches = kernels.launch_diff(kernels.launch_snapshot(),
-                                                before)
+        self.top_launches = kernels.launch_diff(self._snapshot(), before)
         for own in self.body_launches:
             self.top_launches = kernels.launch_diff(self.top_launches, own)
 
@@ -167,7 +172,7 @@ class CapturedBranches:
                     int(negate), ctypes.byref(stage))
         build.check(err, f"cond_if_begin ({_STAGES.get(stage.value)}, "
                          f"nesting depth {len(self._open)})")
-        before = kernels.launch_snapshot()
+        before = self._snapshot()
         self._open.append([])
         try:
             with torch.cuda.stream(child):
@@ -176,7 +181,7 @@ class CapturedBranches:
         finally:
             nested = self._open.pop()
             build.check(end(child.cuda_stream), "cond_if_end")
-        delta = kernels.launch_diff(kernels.launch_snapshot(), before)
+        delta = kernels.launch_diff(self._snapshot(), before)
         own = delta
         for d in nested:
             own = kernels.launch_diff(own, d)

@@ -386,3 +386,53 @@ __device__ __forceinline__ void exit_carry_merge(const ExitCarry& c, int b,
     default:                                  \
       return (int)cudaErrorInvalidValue;      \
   }
+
+// ---------------------------------------------------------------------------
+// The exit heads over a vocab sharded across ranks (the partial contract of
+// exit_update.cu and megakernel.cu).  Each rank reduces its vocab slice to
+// one (max, Σexp, global first-argmax) triple per row, written as a (3, B)
+// f32 array (row 2 the argmax's int32 bits); the ranks' triples, gathered
+// into (R, 3, B) in rank order, are merged here one rank after the other
+// and the carry merge applied, as the single-rank kernels apply it.
+// ---------------------------------------------------------------------------
+
+// row b's merged triple -> part[0 * B + b], part[1 * B + b], part[2 * B + b]
+__device__ __forceinline__ void store_part(float* part, int B, int b, float m,
+                                           float l, int a) {
+  part[b] = m;
+  part[B + b] = l;
+  part[2 * B + b] = __int_as_float(a);
+}
+
+// One thread a row: the R ranks' triples of row b merged in rank order
+// (triple_combine, so ties keep the lowest global index), then the carry
+// merge.  `live` (nullable): a dead row passes its carries through.
+static __global__ void exit_parts_combine_kernel(const float* __restrict__ parts,
+                                          int B, int R,
+                                          const uint8_t* __restrict__ live,
+                                          ExitCarry carry) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  if (live != nullptr && live[b] == 0) {
+    exit_carry_merge(carry, b, 0.f, 0, false);
+    return;
+  }
+  float m = parts[b], l = parts[B + b];
+  int a = __float_as_int(parts[2 * B + b]);
+  for (int r = 1; r < R; ++r) {
+    const float* p = parts + (long long)r * 3 * B;
+    triple_combine(m, l, a, p[b], p[B + b], __float_as_int(p[2 * B + b]));
+  }
+  exit_carry_merge(carry, b, 1.f / l, a, true);
+}
+
+inline int launch_exit_parts_combine(const float* parts, int B, int R,
+                                     const uint8_t* live,
+                                     const ExitCarry& carry,
+                                     cudaStream_t s) {
+  if (B <= 0) return 0;
+  if (R < 1 || carry.thr == nullptr) return (int)cudaErrorInvalidValue;
+  exit_parts_combine_kernel<<<(B + 127) / 128, 128, 0, s>>>(parts, B, R, live,
+                                                          carry);
+  return (int)cudaGetLastError();
+}

@@ -46,6 +46,15 @@
 // combine launch of one CTA per row, as confidence.cu) gave the same bits
 // and was slower at every measured shape (PERF.md row 3), so it was
 // removed.
+//
+// The partial contract (a vocab sharded over the mesh's `model` ranks):
+// with `part_out`, the row's merging CTA writes the row's (max, Σexp,
+// first argmax + vocab_offset) triple to part_out (a (3, B) f32 array, row
+// 2 the argmax's int32 bits) and leaves the carries alone; the ranks'
+// triples, gathered in rank order, go to exit_update_combine_launch (one
+// thread a row, common.cuh's exit_parts_combine_kernel), which merges them
+// rank after rank and applies the carry merge.  Without `part_out` the
+// launch is the single-rank one, bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -110,7 +119,8 @@ template <typename T, int kTile>
 __global__ void __launch_bounds__(kThreads)
     exit_update_tile_kernel(const T* __restrict__ logits, long long row_stride,
                             int V, bool vec, float* pm, float* pl, int* pa,
-                            unsigned int* tickets, ExitCarry carry) {
+                            unsigned int* tickets, ExitCarry carry,
+                            int vocab_offset, float* part_out) {
   const int tile = blockIdx.x, b = blockIdx.y, n_tiles = gridDim.x;
   float m, l;
   int a;
@@ -132,7 +142,10 @@ __global__ void __launch_bounds__(kThreads)
   __threadfence();
   merge_partials_l2(pm + o, pl + o, pa + o, n_tiles, m, l, a);
   if (threadIdx.x == 0) {
-    exit_carry_merge(carry, b, 1.f / l, a, true);
+    if (part_out != nullptr)
+      store_part(part_out, gridDim.y, b, m, l, a + vocab_offset);
+    else
+      exit_carry_merge(carry, b, 1.f / l, a, true);
     tickets[b] = 0;  // ready for the next launch
   }
 }
@@ -141,19 +154,23 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch_tiles(int tile, const dim3& grid, cudaStream_t s, const T* logits,
                  long long row_stride, int V, bool vec, float* pm, float* pl,
-                 int* pa, unsigned int* tickets, const ExitCarry& carry) {
+                 int* pa, unsigned int* tickets, const ExitCarry& carry,
+                 int vocab_offset, float* part_out) {
   switch (tile) {
     case 2048:
       exit_update_tile_kernel<T, 2048><<<grid, kThreads, 0, s>>>(
-          logits, row_stride, V, vec, pm, pl, pa, tickets, carry);
+          logits, row_stride, V, vec, pm, pl, pa, tickets, carry, vocab_offset,
+          part_out);
       break;
     case 4096:
       exit_update_tile_kernel<T, 4096><<<grid, kThreads, 0, s>>>(
-          logits, row_stride, V, vec, pm, pl, pa, tickets, carry);
+          logits, row_stride, V, vec, pm, pl, pa, tickets, carry, vocab_offset,
+          part_out);
       break;
     case 8192:
       exit_update_tile_kernel<T, 8192><<<grid, kThreads, 0, s>>>(
-          logits, row_stride, V, vec, pm, pl, pa, tickets, carry);
+          logits, row_stride, V, vec, pm, pl, pa, tickets, carry, vocab_offset,
+          part_out);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -167,7 +184,10 @@ int launch_tiles(int tile, const dim3& grid, cudaStream_t s, const T* logits,
 // `workspace` is a (3, B, ceil(V / tile)) f32 scratch; `tickets` is B
 // uint32 zeros, and each row's last CTA puts its ticket back to 0, so
 // launches that share a tickets buffer must be ordered (one stream).
-// `thr` points at the component's δ̂, an f32 on the device.
+// `thr` points at the component's δ̂, an f32 on the device.  With
+// `part_out` ((3, B) f32) the launch writes each row's triple over its
+// columns, the argmax offset by `vocab_offset`, instead of merging the
+// carries (the carry pointers and `thr` are then not read).
 extern "C" int exit_update_launch(
     const void* logits, long long row_stride, int B, int V, int dtype,
     void* workspace, void* tickets,
@@ -176,9 +196,11 @@ extern "C" int exit_update_launch(
     const void* act_in, void* ans_out, void* pred_out, void* exit_out,
     void* conf_out, void* streak_out, void* ema_out, void* tcode_out,
     const void* thr, int m_idx, int n_components, int patience_k,
-    float ema_decay, float ema_keep, int tel_bins, int tile, void* stream) {
+    float ema_decay, float ema_keep, int tel_bins, int tile,
+    int vocab_offset, void* part_out, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (B > 65535 || V <= 0 || tickets == nullptr || thr == nullptr ||
+  if (B > 65535 || V <= 0 || tickets == nullptr ||
+      (thr == nullptr && part_out == nullptr) ||
       (tile != 2048 && tile != 4096 && tile != 8192))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -199,7 +221,31 @@ extern "C" int exit_update_launch(
   DISPATCH_DTYPE(dtype, T, {
     const bool vec = vec16_ok<T>((const T*)logits, V, {row_stride});
     return launch_tiles<T>(tile, grid, s, (const T*)logits, row_stride, V,
-                           vec, pm, pl, pa, (unsigned int*)tickets, carry);
+                           vec, pm, pl, pa, (unsigned int*)tickets, carry,
+                           vocab_offset, (float*)part_out);
   });
   return (int)cudaErrorInvalidValue;
+}
+
+// The combine of the partial contract: `parts` is the (R, 3, B) f32 triples
+// of the R vocab slices in rank order; the carries as exit_update_launch
+// takes them.
+extern "C" int exit_update_combine_launch(
+    const void* parts, int B, int R, const void* ans_in, const void* pred_in,
+    const void* exit_in, const void* conf_in, const void* streak_in,
+    const void* ema_in, const void* act_in, void* ans_out, void* pred_out,
+    void* exit_out, void* conf_out, void* streak_out, void* ema_out,
+    void* tcode_out, const void* thr, int m_idx, int n_components,
+    int patience_k, float ema_decay, float ema_keep, int tel_bins,
+    void* stream) {
+  const ExitCarry carry{
+      (const uint8_t*)ans_in, (const int*)pred_in, (const int*)exit_in,
+      (const float*)conf_in,  (const int*)streak_in, (const float*)ema_in,
+      (const uint8_t*)act_in, (uint8_t*)ans_out,   (int*)pred_out,
+      (int*)exit_out,         (float*)conf_out,    (int*)streak_out,
+      (float*)ema_out,        (int*)tcode_out,     (const float*)thr,
+      m_idx,                  n_components,        patience_k,
+      ema_decay,              ema_keep,            tel_bins};
+  return launch_exit_parts_combine((const float*)parts, B, R, nullptr, carry,
+                                   (cudaStream_t)stream);
 }

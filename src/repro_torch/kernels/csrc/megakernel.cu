@@ -275,6 +275,30 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) exit_carry_merge(carry, b, 1.f / l, a, true);
 }
 
+// The partial contract (a head sharded over the mesh's `model` ranks by
+// vocab): row b's partials merged as head_combine_kernel merges them, then
+// written as one (max, Σexp, first argmax + vocab_offset) triple to part
+// ((3, B) f32); the carries are left to the combine launch that merges the
+// ranks' triples (common.cuh's exit_parts_combine_kernel).  A dead row's
+// partials were never written: it gets the empty triple.
+__global__ void __launch_bounds__(kThreads)
+    head_parts_reduce_kernel(const float* __restrict__ pm,
+                             const float* __restrict__ pl,
+                             const int* __restrict__ pa, int n_tiles, int B,
+                             const uint8_t* __restrict__ live,
+                             int vocab_offset, float* __restrict__ part) {
+  const int b = blockIdx.x;
+  if (live != nullptr && live[b] == 0) {
+    if (threadIdx.x == 0) store_part(part, B, b, NEG_BIG, 0.f, INT_MAX);
+    return;
+  }
+  const long long o = (long long)b * n_tiles;
+  float m, l;
+  int a;
+  merge_partials<kThreads>(pm + o, pl + o, pa + o, n_tiles, m, l, a);
+  if (threadIdx.x == 0) store_part(part, B, b, m, l, a + vocab_offset);
+}
+
 template <typename T, int NB>
 cudaError_t launch_partial(const T* h, long long h_stride, const float* w,
                            const T* head, long long ld, int B, int d, int V,
@@ -764,15 +788,10 @@ cudaError_t launch_tc(const T* h, long long h_stride, const float* w,
   return cudaGetLastError();
 }
 
-// the combine launch of both routes: (3, B, n_parts) partials -> carries
-int combine(int B, int n_parts, float* pm, const uint8_t* live,
-            const void* const* carries, const void* thr, int m_idx,
-            int n_components, int patience_k, float ema_decay,
-            float ema_keep, int tel_bins, cudaStream_t s) {
-  if (thr == nullptr) return (int)cudaErrorInvalidValue;
-  float* pl = pm + (long long)B * n_parts;
-  int* pa = (int*)(pl + (long long)B * n_parts);
-  const ExitCarry carry{
+ExitCarry carry_of(const void* const* carries, const void* thr, int m_idx,
+                   int n_components, int patience_k, float ema_decay,
+                   float ema_keep, int tel_bins) {
+  return ExitCarry{
       (const uint8_t*)carries[0], (const int*)carries[1],
       (const int*)carries[2],     (const float*)carries[3],
       (const int*)carries[4],     (const float*)carries[5],
@@ -784,8 +803,27 @@ int combine(int B, int n_parts, float* pm, const uint8_t* live,
       n_components,               patience_k,
       ema_decay,                  ema_keep,
       tel_bins};
-  head_combine_kernel<<<B, kThreads, 0, s>>>(pm, pl, pa, n_parts, live,
-                                             carry);
+}
+
+// the combine launch of both routes: (3, B, n_parts) partials -> carries;
+// with `part` (the partial contract) the row's triple instead
+int combine(int B, int n_parts, float* pm, const uint8_t* live,
+            const void* const* carries, const void* thr, int m_idx,
+            int n_components, int patience_k, float ema_decay,
+            float ema_keep, int tel_bins, int vocab_offset, float* part,
+            cudaStream_t s) {
+  float* pl = pm + (long long)B * n_parts;
+  int* pa = (int*)(pl + (long long)B * n_parts);
+  if (part != nullptr) {
+    head_parts_reduce_kernel<<<B, kThreads, 0, s>>>(pm, pl, pa, n_parts, B,
+                                                    live, vocab_offset, part);
+    return (int)cudaGetLastError();
+  }
+  if (thr == nullptr) return (int)cudaErrorInvalidValue;
+  head_combine_kernel<<<B, kThreads, 0, s>>>(
+      pm, pl, pa, n_parts, live,
+      carry_of(carries, thr, m_idx, n_components, patience_k, ema_decay,
+               ema_keep, tel_bins));
   return (int)cudaGetLastError();
 }
 
@@ -808,13 +846,17 @@ extern "C" long long megakernel_smem_bytes(int d, int nb, int dtype) {
 
 // carries: the 7 inputs (answered, pred, exit, conf, streak, ema, active),
 // then the 7 outputs (the same six and the telemetry code, NULL unless
-// tel_bins > 0); `thr` points at the component's δ̂, an f32 on the device
+// tel_bins > 0); `thr` points at the component's δ̂, an f32 on the device.
+// With `part_out` ((3, B) f32, the partial contract) the launch writes each
+// row's triple over the head's columns, the argmax offset by
+// `vocab_offset`, and reads neither the carries nor `thr`.
 extern "C" int megakernel_launch(
     const void* h, long long h_stride, const void* w, const void* head,
     long long ld, int B, int d, int V, int dtype, int nb, const void* live,
     float eps, int warp_norm, void* workspace, const void* const* carries,
     const void* thr, int m_idx, int n_components, int patience_k,
-    float ema_decay, float ema_keep, int tel_bins, void* stream) {
+    float ema_decay, float ema_keep, int tel_bins, int vocab_offset,
+    void* part_out, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const int n_tiles = megakernel_tiles(V, dtype);
@@ -850,7 +892,8 @@ extern "C" int megakernel_launch(
   });
   if (err != cudaSuccess) return (int)err;
   return combine(B, n_tiles, pm, lv, carries, thr, m_idx, n_components,
-                 patience_k, ema_decay, ema_keep, tel_bins, s);
+                 patience_k, ema_decay, ema_keep, tel_bins, vocab_offset,
+                 (float*)part_out, s);
 }
 
 // The ring depth of the "tc" route for B rows of width d (0 where the rows
@@ -876,7 +919,7 @@ extern "C" int megakernel_tc_launch(
     const void* live, float eps, int warp_norm, void* xn_out,
     void* workspace, const void* const* carries, const void* thr, int m_idx,
     int n_components, int patience_k, float ema_decay, float ema_keep,
-    int tel_bins, void* stream) {
+    int tel_bins, int vocab_offset, void* part_out, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (B > 16 || d <= 0 || d % 8 || megakernel_tc_stages(B, d) == 0 ||
       (warp_norm && d / 8 > 16 * 32) ||
@@ -916,5 +959,21 @@ extern "C" int megakernel_tc_launch(
   }
   if (err != cudaSuccess) return (int)err;
   return combine(B, n_ctas, pm, lv, carries, thr, m_idx, n_components,
-                 patience_k, ema_decay, ema_keep, tel_bins, s);
+                 patience_k, ema_decay, ema_keep, tel_bins, vocab_offset,
+                 (float*)part_out, s);
+}
+
+// The combine of the partial contract: `parts` is the (R, 3, B) f32 triples
+// of the R vocab slices in rank order, merged rank after rank; `live` and
+// the carries as megakernel_launch takes them.
+extern "C" int megakernel_combine_launch(
+    const void* parts, int B, int R, const void* live,
+    const void* const* carries, const void* thr, int m_idx, int n_components,
+    int patience_k, float ema_decay, float ema_keep, int tel_bins,
+    void* stream) {
+  return launch_exit_parts_combine(
+      (const float*)parts, B, R, (const uint8_t*)live,
+      carry_of(carries, thr, m_idx, n_components, patience_k, ema_decay,
+               ema_keep, tel_bins),
+      (cudaStream_t)stream);
 }

@@ -39,6 +39,14 @@ fused and unfused exit heads normalise a row bit for bit alike.
 ``exit_head_update.launches`` counts every call,
 ``exit_head_update.launches_by_route`` each route's.  Bound on the H100:
 bytes — one read of the (d, V) head (622 MB in bf16 at qwen2.5-3b).
+
+The partial contract, for a head sharded by vocab over the mesh's
+``model`` ranks: :func:`exit_head_partial` runs the same routes over the
+rank's columns and ends in one (max, Σexp, global first-argmax) triple a
+row instead of the carry merge; the ranks' triples, gathered in rank
+order, go to :func:`exit_head_combine`, one launch that merges them rank
+after rank and applies the carry merge (counted under the ``combine``
+route).
 """
 from __future__ import annotations
 
@@ -48,8 +56,10 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.kernels import autotune, build
-from repro_torch.kernels.exit_update import _tensors, threshold_operand
-from repro_torch.kernels.ref import ref_exit_head_update
+from repro_torch.kernels.exit_update import (_tensors, carry_buffers,
+                                             threshold_operand)
+from repro_torch.kernels.ref import (ref_exit_combine, ref_exit_head_partial,
+                                     ref_exit_head_update)
 from repro_torch.kernels.rmsnorm import warp_rows_ok
 
 ROUTES = ("tc", "cuda_core")
@@ -65,7 +75,12 @@ _COMMON = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_float])
 _TAIL = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+          ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+          ctypes.c_void_p])
+_COMBINE_SIG = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # + warp_norm, and on tc the checks' xn_out
 _SIG = {"cuda_core": _COMMON + [ctypes.c_int] + _TAIL,
         "tc": _COMMON + [ctypes.c_int, ctypes.c_void_p] + _TAIL}
@@ -195,31 +210,96 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
                        *(() if live is None else (live,)),
                        *_tensors(threshold))
     thr = threshold_operand(threshold, m, h.device)
+    B = h.shape[0]
+    if any(c.shape != (B,) for c in carries):
+        raise ValueError("exit_head_update: every carry must be (B,)")
+    ins, outs = carry_buffers(carries, kw["tel_bins"])
+    _launch(h, norm_w, head, ins + outs, thr, kw, live, eps, xn_out, 0, None,
+            "exit_head_update")
+    return tuple(outs if kw["tel_bins"] else outs[:6])
+
+
+def exit_head_partial(h, norm_w, head, *, vocab_offset: int = 0, live=None,
+                      eps: float = 1e-5):
+    """The partial contract's first half: ``head`` (d, V_r) holds columns
+    [vocab_offset, vocab_offset + V_r) of the exit head; returns each
+    row's (max, Σexp, first argmax + vocab_offset) triple over them as a
+    (3, B) f32 tensor, the argmax row holding int32 bits.  The same
+    routes (``tc`` / ``cuda_core``) and prologue as
+    :func:`exit_head_update`; a dead row (``live`` False) gets the empty
+    triple.  CPU tensors take the plain version."""
+    if h.device.type == "cpu":
+        return ref_exit_head_partial(h, norm_w, head, vocab_offset, eps=eps,
+                                     live=live)
+    build.require_cuda("exit_head_partial", h, norm_w, head,
+                       *(() if live is None else (live,)))
+    part = torch.empty((3, h.shape[0]), dtype=torch.float32, device=h.device)
+    _launch(h, norm_w, head, [None] * 14, None, {}, live, eps, None,
+            vocab_offset, part, "exit_head_partial")
+    return part
+
+
+def exit_head_combine(parts, answered, pred, exit_idx, conf, streak, ema,
+                      active, *, threshold, m: int, n_components: int,
+                      patience_k: int = 0, ema_decay: float = 0.0,
+                      tel_bins: int = 0, live=None):
+    """The partial contract's second half: the R ranks' triples ``parts``
+    (R, 3, B) merged in rank order, then the carry merge, dead rows
+    passing their carries through — what :func:`exit_head_update` returns
+    for the unsharded head, up to the Σexp's summation order."""
+    kw = dict(m=int(m), n_components=int(n_components),
+              patience_k=int(patience_k), ema_decay=float(ema_decay),
+              tel_bins=int(tel_bins))
+    carries = (answered, pred, exit_idx, conf, streak, ema, active)
+    if parts.device.type == "cpu":
+        return ref_exit_combine(parts, *carries, live=live,
+                                threshold=threshold_operand(threshold, m,
+                                                            "cpu"), **kw)
+    build.require_cuda("exit_head_combine", parts, *carries,
+                       *(() if live is None else (live,)),
+                       *_tensors(threshold))
+    R, three, B = parts.shape
+    if three != 3 or parts.dtype != torch.float32 or any(
+            c.shape != (B,) for c in carries):
+        raise ValueError(f"exit_head_combine: parts (R, 3, B) f32 and (B,) "
+                         f"carries, got {tuple(parts.shape)} {parts.dtype}")
+    thr = threshold_operand(threshold, m, parts.device)
+    ins, outs = carry_buffers(carries, kw["tel_bins"])
+    live_in = None if live is None else live.to(torch.bool).contiguous()
+    p = build.ptr
+    ptrs = (ctypes.c_void_p * 14)(*(p(t) for t in ins + outs))
+    fn = build.function("megakernel", "megakernel_combine_launch",
+                        _COMBINE_SIG)
+    build.check(fn(p(parts.contiguous()), B, R, p(live_in), ptrs, p(thr),
+                   kw["m"], kw["n_components"], kw["patience_k"],
+                   kw["ema_decay"], 1.0 - kw["ema_decay"], kw["tel_bins"],
+                   build.stream_of(parts)), "exit_head_combine")
+    exit_head_update.launches += 1
+    exit_head_update.launches_by_route["combine"] += 1
+    return tuple(outs if kw["tel_bins"] else outs[:6])
+
+
+def _launch(h, norm_w, head, carry_tensors, thr, kw, live, eps, xn_out,
+            vocab_offset, part, what):
+    """The head product's launch on the route :func:`route` picks, ending
+    in the carry merge — or, with ``part``, in the rows' triples."""
     if h.dim() != 2 or head.dim() != 2 or head.shape[0] != h.shape[1] \
             or norm_w.shape != (h.shape[1],):
-        raise ValueError(f"exit_head_update: h (B, d), norm_w (d,), head "
+        raise ValueError(f"{what}: h (B, d), norm_w (d,), head "
                          f"(d, V); got {tuple(h.shape)}, "
                          f"{tuple(norm_w.shape)}, {tuple(head.shape)}")
     if head.dtype != h.dtype:
-        raise TypeError(f"exit_head_update: head {head.dtype} must be in h's "
+        raise TypeError(f"{what}: head {head.dtype} must be in h's "
                         f"dtype {h.dtype}")
     if h.stride(1) != 1 or head.stride(1) != 1:
-        raise ValueError("exit_head_update: h and head need a contiguous "
-                         "last dim")
+        raise ValueError(f"{what}: h and head need a contiguous last dim")
     B, d = h.shape
     V = head.shape[1]
-    if any(c.shape != (B,) for c in carries) or (
-            live is not None and live.shape != (B,)):
-        raise ValueError("exit_head_update: every carry must be (B,)")
-    i32, f32 = torch.int32, torch.float32
+    if live is not None and live.shape != (B,):
+        raise ValueError(f"{what}: live must be (B,)")
     dev = h.device
     dcode = build.dtype_code(h)
-    w32 = norm_w.to(f32).contiguous()
-    ans_in = answered.to(torch.bool).contiguous()
-    act_in = active.to(torch.bool).contiguous()
-    pred_in, exit_in, streak_in = (t.to(i32).contiguous()
-                                   for t in (pred, exit_idx, streak))
-    conf_in, ema_in = (t.to(f32).contiguous() for t in (conf, ema))
+    w32 = norm_w.to(torch.float32).contiguous()
     live_in = None if live is None else live.to(torch.bool).contiguous()
     r = route(h, head)
     # the norm takes the rmsnorm route the unfused head would take; its
@@ -230,7 +310,7 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
     if xn_out is not None and (r != "tc" or xn_out.shape != (B, d)
                                or xn_out.dtype != h.dtype
                                or not xn_out.is_contiguous()):
-        raise ValueError("exit_head_update: xn_out takes the tc route's "
+        raise ValueError(f"{what}: xn_out takes the tc route's "
                          "normalised rows, a contiguous (B, d) tensor in "
                          "h's dtype")
     if r == "tc":
@@ -240,39 +320,30 @@ def exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf, streak,
         size_arg = _group_rows(B, d, dcode)
         parts = build.function("megakernel", "megakernel_tiles",
                                [ctypes.c_int, ctypes.c_int])(V, dcode)
-    workspace = torch.empty((3, B, parts), dtype=f32, device=dev)
-    outs = [torch.empty(B, dtype=torch.bool, device=dev),
-            torch.empty(B, dtype=i32, device=dev),
-            torch.empty(B, dtype=i32, device=dev),
-            torch.empty(B, dtype=f32, device=dev),
-            torch.empty(B, dtype=i32, device=dev),
-            torch.empty(B, dtype=f32, device=dev)]
-    if kw["tel_bins"]:
-        outs.append(torch.empty(B, dtype=i32, device=dev))
-    tcode = outs[6] if kw["tel_bins"] else None
+    workspace = torch.empty((3, B, parts), dtype=torch.float32, device=dev)
     p = build.ptr
-    carries = (ctypes.c_void_p * 14)(*(
-        p(t) for t in (ans_in, pred_in, exit_in, conf_in, streak_in, ema_in,
-                       act_in, *outs[:6], tcode)))
+    carries = (ctypes.c_void_p * 14)(*(p(t) for t in carry_tensors))
     fn = build.function("megakernel", _SYMBOLS[r], _SIG[r])
     args = [p(h), h.stride(0), p(w32), p(head), head.stride(0), B, d, V,
             dcode, size_arg, p(live_in), float(eps), int(warp_norm)]
     if r == "tc":
         args.append(p(xn_out))
     build.check(fn(
-        *args, p(workspace), carries, p(thr), kw["m"],
-        kw["n_components"], kw["patience_k"], kw["ema_decay"],
-        1.0 - kw["ema_decay"], kw["tel_bins"], build.stream_of(h)),
-        "exit_head_update")
+        *args, p(workspace), carries, p(thr), kw.get("m", 0),
+        kw.get("n_components", 1), kw.get("patience_k", 0),
+        kw.get("ema_decay", 0.0), 1.0 - kw.get("ema_decay", 0.0),
+        kw.get("tel_bins", 0), int(vocab_offset), p(part),
+        build.stream_of(h)), what)
     exit_head_update.launches += 1
     exit_head_update.launches_by_route[r] += 1
-    return tuple(outs)
 
 
 exit_head_update.launches = 0
-exit_head_update.launches_by_route = dict.fromkeys(ROUTES, 0)
+# the head product's two routes, and the partial contract's combine launch
+exit_head_update.launches_by_route = dict.fromkeys(ROUTES + ("combine",), 0)
 
 
 def reset_launches() -> None:
     exit_head_update.launches = 0
-    exit_head_update.launches_by_route.update(dict.fromkeys(ROUTES, 0))
+    exit_head_update.launches_by_route.update(
+        dict.fromkeys(ROUTES + ("combine",), 0))

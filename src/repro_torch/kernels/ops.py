@@ -19,9 +19,11 @@ from repro_torch.kernels.cohort_cache import (  # noqa: F401 (re-export)
 from repro_torch.kernels.confidence import confidence
 from repro_torch.kernels.decode_attention import (
     decode_attention, route as decode_attention_route)
-from repro_torch.kernels.exit_update import exit_update
+from repro_torch.kernels.exit_update import (  # noqa: F401 (re-export)
+    exit_combine, exit_partial, exit_update)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.megakernel import exit_head_update
+from repro_torch.kernels.megakernel import (  # noqa: F401 (re-export)
+    exit_head_combine, exit_head_partial, exit_head_update)
 from repro_torch.kernels.paged_gather import (  # noqa: F401 (re-export)
     paged_gather, paged_gather_kv)
 from repro_torch.kernels.rmsnorm import rmsnorm

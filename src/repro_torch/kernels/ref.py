@@ -231,6 +231,87 @@ def ref_exit_head_update(h, norm_w, head, answered, pred, exit_idx, conf,
                       ema, tel_bins)
 
 
+def ref_exit_partial(logits, vocab_offset: int = 0):
+    """The partial contract's row triples (``exit_update.exit_partial``):
+    over the f32 logits (B, V_r), columns [vocab_offset, vocab_offset +
+    V_r) of the whole vocab, each row's max, Σexp(x − max) and first
+    argmax + vocab_offset, stacked (3, B) f32 with the argmax row holding
+    int32 bits."""
+    x = logits.float()
+    mx = x.amax(-1)
+    lsum = torch.exp(x - mx[:, None]).sum(-1)
+    idx = (torch.argmax(x, -1) + int(vocab_offset)).to(torch.int32)
+    return torch.stack([mx, lsum, idx.view(torch.float32)])
+
+
+def ref_exit_head_partial(h, norm_w, head, vocab_offset: int = 0,
+                          eps: float = 1e-5, live=None):
+    """:func:`ref_exit_partial` of the exit head's logits over its columns
+    ``head`` (d, V_r): the kernel-route rmsnorm, the product in the model
+    dtype.  Dead (``live`` False) rows get the empty triple."""
+    x = ref_rmsnorm(h, norm_w, eps)
+    part = ref_exit_partial((x @ head.to(x.dtype)).float(), vocab_offset)
+    if live is not None:
+        empty = torch.stack([torch.full_like(part[0], NEG),
+                             torch.zeros_like(part[1]),
+                             torch.full((part.shape[1],), 2 ** 31 - 1,
+                                        dtype=torch.int32,
+                                        device=part.device).view(
+                                 torch.float32)])
+        part = torch.where(live.bool()[None], part, empty)
+    return part
+
+
+def ref_merge_parts(parts):
+    """(R, 3, B) rank triples merged rank after rank, as
+    ``csrc/common.cuh``'s combine: M = max, L = L·exp(m − M) + l·exp(m' −
+    M), the lowest global index among the maxima.  Returns (argmax (B,)
+    int32, δ = 1 / L (B,) f32)."""
+    m, lsum = parts[0, 0].float(), parts[0, 1].float()
+    a = parts[0, 2].contiguous().view(torch.int32)
+    for r in range(1, parts.shape[0]):
+        m2, l2 = parts[r, 0].float(), parts[r, 1].float()
+        a2 = parts[r, 2].contiguous().view(torch.int32)
+        M = torch.maximum(m, m2)
+        lsum = lsum * torch.exp(m - M) + l2 * torch.exp(m2 - M)
+        a = torch.where((m2 > m) | ((m2 == m) & (a2 < a)), a2, a)
+        m = M
+    return a, 1.0 / lsum
+
+
+def ref_exit_combine(parts, answered, pred, exit_idx, conf, streak, ema,
+                     active, *, threshold, m, n_components, patience_k=0,
+                     ema_decay=0.0, tel_bins=0, live=None):
+    """The partial contract's combine (``exit_update.exit_combine``,
+    ``megakernel.exit_head_combine``): the ranks' triples merged
+    (:func:`ref_merge_parts`), then the exit-update step of
+    :func:`ref_exit_update`; dead (``live`` False) rows pass their
+    carries through."""
+    idx, delta = ref_merge_parts(parts)
+    outs = _carry_merge(idx, delta, answered, pred, exit_idx, conf, streak,
+                        ema, active, threshold=threshold, m=m,
+                        n_components=n_components, patience_k=patience_k,
+                        ema_decay=ema_decay, tel_bins=tel_bins)
+    return _pass_dead(outs, live, answered, pred, exit_idx, conf, streak,
+                      ema, tel_bins)
+
+
+def ref_allreduce(parts, op: str = "sum"):
+    """The all-reduce's plain version: the ranks' tensors ``parts`` in
+    rank order, reduced one after the other in f32 for float types
+    (``sum`` or ``max``) and cast back, or stacked (``gather``) — what
+    every rank of ``kernels/allreduce.py`` ends with, bit for bit."""
+    if op == "gather":
+        return torch.stack(list(parts))
+    x0 = parts[0]
+    floating = x0.is_floating_point()
+    acc = x0.float() if floating else x0.clone()
+    for p in parts[1:]:
+        p = p.float() if floating else p
+        acc = torch.maximum(acc, p) if op == "max" else acc + p
+    return acc.to(x0.dtype)
+
+
 # ---------------------------------------------------------------------------
 # emulators of the redesigned kernels' arithmetic (tests only)
 # ---------------------------------------------------------------------------

@@ -9,14 +9,26 @@ shard rules and the dry run read.  :func:`make_host_mesh` gives a real
 process drives, with the same axis names; its world of one rank is set up
 from an in-process ``HashStore`` (no address, no port, no network).
 
+:func:`make_mesh` gives a ``(data, model)`` :class:`DeviceMesh` over a
+world of ``data x model`` ranks, one process each (the counterpart of the
+``jax.make_mesh(shape, axes)`` the reference's runtime takes): the world
+is initialised with gloo for both device types and rendezvouses through a
+``FileStore`` (a file every rank can reach; no address or port is
+chosen), and the mesh carries its collectives
+(:mod:`repro_torch.parallel`): gloo for CPU tensors, the IPC
+all-reduce kernel for CUDA tensors (its buffers opened at construction).
+
 Nothing here initialises a process group when the module is imported: only
-:func:`make_host_mesh` does, and only when no default group is up.
+:func:`make_host_mesh` and :func:`make_mesh` do, and only when no default
+group is up.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.parallel import transport
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
@@ -98,6 +110,49 @@ def make_host_mesh(device="cuda"):
                                 world_size=1)
     return DeviceMesh(dev.type, torch.zeros((1, 1), dtype=torch.int),
                       mesh_dim_names=HOST_AXES)
+
+
+def make_mesh(sizes: Tuple[int, int], device="cuda", *, rank=None,
+              world_size=None, init_file=None):
+    """A ``("data", "model")`` :class:`DeviceMesh` of ``sizes`` over the
+    ranks of a world of ``data x model`` processes, rank r at coordinate
+    ``(r // model, r % model)``.
+
+    With no default process group up, this process joins one: ``rank`` of
+    ``world_size``, backend ``cpu:gloo,cuda:gloo``, rendezvous through the
+    ``FileStore`` at ``init_file`` (``init_method="file://..."``); every
+    rank must pass the same file.  A world whose size differs from the
+    mesh's is refused with both named (a ``model`` size that does not
+    divide the attention's heads is refused by the decode loop, which
+    knows the config).  ``device`` is this rank's device (``"cpu"``, or a
+    CUDA device; several ranks may share one card).  The mesh's
+    collectives — per axis its gloo group and, on CUDA, its IPC buffers —
+    are :func:`repro_torch.parallel.transport` of it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    data, model = (int(s) for s in sizes)
+    need = data * model
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"make_mesh({device!r}): no CUDA device is "
+                           "available")
+    if not dist.is_initialized():
+        if init_file is None or rank is None or world_size is None:
+            raise ValueError("make_mesh: no process group is up; pass rank=, "
+                             "world_size= and init_file= (a FileStore path "
+                             "every rank reaches)")
+        dist.init_process_group("cpu:gloo,cuda:gloo",
+                                init_method=f"file://{init_file}",
+                                rank=int(rank), world_size=int(world_size))
+    have = dist.get_world_size()
+    if have != need:
+        raise RuntimeError(
+            f"make_mesh: the mesh {{'data': {data}, 'model': {model}}} needs "
+            f"a world of {need} ranks; this process is in a world of {have}")
+    mesh = DeviceMesh(dev.type, torch.arange(need).reshape(data, model),
+                      mesh_dim_names=HOST_AXES)
+    transport(mesh, dev)
+    return mesh
 
 
 def mesh_shape(mesh) -> Dict[str, int]:

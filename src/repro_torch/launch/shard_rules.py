@@ -352,16 +352,47 @@ def to_shardings(mesh, spec_tree):
                          _is_spec)
 
 
-def place(mesh, tree, spec_tree):
+def local_slices(mesh, spec: P, shape):
+    """The index of this rank's shard of a ``shape`` leaf under ``spec``:
+    one slice per dim, each placed dim cut into equal blocks by the
+    rank's coordinate on the placed axes (the first axis of a combined
+    entry the slowest, as :func:`placements` orders them)."""
+    import torch.distributed as dist
+    names = list(mesh_shape(mesh))
+    coord = dict(zip(names, mesh.get_coordinate())) if dist.is_initialized() \
+        else dict.fromkeys(names, 0)
+    out = []
+    for d, dim in enumerate(shape):
+        axes = [a for a in names if d < len(spec) and a in axes_of(spec[d])]
+        if not axes:
+            out.append(slice(None))
+            continue
+        idx, n = 0, 1
+        for a in axes:
+            idx = idx * axis_size(mesh, a) + coord[a]
+            n *= axis_size(mesh, a)
+        blk = dim // n
+        out.append(slice(idx * blk, (idx + 1) * blk))
+    return tuple(out)
+
+
+def place(mesh, tree, spec_tree, local: bool = False):
     """``tree``'s tensors as DTensors on ``mesh`` under ``spec_tree`` (same
     structure; other leaves, such as a DecodeState's host-side numpy
     ``segments_run``, kept as they are).  Each spec is checked against the
     mesh first.  On a mesh of one device every local shard is the whole
-    tensor and the DTensor wraps the leaf itself: nothing is copied.  On a
-    larger mesh :func:`torch.distributed.tensor.distribute_tensor` splits
-    it."""
+    tensor and the DTensor wraps the leaf itself: nothing is copied.
+
+    On a larger mesh each rank cuts its own shard from the whole tensor,
+    which every rank holds alike (drawn from one seed, or bridged from one
+    numpy tree), and wraps it with ``DTensor.from_local``: no collective
+    (``distribute_tensor`` would scatter over a CUDA process group, which
+    ranks sharing one card cannot have).  With ``local`` the tree already
+    holds this rank's shards (a lane's caches and state, made at their
+    local size): they are wrapped as they are, the spec checked against
+    the global shape they stand for."""
     import torch
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor import DTensor
     one = mesh_size(mesh) == 1
     specs = dict(spec_leaves(spec_tree))
 
@@ -369,11 +400,16 @@ def place(mesh, tree, spec_tree):
         if not isinstance(x, torch.Tensor):
             return x
         spec = specs[path]
-        check_spec(tuple(x.shape), spec, mesh, path_str(path))
+        shape = tuple(x.shape)
+        if local and not one:
+            shape = tuple(
+                n * (axis_size(mesh, axes_of(spec[d])) if d < len(spec)
+                     else 1) for d, n in enumerate(shape))
+        check_spec(shape, spec, mesh, path_str(path))
         pl = placements(mesh, spec)
-        if one:
-            return DTensor.from_local(x, mesh, pl, run_check=False)
-        return distribute_tensor(x, mesh, pl)
+        if not (one or local):
+            x = x[local_slices(mesh, spec, shape)].contiguous()
+        return DTensor.from_local(x, mesh, pl, run_check=False)
     return map_with_path(leaf, tree)
 
 

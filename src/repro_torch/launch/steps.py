@@ -37,6 +37,7 @@ from repro_torch.core.exec import (DISPATCH, DecodeState, StagedExecutor,
                                    init_decode_state)
 from repro_torch.core.policy import ExitDecider
 from repro_torch.core.training import cascade_loss
+from repro_torch import parallel
 from repro_torch.models.model import _no_extra, extra_input_shapes
 from repro_torch.models.nn import tree_leaves, tree_unflatten
 from repro_torch.optim import adamw
@@ -198,7 +199,9 @@ def make_decode_loop_step(model, cfg: ModelConfig, chunk: int,
         out.t.copy_(state.t)
 
     def guard(out: LoopBuffers, state: DecodeState):
-        return (out.n < K) & state.active.any()
+        # on a multi-rank mesh every rank loops while any rank's slot is
+        # live (the reference's guard over the whole batch)
+        return (out.n < K) & parallel.agree(state.active.any())
 
     def loop_step(params, token, cache, state: DecodeState, remaining):
         B = token.shape[0]

@@ -41,7 +41,6 @@ from repro_torch.launch.mesh import (make_host_mesh, mesh_shape, mesh_size,
 from repro_torch.launch.shard_rules import param_spec, place, to_local
 from repro_torch.launch.steps import make_optimizer, make_train_step
 from repro_torch.models.model import build_model
-from repro_torch.serving.runtime import MULTI_RANK_MISSING
 from repro_torch.utils import get_logger, resolve_device, tree_size
 
 log = get_logger("train")
@@ -77,8 +76,9 @@ def place_on_mesh(mesh, cfg, params, opt_state):
     if mesh_size(mesh) > 1:
         raise NotImplementedError(
             f"training on a mesh of {mesh_size(mesh)} ranks: multi-rank "
-            f"execution is not ported ({MULTI_RANK_MISSING}, the gradients' "
-            "reduce-scatter)")
+            "execution of the train step is not ported (the row-parallel "
+            "backward, the gradients' reduce-scatter or all-reduce); "
+            "serving runs on one (launch.mesh.make_mesh)")
     placed = (place(mesh, params, param_spec(params, cfg, mesh)),
               place(mesh, opt_state, param_spec(opt_state, cfg, mesh)))
     return placed, to_local(placed)

@@ -51,10 +51,12 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.models import nn, ssm, xlstm
+from repro_torch.parallel import tensor_parallel
 from repro_torch.models.layers import (apply_rope, attend_decode,
-                                       attend_full, attn_init, mlp_apply,
-                                       mlp_init, norm_apply, pick_attend,
-                                       qkv_project)
+                                       attend_full, attn_init, kv_gather,
+                                       kv_group, mlp_apply, mlp_init,
+                                       norm_apply, pick_attend, qkv_project,
+                                       qkv_project_tp, row_parallel)
 from repro_torch.models.moe import moe_apply, moe_init
 
 
@@ -178,18 +180,41 @@ def _paged_kv_view(cache, table):
 
 
 def _self_attention(cfg, params, h, ctx, cache):
-    """Self-attention sublayer for full and decode modes."""
+    """Self-attention sublayer for full and decode modes.
+
+    Over the serve1d shards (a ``model`` axis of more than one rank,
+    :func:`~repro_torch.parallel.tensor_parallel`) each rank
+    projects q for its own heads and its columns of K and V, gathers K
+    and V whole before RoPE (:func:`qkv_project_tp`) and writes the
+    replicated cache whole; it attends with its heads over the KV heads
+    of their group (a strided view of the cache, :func:`kv_group`), and
+    the row-parallel ``wo`` product is completed by an all-reduce."""
+    tp = tensor_parallel()
     x = norm_apply(params["norm"], cfg, h)
+
+    def project(positions):
+        if tp is None:
+            return qkv_project(params, cfg, x, rope_positions=positions)
+        return qkv_project_tp(params, cfg, x, tp, rope_positions=positions)
+
+    def group(k, v):
+        """The K / V heads this rank's q heads read (all without tp)."""
+        if tp is None:
+            return k, v
+        lo, n = kv_group(cfg, q.shape[2], tp)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+
     if ctx["mode"] == "full":
-        q, k, v = qkv_project(params, cfg, x, rope_positions=ctx["positions"])
+        q, k, v = project(ctx["positions"])
+        kg, vg = group(k, v)
         S = x.shape[1]
         if cfg.use_kernels and S % 128 == 0 and q.shape[-1] % 8 == 0:
             from repro_torch.kernels.ops import flash_attention_bshd
-            out = flash_attention_bshd(q, k, v, causal=True,
+            out = flash_attention_bshd(q, kg, vg, causal=True,
                                        window=cfg.attn_window)
         else:
             attend = pick_attend(cfg, S, S, differentiable=cache is None)
-            out = attend(q, k, v, ctx["positions"], ctx["positions"],
+            out = attend(q, kg, vg, ctx["positions"], ctx["positions"],
                          window=cfg.attn_window, causal=True)
         table = ctx.get("block_table")
         if cache is None:
@@ -201,7 +226,7 @@ def _self_attention(cfg, params, h, ctx, cache):
             new_cache = _write_full(cache, k, v, ctx["write_slots"])
     else:
         t = ctx["t"]
-        q, k, v = qkv_project(params, cfg, x, rope_positions=t.view(1, 1))
+        q, k, v = project(t.view(1, 1))
         table = ctx.get("block_table")
         if table is not None:
             new_cache = _write_decode_paged(cache, k, v, ctx["slot"], table)
@@ -215,18 +240,19 @@ def _self_attention(cfg, params, h, ctx, cache):
             # dead slots (ctx["live"] False) do no attention work and get
             # zero rows; live rows are unaffected (attention is
             # batch-separable).  Paged stores are read through the table.
-            out = decode_attention_cache(q, new_cache["k"], new_cache["v"],
-                                         t, kpos, window=cfg.attn_window,
+            kc, vc = group(new_cache["k"], new_cache["v"])
+            out = decode_attention_cache(q, kc, vc, t, kpos,
+                                         window=cfg.attn_window,
                                          live=ctx.get("live"), table=table)
         else:
             kv_k, kv_v = (_paged_kv_view(new_cache, table)
                           if table is not None
                           else (new_cache["k"], new_cache["v"]))
-            out = attend_decode(q, kv_k, kv_v, t, kpos,
+            out = attend_decode(q, *group(kv_k, kv_v), t, kpos,
                                 window=cfg.attn_window)
     B, S = x.shape[0], x.shape[1]
     out = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
-    return out, new_cache
+    return row_parallel(tp, out), new_cache
 
 
 def _attn_backfill(cfg, params, h, ctx, cache):
@@ -237,8 +263,15 @@ def _attn_backfill(cfg, params, h, ctx, cache):
     x = norm_apply(params["norm"], cfg, h)
     hd = cfg.resolved_head_dim
     B, S = x.shape[0], x.shape[1]
-    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    tp = tensor_parallel()
+    if tp is not None:
+        # column shards: K and V gathered whole before RoPE, as in
+        # qkv_project_tp
+        k, v = kv_gather(tp, k, v)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
     table = ctx.get("block_table")
     if ctx["mode"] == "decode":
         k = apply_rope(k, ctx["t"].view(1, 1), cfg.rope_theta)

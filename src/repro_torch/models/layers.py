@@ -16,6 +16,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import tensor_parallel
 from repro_torch.models import nn
 
 NEG_INF = -1e30
@@ -131,6 +132,65 @@ def qkv_project(params, cfg, x, *, rope_positions=None):
         q = apply_rope(q, rope_positions, cfg.rope_theta)
         k = apply_rope(k, rope_positions, cfg.rope_theta)
     return q, k, v
+
+
+def _local_bias(b, cols: int, tp):
+    """This rank's slice of a 1-D bias of a column-parallel projection with
+    ``cols`` local columns: the shard rules replicate 1-D leaves, so each
+    rank takes the columns its weight shard holds."""
+    if b.shape[-1] == cols:
+        return b
+    r = tp.rank("model")
+    return b[r * cols:(r + 1) * cols]
+
+
+def kv_gather(tp, k, v):
+    """The column shards of K and V ((B, S, c) each, this rank's columns)
+    gathered over ``model`` in rank order in one collective: the whole (B,
+    S, KV * hd) K and V, as every rank's replicated KV cache holds them."""
+    kv = tp.all_gather(torch.stack([k, v]), "model")     # (M, 2, B, S, c)
+    B, S = k.shape[0], k.shape[1]
+    full = kv.permute(1, 2, 3, 0, 4).reshape(2, B, S, -1)
+    return full[0], full[1]
+
+
+def kv_group(cfg, n_local_heads: int, tp):
+    """The KV heads [lo, lo + n) this rank's query heads read (GQA): its
+    q heads [r·Hl, (r + 1)·Hl) map to KV head h // (H / KV)."""
+    qpk = cfg.n_heads // cfg.n_kv_heads
+    lo = tp.rank("model") * n_local_heads // qpk
+    return lo, max(1, n_local_heads // qpk)
+
+
+def qkv_project_tp(params, cfg, x, tp, *, rope_positions=None, bias=True):
+    """:func:`qkv_project` over column shards of wq / wk / wv (the serve1d
+    layout): q on this rank's heads; K and V gathered whole over ``model``
+    BEFORE RoPE (a shard of wk may end inside a head), so that every rank
+    writes the same replicated cache.  ``bias=False`` drops the q/k/v
+    biases (the backfill's projection, as in the reference)."""
+    hd = cfg.resolved_head_dim
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if bias and "bq" in params:
+        q = q + _local_bias(params["bq"], q.shape[-1], tp).to(x.dtype)
+        k = k + _local_bias(params["bk"], k.shape[-1], tp).to(x.dtype)
+        v = v + _local_bias(params["bv"], v.shape[-1], tp).to(x.dtype)
+    k, v = kv_gather(tp, k, v)
+    B, S = x.shape[0], x.shape[1]
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if rope_positions is not None:
+        q = apply_rope(q, rope_positions, cfg.rope_theta)
+        k = apply_rope(k, rope_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def row_parallel(tp, y):
+    """The all-reduce (sum over ``model``, in rank order) that completes a
+    row-parallel product's partial sums; ``y`` as it is without one."""
+    return y if tp is None else tp.all_reduce(y, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +409,12 @@ def mlp_init(gen, cfg, d_ff: int | None = None, d_model: int | None = None):
 
 
 def mlp_apply(params, cfg, x):
+    """The MLP; over the serve1d shards (w_up / w_gate by column, w_down
+    by row) its output is completed by an all-reduce over ``model``."""
     up = x @ params["w_up"].to(x.dtype)
     if "w_gate" in params:
         gate = x @ params["w_gate"].to(x.dtype)
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
-    return h @ params["w_down"].to(x.dtype)
+    return row_parallel(tensor_parallel(), h @ params["w_down"].to(x.dtype))

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import tensor_parallel
 from repro_torch.models import nn
 from repro_torch.models.blocks import BLOCKS, layer_kinds
 from repro_torch.models.layers import (attn_init, mlp_init, norm_apply,
@@ -254,19 +255,30 @@ class CascadeModel:
             return params["embed"].T
         return params["lm_head"]
 
-    def exit_logits(self, params, m: int, h):
-        """Exit head m (m < n_exits-1: intermediate; else final)."""
+    def exit_logits(self, params, m: int, h, local: bool = False):
+        """Exit head m (m < n_exits-1: intermediate; else final).
+
+        Over a head sharded by vocab across the ``model`` ranks (serve1d)
+        the product gives this rank's columns: ``local`` returns them (the
+        exit kernels' partial contract reads them), else they are gathered
+        over ``model`` into the whole vocab."""
         cfg = self.cfg
         if m >= self.n_exits - 1:
             x = norm_apply(params["final_norm"], cfg, h)
-            return x @ self._unembed(params).to(x.dtype)
-        e = params["exits"][m]
-        x = norm_apply(e["norm"], cfg, h)
-        if "enh_w1" in e:
-            x = x + F.gelu(x @ e["enh_w1"].to(x.dtype), approximate="tanh") \
-                @ e["enh_w2"].to(x.dtype)
-        head = e["head"] if "head" in e else self._unembed(params)
-        return x @ head.to(x.dtype)
+            head = self._unembed(params)
+        else:
+            e = params["exits"][m]
+            x = norm_apply(e["norm"], cfg, h)
+            if "enh_w1" in e:
+                x = x + F.gelu(x @ e["enh_w1"].to(x.dtype),
+                               approximate="tanh") @ e["enh_w2"].to(x.dtype)
+            head = e["head"] if "head" in e else self._unembed(params)
+        logits = x @ head.to(x.dtype)
+        tp = tensor_parallel()
+        if tp is None or local:
+            return logits
+        parts = tp.all_gather(logits, "model")           # (M, ..., V / M)
+        return torch.cat(list(parts), dim=-1)
 
     def exit_head_params(self, params, m: int):
         """``(norm_w, head)`` when exit head ``m`` fits the fused exit-head
@@ -322,7 +334,19 @@ class CascadeModel:
         ``positions`` (a tensor; ``arange(S)`` by default) when the model
         has them.  Positions past the table read its last row, as the
         reference's clamped gather does."""
-        h = params["embed"][tokens.long()]
+        table = params["embed"]
+        tp = tensor_parallel()
+        if tp is None or table.shape[0] == self.cfg.vocab_size:
+            h = table[tokens.long()]
+        else:
+            # rows sharded by vocab over model: each rank looks up the
+            # tokens its rows hold (zeros elsewhere), and the all-reduce
+            # sums one row and zeros: the row itself, exactly
+            idx = tokens.long() - tp.rank("model") * table.shape[0]
+            hold = (idx >= 0) & (idx < table.shape[0])
+            h = table[idx.clamp(0, table.shape[0] - 1)]
+            h = tp.all_reduce(torch.where(hold[..., None], h,
+                                          torch.zeros_like(h)), "model")
         if "pos_embed" in params:
             if positions is None:
                 positions = torch.arange(tokens.shape[1], device=h.device)

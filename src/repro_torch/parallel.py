@@ -1,0 +1,211 @@
+"""The collectives of a multi-rank mesh, over one mesh axis at a time.
+
+Has no counterpart in the JAX package: there GSPMD's partitioner inserts
+the collectives of a sharded step.  The port writes them out where the
+serve1d layout (``launch/shard_rules.py``) needs them — the row-parallel
+all-reduce after ``wo`` and ``w_down``, the vocab-sharded embedding's
+all-reduce, the K/V all-gather before RoPE, the exit heads' triples
+gathered before the combine, the branch predicates reduced so that every
+rank takes the same branch, and the chunk's rows gathered over ``data`` at
+the host sync.  This module sits below ``models``, ``core`` and
+``serving``, which read it, and above the kernels; ``launch/mesh.py``
+builds a mesh's transport here.
+
+A :class:`Transport` is one rank's collectives of a mesh: per axis
+(``data``, ``model``, and ``world`` for the whole mesh) the ranks, the
+gloo process group and, on CUDA, an IPC group of the all-reduce kernel
+(:mod:`repro_torch.kernels.allreduce`).  Each call takes one backend,
+chosen by the tensor's device and never on a failure: ``gloo`` for CPU
+tensors (an all-gather, then the plain version's rank-ordered reduction,
+``ref_allreduce``), ``ipc`` for CUDA tensors (the kernel, which a CUDA
+graph captures).  Every backend reduces in rank order, so all ranks hold
+the same bits.  The transport counts calls and bytes (the rank's own
+part) per axis.
+
+Whether a step runs tensor-parallel is decided in one place: the active
+transport (:func:`active`, thread-local).  The decode loop and the engine
+— the only owners of a mesh — set it with :func:`activate` around their
+work on a multi-rank mesh; the layers (:func:`tensor_parallel`), the
+executor and the loop's guard (:func:`agree`) only read it.  With none
+active, or an axis of one rank, no collective is made and every function
+computes what it computes without a mesh.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Optional
+
+import torch
+
+AXES = ("data", "model", "world")
+_local = threading.local()
+
+
+class Transport:
+    """One rank's collectives over the axes of a ``(data, model)`` mesh."""
+
+    def __init__(self, mesh, device):
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _get_default_store
+        self.device = torch.device(device)
+        names = tuple(mesh.mesh_dim_names)
+        if names != ("data", "model"):
+            raise ValueError(f"a transport needs a ('data', 'model') mesh, "
+                             f"got {names}")
+        grid = mesh.mesh.tolist()
+        me = dist.get_rank()
+        self.shape = {"data": len(grid), "model": len(grid[0])}
+        self.shape["world"] = self.shape["data"] * self.shape["model"]
+        di, mi = next((i, j) for i, row in enumerate(grid)
+                      for j, r in enumerate(row) if r == me)
+        self.coord = {"data": di, "model": mi,
+                      "world": di * self.shape["model"] + mi}
+        self.ranks = {"data": [row[mi] for row in grid], "model": grid[di],
+                      "world": [r for row in grid for r in row]}
+        self.groups = {"data": mesh.get_group("data"),
+                       "model": mesh.get_group("model"),
+                       "world": dist.group.WORLD}
+        self.calls: Dict[str, int] = dict.fromkeys(AXES, 0)
+        self.bytes: Dict[str, int] = dict.fromkeys(AXES, 0)
+        self.ipc: Dict[str, object] = {}
+        if self.device.type == "cuda":
+            from repro_torch.kernels import allreduce as _ar
+            store = _get_default_store()
+            for axis in AXES:
+                if self.shape[axis] > 1:
+                    self.ipc[axis] = _ar.IpcGroup(
+                        store, f"repro_ipc/{axis}/{min(self.ranks[axis])}",
+                        self.coord[axis], self.shape[axis], self.device)
+            dist.barrier()
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def rank(self, axis: str) -> int:
+        return self.coord[axis]
+
+    def _count(self, x: torch.Tensor, axis: str) -> None:
+        self.calls[axis] += 1
+        self.bytes[axis] += x.numel() * x.element_size()
+
+    def _gloo_parts(self, x: torch.Tensor, axis: str):
+        """The ranks' tensors of ``x``, in rank order, over gloo (as bytes,
+        so any dtype travels)."""
+        import torch.distributed as dist
+        x = x.contiguous()
+        raw = x.view(-1).view(torch.uint8)
+        bufs = [torch.empty_like(raw) for _ in range(self.shape[axis])]
+        dist.all_gather(bufs, raw, group=self.groups[axis])
+        return [b.view(x.dtype).view(x.shape) for b in bufs]
+
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum"
+                   ) -> torch.Tensor:
+        """``op`` (sum or max) of ``x`` over ``axis``, in rank order: a new
+        tensor (``x`` itself on an axis of one rank)."""
+        if self.shape[axis] == 1:
+            return x
+        return self._reduce(x, axis, op)
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ranks' ``x`` over ``axis`` stacked in rank order: (R,
+        *x.shape)."""
+        if self.shape[axis] == 1:
+            return x[None]
+        return self._reduce(x, axis, "gather")
+
+    def _reduce(self, x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
+        """One counted call: the kernel over the axis's IPC group for a
+        CUDA tensor, the plain version over the gloo-gathered parts for a
+        CPU one."""
+        self._count(x, axis)
+        if x.device.type == "cuda":
+            from repro_torch.kernels.allreduce import allreduce
+            return allreduce(x, self.ipc[axis], op)
+        from repro_torch.kernels.ref import ref_allreduce
+        return ref_allreduce(self._gloo_parts(x, axis), op)
+
+    def host_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """A CPU tensor's ranks' copies over ``axis`` through gloo, stacked
+        in rank order (the chunk's sync: no device work, nothing to
+        capture)."""
+        if self.shape[axis] == 1:
+            return x[None]
+        self._count(x, axis)
+        return torch.stack(self._gloo_parts(x.cpu(), axis))
+
+    def gather_rows(self, *arrays):
+        """The whole lane's host arrays from each ``data`` rank's rows:
+        every array (..., B_local) of 4-byte items gathered in one host
+        collective and joined along its last axis in rank order (as they
+        are on a ``data`` axis of one rank)."""
+        import numpy as np
+        if self.shape["data"] == 1:
+            return arrays
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        flat = np.concatenate([a.view(np.int32).ravel() for a in arrays])
+        g = self.host_gather(torch.from_numpy(flat), "data").numpy()
+        out, at = [], 0
+        for a in arrays:
+            parts = [g[r, at:at + a.size].view(a.dtype).reshape(a.shape)
+                     for r in range(g.shape[0])]
+            out.append(np.concatenate(parts, axis=-1))
+            at += a.size
+        return tuple(out)
+
+    def close(self) -> None:
+        """Free the IPC buffers (after a barrier: every rank is past its
+        last launch)."""
+        import torch.distributed as dist
+        if self.ipc:
+            torch.cuda.synchronize(self.device)
+            dist.barrier()
+            for g in self.ipc.values():
+                g.close()
+            self.ipc = {}
+
+
+def transport(mesh, device=None) -> Transport:
+    """The mesh's :class:`Transport`, made at its first request (every rank
+    must make it together: the IPC handles are exchanged then)."""
+    t = getattr(mesh, "_repro_transport", None)
+    if t is None:
+        if device is None:
+            device = mesh.device_type
+        t = Transport(mesh, device)
+        mesh._repro_transport = t
+    return t
+
+
+def active() -> Optional[Transport]:
+    """The transport of the step this thread runs, or None."""
+    return getattr(_local, "transport", None)
+
+
+def tensor_parallel() -> Optional[Transport]:
+    """The active transport when its ``model`` axis has more than one
+    rank: the layers' tensor-parallel route."""
+    t = active()
+    return t if t is not None and t.shape["model"] > 1 else None
+
+
+@contextlib.contextmanager
+def activate(t: Optional[Transport]):
+    """Make ``t`` this thread's active transport inside the block."""
+    prev = active()
+    _local.transport = t
+    try:
+        yield t
+    finally:
+        _local.transport = prev
+
+
+def agree(pred: torch.Tensor) -> torch.Tensor:
+    """A branch predicate (0-d or a vector of bools) made the same on
+    every rank: OR-reduced (max) over the whole mesh when a multi-rank
+    transport is active, as it is."""
+    t = active()
+    if t is None or t.shape["world"] == 1:
+        return pred
+    return t.all_reduce(pred.to(torch.int32).view(-1).float(),
+                        "world", "max").view(pred.shape) > 0

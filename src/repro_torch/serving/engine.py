@@ -88,9 +88,16 @@ hand-written kernels), ``"torch-cpu"`` (their plain versions) or
 (the Pallas interpreter or Mosaic).  :meth:`scrape` renders the reference's
 Prometheus metric names.
 
-``mesh=`` (a 1x1 :class:`DeviceMesh`, ``launch/mesh.py``) goes to the
+``mesh=`` (a :class:`DeviceMesh`, ``launch/mesh.py``) goes to the
 device runtime's loop, which places each lane's carry on it by the shard
-rules; the host runtime refuses a mesh, as the reference's does.
+rules; the host runtime refuses a mesh, as the reference's does.  On a
+mesh of more than one rank (``make_mesh``, the dense family) the engine
+runs SPMD: every rank runs the same engine over the same requests, its
+params are the rank's serve1d shards (:meth:`DeviceDecodeLoop.
+shard_params`), a lane's device cache and DecodeState hold the rank's
+``data`` rows, and each prefill's decisions and each chunk's rows are
+gathered over ``data`` on the host, so every rank's host bookkeeping —
+slots, streams, metrics — is the whole lane's.
 """
 from __future__ import annotations
 
@@ -104,11 +111,13 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.autotune.telemetry import sync_telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exec import (CONF_EMA_DECAY, StagedExecutor,
                                    effective_cohorts)
 from repro_torch.core.macs import segment_macs_per_token
 from repro_torch.kernels.autotune import ensure_tuned
+from repro_torch import parallel
 from repro_torch.models import nn
 from repro_torch.models.model import CascadeModel, extra_input_shapes
 from repro_torch.obs.metrics import MetricsRegistry, engine_metrics_into
@@ -216,6 +225,21 @@ class CascadeServingEngine:
         self.chunk = chunk
         self.cohorts = effective_cohorts(cfg.cascade.n_cohorts, lane_batch)
         self.compactor = DepthCompactor(n_lanes, cfg.cascade.n_components)
+        # the device runtime's loop first: on a multi-rank mesh the params
+        # are the rank's shards and a lane holds the rank's data rows
+        self.loop = (DeviceDecodeLoop(model, cfg, chunk=chunk,
+                                      cache_len=cache_len, mesh=mesh)
+                     if runtime == "device" else None)
+        self.transport = None if self.loop is None else self.loop.transport
+        if self.transport is not None:
+            if lane_batch % self.transport.size("data"):
+                raise ValueError(
+                    f"lane_batch {lane_batch} does not split over a data "
+                    f"axis of {self.transport.size('data')} ranks")
+            self.params = params = self.loop.shard_params(params)
+        self._rows = (slice(0, lane_batch) if self.loop is None
+                      else self.loop.rows(lane_batch))
+        local_batch = self._rows.stop - self._rows.start
         self.executor = StagedExecutor(model, cfg)
         self.decider = self.executor.decider
         self.mac_prefix = segment_macs_per_token(cfg, cache_len)
@@ -226,7 +250,7 @@ class CascadeServingEngine:
                        if self.paged else None)
         # dense-equivalent cache footprint (the stats() memory comparison,
         # in both layouts)
-        tmpl = model.init_cache(lane_batch, cache_len, device="meta")
+        tmpl = model.init_cache(local_batch, cache_len, device="meta")
         self._dense_cache_bytes = n_lanes * sum(
             x.numel() * x.element_size()
             for x in nn.tree_leaves(tmpl["segments"]))
@@ -235,7 +259,7 @@ class CascadeServingEngine:
             lane = {
                 "slots": [_Slot() for _ in range(lane_batch)],
                 "state": self.executor.init_state(
-                    lane_batch, mac_weights=self.mac_prefix, block_tables=(
+                    local_batch, mac_weights=self.mac_prefix, block_tables=(
                         self.pcache.device_tables(i).clone() if self.paged
                         else None)),
                 # host mirror of the lane's position (state.t)
@@ -244,7 +268,7 @@ class CascadeServingEngine:
             if self.paged:
                 lane["kpos"] = self.pcache.fresh_kpos()
             else:
-                lane["cache"] = model.init_cache(lane_batch, cache_len)
+                lane["cache"] = model.init_cache(local_batch, cache_len)
             self.lanes.append(lane)
         self.queue: List[Request] = []
         self.finished: Dict[int, dict] = {}
@@ -267,9 +291,6 @@ class CascadeServingEngine:
         # and never counted in the decode window
         self._compile_seconds = 0.0
         self._decode_warm = False
-        self.loop = (DeviceDecodeLoop(model, cfg, chunk=chunk,
-                                      cache_len=cache_len, mesh=mesh)
-                     if runtime == "device" else None)
         # live thresholds (autotune): the vector every lane decodes with, as
         # pushed (its f32 rounding lives in the lanes' device tensors)
         self._live_thresholds = (tuple(cfg.cascade.thresholds)
@@ -742,6 +763,7 @@ class CascadeServingEngine:
     def _live_mask(self, lane) -> np.ndarray:
         return np.array([not s.done for s in lane["slots"]])
 
+
     def _lane_prefill(self, lane, lane_id: int):
         """(Re)prefill a lane: contexts left-padded to a common length (the
         reference's semantics: the pad tokens are attended over).  In-flight
@@ -781,7 +803,7 @@ class CascadeServingEngine:
         # lane and carry over (the prefill adds its shadow observation)
         old = lane["state"]
         state = self.executor.init_state(
-            self.lane_batch, active=self._live_mask(lane),
+            old.active.shape[0], active=self._live_mask(lane)[self._rows],
             mac_weights=self.mac_prefix, telemetry=old.tel,
             block_tables=(self.pcache.device_tables(lane_id)
                           if self.paged else None))
@@ -789,12 +811,21 @@ class CascadeServingEngine:
             state = state.replace(thresholds=old.thresholds)
         fresh_admits = [s for s in slots if not s.done and not s.generated]
         t_pre = time.perf_counter()
-        d, cache, state = self.executor.prefill(
-            self.params, torch.as_tensor(toks, device=self.device), cache_in,
-            state, extra=self._extra)
+        with parallel.activate(self.transport):
+            d, cache, state = self.executor.prefill(
+                self.params, torch.as_tensor(toks[self._rows],
+                                             device=self.device),
+                cache_in, state, extra=self._extra)
         tok = d.prediction.cpu().numpy()   # syncs the device
         exit_idx = d.exit_index.cpu().numpy()
         conf = d.confidence.cpu().numpy()
+        if self.transport is not None:
+            # the other data ranks' rows, and their shadow observations
+            tok, exit_idx, conf = self.transport.gather_rows(
+                tok.astype(np.int32), exit_idx.astype(np.int32),
+                conf.astype(np.float32))
+            if state.tel is not None:
+                sync_telemetry(state.tel, self.transport)
         dt_pre = time.perf_counter() - t_pre
         self._prefill_seconds += dt_pre
         self._prefills += 1

@@ -44,15 +44,30 @@ so tiles installed after a capture make the lane capture again (counted in
 :attr:`captures`; the stale graphs are dropped) — a replay never launches
 stale tiles.
 
-With ``mesh=`` (a 1x1 :class:`DeviceMesh`, ``launch/mesh.py``
-``make_host_mesh``) a lane's first chunk computes the carry's specs by the
-shard rules (``decode_loop_in_specs``: serve1d weights, the cache, the
-DecodeState, token and budgets batch-sharded), checks every placed axis
-against the mesh and places the params, cache and state on it as DTensors
-(:attr:`DeviceDecodeLoop.placed`).  With one rank each local shard is the
-whole tensor, so nothing is copied and the graphs are captured over the
-local tensors: every replay is the ``mesh=None`` replay.  A mesh of more
-than one rank is refused (:data:`MULTI_RANK_MISSING`).
+With ``mesh=`` (a :class:`DeviceMesh`, ``launch/mesh.py``) a lane's
+first chunk computes the carry's specs by the shard rules
+(``decode_loop_in_specs``: serve1d weights, the cache, the DecodeState,
+token and budgets batch-sharded), checks every placed axis against the
+mesh and places the params, cache and state on it as DTensors
+(:attr:`DeviceDecodeLoop.placed`).  With one rank (``make_host_mesh``)
+each local shard is the whole tensor, so nothing is copied and the graphs
+are captured over the local tensors: every replay is the ``mesh=None``
+replay, and no collective is made.
+
+On a ``(data, model)`` mesh of more than one rank (``make_mesh``, one
+process a rank, the dense family) every rank runs the same loop (SPMD):
+:meth:`DeviceDecodeLoop.shard_params` cuts the rank's serve1d shards from
+the whole params, a lane's cache and state hold the rank's ``data`` rows
+(made at that size), and the step runs over them with the mesh's
+:mod:`~repro_torch.parallel` active — tensor-parallel blocks,
+vocab-sharded embedding and exit heads (the exit kernels' partial
+contract), branch predicates and the guard agreed over the mesh, all of it
+captured (the IPC all-reduce kernel).  At each chunk's sync the chunk's
+(K, B_local) rows, the budgets and the ``segments_run`` counts are
+gathered over ``data`` through gloo on the host, and the telemetry
+counters summed over it, so every rank's engine holds the whole lane.
+What is not ported on more than one rank is refused by name
+(:data:`MULTI_RANK_MISSING`).
 
 On a CPU lane the same iteration runs eagerly, its guard and branches read
 on the host (a device read there costs nothing and takes the same
@@ -64,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Dict, Optional
 
@@ -71,22 +87,44 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.exec import DISPATCH, DecodeState
+from repro_torch.autotune.telemetry import sync_telemetry
+from repro_torch.core.exec import DISPATCH, DecodeState, mesh_cohorts
+from repro_torch.kernels import allreduce
 from repro_torch.kernels import autotune as kernel_autotune
+from repro_torch import parallel
 from repro_torch.kernels.cond_node import CapturedBranches, WarmBranches
-from repro_torch.launch.mesh import AbstractMesh, mesh_size
+from repro_torch.launch.mesh import AbstractMesh, mesh_shape, mesh_size
 from repro_torch.launch.shard_rules import (check_spec, decode_loop_in_specs,
-                                            place)
+                                            param_spec, place, to_local)
 from repro_torch.launch.steps import LoopBuffers, make_decode_loop_step
 from repro_torch.models import nn
 
 
-# what running the decode loop over a mesh of more than one rank still
-# needs (ROADMAP.md, multi-rank execution)
-MULTI_RANK_MISSING = (
-    "the row-parallel all-reduce in the model, the exit heads' "
-    "softmax-max over a vocab sharded across 'model', expert-parallel MoE "
-    "dispatch, data-parallel decode with the telemetry's all-reduce")
+# what serving over a mesh of more than one rank does not have yet
+# (ROADMAP.md Queue 1 item 5), by what asks for it
+MULTI_RANK_MISSING = {
+    "moe": "expert-parallel MoE dispatch (an all-to-all over 'model')",
+    "paged": "the paged KV layout's block dim sharded over 'data'",
+    "family": "the hybrid, ssm, audio and vlm blocks over 'model' (their "
+              "shared-attention, recurrent, encoder and cross-attention "
+              "collectives)",
+}
+
+
+def multi_rank_refusal(cfg, n: int) -> Optional[str]:
+    """Why ``cfg`` cannot be served on a mesh of ``n`` > 1 ranks, or None
+    (the dense family on the dense layout)."""
+    if cfg.n_experts > 0:
+        why = MULTI_RANK_MISSING["moe"]
+    elif cfg.paged_cache.layout == "paged":
+        why = MULTI_RANK_MISSING["paged"]
+    elif cfg.family != "dense":
+        why = MULTI_RANK_MISSING["family"]
+    else:
+        return None
+    return (f"serving {cfg.name} ({cfg.family}) on a mesh of {n} ranks: "
+            f"multi-rank execution of it is not ported ({why}); the dense "
+            "family serves on one")
 
 
 def kernel_provenance(cfg, device) -> dict:
@@ -145,6 +183,23 @@ def _scratch_state(state: DecodeState) -> DecodeState:
     return dataclasses.replace(state, **fields)
 
 
+def _counts(transport) -> dict:
+    """The kernels' launch counters and, on a multi-rank mesh, the
+    transport's calls and bytes per axis (keys ``("collective", kind,
+    axis)``) in one flat dict: what a captured body records."""
+    snap = kernels.launch_snapshot()
+    if transport is not None:
+        for kind in ("calls", "bytes"):
+            for a, v in getattr(transport, kind).items():
+                snap["collective", kind, a] = v
+    return snap
+
+
+def _collective_items(counts: dict):
+    return [(k[1], k[2], v) for k, v in counts.items()
+            if isinstance(k, tuple) and k[0] == "collective"]
+
+
 def _key_of(*tensors) -> tuple:
     return tuple((x.data_ptr(), tuple(x.shape), tuple(x.stride()), x.dtype)
                  for x in tensors)
@@ -188,16 +243,27 @@ class DeviceDecodeLoop:
                  mesh=None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if mesh is not None and mesh_size(mesh) > 1:
-            raise NotImplementedError(
-                f"a device mesh of {mesh_size(mesh)} ranks: multi-rank "
-                f"execution is not ported ({MULTI_RANK_MISSING}); the "
-                "shard rules' specs are computable for any mesh, and the "
-                "decode loop runs on a 1x1 mesh")
+        n = 1 if mesh is None else mesh_size(mesh)
         if isinstance(mesh, AbstractMesh):
+            if n > 1:
+                raise NotImplementedError(
+                    f"a shape-only mesh of {n} ranks: multi-rank serving "
+                    "runs on a DeviceMesh over a world of that many "
+                    "processes (launch.mesh.make_mesh), not on an "
+                    "AbstractMesh, which has no devices")
             raise ValueError("the decode loop places its carry on devices: "
                              "pass a DeviceMesh (make_host_mesh), not a "
                              "shape-only AbstractMesh")
+        self.transport = None
+        if n > 1:
+            why = multi_rank_refusal(cfg, n)
+            if why is not None:
+                raise NotImplementedError(why)
+            model_n = mesh_shape(mesh)["model"]
+            if cfg.n_heads % model_n:
+                raise ValueError(f"a 'model' axis of {model_n} does not "
+                                 f"divide the {cfg.n_heads} attention heads")
+            self.transport = parallel.transport(mesh, model.device)
         self.mesh = mesh
         self.cfg = cfg
         self.model = model
@@ -226,6 +292,13 @@ class DeviceDecodeLoop:
         # with a mesh: each lane's carry as placed on it (DTensors over the
         # lane's own tensors), by lane buffers
         self.placed: Dict[tuple, tuple] = {}
+        # multi-rank: the serve1d specs of the whole params (shard_params)
+        self._param_spec = None
+        # multi-rank on CUDA: the transport's calls and bytes per axis that
+        # the captured replays ran (each body's captured collectives times
+        # its executions, as launches are counted), and the decode steps
+        # they ran
+        self.replayed_collectives = {"steps": 0, "calls": {}, "bytes": {}}
 
     # ------------------------------------------------------------------
     def run_chunk(self, params, token, cache, state: DecodeState, remaining,
@@ -239,6 +312,13 @@ class DeviceDecodeLoop:
         must already mask finished slots.  Returns ``(DecodeChunk, cache,
         state)``: the cache and state are the ones passed in, updated in
         place (``state.segments_run`` gains the chunk's counts)."""
+        if self.transport is not None:
+            return self._run_ranks(params, token, cache, state, remaining,
+                                   active)
+        return self._run_local(params, token, cache, state, remaining,
+                               active)
+
+    def _run_local(self, params, token, cache, state, remaining, active):
         dev = state.active.device
         if self.mesh is not None:
             self._place(params, token, cache, state, remaining)
@@ -265,6 +345,68 @@ class DeviceDecodeLoop:
                 cache, state)
 
     # ------------------------------------------------------------------
+    def shard_params(self, params):
+        """This rank's serve1d shards of the whole ``params`` (every rank
+        holds them alike): the tree of local tensors the engine and the
+        loop run on.  One rank: ``params`` as they are."""
+        if self.transport is None:
+            return params
+        self._param_spec = param_spec(params, self.cfg, self.mesh,
+                                      mode="serve1d")
+        return to_local(place(self.mesh, params, self._param_spec))
+
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a lane of ``batch`` slots (its ``data``
+        block)."""
+        if self.transport is None:
+            return slice(0, batch)
+        D, di = self.transport.size("data"), self.transport.rank("data")
+        return slice(di * batch // D, (di + 1) * batch // D)
+
+    def _run_ranks(self, params, token, cache, state: DecodeState,
+                   remaining, active):
+        """One chunk on a multi-rank mesh: this rank's rows of the lane's
+        inputs (the engine passes the whole lane's), the chunk under the
+        mesh's collectives, then its rows gathered over ``data``."""
+        B = state.active.shape[0] * self.transport.size("data")
+        rows = self.rows(B)
+        token = np.asarray(token, np.int32).reshape(-1, 1)[rows]
+        remaining = np.asarray(remaining, np.int32)[rows]
+        if active is not None:
+            active = np.asarray(active, bool)[rows]
+        before = state.segments_run.copy()
+        with parallel.activate(self.transport):
+            chunk, cache, state = self._run_local(params, token, cache, state,
+                                                  remaining, active)
+        return self._gather_chunk(chunk, state, before), cache, state
+
+    def _gather_chunk(self, chunk: DecodeChunk, state: DecodeState, before
+                      ) -> DecodeChunk:
+        """The chunk's (n, B_local) rows and budgets gathered over ``data``
+        — every rank ran the same n steps (the agreed guard) — its
+        ``segments_run`` counts summed over ``data`` (a cohort split over
+        ``ranks_per`` ranks counted once), and the telemetry counters
+        summed over it; host (gloo) collectives at the sync."""
+        t = self.transport
+        if state.tel is not None:
+            sync_telemetry(state.tel, t)
+        if t.size("data") == 1:
+            return chunk
+        tokens, exits, confs, live, remaining = t.gather_rows(
+            chunk.tokens.astype(np.int32), chunk.exits.astype(np.int32),
+            chunk.confs.astype(np.float32), chunk.live.astype(np.int32),
+            chunk.remaining.astype(np.int32))
+        ran = t.host_gather(torch.from_numpy(
+            (state.segments_run - before).astype(np.int32)), "data")
+        mc = mesh_cohorts(self.cfg.cascade.n_cohorts,
+                          chunk.remaining.shape[0], t)
+        state.segments_run = before + (
+            ran.sum(0).numpy() // mc.ranks_per).astype(np.int32)
+        return dataclasses.replace(chunk, tokens=tokens, exits=exits,
+                                   confs=confs, live=live.astype(bool),
+                                   remaining=remaining)
+
+    # ------------------------------------------------------------------
     def _place(self, params, token, cache, state: DecodeState, remaining):
         """At a lane's first chunk: its carry's specs
         (:func:`~repro_torch.launch.shard_rules.decode_loop_in_specs`),
@@ -277,14 +419,24 @@ class DeviceDecodeLoop:
                       *_state_tensors(state))
         if key in self.placed:
             return
-        B = state.active.shape[0]
+        local = self.transport is not None
+        D = self.transport.size("data") if local else 1
+        B = state.active.shape[0] * D
         p_spec, t_spec, c_spec, s_spec, r_spec, _ = decode_loop_in_specs(
             params, cache, state, self.cfg, self.mesh, B)
-        check_spec(np.shape(token), t_spec, self.mesh, "token")
-        check_spec(np.shape(remaining), r_spec, self.mesh, "remaining")
-        placed = (place(self.mesh, params, p_spec),
-                  place(self.mesh, cache, c_spec),
-                  place(self.mesh, state, s_spec))
+        if local:
+            # the params are the rank's shards (shard_params): their specs
+            # are the whole tree's
+            p_spec = self._param_spec
+            glob = lambda shape: (shape[0] * D,) + tuple(shape[1:])  # noqa
+        else:
+            glob = tuple
+        check_spec(glob(np.shape(token)), t_spec, self.mesh, "token")
+        check_spec(glob(np.shape(remaining)), r_spec, self.mesh,
+                   "remaining")
+        placed = (place(self.mesh, params, p_spec, local=local),
+                  place(self.mesh, cache, c_spec, local=local),
+                  place(self.mesh, state, s_spec, local=local))
         got = (*nn.tree_leaves(placed[0]), *nn.tree_leaves(placed[1]),
                *_state_tensors(placed[2]))
         if any(g.to_local().data_ptr() != k[0] for g, k in zip(got, key)):
@@ -298,7 +450,7 @@ class DeviceDecodeLoop:
         dev = state.active.device
         n_m = self.cfg.cascade.n_components
         step, executor = self.step, self.executor
-        snap = kernels.launch_snapshot()
+        snap = _counts(self.transport)
         # 1. every route and branch once, eagerly, on scratch copies
         scratch = (nn.tree_map(torch.clone, cache), _scratch_state(state),
                    LoopBuffers(self.chunk, B, n_m, dev))
@@ -315,7 +467,13 @@ class DeviceDecodeLoop:
         # 2. the capture
         out = LoopBuffers(self.chunk, B, n_m, dev)
         token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-        branches = CapturedBranches(out.bodies, out.segments, out.dispatch)
+        # the counters' reader holds the transport, not the loop: a graph
+        # in a reference cycle is freed by the cyclic collector at any
+        # allocation, and a graph destroyed during another's capture
+        # invalidates that capture
+        branches = CapturedBranches(out.bodies, out.segments, out.dispatch,
+                                    functools.partial(_counts,
+                                                      self.transport))
         executor.branches = branches
         try:
             with branches.capture():
@@ -323,7 +481,7 @@ class DeviceDecodeLoop:
                     params, token, cache, state, out))
         finally:
             executor.branches = None
-            kernels.set_launch_counts(snap)
+            self._set_counts(snap)
         self.captures += 1
         return _Capture(branches, out, token,
                         torch.zeros(3 * B, dtype=torch.int32, device=dev))
@@ -368,7 +526,12 @@ class DeviceDecodeLoop:
                 cap.branches.graph.replay()
             host.copy_(out.flat, non_blocking=True)
         # the ONE device -> host sync of the chunk
-        torch.cuda.current_stream(dev).synchronize()
+        try:
+            torch.cuda.current_stream(dev).synchronize()
+        except RuntimeError:
+            # a collective that waited past its bound trapped: say which
+            allreduce.raise_if_timed_out()
+            raise
         self.host_syncs += 1
         seconds = time.perf_counter() - t0
         if compiled:
@@ -385,14 +548,29 @@ class DeviceDecodeLoop:
             np.int32)
         for k, c in zip(DISPATCH, h["dispatch"]):
             self.executor.dispatch[k] += int(c)
-        kernels.add_launch_counts(cap.branches.replayed_launches(
-            h["bodies"], K))
+        self._add_counts(cap.branches.replayed_launches(h["bodies"], K), n)
         return (DecodeChunk(tokens=rows("tokens"), exits=rows("exits"),
                             confs=rows("confs", np.float32),
                             live=rows("live").astype(bool), n_steps=n,
                             remaining=h["remaining"].copy(), seconds=seconds,
                             compiled=compiled, t_host=t0, t=int(h["t"][0])),
                 cache, state)
+
+    def _set_counts(self, snap: dict) -> None:
+        """Put every counter of :func:`_counts` back to ``snap``."""
+        kernels.set_launch_counts(snap)
+        for kind, a, v in _collective_items(snap):
+            getattr(self.transport, kind)[a] = v
+
+    def _add_counts(self, delta: dict, steps: int) -> None:
+        """Add what ``steps`` decode steps' replays ran (a :func:`_counts`-
+        shaped dict) to the counters and :attr:`replayed_collectives`."""
+        kernels.add_launch_counts(delta)
+        rep = self.replayed_collectives
+        rep["steps"] += steps
+        for kind, a, v in _collective_items(delta):
+            getattr(self.transport, kind)[a] += v
+            rep[kind][a] = rep[kind].get(a, 0) + v
 
     def _host_buffer(self, key, n: int) -> torch.Tensor:
         """A pinned int32 host buffer, one per (role, size), reused."""

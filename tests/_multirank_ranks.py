@@ -1,0 +1,147 @@
+"""What each rank of ``tests/test_torch_multirank.py`` runs, in its own
+process (spawned by the test, so this module imports no JAX): it joins a
+world of gloo ranks through a ``FileStore``, builds the port's mesh and
+serves, and puts a picklable result on a queue."""
+from __future__ import annotations
+
+import io
+import traceback
+
+import numpy as np
+import torch
+
+
+def _join(rank, world, sizes, init_file):
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    return make_mesh(sizes, "cpu", rank=rank, world_size=world,
+                     init_file=init_file)
+
+
+def run(target, rank, world, sizes, init_file, args, q):
+    """``target(mesh, rank, *args)`` on a fresh mesh; its result (or the
+    error) goes to ``q`` as ``(rank, result, error)``."""
+    import torch.distributed as dist
+    try:
+        mesh = _join(rank, world, sizes, init_file)
+        q.put((rank, _bytes(target(mesh, rank, *args)), None))
+    except BaseException:  # noqa: BLE001 (reported to the test)
+        q.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def serve_tasks(rank, tasks, results):
+    """A pooled rank: runs each ``(target, sizes, store file, args)`` task
+    of its queue (:func:`run`, a fresh world each) until None; imports
+    torch and the port once for every mesh the tests ask for."""
+    while True:
+        task = tasks.get()
+        if task is None:
+            return
+        target, sizes, init, args = task
+        run(target, rank, sizes[0] * sizes[1], sizes, init, args, results)
+
+
+def _bytes(result) -> bytes:
+    """``result`` serialised whole (tensors included): a tensor put on a
+    queue as it is would be shared through a descriptor that dies with
+    this process."""
+    buf = io.BytesIO()
+    torch.save(result, buf)
+    return buf.getvalue()
+
+
+def load(raw: bytes):
+    return torch.load(io.BytesIO(raw), weights_only=False)
+
+
+def transport_case(mesh, rank, seed):
+    """Every collective of the transport on each axis: sums and maxima of
+    f32, bf16 and int32 tensors (one per rank, from ``seed``), all-gathers,
+    and the predicate agreement."""
+    from repro_torch import parallel
+    t = parallel.transport(mesh)
+    g = torch.Generator().manual_seed(seed + 100 * rank)
+    out = {"coord": dict(t.coord)}
+    for axis in ("data", "model", "world"):
+        x32 = torch.randn(4, 64, generator=g)
+        xbf = torch.randn(4, 64, generator=g).to(torch.bfloat16)
+        xi = torch.randint(0, 9, (3,), generator=g, dtype=torch.int32)
+        out[axis] = {
+            "inputs": [x32, xbf, xi],
+            "sum32": t.all_reduce(x32, axis), "sumbf": t.all_reduce(xbf, axis),
+            "max32": t.all_reduce(x32, axis, "max"),
+            "gather": t.all_gather(xbf, axis),
+            "maxi": t.all_reduce(xi, axis, "max"),
+        }
+    with parallel.activate(t):
+        out["agree"] = parallel.agree(torch.tensor(rank == 1)).item()
+    out["calls"], out["bytes"] = dict(t.calls), dict(t.bytes)
+    return out
+
+
+def serve_case(mesh, rank, cfg, np_params, prompts, budget, engine_kw,
+               refusals):
+    """The port's engine on the device runtime over ``mesh`` (CPU lanes),
+    from the reference's weights bridged here: its streams, the lanes'
+    carried ``segments_run``, the merged telemetry and the transport's
+    counts; with ``refusals`` also the errors of what the mesh refuses."""
+    from repro_torch.autotune.telemetry import merge_telemetry
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import CascadeServingEngine, Request
+    params = params_from_jax(np_params, cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    eng = CascadeServingEngine(cfg, model, params, runtime="device",
+                               device="cpu", mesh=mesh, **engine_kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=budget))
+    for _ in range(200):
+        if not eng.queue and all(s.done for ln in eng.lanes
+                                 for s in ln["slots"]):
+            break
+        eng.step()
+    out = {
+        "finished": {r: (f["tokens"], f["exit_depths"], f["confs"])
+                     for r, f in sorted(eng.finished.items())},
+        "carried": np.sum([ln["state"].segments_run for ln in eng.lanes],
+                          axis=0).tolist(),
+        "telemetry": (merge_telemetry(eng.lane_telemetry())
+                      if cfg.autotune.enabled else None),
+        "calls": dict(eng.transport.calls),
+        "bytes": dict(eng.transport.bytes),
+        "local_batch": int(eng.lanes[0]["state"].active.shape[0]),
+        "wq_cols": int(eng.params["segments"][0][0]["attn"]["wq"].shape[-1]),
+    }
+    if refusals:
+        out["refused"] = _refusals(mesh, cfg, model, params, engine_kw)
+    return out
+
+
+def _refusals(mesh, cfg, model, params, engine_kw):
+    """The error each unported multi-rank request raises, by name."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serving.engine import CascadeServingEngine
+    from repro_torch.serving.runtime import DeviceDecodeLoop
+    out = {}
+    asks = {
+        "moe": (reduced(get_config("mixtral-8x7b")), model),
+        "paged": (cfg.with_paged_cache(layout="paged", block_size=8), model),
+        "hybrid": (reduced(get_config("zamba2-1.2b")), model),
+        "heads": (cfg.replace(n_heads=3), model),
+    }
+    for name, (c, m) in asks.items():
+        try:
+            DeviceDecodeLoop(m, c, chunk=4, mesh=mesh)
+            out[name] = None
+        except (NotImplementedError, ValueError) as err:
+            out[name] = f"{type(err).__name__}: {err}"
+    try:
+        CascadeServingEngine(cfg, model, params, runtime="host",
+                             device="cpu", mesh=mesh, **engine_kw)
+        out["host"] = None
+    except ValueError as err:
+        out["host"] = f"ValueError: {err}"
+    return out

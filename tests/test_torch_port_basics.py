@@ -374,8 +374,8 @@ def test_unported_configurations_are_refused():
     kw = dict(lane_batch=2, n_lanes=1, cache_len=32, device="cpu")
     # mesh sharding is ported (slice 20): the host runtime refuses a mesh
     # with the reference's error; the device runtime takes a 1x1 device
-    # mesh and refuses a shape-only one and any of more than one rank
-    # (multi-rank execution is not ported)
+    # mesh and refuses a shape-only one (of more than one rank: multi-rank
+    # serving needs a DeviceMesh of that many processes)
     with pytest.raises(ValueError, match="runtime='device'"):
         CascadeServingEngine(cfg, model, params, mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="2 ranks: multi-rank"):

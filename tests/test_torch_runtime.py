@@ -282,7 +282,8 @@ def test_decode_loop_refuses_bad_arguments(weights):
     model = build_model(cfg, device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         DeviceDecodeLoop(model, cfg, chunk=0)
-    # a mesh of more than one rank: multi-rank execution is not ported
+    # a shape-only mesh of more than one rank: multi-rank serving runs on
+    # a DeviceMesh of that many processes (make_mesh), never on one
     with pytest.raises(NotImplementedError, match="2 ranks: multi-rank"):
         DeviceDecodeLoop(model, cfg, chunk=4,
                          mesh=AbstractMesh((2, 1), ("data", "model")))
