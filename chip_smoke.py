@@ -73,7 +73,8 @@ source, all at once).  Phases, each of which fails the run on a miss:
    runtimes in turns at (0.9, 0.9, 0.0) and (0, 0, 0), every decode
    attention on the dense route over views paged_gather gathers (one
    gather a decode attention), the streams the dense layout's;
-7. slice 8 at full width: the device runtime (chunk 8: a captured CUDA
+7. slice 8 at full width cut to RUNTIME_LAYERS: the device runtime
+   (chunk 8: a captured CUDA
    graph replayed 8 times a lane a dispatch, the cond_batch skips as
    conditional nodes, one host sync a chunk) against the host runtime in
    turns (host, device, device, host) — dense with one cohort and paged
@@ -89,7 +90,8 @@ source, all at once).  Phases, each of which fails the run on a miss:
    with the cohort scatter vs cond_batch, each on the dense and the paged
    layout — identical token and exit streams; and the device runtime
    against the host runtime in select and cond_batch, dense and paged;
-9. slice 9 at full width: autotune (exit telemetry with a shadow step
+9. slice 9 at full width cut to RUNTIME_LAYERS: autotune (exit
+   telemetry with a shadow step
    every 4 positions, live thresholds the exit kernels read from device
    memory) — the device runtime with autotune off and on in turns (off,
    on, on, off) at (0.9, 0.9, 0.0) and (0, 0, 0), one cohort and two with
@@ -2186,8 +2188,31 @@ def phase_paged_gather_full_width(params):
     return out
 
 
-def phase_device_runtime(params, mixed):
-    """Slice 8's path at full width: the device runtime (K = 8 tokens a
+# the depth of the device runtime's and autotune's cells: qwen2.5-3b's
+# widths cut to 6 of its 36 layers, the trained cell's cut (slice 23 cut
+# them for the script's time limit: the host runtime they are held
+# against costs ~12x the device runtime a layer); each draws its own
+# seed-0 weights
+RUNTIME_LAYERS = 6
+
+
+def _runtime_cell():
+    """qwen2.5-3b cut to :data:`RUNTIME_LAYERS`, kernels on, cond_batch,
+    and its seed-0 params on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config("qwen2.5-3b").replace(
+        n_layers=RUNTIME_LAYERS, use_kernels=True).with_cascade(
+            exit_mode="cond_batch")
+    params = build_model(base, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(0))
+    return base, params
+
+
+def phase_device_runtime(mixed):
+    """Slice 8's path at full width cut to :data:`RUNTIME_LAYERS`
+    (:func:`_runtime_cell`): the device runtime (K = 8 tokens a
     lane a dispatch from a captured CUDA graph, cond_batch skips as IF
     nodes, one host sync a chunk) against the host runtime, in turns
     (host, device, device, host), on the 8 prompts of phase 3 with 32
@@ -2202,14 +2227,13 @@ def phase_device_runtime(params, mixed):
     every launch count and route agrees, the device runtime synced once
     per lane chunk, captured one graph per lane and no replay synced (they
     run under ``torch.cuda.set_sync_debug_mode("error")``, see
-    :func:`serve`).  Returns the launches of the device runtime's dense
-    one-cohort run at (0.9, 0.9, 0.0)."""
+    :func:`serve`).  ``mixed`` is phase 4's vector, found on the 36-layer
+    model.  Returns the launches of the device runtime's dense one-cohort
+    run at (0.9, 0.9, 0.0)."""
     import statistics as stats_mod
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
-        exit_mode="cond_batch")
+    base, params = _runtime_cell()
     two = base.with_cascade(n_cohorts=2, cohort_layout="major")
     reqs = make_requests(8, (128, 256), base.vocab_size, 32, seed=0)
     waves = make_requests(16, (128, 256), base.vocab_size, 16, seed=0)
@@ -2301,11 +2325,16 @@ MESH_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
 MESH_NEW_TOKENS = 32
 # peak device memory with the mesh against without (placing copies nothing)
 MESH_PEAK_SLACK = 64 << 20
+# the mesh_train phase's depth: 6 of qwen2.5-3b's 36 layers (slice 23 cut
+# it to keep the script near its time with the multi-rank train phase)
+MESH_TRAIN_LAYERS = 6
 
 
 def _two_rank_refusals(cfg, model, params):
-    """A mesh of two ranks asked of the engine, of the trainer's placement
-    and of the production layout: each refused, by name."""
+    """A shape-only mesh of two ranks asked of the engine and of the
+    trainer's placement, and the production layout in a world of one:
+    each refused, by name (a MoE config on a real two-rank mesh is phase
+    "multirank_train"'s, :func:`_mr_train_refusals`)."""
     from repro_torch.launch.mesh import AbstractMesh, production_device_mesh
     from repro_torch.launch.train import place_on_mesh
     two = AbstractMesh((2, 1), ("data", "model"))
@@ -2314,7 +2343,7 @@ def _two_rank_refusals(cfg, model, params):
             ("engine", lambda: make_engine(cfg, model, params,
                                            runtime="device", mesh=two,
                                            **MESH_ENGINE)),
-            ("train", lambda: place_on_mesh(two, cfg, {}, {}))):
+            ("train", lambda: place_on_mesh(two, cfg, {}))):
         try:
             call()
             fail(f"mesh: a 2-rank mesh was not refused by the {what}")
@@ -2434,24 +2463,25 @@ def phase_mesh(model, params, mixed, smi):
 
 
 def phase_mesh_train(smi):
-    """``launch.train`` at phase "train"'s config (full-width qwen2.5-3b,
-    8 steps, batch 4, seq 64) with no mesh and with its params and AdamW
-    state placed on the 1x1 device mesh (no mesh, mesh): the losses equal
-    bit for bit, and the peak memory within :data:`MESH_PEAK_SLACK`."""
+    """``launch.train`` at phase "train"'s widths (qwen2.5-3b cut to
+    :data:`MESH_TRAIN_LAYERS` layers, 8 steps, batch 4, seq 64) with no
+    mesh and with its params and AdamW state placed on the 1x1 device mesh
+    (no mesh, mesh): the losses equal bit for bit, and the peak memory
+    within :data:`MESH_PEAK_SLACK`."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import train
     t_phase = time.perf_counter()
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config("qwen2.5-3b").replace(n_layers=MESH_TRAIN_LAYERS)
     mesh = make_host_mesh(DEV)
     out = {}
     for which in ("none", "mesh"):
         _free_card()
         torch.cuda.reset_peak_memory_stats()
-        params, summary = train(cfg, torch.device(DEV), 8, 4, 64,
-                                mesh=mesh if which == "mesh" else None,
-                                log_every=8)
+        params, _, summary = train(cfg, torch.device(DEV), 8, 4, 64,
+                                   mesh=mesh if which == "mesh" else None,
+                                   log_every=8)
         del params
         out[which] = summary
     _free_card()
@@ -2463,7 +2493,8 @@ def phase_mesh_train(smi):
     peaks = {w: s["max_memory_allocated"] for w, s in out.items()}
     if abs(peaks["mesh"] - peaks["none"]) > MESH_PEAK_SLACK:
         fail(f"mesh train: peak memory {peaks}")
-    emit({"phase": "mesh_train", "config": "qwen2.5-3b", "steps": 8,
+    emit({"phase": "mesh_train", "config": "qwen2.5-3b",
+          "n_layers": MESH_TRAIN_LAYERS, "steps": 8,
           "batch": 4, "seq": 64, "order": "none, mesh",
           "losses_bit_equal": True, "losses": out["mesh"]["losses"],
           "step_ms": {w: s["step_ms"] for w, s in out.items()},
@@ -2553,8 +2584,9 @@ def phase_peaks(dev, gen, smi):
 AUTOTUNE = dict(enabled=True, bins=32, shadow_every=4)
 
 
-def phase_autotune(params):
-    """Slice 9's path at full width (dense, lane_batch 4, 2 lanes,
+def phase_autotune():
+    """Slice 9's path at full width cut to :data:`RUNTIME_LAYERS`
+    (:func:`_runtime_cell`; dense, lane_batch 4, 2 lanes,
     cache_len 512, chunk 8, autotune with 32 bins and a shadow step every
     4 positions, 8 requests x 32 tokens):
 
@@ -2576,10 +2608,8 @@ def phase_autotune(params):
     (0, 0, 0): {variant: launches}."""
     import statistics as stats_mod
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    base = get_config("qwen2.5-3b").replace(use_kernels=True).with_cascade(
-        exit_mode="cond_batch")
+    base, params = _runtime_cell()
     reqs = make_requests(8, (128, 256), base.vocab_size, 32, seed=0)
     kw = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
     variants = [
@@ -2645,7 +2675,8 @@ def phase_autotune(params):
                                        for r in rr)
                    for w, rr in runs.items()}
             emit({"phase": "autotune", "config": "qwen2.5-3b",
-                  "dtype": base.dtype, "variant": name,
+                  "n_layers": base.n_layers, "dtype": base.dtype,
+                  "variant": name,
                   "thresholds": list(ths), "chunk": kw["chunk"],
                   "requests": 8, "max_new_tokens": 32, "autotune": AUTOTUNE,
                   "order": "off, on, on, off", "identical": True,
@@ -5641,9 +5672,10 @@ def phase_hybrid(smi):
 # select mode; never an attention kernel
 SSM = {"rmsnorm", "exit_update"}
 SSM_ARCH = "xlstm-350m"
-# the ssm phase's depth: 12 of xlstm-350m's 24 layers (slice 22 cut it to
-# keep the script inside its limit with the multi-rank phase)
-SSM_LAYERS = 12
+# the ssm phase's depth: 8 of xlstm-350m's 24 layers (slice 22 cut it to
+# 12 to keep the script inside its limit with the multi-rank phase, slice
+# 23 to 8 with the multi-rank train phase: one sLSTM layer of every six)
+SSM_LAYERS = 8
 # one lane prefill of 4 fresh rows of 256 tokens (one mLSTM chunk; the
 # sLSTM scan a cell a position)
 SSM_PREFILL = (4, 256)
@@ -6673,7 +6705,7 @@ def phase_examples(dev, gen, smi):
 # d), on 2 and 4 ranks; MR_CALLS calls timed in runs of 20
 MR_SHAPES = ((4, D_MODEL), (4 * 256, D_MODEL))
 MR_RANKS = (2, 4)
-MR_CALLS = 200
+MR_CALLS = 60
 # (c): the exact-stream meshes at 4 layers in f32; (d): the main cell
 MR_PARITY_LAYERS = 4
 MR_PARITY_MESHES = ((1, 2), (2, 1), (2, 2))
@@ -7185,7 +7217,7 @@ def _mr_agree(tag, ranks, want, floats=False):
                     fail(f"{tag} rank {r}: request {rid}'s confidences")
 
 
-def phase_multirank(dev, gen, smi, mixed):
+def phase_multirank(dev, gen, smi, mixed, pool):
     """Slice 22: the dense cascade served over a ``(data, model)`` mesh of
     2 and 4 rank processes on the one card (``make_mesh``: gloo for the
     host, the IPC all-reduce kernel for every collective of the captured
@@ -7196,75 +7228,72 @@ def phase_multirank(dev, gen, smi, mixed):
     select, megakernel, cohort scatter, 8 requests x (128/256 + 16)): the
     first decode step's logits against the one-rank model's, the streams'
     agreement, µs per token, the collectives per step and the launches
-    (every kernel of the path, the all-reduce included).  Returns
-    {"transport", "exit", "launches", "cell"}."""
+    (every kernel of the path, the all-reduce included).  The rank
+    processes are ``pool``'s (four).  Returns {"transport", "exit",
+    "launches", "cell"}."""
     import torch
     t_phase = time.perf_counter()
     mode = subprocess.run(
         ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
-    pool = _RankPool(4)
-    try:
-        exit_cases = phase_multirank_exit(dev, gen)
-        lap = {"exit": time.perf_counter() - t_phase}
-        transport = phase_multirank_transport(pool)
-        lap["transport"] = time.perf_counter() - t_phase - sum(lap.values())
-        # (c): a threshold vector that splits the exits, from a one-rank
-        # run at (0, 0, 0)
-        parity = dict(layers=MR_PARITY_LAYERS, dtype="float32", seed=1,
-                      new=MR_PARITY_NEW, engine=MR_ENGINE, autotune=True,
-                      thresholds=(0.0, 0.0, 0.0))
-        th = _median_threshold({rid: {"confs": c} for rid, c in
-                                _one_rank(parity)["confs"].items()})
-        parity["thresholds"] = (th, th, 0.0)
-        want = _one_rank(parity)
-        depths = {d for _, e in want["streams"].values() for d in e}
-        if len(depths) < 2:
-            fail(f"multi-rank parity: every token exits at {depths}")
-        parity_out = {}
-        for sizes in MR_PARITY_MESHES:
-            got = pool.run(sizes, "_mr_serve", parity)
-            tag = f"multi-rank parity {sizes[0]}x{sizes[1]}"
-            _mr_agree(tag, got, want, floats=True)
-            for r, g in enumerate(got):
-                # with the lane's 2 cohorts split over 2 data ranks a rank
-                # steps one whole cohort: nothing to scatter
-                check_launched(f"{tag} rank {r}", g["launches"],
-                               MULTIRANK - ({"cohort_scatter"}
-                                            if sizes[0] > 1 else set()))
-            parity_out[f"{sizes[0]}x{sizes[1]}"] = {
-                "identical": True, "calls": got[0]["calls"],
-                "bytes": got[0]["bytes"], "seconds": got[0]["seconds"],
-                "local_batch": got[0]["local_batch"]}
-        # the exit-update kernel's partial route on a served path: the
-        # megakernel off on 1 x 2 (the exits' logits, then partial, gather
-        # and combine); its streams the megakernel run's (kernel routes
-        # agree on ints, as the route-parity phase holds)
-        got = pool.run((1, 2), "_mr_serve", {**parity, "megakernel": False})
+    exit_cases = phase_multirank_exit(dev, gen)
+    lap = {"exit": time.perf_counter() - t_phase}
+    transport = phase_multirank_transport(pool)
+    lap["transport"] = time.perf_counter() - t_phase - sum(lap.values())
+    # (c): a threshold vector that splits the exits, from a one-rank
+    # run at (0, 0, 0)
+    parity = dict(layers=MR_PARITY_LAYERS, dtype="float32", seed=1,
+                  new=MR_PARITY_NEW, engine=MR_ENGINE, autotune=True,
+                  thresholds=(0.0, 0.0, 0.0))
+    th = _median_threshold({rid: {"confs": c} for rid, c in
+                            _one_rank(parity)["confs"].items()})
+    parity["thresholds"] = (th, th, 0.0)
+    want = _one_rank(parity)
+    depths = {d for _, e in want["streams"].values() for d in e}
+    if len(depths) < 2:
+        fail(f"multi-rank parity: every token exits at {depths}")
+    parity_out = {}
+    for sizes in MR_PARITY_MESHES:
+        got = pool.run(sizes, "_mr_serve", parity)
+        tag = f"multi-rank parity {sizes[0]}x{sizes[1]}"
+        _mr_agree(tag, got, want, floats=True)
         for r, g in enumerate(got):
-            tag = f"multi-rank parity 1x2 megakernel off rank {r}"
-            if g["streams"] != want["streams"] or \
-                    g["carried"] != want["carried"]:
-                fail(f"{tag}: streams or segments_run differ from the "
-                     "one-rank megakernel run's")
-            check_launched(tag, g["launches"],
-                           MULTIRANK - {"megakernel"})
-            eu = g["exit_update_routes"]
-            if not (eu["partial"] and eu["partial"] == eu["combine"]):
-                fail(f"{tag}: exit_update routes {eu}")
-        parity_out["1x2_exit_update"] = {
-            "identical": True, "exit_update_routes": got[0][
-                "exit_update_routes"], "launches": got[0]["launches"]}
-        lap["parity"] = time.perf_counter() - t_phase - sum(lap.values())
-        # (d): the main cell
-        cell = dict(layers=MR_LAYERS, dtype="bfloat16", seed=0,
-                    new=MR_NEW_TOKENS, engine=MR_ENGINE, probe=True,
-                    thresholds=(mixed, 0.9, 0.0))
-        one = _one_rank(cell)
-        got = pool.run(MR_MESH, "_mr_serve", cell)
-        lap["cell"] = time.perf_counter() - t_phase - sum(lap.values())
-    finally:
-        pool.close()
+            # with the lane's 2 cohorts split over 2 data ranks a rank
+            # steps one whole cohort: nothing to scatter
+            check_launched(f"{tag} rank {r}", g["launches"],
+                           MULTIRANK - ({"cohort_scatter"}
+                                        if sizes[0] > 1 else set()))
+        parity_out[f"{sizes[0]}x{sizes[1]}"] = {
+            "identical": True, "calls": got[0]["calls"],
+            "bytes": got[0]["bytes"], "seconds": got[0]["seconds"],
+            "local_batch": got[0]["local_batch"]}
+    # the exit-update kernel's partial route on a served path: the
+    # megakernel off on 1 x 2 (the exits' logits, then partial, gather
+    # and combine); its streams the megakernel run's (kernel routes
+    # agree on ints, as the route-parity phase holds)
+    got = pool.run((1, 2), "_mr_serve", {**parity, "megakernel": False})
+    for r, g in enumerate(got):
+        tag = f"multi-rank parity 1x2 megakernel off rank {r}"
+        if g["streams"] != want["streams"] or \
+                g["carried"] != want["carried"]:
+            fail(f"{tag}: streams or segments_run differ from the "
+                 "one-rank megakernel run's")
+        check_launched(tag, g["launches"],
+                       MULTIRANK - {"megakernel"})
+        eu = g["exit_update_routes"]
+        if not (eu["partial"] and eu["partial"] == eu["combine"]):
+            fail(f"{tag}: exit_update routes {eu}")
+    parity_out["1x2_exit_update"] = {
+        "identical": True, "exit_update_routes": got[0][
+            "exit_update_routes"], "launches": got[0]["launches"]}
+    lap["parity"] = time.perf_counter() - t_phase - sum(lap.values())
+    # (d): the main cell
+    cell = dict(layers=MR_LAYERS, dtype="bfloat16", seed=0,
+                new=MR_NEW_TOKENS, engine=MR_ENGINE, probe=True,
+                thresholds=(mixed, 0.9, 0.0))
+    one = _one_rank(cell)
+    got = pool.run(MR_MESH, "_mr_serve", cell)
+    lap["cell"] = time.perf_counter() - t_phase - sum(lap.values())
     rels = {k: [float((a - b).norm() / b.norm())
                 for a, b in zip(got[0]["probe"][k], one["probe"][k])]
             for k in ("prefill", "decode")}
@@ -7327,6 +7356,369 @@ def phase_multirank(dev, gen, smi, mixed):
             "exit_update_path": parity_out["1x2_exit_update"],
             "max_abs_err": max(c["max_abs_err"] for rs in transport.values()
                                for r in rs for c in r)}
+
+
+# ---------------------------------------------------------------------------
+# slice 23: multi-rank training, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (a): the reduce-scatter on 2 and 4 ranks, at a whole input (R x n) of
+# 16 KB and of 64 MB (past allreduce.CAP: split into rank-sliced chunks),
+# its calls timed in runs; gloo's through the host, fewer
+MRT_RS_BYTES = (16 << 10, 64 << 20)
+MRT_RS_CALLS = {16 << 10: 40, 64 << 20: 10}
+MRT_RS_LIB_CALLS = {16 << 10: 20, 64 << 20: 3}
+# (b): qwen2.5-3b at its published widths cut to 6 of 36 layers in f32 (the
+# trained phase's cut), train() for 8 steps of batch 4 x seq 64 on each
+# mesh against the one-rank train()
+MRT_LAYERS = 6
+MRT_STEPS, MRT_BATCH, MRT_SEQ = 8, 4, 64
+MRT_MESHES = ((1, 2), (2, 1))
+# sound runs read 1.5e-7 - 2.3e-7 relative on an H100; a planted gradient
+# fault (scripts/probe_multirank_train_faults.py: copy_to's backward
+# without its all-reduce, an FSDP gradient sliced instead of
+# reduce-scattered) 2.2e-3 - 3.2e-3 from the second step on
+MRT_LOSS_RTOL = 1e-5
+# a sign flip of a rounding-level gradient moves a weight at most 2 lr a
+# step under AdamW (make_optimizer's lr 3e-4): the final params' bound
+MRT_PARAM_ATOL = 2 * 3e-4 * MRT_STEPS
+# ... and such flips are rare: at most this share of the params' elements
+# ends more than 1e-5 from the one-rank run's (the CPU tests' FAR_SHARE);
+# a wrong gradient of a leaf moves nearly all of its elements
+MRT_FAR_SHARE = 1e-3
+# kernels on the training path: the collectives (use_kernels is off: no
+# kernel has a backward)
+MULTIRANK_TRAIN = {"allreduce", "reduce_scatter"}
+
+
+def _mrt_config():
+    from repro_torch.configs import get_config
+    return get_config("qwen2.5-3b").replace(n_layers=MRT_LAYERS,
+                                            dtype="float32")
+
+
+def _mr_reduce_scatter(mesh, rank):
+    """(a) on one rank of a (1, R) mesh: at each size and dtype the
+    kernel's reduce-scatter over the world against ``ref_reduce_scatter``
+    of every rank's input (drawn here on the card from each rank's seed),
+    bit for bit; each call's time (CUDA events around runs of calls), the
+    all-reduce kernel followed by a slice, and the library time: PyTorch's
+    gloo all-reduce of the same CUDA tensor over the mesh's world group
+    followed by a slice (gloo stages through the host; timed here, never
+    called by the port)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import parallel
+    from repro_torch.kernels import allreduce
+    from repro_torch.kernels.ref import ref_reduce_scatter
+    t = parallel.transport(mesh)
+    R = t.size("world")
+    out = []
+
+    def timed(fn, calls, runs):
+        per = []
+        for _ in range(runs):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            for _ in range(calls):
+                fn()
+            e1.record()
+            torch.cuda.synchronize()
+            per.append(e0.elapsed_time(e1) / calls)
+        return per
+
+    for nbytes in MRT_RS_BYTES:
+        for dt in (torch.bfloat16, torch.float32):
+            n = nbytes // (R * torch.empty((), dtype=dt).element_size())
+            parts = []
+            for r in range(R):
+                g = torch.Generator(device=DEV).manual_seed(2000 + 31 * r +
+                                                            nbytes % 997)
+                parts.append(torch.randn((R, n), generator=g, device=DEV)
+                             .to(dt))
+            x = parts[rank]
+            name = str(dt).split(".")[-1]
+            tag = f"reduce_scatter {R} ranks {nbytes} B {name}"
+            launches = allreduce.reduce_scatter.launches
+            got = t.reduce_scatter(x, "world")
+            torch.cuda.synchronize()
+            want = ref_reduce_scatter(parts, rank)
+            check_equal(tag, got, want)
+            calls = MRT_RS_CALLS[nbytes]
+            per = timed(lambda: t.reduce_scatter(x, "world"), calls, 5)
+            chunks = allreduce.reduce_scatter.launches - launches
+            ar = timed(lambda: t.all_reduce(x, "world")[rank], calls, 5)
+            lib = x.clone()
+            dist.all_reduce(lib, group=t.groups["world"])
+            lib_err = max_err(lib[rank], want)
+            lib_per = timed(lambda: dist.all_reduce(
+                x.clone(), group=t.groups["world"]),
+                MRT_RS_LIB_CALLS[nbytes], 2)
+            b, by = bound_ms((R + 1) * n * x.element_size(), (R - 1) * n,
+                             name)
+            out.append({
+                "ranks": R, "bytes": nbytes, "shape": [R, n], "dtype": name,
+                "exact": True, "max_abs_err": max_err(got, want),
+                "launches_a_call": chunks // (1 + calls * 5),
+                "ms": statistics.median(per), "ms_min": min(per),
+                "ms_max": max(per),
+                "allreduce_slice_ms": statistics.median(ar),
+                "plain_ms": time_ms(lambda: ref_reduce_scatter(parts, rank),
+                                    iters=10, warmup=2),
+                "library_ms": statistics.median(lib_per),
+                "library_ms_min": min(lib_per),
+                "library_ms_max": max(lib_per),
+                "library_backend": "torch.distributed.all_reduce, gloo, "
+                                   "then the rank's slice",
+                "library_max_abs_err": lib_err,
+                "bound_ms": b, "bound_by": by})
+            del parts, x, got, want, lib
+    return out
+
+
+def phase_multirank_reduce_scatter(pool=None):
+    """(a): the reduce-scatter kernel on 2 and 4 rank processes sharing
+    the card (:func:`_mr_reduce_scatter`); every rank's results."""
+    own = pool is None
+    pool = pool or _RankPool(max(MR_RANKS))
+    try:
+        return {R: pool.run((1, R), "_mr_reduce_scatter") for R in MR_RANKS}
+    finally:
+        if own:
+            pool.close()
+
+
+def _leaf_digest(x):
+    """Two int64 checksums of a tensor's bits (its 32-bit words summed,
+    and weighted by position mod a prime; int64 wraps alike on every
+    rank): equal bits give equal digests."""
+    import torch
+    v = x.detach().contiguous().view(-1).view(torch.int32)
+    a = b = 0
+    step = 1 << 24
+    for lo in range(0, v.numel(), step):
+        c = v[lo:lo + step].long()
+        w = torch.arange(lo, lo + c.numel(), device=c.device) % 1000003 + 1
+        a += int(c.sum())
+        b += int((c * w).sum())
+    return (a, b % (1 << 63))
+
+
+def _mr_train(mesh, rank):
+    """(b)-(d) on one rank: ``launch.train.train`` over ``mesh`` at
+    :func:`_mrt_config`; the losses, step ms, peak memory, the launches and
+    the transport's calls and bytes a step, each leaf's digest of this
+    rank's shard, and on rank 0 the one-rank ``train()`` run first in this
+    process (the other ranks wait at train()'s barrier) and the final
+    params, gathered whole, against its params leaf by leaf."""
+    import torch
+    from repro_torch import kernels, parallel
+    from repro_torch.launch.shard_rules import gather_placed, spec_leaves
+    from repro_torch.launch.train import train
+    from repro_torch.models import nn
+    cfg = _mrt_config()
+    dev = torch.device(DEV)
+    t = parallel.transport(mesh)
+    one = None
+    if rank == 0:
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        p1, _, s1 = train(cfg, dev, MRT_STEPS, MRT_BATCH, MRT_SEQ,
+                          log_every=MRT_STEPS)
+        one = {"losses": s1["losses"], "step_ms": s1["step_ms"],
+               "max_memory_allocated": s1["max_memory_allocated"],
+               "leaves": [x.detach().cpu() for x in nn.tree_leaves(p1)]}
+        del p1
+    _free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls0, bytes0, ops0 = dict(t.calls), dict(t.bytes), dict(t.op_calls)
+    kernels.reset_launch_counts()
+    params, spec, summary = train(cfg, dev, MRT_STEPS, MRT_BATCH, MRT_SEQ,
+                                  mesh=mesh, log_every=MRT_STEPS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {
+        "calls": {a: (t.calls[a] - calls0[a]) / MRT_STEPS for a in t.calls},
+        "bytes": {a: (t.bytes[a] - bytes0[a]) / MRT_STEPS for a in t.bytes},
+        "ops": {k: (v - ops0.get(k, 0)) / MRT_STEPS
+                for k, v in t.op_calls.items() if v - ops0.get(k, 0)}}
+    out = {"coord": dict(t.coord), "losses": summary["losses"],
+           "step_ms": summary["step_ms"], "max_memory_allocated": peak,
+           "launches": launches, "per_step": per_step,
+           "specs": [s for _, s in spec_leaves(spec)],
+           "digests": [_leaf_digest(x) for x in nn.tree_leaves(params)]}
+    whole = [x.detach() for x in nn.tree_leaves(
+        gather_placed(mesh, params, spec))]
+    del params
+    if one is not None:
+        errs = []
+        for a, b in zip(whole, one.pop("leaves")):
+            b = b.to(dev)
+            d = (a - b).abs()
+            errs.append({"max_abs": float(d.max()),
+                         "normwise": float((a - b).norm() / b.norm()),
+                         "beyond_1e-5": int((d > 1e-5).sum()),
+                         "n": b.numel()})
+            del b, d
+        out["one_rank"] = one
+        out["param_errs"] = errs
+    del whole
+    _free_card()
+    return out
+
+
+def _mr_train_refusals(mesh, rank):
+    """A MoE config asked of the trainer on a real two-rank mesh: refused
+    by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import place_on_mesh
+    try:
+        place_on_mesh(mesh, get_config("mixtral-8x7b"), {})
+    except NotImplementedError as err:
+        return str(err)
+    return None
+
+
+def _dryrun_train_collectives(sizes):
+    """The dry run's per-device collective bytes and counts
+    (``launch/dryrun.py`` ``collectives``) for :func:`_mrt_config`'s
+    training step on a ``sizes`` mesh, the default (FSDP) layout:
+    shape-only, on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shard_rules import param_spec
+    from repro_torch.models.model import build_model
+    cfg = _mrt_config()
+    mesh = AbstractMesh(tuple(sizes), ("data", "model"))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = build_model(cfg, device="cpu").init(0)
+        pairs = dryrun._pairs(params, param_spec(params, cfg, mesh))
+    coll, counts = dryrun.collectives(cfg, pairs, mesh,
+                                      MRT_BATCH * MRT_SEQ, MRT_BATCH, True,
+                                      "default")
+    return {"bytes": coll, "counts": counts}
+
+
+def _by_kind(ops):
+    """A transport's calls by "axis/op" summed by the dry run's kinds."""
+    kind = {"sum": "all-reduce", "max": "all-reduce", "gather": "all-gather",
+            "reduce_scatter": "reduce-scatter", "host": "host"}
+    out = {}
+    for k, v in ops.items():
+        name = kind[k.split("/")[1]]
+        out[name] = out.get(name, 0) + v
+    return out
+
+
+def phase_multirank_train(smi, pool):
+    """Slice 23: the dense cascade trained over a ``(data, model)`` mesh of
+    rank processes sharing the card, through phase "multirank"'s pool.
+    (a) the reduce-scatter kernel on 2 and 4 ranks, bf16 and f32, at 16 KB
+    and 64 MB: bit for bit against ``ref_reduce_scatter``, timed beside
+    the all-reduce kernel and a slice and beside gloo.  (b) ``train()`` of
+    qwen2.5-3b at its published widths cut to :data:`MRT_LAYERS` layers in
+    f32, :data:`MRT_STEPS` steps of batch 4 x seq 64, on 1 x 2 and 2 x 1
+    against the one-rank ``train()`` (run in rank 0's process): every
+    rank's losses within :data:`MRT_LOSS_RTOL` relative at every step, the
+    final params gathered whole within :data:`MRT_PARAM_ATOL` of the
+    one-rank run's at every element (a flipped rounding-level gradient
+    moves a weight at most 2 lr a step) and at most a share
+    :data:`MRT_FAR_SHARE` of them more than 1e-5 away, every leaf
+    replicated over an axis with the same bits on every rank of it, the
+    loss trending down, and exactly :data:`MULTIRANK_TRAIN` launched.
+    (c) the collectives of one step per axis and op, counted by the
+    transport, beside ``dryrun.collectives`` for the same mesh and shape.
+    (d) step ms and peak memory per rank (two processes time-sliced on
+    one card: these times measure context switches, not multi-GPU
+    speed).  A MoE config on a real 1 x 2 mesh is refused by name.
+    Returns {"reduce_scatter", "launches", "headline"}."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    lap = {}
+    rs = phase_multirank_reduce_scatter(pool)
+    lap["reduce_scatter"] = time.perf_counter() - t_phase
+    refused = pool.run((1, 2), "_mr_train_refusals")
+    for r, msg in enumerate(refused):
+        if not msg or "expert" not in msg or "2 ranks" not in msg:
+            fail(f"multi-rank train: rank {r}'s MoE refusal {msg!r}")
+    runs = {}
+    for sizes in MRT_MESHES:
+        got = pool.run(sizes, "_mr_train")
+        tag = f"multi-rank train {sizes[0]}x{sizes[1]}"
+        one = got[0]["one_rank"]
+        for r, g in enumerate(got):
+            losses = g["losses"]
+            if not np.isfinite(losses).all():
+                fail(f"{tag} rank {r}: losses {losses}")
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       one["losses"])]
+            if max(rel) > MRT_LOSS_RTOL:
+                fail(f"{tag} rank {r}: losses {losses} against the one-rank "
+                     f"{one['losses']} (relative {max(rel)})")
+            check_launched(f"{tag} rank {r}", g["launches"], MULTIRANK_TRAIN)
+        k = max(2, MRT_STEPS // 3)
+        if not np.mean(got[0]["losses"][-k:]) < np.mean(
+                got[0]["losses"][:k]):
+            fail(f"{tag}: the loss did not trend down {got[0]['losses']}")
+        errs = got[0]["param_errs"]
+        worst = max(e["max_abs"] for e in errs)
+        far = sum(e["beyond_1e-5"] for e in errs) / sum(e["n"] for e in errs)
+        if not (worst <= MRT_PARAM_ATOL and far <= MRT_FAR_SHARE):
+            fail(f"{tag}: final params {worst} from the one-rank run's "
+                 f"(bound {MRT_PARAM_ATOL}), a share {far} of them past "
+                 f"1e-5 (bound {MRT_FAR_SHARE})")
+        replicated = 0
+        for i, spec in enumerate(got[0]["specs"]):
+            placed = sorted({a for e in spec for a in (
+                e if isinstance(e, tuple) else (e,)) if a})
+            groups = {}
+            for g in got:
+                key = tuple(g["coord"][a] for a in placed)
+                groups.setdefault(key, []).append(g["digests"][i])
+            for members in groups.values():
+                replicated += len(members) > 1
+                if any(d != members[0] for d in members):
+                    fail(f"{tag}: leaf {i} ({spec}) differs across the "
+                         "ranks it is replicated over")
+        runs[f"{sizes[0]}x{sizes[1]}"] = {
+            "losses": got[0]["losses"], "one_rank_losses": one["losses"],
+            "loss_max_rel_err": max(
+                abs(a - b) / abs(b) for g in got
+                for a, b in zip(g["losses"], one["losses"])),
+            "param_max_abs_err": worst, "param_atol": MRT_PARAM_ATOL,
+            "param_max_normwise_err": max(e["normwise"] for e in errs),
+            "param_share_beyond_1e-5": far, "param_far_share": MRT_FAR_SHARE,
+            "replicated_leaf_groups_bit_equal": replicated,
+            "step_ms": [g["step_ms"] for g in got],
+            "step_ms_median": [statistics.median(g["step_ms"][1:])
+                               for g in got],
+            "one_rank_step_ms": one["step_ms"],
+            "one_rank_step_ms_median": statistics.median(
+                one["step_ms"][1:]),
+            "max_memory_allocated": [g["max_memory_allocated"] for g in got],
+            "one_rank_max_memory_allocated": one["max_memory_allocated"],
+            "launches": got[0]["launches"],
+            "collectives_per_step": got[0]["per_step"],
+            "collectives_per_step_by_kind": _by_kind(
+                got[0]["per_step"]["ops"]),
+            "dryrun_collectives_per_step": _dryrun_train_collectives(sizes)}
+    lap["train"] = time.perf_counter() - t_phase - sum(lap.values())
+    emit({"phase": "multirank_train", "nvidia_smi": smi,
+          "config": "qwen2.5-3b", "n_layers": MRT_LAYERS, "dtype": "float32",
+          "steps": MRT_STEPS, "batch": MRT_BATCH, "seq": MRT_SEQ,
+          "loss_rtol": MRT_LOSS_RTOL, "reduce_scatter": rs, "runs": runs,
+          "moe_refusal": refused[0],
+          "phase_seconds": time.perf_counter() - t_phase, "laps": lap})
+    head = next(c for c in rs[2][0] if c["bytes"] == MRT_RS_BYTES[1]
+                and c["dtype"] == "float32")
+    return {"reduce_scatter": rs, "launches": runs["2x1"]["launches"],
+            "headline": head,
+            "max_abs_err": max(c["max_abs_err"] for rr in rs.values()
+                               for r in rr for c in r)}
 
 
 def main() -> int:
@@ -7426,9 +7818,9 @@ def main() -> int:
     lap("paged")
     gather_full_width = phase_paged_gather_full_width(params)
     lap("paged block 64")
-    device_runtime = phase_device_runtime(params, records[2]["thresholds"][0])
+    device_runtime = phase_device_runtime(records[2]["thresholds"][0])
     lap("device runtime")
-    autotune = phase_autotune(params)
+    autotune = phase_autotune()
     lap("autotune")
     # slice 20: the serving path through a 1x1 device mesh
     mesh = phase_mesh(model, params, records[2]["thresholds"][0], smi)
@@ -7491,9 +7883,17 @@ def main() -> int:
     lap("trained cascade")
     phase_examples(dev, gen, smi)
     lap("examples")
-    # slice 22: multi-rank serving, rank processes sharing the card
-    multirank = phase_multirank(dev, gen, smi, records[2]["thresholds"][0])
-    lap("multi-rank")
+    # slice 22: multi-rank serving, rank processes sharing the card; slice
+    # 23: multi-rank training, on the same rank processes
+    pool = _RankPool(4)
+    try:
+        multirank = phase_multirank(dev, gen, smi,
+                                    records[2]["thresholds"][0], pool)
+        lap("multi-rank")
+        mr_train = phase_multirank_train(smi, pool)
+        lap("multi-rank train")
+    finally:
+        pool.close()
     paths = {"rmsnorm": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "exit_update": ("slice 1 full width (0.9, 0.9, 0.0)", slice1),
              "decode_attention": ("slice 1 full width (0.9, 0.9, 0.0)",
@@ -7691,6 +8091,23 @@ def main() -> int:
         "headline_case": {k: ar[k] for k in ("ranks", "shape", "dtype",
                                              "ms_min", "ms_max",
                                              "library_backend")},
+        "note": "ranks are processes time-sliced on one card"})
+    rs = mr_train["headline"]
+    rows.append({
+        "name": "reduce_scatter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/allreduce.cu",
+        "replaces": "none: the reference's training collectives are "
+                    "GSPMD's (src/repro/launch/train.py:52)",
+        "launches": mr_train["launches"]["reduce_scatter"],
+        "path": f"multi-rank train: qwen2.5-3b, {MRT_LAYERS} layers, f32, "
+                f"2 x 1 mesh, {MRT_STEPS} steps, rank 0",
+        "max_abs_err": mr_train["max_abs_err"],
+        "ms": rs["ms"], "plain_ms": rs["plain_ms"],
+        "bound_ms": rs["bound_ms"], "bound_by": rs["bound_by"],
+        "library_ms": rs["library_ms"],
+        "headline_case": {k: rs[k] for k in (
+            "ranks", "bytes", "shape", "dtype", "ms_min", "ms_max",
+            "allreduce_slice_ms", "launches_a_call", "library_backend")},
         "note": "ranks are processes time-sliced on one card"})
     emit({"phase": "timings", "seconds": laps,
           "total_seconds": time.perf_counter() - t0})

@@ -19,6 +19,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from repro_torch.models.nn import tree_leaves, tree_unflatten
+from repro_torch.parallel import tensor_parallel
 from repro_torch.utils import path_str, tree_flatten_with_path
 
 
@@ -69,6 +70,47 @@ def cross_entropy(logits, labels):
     return -torch.mean(ll)
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """Mean CE in f32 over logits sharded by vocab across ``axis``: rank r
+    holds columns [r·Vr, (r + 1)·Vr).  The row max is all-reduced (max),
+    then Σ exp and the label's logit (from the rank whose slice holds it,
+    0 elsewhere) in one all-reduce (sum): two collectives, no logits
+    moved.  The backward writes softmax − one-hot on this rank's slice,
+    with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, t, axis):
+        x = logits.float()
+        Vr = x.shape[-1]
+        m = t.all_reduce(x.amax(-1), axis, "max")
+        e = torch.exp(x - m[..., None])
+        idx = labels.long() - t.rank(axis) * Vr
+        hold = (idx >= 0) & (idx < Vr)
+        idx = idx.clamp(0, Vr - 1)
+        picked = torch.where(hold, torch.gather(x, -1, idx[..., None])[..., 0],
+                             torch.zeros_like(m))
+        sums = t.all_reduce(torch.stack([e.sum(-1), picked]), axis)
+        s, picked = sums[0], sums[1]
+        loss = -torch.mean(picked - m - torch.log(s))
+        ctx.save_for_backward(e, s, idx, hold)
+        ctx.dtype = logits.dtype
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, idx, hold = ctx.saved_tensors
+        p = e / s[..., None]
+        p.scatter_add_(-1, idx[..., None], -hold.float()[..., None])
+        p.mul_(g / s.numel())
+        return p.to(ctx.dtype), None, None, None
+
+
+def vocab_parallel_cross_entropy(logits, labels, t, axis: str = "model"):
+    """:func:`cross_entropy` of the whole logits, from this rank's vocab
+    slice ``logits`` (..., V / R) of a vocab sharded over ``axis``."""
+    return _VocabParallelCE.apply(logits, labels, t, axis)
+
+
 def l2_loss(params, coef: float):
     """The paper regularizes with an L2 loss, coefficient 1e-4: the sum of
     squares (in float32) of the floating leaves with ndim >= 2."""
@@ -90,12 +132,20 @@ def cascade_loss(exit_logits: Sequence[torch.Tensor], labels, mode: str,
     mode "single": L(out_head) — used by every BT phase (Algorithm 2).
     mode "joint":  Σ_m w_m · L(out_m) / Σ_m w_m — the BranchyNet baseline
                    the paper contrasts with.
+
+    Under a ``model`` axis (a tensor-parallel transport active) the logits
+    are each rank's vocab slice (``CascadeModel.forward_train``) and every
+    exit's loss is :func:`vocab_parallel_cross_entropy`.
     """
+    tp = tensor_parallel()
+
     def _ce(lg, y):
         # intermediate exits may be position-strided (exit_loss_stride)
         if lg.dim() == y.dim() + 1 and lg.shape[-2] != y.shape[-1]:
             stride = y.shape[-1] // lg.shape[-2]
             y = y[..., ::stride]
+        if tp is not None:
+            return vocab_parallel_cross_entropy(lg, y, tp)
         return cross_entropy(lg, y)
 
     if mode == "single":

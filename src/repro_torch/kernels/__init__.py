@@ -18,6 +18,7 @@ _KERNELS = {
     "cohort_scatter": (cohort_cache, cohort_cache.cohort_scatter_tree),
     "paged_gather": (paged_gather, paged_gather.paged_gather),
     "allreduce": (allreduce, allreduce.allreduce),
+    "reduce_scatter": (allreduce, allreduce.reduce_scatter),
 }
 
 

@@ -1,5 +1,5 @@
-"""One-shot all-reduce / all-gather over CUDA IPC buffers, and its plain
-version.
+"""One-shot all-reduce / all-gather / reduce-scatter over CUDA IPC buffers,
+and their plain versions.
 
 Replaces no TPU kernel.  The JAX package's multi-device serving runs its
 decode loop under GSPMD, whose partitioner inserts the collectives; the
@@ -18,7 +18,10 @@ the library with ``cudaMalloc``) whose IPC handle it publishes through a
 A launch copies the rank's part into its buffer, raises its flag to the
 launch's generation, waits for every peer's flag, and reduces the R parts
 in rank order in f32 (or stacks them: the all-gather) — the same bits on
-every rank.  See the source's header for the protocol.
+every rank.  :func:`reduce_scatter` (training's K/V-gather backward and
+FSDP's gradient reduction) publishes a rank's whole (R, *s) tensor and
+leaves on rank r the rank-ordered sum of row r only (the bits of the
+all-reduce's row r).  See the source's header for the protocol.
 
 The wait is bounded (:data:`TIMEOUT_S` of the device's global timer):
 past it the kernel records (rank, generation, peer) in a host-mapped word
@@ -38,7 +41,7 @@ import torch
 
 from repro_torch.kernels import build
 
-OPS = {"sum": 0, "max": 1, "gather": 2}
+OPS = {"sum": 0, "max": 1, "gather": 2, "reduce_scatter": 3}
 # dtype codes of csrc/allreduce.cu: build.DTYPE_CODES and int32
 _CODES = {**build.DTYPE_CODES, torch.int32: 3}
 # bytes of one of a region's two data buffers: a call larger than this is
@@ -48,6 +51,7 @@ CAP = 32 << 20
 TIMEOUT_S = 10.0
 _HANDLE = 64                      # sizeof(cudaIpcMemHandle_t)
 _LAUNCH_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+               ctypes.c_longlong,
                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
                ctypes.c_void_p, ctypes.c_double, ctypes.c_void_p]
@@ -141,8 +145,9 @@ def allreduce(x: torch.Tensor, group: IpcGroup, op: str = "sum"
     One launch per :data:`CAP` bytes of the call.  A CUDA tensor only: the
     plain version (``ref.ref_allreduce``) needs every rank's part, which a
     CPU transport gathers itself (``repro_torch/parallel.py``)."""
-    if op not in OPS:
-        raise ValueError(f"allreduce: op {op!r} (sum, max or gather)")
+    if op not in ("sum", "max", "gather"):
+        raise ValueError(f"allreduce: op {op!r} (sum, max or gather; "
+                         "reduce_scatter has its own wrapper)")
     build.require_cuda("allreduce", x, group.gens)
     if x.dtype not in _CODES or (x.dtype == torch.int32 and op != "gather"):
         raise TypeError(f"allreduce: {x.dtype} (f32, bf16, f16; int32 for "
@@ -163,7 +168,7 @@ def allreduce(x: torch.Tensor, group: IpcGroup, op: str = "sum"
         dst = (torch.empty((R, hi - lo), dtype=x.dtype, device=x.device)
                if op == "gather" and (lo or hi < n) else
                (oflat if op == "gather" else oflat[lo:hi]))
-        build.check(fn(build.ptr(piece), build.ptr(dst), hi - lo,
+        build.check(fn(build.ptr(piece), build.ptr(dst), hi - lo, 0,
                        _CODES[x.dtype], OPS[op], R, group.rank, group._bases,
                        CAP, build.ptr(group.gens), TIMEOUT_S, stream),
                     "allreduce")
@@ -176,5 +181,46 @@ def allreduce(x: torch.Tensor, group: IpcGroup, op: str = "sum"
 allreduce.launches = 0
 
 
+def reduce_scatter(x: torch.Tensor, group: IpcGroup) -> torch.Tensor:
+    """``x`` (R, *s), R the group's ranks: on rank r the sum over the ranks
+    of their row r, in rank order in f32, cast back — shape s, the bits of
+    ``allreduce(x, group)[r]`` (plain version: ``ref.ref_reduce_scatter``).
+
+    One launch per chunk of ``allreduce_rs_capacity`` elements of each row
+    (the rows cut at the same places, so every chunk stays rank-sliced and
+    fits a buffer).  A CUDA tensor only, f32 / bf16 / f16."""
+    build.require_cuda("reduce_scatter", x, group.gens)
+    R = group.size
+    if x.dim() < 1 or x.shape[0] != R:
+        raise ValueError(f"reduce_scatter: leading dim {tuple(x.shape)[:1]} "
+                         f"for a group of {R} ranks")
+    if x.dtype not in build.DTYPE_CODES:
+        raise TypeError(f"reduce_scatter: {x.dtype} (f32, bf16, f16)")
+    rows = x.contiguous().reshape(R, -1)
+    n = rows.shape[1]
+    out = torch.empty(tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    oflat = out.reshape(-1)
+    cap_fn = _fn("allreduce_rs_capacity", [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_longlong])
+    cap_fn.restype = ctypes.c_longlong
+    step = int(cap_fn(_CODES[x.dtype], R, CAP))
+    if step <= 0:
+        raise ValueError(f"reduce_scatter: no capacity for {R} ranks")
+    fn = _fn("allreduce_launch", _LAUNCH_SIG)
+    stream = build.stream_of(x)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        build.check(fn(build.ptr(rows[0, lo:]), build.ptr(oflat[lo:hi]),
+                       hi - lo, n, _CODES[x.dtype], OPS["reduce_scatter"], R,
+                       group.rank, group._bases, CAP, build.ptr(group.gens),
+                       TIMEOUT_S, stream), "reduce_scatter")
+        reduce_scatter.launches += 1
+    return out
+
+
+reduce_scatter.launches = 0
+
+
 def reset_launches() -> None:
     allreduce.launches = 0
+    reduce_scatter.launches = 0

@@ -1,12 +1,14 @@
-// One-shot all-reduce and all-gather over CUDA IPC buffers, for the ranks
-// of one mesh axis.
+// One-shot all-reduce, all-gather and reduce-scatter over CUDA IPC
+// buffers, for the ranks of one mesh axis.
 //
 // Replaces no TPU kernel: the JAX package's collectives are the ones XLA's
 // GSPMD partitioner inserts.  The port needs its own because the decode
 // loop captures a whole guarded iteration in a CUDA graph, so every
 // collective inside it must be a kernel launch on the capturing stream;
 // gloo's CUDA collectives stage through the host and cannot be captured,
-// and NCCL refuses two ranks of one communicator on one device.
+// and NCCL refuses two ranks of one communicator on one device.  Training
+// on a mesh adds the reduce-scatter: the backward of the K/V all-gather
+// and FSDP's gradient reduction over `data`.
 //
 // Protocol (one launch = one collective of one rank; every rank of the
 // axis launches the same sequence of collectives):
@@ -31,6 +33,12 @@
 //    ends with the same bits; an all-gather copies rank r's slab to row r
 //    of the output.  Peer data is read through L2 (__ldcg): L1 is not
 //    coherent with another context's writes;
+//  * reduce-scatter: the input is R rank slices of n elements (`stride`
+//    apart); CTA c takes elements [c·q, c·q + q) of EVERY slice, q =
+//    slab / R rounded down to whole 16-byte chunks, and writes slice p's
+//    piece at p·q of its own slab, so a CTA still writes its slab alone;
+//    rank r then sums piece r of every peer's slab in rank order in f32:
+//    the bits of the all-reduce's slice r, on rank r only;
 //  * reuse: a rank writes buffer g & 1 only after every peer has set flag
 //    c to g - 1, i.e. after each peer finished launch g - 2 on its stream,
 //    the last one that read that buffer: two buffers need no second
@@ -41,7 +49,8 @@
 // trip through L2 and, with two processes time-sliced on one card (no MPS),
 // a context switch per wait set the time.  One CTA serves up to one slab
 // (cap / kMaxCtas bytes); prefill-sized calls spread over up to kMaxCtas
-// CTAs.
+// CTAs.  A reduce-scatter moves R·n elements in and n out a rank; past
+// `cap` bytes of input the wrapper splits it into rank-sliced chunks.
 #include <string.h>
 
 #include <type_traits>
@@ -54,7 +63,7 @@ constexpr int kThreads = 512;
 constexpr int kMaxCtas = 64;
 constexpr int kMaxRanks = 8;
 constexpr int kFlagStride = 32;  // uint32s: one 128-byte line per flag
-constexpr int OP_SUM = 0, OP_MAX = 1, OP_GATHER = 2;
+constexpr int OP_SUM = 0, OP_MAX = 1, OP_GATHER = 2, OP_RS = 3;
 
 struct Peers {
   char* base[kMaxRanks];  // every rank's IPC region (own included), in rank
@@ -82,22 +91,32 @@ __device__ __forceinline__ unsigned long long global_ns() {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) oneshot_kernel(
     const T* __restrict__ in, T* __restrict__ out, long long n,
-    long long slab_elems, int R, int rank, Peers peers, long long cap,
-    unsigned* __restrict__ gens, int op, unsigned long long timeout_ns,
-    volatile unsigned* err) {
+    long long stride, long long slab_elems, long long per, int R, int rank,
+    Peers peers, long long cap, unsigned* __restrict__ gens, int op,
+    unsigned long long timeout_ns, volatile unsigned* err) {
+  // per: the elements of each rank slice a CTA takes (the slab for the
+  // other ops, one R-th of it for the reduce-scatter)
   __shared__ unsigned gen;
   const int c = blockIdx.x;
-  const long long lo = (long long)c * slab_elems;
-  const long long cnt = min(slab_elems, n - lo);
+  const long long lo = (long long)c * per;
+  const long long cnt = min(per, n - lo);
   if (threadIdx.x == 0) gen = gens[c] + 1u;
   __syncthreads();
   const unsigned g = gen;
   const long long off = kMaxCtas * kFlagStride * sizeof(unsigned) +
                         (long long)(g & 1u) * cap +
                         (long long)c * slab_elems * sizeof(T);
-  // 1. this rank's part into its own buffer
+  // 1. this rank's part into its own buffer (reduce-scatter: each rank
+  //    slice's piece at its place in the slab)
   T* mine = reinterpret_cast<T*>(peers.base[rank] + off);
-  for (long long i = threadIdx.x; i < cnt; i += kThreads) mine[i] = in[lo + i];
+  if (op == OP_RS) {
+    for (int p = 0; p < R; ++p)
+      for (long long i = threadIdx.x; i < cnt; i += kThreads)
+        mine[p * per + i] = in[p * stride + lo + i];
+  } else {
+    for (long long i = threadIdx.x; i < cnt; i += kThreads)
+      mine[i] = in[lo + i];
+  }
   __syncthreads();
   // 2. publish, then wait for every peer's part of this generation
   if (threadIdx.x == 0) {
@@ -135,13 +154,15 @@ __global__ void __launch_bounds__(kThreads) oneshot_kernel(
         dst[i] = __ldcg(src + i);
     }
   } else if constexpr (!std::is_same<T, int>::value) {
+    // reduce-scatter: this rank's piece of every peer's slab
+    const long long at = op == OP_RS ? (long long)rank * per : 0;
     for (long long i = threadIdx.x; i < cnt; i += kThreads) {
       float acc = to_f32(__ldcg(reinterpret_cast<const T*>(peers.base[0] +
-                                                           off) + i));
+                                                           off) + at + i));
       for (int p = 1; p < R; ++p) {
         const float v =
             to_f32(__ldcg(reinterpret_cast<const T*>(peers.base[p] + off) +
-                          i));
+                          at + i));
         acc = op == OP_MAX ? fmaxf(acc, v) : __fadd_rn(acc, v);
       }
       out[lo + i] = from_f32<T>(acc);
@@ -205,26 +226,56 @@ extern "C" int allreduce_error_word(void** host) {
   return 0;
 }
 
+namespace {
+// elements of one CTA's slab: whole 16-byte chunks
+long long slab_of(long long cap, int esize) {
+  return (cap / kMaxCtas) / 16 * 16 / esize;
+}
+// elements of each rank slice one CTA takes: the slab for sum, max and
+// gather; for the reduce-scatter an R-th of it in whole 16-byte chunks
+long long per_of(long long cap, int esize, int op, int R) {
+  const long long slab = slab_of(cap, esize);
+  if (op != OP_RS) return slab;
+  const long long vec = 16 / esize;
+  return slab / R / vec * vec;
+}
+}  // namespace
+
+// The most elements of each rank slice one reduce-scatter launch takes
+// (`dtype`'s element size, R ranks, `cap` bytes a buffer): the wrapper
+// splits a larger call into rank-sliced chunks of this many.
+extern "C" long long allreduce_rs_capacity(int dtype, int R, long long cap) {
+  if (R < 1 || R > kMaxRanks) return 0;
+  const int esize = dtype == DT_F32 || dtype == 3 ? 4 : 2;
+  return (long long)kMaxCtas * per_of(cap, esize, OP_RS, R);
+}
+
 // One collective: `op` 0 sum, 1 max (out has in's shape), 2 all-gather
-// (out is R x n).  `bases` holds the R regions in rank order (this rank's
-// own at `rank`), `cap` the bytes of one data buffer, `gens` kMaxCtas
-// uint32 counters in this rank's memory.  n * sizeof(T) must fit in the
-// buffer; the wrapper splits larger tensors.  dtype 3 is int32 (gather
-// only).
+// (out is R x n), 3 reduce-scatter (in is R slices of n elements, `stride`
+// apart; out is this rank's n).  `bases` holds the R regions in rank order
+// (this rank's own at `rank`), `cap` the bytes of one data buffer, `gens`
+// kMaxCtas uint32 counters in this rank's memory.  The call's bytes must
+// fit in the buffer (a reduce-scatter: n within allreduce_rs_capacity);
+// the wrapper splits larger tensors.  dtype 3 is int32 (gather only).
 extern "C" int allreduce_launch(const void* in, void* out, long long n,
-                                int dtype, int op, int R, int rank,
-                                void* const* bases, long long cap,
+                                long long stride, int dtype, int op, int R,
+                                int rank, void* const* bases, long long cap,
                                 void* gens, double timeout_s, void* stream) {
   if (n <= 0) return 0;
   if (R < 1 || R > kMaxRanks || rank < 0 || rank >= R || g_err_dev == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (op < OP_SUM || op > OP_RS) return (int)cudaErrorInvalidValue;
   const int esize = dtype == DT_F32 || dtype == 3 ? 4 : 2;
-  if (n * esize > cap || (dtype == 3 && op != OP_GATHER))
+  if (n * esize > cap || (dtype == 3 && op != OP_GATHER) ||
+      (op == OP_RS && stride < n))
     return (int)cudaErrorInvalidValue;
   // slabs of whole 16-byte chunks, as many CTAs as the bytes need
-  long long slab = (cap / kMaxCtas) / 16 * 16 / esize;
-  int ctas = (int)((n + slab - 1) / slab);
-  if (ctas > kMaxCtas) return (int)cudaErrorInvalidValue;
+  const long long slab = slab_of(cap, esize);
+  const long long per = per_of(cap, esize, op, R);
+  if (per <= 0) return (int)cudaErrorInvalidValue;
+  const long long ctas_ll = (n + per - 1) / per;
+  if (ctas_ll > kMaxCtas) return (int)cudaErrorInvalidValue;
+  const int ctas = (int)ctas_ll;
   Peers peers;
   for (int p = 0; p < kMaxRanks; ++p)
     peers.base[p] = p < R ? (char*)bases[p] : nullptr;
@@ -234,23 +285,23 @@ extern "C" int allreduce_launch(const void* in, void* out, long long n,
   switch (dtype) {
     case DT_F32:
       oneshot_kernel<float><<<ctas, kThreads, 0, s>>>(
-          (const float*)in, (float*)out, n, slab, R, rank, peers, cap, gc, op,
-          tns, g_err_dev);
+          (const float*)in, (float*)out, n, stride, slab, per, R, rank, peers,
+          cap, gc, op, tns, g_err_dev);
       break;
     case DT_BF16:
       oneshot_kernel<__nv_bfloat16><<<ctas, kThreads, 0, s>>>(
-          (const __nv_bfloat16*)in, (__nv_bfloat16*)out, n, slab, R, rank,
-          peers, cap, gc, op, tns, g_err_dev);
+          (const __nv_bfloat16*)in, (__nv_bfloat16*)out, n, stride, slab, per,
+          R, rank, peers, cap, gc, op, tns, g_err_dev);
       break;
     case DT_F16:
       oneshot_kernel<__half><<<ctas, kThreads, 0, s>>>(
-          (const __half*)in, (__half*)out, n, slab, R, rank, peers, cap, gc,
-          op, tns, g_err_dev);
+          (const __half*)in, (__half*)out, n, stride, slab, per, R, rank,
+          peers, cap, gc, op, tns, g_err_dev);
       break;
     case 3:
       oneshot_kernel<int><<<ctas, kThreads, 0, s>>>(
-          (const int*)in, (int*)out, n, slab, R, rank, peers, cap, gc, op, tns,
-          g_err_dev);
+          (const int*)in, (int*)out, n, stride, slab, per, R, rank, peers,
+          cap, gc, op, tns, g_err_dev);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -312,6 +312,15 @@ def ref_allreduce(parts, op: str = "sum"):
     return acc.to(x0.dtype)
 
 
+def ref_reduce_scatter(parts, rank: int):
+    """The reduce-scatter's plain version: the ranks' (R, *s) tensors
+    ``parts`` in rank order; rank ``rank`` ends with the sum of their row
+    ``rank`` in rank order in f32, cast back — the bits of
+    ``ref_allreduce(parts)[rank]``, which every rank of
+    ``kernels/allreduce.py`` ``reduce_scatter`` ends with."""
+    return ref_allreduce([p[rank] for p in parts])
+
+
 # ---------------------------------------------------------------------------
 # emulators of the redesigned kernels' arithmetic (tests only)
 # ---------------------------------------------------------------------------

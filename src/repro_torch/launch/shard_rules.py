@@ -20,7 +20,8 @@ they take trees of real tensors, fake tensors (the dry run) or numpy
 arrays, keyed by :func:`repro_torch.utils.tree_flatten_with_path` paths
 (dict keys and list indices); the spec tree has the tree's structure.
 :func:`to_shardings` turns a spec into DTensor placements, one per mesh
-dim; :func:`place` puts a tree on a :class:`DeviceMesh`.
+dim; :func:`place` puts a tree on a :class:`DeviceMesh` and
+:func:`gather_placed` brings a placed tree back to whole tensors.
 
 Combined axes.  ``serve2d`` shards one dim over ``("model", "data")``,
 which the reference lays out model-major (the block a device holds is
@@ -56,6 +57,10 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+    def __reduce__(self):
+        # entries as arguments: tuple's own pickling would pass them as one
+        return (P, tuple(self))
 
 
 def _shape(leaf):
@@ -419,3 +424,41 @@ def to_local(tree):
     from torch.distributed.tensor import DTensor
     return map_with_path(
         lambda _, x: x.to_local() if isinstance(x, DTensor) else x, tree)
+
+
+def gather_placed(mesh, tree, spec_tree):
+    """``tree``'s shards under ``spec_tree`` (DTensors, or this rank's local
+    tensors) gathered back to whole tensors over the mesh's transport
+    (:mod:`repro_torch.parallel`), leaf after leaf in tree order: the
+    counterpart of ``np.asarray`` on a sharded ``jax.Array``.  Every rank
+    of the mesh must call it together; each ends with the whole tree.  On
+    a mesh of one rank the local tensors are returned as they are."""
+    import torch
+    from repro_torch.parallel import transport
+    tree = to_local(tree)
+    if mesh_size(mesh) == 1:
+        return tree
+    t = transport(mesh)
+    specs = dict(spec_leaves(spec_tree))
+
+    def leaf(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        for d, entry in enumerate(specs[path]):
+            axes = axes_of(entry)
+            if len(axes) > 1:
+                raise NotImplementedError(
+                    f"gather_placed: {path_str(path)} is sharded over the "
+                    f"combined axes {axes} (serve2d), whose order across "
+                    "ranks is not settled (ROADMAP.md)")
+            if axes:
+                x = gather_leaf(t, x, d, axes[0])
+        return x
+    return map_with_path(leaf, tree)
+
+
+def gather_leaf(t, x, dim: int, axis: str):
+    """One leaf's shards over ``axis`` gathered whole along ``dim`` in rank
+    order through the transport ``t``."""
+    g = t.all_gather(x.contiguous(), axis)               # (R, *x.shape)
+    return g.movedim(0, dim).flatten(dim, dim + 1)

@@ -17,7 +17,11 @@ Serve-step signature::
 
 ``make_optimizer`` / ``make_train_step``: the joint-loss cascade training
 step (forward, backward, AdamW), with the plain ops only: a
-``use_kernels`` config is refused (no kernel has a backward).
+``use_kernels`` config is refused (no kernel has a backward).  On a mesh
+of more than one rank the step runs SPMD on each rank's shards of the
+``default`` layout (Megatron tensor parallelism over ``model``, FSDP over
+``data``), the collectives written out where the reference's GSPMD
+inserts them.
 
 ``extra`` holds the modality inputs of
 :func:`~repro_torch.models.model.extra_input_shapes` (the vlm family's
@@ -38,6 +42,9 @@ from repro_torch.core.exec import (DISPATCH, DecodeState, StagedExecutor,
 from repro_torch.core.policy import ExitDecider
 from repro_torch.core.training import cascade_loss
 from repro_torch import parallel
+from repro_torch.launch.mesh import mesh_size
+from repro_torch.launch.shard_rules import (axes_of, batch_spec,
+                                            gather_leaf, spec_leaves)
 from repro_torch.models.model import _no_extra, extra_input_shapes
 from repro_torch.models.nn import tree_leaves, tree_unflatten
 from repro_torch.optim import adamw
@@ -54,33 +61,130 @@ def make_optimizer(cfg: ModelConfig) -> Optimizer:
     return adamw(lr=3e-4, weight_decay=0.1)
 
 
-def make_train_step(model, cfg: ModelConfig, optimizer: Optimizer):
+def make_train_step(model, cfg: ModelConfig, optimizer: Optimizer,
+                    mesh=None, spec=None):
     """``train_step(params, opt_state, step, batch) -> (params, opt_state,
     loss)``: the cascade loss (``cfg.cascade.loss_mode``, joint by
     default) of ``model.forward_train`` on ``batch["tokens"]`` /
     ``batch["labels"]``, its gradients and one optimizer update, applied
-    to the params in place.  ``loss`` is a 0-d tensor on the device."""
+    to the params in place.  ``loss`` is a 0-d tensor on the device.
+    ``train_step.loss_and_grads(params, batch) -> (loss, grads)`` is the
+    step without the update.
+
+    With a ``mesh`` of more than one rank (a ``launch.mesh.make_mesh``
+    DeviceMesh) ``params`` and ``opt_state`` are this rank's shards under
+    ``spec`` (the ``param_spec`` tree, ``default`` mode, they were placed
+    by) and the batch is the global one; see :class:`_MeshStep`."""
     if cfg.use_kernels:
         raise NotImplementedError(
             "make_train_step with use_kernels: no kernel of the port (nor "
             "of the reference) has a backward, and differentiating around "
             "one would be a silent fallback; train with use_kernels off")
+    spmd = (_MeshStep(model, cfg, mesh, spec)
+            if mesh is not None and mesh_size(mesh) > 1 else None)
 
-    def train_step(params, opt_state, step, batch):
-        leaves = list(tree_leaves(params))
-        for p in leaves:
-            p.requires_grad_(True)
+    def loss_of(params, batch):
         logits, aux = model.forward_train(params, batch["tokens"],
                                           batch.get("extra"))
-        loss = cascade_loss(logits, batch["labels"],
+        return cascade_loss(logits, batch["labels"],
                             cfg.cascade.loss_mode or "joint",
                             joint_weights=cfg.cascade.joint_weights,
                             aux=aux, aux_coef=cfg.router_aux_coef)
+
+    def loss_and_grads(params, batch):
+        if spmd is not None:
+            return spmd.loss_and_grads(loss_of, params, batch)
+        leaves = list(tree_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_of(params, batch)
         grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, step, batch):
+        loss, grads = loss_and_grads(params, batch)
         updates, opt_state = optimizer.update(grads, opt_state, params, step)
         params = apply_updates(params, updates)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
+    train_step.loss_and_grads = loss_and_grads
     return train_step
+
+
+class _MeshStep:
+    """One rank's share of the train step on a ``(data, model)`` mesh.
+
+    * the batch: this ``data`` rank's rows (``batch_spec``); where the
+      batch does not divide ``data`` every rank takes all of them, as the
+      reference replicates;
+    * FSDP leaves (a ``data`` entry in their spec) are gathered whole over
+      ``data``, one after another in tree order, before the forward; the
+      forward and the backward run on the whole leaf (the ``model`` shard);
+    * the forward and the backward run tensor-parallel (the transport
+      active: the layers' differentiable collectives, the vocab-parallel
+      loss);
+    * after ``autograd.grad`` returns (not in hooks: the IPC kernel needs
+      the same sequence of calls on every rank), in tree order: an FSDP
+      leaf's gradient reduce-scattered over ``data`` and divided by D,
+      every other leaf's all-reduced over ``data`` and divided by D (the
+      mean of the ranks' gradients); the loss likewise: the global mean.
+
+    Every reduction is rank-ordered, so a leaf replicated over an axis
+    ends each step with the same bits on every rank of it.  The backward
+    runs outside the active transport, as it does on CUDA (autograd's
+    device thread): what it needs, its collectives keep on their autograd
+    contexts and the remat recompute re-activates."""
+
+    def __init__(self, model, cfg, mesh, spec):
+        if spec is None:
+            raise ValueError("make_train_step on a multi-rank mesh needs "
+                             "the spec tree the params were placed by")
+        self.t = parallel.transport(mesh, model.device)
+        self.cfg, self.mesh = cfg, mesh
+        self.plan = []          # each leaf's FSDP dim, None without one
+        for _, s in spec_leaves(spec):
+            dims = [d for d, e in enumerate(s) if "data" in axes_of(e)]
+            self.plan.append(dims[0] if dims else None)
+
+    def _rows(self, x):
+        """This data rank's rows of a global (B, ...) batch tensor."""
+        if not batch_spec(self.cfg, self.mesh, x.shape[0], x.dim()):
+            return x
+        n, r = x.shape[0] // self.t.size("data"), self.t.rank("data")
+        return x[r * n:(r + 1) * n]
+
+    def _scatter(self, g, dim):
+        """A whole leaf's gradient reduce-scattered along ``dim``: this
+        rank's block of the rank-ordered sum."""
+        D = self.t.size("data")
+        rows = g.unflatten(dim, (D, g.shape[dim] // D)).movedim(dim, 0)
+        return self.t.reduce_scatter(rows.contiguous(), "data")
+
+    def loss_and_grads(self, loss_of, params, batch):
+        t = self.t
+        D = t.size("data")
+        leaves = list(tree_leaves(params))
+        if len(leaves) != len(self.plan):
+            raise ValueError(f"{len(leaves)} param leaves for a spec of "
+                             f"{len(self.plan)}")
+        whole = []
+        for x, dim in zip(leaves, self.plan):
+            w = x if dim is None else gather_leaf(t, x, dim, "data")
+            whole.append(w.requires_grad_(True))
+        local = {k: self._rows(v) for k, v in batch.items() if k != "extra"}
+        if "extra" in batch:
+            local["extra"] = {k: self._rows(v)
+                              for k, v in batch["extra"].items()}
+        with parallel.activate(t):
+            loss = loss_of(tree_unflatten(params, whole), local)
+        grads = torch.autograd.grad(loss, whole)
+        del whole
+        out = []
+        for g, dim in zip(grads, self.plan):
+            g = (t.all_reduce(g, "data") if dim is None
+                 else self._scatter(g, dim))
+            out.append(g / D)
+        loss = t.all_reduce(loss.detach(), "data") / D
+        return loss, tree_unflatten(params, out)
 
 
 def make_prefill_step(model, cfg: ModelConfig):

@@ -16,7 +16,8 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel import tensor_parallel
+from repro_torch.parallel import (copy_to, gather_from, reduce_from,
+                                 tensor_parallel)
 from repro_torch.models import nn
 
 NEG_INF = -1e30
@@ -137,18 +138,23 @@ def qkv_project(params, cfg, x, *, rope_positions=None):
 def _local_bias(b, cols: int, tp):
     """This rank's slice of a 1-D bias of a column-parallel projection with
     ``cols`` local columns: the shard rules replicate 1-D leaves, so each
-    rank takes the columns its weight shard holds."""
+    rank takes the columns its weight shard holds.  In training each rank's
+    gradient covers its columns only: :func:`copy_to` sums it over
+    ``model``."""
     if b.shape[-1] == cols:
         return b
     r = tp.rank("model")
-    return b[r * cols:(r + 1) * cols]
+    return copy_to(tp, b)[r * cols:(r + 1) * cols]
 
 
 def kv_gather(tp, k, v):
     """The column shards of K and V ((B, S, c) each, this rank's columns)
     gathered over ``model`` in rank order in one collective: the whole (B,
-    S, KV * hd) K and V, as every rank's replicated KV cache holds them."""
-    kv = tp.all_gather(torch.stack([k, v]), "model")     # (M, 2, B, S, c)
+    S, KV * hd) K and V, as every rank's replicated KV cache holds them.
+    In training its backward reduce-scatters: a rank's heads read only
+    their KV group, so each rank's gradient of the whole K / V is
+    partial."""
+    kv = gather_from(tp, torch.stack([k, v]), "model")   # (M, 2, B, S, c)
     B, S = k.shape[0], k.shape[1]
     full = kv.permute(1, 2, 3, 0, 4).reshape(2, B, S, -1)
     return full[0], full[1]
@@ -167,8 +173,10 @@ def qkv_project_tp(params, cfg, x, tp, *, rope_positions=None, bias=True):
     layout): q on this rank's heads; K and V gathered whole over ``model``
     BEFORE RoPE (a shard of wk may end inside a head), so that every rank
     writes the same replicated cache.  ``bias=False`` drops the q/k/v
-    biases (the backfill's projection, as in the reference)."""
+    biases (the backfill's projection, as in the reference).  In training
+    x's gradient, partial on each rank, is all-reduced (:func:`copy_to`)."""
     hd = cfg.resolved_head_dim
+    x = copy_to(tp, x)
     q = x @ params["wq"].to(x.dtype)
     k = x @ params["wk"].to(x.dtype)
     v = x @ params["wv"].to(x.dtype)
@@ -189,8 +197,9 @@ def qkv_project_tp(params, cfg, x, tp, *, rope_positions=None, bias=True):
 
 def row_parallel(tp, y):
     """The all-reduce (sum over ``model``, in rank order) that completes a
-    row-parallel product's partial sums; ``y`` as it is without one."""
-    return y if tp is None else tp.all_reduce(y, "model")
+    row-parallel product's partial sums; ``y`` as it is without one.  Its
+    backward passes the gradient through (:func:`reduce_from`)."""
+    return reduce_from(tp, y, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -410,11 +419,14 @@ def mlp_init(gen, cfg, d_ff: int | None = None, d_model: int | None = None):
 
 def mlp_apply(params, cfg, x):
     """The MLP; over the serve1d shards (w_up / w_gate by column, w_down
-    by row) its output is completed by an all-reduce over ``model``."""
+    by row) its output is completed by an all-reduce over ``model`` (and
+    in training x's gradient too)."""
+    tp = tensor_parallel()
+    x = copy_to(tp, x)
     up = x @ params["w_up"].to(x.dtype)
     if "w_gate" in params:
         gate = x @ params["w_gate"].to(x.dtype)
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
-    return row_parallel(tensor_parallel(), h @ params["w_down"].to(x.dtype))
+    return row_parallel(tp, h @ params["w_down"].to(x.dtype))

@@ -59,7 +59,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel import tensor_parallel
+from repro_torch import parallel
+from repro_torch.parallel import copy_to, reduce_from, tensor_parallel
 from repro_torch.models import nn
 from repro_torch.models.blocks import BLOCKS, layer_kinds
 from repro_torch.models.layers import (attn_init, mlp_init, norm_apply,
@@ -258,11 +259,15 @@ class CascadeModel:
     def exit_logits(self, params, m: int, h, local: bool = False):
         """Exit head m (m < n_exits-1: intermediate; else final).
 
-        Over a head sharded by vocab across the ``model`` ranks (serve1d)
-        the product gives this rank's columns: ``local`` returns them (the
-        exit kernels' partial contract reads them), else they are gathered
-        over ``model`` into the whole vocab."""
+        Over a head sharded by vocab across the ``model`` ranks (serve1d,
+        and the training layout) the product gives this rank's columns:
+        ``local`` returns them (the exit kernels' partial contract and the
+        vocab-parallel loss read them), else they are gathered over
+        ``model`` into the whole vocab.  In training the normed input's
+        gradient, partial on each rank, is all-reduced (``copy_to``); an
+        enhancement sharded by column / row is completed by an all-reduce."""
         cfg = self.cfg
+        tp = tensor_parallel()
         if m >= self.n_exits - 1:
             x = norm_apply(params["final_norm"], cfg, h)
             head = self._unembed(params)
@@ -270,11 +275,15 @@ class CascadeModel:
             e = params["exits"][m]
             x = norm_apply(e["norm"], cfg, h)
             if "enh_w1" in e:
-                x = x + F.gelu(x @ e["enh_w1"].to(x.dtype),
-                               approximate="tanh") @ e["enh_w2"].to(x.dtype)
+                w2 = e["enh_w2"]
+                tpe = tp if w2.shape[-2] != cfg.cascade.enhance_dim else None
+                x = x + reduce_from(tpe, F.gelu(
+                    copy_to(tpe, x) @ e["enh_w1"].to(x.dtype),
+                    approximate="tanh") @ w2.to(x.dtype))
             head = e["head"] if "head" in e else self._unembed(params)
+        if head.shape[-1] != cfg.vocab_size:
+            x = copy_to(tp, x)
         logits = x @ head.to(x.dtype)
-        tp = tensor_parallel()
         if tp is None or local:
             return logits
         parts = tp.all_gather(logits, "model")           # (M, ..., V / M)
@@ -345,8 +354,8 @@ class CascadeModel:
             idx = tokens.long() - tp.rank("model") * table.shape[0]
             hold = (idx >= 0) & (idx < table.shape[0])
             h = table[idx.clamp(0, table.shape[0] - 1)]
-            h = tp.all_reduce(torch.where(hold[..., None], h,
-                                          torch.zeros_like(h)), "model")
+            h = reduce_from(tp, torch.where(hold[..., None], h,
+                                            torch.zeros_like(h)), "model")
         if "pos_embed" in params:
             if positions is None:
                 positions = torch.arange(tokens.shape[1], device=h.device)
@@ -361,15 +370,22 @@ class CascadeModel:
         """Segment ``si`` over a full sequence with no cache: (h', aux).
         With ``cfg.remat`` each block is recomputed in the backward pass
         (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
-        of the scan body: the same numbers, less activation memory)."""
+        of the scan body: the same numbers, less activation memory).  The
+        recompute runs inside the backward (on CUDA on autograd's device
+        thread, where no transport is active): it re-activates this
+        forward's transport, so the layer runs tensor-parallel again and
+        makes its forward collectives again, in the same order on every
+        rank."""
         remat = self.cfg.remat and torch.is_grad_enabled()
+        tp = parallel.active()
         aux = 0.0
         for pi, (kind, _) in enumerate(self.segment_runs[si]):
             block = BLOCKS[kind]
             stacked = params["segments"][si][pi]
 
             def layer(h, pa, _block=block):
-                h2, _, a = _block.apply(self.cfg, pa, h, ctx, None)
+                with parallel.activate(tp):
+                    h2, _, a = _block.apply(self.cfg, pa, h, ctx, None)
                 return h2, a
             for i in range(next(nn.tree_leaves(stacked)).shape[0]):
                 pa = nn.tree_index(stacked, i)
@@ -382,7 +398,10 @@ class CascadeModel:
         """tokens: (B, S).  Returns ([exit logits (B, S', V)] * n_exits,
         aux): the intermediate exits at every ``cascade.exit_loss_stride``-th
         position, the final exit at every position; aux the MoE layers'
-        load-balance losses summed (0 for the dense family).
+        load-balance losses summed (0 for the dense family).  Under a
+        ``model`` axis (the training layout's shards, a transport active)
+        each logits tensor is this rank's vocab slice, (B, S', V / M),
+        which the vocab-parallel loss reads: nothing is gathered.
 
         It computes with the plain ops only: no kernel of the port has a
         backward (nor has any of the reference's), so a ``use_kernels``
@@ -407,8 +426,10 @@ class CascadeModel:
             h, a = self._train_segment(si, params, h, ctx)
             aux = aux + a
             if si < self.n_exits - 1:
-                logits.append(self.exit_logits(params, si, h[:, ::stride]))
-        logits.append(self.exit_logits(params, self.n_exits - 1, h))
+                logits.append(self.exit_logits(params, si, h[:, ::stride],
+                                               local=True))
+        logits.append(self.exit_logits(params, self.n_exits - 1, h,
+                                       local=True))
         return logits, aux
 
     # ------------------------------------------------------------------

@@ -7,7 +7,9 @@ all-reduce after ``wo`` and ``w_down``, the vocab-sharded embedding's
 all-reduce, the K/V all-gather before RoPE, the exit heads' triples
 gathered before the combine, the branch predicates reduced so that every
 rank takes the same branch, and the chunk's rows gathered over ``data`` at
-the host sync.  This module sits below ``models``, ``core`` and
+the host sync; for training (the ``default`` layout) also the backward's
+collectives, the vocab-parallel loss's reductions and FSDP's gathers and
+reduce-scatters.  This module sits below ``models``, ``core`` and
 ``serving``, which read it, and above the kernels; ``launch/mesh.py``
 builds a mesh's transport here.
 
@@ -29,6 +31,15 @@ work on a multi-rank mesh; the layers (:func:`tensor_parallel`), the
 executor and the loop's guard (:func:`agree`) only read it.  With none
 active, or an axis of one rank, no collective is made and every function
 computes what it computes without a mesh.
+
+The differentiable collectives (:func:`copy_to`, :func:`reduce_from`,
+:func:`gather_from`) are Megatron's pairs over one axis: identity forward
+and all-reduce backward; all-reduce forward and identity backward;
+all-gather forward and reduce-scatter backward.  Each keeps the transport
+it ran with on its autograd context: a backward never reads the active
+transport, which on CUDA runs on autograd's device thread, where none is
+active.  Under ``torch.no_grad`` (serving) or on a tensor that needs no
+gradient they are the transport's plain calls.
 """
 from __future__ import annotations
 
@@ -68,6 +79,8 @@ class Transport:
                        "world": dist.group.WORLD}
         self.calls: Dict[str, int] = dict.fromkeys(AXES, 0)
         self.bytes: Dict[str, int] = dict.fromkeys(AXES, 0)
+        # calls by "axis/op" (op: sum, max, gather, reduce_scatter, host)
+        self.op_calls: Dict[str, int] = {}
         self.ipc: Dict[str, object] = {}
         if self.device.type == "cuda":
             from repro_torch.kernels import allreduce as _ar
@@ -85,9 +98,11 @@ class Transport:
     def rank(self, axis: str) -> int:
         return self.coord[axis]
 
-    def _count(self, x: torch.Tensor, axis: str) -> None:
+    def _count(self, x: torch.Tensor, axis: str, op: str) -> None:
         self.calls[axis] += 1
         self.bytes[axis] += x.numel() * x.element_size()
+        key = f"{axis}/{op}"
+        self.op_calls[key] = self.op_calls.get(key, 0) + 1
 
     def _gloo_parts(self, x: torch.Tensor, axis: str):
         """The ranks' tensors of ``x``, in rank order, over gloo (as bytes,
@@ -114,16 +129,33 @@ class Transport:
             return x[None]
         return self._reduce(x, axis, "gather")
 
+    def reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` (R, *s), R the axis's ranks: the sum over ``axis`` of the
+        ranks' row r, in rank order, on rank r — shape s, the bits of
+        ``all_reduce(x)[r]`` (``x[0]`` on an axis of one rank)."""
+        R = self.shape[axis]
+        if x.shape[0] != R:
+            raise ValueError(f"reduce_scatter over {axis!r} ({R} ranks): "
+                             f"leading dim {x.shape[0]}")
+        if R == 1:
+            return x[0]
+        return self._reduce(x, axis, "reduce_scatter")
+
     def _reduce(self, x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
         """One counted call: the kernel over the axis's IPC group for a
         CUDA tensor, the plain version over the gloo-gathered parts for a
         CPU one."""
-        self._count(x, axis)
+        self._count(x, axis, op)
         if x.device.type == "cuda":
-            from repro_torch.kernels.allreduce import allreduce
-            return allreduce(x, self.ipc[axis], op)
-        from repro_torch.kernels.ref import ref_allreduce
-        return ref_allreduce(self._gloo_parts(x, axis), op)
+            from repro_torch.kernels import allreduce as _ar
+            if op == "reduce_scatter":
+                return _ar.reduce_scatter(x, self.ipc[axis])
+            return _ar.allreduce(x, self.ipc[axis], op)
+        from repro_torch.kernels.ref import ref_allreduce, ref_reduce_scatter
+        parts = self._gloo_parts(x, axis)
+        if op == "reduce_scatter":
+            return ref_reduce_scatter(parts, self.coord[axis])
+        return ref_allreduce(parts, op)
 
     def host_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """A CPU tensor's ranks' copies over ``axis`` through gloo, stacked
@@ -131,7 +163,7 @@ class Transport:
         capture)."""
         if self.shape[axis] == 1:
             return x[None]
-        self._count(x, axis)
+        self._count(x, axis, "host")
         return torch.stack(self._gloo_parts(x.cpu(), axis))
 
     def gather_rows(self, *arrays):
@@ -198,6 +230,79 @@ def activate(t: Optional[Transport]):
         yield t
     finally:
         _local.transport = prev
+
+
+def _tracks(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, t, axis):
+        ctx.t, ctx.axis = t, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.t.all_reduce(g.contiguous(), ctx.axis), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce (sum) forward; the gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, t, axis):
+        return t.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward, (R, *x.shape); the gradient reduce-scattered:
+    rank r's input feeds row r on every rank, so its gradient is the sum
+    over ranks of their row r."""
+
+    @staticmethod
+    def forward(ctx, x, t, axis):
+        ctx.t, ctx.axis = t, axis
+        return t.all_gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.t.reduce_scatter(g.contiguous(), ctx.axis), None, None
+
+
+def copy_to(t: Optional[Transport], x: torch.Tensor, axis: str = "model"
+            ) -> torch.Tensor:
+    """``x`` as it is, its gradient all-reduced over ``axis``: what goes
+    before a column-parallel product on a replicated input."""
+    if t is None or t.shape[axis] == 1 or not _tracks(x):
+        return x
+    return _Copy.apply(x, t, axis)
+
+
+def reduce_from(t: Optional[Transport], x: torch.Tensor,
+                axis: str = "model") -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (rank order), its gradient passed to
+    every rank's ``x`` as it is: a row-parallel product's completion."""
+    if t is None:
+        return x
+    if not _tracks(x):
+        return t.all_reduce(x, axis)
+    return _Reduce.apply(x, t, axis)
+
+
+def gather_from(t: Transport, x: torch.Tensor, axis: str = "model"
+                ) -> torch.Tensor:
+    """The ranks' ``x`` over ``axis`` stacked in rank order, (R,
+    *x.shape), its gradient reduce-scattered back."""
+    if not _tracks(x):
+        return t.all_gather(x, axis)
+    return _Gather.apply(x, t, axis)
 
 
 def agree(pred: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""What each rank of ``tests/test_torch_multirank.py`` runs, in its own
-process (spawned by the test, so this module imports no JAX): it joins a
-world of gloo ranks through a ``FileStore``, builds the port's mesh and
-serves, and puts a picklable result on a queue."""
+"""What each rank of ``tests/test_torch_multirank.py`` and
+``tests/test_torch_multirank_train.py`` runs, in its own process (spawned
+by the test, so this module imports no JAX): it joins a world of gloo
+ranks through a ``FileStore``, builds the port's mesh and serves or
+trains, and puts a picklable result on a queue."""
 from __future__ import annotations
 
 import io
@@ -145,3 +146,111 @@ def _refusals(mesh, cfg, model, params, engine_kw):
     except ValueError as err:
         out["host"] = f"ValueError: {err}"
     return out
+
+
+# ---------------------------------------------------------------------------
+# multi-rank training
+# ---------------------------------------------------------------------------
+
+def reduce_scatter_case(mesh, rank, seed):
+    """The transport's reduce-scatter over each axis of f32 and bf16 (R,
+    5, 7) tensors (one per rank, from ``seed``): inputs and results."""
+    from repro_torch import parallel
+    t = parallel.transport(mesh)
+    g = torch.Generator().manual_seed(seed + 100 * rank)
+    out = {"coord": dict(t.coord)}
+    for axis in ("data", "model", "world"):
+        R = t.size(axis)
+        xs = [torch.randn(R, 5, 7, generator=g),
+              torch.randn(R, 5, 7, generator=g).to(torch.bfloat16)]
+        out[axis] = {"inputs": xs,
+                     "got": [t.reduce_scatter(x, axis) for x in xs]}
+    out["op_calls"] = dict(t.op_calls)
+    return out
+
+
+def ce_case(mesh, rank, logits, labels):
+    """The vocab-parallel cross-entropy of this ``model`` rank's slice of
+    ``logits`` (numpy, the whole vocab): the loss and its gradient."""
+    from repro_torch import parallel
+    from repro_torch.core.training import vocab_parallel_cross_entropy
+    t = parallel.transport(mesh)
+    M, r = t.size("model"), t.rank("model")
+    V = logits.shape[-1] // M
+    x = torch.from_numpy(logits[..., r * V:(r + 1) * V].copy())
+    x.requires_grad_(True)
+    loss = vocab_parallel_cross_entropy(x, torch.from_numpy(labels), t)
+    (grad,) = torch.autograd.grad(loss, [x])
+    return {"loss": loss.detach(), "grad": grad, "calls": dict(t.op_calls)}
+
+
+def train_case(mesh, rank, cfg, np_params, batches, refusals=False):
+    """The port's train step over ``mesh`` from the reference's weights
+    bridged here (placed by ``place_on_mesh``, the AdamW state built from
+    the shards): the first batch's gradients gathered whole, then one
+    step per batch — the losses, the final params gathered whole, and
+    this rank's final shards (for the bit-equality of replicated leaves);
+    with ``refusals`` also what the mesh refuses, by name."""
+    from repro_torch import parallel
+    from repro_torch.bridge import params_from_jax, params_to_numpy
+    from repro_torch.launch.shard_rules import gather_placed, spec_leaves
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.launch.train import place_on_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.nn import tree_leaves
+    model = build_model(cfg, device="cpu")
+    spec, params = place_on_mesh(
+        mesh, cfg, params_from_jax(np_params, cfg, device="cpu"))
+    opt = make_optimizer(cfg)
+    state = opt.init(params)
+    step = make_train_step(model, cfg, opt, mesh=mesh, spec=spec)
+    t = parallel.transport(mesh)
+
+    def data(i):
+        x, y = batches[i]
+        return {"tokens": torch.from_numpy(x), "labels": torch.from_numpy(y)}
+    calls0 = dict(t.op_calls)
+    loss0, grads = step.loss_and_grads(params, data(0))
+    calls = {k: v - calls0.get(k, 0) for k, v in t.op_calls.items()}
+    grads = params_to_numpy(gather_placed(mesh, grads, spec))
+    losses = []
+    for i in range(len(batches)):
+        params, state, loss = step(params, state, i, data(i))
+        losses.append(float(loss))
+    out = {"coord": dict(t.coord), "loss0": float(loss0), "grads": grads,
+           "losses": losses, "step_calls": calls,
+           "whole": params_to_numpy(gather_placed(mesh, params, spec)),
+           "local": [x.detach().clone() for x in tree_leaves(params)],
+           "specs": [s for _, s in spec_leaves(spec)],
+           "count": int(state["count"])}
+    if refusals:
+        out["refused"] = _train_refusals(mesh, cfg)
+    return out
+
+
+def _train_refusals(mesh, cfg):
+    """The error each unported multi-rank training request raises."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import place_on_mesh
+    out = {}
+    for name, c in {"moe": reduced(get_config("mixtral-8x7b")),
+                    "hybrid": reduced(get_config("zamba2-1.2b")),
+                    "heads": cfg.replace(n_heads=3)}.items():
+        try:
+            place_on_mesh(mesh, c, {})
+            out[name] = None
+        except (NotImplementedError, ValueError) as err:
+            out[name] = f"{type(err).__name__}: {err}"
+    return out
+
+
+def train_entry_case(mesh, rank, cfg, steps, batch, seq):
+    """``launch.train.train`` over ``mesh`` (the model drawn from seed 0 on
+    every rank): its summary and the final params gathered whole."""
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.launch.shard_rules import gather_placed
+    from repro_torch.launch.train import train
+    params, spec, summary = train(cfg, torch.device("cpu"), steps, batch,
+                                  seq, mesh=mesh, log_every=steps)
+    whole = params_to_numpy(gather_placed(mesh, params, spec))
+    return {"summary": summary, "whole": whole}

@@ -20,6 +20,7 @@ runs the all-reduce kernel and the exit kernels' partial route on a card.
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -215,7 +216,7 @@ MODES = {"select": dict(exit_mode="select", n_cohorts=2),
          "cond_batch": dict(exit_mode="cond_batch", n_cohorts=1)}
 
 
-def _cfg(pkg="torch", mode="select"):
+def _cfg(pkg="torch", mode="select", enhance=0):
     get, red = ((jax_get_config, jax_reduced) if pkg == "jax"
                 else (get_config, reduced))
     cfg = red(get("qwen2.5-3b"), n_layers=3).replace(dtype="float32")
@@ -223,7 +224,7 @@ def _cfg(pkg="torch", mode="select"):
         cfg = cfg.replace(use_kernels=True)
     cfg = cfg.with_cascade(n_components=3, exit_boundaries=(1, 2),
                            thresholds=MIXED, cohort_layout="major",
-                           **MODES[mode])
+                           enhance_dim=enhance, **MODES[mode])
     return cfg.with_autotune(enabled=True, bins=256, shadow_every=2,
                              min_shadow=8, resolve_every=4)
 
@@ -235,33 +236,42 @@ def _prompts():
 
 @pytest.fixture(scope="module")
 def reference():
-    """The JAX engine on the device runtime in each mode (made at first
-    use), and its weights as numpy."""
+    """The JAX engine on the device runtime in each mode and enhancement
+    width (made at first use), and its weights as numpy."""
     made = {}
 
-    def get(mode):
-        if mode not in made:
-            jcfg = _cfg("jax", mode)
+    def get(mode, enhance=0):
+        if (mode, enhance) not in made:
+            jcfg = _cfg("jax", mode, enhance)
             jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+            if enhance:
+                # enh_w2 starts at zero (the enhancement off until trained):
+                # drawn here, so that the exits read it
+                rng = np.random.default_rng(5)
+                for e in jparams["exits"]:
+                    e["enh_w2"] = jnp.asarray(0.05 * rng.standard_normal(
+                        e["enh_w2"].shape), e["enh_w2"].dtype)
             eng = JaxEngine(jcfg, jax_build_model(jcfg), jparams,
                             runtime="device", **ENGINE_KW)
             for i, p in enumerate(_prompts()):
                 eng.submit(JaxRequest(rid=i, prompt=p, max_new_tokens=BUDGET))
             eng.run(max_ticks=200)
-            made[mode] = (jax.tree_util.tree_map(np.asarray, jparams), eng,
-                          jax_merge(eng.lane_telemetry()))
-        return made[mode]
+            made[mode, enhance] = (
+                jax.tree_util.tree_map(np.asarray, jparams), eng,
+                jax_merge(eng.lane_telemetry()))
+        return made[mode, enhance]
     return get
 
 
-@pytest.mark.parametrize("sizes,fused,mode", [
-    ((1, 2), False, "select"), ((1, 2), True, "select"),
-    ((2, 1), False, "select"), ((2, 2), False, "select"),
-    ((2, 1), False, "cond_batch")],
-    ids=["1x2", "1x2-megakernel", "2x1", "2x2", "2x1-cond_batch"])
+@pytest.mark.parametrize("sizes,fused,mode,enhance", [
+    ((1, 2), False, "select", 0), ((1, 2), True, "select", 0),
+    ((2, 1), False, "select", 0), ((2, 2), False, "select", 0),
+    ((2, 1), False, "cond_batch", 0), ((1, 2), False, "select", 64)],
+    ids=["1x2", "1x2-megakernel", "2x1", "2x2", "2x1-cond_batch",
+         "1x2-enhanced"])
 def test_multirank_engine_matches_reference_engine(pool, tmp_path,
                                                    reference, sizes, fused,
-                                                   mode):
+                                                   mode, enhance):
     """Every rank's engine gives the JAX engine's streams, carried
     segments_run and telemetry; a rank holds its data rows and its model
     shard; the model axis made collectives and the data axis gathered the
@@ -269,11 +279,13 @@ def test_multirank_engine_matches_reference_engine(pool, tmp_path,
     megakernel's partial route and the cohort scatter — against the
     reference's plain route (kernels on and off agree on ints by
     contract).  ``cond_batch``: one cohort split over the data ranks, its
-    skip branches agreed.  On the 1 x 2 mesh every refusal names what is
+    skip branches agreed.  ``enhance``: the exits' classifier enhancement
+    (enh_w1 sharded by column, enh_w2 by row over ``model``, completed by
+    an all-reduce).  On the 1 x 2 mesh every refusal names what is
     missing."""
-    np_params, jeng, jtel = reference(mode)
-    refusals = sizes == (1, 2) and not fused
-    cfg = _cfg(mode=mode)
+    np_params, jeng, jtel = reference(mode, enhance)
+    refusals = sizes == (1, 2) and not fused and not enhance
+    cfg = _cfg(mode=mode, enhance=enhance)
     if fused:
         cfg = cfg.with_kernel_tune(megakernel=True, cohort_scatter=True)
     res = _spawn(pool, tmp_path, sizes, ranks.serve_case, (
