@@ -177,8 +177,8 @@ source, all at once).  Phases, each of which fails the run on a miss:
     32000), the megakernel's tc route at (2048, 32000); no attention
     kernel: the shared block's attention is the plain one) and the cohort
     scatter's whole-cohort route over a 5-layer mamba stage's f32 state
-    and bf16 conv window; then zamba2-1.2b at full width and depth (38
-    layers, d 2048, bf16) alone on the card — init time, peak memory, the
+    and bf16 conv window; then zamba2-1.2b at full width cut to 19 of its
+    38 layers (d 2048, bf16) alone on the card — init time, peak memory, the
     logits against the plain path, 13 requests (one of 300 prompt tokens:
     the padded SSD chunk; a lane re-prefills) on the host and device
     runtimes in turns at (0.9, 0.9, 0.0) and (0, 0, 0), 2 cohorts with the
@@ -227,7 +227,7 @@ source, all at once).  Phases, each of which fails the run on a miss:
     for B = 1, 4, 8 on a 6-stage ring and cuda_core at B = 16, against
     cuBLAS + exit_update; the cohort scatter's slot route over a 4-layer
     dense stage's rings); then the model at its published widths cut to
-    20 of 100 layers (four xattn layers, bf16, gates drawn non-zero) alone
+    15 of 100 layers (three xattn layers, bf16, gates drawn non-zero) alone
     on the card — init time, peak memory, the logits against the plain
     path over random images, a lane prefill of 4 x 256 tokens timed with
     the cross K/V projection's share, the hybrid phase's 13 requests (a
@@ -266,11 +266,17 @@ source, all at once).  Phases, each of which fails the run on a miss:
     at 4 layers in f32 (2 cohorts, select, megakernel, scatter, autotune
     on) on 1 x 2, 2 x 1 and 2 x 2: every rank's streams, segments_run and
     telemetry equal to the one-rank run's; (d) the main cell, qwen2.5-3b
-    at 36 layers in bf16 on 1 x 2 (8 requests x (128/256 + 16)): the exit
-    logits of a prefill and of a decode step against the one-rank model's
-    (normwise ≤ 0.1), the streams' agreement, µs per token, the
-    collectives a step (counted from the replayed IF bodies) beside the
-    dry run's formula, and the launches (the all-reduce's included);
+    at 12 of its 36 layers (36 until slice 24) in bf16 on 1 x 2 (8
+    requests x (128/256 + 16)): the exit logits of a prefill and of a
+    decode step against the one-rank model's (normwise ≤ 0.1), the
+    streams' agreement, µs per token, the collectives a step (counted from
+    the replayed IF bodies) beside the dry run's formula, and the launches
+    (the all-reduce's included); (e) the moe family on the mesh:
+    qwen3-moe's config narrowed in f32 on 1 x 2 (expert parallel and the
+    d_ff fallback), 2 x 1, 2 x 2 and 2 x 1 under cond_batch, streams equal
+    to one rank's with pairs dropped at prefill, then its published widths
+    at 4 of 94 layers in bf16 on 1 x 2 (logits, router near-ties,
+    collectives by op, memory, launches);
 26. the ``{"kernels": [...]}`` line (the all-reduce a row of its own),
     then the final ``{"ok": true, ...}`` line.
 
@@ -5184,12 +5190,12 @@ def phase_fleet_cli():
 # slice 15: the moe family on the card
 # ---------------------------------------------------------------------------
 
-# each model cut in depth only, to what one 80 GB card holds beside its
-# serving temporaries: mixtral-8x7b's 32 layers are 93.9 GB of bf16
-# weights, 16 are 47.5 GB (segments (0, 5), (5, 11), (11, 16));
-# qwen3-moe-235b-a22b's 94 layers are 473 GB, 8 are 44.8 GB (segments
-# (0, 3), (3, 5), (5, 8))
-MOE_LAYERS = {"mixtral-8x7b": 16, "qwen3-moe-235b-a22b": 8}
+# each model cut in depth only: mixtral-8x7b's 32 layers are 93.9 GB of
+# bf16 weights, past one 80 GB card; 8 are ~24 GB (segments (0, 3), (3,
+# 5), (5, 8)); qwen3-moe-235b-a22b's 94 layers are 473 GB, 4 are 24.9 GB
+# (segments (0, 1), (1, 3), (3, 4)).  16 and 8 layers until slice 24, cut
+# for the script's time limit
+MOE_LAYERS = {"mixtral-8x7b": 8, "qwen3-moe-235b-a22b": 4}
 # mixtral's window run: 4 requests of 33 x 128 prompt tokens (flash takes
 # them; T = 16896 routes as 5 groups of 4096, the last padded with 3584
 # zero rows) and 32 new, cache_len 4352, so the ring is the 4096-position
@@ -5466,6 +5472,10 @@ def phase_moe(arch, smi, window_run=False):
 # attention is the plain one)
 HYBRID = {"rmsnorm", "exit_update"}
 HYBRID_ARCH = "zamba2-1.2b"
+# 19 of the 38 layers (all 38 until slice 24, cut for the script's time
+# limit): the shared attention block at layers 0, 6, 12 and 18, in every
+# segment
+HYBRID_LAYERS = 19
 # 12 requests of 128 or 256 prompt tokens and one of 300 (the SSD chunk of
 # 256 padded to 512) for the 8 slots: a lane re-prefills from a zero state
 HYBRID_LONG_PROMPT = 300
@@ -5515,8 +5525,9 @@ def _hybrid_step_bytes(model, params, lane_batch, cache_len):
 
 
 def phase_hybrid(smi):
-    """zamba2-1.2b at its published widths and full depth (38 layers: 31
-    Mamba2 layers, 7 invocations of the shared attention block), bf16,
+    """zamba2-1.2b at its published widths cut to :data:`HYBRID_LAYERS` of
+    its 38 layers (15 Mamba2 layers, 4 invocations of the shared
+    attention block), bf16,
     seed 0, 3 components, kernels on, cond_batch, alone on the card: the
     init time and peak memory; the prefill's and first decode steps'
     logits against the plain path (:func:`_logits_against_plain`); the
@@ -5539,7 +5550,8 @@ def phase_hybrid(smi):
     from repro_torch.models import nn
     from repro_torch.models.model import build_model
     held = _free_card()
-    base = get_config(HYBRID_ARCH).replace(use_kernels=True).with_cascade(
+    base = get_config(HYBRID_ARCH).replace(
+        use_kernels=True, n_layers=HYBRID_LAYERS).with_cascade(
         exit_mode="cond_batch", thresholds=(0.9, 0.9, 0.0))
     torch.cuda.reset_peak_memory_stats()
     model = build_model(base, device=DEV)
@@ -6149,11 +6161,11 @@ def phase_audio(smi):
 # mode (the xattn K/V are read-only, never landed)
 VLM = {"rmsnorm", "exit_update", "decode_attention", "flash_attention"}
 VLM_ARCH = "llama-3.2-vision-90b"
-# the published widths cut to 20 of 100 layers (30 until slice 21, cut
-# for the script's time limit): the 1:5 pattern kept, xattn at layers 4,
-# 9, 14, 19, every segment holding dense and xattn layers; the embedding
-# and the shared unembedding 2.1 GB each
-VLM_LAYERS = 20
+# the published widths cut to 15 of 100 layers (30 until slice 21, 20
+# until slice 24, cut for the script's time limit): the 1:5 pattern kept,
+# xattn at layers 4, 9, 14, every segment holding dense and xattn layers;
+# the embedding and the shared unembedding 2.1 GB each
+VLM_LAYERS = 15
 # the qwen cell's engine
 VLM_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
 # one lane prefill of 4 fresh rows of 256 tokens over the engine's zero
@@ -6711,7 +6723,9 @@ MR_PARITY_LAYERS = 4
 MR_PARITY_MESHES = ((1, 2), (2, 1), (2, 2))
 MR_PARITY_NEW = 8
 MR_MESH = (1, 2)
-MR_LAYERS = 36
+# 12 of the 36 layers (all 36 until slice 24, cut for the script's time
+# limit: the cell's decode step is its collectives, ~2.27 ms each)
+MR_LAYERS = 12
 MR_ENGINE = dict(lane_batch=4, n_lanes=2, cache_len=512, chunk=8)
 MR_NEW_TOKENS = 16
 MR_AUTOTUNE = dict(enabled=True, bins=32, shadow_every=4)
@@ -6722,6 +6736,21 @@ MR_TASK_SECONDS = 400
 # (exit_update's whole route), the decode scan on the megakernel's partial
 # route and its combine, the collectives
 MULTIRANK = SLICE1 | {"megakernel", "cohort_scatter", "allreduce"}
+# (e): the moe family on the mesh.  (e1) qwen3-moe-235b-a22b's config
+# narrowed (8 experts, top 2) at capacity factor 0.5, so that prefill drops
+# pairs, in f32 at 4 layers, on each (data, model, experts, mode, cohorts):
+# 4 experts a rank on 1 x 2, the data-split routing on 2 x 1 and 2 x 2, 3
+# experts on 1 x 2 (the intra-expert d_ff fallback), and one cohort split
+# over 2 x 1 under cond_batch (the routing gather inside the captured skip
+# branches); (e2) its published widths cut to 4 of 94 layers, bf16, on
+# MR_MESH (64 experts a rank)
+MR_MOE_ARCH = "qwen3-moe-235b-a22b"
+MR_MOE_NARROW = dict(d_model=512, n_heads=8, n_kv_heads=2, n_experts=8,
+                     top_k=2, d_ff=512, capacity_factor=0.5)
+MR_MOE_MESHES = ((1, 2, 8, "select", 2), (2, 1, 8, "select", 2),
+                 (2, 2, 8, "select", 2), (1, 2, 3, "select", 2),
+                 (2, 1, 8, "cond_batch", 1))
+MR_MOE_LAYERS = 4
 
 
 def _rank_main(rank, tasks, results):
@@ -6904,15 +6933,18 @@ def _mr_transport(mesh, rank):
 
 
 def _mr_config(spec):
-    """qwen2.5-3b at its published widths, cut to ``spec["layers"]``, in
-    ``spec["dtype"]``: 2 cohorts, major layout, select mode, kernels on
+    """``spec["arch"]`` (qwen2.5-3b unless named) at its published widths
+    but for ``spec["over"]``, cut to ``spec["layers"]``, in
+    ``spec["dtype"]``: 2 cohorts, major layout, select mode (unless
+    ``spec["cohorts"]`` / ``spec["mode"]`` say otherwise), kernels on
     with the megakernel and the cohort scatter, at ``spec["thresholds"]``
     (autotune's telemetry with ``spec["autotune"]``)."""
     from repro_torch.configs import get_config
-    cfg = get_config("qwen2.5-3b").replace(
-        n_layers=spec["layers"], dtype=spec["dtype"],
-        use_kernels=True).with_cascade(
-            exit_mode="select", n_cohorts=2, cohort_layout="major",
+    cfg = get_config(spec.get("arch", "qwen2.5-3b")).replace(
+        n_layers=spec["layers"], dtype=spec["dtype"], use_kernels=True,
+        **spec.get("over", {})).with_cascade(
+            exit_mode=spec.get("mode", "select"),
+            n_cohorts=spec.get("cohorts", 2), cohort_layout="major",
             thresholds=tuple(spec["thresholds"])).with_kernel_tune(
                 megakernel=spec.get("megakernel", True),
                 cohort_scatter=True)
@@ -6928,24 +6960,94 @@ def _digest(params) -> float:
     return float(sum(x.float().sum() for x in nn.tree_leaves(params)))
 
 
-def _first_logits(model, params, cfg, transport=None):
+def _first_logits(model, params, cfg, transport=None, router=None):
     """The exit logits of a prefill of four prompts (seed 5, 128 tokens)
     and of the first decode step after it (its tokens drawn from the same
     seed, not argmaxed: a near-tie must not pick the step's input),
     gathered whole: the main cell's numerics against the one-rank
-    model's."""
+    model's.  With ``router`` (an MoE model, :class:`_RouterProbe`):
+    ``"record"`` keeps each forward's router calls (the probe's kernel
+    mode) under ``"router"``; a dict of such records makes each forward
+    route on them — the one-rank model's experts — and reports under
+    ``"routing"`` where its own choices part from them."""
+    import contextlib
     import numpy as np
     import torch
     from repro_torch import parallel
     rng = np.random.default_rng(5)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 129))
                            .astype(np.int32), device=DEV)
-    with torch.no_grad(), parallel.activate(transport):
+    probe = None if router is None else _RouterProbe()
+    records = {}
+
+    def forward(name, n_tokens, fn):
+        if probe is None:
+            return fn()
+        if router == "record":
+            probe.start("kernel", n_tokens)
+            out = fn()
+            records[name] = [(lg.cpu(), type(r)(*(x.cpu() for x in r)))
+                             for lg, r in probe.calls]
+            return out
+        probe.calls = [(lg.to(DEV), type(r)(*(x.to(DEV) for x in r)))
+                       for lg, r in router[name]]
+        probe.start("plain", n_tokens)
+        out = fn()
+        probe.finish(np.arange(n_tokens))
+        return out
+
+    with torch.no_grad(), parallel.activate(transport), \
+            (probe or contextlib.nullcontext()):
         cache = model.init_cache(4, MR_ENGINE["cache_len"])
-        pre, cache = model.prefill(params, toks[:, :128], cache)
-        out, _ = model.decode_step(params, toks[:, 128:], 128, cache)
-    return {"prefill": [x.float().cpu() for x in pre],
-            "decode": [x.float().cpu() for x in out]}
+        pre, cache = forward("prefill", 4 * 128, lambda: model.prefill(
+            params, toks[:, :128], cache))
+        out, _ = forward("decode", 4, lambda: model.decode_step(
+            params, toks[:, 128:], 128, cache))
+    res = {"prefill": [x.float().cpu() for x in pre],
+           "decode": [x.float().cpu() for x in out]}
+    if router == "record":
+        res["router"] = records
+    elif probe is not None:
+        res["routing"] = probe.report()
+    return res
+
+
+class _MoeDrops:
+    """The pairs that expert capacity drops in each MoE call of a prefill,
+    inside a ``with`` block: ``blocks.moe_apply`` wrapped for the call's
+    real tokens (the rank's rows times the ranks they are split over) and
+    ``moe._queue`` for its kept mask (the pad rows after them left out).
+    A decode call (one token a row) is not read: a captured step must not
+    sync.  ``calls``: (tokens, dropped pairs) a prefill call."""
+
+    def __init__(self):
+        from repro_torch.models import blocks, moe
+        self.blocks, self.moe = blocks, moe
+        self.calls, self._tokens = [], None
+
+    def __enter__(self):
+        from repro_torch import parallel
+        apply, queue = self.blocks.moe_apply, self.moe._queue
+        self._orig = apply, queue
+
+        def moe_apply(params, cfg, x, rows=None):
+            R = 1 if rows is None else parallel.active().size(rows)
+            self._tokens = (R * x.shape[0] * x.shape[1] if x.shape[1] > 1
+                            else None)
+            return apply(params, cfg, x, rows=rows)
+
+        def _queue(gate_idx, E, cap):
+            out = queue(gate_idx, E, cap)
+            if self._tokens is not None:
+                kept = out[2].reshape(-1, gate_idx.shape[-1])[:self._tokens]
+                self.calls.append((self._tokens, int((~kept).sum())))
+            return out
+
+        self.blocks.moe_apply, self.moe._queue = moe_apply, _queue
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_apply, self.moe._queue = self._orig
 
 
 def _per_step(before, after):
@@ -6957,46 +7059,64 @@ def _per_step(before, after):
     if not steps:
         return None
     return {"steps": steps, **{
-        kind: {a: (v - before[kind].get(a, 0)) / steps
-               for a, v in after[kind].items()}
-        for kind in ("calls", "bytes")}}
+        kind: {a: (v - before.get(kind, {}).get(a, 0)) / steps
+               for a, v in after.get(kind, {}).items()}
+        for kind in ("calls", "bytes", "op_calls")}}
 
 
 def _mr_serve(mesh, rank, spec):
-    """(c) / (d) on one rank: the model drawn from ``spec["seed"]`` on the
-    card, its engine on the device runtime over ``mesh`` (the rank's
-    shards and data rows), ``spec``'s requests served; the streams, the
-    carried segments_run, the telemetry, the launches, routes and
-    collectives of the run, and with ``spec["probe"]`` the first decode
-    step's logits."""
+    """(c), (d) and (e) on one rank: the model drawn from ``spec["seed"]``
+    on the card, its engine on the device runtime over ``mesh`` (the
+    rank's shards and data rows), ``spec``'s requests served; the
+    streams, the carried segments_run, the telemetry, the launches,
+    routes and collectives of the run, and with ``spec["probe"]`` the
+    first decode step's logits (routed on ``spec["router"]``'s records
+    for an MoE model).  With ``spec["serial_init"]`` the ranks draw the
+    whole params one after another, each cutting its shards and freeing
+    the rest before the next rank draws (a store key a rank): the card
+    then holds one whole tree at a time.  An MoE model's prefills report
+    their dropped pairs (:class:`_MoeDrops`)."""
+    import contextlib
     import torch
+    from torch.distributed.distributed_c10d import _get_default_store
     from repro_torch import kernels
     from repro_torch.kernels.exit_update import exit_update
     from repro_torch.kernels.megakernel import exit_head_update
     from repro_torch import parallel
     from repro_torch.models.model import build_model
     cfg = _mr_config(spec)
+    t = parallel.transport(mesh, DEV)       # every rank together, first
+    store = _get_default_store()
+    if spec.get("serial_init") and rank:
+        store.wait([f"serial_init/{rank - 1}"])
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=DEV)
     params = model.init(torch.Generator(device=DEV).manual_seed(
         spec["seed"]))
     digest = _digest(params)
-    torch.cuda.reset_peak_memory_stats()
     engine = make_engine(cfg, model, params, runtime="device", mesh=mesh,
                          **spec["engine"])
     del params
     torch.cuda.empty_cache()
-    probe = (_first_logits(model, engine.params, cfg, engine.transport)
+    init_peak = torch.cuda.max_memory_allocated()
+    if spec.get("serial_init"):
+        store.set(f"serial_init/{rank}", "1")
+    torch.cuda.reset_peak_memory_stats()
+    probe = (_first_logits(model, engine.params, cfg, engine.transport,
+                           router=spec.get("router"))
              if spec.get("probe") else None)
-    t = parallel.transport(mesh)
     for r in make_requests(8, (128, 256), cfg.vocab_size, spec["new"],
                            seed=spec["seed"]):
         engine.submit(r)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     calls0, bytes0 = dict(t.calls), dict(t.bytes)
+    ops0 = dict(t.op_calls)
     rep0 = copy.deepcopy(engine.loop.replayed_collectives)
     t0 = time.perf_counter()
-    fin = engine.run(max_ticks=10_000)
+    with (_MoeDrops() if cfg.n_experts else contextlib.nullcontext()
+          ) as drops:
+        fin = engine.run(max_ticks=10_000)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -7013,9 +7133,11 @@ def _mr_serve(mesh, rank, spec):
             rep0, engine.loop.replayed_collectives),
         "calls": {a: t.calls[a] - calls0[a] for a in t.calls},
         "bytes": {a: t.bytes[a] - bytes0[a] for a in t.bytes},
+        "op_calls": {a: n - ops0.get(a, 0) for a, n in t.op_calls.items()},
         "digest": digest, "probe": probe, "seconds": secs,
         "local_batch": int(engine.lanes[0]["state"].active.shape[0]),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "init_max_memory_allocated": init_peak,
         "stats": {k: st[k] for k in (
             "wallclock_us_per_token", "decode_dispatches", "host_syncs",
             "captures", "compile_seconds", "prefill_seconds",
@@ -7024,6 +7146,10 @@ def _mr_serve(mesh, rank, spec):
         from repro_torch.autotune import merge_telemetry
         out["telemetry"] = {k: v.tolist() for k, v in merge_telemetry(
             engine.lane_telemetry()).items()}
+    if cfg.n_experts:
+        out["drops"] = drops.calls
+        out["w_up"] = list(engine.params["segments"][0][0]["moe"]["w_up"]
+                           .shape)
     return out
 
 
@@ -7039,7 +7165,8 @@ def _one_rank(spec):
     digest = _digest(params)
     reqs = make_requests(8, (128, 256), cfg.vocab_size, spec["new"],
                          seed=spec["seed"])
-    probe = _first_logits(model, params, cfg) if spec.get("probe") else None
+    probe = (_first_logits(model, params, cfg, router=spec.get("router"))
+             if spec.get("probe") else None)
     fin, st, secs, launches = serve(cfg, model, params, reqs,
                                     runtime="device", **spec["engine"])
     del model, params
@@ -7217,6 +7344,153 @@ def _mr_agree(tag, ranks, want, floats=False):
                     fail(f"{tag} rank {r}: request {rid}'s confidences")
 
 
+def _expert_shard(spec, M):
+    """The (E, d, d_ff) of a rank's ``w_up`` on a ``model`` axis of M:
+    E/M experts where M divides them, else every expert's d_ff/M."""
+    cfg = _mr_config(spec)
+    E, ff = cfg.n_experts, cfg.d_ff
+    if M > 1:
+        E, ff = (E // M, ff) if E % M == 0 else (E, ff // M)
+    return [E, cfg.d_model, ff]
+
+
+def _mr_moe(pool):
+    """(e): the moe family over the mesh.  (e1) each of MR_MOE_MESHES in
+    f32: streams, segments_run and telemetry equal to the one-rank run's,
+    a pair dropped at some prefill of every rank, the rank's expert shard,
+    all-reduces over ``model`` and gathers over ``data`` only where rows
+    are split over it.  (e2) the published widths at 4 layers in bf16 on
+    MR_MESH, the ranks' builds one after another: the first decode step's
+    logits against the one-rank model's (routed on its experts; a router
+    choice of the mesh's own that parts from them must be a near-tie),
+    token agreement, µs per token against one rank, collectives a decode
+    step by axis and op beside the dry run's, peak memory a rank, every
+    kernel of MULTIRANK launched.  Returns its record."""
+    t0 = time.perf_counter()
+    wants, parity = {}, {}
+    for D, M, E, mode, cohorts in MR_MOE_MESHES:
+        spec = dict(arch=MR_MOE_ARCH, over={**MR_MOE_NARROW, "n_experts": E},
+                    layers=4, dtype="float32", seed=1, new=MR_PARITY_NEW,
+                    engine=MR_ENGINE, autotune=True, mode=mode,
+                    cohorts=cohorts, thresholds=(0.0, 0.0, 0.0))
+        key = (E, mode, cohorts)
+        if key not in wants:
+            th = _median_threshold({rid: {"confs": c} for rid, c in
+                                    _one_rank(spec)["confs"].items()})
+            wants[key] = (th, th, 0.0), _one_rank(
+                {**spec, "thresholds": (th, th, 0.0)})
+            depths = {d for _, e in wants[key][1]["streams"].values()
+                      for d in e}
+            if len(depths) < 2:
+                fail(f"multi-rank moe {key}: every token exits at "
+                     f"{depths}")
+        spec["thresholds"], want = wants[key]
+        got = pool.run((D, M), "_mr_serve", spec)
+        tag = f"multi-rank moe {D}x{M} {E} experts {mode} {cohorts}"
+        _mr_agree(tag, got, want, floats=True)
+        for r, g in enumerate(got):
+            # a rank steps whole cohorts of the lane's two, or, under
+            # cond_batch, its rows of one: nothing to scatter
+            check_launched(f"{tag} rank {r}", g["launches"],
+                           MULTIRANK - ({"cohort_scatter"}
+                                        if D > 1 or mode != "select"
+                                        else set()))
+            if not any(n for _, n in g["drops"]):
+                fail(f"{tag} rank {r}: no pair dropped at prefill "
+                     f"({g['drops']})")
+            if g["w_up"][-3:] != _expert_shard(spec, M):
+                fail(f"{tag} rank {r}: expert shard {g['w_up']}")
+            ops = g["op_calls"]
+            if (bool(ops.get("model/sum")) != (M > 1)
+                    or bool(ops.get("data/gather")) != (D > 1)):
+                fail(f"{tag} rank {r}: collectives {ops}")
+            # the decode steps' routing gathers, counted on the replays
+            per = g["collectives_per_step"] or {"op_calls": {}}
+            if bool(per["op_calls"].get("data/gather")) != (D > 1):
+                fail(f"{tag} rank {r}: replayed collectives a step {per}")
+        parity[f"{D}x{M}_{E}experts_{mode}_{cohorts}"] = {
+            "identical": True, "thresholds": list(spec["thresholds"]),
+            "drops": got[0]["drops"], "w_up": got[0]["w_up"],
+            "op_calls": got[0]["op_calls"],
+            "collectives_per_step": got[0]["collectives_per_step"],
+            "seconds": got[0]["seconds"],
+            "one_rank_seconds": want["seconds"]}
+    lap = {"parity": time.perf_counter() - t0}
+    cell = dict(arch=MR_MOE_ARCH, layers=MR_MOE_LAYERS, dtype="bfloat16",
+                seed=0, new=MR_NEW_TOKENS, engine=MR_ENGINE, probe=True,
+                router="record", thresholds=(0.9, 0.9, 0.0))
+    one = _one_rank(cell)
+    got = pool.run(MR_MESH, "_mr_serve", {
+        **cell, "router": one["probe"].pop("router"), "serial_init": True})
+    lap["cell"] = time.perf_counter() - t0 - lap["parity"]
+    rels = {k: [float((a - b).norm() / b.norm())
+                for a, b in zip(got[0]["probe"][k], one["probe"][k])]
+            for k in ("prefill", "decode")}
+    rel = max(max(v) for v in rels.values())
+    routing = got[0]["probe"]["routing"]
+    if rel > LOGIT_REL_TOL:
+        fail(f"multi-rank moe cell: the exit logits differ normwise by "
+             f"{rels} from the one-rank model's")
+    if routing["n_faults"]:
+        fail(f"multi-rank moe cell: a router choice parts from the "
+             f"one-rank model's by more than {ROUTER_TIE_ULPS} bf16 ulps: "
+             f"{routing['faults']}")
+    for r, g in enumerate(got):
+        if g["digest"] != one["digest"]:
+            fail(f"multi-rank moe cell rank {r}: other weights drawn")
+        if g["streams"] != got[0]["streams"]:
+            fail(f"multi-rank moe cell: rank {r}'s streams differ from "
+                 "rank 0's")
+        check_launched(f"multi-rank moe cell rank {r}", g["launches"],
+                       MULTIRANK)
+        mk = g["megakernel_routes"]
+        if mk["tc"] != mk["combine"] or mk["cuda_core"]:
+            fail(f"multi-rank moe cell rank {r}: megakernel routes {mk}")
+        if g["w_up"][-3:] != _expert_shard(cell, MR_MESH[1]):
+            fail(f"multi-rank moe cell rank {r}: expert shard {g['w_up']}")
+    n = same = 0
+    for rid, (toks, _) in one["streams"].items():
+        mine = got[0]["streams"][rid][0]
+        n += len(toks)
+        same += sum(a == b for a, b in zip(toks, mine))
+    per = got[0]["collectives_per_step"]
+    if per is None or not per["calls"]["model"]:
+        fail(f"multi-rank moe cell: no collective counted on the captured "
+             f"replays ({per})")
+    cfg = _mr_config(cell)
+    return {
+        "parity": parity, "launches": got[0]["launches"],
+        "cell": {
+            "config": MR_MOE_ARCH, "n_layers": MR_MOE_LAYERS,
+            "published_layers": 94, "dtype": "bfloat16",
+            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "n_kv_heads": cfg.n_kv_heads, "n_experts": cfg.n_experts,
+            "top_k": cfg.top_k, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "mesh": dict(zip(("data", "model"), MR_MESH)),
+            "w_up_shard": got[0]["w_up"], **MR_ENGINE, "requests": 8,
+            "prompt_lens": [128, 256], "max_new_tokens": MR_NEW_TOKENS,
+            "thresholds": list(cell["thresholds"]),
+            "first_step_logits_rel_err": rel, "logits_rel_err": rels,
+            "routing": routing, "token_agreement": same / n, "tokens": n,
+            "decode_us_per_token":
+                got[0]["stats"]["wallclock_us_per_token"],
+            "one_rank_decode_us_per_token": one["wallclock_us_per_token"],
+            "seconds": got[0]["seconds"], "one_rank_seconds": one["seconds"],
+            "collectives_per_step": per,
+            "dryrun_collectives_per_step": _dryrun_collectives(
+                cell, MR_MESH, MR_ENGINE["lane_batch"]),
+            "drops": got[0]["drops"], "op_calls": got[0]["op_calls"],
+            "launches": got[0]["launches"],
+            "one_rank_launches": one["launches"],
+            "megakernel_routes": got[0]["megakernel_routes"],
+            "stats": got[0]["stats"],
+            "max_memory_allocated": [g["max_memory_allocated"]
+                                     for g in got],
+            "init_max_memory_allocated": [g["init_max_memory_allocated"]
+                                          for g in got]},
+        "laps": lap, "seconds": time.perf_counter() - t0}
+
+
 def phase_multirank(dev, gen, smi, mixed, pool):
     """Slice 22: the dense cascade served over a ``(data, model)`` mesh of
     2 and 4 rank processes on the one card (``make_mesh``: gloo for the
@@ -7224,13 +7498,13 @@ def phase_multirank(dev, gen, smi, mixed, pool):
     step).  (a) the transport; (b) the exit kernels' partial contract;
     (c) qwen2.5-3b's widths at 4 layers in f32 on 1 x 2, 2 x 1 and 2 x 2:
     streams, segments_run and telemetry equal to the one-rank run's; (d)
-    the main cell, qwen2.5-3b at 36 layers in bf16 on 1 x 2 (2 cohorts,
+    the main cell, qwen2.5-3b at MR_LAYERS in bf16 on 1 x 2 (2 cohorts,
     select, megakernel, cohort scatter, 8 requests x (128/256 + 16)): the
     first decode step's logits against the one-rank model's, the streams'
     agreement, µs per token, the collectives per step and the launches
-    (every kernel of the path, the all-reduce included).  The rank
-    processes are ``pool``'s (four).  Returns {"transport", "exit",
-    "launches", "cell"}."""
+    (every kernel of the path, the all-reduce included); (e) the moe
+    family (:func:`_mr_moe`).  The rank processes are ``pool``'s (four).
+    Returns {"transport", "exit", "launches", "cell", "moe"}."""
     import torch
     t_phase = time.perf_counter()
     mode = subprocess.run(
@@ -7344,15 +7618,18 @@ def phase_multirank(dev, gen, smi, mixed, pool):
         "exit_update_routes": got[0]["exit_update_routes"],
         "stats": got[0]["stats"],
         "max_memory_allocated": [g["max_memory_allocated"] for g in got]}
+    moe = _mr_moe(pool)
+    lap["moe"] = time.perf_counter() - t_phase - sum(lap.values())
     emit({"phase": "multirank", "compute_mode": mode, "nvidia_smi": smi,
           "transport": transport, "exit": exit_cases, "parity": parity_out,
           "parity_thresholds": list(parity["thresholds"]),
-          "cell": cell_out, "phase_seconds": time.perf_counter() - t_phase,
-          "laps": lap})
+          "cell": cell_out, "moe": moe,
+          "phase_seconds": time.perf_counter() - t_phase, "laps": lap})
     ar = next(c for c in transport[2][0] if c["shape"] == list(MR_SHAPES[0])
               and c["dtype"] == "bfloat16")
     return {"transport": transport, "exit": exit_cases,
             "launches": got[0]["launches"], "allreduce": ar,
+            "moe_launches": moe["launches"],
             "exit_update_path": parity_out["1x2_exit_update"],
             "max_abs_err": max(c["max_abs_err"] for rs in transport.values()
                                for r in rs for c in r)}
@@ -7873,8 +8150,8 @@ def main() -> int:
     # slice 18: the audio family, alone on the card
     audio = phase_audio(smi)
     lap("audio")
-    # slice 19: the vlm family at 20 of its 100 layers (30 until slice
-    # 21), alone on the card
+    # slice 19: the vlm family at 15 of its 100 layers (30 until slice
+    # 21, 20 until slice 24), alone on the card
     vlm = phase_vlm(smi)
     lap("vlm")
     # slice 21: the LLM cascade trained, calibrated and served, then the
@@ -8001,8 +8278,8 @@ def main() -> int:
                      # dense with one cohort, 16 requests x 32 tokens
                      "launches_fleet": fleet["paged_drain"][name],
                      "launches_fleet_dense": fleet["dense"][name],
-                     # slice 15's paths, device runtime: mixtral-8x7b (16
-                     # layers) and qwen3-moe-235b-a22b (8 layers), 8
+                     # slice 15's paths, device runtime: mixtral-8x7b (8
+                     # layers) and qwen3-moe-235b-a22b (4 layers), 8
                      # requests x 16 tokens at (0.9, 0.9, 0.0), one cohort
                      # and two with the megakernel at a mixed threshold;
                      # mixtral's window run (4 requests of 4224 prompt
@@ -8015,7 +8292,8 @@ def main() -> int:
                      "launches_qwen3_moe_megakernel":
                          qwen3["megakernel"][name],
                      # slice 16's paths, device runtime: zamba2-1.2b at
-                     # full width, 13 requests x 16 tokens — one cohort at
+                     # full width cut to 19 layers, 13 requests x 16
+                     # tokens — one cohort at
                      # (0.9, 0.9, 0.0); 2 cohorts with the megakernel at a
                      # mixed threshold; the same in select mode with the
                      # cohort scatter; the same with autotune's shadow
@@ -8032,7 +8310,7 @@ def main() -> int:
                      "launches_audio": {p: n[name]
                                         for p, n in audio.items()},
                      # slice 19's paths, device runtime:
-                     # llama-3.2-vision-90b at full width cut to 20
+                     # llama-3.2-vision-90b at full width cut to 15
                      # layers, 13 requests x 16 tokens — the same four
                      # paths as the hybrid's
                      "launches_vlm": {p: n[name] for p, n in vlm.items()},
@@ -8048,11 +8326,17 @@ def main() -> int:
                      # megakernel and the cohort scatter, 8 requests x 32
                      # tokens at the (final, 0.05) calibrated thresholds
                      "launches_trained": trained[name],
-                     # slice 22's main cell: qwen2.5-3b at 36 layers in
+                     # slice 22's main cell: qwen2.5-3b at 12 layers in
                      # bf16 on a 1 x 2 mesh (rank 0's launches), 2
                      # cohorts, select, megakernel (its partial route and
                      # combine) and cohort scatter, 8 requests x 16 tokens
                      "launches_multirank": multirank["launches"][name],
+                     # slice 24's: qwen3-moe-235b-a22b at its published
+                     # widths cut to 4 layers, bf16, on the 1 x 2 mesh
+                     # (rank 0's; 64 experts a rank), 2 cohorts, select,
+                     # megakernel and cohort scatter, 8 requests x 16
+                     "launches_multirank_moe": multirank["moe_launches"][
+                         name],
                      **({"partial_route": multirank["exit"][name]}
                         if name in multirank["exit"] else {}),
                      # exit_update's partial route served: the 4-layer f32
@@ -8082,8 +8366,11 @@ def main() -> int:
         "replaces": "none: the reference's collectives are GSPMD's "
                     "(src/repro/serving/runtime.py:109)",
         "launches": multirank["launches"]["allreduce"],
-        "path": "multi-rank cell: qwen2.5-3b, 36 layers, bf16, 1 x 2 mesh, "
-                "rank 0",
+        "path": f"multi-rank cell: qwen2.5-3b, {MR_LAYERS} layers, bf16, "
+                "1 x 2 mesh, rank 0",
+        "launches_multirank_moe": multirank["moe_launches"]["allreduce"],
+        "path_multirank_moe": "multi-rank moe cell: qwen3-moe-235b-a22b, "
+                              "4 layers, bf16, 1 x 2 mesh, rank 0",
         "max_abs_err": multirank["max_abs_err"],
         "ms": ar["ms"], "plain_ms": ar["plain_ms"],
         "bound_ms": ar["bound_ms"], "bound_by": ar["bound_by"],

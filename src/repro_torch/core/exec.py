@@ -635,6 +635,11 @@ class StagedExecutor:
             ctx["block_tables"] = state.block_tables
         segs = cache["segments"]
         h, _, _ = model.run_segment(0, params, h, ctx, segs[0])
+        if mc is not None:
+            # a deep cell routes its cohort's rows as one call (the MoE
+            # layers): the ranks_per data ranks that hold them
+            ctx = {**ctx, "route_rows": parallel.active().data_block(
+                mc.ranks_per)}
         sc = self._scan_exit(0, params, h, ths, state=state.policy,
                              live=state.active)
         # the shadow chain starts at the committed hidden state

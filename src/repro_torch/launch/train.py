@@ -80,8 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
 # what training over a mesh of more than one rank does not have yet
 # (ROADMAP.md Queue 1 item 5), by what asks for it
 MULTI_RANK_TRAIN_MISSING = {
-    "moe": "expert-parallel MoE dispatch and its backward (an all-to-all "
-           "over 'model')",
+    "moe": "the MoE layer's backward over the expert or d_ff shards and "
+           "the routing of rows split over 'data' in training",
     "family": "the hybrid, ssm, audio and vlm blocks over 'model' (their "
               "shared-attention, recurrent, encoder and cross-attention "
               "collectives and their backward)",

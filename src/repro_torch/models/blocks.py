@@ -313,10 +313,12 @@ def moe_init_block(gen, cfg):
 
 
 def moe_apply_block(cfg, params, h, ctx, cache):
+    """The moe block; ``ctx["route_rows"]`` (absent: None) is the axis
+    over whose ranks the call's rows are split (:func:`moe_apply`)."""
     a, new_cache = _self_attention(cfg, params["attn"], h, ctx, cache)
     h = h + a
     x = norm_apply(params["moe"]["norm"], cfg, h)
-    m, aux = moe_apply(params["moe"], cfg, x)
+    m, aux = moe_apply(params["moe"], cfg, x, rows=ctx.get("route_rows"))
     return h + m, new_cache, aux
 
 

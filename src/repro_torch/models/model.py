@@ -492,7 +492,9 @@ class CascadeModel:
         ((n_components, B, nblk) int32) switches the cache writes to the
         paged layout; the ring is then the per-slot (B, W) one (continuous
         admission rewrites one row at a time) instead of the lane-wide
-        (W,).
+        (W,).  On a mesh the rows are this rank's ``data`` block of the
+        batch, routed as one call with the other blocks
+        (``ctx["route_rows"]``, the MoE layers').
         """
         _no_extra(self.cfg, extra)
         S = tokens.shape[1]
@@ -504,7 +506,8 @@ class CascadeModel:
         ctx = {"mode": "full", "positions": positions,
                "write_slots": write_slots, "kpos": cache["kpos"],
                "shared": params.get("shared"),
-               "cross": self._make_cross(params, extra or {}, "full")}
+               "cross": self._make_cross(params, extra or {}, "full"),
+               "route_rows": parallel.batch_rows()}
         if block_tables is not None:
             ctx["block_tables"] = block_tables
         logits = []
@@ -572,7 +575,9 @@ class CascadeModel:
         ring with this step's slot set to t, which every layer's attention
         reads — is built once here instead of once per layer.  Nothing
         here reads t to the host, so a captured step reads it from device
-        memory at every replay.
+        memory at every replay.  ``ctx["route_rows"]`` is the ``data`` axis
+        of a mesh that splits the batch (the MoE layers route its rows as
+        one call), else None; the executor narrows it for a cohort's cell.
         """
         t = self.position(t)
         W = cache["kpos"].shape[-1]
@@ -581,7 +586,8 @@ class CascadeModel:
         h = self._embed(params, token, t.view(1))
         ctx = {"mode": "decode", "t": t, "slot": slot,
                "kpos": cache["kpos"], "kpos_t": kpos_t,
-               "shared": params.get("shared"), "cross": None}
+               "shared": params.get("shared"), "cross": None,
+               "route_rows": parallel.batch_rows()}
         return h, ctx
 
     def commit_decode(self, cache, new_segs, t):

@@ -23,6 +23,12 @@ Nothing here reads a device value to the host and no shape depends on the
 data, so the layer runs inside a captured CUDA graph and its IF-node
 bodies.
 
+On a mesh (:func:`moe_apply` under the active transport) a rank holds its
+experts, or every expert's slice of d_ff, and one all-reduce over
+``model`` completes the layer; a call whose rows are split over ``data``
+ranks gathers its chosen experts over them, so that every rank queues the
+whole call as one rank would.
+
 Router load-balance auxiliary loss (Switch/GShard):
 ``aux = E * Σ_e f_e · p_e`` with f the fraction of (token, choice) pairs
 routed to e before the capacity cut and p the mean router probability of
@@ -36,8 +42,10 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import parallel
 from repro_torch.models import nn
 from repro_torch.models.layers import norm_init
+from repro_torch.parallel import tensor_parallel
 
 # routing-group size: bounds the (G, E, C) slot tables; read at call time
 GROUP_TOKENS = 4096
@@ -105,16 +113,12 @@ def route_topk(router_logits, top_k: int, cap: int) -> Routing:
     return route_experts(probs, gate_idx, cap)
 
 
-def route_experts(probs, gate_idx, cap: int) -> Routing:
-    """Queue the chosen experts ``gate_idx`` (..., T, k) of router
-    probabilities ``probs`` (..., T, E): the gates renormalised over the
-    k choices, each (slot, token) pair placed slot-major then by token in
-    its expert's queue, dropped at ``pos >= cap``."""
-    *lead, T, E = probs.shape
-    top_k = gate_idx.shape[-1]
-    gate_vals = torch.gather(probs, -1, gate_idx)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-
+def _queue(gate_idx, E: int, cap: int):
+    """Each (slot, token) pair of the chosen experts ``gate_idx`` (..., T,
+    k) placed slot-major then by token in its expert's queue and dropped
+    at ``pos >= cap``: (slot_token (..., E, C), choice_slot (..., T, k),
+    kept (..., T, k), the pairs' (..., kT, E) int32 one-hot)."""
+    *lead, T, top_k = gate_idx.shape
     # queue position of each pair, slot-major then token: (..., k*T)
     order = gate_idx.transpose(-1, -2).reshape(*lead, top_k * T)
     # one-hot by scatter (F.one_hot checks its values on the host)
@@ -137,13 +141,34 @@ def route_experts(probs, gate_idx, cap: int) -> Routing:
     keep_tk = keep.reshape(*lead, top_k, T).transpose(-1, -2)
     choice_slot = torch.where(keep_tk, flat.reshape(*lead, top_k, T)
                               .transpose(-1, -2), 0)
-    gates = torch.where(keep_tk, gate_vals, 0.0)
+    return slot_token, choice_slot.contiguous(), keep_tk, onehot
 
+
+def _gates(probs, gate_idx):
+    """The chosen experts' router probabilities renormalised over the k
+    choices."""
+    gate_vals = torch.gather(probs, -1, gate_idx)
+    return gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+
+def _aux(probs, onehot):
+    """The load-balance loss of each group from its router probabilities
+    (..., T, E) and its pairs' one-hot (..., kT, E)."""
+    E, T = probs.shape[-1], probs.shape[-2]
     frac_dispatch = onehot.sum(dim=-2).float() / T               # (..., E)
-    frac_prob = probs.mean(dim=-2)
-    aux = E * (frac_dispatch * frac_prob).sum(dim=-1)
-    return Routing(slot_token, choice_slot.contiguous(), gates, gate_idx,
-                   keep_tk, aux)
+    return E * (frac_dispatch * probs.mean(dim=-2)).sum(dim=-1)
+
+
+def route_experts(probs, gate_idx, cap: int) -> Routing:
+    """Queue the chosen experts ``gate_idx`` (..., T, k) of router
+    probabilities ``probs`` (..., T, E): the gates renormalised over the
+    k choices, each (slot, token) pair placed slot-major then by token in
+    its expert's queue, dropped at ``pos >= cap``."""
+    slot_token, choice_slot, kept, onehot = _queue(gate_idx, probs.shape[-1],
+                                                   cap)
+    gates = torch.where(kept, _gates(probs, gate_idx), 0.0)
+    return Routing(slot_token, choice_slot, gates, gate_idx, kept,
+                   _aux(probs, onehot))
 
 
 def expert_ffn(params, cfg, xe):
@@ -158,41 +183,125 @@ def expert_ffn(params, cfg, xe):
     return torch.bmm(h, params["w_down"].to(dt))
 
 
-def moe_apply(params, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def _route_call(xt, router, cfg, t, rows: str):
+    """Route the tokens of one call whose rows are split over the ranks of
+    ``rows`` (an axis of transport ``t``): this rank holds ``xt`` (T_l,
+    d), the call's T_l-token block at the rank's place in ``rows``' rank
+    order.  The chosen experts of every rank's tokens are gathered (one
+    all-gather of (T_l, k) int32), so that every rank queues the whole
+    call — its groups, pad rows, capacity and queue positions — as one
+    rank routing all its tokens would.  Returns (the call's slot_token
+    (G, E, C), Tg, C, and this rank's tokens' choice_slot, kept, gates
+    and experts (T_l, k) and aux)."""
+    T_l = xt.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    T = t.size(rows) * T_l
+    Tg = min(GROUP_TOKENS, T)
+    pad = (-T) % Tg
+    cap = capacity(Tg, E, k, cfg.capacity_factor)
+    probs = torch.softmax((xt @ router.to(xt.dtype)).float(), dim=-1)
+    _, idx = topk_first(probs, k)                                 # (T_l, k)
+    whole = t.all_gather(idx.to(torch.int32), rows).reshape(T, k).long()
+    if pad:
+        # the zero pad rows' router logits are 0: experts 0..k-1
+        whole = torch.cat([whole, torch.arange(k, device=xt.device)
+                           .expand(pad, k)])
+    G = whole.shape[0] // Tg
+    slot_token, choice_slot, kept, _ = _queue(whole.view(G, Tg, k), E, cap)
+    lo = t.rank(rows) * T_l
+    choice_slot = choice_slot.reshape(G * Tg, k)[lo:lo + T_l]
+    kept = kept.reshape(G * Tg, k)[lo:lo + T_l]
+    onehot = torch.zeros((T_l * k, E), dtype=torch.int32,
+                         device=xt.device).scatter_(-1, idx.view(-1, 1), 1)
+    return (slot_token, Tg, cap, choice_slot, kept,
+            torch.where(kept, _gates(probs, idx), 0.0), idx,
+            _aux(probs, onehot))
+
+
+def moe_apply(params, cfg, x, rows=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss).
 
     Tokens are routed in groups of ``min(GROUP_TOKENS, B*S)``, the last
     padded with zero rows (a zero row's router logits are 0, so it picks
     experts 0..k-1 and queues before the real tokens' later choices, as in
-    the reference)."""
+    the reference).
+
+    Over the serve1d shards (the active transport's ``model`` axis of more
+    than one rank, :func:`~repro_torch.parallel.tensor_parallel`) the
+    router is replicated and every rank routes alike; a rank holds E/M
+    experts (expert parallel, E a multiple of M) or every expert's d_ff/M
+    columns of ``w_gate`` / ``w_up`` and rows of ``w_down`` (the
+    fallback).  It computes its experts' slots (its partial products),
+    combines them in f32 — a choice of another rank's expert adds 0 — and
+    one all-reduce over ``model`` of that f32 sum completes the layer,
+    rounded once to the activation dtype.  No all-to-all: the activations
+    are replicated over ``model``.
+
+    ``rows``: the axis of the active transport over whose ranks this
+    call's rows are split (each rank a block of them, in rank order), or
+    None when the rank's rows are the whole call.  The call is then routed
+    as one (:func:`_route_call`): its capacity, groups, pad rows and queue
+    positions are those of one rank routing every row, and the rank
+    computes and combines its own rows.  The aux loss is then the rank's
+    own tokens'."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
-    Tg = min(GROUP_TOKENS, T)
-    pad = (-T) % Tg
     xt = x.reshape(T, d)
-    if pad:
-        xt = torch.cat([xt, xt.new_zeros(pad, d)])
-    G = xt.shape[0] // Tg
-    xg = xt.reshape(G, Tg, d)
-    logits = xg @ params["router"].to(x.dtype)
-    cap = capacity(Tg, E, k, cfg.capacity_factor)
-    r = route_topk(logits, k, cap)
+    t = parallel.active() if rows is not None else None
+    if t is None or t.size(rows) == 1:
+        Tg = min(GROUP_TOKENS, T)
+        pad = (-T) % Tg
+        xg = xt if not pad else torch.cat([xt, xt.new_zeros(pad, d)])
+        G = xg.shape[0] // Tg
+        logits = xg.reshape(G, Tg, d) @ params["router"].to(x.dtype)
+        cap = capacity(Tg, E, k, cfg.capacity_factor)
+        r = route_topk(logits, k, cap)
+        slot_token, lo = r.slot_token, 0
+        choice_slot = r.choice_slot.reshape(G * Tg, k)[:T]
+        kept = r.kept.reshape(G * Tg, k)[:T]
+        gates, experts = r.gates.reshape(G * Tg, k)[:T], \
+            r.experts.reshape(G * Tg, k)[:T]
+        aux = r.aux.mean()
+    else:
+        slot_token, Tg, cap, choice_slot, kept, gates, experts, aux = \
+            _route_call(xt, params["router"], cfg, t, rows)
+        lo = t.rank(rows) * T
 
-    # dispatch: each slot's token row (the appended zero row when empty)
-    xz = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
-    xe = torch.gather(xz, 1, r.slot_token.reshape(G, E * cap, 1)
-                      .expand(G, E * cap, d))
-    xe = xe.reshape(G, E, cap, d).transpose(0, 1).reshape(E, G * cap, d)
+    # this rank's experts [e_lo, e_lo + E_l) and the groups its tokens
+    # [lo, lo + T) of the call touch
+    tp = tensor_parallel()
+    E_l = params["w_up"].shape[0]
+    e_lo = 0 if E_l == E else tp.rank("model") * E_l
+    g_lo, g_hi = lo // Tg, (lo + T - 1) // Tg + 1
+
+    # dispatch: each slot's token row (a zero row when the slot is empty
+    # or holds another rank's token)
+    st = slot_token[g_lo:g_hi, e_lo:e_lo + E_l]                 # (Gl, E_l, C)
+    Gl = st.shape[0]
+    q = st + (torch.arange(g_lo, g_hi, device=x.device) * Tg - lo
+              ).view(Gl, 1, 1)
+    src = torch.where((st < Tg) & (q >= 0) & (q < T), q, T)
+    xz = torch.cat([xt, xt.new_zeros(1, d)])
+    xe = xz[src.reshape(-1)].view(Gl, E_l, cap, d)
+    xe = xe.transpose(0, 1).reshape(E_l, Gl * cap, d)
     ye = expert_ffn(params, cfg, xe)
-    ye = ye.reshape(E, G, cap, d).transpose(0, 1).reshape(G, E * cap, d)
+    ye = ye.reshape(E_l, Gl, cap, d).transpose(0, 1).reshape(
+        Gl * E_l * cap, d)
 
-    # combine: Σ_j gate_j · out[slot_j] over the k choices, in f32
-    g = r.gates.to(x.dtype).float()
+    # combine: Σ_j gate_j · out[slot_j] over the k choices, in f32; a
+    # choice of another rank's expert (or a dropped one) adds 0
+    g = gates.to(x.dtype).float()
+    grp = (torch.arange(lo, lo + T, device=x.device) // Tg - g_lo)[:, None]
+    local = kept & (experts >= e_lo) & (experts < e_lo + E_l)
+    idx = torch.where(local, grp * (E_l * cap) + choice_slot - e_lo * cap, 0)
     out = None
     for j in range(k):
-        idx = r.choice_slot[..., j:j + 1].expand(G, Tg, d)
-        term = g[..., j:j + 1] * torch.gather(ye, 1, idx).float()
+        term = g[:, j:j + 1] * ye[idx[:, j]].float()
+        if E_l != E:
+            term = torch.where(local[:, j:j + 1], term, 0.0)
         out = term if out is None else out + term
-    out = out.to(x.dtype).reshape(G * Tg, d)[:T]
-    return out.reshape(B, S, d), r.aux.mean().float()
+    if tp is not None and (E_l != E or params["w_up"].shape[-1] != cfg.d_ff):
+        out = tp.all_reduce(out, "model")
+    return out.to(x.dtype).reshape(B, S, d), aux.float()

@@ -14,7 +14,8 @@ reduce-scatters.  This module sits below ``models``, ``core`` and
 builds a mesh's transport here.
 
 A :class:`Transport` is one rank's collectives of a mesh: per axis
-(``data``, ``model``, and ``world`` for the whole mesh) the ranks, the
+(``data``, ``model``, ``world`` for the whole mesh, and ``data/p`` for
+each block of p consecutive ``data`` ranks) the ranks, the
 gloo process group and, on CUDA, an IPC group of the all-reduce kernel
 (:mod:`repro_torch.kernels.allreduce`).  Each call takes one backend,
 chosen by the tensor's device and never on a failure: ``gloo`` for CPU
@@ -49,7 +50,6 @@ from typing import Dict, Optional
 
 import torch
 
-AXES = ("data", "model", "world")
 _local = threading.local()
 
 
@@ -77,15 +77,31 @@ class Transport:
         self.groups = {"data": mesh.get_group("data"),
                        "model": mesh.get_group("model"),
                        "world": dist.group.WORLD}
-        self.calls: Dict[str, int] = dict.fromkeys(AXES, 0)
-        self.bytes: Dict[str, int] = dict.fromkeys(AXES, 0)
+        # the blocks of p consecutive ``data`` ranks (p a proper divisor of
+        # the data size), axis "data/p": the ranks that hold one cohort
+        # split over p of them (:meth:`data_block`).  Every rank makes
+        # every block's group, in one order (new_group's contract)
+        D = self.shape["data"]
+        for p in range(2, D):
+            if D % p:
+                continue
+            axis = f"data/{p}"
+            for j in range(D // p):
+                for col in range(self.shape["model"]):
+                    ranks = [grid[j * p + q][col] for q in range(p)]
+                    group = dist.new_group(ranks)
+                    if me in ranks:
+                        self.groups[axis], self.ranks[axis] = group, ranks
+            self.shape[axis], self.coord[axis] = p, di % p
+        self.calls: Dict[str, int] = dict.fromkeys(self.shape, 0)
+        self.bytes: Dict[str, int] = dict.fromkeys(self.shape, 0)
         # calls by "axis/op" (op: sum, max, gather, reduce_scatter, host)
         self.op_calls: Dict[str, int] = {}
         self.ipc: Dict[str, object] = {}
         if self.device.type == "cuda":
             from repro_torch.kernels import allreduce as _ar
             store = _get_default_store()
-            for axis in AXES:
+            for axis in self.shape:
                 if self.shape[axis] > 1:
                     self.ipc[axis] = _ar.IpcGroup(
                         store, f"repro_ipc/{axis}/{min(self.ranks[axis])}",
@@ -97,6 +113,14 @@ class Transport:
 
     def rank(self, axis: str) -> int:
         return self.coord[axis]
+
+    def data_block(self, p: int) -> Optional[str]:
+        """The axis of this rank's block of ``p`` consecutive ``data``
+        ranks: None for one rank, ``"data"`` for the whole axis, else
+        ``"data/p"``."""
+        if p == 1:
+            return None
+        return "data" if p == self.shape["data"] else f"data/{p}"
 
     def _count(self, x: torch.Tensor, axis: str, op: str) -> None:
         self.calls[axis] += 1
@@ -219,6 +243,14 @@ def tensor_parallel() -> Optional[Transport]:
     rank: the layers' tensor-parallel route."""
     t = active()
     return t if t is not None and t.shape["model"] > 1 else None
+
+
+def batch_rows() -> Optional[str]:
+    """The axis over whose ranks a call on the whole batch has its rows
+    split: the active transport's ``data`` axis when it has more than one
+    rank, else None."""
+    t = active()
+    return None if t is None else t.data_block(t.size("data"))
 
 
 @contextlib.contextmanager

@@ -55,14 +55,19 @@ are captured over the local tensors: every replay is the ``mesh=None``
 replay, and no collective is made.
 
 On a ``(data, model)`` mesh of more than one rank (``make_mesh``, one
-process a rank, the dense family) every rank runs the same loop (SPMD):
-:meth:`DeviceDecodeLoop.shard_params` cuts the rank's serve1d shards from
-the whole params, a lane's cache and state hold the rank's ``data`` rows
-(made at that size), and the step runs over them with the mesh's
-:mod:`~repro_torch.parallel` active — tensor-parallel blocks,
+process a rank, the dense and moe families) every rank runs the same loop
+(SPMD): :meth:`DeviceDecodeLoop.shard_params` cuts the rank's serve1d
+shards from the whole params, a lane's cache and state hold the rank's
+``data`` rows (made at that size), and the step runs over them with the
+mesh's :mod:`~repro_torch.parallel` active — tensor-parallel blocks,
 vocab-sharded embedding and exit heads (the exit kernels' partial
 contract), branch predicates and the guard agreed over the mesh, all of it
-captured (the IPC all-reduce kernel).  At each chunk's sync the chunk's
+captured (the IPC all-reduce kernel).  An MoE layer holds the rank's
+experts (or every expert's ``d_ff`` slice) and ends in one all-reduce over
+``model``; a call whose rows are split over ``data`` ranks (a prefill, a
+decode step's segment 0, a cohort split over ranks) gathers its chosen
+experts over them, so that capacity and queue positions are the one-rank
+run's (``models/moe.py``).  At each chunk's sync the chunk's
 (K, B_local) rows, the budgets and the ``segments_run`` counts are
 gathered over ``data`` through gloo on the host, and the telemetry
 counters summed over it, so every rank's engine holds the whole lane.
@@ -103,7 +108,6 @@ from repro_torch.models import nn
 # what serving over a mesh of more than one rank does not have yet
 # (ROADMAP.md Queue 1 item 5), by what asks for it
 MULTI_RANK_MISSING = {
-    "moe": "expert-parallel MoE dispatch (an all-to-all over 'model')",
     "paged": "the paged KV layout's block dim sharded over 'data'",
     "family": "the hybrid, ssm, audio and vlm blocks over 'model' (their "
               "shared-attention, recurrent, encoder and cross-attention "
@@ -113,18 +117,16 @@ MULTI_RANK_MISSING = {
 
 def multi_rank_refusal(cfg, n: int) -> Optional[str]:
     """Why ``cfg`` cannot be served on a mesh of ``n`` > 1 ranks, or None
-    (the dense family on the dense layout)."""
-    if cfg.n_experts > 0:
-        why = MULTI_RANK_MISSING["moe"]
-    elif cfg.paged_cache.layout == "paged":
+    (the dense and moe families on the dense layout)."""
+    if cfg.paged_cache.layout == "paged":
         why = MULTI_RANK_MISSING["paged"]
-    elif cfg.family != "dense":
+    elif cfg.family not in ("dense", "moe"):
         why = MULTI_RANK_MISSING["family"]
     else:
         return None
     return (f"serving {cfg.name} ({cfg.family}) on a mesh of {n} ranks: "
             f"multi-rank execution of it is not ported ({why}); the dense "
-            "family serves on one")
+            "and moe families serve on one")
 
 
 def kernel_provenance(cfg, device) -> dict:
@@ -183,14 +185,20 @@ def _scratch_state(state: DecodeState) -> DecodeState:
     return dataclasses.replace(state, **fields)
 
 
+# the transport's counters a captured body records: per axis, and per
+# "axis/op"
+_COLLECTIVE_COUNTS = ("calls", "bytes", "op_calls")
+
+
 def _counts(transport) -> dict:
     """The kernels' launch counters and, on a multi-rank mesh, the
-    transport's calls and bytes per axis (keys ``("collective", kind,
-    axis)``) in one flat dict: what a captured body records."""
+    transport's calls and bytes per axis and calls per axis and op (keys
+    ``("collective", kind, key)``) in one flat dict: what a captured body
+    records."""
     snap = kernels.launch_snapshot()
     if transport is not None:
-        for kind in ("calls", "bytes"):
-            for a, v in getattr(transport, kind).items():
+        for kind in _COLLECTIVE_COUNTS:
+            for a, v in getattr(transport, kind, {}).items():
                 snap["collective", kind, a] = v
     return snap
 
@@ -296,9 +304,10 @@ class DeviceDecodeLoop:
         self._param_spec = None
         # multi-rank on CUDA: the transport's calls and bytes per axis that
         # the captured replays ran (each body's captured collectives times
-        # its executions, as launches are counted), and the decode steps
-        # they ran
-        self.replayed_collectives = {"steps": 0, "calls": {}, "bytes": {}}
+        # its executions, as launches are counted; calls also by axis and
+        # op), and the decode steps they ran
+        self.replayed_collectives = {"steps": 0, "calls": {}, "bytes": {},
+                                     "op_calls": {}}
 
     # ------------------------------------------------------------------
     def run_chunk(self, params, token, cache, state: DecodeState, remaining,
@@ -557,8 +566,11 @@ class DeviceDecodeLoop:
                 cache, state)
 
     def _set_counts(self, snap: dict) -> None:
-        """Put every counter of :func:`_counts` back to ``snap``."""
+        """Put every counter of :func:`_counts` back to ``snap`` (an op a
+        capture first counted goes)."""
         kernels.set_launch_counts(snap)
+        for kind in _COLLECTIVE_COUNTS:
+            getattr(self.transport, kind, {}).clear()
         for kind, a, v in _collective_items(snap):
             getattr(self.transport, kind)[a] = v
 
@@ -569,8 +581,9 @@ class DeviceDecodeLoop:
         rep = self.replayed_collectives
         rep["steps"] += steps
         for kind, a, v in _collective_items(delta):
-            getattr(self.transport, kind)[a] += v
-            rep[kind][a] = rep[kind].get(a, 0) + v
+            for counts in (getattr(self.transport, kind),
+                           rep.setdefault(kind, {})):
+                counts[a] = counts.get(a, 0) + v
 
     def _host_buffer(self, key, n: int) -> torch.Tensor:
         """A pinned int32 host buffer, one per (role, size), reused."""

@@ -115,7 +115,10 @@ def serve_case(mesh, rank, cfg, np_params, prompts, budget, engine_kw,
         "bytes": dict(eng.transport.bytes),
         "local_batch": int(eng.lanes[0]["state"].active.shape[0]),
         "wq_cols": int(eng.params["segments"][0][0]["attn"]["wq"].shape[-1]),
+        "op_calls": dict(eng.transport.op_calls),
     }
+    if cfg.n_experts:
+        out["w_up"] = tuple(eng.params["segments"][0][0]["moe"]["w_up"].shape)
     if refusals:
         out["refused"] = _refusals(mesh, cfg, model, params, engine_kw)
     return out
@@ -128,7 +131,8 @@ def _refusals(mesh, cfg, model, params, engine_kw):
     from repro_torch.serving.runtime import DeviceDecodeLoop
     out = {}
     asks = {
-        "moe": (reduced(get_config("mixtral-8x7b")), model),
+        "moe_paged": (reduced(get_config("mixtral-8x7b")).with_paged_cache(
+            layout="paged", block_size=8), model),
         "paged": (cfg.with_paged_cache(layout="paged", block_size=8), model),
         "hybrid": (reduced(get_config("zamba2-1.2b")), model),
         "heads": (cfg.replace(n_heads=3), model),
@@ -145,6 +149,86 @@ def _refusals(mesh, cfg, model, params, engine_kw):
         out["host"] = None
     except ValueError as err:
         out["host"] = f"ValueError: {err}"
+    return out
+
+
+# ---------------------------------------------------------------------------
+# multi-rank MoE serving
+# ---------------------------------------------------------------------------
+
+class DropProbe:
+    """Counts the routed pairs that capacity drops, per MoE call, inside a
+    ``with`` block: wraps ``blocks.moe_apply`` (the call's real tokens:
+    the rank's rows times the ranks they are split over) and
+    ``moe._queue`` (its kept mask, the pad rows after the real ones left
+    out).  ``calls``: (tokens, dropped) a call."""
+
+    def __init__(self):
+        from repro_torch.models import blocks, moe
+        self.blocks, self.moe = blocks, moe
+        self.calls, self._tokens = [], None
+
+    def __enter__(self):
+        from repro_torch import parallel
+        apply, queue = self.blocks.moe_apply, self.moe._queue
+        self._orig = apply, queue
+
+        def moe_apply(params, cfg, x, rows=None):
+            R = 1 if rows is None else parallel.active().size(rows)
+            self._tokens = R * x.shape[0] * x.shape[1]
+            return apply(params, cfg, x, rows=rows)
+
+        def _queue(gate_idx, E, cap):
+            out = queue(gate_idx, E, cap)
+            kept = out[2].reshape(-1, gate_idx.shape[-1])[:self._tokens]
+            self.calls.append((self._tokens, int((~kept).sum())))
+            return out
+
+        self.blocks.moe_apply, self.moe._queue = moe_apply, _queue
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_apply, self.moe._queue = self._orig
+
+
+def moe_apply_case(mesh, rank, cfg, layer, x, group_tokens):
+    """One MoE layer (``layer``: its numpy leaves) on this rank's serve1d
+    shards and its ``data`` block of ``x`` (B, S, d), routed as one call
+    over the data ranks, with ``GROUP_TOKENS`` at ``group_tokens``: the
+    rank's output rows, its expert shard's shape and the transport's
+    calls by axis and op."""
+    from repro_torch import parallel
+    from repro_torch.launch.shard_rules import param_spec, place, to_local
+    from repro_torch.models import moe
+    moe.GROUP_TOKENS = group_tokens
+    t = parallel.transport(mesh)
+    tree = {"moe": {k: torch.from_numpy(v) for k, v in layer.items()}}
+    local = to_local(place(mesh, tree, param_spec(tree, cfg, mesh,
+                                                  mode="serve1d")))["moe"]
+    D, di = t.size("data"), t.rank("data")
+    B = x.shape[0] // D
+    xl = torch.from_numpy(x[di * B:(di + 1) * B])
+    with torch.no_grad(), parallel.activate(t), DropProbe() as probe:
+        out, _ = probe.blocks.moe_apply(local, cfg, xl,
+                                        rows=parallel.batch_rows())
+    return {"out": out, "w_up": tuple(local["w_up"].shape),
+            "w_down": tuple(local["w_down"].shape),
+            "router": tuple(local["router"].shape),
+            "op_calls": dict(t.op_calls), "drops": probe.calls}
+
+
+def moe_serve_case(mesh, rank, cfg, np_params, prompts, budget, engine_kw,
+                   group_tokens):
+    """:func:`serve_case` for an MoE config with ``GROUP_TOKENS`` at
+    ``group_tokens``, and the pairs each MoE call dropped
+    (:class:`DropProbe`), the rank's expert shard's shape and the
+    transport's calls by axis and op."""
+    from repro_torch.models import moe
+    moe.GROUP_TOKENS = group_tokens
+    with DropProbe() as probe:
+        out = serve_case(mesh, rank, cfg, np_params, prompts, budget,
+                         engine_kw, False)
+    out["drops"] = probe.calls
     return out
 
 

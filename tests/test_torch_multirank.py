@@ -315,7 +315,8 @@ def test_multirank_engine_matches_reference_engine(pool, tmp_path,
     assert {0, 2} <= set(np.concatenate(depths).tolist())
     if refusals:
         got = res[0]["refused"]
-        assert "NotImplementedError" in got["moe"] and "expert" in got["moe"]
+        assert "NotImplementedError" in got["moe_paged"] and "paged" in \
+            got["moe_paged"]
         assert "NotImplementedError" in got["paged"] and "paged" in \
             got["paged"]
         assert "NotImplementedError" in got["hybrid"] and "hybrid" in \
