@@ -274,9 +274,17 @@ source, all at once).  Phases, each of which fails the run on a miss:
     (the all-reduce's included); (e) the moe family on the mesh:
     qwen3-moe's config narrowed in f32 on 1 x 2 (expert parallel and the
     d_ff fallback), 2 x 1, 2 x 2 and 2 x 1 under cond_batch, streams equal
-    to one rank's with pairs dropped at prefill, then its published widths
-    at 4 of 94 layers in bf16 on 1 x 2 (logits, router near-ties,
-    collectives by op, memory, launches);
+    to one rank's with pairs dropped at prefill and one routing gather a
+    data-split call, then its published widths at 4 of 94 layers in bf16
+    on 1 x 2 (logits, router near-ties, collectives by op, memory,
+    launches); then slices 23 and 25, multi-rank training
+    ("multirank_train", on the same ranks): the reduce-scatter kernel,
+    ``train()`` of the dense model (qwen2.5-3b's widths at 6 layers) and
+    of the moe family (mixtral-8x7b at its published widths cut to 2
+    layers on 1 x 2; the narrowed MoE model on 2 x 1, 2 x 2 and on 1 x 2
+    with 3 experts) against one rank's ``train()`` — losses, final
+    params, replicated leaves' bits, step ms, peak memory, collectives a
+    step;
 26. the ``{"kernels": [...]}`` line (the all-reduce a row of its own),
     then the final ``{"ok": true, ...}`` line.
 
@@ -295,6 +303,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -4231,10 +4240,10 @@ def _logits_against_plain(cfg, model, params, n_steps=2, probe=None,
         """Run the kernel path, then the plain one; the compared rows'
         mask (all rows without a probe)."""
         if probe is not None:
-            probe.start("kernel", n_tokens)
+            probe.start("record", n_tokens)
         a = kernel()
         if probe is not None:
-            probe.start("plain", n_tokens)
+            probe.start("replay", n_tokens)
         b = plain_fn()
         rows = (torch.ones(B, dtype=torch.bool) if probe is None
                 else probe.finish(compared))
@@ -5215,24 +5224,36 @@ ROUTER_TIE_ULPS = 4
 
 class _RouterProbe:
     """The port's ``moe.route_topk`` wrapped (as the launch counters wrap
-    the kernels) for :func:`_logits_against_plain`.  On the kernel path
-    each call's router logits and routing are kept.  On the plain path
-    call i (layer i of the same forward) routes its own logits, compares
-    its expert set token by token with the kernel path's call i, records
-    the router margin of each disagreement in both paths in bf16 ulps, and
-    returns the routing of the kernel path's experts over its own router
-    probabilities: the two paths' hidden states then part only by the
-    kernels' rounding, which :data:`LOGIT_REL_TOL` covers, and not by a
-    flipped expert."""
+    the kernels) inside a ``with`` block: the router of one run held
+    against another's on the same inputs — the kernel path against the
+    plain one (:func:`_logits_against_plain`), the mesh's model against
+    the one-rank model's (:func:`_first_logits`, :func:`_mr_train`).
+    Recording (``start("record")``), each call's router logits (f32) and
+    chosen experts are kept on the host.  Replaying (``start("replay")``),
+    call i routes its own logits, compares them with the recorded call i
+    (their normwise relative error) and its expert sets token by token,
+    records each disagreement's margins — the gap between the k-th and
+    (k+1)-th logit in both runs, in ulps (``mantissa`` bits) of the row's
+    largest logit and of its k-th — and the row's largest logit
+    difference between the runs, and returns the routing of the recorded
+    experts over its own router probabilities: the two runs' hidden
+    states then part only by rounding, not by a flipped expert.
 
-    def __init__(self):
+    A disagreement is a near-tie, not a fault, where the margin lies
+    within ``tie_ulps`` ulps in at least one run (a fixed limit) or, with
+    ``tie_ulps`` None, within twice the row's logit difference in both (a
+    flip of experts a and b needs |l_a - l_b| that small)."""
+
+    def __init__(self, mantissa=7, tie_ulps=ROUTER_TIE_ULPS):
         from repro_torch.models import moe
-        self.moe = moe
-        self.orig = moe.route_topk
-        self.calls = []
-        self.layers = []     # per compared forward: (L, T) bool agreement
-        self.drift = []      # per compared forward: [router logit rel err]
-        self.flips = []      # per disagreement: layer, token, margins
+        self.moe, self.orig = moe, moe.route_topk
+        self.mantissa, self.tie_ulps = mantissa, tie_ulps
+        self.mode, self.n_tokens, self.i = None, None, 0
+        self.calls = []      # recorded: (logits, experts) a call, host
+        self.agree, self.rel = [], []   # this replay's, a call each
+        self.layers = []     # per finished replay: (L, T) bool agreement
+        self.drift = []      # per finished replay: its rel errs
+        self.flips = []      # per disagreement: call, token, margins, tie
 
     def __enter__(self):
         self.moe.route_topk = self._route
@@ -5241,9 +5262,12 @@ class _RouterProbe:
     def __exit__(self, *exc):
         self.moe.route_topk = self.orig
 
-    def start(self, mode, n_tokens):
+    def start(self, mode, n_tokens=None):
+        """Record (dropping what was recorded) or replay from call 0;
+        ``n_tokens``: each call's real tokens (the pad rows after them
+        not compared), None for every row."""
         self.mode, self.n_tokens, self.i = mode, n_tokens, 0
-        if mode == "kernel":
+        if mode == "record":
             self.calls = []
         else:
             self.agree, self.rel = [], []
@@ -5251,78 +5275,94 @@ class _RouterProbe:
     def _route(self, logits, top_k, cap):
         import torch
         own = self.orig(logits, top_k, cap)
-        if self.mode == "kernel":
-            self.calls.append((logits, own))
+        if self.mode == "record":
+            self.calls.append((logits.detach().float().cpu(),
+                               own.experts.cpu()))
             return own
-        k_logits, k_route = self.calls[self.i]
-        layer, self.i = self.i, self.i + 1
+        call, self.i = self.i, self.i + 1
+        if call >= len(self.calls):
+            self.rel.append(float("inf"))
+            return own
+        r_logits, r_experts = self.calls[call]
         E, T = logits.shape[-1], self.n_tokens
+        a, b = (x.reshape(-1, E)[:T] for x in (
+            r_logits, logits.detach().float().cpu()))
+        self.rel.append(float((a - b).norm() / a.norm()))
 
-        def experts(r):
-            e = r.experts.reshape(-1, top_k)[:T]
-            return torch.zeros(T, E, dtype=torch.bool,
-                               device=e.device).scatter_(1, e, True)
-        same = (experts(k_route) == experts(own)).all(-1).cpu()
+        def sets(e):
+            e = e.reshape(-1, top_k)[:T]
+            return torch.zeros(e.shape[0], E, dtype=torch.bool).scatter_(
+                1, e, True)
+        same = (sets(r_experts) == sets(own.experts.cpu())).all(-1)
         self.agree.append(same)
-        a, b = (x.reshape(-1, E)[:T].float() for x in (k_logits, logits))
-        self.rel.append(float((a - b).norm() / b.norm()))
-        bad = (~same).nonzero().flatten().tolist()
-        if bad:
-            rows = [x.reshape(-1, E)[bad].float().cpu()
-                    for x in (k_logits, logits)]
-            for tok, a, b in zip(bad, *rows):
-                self.flips.append({
-                    "layer": layer, "token": tok,
-                    "margin_ulps": [self._margin_ulps(x, top_k)
-                                    for x in (a, b)],
-                    "margin_ulps_of_kth": [self._margin_ulps(x, top_k, True)
-                                           for x in (a, b)]})
+        for tok in (~same).nonzero().flatten().tolist():
+            top = [x[tok].sort(descending=True).values for x in (a, b)]
+            gaps = [float(v[top_k - 1] - v[top_k]) for v in top]
+            big = [self._ulp(float(x[tok].abs().max())) for x in (a, b)]
+            kth = [self._ulp(abs(float(v[top_k - 1]))) for v in top]
+            delta = float((a[tok] - b[tok]).abs().max())
+            ulps = [g / u for g, u in zip(gaps, big)]
+            self.flips.append({
+                "call": call, "token": tok, "margin_ulps": ulps,
+                "margin_ulps_of_kth": [g / u for g, u in zip(gaps, kth)],
+                "row_delta_ulps": delta / big[0],
+                "tie": (min(ulps) <= self.tie_ulps
+                        if self.tie_ulps is not None
+                        else max(gaps) <= 2 * delta)})
         return self.moe.route_experts(torch.softmax(logits.float(), -1),
-                                      k_route.experts, cap)
+                                      r_experts.to(logits.device), cap)
 
-    @staticmethod
-    def _margin_ulps(row, k, of_kth=False):
-        """The gap between the k-th and (k+1)-th logit of ``row``, in bf16
-        ulps of the row's largest logit (of the k-th with ``of_kth``)."""
+    def _ulp(self, x):
         import math
-        top = row.sort(descending=True).values
-        ref = float(top[k - 1]) if of_kth else float(row.abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(max(abs(ref), 2.0 ** -126)))
-                      - 7)
-        return (float(top[k - 1]) - float(top[k])) / ulp
+        return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126)))
+                       - self.mantissa)
 
     def finish(self, compared):
-        """The forward's (L, T) agreement; returns whether each compared
-        token (indices ``compared``) agreed at every layer."""
+        """The replayed forward's (L, T) agreement kept; returns whether
+        each compared token (indices ``compared``) agreed at every
+        layer."""
         import torch
         layers = torch.stack(self.agree)
         self.layers.append(layers)
         self.drift.append(self.rel)
         return layers.all(0)[torch.as_tensor(compared)]
 
-    def report(self):
+    def report(self, steps=None):
+        """The disagreements and faults; by layer over the finished
+        forwards, or with ``steps`` (one replay of that many train steps)
+        the router logits' error by step."""
         import torch
+        faults = [f for f in self.flips if not f["tie"]]
+        out = {"disagreements": len(self.flips),
+               "max_tie_margin_ulps": max(
+                   (min(f["margin_ulps"]) for f in self.flips),
+                   default=None),
+               "max_tie_margin_ulps_of_kth": max(
+                   (min(f["margin_ulps_of_kth"]) for f in self.flips),
+                   default=None),
+               "mantissa_bits": self.mantissa,
+               "tie_ulps_limit": self.tie_ulps,
+               "faults": faults[:8], "n_faults": len(faults)}
+        if steps is not None:
+            n = max(1, len(self.rel) // steps)
+            out.update({
+                "calls": len(self.calls), "replayed": self.i,
+                "logits_rel_err_by_step": [
+                    max(self.rel[i:i + n])
+                    for i in range(0, len(self.rel), n)],
+                "flip_records": self.flips[:20]})
+            return out
         layers = torch.cat(self.layers, dim=1)
         every = layers.all(0)
-        faults = [f for f in self.flips
-                  if min(f["margin_ulps"]) > ROUTER_TIE_ULPS]
-        return {"tokens": int(every.numel()),
-                "agree_share_by_layer": layers.float().mean(1).tolist(),
-                # the router logits' normwise relative error between the
-                # paths, by layer, worst over the compared forwards
-                "logit_rel_err_by_layer": [max(x) for x in
-                                           zip(*self.drift)],
-                "rows_agree_every_layer": float(every.float().mean()),
-                "flipped_rows": int((~every).sum()),
-                "disagreements": len(self.flips),
-                "max_tie_margin_ulps": max(
-                    (min(f["margin_ulps"]) for f in self.flips),
-                    default=None),
-                "max_tie_margin_ulps_of_kth": max(
-                    (min(f["margin_ulps_of_kth"]) for f in self.flips),
-                    default=None),
-                "tie_ulps_limit": ROUTER_TIE_ULPS,
-                "faults": faults[:8], "n_faults": len(faults)}
+        out.update({
+            "tokens": int(every.numel()),
+            "agree_share_by_layer": layers.float().mean(1).tolist(),
+            # the router logits' normwise relative error between the
+            # runs, by layer, worst over the compared forwards
+            "logit_rel_err_by_layer": [max(x) for x in zip(*self.drift)],
+            "rows_agree_every_layer": float(every.float().mean()),
+            "flipped_rows": int((~every).sum())})
+        return out
 
 
 def _expert_bytes(params):
@@ -6739,11 +6779,11 @@ MULTIRANK = SLICE1 | {"megakernel", "cohort_scatter", "allreduce"}
 # (e): the moe family on the mesh.  (e1) qwen3-moe-235b-a22b's config
 # narrowed (8 experts, top 2) at capacity factor 0.5, so that prefill drops
 # pairs, in f32 at 4 layers, on each (data, model, experts, mode, cohorts):
-# 4 experts a rank on 1 x 2, the data-split routing on 2 x 1 and 2 x 2, 3
-# experts on 1 x 2 (the intra-expert d_ff fallback), and one cohort split
-# over 2 x 1 under cond_batch (the routing gather inside the captured skip
-# branches); (e2) its published widths cut to 4 of 94 layers, bf16, on
-# MR_MESH (64 experts a rank)
+# 4 experts a rank on 1 x 2, the data-split routing on 2 x 1 and 2 x 2 (with
+# the expert-parallel combine), 3 experts on 1 x 2 (the intra-expert d_ff
+# fallback), and one cohort split over 2 x 1 under cond_batch (the routing
+# gather inside the captured skip branches); (e2) its published widths cut
+# to 4 of 94 layers, bf16, on MR_MESH (64 experts a rank)
 MR_MOE_ARCH = "qwen3-moe-235b-a22b"
 MR_MOE_NARROW = dict(d_model=512, n_heads=8, n_kv_heads=2, n_experts=8,
                      top_k=2, d_ff=512, capacity_factor=0.5)
@@ -6794,7 +6834,10 @@ def _rank_main(rank, tasks, results):
             results.put((rank, None, err))
             os._exit(1)
         finally:
-            torch.cuda.empty_cache()
+            # what the task left (an engine's graphs and caches in
+            # reference cycles) freed now: a rank idle in a later task's
+            # smaller mesh would hold it while the others run
+            _free_card()
 
 
 class _RankPool:
@@ -6841,6 +6884,17 @@ class _RankPool:
                 fail(f"multi-rank {name} on {sizes}, rank {rank}:\n{err}")
             got[rank] = torch.load(io.BytesIO(raw), weights_only=False)
         return [got[r] for r in range(world)]
+
+    def shrink(self, n: int):
+        """Stop the rank processes past the first ``n``, their contexts
+        freed on the card; later tasks run on ranks 0..n-1."""
+        for q in self.tasks[n:]:
+            q.put(None)
+        for p in self.procs[n:]:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+        self.tasks, self.procs = self.tasks[:n], self.procs[:n]
 
     def close(self):
         import shutil
@@ -6966,7 +7020,7 @@ def _first_logits(model, params, cfg, transport=None, router=None):
     seed, not argmaxed: a near-tie must not pick the step's input),
     gathered whole: the main cell's numerics against the one-rank
     model's.  With ``router`` (an MoE model, :class:`_RouterProbe`):
-    ``"record"`` keeps each forward's router calls (the probe's kernel
+    ``"record"`` keeps each forward's router calls (the probe's record
     mode) under ``"router"``; a dict of such records makes each forward
     route on them — the one-rank model's experts — and reports under
     ``"routing"`` where its own choices part from them."""
@@ -6984,14 +7038,12 @@ def _first_logits(model, params, cfg, transport=None, router=None):
         if probe is None:
             return fn()
         if router == "record":
-            probe.start("kernel", n_tokens)
+            probe.start("record", n_tokens)
             out = fn()
-            records[name] = [(lg.cpu(), type(r)(*(x.cpu() for x in r)))
-                             for lg, r in probe.calls]
+            records[name] = probe.calls
             return out
-        probe.calls = [(lg.to(DEV), type(r)(*(x.to(DEV) for x in r)))
-                       for lg, r in router[name]]
-        probe.start("plain", n_tokens)
+        probe.calls = router[name]
+        probe.start("replay", n_tokens)
         out = fn()
         probe.finish(np.arange(n_tokens))
         return out
@@ -7018,12 +7070,15 @@ class _MoeDrops:
     real tokens (the rank's rows times the ranks they are split over) and
     ``moe._queue`` for its kept mask (the pad rows after them left out).
     A decode call (one token a row) is not read: a captured step must not
-    sync.  ``calls``: (tokens, dropped pairs) a prefill call."""
+    sync.  ``calls``: (tokens, dropped pairs) a prefill call; ``split``:
+    for each call whose rows are split over more than one rank (prefill or
+    decode, a captured one counted once), the transport's calls over that
+    axis it made, by op (host counters: nothing syncs)."""
 
     def __init__(self):
         from repro_torch.models import blocks, moe
         self.blocks, self.moe = blocks, moe
-        self.calls, self._tokens = [], None
+        self.calls, self.split, self._tokens = [], [], None
 
     def __enter__(self):
         from repro_torch import parallel
@@ -7031,10 +7086,19 @@ class _MoeDrops:
         self._orig = apply, queue
 
         def moe_apply(params, cfg, x, rows=None):
-            R = 1 if rows is None else parallel.active().size(rows)
+            t = parallel.active()
+            R = 1 if rows is None else t.size(rows)
             self._tokens = (R * x.shape[0] * x.shape[1] if x.shape[1] > 1
                             else None)
-            return apply(params, cfg, x, rows=rows)
+            if R == 1:
+                return apply(params, cfg, x, rows=rows)
+            before = dict(t.op_calls)
+            out = apply(params, cfg, x, rows=rows)
+            self.split.append({
+                k[len(rows) + 1:]: v - before.get(k, 0)
+                for k, v in t.op_calls.items()
+                if k.rsplit("/", 1)[0] == rows and v > before.get(k, 0)})
+            return out
 
         def _queue(gate_idx, E, cap):
             out = queue(gate_idx, E, cap)
@@ -7147,7 +7211,7 @@ def _mr_serve(mesh, rank, spec):
         out["telemetry"] = {k: v.tolist() for k, v in merge_telemetry(
             engine.lane_telemetry()).items()}
     if cfg.n_experts:
-        out["drops"] = drops.calls
+        out["drops"], out["split"] = drops.calls, drops.split
         out["w_up"] = list(engine.params["segments"][0][0]["moe"]["w_up"]
                            .shape)
     return out
@@ -7404,6 +7468,12 @@ def _mr_moe(pool):
             if (bool(ops.get("model/sum")) != (M > 1)
                     or bool(ops.get("data/gather")) != (D > 1)):
                 fail(f"{tag} rank {r}: collectives {ops}")
+            # a call split over data ranks gathers its chosen experts
+            # over them once, and nothing else there (serving reads no aux)
+            if (bool(g["split"]) != (D > 1)
+                    or any(c != {"gather": 1} for c in g["split"])):
+                fail(f"{tag} rank {r}: a data-split MoE call's collectives "
+                     f"over its data ranks {g['split'][:8]}")
             # the decode steps' routing gathers, counted on the replays
             per = g["collectives_per_step"] or {"op_calls": {}}
             if bool(per["op_calls"].get("data/gather")) != (D > 1):
@@ -7496,7 +7566,7 @@ def phase_multirank(dev, gen, smi, mixed, pool):
     2 and 4 rank processes on the one card (``make_mesh``: gloo for the
     host, the IPC all-reduce kernel for every collective of the captured
     step).  (a) the transport; (b) the exit kernels' partial contract;
-    (c) qwen2.5-3b's widths at 4 layers in f32 on 1 x 2, 2 x 1 and 2 x 2:
+    (c) qwen2.5-3b's widths at 4 layers in f32 on MR_PARITY_MESHES:
     streams, segments_run and telemetry equal to the one-rank run's; (d)
     the main cell, qwen2.5-3b at MR_LAYERS in bf16 on 1 x 2 (2 cohorts,
     select, megakernel, cohort scatter, 8 requests x (128/256 + 16)): the
@@ -7666,12 +7736,64 @@ MRT_FAR_SHARE = 1e-3
 # kernels on the training path: the collectives (use_kernels is off: no
 # kernel has a backward)
 MULTIRANK_TRAIN = {"allreduce", "reduce_scatter"}
+# (f): the moe family trained over the mesh, train() for MRT_STEPS steps
+# of 4 x 64 against the one-rank train().  (f1) mixtral-8x7b at its
+# published widths (d 4096, 32 / 8 heads, d_ff 14336, 8 experts top 2,
+# vocab 32000) cut to 2 of 32 layers with 2 components (an exit after
+# layer 1, the final one), in f32 (3.16 G params, 12.7 GB: the one-rank
+# run ~64 GB with AdamW's moments, its gradients and updates), on 1 x 2
+# only: 4 experts a rank, ~6.3 GB of shards, ~34 GB a rank with its
+# state.  2 x 1 does not fit: the FSDP step gathers every leaf whole, so a
+# rank would hold the 12.7-GB tree and its gradients besides its shards.
+# (f2) phase "multirank"'s narrowed MoE model (MR_MOE_NARROW: capacity
+# factor 0.5, pairs drop) at MR_MOE_LAYERS in f32 on 2 x 1 and 2 x 2 (8
+# experts) and on 1 x 2 with 3 experts (the d_ff fallback)
+MRT_MOE_ARCH = "mixtral-8x7b"
+MRT_MOE_LAYERS = 2
+MRT_MOE_MESH = (1, 2)
+MRT_MOE_NARROW_MESHES = ((2, 1, 8), (2, 2, 8), (1, 2, 3))
+# (f1) routes on the one-rank run's experts (_RouterProbe in f32 ulps, a
+# flip a tie where both runs' margins lie within twice the row's logit
+# difference): at these widths a near-tie of two router logits flips an
+# expert between the two runs' roundings (on an H100 80GB HBM3: at step
+# 4, and the losses then parted by 5.9e-4).  The router logits must agree
+# with the one-rank run's, normwise, within MRT_ROUTER_RTOL at the first
+# step (the same weights in both runs) and within MRT_ROUTER_STEP_RTOL at
+# every step: later steps part by more, as AdamW turns a rounding-level
+# gradient's sign into up to 2 lr of a weight — 1.58e-4 at most over the
+# 8 steps in three runs on that card, of which this limit is ~3x
+MRT_ROUTER_RTOL = 1e-5
+MRT_ROUTER_STEP_RTOL = 5e-4
 
 
-def _mrt_config():
+def _mrt_moe_specs():
+    """(f)'s runs: (mesh, spec) each; a spec names the arch, its layers,
+    its overrides and exits (:func:`_mrt_config`), and ``wide`` the
+    full-width run (:func:`_mr_train`), last."""
+    wide = dict(arch=MRT_MOE_ARCH, layers=MRT_MOE_LAYERS, exits=(1,),
+                wide=True)
+    return [((D, M), dict(arch=MR_MOE_ARCH, layers=MR_MOE_LAYERS,
+                          over={**MR_MOE_NARROW, "n_experts": E}))
+            for D, M, E in MRT_MOE_NARROW_MESHES] + [(MRT_MOE_MESH, wide)]
+
+
+def _mrt_config(spec=None):
+    """(b)'s config (``spec`` None): qwen2.5-3b at MRT_LAYERS in f32; else
+    ``spec["arch"]`` at its published widths but for ``spec["over"]``, cut
+    to ``spec["layers"]``, in f32, with exits after ``spec["exits"]``
+    (the config's own cascade without them)."""
     from repro_torch.configs import get_config
-    return get_config("qwen2.5-3b").replace(n_layers=MRT_LAYERS,
-                                            dtype="float32")
+    if spec is None:
+        return get_config("qwen2.5-3b").replace(n_layers=MRT_LAYERS,
+                                                dtype="float32")
+    cfg = get_config(spec["arch"]).replace(
+        n_layers=spec["layers"], dtype="float32", **spec.get("over", {}))
+    if "exits" in spec:
+        n = len(spec["exits"]) + 1
+        cfg = cfg.with_cascade(n_components=n,
+                               exit_boundaries=tuple(spec["exits"]),
+                               thresholds=(0.9,) * (n - 1) + (0.0,))
+    return cfg
 
 
 def _mr_reduce_scatter(mesh, rank):
@@ -7782,39 +7904,65 @@ def _leaf_digest(x):
     return (a, b % (1 << 63))
 
 
-def _mr_train(mesh, rank):
-    """(b)-(d) on one rank: ``launch.train.train`` over ``mesh`` at
-    :func:`_mrt_config`; the losses, step ms, peak memory, the launches and
-    the transport's calls and bytes a step, each leaf's digest of this
-    rank's shard, and on rank 0 the one-rank ``train()`` run first in this
-    process (the other ranks wait at train()'s barrier) and the final
-    params, gathered whole, against its params leaf by leaf."""
+def _mr_train(mesh, rank, spec=None):
+    """(b)-(d) and (f) on one rank: ``launch.train.train`` over ``mesh``
+    at :func:`_mrt_config` of ``spec``; the losses, step ms, peak memory,
+    the launches and the transport's calls and bytes a step, each leaf's
+    digest of this rank's shard, and on rank 0 the one-rank ``train()``
+    run first in this process (the other ranks wait at train()'s barrier)
+    and the final params, gathered whole, against its params leaf by
+    leaf.  With ``spec["wide"]`` (a full-width MoE run) the other ranks
+    wait before they draw (the card holds one such run at a time), and
+    the mesh run routes on the one-rank run's experts
+    (:class:`_RouterProbe`, its record broadcast from rank 0) and reports
+    its router's agreement."""
     import torch
+    import torch.distributed as dist
     from repro_torch import kernels, parallel
     from repro_torch.launch.shard_rules import gather_placed, spec_leaves
     from repro_torch.launch.train import train
     from repro_torch.models import nn
-    cfg = _mrt_config()
+    cfg = _mrt_config(spec)
     dev = torch.device(DEV)
     t = parallel.transport(mesh)
+    wide = spec is not None and spec.get("wide", False)
+    probe = _RouterProbe(mantissa=23, tie_ulps=None) if wide else None
+
+    def routed(mode):
+        if probe is None:
+            return contextlib.nullcontext()
+        probe.start(mode)
+        return probe
     one = None
+    laps, t0 = {}, time.perf_counter()
     if rank == 0:
         _free_card()
         torch.cuda.reset_peak_memory_stats()
-        p1, _, s1 = train(cfg, dev, MRT_STEPS, MRT_BATCH, MRT_SEQ,
-                          log_every=MRT_STEPS)
+        with routed("record"):
+            p1, _, s1 = train(cfg, dev, MRT_STEPS, MRT_BATCH, MRT_SEQ,
+                              log_every=MRT_STEPS)
         one = {"losses": s1["losses"], "step_ms": s1["step_ms"],
+               "seconds": s1["seconds"],
                "max_memory_allocated": s1["max_memory_allocated"],
                "leaves": [x.detach().cpu() for x in nn.tree_leaves(p1)]}
         del p1
     _free_card()
+    laps["one_rank"] = time.perf_counter() - t0
+    if wide:
+        # the other ranks block here until rank 0's one-rank run is done
+        box = [probe.calls]
+        dist.broadcast_object_list(box, src=0)
+        probe.calls = box[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     calls0, bytes0, ops0 = dict(t.calls), dict(t.bytes), dict(t.op_calls)
     kernels.reset_launch_counts()
-    params, spec, summary = train(cfg, dev, MRT_STEPS, MRT_BATCH, MRT_SEQ,
-                                  mesh=mesh, log_every=MRT_STEPS)
+    with routed("replay"):
+        params, spec, summary = train(cfg, dev, MRT_STEPS, MRT_BATCH,
+                                      MRT_SEQ, mesh=mesh,
+                                      log_every=MRT_STEPS)
     torch.cuda.synchronize()
+    laps["mesh"] = time.perf_counter() - t0 - sum(laps.values())
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     per_step = {
@@ -7825,11 +7973,14 @@ def _mr_train(mesh, rank):
     out = {"coord": dict(t.coord), "losses": summary["losses"],
            "step_ms": summary["step_ms"], "max_memory_allocated": peak,
            "launches": launches, "per_step": per_step,
+           "router": None if probe is None else probe.report(MRT_STEPS),
            "specs": [s for _, s in spec_leaves(spec)],
            "digests": [_leaf_digest(x) for x in nn.tree_leaves(params)]}
+    laps["digests"] = time.perf_counter() - t0 - sum(laps.values())
     whole = [x.detach() for x in nn.tree_leaves(
         gather_placed(mesh, params, spec))]
     del params
+    laps["gather"] = time.perf_counter() - t0 - sum(laps.values())
     if one is not None:
         errs = []
         for a, b in zip(whole, one.pop("leaves")):
@@ -7844,32 +7995,35 @@ def _mr_train(mesh, rank):
         out["param_errs"] = errs
     del whole
     _free_card()
+    laps["compare"] = time.perf_counter() - t0 - sum(laps.values())
+    out["laps"] = laps
     return out
 
 
 def _mr_train_refusals(mesh, rank):
-    """A MoE config asked of the trainer on a real two-rank mesh: refused
-    by name."""
+    """A hybrid config asked of the trainer on a real two-rank mesh:
+    refused by name."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import place_on_mesh
     try:
-        place_on_mesh(mesh, get_config("mixtral-8x7b"), {})
+        place_on_mesh(mesh, get_config("zamba2-1.2b"), {})
     except NotImplementedError as err:
         return str(err)
     return None
 
 
-def _dryrun_train_collectives(sizes):
+def _dryrun_train_collectives(sizes, spec=None):
     """The dry run's per-device collective bytes and counts
     (``launch/dryrun.py`` ``collectives``) for :func:`_mrt_config`'s
     training step on a ``sizes`` mesh, the default (FSDP) layout:
-    shape-only, on fake tensors."""
+    shape-only, on fake tensors (for the moe family its formula counts
+    GSPMD's all-to-alls)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.launch.shard_rules import param_spec
     from repro_torch.models.model import build_model
-    cfg = _mrt_config()
+    cfg = _mrt_config(spec)
     mesh = AbstractMesh(tuple(sizes), ("data", "model"))
     with FakeTensorMode(allow_non_fake_inputs=True):
         params = build_model(cfg, device="cpu").init(0)
@@ -7891,104 +8045,147 @@ def _by_kind(ops):
     return out
 
 
-def phase_multirank_train(smi, pool):
-    """Slice 23: the dense cascade trained over a ``(data, model)`` mesh of
-    rank processes sharing the card, through phase "multirank"'s pool.
-    (a) the reduce-scatter kernel on 2 and 4 ranks, bf16 and f32, at 16 KB
-    and 64 MB: bit for bit against ``ref_reduce_scatter``, timed beside
-    the all-reduce kernel and a slice and beside gloo.  (b) ``train()`` of
-    qwen2.5-3b at its published widths cut to :data:`MRT_LAYERS` layers in
-    f32, :data:`MRT_STEPS` steps of batch 4 x seq 64, on 1 x 2 and 2 x 1
-    against the one-rank ``train()`` (run in rank 0's process): every
-    rank's losses within :data:`MRT_LOSS_RTOL` relative at every step, the
-    final params gathered whole within :data:`MRT_PARAM_ATOL` of the
-    one-rank run's at every element (a flipped rounding-level gradient
-    moves a weight at most 2 lr a step) and at most a share
-    :data:`MRT_FAR_SHARE` of them more than 1e-5 away, every leaf
-    replicated over an axis with the same bits on every rank of it, the
-    loss trending down, and exactly :data:`MULTIRANK_TRAIN` launched.
-    (c) the collectives of one step per axis and op, counted by the
-    transport, beside ``dryrun.collectives`` for the same mesh and shape.
-    (d) step ms and peak memory per rank (two processes time-sliced on
-    one card: these times measure context switches, not multi-GPU
-    speed).  A MoE config on a real 1 x 2 mesh is refused by name.
-    Returns {"reduce_scatter", "launches", "headline"}."""
+def _mrt_run(pool, sizes, spec=None):
+    """One mesh of (b) or (f): :func:`_mr_train` on every rank of
+    ``sizes``, held against rank 0's one-rank run (losses, final params,
+    replicated leaves' bits, the loss's trend, the launches); its
+    record."""
     import numpy as np
+    got = pool.run(sizes, "_mr_train", spec)
+    cfg = _mrt_config(spec)
+    tag = (f"multi-rank train {cfg.name} {cfg.n_experts or ''}"
+           f"{' experts ' if cfg.n_experts else ''}{sizes[0]}x{sizes[1]}")
+    one = got[0]["one_rank"]
+    for r, g in enumerate(got):
+        losses = g["losses"]
+        if not np.isfinite(losses).all():
+            fail(f"{tag} rank {r}: losses {losses}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+        if max(rel) > MRT_LOSS_RTOL:
+            fail(f"{tag} rank {r}: losses {losses} against the one-rank "
+                 f"{one['losses']} (relative {max(rel)})")
+        check_launched(f"{tag} rank {r}", g["launches"], MULTIRANK_TRAIN)
+        rt = g["router"]
+        if rt is not None and not (
+                rt["calls"] and rt["replayed"] == rt["calls"]
+                and rt["logits_rel_err_by_step"][0] <= MRT_ROUTER_RTOL
+                and max(rt["logits_rel_err_by_step"])
+                <= MRT_ROUTER_STEP_RTOL
+                and not rt["n_faults"]):
+            fail(f"{tag} rank {r}: the router against the one-rank run's "
+                 f"(the first step's logits within {MRT_ROUTER_RTOL}, "
+                 f"every step's within {MRT_ROUTER_STEP_RTOL}, flips ties "
+                 f"only): {rt}")
+    k = max(2, MRT_STEPS // 3)
+    if spec is None and not np.mean(got[0]["losses"][-k:]) < np.mean(
+            got[0]["losses"][:k]):
+        # (b)'s trend (a MoE model at random weights need not trend in
+        # 8 steps: (f) holds it to the one-rank run alone)
+        fail(f"{tag}: the loss did not trend down {got[0]['losses']}")
+    errs = got[0]["param_errs"]
+    worst = max(e["max_abs"] for e in errs)
+    far = sum(e["beyond_1e-5"] for e in errs) / sum(e["n"] for e in errs)
+    if not (worst <= MRT_PARAM_ATOL and far <= MRT_FAR_SHARE):
+        fail(f"{tag}: final params {worst} from the one-rank run's "
+             f"(bound {MRT_PARAM_ATOL}), a share {far} of them past "
+             f"1e-5 (bound {MRT_FAR_SHARE})")
+    replicated = 0
+    for i, leaf_spec in enumerate(got[0]["specs"]):
+        placed = sorted({a for e in leaf_spec for a in (
+            e if isinstance(e, tuple) else (e,)) if a})
+        groups = {}
+        for g in got:
+            key = tuple(g["coord"][a] for a in placed)
+            groups.setdefault(key, []).append(g["digests"][i])
+        for members in groups.values():
+            replicated += len(members) > 1
+            if any(d != members[0] for d in members):
+                fail(f"{tag}: leaf {i} ({leaf_spec}) differs across the "
+                     "ranks it is replicated over")
+    return {
+        "config": cfg.name, "n_layers": cfg.n_layers, "dtype": "float32",
+        "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+        "top_k": cfg.top_k, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "capacity_factor": cfg.capacity_factor if cfg.n_experts else None,
+        "mesh": dict(zip(("data", "model"), sizes)),
+        "losses": got[0]["losses"], "one_rank_losses": one["losses"],
+        "loss_max_rel_err": max(
+            abs(a - b) / abs(b) for g in got
+            for a, b in zip(g["losses"], one["losses"])),
+        "param_max_abs_err": worst, "param_atol": MRT_PARAM_ATOL,
+        "param_max_normwise_err": max(e["normwise"] for e in errs),
+        "param_share_beyond_1e-5": far, "param_far_share": MRT_FAR_SHARE,
+        "replicated_leaf_groups_bit_equal": replicated,
+        "step_ms": [g["step_ms"] for g in got],
+        "step_ms_median": [statistics.median(g["step_ms"][1:])
+                           for g in got],
+        "one_rank_step_ms": one["step_ms"],
+        "one_rank_step_ms_median": statistics.median(one["step_ms"][1:]),
+        "one_rank_loop_seconds": one["seconds"],
+        "max_memory_allocated": [g["max_memory_allocated"] for g in got],
+        "one_rank_max_memory_allocated": one["max_memory_allocated"],
+        "launches": got[0]["launches"], "router": got[0]["router"],
+        "rank_laps": [g["laps"] for g in got],
+        "collectives_per_step": got[0]["per_step"],
+        "collectives_per_step_by_kind": _by_kind(got[0]["per_step"]["ops"]),
+        "dryrun_collectives_per_step": _dryrun_train_collectives(sizes,
+                                                                 spec)}
+
+
+def phase_multirank_train(smi, pool):
+    """Slices 23 and 25: the dense and moe families trained over a
+    ``(data, model)`` mesh of rank processes sharing the card, through
+    phase "multirank"'s pool.  (a) the reduce-scatter kernel on 2 and 4
+    ranks, bf16 and f32, at 16 KB and 64 MB: bit for bit against
+    ``ref_reduce_scatter``, timed beside the all-reduce kernel and a slice
+    and beside gloo.  (b) ``train()`` of qwen2.5-3b at its published
+    widths cut to :data:`MRT_LAYERS` layers in f32, :data:`MRT_STEPS`
+    steps of batch 4 x seq 64, on 1 x 2 and 2 x 1 against the one-rank
+    ``train()`` (run in rank 0's process): every rank's losses within
+    :data:`MRT_LOSS_RTOL` relative at every step, the final params
+    gathered whole within :data:`MRT_PARAM_ATOL` of the one-rank run's at
+    every element (a flipped rounding-level gradient moves a weight at
+    most 2 lr a step) and at most a share :data:`MRT_FAR_SHARE` of them
+    more than 1e-5 away, every leaf replicated over an axis with the same
+    bits on every rank of it, the loss trending down, and exactly
+    :data:`MULTIRANK_TRAIN` launched (:func:`_mrt_run`).  (c) the
+    collectives of one step per axis and op, counted by the transport,
+    beside ``dryrun.collectives`` for the same mesh and shape.  (d) step
+    ms and peak memory per rank (two processes time-sliced on one card:
+    these times measure context switches, not multi-GPU speed).  (f) the
+    moe family under the same gates (:func:`_mrt_moe_specs`): the narrowed
+    MoE model on 2 x 1, 2 x 2 and 1 x 2 with 3 experts, then mixtral-8x7b
+    at its published widths on 1 x 2, the pool shrunk to its two ranks
+    first (the phase uses the pool last).  A hybrid config on a real 1 x 2 mesh is
+    refused by name.  Returns {"reduce_scatter", "launches",
+    "headline"}."""
     t_phase = time.perf_counter()
     lap = {}
     rs = phase_multirank_reduce_scatter(pool)
     lap["reduce_scatter"] = time.perf_counter() - t_phase
     refused = pool.run((1, 2), "_mr_train_refusals")
     for r, msg in enumerate(refused):
-        if not msg or "expert" not in msg or "2 ranks" not in msg:
-            fail(f"multi-rank train: rank {r}'s MoE refusal {msg!r}")
-    runs = {}
-    for sizes in MRT_MESHES:
-        got = pool.run(sizes, "_mr_train")
-        tag = f"multi-rank train {sizes[0]}x{sizes[1]}"
-        one = got[0]["one_rank"]
-        for r, g in enumerate(got):
-            losses = g["losses"]
-            if not np.isfinite(losses).all():
-                fail(f"{tag} rank {r}: losses {losses}")
-            rel = [abs(a - b) / abs(b) for a, b in zip(losses,
-                                                       one["losses"])]
-            if max(rel) > MRT_LOSS_RTOL:
-                fail(f"{tag} rank {r}: losses {losses} against the one-rank "
-                     f"{one['losses']} (relative {max(rel)})")
-            check_launched(f"{tag} rank {r}", g["launches"], MULTIRANK_TRAIN)
-        k = max(2, MRT_STEPS // 3)
-        if not np.mean(got[0]["losses"][-k:]) < np.mean(
-                got[0]["losses"][:k]):
-            fail(f"{tag}: the loss did not trend down {got[0]['losses']}")
-        errs = got[0]["param_errs"]
-        worst = max(e["max_abs"] for e in errs)
-        far = sum(e["beyond_1e-5"] for e in errs) / sum(e["n"] for e in errs)
-        if not (worst <= MRT_PARAM_ATOL and far <= MRT_FAR_SHARE):
-            fail(f"{tag}: final params {worst} from the one-rank run's "
-                 f"(bound {MRT_PARAM_ATOL}), a share {far} of them past "
-                 f"1e-5 (bound {MRT_FAR_SHARE})")
-        replicated = 0
-        for i, spec in enumerate(got[0]["specs"]):
-            placed = sorted({a for e in spec for a in (
-                e if isinstance(e, tuple) else (e,)) if a})
-            groups = {}
-            for g in got:
-                key = tuple(g["coord"][a] for a in placed)
-                groups.setdefault(key, []).append(g["digests"][i])
-            for members in groups.values():
-                replicated += len(members) > 1
-                if any(d != members[0] for d in members):
-                    fail(f"{tag}: leaf {i} ({spec}) differs across the "
-                         "ranks it is replicated over")
-        runs[f"{sizes[0]}x{sizes[1]}"] = {
-            "losses": got[0]["losses"], "one_rank_losses": one["losses"],
-            "loss_max_rel_err": max(
-                abs(a - b) / abs(b) for g in got
-                for a, b in zip(g["losses"], one["losses"])),
-            "param_max_abs_err": worst, "param_atol": MRT_PARAM_ATOL,
-            "param_max_normwise_err": max(e["normwise"] for e in errs),
-            "param_share_beyond_1e-5": far, "param_far_share": MRT_FAR_SHARE,
-            "replicated_leaf_groups_bit_equal": replicated,
-            "step_ms": [g["step_ms"] for g in got],
-            "step_ms_median": [statistics.median(g["step_ms"][1:])
-                               for g in got],
-            "one_rank_step_ms": one["step_ms"],
-            "one_rank_step_ms_median": statistics.median(
-                one["step_ms"][1:]),
-            "max_memory_allocated": [g["max_memory_allocated"] for g in got],
-            "one_rank_max_memory_allocated": one["max_memory_allocated"],
-            "launches": got[0]["launches"],
-            "collectives_per_step": got[0]["per_step"],
-            "collectives_per_step_by_kind": _by_kind(
-                got[0]["per_step"]["ops"]),
-            "dryrun_collectives_per_step": _dryrun_train_collectives(sizes)}
+        if not msg or "hybrid" not in msg or "2 ranks" not in msg:
+            fail(f"multi-rank train: rank {r}'s hybrid refusal {msg!r}")
+    runs = {f"{D}x{M}": _mrt_run(pool, (D, M)) for D, M in MRT_MESHES}
     lap["train"] = time.perf_counter() - t_phase - sum(lap.values())
+    moe = {}
+    for sizes, spec in _mrt_moe_specs():
+        if spec.get("wide"):
+            # (f1)'s two ranks at their AdamW peak and the parent fill the
+            # card within a few GB: the idle ranks' contexts go first
+            pool.shrink(sizes[0] * sizes[1])
+        t0 = time.perf_counter()
+        cfg = _mrt_config(spec)
+        key = f"{cfg.name}_{cfg.n_experts}experts_{sizes[0]}x{sizes[1]}"
+        moe[key] = _mrt_run(pool, sizes, spec)
+        moe[key]["seconds"] = time.perf_counter() - t0
+    lap["moe"] = time.perf_counter() - t_phase - sum(lap.values())
     emit({"phase": "multirank_train", "nvidia_smi": smi,
           "config": "qwen2.5-3b", "n_layers": MRT_LAYERS, "dtype": "float32",
           "steps": MRT_STEPS, "batch": MRT_BATCH, "seq": MRT_SEQ,
           "loss_rtol": MRT_LOSS_RTOL, "reduce_scatter": rs, "runs": runs,
-          "moe_refusal": refused[0],
+          "moe": moe, "hybrid_refusal": refused[0],
           "phase_seconds": time.perf_counter() - t_phase, "laps": lap})
     head = next(c for c in rs[2][0] if c["bytes"] == MRT_RS_BYTES[1]
                 and c["dtype"] == "float32")

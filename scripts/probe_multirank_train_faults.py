@@ -13,6 +13,14 @@ phase JSON line and, last, one JSON line: per tree and mesh the losses'
 largest relative error against one rank, the params' share past 1e-5
 and largest error, and the gates that failed.  Needs one card; runs
 from the root of a checkout.
+
+``python3 scripts/probe_multirank_train_faults.py --moe`` plants the MoE
+layer's faults (:data:`MOE_FAULTS`) instead, on the CPU: one copy of
+``src/`` and ``tests/`` a fault, and ``tests/test_torch_multirank_moe_train.py``
+run from the checkout and from each copy (pytest in a process of its
+own).  Prints one JSON line: per tree the tests passed and failed, and
+each failure's message — the largest readings (gradient, loss, params)
+against the test's limits.  Needs no card (~2 min a tree).
 """
 from __future__ import annotations
 
@@ -46,15 +54,43 @@ FAULTS = {
 }
 
 
-def plant(name: str) -> Path:
-    """A copy of chip_smoke.py and src/ with fault ``name`` planted."""
-    rel, old, new, _ = FAULTS[name]
+# the MoE layer's faults, each against the CPU test file MOE_TEST:
+# name: (file under src/repro_torch, the line's text, the fault)
+MOE_FAULTS = {
+    # the router's input through copy_to: the router, softmax and aux
+    # path's gradient, whole on every model rank, summed M times
+    "moe_router_copy": (
+        "models/moe.py", "    xt = x.reshape(T, d)\n",
+        "    xt = parallel.copy_to(tensor_parallel(), x.reshape(T, d))\n"),
+    # the aux's cross-rank sum by reduce_from (identity backward): each
+    # rank's probabilities take 1/D of the aux gradient jax.grad gives
+    "moe_aux_reduce_from": (
+        "models/moe.py",
+        "p = parallel.gather_from(t, probs, rows).reshape(T, E)",
+        "p = parallel.reduce_from(t, torch.stack([probs if r == t.rank("
+        "rows) else torch.zeros_like(probs) for r in range(t.size(rows))]"
+        "), rows).reshape(T, E)"),
+    # a batch every data rank holds whole routed as if split over data
+    "moe_route_rows_replicated": (
+        "launch/steps.py",
+        'rows = "data" if self._split(batch["tokens"]) else None',
+        'rows = "data"'),
+}
+MOE_TEST = "tests/test_torch_multirank_moe_train.py"
+
+
+def plant(name: str, faults=FAULTS, dirs=("src",),
+          files=("chip_smoke.py",)) -> Path:
+    """A copy of ``files`` and ``dirs`` with fault ``name`` planted."""
+    rel, old, new = faults[name][:3]
     tree = OUT / name
     shutil.rmtree(tree, ignore_errors=True)
     tree.mkdir(parents=True)
-    shutil.copy2(ROOT / "chip_smoke.py", tree)
-    shutil.copytree(ROOT / "src", tree / "src",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    for f in files:
+        shutil.copy2(ROOT / f, tree)
+    for d in dirs:
+        shutil.copytree(ROOT / d, tree / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     path = tree / "src" / "repro_torch" / rel
     text = path.read_text()
     if text.count(old) != 1:
@@ -86,14 +122,55 @@ def run_phase(tree: str, meshes: str) -> None:
     print("GATES " + json.dumps(failed), flush=True)
 
 
+def run_moe_test(tree: Path) -> dict:
+    """:data:`MOE_TEST` from ``tree`` on the CPU: the tests passed, and
+    each failed one's message (its JUnit failure message)."""
+    import os
+    import xml.etree.ElementTree as ET
+    xml = OUT / f"{tree.name}.xml"
+    env = {**os.environ, "PYTHONPATH": str(tree / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    subprocess.run([sys.executable, "-m", "pytest", "-q",
+                    "-p", "no:cacheprovider", MOE_TEST,
+                    f"--junitxml={xml}"], cwd=tree, env=env,
+                   capture_output=True, text=True)
+    passed, failed = 0, {}
+    for case in ET.parse(xml).getroot().iter("testcase"):
+        bad = case.find("failure")
+        if bad is None:
+            bad = case.find("error")
+        if bad is None:
+            passed += case.find("skipped") is None
+        else:
+            failed[case.get("name")] = bad.get("message", "")[:400]
+    return {"passed": passed, "failed": failed}
+
+
+def main_moe() -> int:
+    trees = {"sound": ROOT}
+    trees.update({n: plant(n, MOE_FAULTS, ("src", "tests"), ())
+                  for n in MOE_FAULTS})
+    summary = {name: run_moe_test(tree) for name, tree in trees.items()}
+    print(json.dumps({"test": MOE_TEST, "trees": summary}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run", nargs=2, metavar=("TREE", "MESHES"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--moe", action="store_true",
+                    help="the MoE layer's faults against the CPU test file")
+    ap.add_argument("--out", default=None,
+                    help="where the fault copies go (default build/faults)")
     args = ap.parse_args()
+    global OUT
+    OUT = Path(args.out) if args.out else OUT
     if args.run:
         run_phase(*args.run)
         return 0
+    if args.moe:
+        return main_moe()
     trees = {"sound": (ROOT, "1x2,2x1")}
     trees.update({n: (plant(n), f[3]) for n, f in FAULTS.items()})
     summary = {}

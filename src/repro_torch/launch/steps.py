@@ -83,9 +83,9 @@ def make_train_step(model, cfg: ModelConfig, optimizer: Optimizer,
     spmd = (_MeshStep(model, cfg, mesh, spec)
             if mesh is not None and mesh_size(mesh) > 1 else None)
 
-    def loss_of(params, batch):
+    def loss_of(params, batch, route_rows=None):
         logits, aux = model.forward_train(params, batch["tokens"],
-                                          batch.get("extra"))
+                                          batch.get("extra"), route_rows)
         return cascade_loss(logits, batch["labels"],
                             cfg.cascade.loss_mode or "joint",
                             joint_weights=cfg.cascade.joint_weights,
@@ -115,13 +115,17 @@ class _MeshStep:
 
     * the batch: this ``data`` rank's rows (``batch_spec``); where the
       batch does not divide ``data`` every rank takes all of them, as the
-      reference replicates;
+      reference replicates.  The MoE layers route what the rank holds:
+      the whole batch as one call over ``data`` where it is split
+      (``route_rows="data"``: the call's groups, capacity and aux loss),
+      the rank's rows alone where it holds them all;
     * FSDP leaves (a ``data`` entry in their spec) are gathered whole over
       ``data``, one after another in tree order, before the forward; the
-      forward and the backward run on the whole leaf (the ``model`` shard);
+      forward and the backward run on the whole leaf (the ``model`` shard:
+      for an MoE layer's experts E/M experts, or every expert's d_ff/M);
     * the forward and the backward run tensor-parallel (the transport
-      active: the layers' differentiable collectives, the vocab-parallel
-      loss);
+      active: the layers' differentiable collectives, the MoE layers'
+      expert-parallel ones, the vocab-parallel loss);
     * after ``autograd.grad`` returns (not in hooks: the IPC kernel needs
       the same sequence of calls on every rank), in tree order: an FSDP
       leaf's gradient reduce-scattered over ``data`` and divided by D,
@@ -145,9 +149,13 @@ class _MeshStep:
             dims = [d for d, e in enumerate(s) if "data" in axes_of(e)]
             self.plan.append(dims[0] if dims else None)
 
+    def _split(self, x) -> bool:
+        """Whether a global (B, ...) batch tensor is split over ``data``."""
+        return bool(batch_spec(self.cfg, self.mesh, x.shape[0], x.dim()))
+
     def _rows(self, x):
         """This data rank's rows of a global (B, ...) batch tensor."""
-        if not batch_spec(self.cfg, self.mesh, x.shape[0], x.dim()):
+        if not self._split(x):
             return x
         n, r = x.shape[0] // self.t.size("data"), self.t.rank("data")
         return x[r * n:(r + 1) * n]
@@ -174,8 +182,9 @@ class _MeshStep:
         if "extra" in batch:
             local["extra"] = {k: self._rows(v)
                               for k, v in batch["extra"].items()}
+        rows = "data" if self._split(batch["tokens"]) else None
         with parallel.activate(t):
-            loss = loss_of(tree_unflatten(params, whole), local)
+            loss = loss_of(tree_unflatten(params, whole), local, rows)
         grads = torch.autograd.grad(loss, whole)
         del whole
         out = []

@@ -25,10 +25,11 @@ and, at 6 steps or more, on a loss that does not trend down.
 
 :func:`train` also takes a multi-rank mesh (``launch.mesh.make_mesh``):
 each rank process calls it with the same arguments, every rank draws the
-same whole params, cuts its shards (Megatron over ``model``, FSDP over
-``data``), frees the whole tensors and builds the AdamW state of its
-shards; the step runs SPMD (``launch/steps.py``).  The dense family only
-(:data:`MULTI_RANK_TRAIN_MISSING`).
+same whole params, cuts its shards (Megatron over ``model`` — for the moe
+family E/M experts a rank, or every expert's d_ff/M where ``model`` does
+not divide E —, FSDP over ``data``), frees the whole tensors and builds
+the AdamW state of its shards; the step runs SPMD (``launch/steps.py``).
+The dense and moe families (:data:`MULTI_RANK_TRAIN_MISSING`).
 """
 from __future__ import annotations
 
@@ -80,8 +81,6 @@ def build_parser() -> argparse.ArgumentParser:
 # what training over a mesh of more than one rank does not have yet
 # (ROADMAP.md Queue 1 item 5), by what asks for it
 MULTI_RANK_TRAIN_MISSING = {
-    "moe": "the MoE layer's backward over the expert or d_ff shards and "
-           "the routing of rows split over 'data' in training",
     "family": "the hybrid, ssm, audio and vlm blocks over 'model' (their "
               "shared-attention, recurrent, encoder and cross-attention "
               "collectives and their backward)",
@@ -92,9 +91,11 @@ def check_train_mesh(cfg, mesh) -> None:
     """Raise unless ``cfg`` can train on ``mesh``: on a mesh of more than
     one rank NotImplementedError names what is not ported (a shape-only
     mesh, a mesh with other axes than ``(data, model)``, a family other
-    than dense) and ValueError a ``model`` axis that does not divide the
-    tensor-parallel dims (the shard rules would replicate such a dim, and
-    the layers' partial sums would then count it M times)."""
+    than dense and moe) and ValueError a ``model`` axis that does not
+    divide the tensor-parallel dims (the shard rules would replicate such
+    a dim, and the layers' partial sums would then count it M times).  An
+    MoE layer's cut dim is E where ``model`` divides it, else d_ff (the
+    shard rules' fallback)."""
     n = mesh_size(mesh)
     if n == 1:
         return
@@ -108,19 +109,22 @@ def check_train_mesh(cfg, mesh) -> None:
         raise NotImplementedError(
             f"a mesh with axes {names} of {n} ranks: multi-rank training "
             f"runs on a {HOST_AXES} mesh (launch.mesh.make_mesh)")
-    why = (MULTI_RANK_TRAIN_MISSING["moe"] if cfg.n_experts > 0 else
-           MULTI_RANK_TRAIN_MISSING["family"] if cfg.family != "dense"
-           else None)
-    if why is not None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"training {cfg.name} ({cfg.family}) on a mesh of {n} ranks: "
-            f"multi-rank execution of it is not ported ({why}); the dense "
-            "family trains on one")
+            "multi-rank execution of it is not ported "
+            f"({MULTI_RANK_TRAIN_MISSING['family']}); the dense and moe "
+            "families train on one")
     M = mesh_shape(mesh)["model"]
     dims = {"attention heads": cfg.n_heads,
             "K/V columns": cfg.n_kv_heads * cfg.resolved_head_dim,
-            "MLP columns": cfg.d_ff, "vocabulary entries": cfg.vocab_size}
+            "vocabulary entries": cfg.vocab_size}
     bad = [f"{v} {k}" for k, v in dims.items() if v % M]
+    if not cfg.n_experts:
+        bad += [f"{cfg.d_ff} MLP columns"] if cfg.d_ff % M else []
+    elif cfg.n_experts % M and cfg.d_ff % M:
+        bad.append(f"{cfg.n_experts} experts nor their {cfg.d_ff} MLP "
+                   "columns")
     if bad:
         raise ValueError(f"a 'model' axis of {M} does not divide the "
                          f"{', '.join(bad)} of {cfg.name}")

@@ -394,7 +394,7 @@ class CascadeModel:
                 aux = aux + a
         return h, aux
 
-    def forward_train(self, params, tokens, extra=None):
+    def forward_train(self, params, tokens, extra=None, route_rows=None):
         """tokens: (B, S).  Returns ([exit logits (B, S', V)] * n_exits,
         aux): the intermediate exits at every ``cascade.exit_loss_stride``-th
         position, the final exit at every position; aux the MoE layers'
@@ -402,6 +402,10 @@ class CascadeModel:
         ``model`` axis (the training layout's shards, a transport active)
         each logits tensor is this rank's vocab slice, (B, S', V / M),
         which the vocab-parallel loss reads: nothing is gathered.
+        ``route_rows``: the axis of the active transport over whose ranks
+        ``tokens`` is one block of the batch's rows (the MoE layers then
+        route the whole batch as one call and take its aux loss), or None
+        when ``tokens`` is the whole batch.
 
         It computes with the plain ops only: no kernel of the port has a
         backward (nor has any of the reference's), so a ``use_kernels``
@@ -418,7 +422,8 @@ class CascadeModel:
         h = self._embed(params, tokens, positions)
         ctx = {"mode": "full", "positions": positions, "write_slots": None,
                "kpos": None, "shared": params.get("shared"),
-               "cross": self._make_cross(params, extra or {}, "full")}
+               "cross": self._make_cross(params, extra or {}, "full"),
+               "route_rows": route_rows}
         logits = []
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         stride = max(1, cfg.cascade.exit_loss_stride)

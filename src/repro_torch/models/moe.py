@@ -27,7 +27,11 @@ On a mesh (:func:`moe_apply` under the active transport) a rank holds its
 experts, or every expert's slice of d_ff, and one all-reduce over
 ``model`` completes the layer; a call whose rows are split over ``data``
 ranks gathers its chosen experts over them, so that every rank queues the
-whole call as one rank would.
+whole call as one rank would.  Under autograd (the train step) the layer
+is differentiable on the shards: the expert path's inputs go through
+``parallel.copy_to`` and its completion through ``parallel.reduce_from``,
+and a call split over ``data`` whose router needs a gradient gathers its
+router probabilities too, so that its aux loss is the whole call's.
 
 Router load-balance auxiliary loss (Switch/GShard):
 ``aux = E * Σ_e f_e · p_e`` with f the fraction of (token, choice) pairs
@@ -192,7 +196,17 @@ def _route_call(xt, router, cfg, t, rows: str):
     call — its groups, pad rows, capacity and queue positions — as one
     rank routing all its tokens would.  Returns (the call's slot_token
     (G, E, C), Tg, C, and this rank's tokens' choice_slot, kept, gates
-    and experts (T_l, k) and aux)."""
+    and experts (T_l, k) and aux).
+
+    Where the router probabilities need a gradient (the train step)
+    ``aux`` is the whole call's, the reference's: every rank's router
+    probabilities gathered too (``parallel.gather_from``, whose backward
+    reduce-scatters: each rank's probabilities take the sum of every
+    rank's upstream gradient, which the train step's mean over ``data``
+    divides back), the pad rows' uniform 1/E rows appended, the loss of
+    each group averaged.  Elsewhere (serving, which reads no aux and
+    whose params need no gradient, with grad mode on or off) it is the
+    rank's own tokens' and costs no collective."""
     T_l = xt.shape[0]
     E, k = cfg.n_experts, cfg.top_k
     T = t.size(rows) * T_l
@@ -207,15 +221,22 @@ def _route_call(xt, router, cfg, t, rows: str):
         whole = torch.cat([whole, torch.arange(k, device=xt.device)
                            .expand(pad, k)])
     G = whole.shape[0] // Tg
-    slot_token, choice_slot, kept, _ = _queue(whole.view(G, Tg, k), E, cap)
+    slot_token, choice_slot, kept, onehot = _queue(whole.view(G, Tg, k), E,
+                                                   cap)
     lo = t.rank(rows) * T_l
     choice_slot = choice_slot.reshape(G * Tg, k)[lo:lo + T_l]
     kept = kept.reshape(G * Tg, k)[lo:lo + T_l]
-    onehot = torch.zeros((T_l * k, E), dtype=torch.int32,
-                         device=xt.device).scatter_(-1, idx.view(-1, 1), 1)
+    if parallel.tracks(probs):
+        p = parallel.gather_from(t, probs, rows).reshape(T, E)
+        if pad:
+            p = torch.cat([p, torch.softmax(p.new_zeros(pad, E), dim=-1)])
+        aux = _aux(p.view(G, Tg, E), onehot).mean()
+    else:
+        own = torch.zeros((T_l * k, E), dtype=torch.int32,
+                          device=xt.device).scatter_(-1, idx.view(-1, 1), 1)
+        aux = _aux(probs, own)
     return (slot_token, Tg, cap, choice_slot, kept,
-            torch.where(kept, _gates(probs, idx), 0.0), idx,
-            _aux(probs, onehot))
+            torch.where(kept, _gates(probs, idx), 0.0), idx, aux)
 
 
 def moe_apply(params, cfg, x, rows=None
@@ -243,8 +264,17 @@ def moe_apply(params, cfg, x, rows=None
     None when the rank's rows are the whole call.  The call is then routed
     as one (:func:`_route_call`): its capacity, groups, pad rows and queue
     positions are those of one rank routing every row, and the rank
-    computes and combines its own rows.  The aux loss is then the rank's
-    own tokens'."""
+    computes and combines its own rows; where the router needs a gradient
+    (training) the aux loss is the whole call's (every rank's the same),
+    elsewhere (serving) the rank's own tokens'.
+
+    Under autograd on the shards the expert path's inputs — the rows it
+    dispatches and the gates — go through ``parallel.copy_to`` (only this
+    rank's experts consume them: their gradients are summed over
+    ``model``) and the completion through ``parallel.reduce_from`` (the
+    gradient passed to every rank as it is).  The router, its softmax and
+    the aux are computed alike on every ``model`` rank from the replicated
+    input, so their gradients are whole there and pass no collective."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
@@ -275,6 +305,11 @@ def moe_apply(params, cfg, x, rows=None
     E_l = params["w_up"].shape[0]
     e_lo = 0 if E_l == E else tp.rank("model") * E_l
     g_lo, g_hi = lo // Tg, (lo + T - 1) // Tg + 1
+    sharded = tp is not None and (E_l != E
+                                  or params["w_up"].shape[-1] != cfg.d_ff)
+    xd = xt
+    if sharded:
+        xd, gates = parallel.copy_to(tp, xt), parallel.copy_to(tp, gates)
 
     # dispatch: each slot's token row (a zero row when the slot is empty
     # or holds another rank's token)
@@ -283,7 +318,7 @@ def moe_apply(params, cfg, x, rows=None
     q = st + (torch.arange(g_lo, g_hi, device=x.device) * Tg - lo
               ).view(Gl, 1, 1)
     src = torch.where((st < Tg) & (q >= 0) & (q < T), q, T)
-    xz = torch.cat([xt, xt.new_zeros(1, d)])
+    xz = torch.cat([xd, xd.new_zeros(1, d)])
     xe = xz[src.reshape(-1)].view(Gl, E_l, cap, d)
     xe = xe.transpose(0, 1).reshape(E_l, Gl * cap, d)
     ye = expert_ffn(params, cfg, xe)
@@ -302,6 +337,6 @@ def moe_apply(params, cfg, x, rows=None
         if E_l != E:
             term = torch.where(local[:, j:j + 1], term, 0.0)
         out = term if out is None else out + term
-    if tp is not None and (E_l != E or params["w_up"].shape[-1] != cfg.d_ff):
-        out = tp.all_reduce(out, "model")
+    if sharded:
+        out = parallel.reduce_from(tp, out, "model")
     return out.to(x.dtype).reshape(B, S, d), aux.float()

@@ -264,7 +264,9 @@ def activate(t: Optional[Transport]):
         _local.transport = prev
 
 
-def _tracks(x: torch.Tensor) -> bool:
+def tracks(x: torch.Tensor) -> bool:
+    """Whether autograd records ``x``: grad mode on and ``x`` needing a
+    gradient (training; serving's params need none)."""
     return torch.is_grad_enabled() and x.requires_grad
 
 
@@ -312,7 +314,7 @@ def copy_to(t: Optional[Transport], x: torch.Tensor, axis: str = "model"
             ) -> torch.Tensor:
     """``x`` as it is, its gradient all-reduced over ``axis``: what goes
     before a column-parallel product on a replicated input."""
-    if t is None or t.shape[axis] == 1 or not _tracks(x):
+    if t is None or t.shape[axis] == 1 or not tracks(x):
         return x
     return _Copy.apply(x, t, axis)
 
@@ -323,7 +325,7 @@ def reduce_from(t: Optional[Transport], x: torch.Tensor,
     every rank's ``x`` as it is: a row-parallel product's completion."""
     if t is None:
         return x
-    if not _tracks(x):
+    if not tracks(x):
         return t.all_reduce(x, axis)
     return _Reduce.apply(x, t, axis)
 
@@ -332,7 +334,7 @@ def gather_from(t: Transport, x: torch.Tensor, axis: str = "model"
                 ) -> torch.Tensor:
     """The ranks' ``x`` over ``axis`` stacked in rank order, (R,
     *x.shape), its gradient reduce-scattered back."""
-    if not _tracks(x):
+    if not tracks(x):
         return t.all_gather(x, axis)
     return _Gather.apply(x, t, axis)
 

@@ -1,5 +1,5 @@
-"""What each rank of ``tests/test_torch_multirank.py`` and
-``tests/test_torch_multirank_train.py`` runs, in its own process (spawned
+"""What each rank of the multi-rank test files
+(``tests/test_torch_multirank*.py``) runs, in its own process (spawned
 by the test, so this module imports no JAX): it joins a world of gloo
 ranks through a ``FileStore``, builds the port's mesh and serves or
 trains, and puts a picklable result on a queue."""
@@ -161,12 +161,14 @@ class DropProbe:
     ``with`` block: wraps ``blocks.moe_apply`` (the call's real tokens:
     the rank's rows times the ranks they are split over) and
     ``moe._queue`` (its kept mask, the pad rows after the real ones left
-    out).  ``calls``: (tokens, dropped) a call."""
+    out).  ``calls``: (tokens, dropped) a call; ``split``: for each call
+    whose rows are split over more than one rank, the transport's calls
+    over that axis it made, by op."""
 
     def __init__(self):
         from repro_torch.models import blocks, moe
         self.blocks, self.moe = blocks, moe
-        self.calls, self._tokens = [], None
+        self.calls, self.split, self._tokens = [], [], None
 
     def __enter__(self):
         from repro_torch import parallel
@@ -174,9 +176,18 @@ class DropProbe:
         self._orig = apply, queue
 
         def moe_apply(params, cfg, x, rows=None):
-            R = 1 if rows is None else parallel.active().size(rows)
+            t = parallel.active()
+            R = 1 if rows is None else t.size(rows)
             self._tokens = R * x.shape[0] * x.shape[1]
-            return apply(params, cfg, x, rows=rows)
+            if R == 1:
+                return apply(params, cfg, x, rows=rows)
+            before = dict(t.op_calls)
+            out = apply(params, cfg, x, rows=rows)
+            self.split.append({
+                k[len(rows) + 1:]: v - before.get(k, 0)
+                for k, v in t.op_calls.items()
+                if k.rsplit("/", 1)[0] == rows and v > before.get(k, 0)})
+            return out
 
         def _queue(gate_idx, E, cap):
             out = queue(gate_idx, E, cap)
@@ -228,7 +239,7 @@ def moe_serve_case(mesh, rank, cfg, np_params, prompts, budget, engine_kw,
     with DropProbe() as probe:
         out = serve_case(mesh, rank, cfg, np_params, prompts, budget,
                          engine_kw, False)
-    out["drops"] = probe.calls
+    out["drops"], out["split"] = probe.calls, probe.split
     return out
 
 
@@ -306,6 +317,7 @@ def train_case(mesh, rank, cfg, np_params, batches, refusals=False):
            "whole": params_to_numpy(gather_placed(mesh, params, spec)),
            "local": [x.detach().clone() for x in tree_leaves(params)],
            "specs": [s for _, s in spec_leaves(spec)],
+           "paths": ["/".join(map(str, p)) for p, _ in spec_leaves(spec)],
            "count": int(state["count"])}
     if refusals:
         out["refused"] = _train_refusals(mesh, cfg)
@@ -317,11 +329,47 @@ def _train_refusals(mesh, cfg):
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.train import place_on_mesh
     out = {}
-    for name, c in {"moe": reduced(get_config("mixtral-8x7b")),
+    for name, c in {"ssm": reduced(get_config("xlstm-350m")),
                     "hybrid": reduced(get_config("zamba2-1.2b")),
                     "heads": cfg.replace(n_heads=3)}.items():
         try:
             place_on_mesh(mesh, c, {})
+            out[name] = None
+        except (NotImplementedError, ValueError) as err:
+            out[name] = f"{type(err).__name__}: {err}"
+    return out
+
+
+def moe_train_case(mesh, rank, cfg, np_params, batches, group_tokens,
+                   refusals=False):
+    """:func:`train_case` for an MoE config with ``GROUP_TOKENS`` at
+    ``group_tokens``; with ``refusals`` also what the mesh refuses of the
+    moe family (:func:`_moe_train_refusals`)."""
+    from repro_torch.models import moe
+    moe.GROUP_TOKENS = group_tokens
+    out = train_case(mesh, rank, cfg, np_params, batches)
+    if refusals:
+        out["refused"] = _moe_train_refusals(mesh, cfg)
+    return out
+
+
+def _moe_train_refusals(mesh, cfg):
+    """The errors of MoE training asks the mesh refuses: a ``model`` axis
+    dividing neither the experts nor d_ff, and ``use_kernels``."""
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.launch.train import place_on_mesh
+    from repro_torch.models.model import build_model
+    out = {}
+    asks = {
+        "split": lambda: place_on_mesh(mesh, cfg.replace(n_experts=3,
+                                                         d_ff=511), {}),
+        "kernels": lambda: make_train_step(
+            build_model(cfg, device="cpu"), cfg.replace(use_kernels=True),
+            make_optimizer(cfg), mesh=mesh, spec={}),
+    }
+    for name, ask in asks.items():
+        try:
+            ask()
             out[name] = None
         except (NotImplementedError, ValueError) as err:
             out[name] = f"{type(err).__name__}: {err}"

@@ -254,7 +254,9 @@ def test_multirank_moe_engine_matches_reference_engine(pool, tmp_path,
     shard; prefill dropped pairs (and decode, where a call routes 8 rows);
     the MoE layers made their all-reduces over ``model``, and routing
     gathers over ``data`` (or its blocks of 2) only where a call's rows
-    are split over data ranks."""
+    are split over data ranks: one gather a layer per such call (grad
+    mode is on, but serving's params need no gradient, so no aux
+    gather)."""
     experts, mode, cohorts, kw = SERVES[name]
     jeng, jtel = reference(name)
     res = _spawn(pool, tmp_path, sizes, ranks.moe_serve_case, (
@@ -290,5 +292,9 @@ def test_multirank_moe_engine_matches_reference_engine(pool, tmp_path,
         assert not any("all_to_all" in k for k in calls)
         assert (calls.get("data/gather", 0) > 0) == (D > 1)
         assert (calls.get("data/2/gather", 0) > 0) == (D == 4)
+        # a call split over data ranks makes one gather over them (its
+        # chosen experts) and nothing else there: serving reads no aux
+        assert bool(r["split"]) == (D > 1)
+        assert all(s == {"gather": 1} for s in r["split"]), r["split"]
     depths = [e for _, e, _ in res[0]["finished"].values()]
     assert {0, 2} <= set(np.concatenate(depths).tolist())

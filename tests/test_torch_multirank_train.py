@@ -307,11 +307,11 @@ def test_replicated_leaves_have_the_same_bits_on_every_rank(mesh_runs, mesh,
 
 
 def test_refusals_name_what_is_missing(mesh_runs):
-    """On a real 1 x 2 mesh the MoE and hybrid families are refused by
+    """On a real 1 x 2 mesh the ssm and hybrid families are refused by
     name, and heads that ``model`` does not divide; a shape-only mesh of
     two ranks is refused before anything is placed."""
     got = mesh_runs("1x2", True)[0]["refused"]
-    assert "NotImplementedError" in got["moe"] and "expert" in got["moe"]
+    assert "NotImplementedError" in got["ssm"] and "recurrent" in got["ssm"]
     assert "NotImplementedError" in got["hybrid"] and "hybrid" in \
         got["hybrid"]
     assert "ValueError" in got["heads"] and "3 attention heads" in \
